@@ -1,0 +1,27 @@
+"""raft_tpu_torch — the PyTorch/CUDA port of raft_tpu for NVIDIA Hopper.
+
+A second package beside ``raft_tpu`` (the JAX reference, which it never
+imports). Module names mirror the JAX package so each file's counterpart
+is found by its path. This slice holds brute-force and IVF-Flat build and
+search (float32 storage; squared L2, L2, cosine and inner product) and
+the primitives they call:
+
+- ``core``      errors, the sample-filter bitset
+- ``distance``  metric types, fused L2 + argmin
+- ``matrix``    select_k (kernel K1)
+- ``ops``       the hand-written CUDA kernels' wrappers: fused_knn (K2),
+                ivf_scan (K3), and their build/load helper ``_cuda``
+- ``cluster``   k-means and balanced hierarchical k-means
+- ``neighbors`` brute_force, ivf_flat, the inverted-list layout
+- ``stats``     neighborhood recall
+- ``convert``   indexes carried over from the JAX package as numpy arrays
+
+Entry points run on the CUDA card unless the caller passes
+``device="cpu"``; with no ``device`` and no card they raise. A CUDA
+tensor always goes to its kernel (a failure raises); the plain PyTorch
+version of a kernel runs only for CPU tensors or when a caller asks for
+the plain engine by name. Kernel sources live in ``csrc/`` and are built
+by ``nvcc`` at first use into ``build/kernels/``.
+"""
+
+__version__ = "0.1.0"

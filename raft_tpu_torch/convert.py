@@ -1,0 +1,64 @@
+"""Indexes carried over from the JAX package as numpy arrays.
+
+Each function takes the fields of a ``raft_tpu`` index, read out as numpy
+arrays (``np.asarray(index.<field>)``), and returns the port's index on
+``device``. Search parity between the packages is checked on such a
+carried index, since k-means randomness differs between ``jax.random``
+and ``torch.Generator``.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from .distance.distance_types import DistanceType, canonical_metric
+from .neighbors import brute_force, ivf_flat
+from .utils import resolve_device
+
+__all__ = ["brute_force_index_from_numpy", "ivf_flat_index_from_numpy"]
+
+
+def _metric(arrays: Mapping, metric):
+    """The metric given, else the one carried in ``arrays`` (a
+    ``DistanceType`` value string, e.g. ``"l2_expanded"``)."""
+    m = metric if metric is not None else arrays["metric"]
+    return canonical_metric(getattr(m, "value", m))
+
+
+def _tensor(a, dtype, dev) -> torch.Tensor:
+    return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+
+def brute_force_index_from_numpy(arrays: Mapping, metric=None,
+                                 device=None) -> brute_force.Index:
+    """``arrays``: ``dataset`` (n, d) float32 and, for the L2 and cosine
+    metrics, ``norms`` (n,) (derived when absent); ``metric`` as in
+    :func:`_metric`."""
+    dev = resolve_device(device)
+    mt = _metric(arrays, metric)
+    dataset = _tensor(arrays["dataset"], torch.float32, dev)
+    norms = arrays.get("norms")
+    if norms is not None:
+        norms = _tensor(norms, torch.float32, dev)
+    elif mt is not DistanceType.InnerProduct:
+        norms = (dataset * dataset).sum(dim=1)
+    return brute_force.Index(dataset, norms, mt)
+
+
+def ivf_flat_index_from_numpy(arrays: Mapping, metric=None,
+                              device=None) -> ivf_flat.Index:
+    """``arrays``: ``data``, ``data_norms``, ``source_ids``, ``centers``,
+    ``center_norms``, ``list_offsets`` and ``list_sizes_arr`` (the JAX
+    index's field names); ``metric`` as in :func:`_metric`."""
+    dev = resolve_device(device)
+    return ivf_flat.Index(
+        _tensor(arrays["data"], torch.float32, dev),
+        _tensor(arrays["data_norms"], torch.float32, dev),
+        _tensor(arrays["source_ids"], torch.int32, dev),
+        _tensor(arrays["centers"], torch.float32, dev),
+        _tensor(arrays["center_norms"], torch.float32, dev),
+        np.asarray(arrays["list_offsets"], np.int64),
+        np.asarray(arrays["list_sizes_arr"], np.int64),
+        _metric(arrays, metric))

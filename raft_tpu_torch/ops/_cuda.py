@@ -1,0 +1,119 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``raft_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
+``sm_90a`` into its own shared library with a plain C interface and loaded
+with ``ctypes`` (no PyTorch headers, so a build takes seconds). Libraries
+go to ``build/kernels/`` at the root of the checkout, named by a hash of
+the sources and flags, and are built at first use; :func:`build` starts
+one ``nvcc`` per missing source, all at once. Nothing here runs when the
+module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+from ..core.errors import RaftError
+
+__all__ = ["SOURCES", "build", "library", "check", "stream_of"]
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCES = ("select_k", "fused_knn", "ivf_flat_scan")
+_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signature of each library's entry points: name -> (argtypes, restype)
+_SIGNATURES = {
+    "select_k": {"raft_select_k": ([_P, _I, _I, _I, _I, _P, _P, _P], _I)},
+    "fused_knn": {
+        "raft_fused_knn": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _P, _P, _P], _I),
+        "raft_fused_knn_smem": ([_I], ctypes.c_size_t),
+    },
+    "ivf_flat_scan": {
+        "raft_ivf_flat_scan": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _P, _P, _P], _I),
+    },
+}
+
+_libs: dict = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RaftError("nvcc not found: the CUDA kernels are built on a "
+                        "machine with the CUDA toolkit")
+    return path
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for src in sorted(_CSRC.glob("*.cuh")) + [_CSRC / f"{name}.cu"]:
+        h.update(src.read_bytes())
+    return _BUILD / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=SOURCES, verbose: bool = False) -> dict:
+    """Compile every library in ``names`` that is not built yet, one
+    ``nvcc`` per source, all started together. ``verbose`` adds
+    ``-Xptxas -v`` (registers, shared memory, spills). Returns the
+    compiler's output per library built; raises on the first failure."""
+    procs = {}
+    try:
+        for name in names:
+            out = _target(name)
+            if out.exists():
+                continue
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+                   "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True), tmp, out)
+        logs = {}
+        for name, (proc, tmp, out) in procs.items():
+            text, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RaftError(f"nvcc failed on {name}.cu:\n{text}")
+            os.replace(tmp, out)
+            logs[name] = text
+        return logs
+    finally:
+        for proc, _tmp, _out in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        build((name,))
+        lib = ctypes.CDLL(str(_target(name)))
+        for fn, (argtypes, restype) in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _libs[name] = lib
+    return lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise when a C entry returned a CUDA error code."""
+    if status != 0:
+        raise RaftError(f"{what} kernel failed: CUDA error {status}")
+
+
+def stream_of(t) -> int:
+    """PyTorch's current CUDA stream on ``t``'s device, as an integer."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

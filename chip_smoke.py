@@ -6,24 +6,33 @@ toolkit (``nvcc``) and PyTorch built for CUDA::
 
     python3 chip_smoke.py
 
-It builds the three CUDA kernels from ``raft_tpu_torch/csrc`` (one
+It builds the four CUDA kernels from ``raft_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once, into ``build/kernels/``), then:
 
-1. path: brute-force and IVF-Flat (n_lists=1024, n_probes=20) build and
-   search through the public entry points at SIFT-1M's shape —
+1. path: three paths through the public entry points at SIFT-1M's shape —
    1,000,000 x 128 float32 rows and 10,000 queries in 1,000 overlapping
    Gaussian clusters (unit-normal centers, per-cluster spread 1.0-1.6:
    the clusters overlap, so true neighbors cross list boundaries and
    recall stays below 1), made from a seed with numpy (SIFT-1M itself is
-   not in the repository). Checks: IVF recall@10 against the brute-force
-   answer >= 0.90, the brute-force answer against numpy on a few queries,
-   and that every kernel's launch counter moved during this phase;
+   not in the repository):
+   - brute force: build and search (k = 10);
+   - IVF-Flat: build (n_lists = 1024) and search (n_probes = 20);
+   - IVF-PQ: build (n_lists = 1024, pq_dim = 64, pq_bits = 8,
+     per-subspace codebooks), search (n_probes = 20, bf16 LUT, k0 = 20
+     candidates) and refine against the float32 rows to k = 10.
+   Each path runs with every launch counter set to 0 just before it, and
+   fails if a kernel of the path did not launch. Checks: IVF-Flat
+   recall@10 against the brute-force answer >= 0.90, IVF-PQ refined
+   recall@10 >= 0.85, the brute-force answer and the refined distances
+   against numpy on a few queries;
 2. kernels: each kernel against its plain PyTorch version on the card at
-   the path's shapes, with the kernel's time (median of CUDA-event timed
-   calls after a warm-up, L2 flushed before each), the plain version's
-   time, one PyTorch library call's time where one computes the same
-   function, and the least time the card could take (bytes over
-   3.35 TB/s or FP32 operations over 67 TFLOP/s, H100 SXM data sheet).
+   the path's shapes (K4 also on an integer-valued copy of the IVF-PQ
+   index, where they must be equal), with the kernel's time (median of
+   CUDA-event timed calls after a warm-up, L2 flushed before each), the
+   plain version's time, one PyTorch library call's time where one
+   computes the same function, and the least time the card could take
+   (bytes over 3.35 TB/s or FP32 operations over 67 TFLOP/s, H100 SXM
+   data sheet).
 
 Prints progress lines, then a ``{"kernels": [...]}`` line, the card's name
 and power limit as ``nvidia-smi`` gives them, and last
@@ -33,6 +42,7 @@ result. Every matrix product runs in full float32 (TF32 off).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -43,9 +53,10 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.matrix import select_k as sk
-from raft_tpu_torch.neighbors import brute_force, ivf_flat
+from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, refine
 from raft_tpu_torch.ops import _cuda
 from raft_tpu_torch.ops import fused_knn as fk
+from raft_tpu_torch.ops import ivf_pq_scan as ipq
 from raft_tpu_torch.ops import ivf_scan as iscan
 from raft_tpu_torch.stats.metrics import neighborhood_recall
 
@@ -53,11 +64,13 @@ SEED = 0
 N, D, M, K = 1_000_000, 128, 10_000, 10
 N_LISTS, N_PROBES = 1024, 20
 N_BLOBS = 1000
+PQ_DIM, PQ_BITS, K0 = 64, 8, 20   # raft-ann-bench's IVF-PQ setting, d = 128
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM, FP32 outside the tensor cores
 RTOL = 1e-5                    # float32 sums in another order
 
-_COUNTERS = {"select_k": sk, "fused_knn": fk, "ivf_flat_scan": iscan}
+_COUNTERS = {"select_k": sk, "fused_knn": fk, "ivf_flat_scan": iscan,
+             "ivf_pq_scan": ipq}
 
 
 def log(msg: str) -> None:
@@ -152,45 +165,119 @@ def check_equal(ref, got, what: str) -> None:
     log(f"  {what}: values and ids equal")
 
 
-def path_phase(x, q):
-    """The slice's main path through the public entry points."""
+def run_path(name: str, kernels, fn, totals: dict):
+    """Drive one path with every launch counter set to 0 just before it;
+    read the counters just after, add them to ``totals``, and fail if a
+    kernel of the path was not launched."""
     reset_counts()
-    bidx, t_bf_build = host_time(lambda: brute_force.build(x))
-    (bv, bi), t_bf_first = host_time(lambda: brute_force.search(bidx, q, K))
-    (bv, bi), t_bf = host_time(lambda: brute_force.search(bidx, q, K))
-    params = ivf_flat.IndexParams(n_lists=N_LISTS, seed=SEED)
-    iidx, t_ivf_build = host_time(lambda: ivf_flat.build(x, params))
-    sp = ivf_flat.SearchParams(n_probes=N_PROBES)
-    (iv, ii), t_ivf_first = host_time(
-        lambda: ivf_flat.search(iidx, q, K, sp))
-    (iv, ii), t_ivf = host_time(lambda: ivf_flat.search(iidx, q, K, sp))
+    out = fn()
     moved = counts()
-    log(f"path launches: {json.dumps(moved)}")
+    log(f"{name} path launches: {json.dumps(moved)}")
+    for kern in kernels:
+        if moved[kern] == 0:
+            raise AssertionError(f"kernel {kern} was not launched on the "
+                                 f"{name} path")
+    for kern, n in moved.items():
+        totals[kern] += n
+    return out
+
+
+def check_knn(what: str, v, i, k: int) -> None:
+    if v.shape != (M, k) or i.shape != (M, k):
+        raise AssertionError(f"{what}: shapes {tuple(v.shape)}")
+    if not bool(torch.isfinite(v).all()) or not bool(
+            ((i >= 0) & (i < N)).all()):
+        raise AssertionError(f"{what}: non-finite values or bad ids")
+
+
+def numpy_l2(x, q, ids):
+    """float64 squared L2 distances of the queries ``q`` to rows ``ids``
+    (per query) of ``x``, on the host."""
+    xs = x[ids.reshape(-1).long()].cpu().double().numpy()
+    xs = xs.reshape(ids.shape[0], ids.shape[1], -1)
+    qs = q.cpu().double().numpy()
+    return ((xs - qs[:, None, :]) ** 2).sum(-1)
+
+
+def path_phase(x, q):
+    """The slice's main paths through the public entry points."""
+    totals = dict.fromkeys(_COUNTERS, 0)
+
+    def bf_path():
+        bidx, t_build = host_time(lambda: brute_force.build(x))
+        (bv, bi), t_first = host_time(lambda: brute_force.search(bidx, q,
+                                                                 K))
+        (bv, bi), t = host_time(lambda: brute_force.search(bidx, q, K))
+        return bidx, bv, bi, t_build, t_first, t
+
+    bidx, bv, bi, t_bf_build, t_bf_first, t_bf = run_path(
+        "brute_force", ("fused_knn", "select_k"), bf_path, totals)
     log(f"brute_force: build {t_bf_build:.3f} s, search(k={K}) first "
         f"{t_bf_first * 1e3:.1f} ms, steady {t_bf * 1e3:.1f} ms, "
         f"{M / t_bf:.0f} QPS")
+    check_knn("brute_force", bv, bi, K)
+
+    def ivf_path():
+        params = ivf_flat.IndexParams(n_lists=N_LISTS, seed=SEED)
+        iidx, t_build = host_time(lambda: ivf_flat.build(x, params))
+        sp = ivf_flat.SearchParams(n_probes=N_PROBES)
+        (iv, ii), t_first = host_time(lambda: ivf_flat.search(iidx, q, K,
+                                                              sp))
+        (iv, ii), t = host_time(lambda: ivf_flat.search(iidx, q, K, sp))
+        return iidx, iv, ii, t_build, t_first, t
+
+    iidx, iv, ii, t_ivf_build, t_ivf_first, t_ivf = run_path(
+        "ivf_flat", ("ivf_flat_scan", "select_k"), ivf_path, totals)
     sizes = iidx.list_sizes
     log(f"ivf_flat: build {t_ivf_build:.3f} s (list sizes min "
         f"{sizes.min()} median {int(np.median(sizes))} max {sizes.max()}), "
         f"search(n_probes={N_PROBES}, k={K}) first "
         f"{t_ivf_first * 1e3:.1f} ms, steady {t_ivf * 1e3:.1f} ms, "
         f"{M / t_ivf:.0f} QPS")
-    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-        " GiB")
-    for name, n in moved.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
-    for what, v, i in (("brute_force", bv, bi), ("ivf_flat", iv, ii)):
-        if v.shape != (M, K) or i.shape != (M, K):
-            raise AssertionError(f"{what}: shapes {tuple(v.shape)}")
-        if not bool(torch.isfinite(v).all()) or not bool(
-                ((i >= 0) & (i < N)).all()):
-            raise AssertionError(f"{what}: non-finite values or bad ids")
+    check_knn("ivf_flat", iv, ii, K)
     recall = neighborhood_recall(ii, bi)
     log(f"ivf_flat recall@{K} vs brute force: {recall:.4f}")
     if recall < 0.90:
         raise AssertionError(f"ivf_flat recall {recall:.4f} < 0.90")
+
+    def pq_path():
+        params = ivf_pq.IndexParams(n_lists=N_LISTS, pq_dim=PQ_DIM,
+                                    pq_bits=PQ_BITS, seed=SEED)
+        pidx, t_build = host_time(lambda: ivf_pq.build(x, params))
+        sp = ivf_pq.SearchParams(n_probes=N_PROBES)      # bf16 LUT
+        (pv, pi), t_first = host_time(lambda: ivf_pq.search(pidx, q, K0,
+                                                            sp))
+        (pv, pi), t_search = host_time(lambda: ivf_pq.search(pidx, q, K0,
+                                                             sp))
+        (rv, ri), t_ref_first = host_time(lambda: refine.refine(x, q, pi,
+                                                                K))
+        (rv, ri), t_ref = host_time(lambda: refine.refine(x, q, pi, K))
+        return (pidx, pv, pi, rv, ri, t_build, t_first, t_search,
+                t_ref_first, t_ref)
+
+    (pidx, pv, pi, rv, ri, t_pq_build, t_pq_first, t_pq, t_ref_first,
+     t_ref) = run_path("ivf_pq", ("ivf_pq_scan", "select_k"), pq_path,
+                       totals)
+    split = ", ".join(f"{k} {v:.3f} s" for k, v in
+                      pidx.build_seconds.items())
+    log(f"ivf_pq: build {t_pq_build:.3f} s ({split}; pq_dim={PQ_DIM}, "
+        f"pq_bits={PQ_BITS}, {pidx.codes.numel() / 2**20:.1f} MiB of "
+        f"codes), search(n_probes={N_PROBES}, k0={K0}, bf16 LUT) first "
+        f"{t_pq_first * 1e3:.1f} ms, steady {t_pq * 1e3:.1f} ms; refine "
+        f"to k={K} first {t_ref_first * 1e3:.1f} ms, steady "
+        f"{t_ref * 1e3:.1f} ms; search + refine {M / (t_pq + t_ref):.0f} "
+        "QPS")
+    check_knn("ivf_pq", pv, pi, K0)
+    check_knn("ivf_pq + refine", rv, ri, K)
+    raw = neighborhood_recall(pi[:, :K], bi)
+    refined = neighborhood_recall(ri, bi)
+    log(f"ivf_pq recall@{K} vs brute force: raw (first {K} of {K0}) "
+        f"{raw:.4f}, refined {refined:.4f}")
+    if refined < 0.85:
+        raise AssertionError(f"ivf_pq refined recall {refined:.4f} < 0.85")
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        " GiB")
+
     # brute force against numpy (float64) on a few queries
     xs, qs = x.cpu().double().numpy(), q[:16].cpu().double().numpy()
     d = (qs ** 2).sum(1)[:, None] + (xs ** 2).sum(1)[None, :] - 2 * qs @ xs.T
@@ -198,7 +285,14 @@ def path_phase(x, q):
     ref_v = torch.from_numpy(np.take_along_axis(d, ref_i.numpy(), axis=1))
     check_close(ref_v.float(), ref_i.int(), bv[:16].cpu(), bi[:16].cpu(),
                 "brute_force vs numpy float64 (16 queries)")
-    return bidx, iidx, moved
+    # refine against numpy (float64) over the same candidates
+    dc = numpy_l2(x, q[:16], pi[:16])
+    order = np.argsort(dc, axis=1, kind="stable")[:, :K]
+    check_close(torch.from_numpy(np.take_along_axis(dc, order, 1)).float(),
+                torch.gather(pi[:16].cpu(), 1, torch.from_numpy(order)),
+                rv[:16].cpu(), ri[:16].cpu(),
+                "refine vs numpy float64 (16 queries)")
+    return bidx, iidx, pidx, totals
 
 
 def k1_phase(timer, launches):
@@ -301,6 +395,77 @@ def k3_phase(timer, iidx, q, launches):
                 shape=f"{M} queries x {N_PROBES} probes, k={K}")
 
 
+def k4_phase(timer, pidx, q, launches):
+    q_rot = (q @ pidx.rotation.T).contiguous()
+    probed = iscan.coarse_probe(q_rot, pidx.centers_rot, N_PROBES, "l2",
+                                pidx.center_norms)
+
+    def args(idx, mode, qr, pr):
+        return (idx.codes, idx.row_norms, idx.centers_rot,
+                ipq.lut_codebook(idx.codebooks, mode), pr, idx.offsets_dev,
+                idx.sizes_dev, qr)
+
+    shape = f"{M} queries x {N_PROBES} probes, pq_dim={PQ_DIM}, k={K0}"
+    full = args(pidx, "f32", q_rot, probed)
+    err = check_close(*ipq.ivf_pq_scan_plain(*full, K0, "l2"),
+                      *ipq.ivf_pq_scan(*full, K0, "l2"),
+                      f"K4 ivf_pq_scan f32 LUT ({shape})")
+    for mode in ("bf16", "int8"):
+        sub = args(pidx, mode, q_rot[:1000], probed[:1000])
+        check_close(*ipq.ivf_pq_scan_plain(*sub, K0, "l2"),
+                    *ipq.ivf_pq_scan(*sub, K0, "l2"),
+                    f"K4 ivf_pq_scan {mode} LUT (1000 of {M} queries)")
+    # the path's index with a small-integer codebook and centers: every
+    # LUT entry and sum is exact, so kernel and plain version are equal
+    rng = np.random.default_rng(SEED + 4)
+    ints = lambda shape_: torch.from_numpy(rng.integers(  # noqa: E731
+        -3, 4, shape_).astype(np.float32)).cuda()
+    iidx = dataclasses.replace(pidx, codebooks=ints(pidx.codebooks.shape),
+                               centers_rot=ints(pidx.centers_rot.shape))
+    qi = ints((1000, pidx.rot_dim))
+    pri = iscan.coarse_probe(qi, iidx.centers_rot, N_PROBES, "l2",
+                             iidx.center_norms)
+    for mode in ("f32", "bf16"):
+        a = args(iidx, mode, qi, pri)
+        for metric in ("l2", "ip"):
+            check_equal(ipq.ivf_pq_scan_plain(*a, K0, metric),
+                        ipq.ivf_pq_scan(*a, K0, metric),
+                        f"K4 ivf_pq_scan {mode} LUT {metric}, integer "
+                        "codebook/centers/queries (1000 queries)")
+    # time in the path's LUT mode (bf16)
+    path = args(pidx, "bf16", q_rot, probed)
+
+    def launch(sizes):
+        return ipq.ivf_pq_scan_candidates(
+            pidx.codes, pidx.row_norms, None, path[3], pidx.centers_rot,
+            q_rot, probed, pidx.offsets_dev, sizes, K0, "l2")
+
+    ms = timer(lambda: launch(pidx.sizes_dev))
+    # every list cut to one row: the per-pair LUT build, q·c_l and the
+    # output writes without the list scan
+    lut_ms = timer(lambda: launch(torch.clamp_max(pidx.sizes_dev, 1)))
+    plain = timer(lambda: ipq.ivf_pq_scan_plain(*path, K0, "l2"), reps=3,
+                  warmup=0)
+    sizes = pidx.sizes_dev.long()
+    scanned = int(sizes[probed.long()].sum())          # (pair, row) count
+    distinct_rows = int(sizes[torch.unique(probed)].sum())
+    pairs = M * N_PROBES
+    book, pq_len = pidx.pq_book_size, pidx.pq_len
+    b, by = bound(distinct_rows * (PQ_DIM + 4) + q_rot.numel() * 4
+                  + pidx.centers_rot.numel() * 4 + pidx.codebooks.numel() * 4
+                  + pairs * (4 + K0 * 8),
+                  scanned * PQ_DIM + pairs * 2 * PQ_DIM * book * pq_len)
+    log(f"  K4 scans {scanned} (pair, row) products over {distinct_rows} "
+        f"distinct rows; with one row per list (LUT build only) "
+        f"{lut_ms:.2f} ms")
+    return dict(name="ivf_pq_scan", route="cuda",
+                source="raft_tpu_torch/csrc/ivf_pq_scan.cu",
+                replaces="raft_tpu/ops/ivf_pq_scan.py:290",
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=b, bound_by=by, library_ms=None,
+                lut_only_ms=lut_ms, shape=f"{shape}, bf16 LUT")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; it runs only on an NVIDIA "
@@ -329,12 +494,13 @@ def main() -> int:
     log(f"data: {N} x {D} rows, {M} queries in {N_BLOBS} Gaussian clusters, "
         f"made in {t_data:.1f} s")
 
-    bidx, iidx, moved = path_phase(x, q)
+    bidx, iidx, pidx, moved = path_phase(x, q)
 
     timer = Timer()
     kernels = [k1_phase(timer, moved["select_k"]),
                k2_phase(timer, bidx, q, moved["fused_knn"]),
-               k3_phase(timer, iidx, q, moved["ivf_flat_scan"])]
+               k3_phase(timer, iidx, q, moved["ivf_flat_scan"]),
+               k4_phase(timer, pidx, q, moved["ivf_pq_scan"])]
     for kern in kernels:
         lib = kern["library_ms"]
         log(f"{kern['name']} [{kern['shape']}]: kernel_ms={kern['ms']:.3f} "

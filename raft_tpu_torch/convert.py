@@ -14,10 +14,11 @@ import numpy as np
 import torch
 
 from .distance.distance_types import DistanceType, canonical_metric
-from .neighbors import brute_force, ivf_flat
+from .neighbors import brute_force, ivf_flat, ivf_pq
 from .utils import resolve_device
 
-__all__ = ["brute_force_index_from_numpy", "ivf_flat_index_from_numpy"]
+__all__ = ["brute_force_index_from_numpy", "ivf_flat_index_from_numpy",
+           "ivf_pq_index_from_numpy"]
 
 
 def _metric(arrays: Mapping, metric):
@@ -62,3 +63,24 @@ def ivf_flat_index_from_numpy(arrays: Mapping, metric=None,
         np.asarray(arrays["list_offsets"], np.int64),
         np.asarray(arrays["list_sizes_arr"], np.int64),
         _metric(arrays, metric))
+
+
+def ivf_pq_index_from_numpy(arrays: Mapping, metric=None,
+                            device=None) -> ivf_pq.Index:
+    """``arrays``: ``codes``, ``source_ids``, ``centers_rot``,
+    ``codebooks``, ``rotation``, ``list_offsets``, ``list_sizes_arr``,
+    ``pq_bits`` and ``codebook_kind`` (the JAX index's field names; the
+    codebook kind as its enum or that enum's value); ``metric`` as in
+    :func:`_metric`. The decoded row norms are computed here."""
+    dev = resolve_device(device)
+    kind = arrays.get("codebook_kind", ivf_pq.CodebookGen.PER_SUBSPACE)
+    return ivf_pq.Index(
+        _tensor(arrays["codes"], torch.uint8, dev),
+        _tensor(arrays["source_ids"], torch.int32, dev),
+        _tensor(arrays["centers_rot"], torch.float32, dev),
+        _tensor(arrays["codebooks"], torch.float32, dev),
+        _tensor(arrays["rotation"], torch.float32, dev),
+        np.asarray(arrays["list_offsets"], np.int64),
+        np.asarray(arrays["list_sizes_arr"], np.int64),
+        _metric(arrays, metric), int(arrays["pq_bits"]),
+        ivf_pq.CodebookGen(int(getattr(kind, "value", kind))))

@@ -23,7 +23,7 @@ __all__ = ["SOURCES", "build", "library", "check", "stream_of"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("select_k", "fused_knn", "ivf_flat_scan")
+SOURCES = ("select_k", "fused_knn", "ivf_flat_scan", "ivf_pq_scan")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 
@@ -39,6 +39,9 @@ _SIGNATURES = {
     "ivf_flat_scan": {
         "raft_ivf_flat_scan": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                 _I, _I, _I, _P, _P, _P], _I),
+    },
+    "ivf_pq_scan": {
+        "raft_ivf_pq_scan": ([_P] * 10 + [_I] * 7 + [_P] * 3, _I),
     },
 }
 

@@ -68,7 +68,7 @@ def coarse_probe(q: torch.Tensor, centers: torch.Tensor, n_probes: int,
 
 def _candidate_rows(probed, offsets, sizes, max_rows: int):
     """(m, p) probed lists → (m, max_rows) row ids, laid out back to back
-    in probe order, and their validity."""
+    in probe order, their validity, and the probe rank of each slot."""
     sizes_p = sizes.long()[probed.long()]
     cum = sizes_p.cumsum(dim=1)
     m, p = probed.shape
@@ -80,7 +80,7 @@ def _candidate_rows(probed, offsets, sizes, max_rows: int):
     list_of = torch.gather(probed.long(), 1, probe_of)
     rows = offsets.long()[list_of] + (slots[None, :] - prev)
     valid = slots[None, :] < cum[:, -1:]
-    return torch.where(valid, rows, 0), valid
+    return torch.where(valid, rows, 0), valid, probe_of
 
 
 def ivf_flat_scan_plain(data: torch.Tensor, data_norms: torch.Tensor,
@@ -106,8 +106,8 @@ def ivf_flat_scan_plain(data: torch.Tensor, data_norms: torch.Tensor,
     chunk = int(max(1, (256 << 20) // (max_rows * dim * 4)))
     for s0 in range(0, m, chunk):
         qc = q[s0 : s0 + chunk]
-        rows, valid = _candidate_rows(probed[s0 : s0 + chunk], offsets,
-                                      sizes, max_rows)
+        rows, valid, _ = _candidate_rows(probed[s0 : s0 + chunk], offsets,
+                                         sizes, max_rows)
         dot = torch.bmm(data[rows], qc[:, :, None])[:, :, 0]
         if metric == "l2":
             dist = torch.clamp_min(qn[s0 : s0 + chunk, None] + dn[rows]

@@ -13,7 +13,9 @@ Tolerances. Integer-valued inputs: every product and sum is exact in
 float32, so values and ids, and their order, must be equal. Gaussian
 inputs: the kernels, torch and XLA sum the dot products in different
 orders, so distances agree to ``rtol=1e-5, atol=1e-5·max|d|`` and ids are
-equal on at least 99% of rows (:func:`assert_knn_close`).
+equal on at least 99% of rows (:func:`assert_knn_close`). K4 reads a
+codebook of small integers in its integer cases, so its LUT entries and
+sums stay exact in float32 and bfloat16.
 """
 import numpy as np
 import pytest
@@ -22,16 +24,18 @@ import torch
 from raft_tpu_torch.core.errors import RaftError
 from raft_tpu_torch.matrix import select_k as tsk
 from raft_tpu_torch.ops import fused_knn as tfk
+from raft_tpu_torch.ops import ivf_pq_scan as tpq
 from raft_tpu_torch.ops import ivf_scan as tis
 
 torch.set_num_threads(1)
 
 
-def assert_knn_close(ref_v, ref_i, v, i, rtol=1e-5):
-    """The Gaussian-input contract of the module docstring. Values are
-    compared slot by slot, so where the two ids at a slot differ, the two
-    candidates' distances differ by less than the tolerance (a near
-    tie)."""
+def assert_knn_close(ref_v, ref_i, v, i, rtol=1e-5, min_rows_equal=0.99):
+    """The Gaussian-input contract of the module docstring: distances to
+    ``rtol`` and ``atol = rtol·max|d|``, ids equal on at least
+    ``min_rows_equal`` of the rows. Values are compared slot by slot, so
+    where the two ids at a slot differ, the two candidates' distances
+    differ by less than the tolerance (a near tie)."""
     ref_v = np.asarray(ref_v, np.float64)
     v = np.asarray(v, np.float64)
     ref_i, i = np.asarray(ref_i), np.asarray(i)
@@ -40,11 +44,11 @@ def assert_knn_close(ref_v, ref_i, v, i, rtol=1e-5):
     np.testing.assert_array_equal(np.isfinite(v), finite)
     np.testing.assert_array_equal(v[~finite], ref_v[~finite])
     np.testing.assert_array_equal(i[~finite], ref_i[~finite])
-    atol = 1e-5 * (np.abs(ref_v[finite]).max() if finite.any() else 1.0)
+    atol = rtol * (np.abs(ref_v[finite]).max() if finite.any() else 1.0)
     np.testing.assert_allclose(v[finite], ref_v[finite], rtol=rtol,
                                atol=atol)
     rows_equal = (i == ref_i).all(axis=1)
-    assert rows_equal.mean() >= 0.99, (
+    assert rows_equal.mean() >= min_rows_equal, (
         f"ids differ on {int((~rows_equal).sum())} of {len(rows_equal)} "
         "rows")
 
@@ -77,6 +81,53 @@ def _ivf_store(integer: bool, seed: int, n=6000, d=40, lists=24, m=150,
              sizes.astype(np.int32), q, pen)]
 
 
+def pq_store(integer: bool, seed: int, pq_bits: int = 8, n=4000, pq_dim=8,
+             pq_len=4, lists=16, m=64, p=4):
+    """A cluster-sorted PQ store: uint8 codes with list starts aligned to
+    8, slack between lists, list 3 empty; a (pq_dim, 2^pq_bits, pq_len)
+    codebook, rotated centers and queries (small integers or Gaussian),
+    probed lists, a penalty row, and the decoded row norms. Returns a
+    dict of CPU tensors plus ``list_offsets`` (lists + 1,) numpy."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, lists, n)
+    labels[labels == 3] = 4
+    sizes = np.bincount(labels, minlength=lists)
+    caps = (sizes + 8 + 7) // 8 * 8
+    offsets = np.concatenate([[0], np.cumsum(caps)])
+    rows = int(offsets[-1])
+    rot_dim = pq_dim * pq_len
+    gen = ((lambda s: rng.integers(-3, 4, s)) if integer
+           else rng.standard_normal)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    store = {
+        "codes": t(rng.integers(0, 1 << pq_bits, (rows, pq_dim)).astype(
+            np.uint8)),
+        "codebooks": t(gen((pq_dim, 1 << pq_bits, pq_len)).astype(
+            np.float32)),
+        "centers_rot": t(gen((lists, rot_dim)).astype(np.float32)),
+        "q_rot": t(gen((m, rot_dim)).astype(np.float32)),
+        "probed": t(np.stack([rng.permutation(lists)[:p]
+                              for _ in range(m)]).astype(np.int32)),
+        "offsets": t(offsets[:-1].astype(np.int32)),
+        "sizes": t(sizes.astype(np.int32)),
+        "penalty": t(np.where(rng.random(rows) < 0.25, np.inf, 0.0).astype(
+            np.float32)),
+        "list_offsets": offsets,
+    }
+    store["row_norms"] = tpq.decoded_row_norms(
+        store["codes"], store["centers_rot"], store["codebooks"], offsets)
+    return store
+
+
+def pq_scan_args(store, mode: str, device="cpu"):
+    """The positional arguments of ``ivf_pq_scan`` up to ``q_rot``."""
+    names = ("codes", "row_norms", "centers_rot", "codebooks", "probed",
+             "offsets", "sizes", "q_rot")
+    args = [store[n].to(device) for n in names]
+    args[3] = tpq.lut_codebook(args[3], mode)
+    return args
+
+
 def test_kernel_entries_refuse_cpu_tensors():
     """The kernel-only entries launch or raise; they never run a plain
     version."""
@@ -87,6 +138,12 @@ def test_kernel_entries_refuse_cpu_tensors():
     with pytest.raises(RaftError):
         tis.ivf_flat_scan_candidates(data, norms, None, q, None, probed,
                                      offsets, sizes, 3, "l2")
+    st = pq_store(False, 0)
+    with pytest.raises(RaftError):
+        tpq.ivf_pq_scan_candidates(
+            st["codes"], st["row_norms"], None, st["codebooks"],
+            st["centers_rot"], st["q_rot"], st["probed"], st["offsets"],
+            st["sizes"], 3, "l2")
 
 
 @pytest.mark.parametrize("integer", [True, False])
@@ -170,3 +227,45 @@ def test_ivf_flat_scan_kernel_on_card(metric):
                 assert torch.equal(kv, pv) and torch.equal(ki, pi)
             else:
                 assert_knn_close(pv.cpu(), pi.cpu(), kv.cpu(), ki.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pq_bits", [4, 8])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+def test_ivf_pq_scan_kernel_on_card(mode, metric, pq_bits):
+    """K4 + the K1 merge against the plain version, with the penalty row
+    and an empty list: exact on small-integer inputs (f32 and bf16 LUT
+    modes; the int8 scales are not integers), close on Gaussian ones."""
+    need_cuda()
+    for integer in (True, False):
+        st = pq_store(integer, 5 + pq_bits, pq_bits, n=12000, pq_dim=16,
+                      pq_len=2, lists=24, m=150, p=6)
+        args = pq_scan_args(st, mode, "cuda")
+        pen = st["penalty"].cuda()
+        for k in (1, 10, 64):
+            kv, ki = tpq.ivf_pq_scan(*args, k, metric, pen)
+            pv, pi = tpq.ivf_pq_scan_plain(*args, k, metric, pen)
+            torch.cuda.synchronize()
+            if integer and mode != "int8":
+                assert torch.equal(kv, pv) and torch.equal(ki, pi)
+            else:
+                assert_knn_close(pv.cpu(), pi.cpu(), kv.cpu(), ki.cpu())
+
+
+@pytest.mark.cuda
+def test_ivf_pq_scan_kernel_byte_codes_and_padding():
+    """K4 with a pq_dim that is not a multiple of 16 (byte loads), a probe
+    of only the empty list, and k past the candidates: (+inf, -1) slots
+    as in the plain version."""
+    need_cuda()
+    st = pq_store(True, 9, 8, n=3000, pq_dim=6, pq_len=3, lists=12, m=40,
+                  p=3)
+    st["probed"][:5] = 3                          # only the empty list
+    args = pq_scan_args(st, "f32", "cuda")
+    for k in (5, 1000):
+        kv, ki = tpq.ivf_pq_scan(*args, k, "l2")
+        pv, pi = tpq.ivf_pq_scan_plain(*args, k, "l2")
+        torch.cuda.synchronize()
+        assert torch.equal(kv, pv) and torch.equal(ki, pi)
+        assert bool((ki[:5] == -1).all())

@@ -32,7 +32,7 @@ from raft_tpu.ops import filter_policy
 from raft_tpu_torch import convert
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.errors import RaftError
-from raft_tpu_torch.neighbors import brute_force, ivf_flat
+from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, refine
 from raft_tpu_torch.stats.metrics import neighborhood_recall
 from test_torch_kernels import assert_knn_close
 
@@ -176,6 +176,10 @@ def test_entry_points_raise_without_cuda(data, monkeypatch):
         ivf_flat.build(x, ivf_flat.IndexParams(n_lists=4))
     with pytest.raises(RaftError):
         brute_force.knn(x, x[:3], 2)
+    with pytest.raises(RaftError):
+        ivf_pq.build(x, ivf_pq.IndexParams(n_lists=4))
+    with pytest.raises(RaftError):
+        refine.refine(x, x[:3], np.zeros((3, 4), np.int32), 2)
 
 
 def test_port_imports_no_jax():

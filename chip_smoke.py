@@ -30,9 +30,10 @@ It builds the four CUDA kernels from ``raft_tpu_torch/csrc`` (one
    index, where they must be equal), with the kernel's time (median of
    CUDA-event timed calls after a warm-up, L2 flushed before each), the
    plain version's time, one PyTorch library call's time where one
-   computes the same function, and the least time the card could take
-   (bytes over 3.35 TB/s or FP32 operations over 67 TFLOP/s, H100 SXM
-   data sheet).
+   computes the same function, and the least time the card could take:
+   the larger of the bytes over 3.35 TB/s and the operations' time, with
+   FP32 FLOPs at 67 TFLOP/s (an FMA counts 2) and single adds or
+   compares at half that, 33.5 T/s (H100 SXM data sheet).
 
 Prints progress lines, then a ``{"kernels": [...]}`` line, the card's name
 and power limit as ``nvidia-smi`` gives them, and last
@@ -66,7 +67,8 @@ N_LISTS, N_PROBES = 1024, 20
 N_BLOBS = 1000
 PQ_DIM, PQ_BITS, K0 = 64, 8, 20   # raft-ann-bench's IVF-PQ setting, d = 128
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-FP32_OPS_PER_S = 67e12         # H100 SXM, FP32 outside the tensor cores
+FP32_FLOPS_PER_S = 67e12       # H100 SXM, FP32 outside the tensor cores
+FP32_INSTR_PER_S = 33.5e12     # one add, compare or FMA per lane per clock
 RTOL = 1e-5                    # float32 sums in another order
 
 _COUNTERS = {"select_k": sk, "fused_knn": fk, "ivf_flat_scan": iscan,
@@ -133,10 +135,13 @@ class Timer:
         return statistics.median(times)
 
 
-def bound(n_bytes: float, n_ops: float):
-    """(least ms, what bounds it)."""
+def bound(n_bytes: float, n_flops: float, n_single: float = 0.0):
+    """(least ms, what bounds it): the bytes over the memory rate against
+    ``n_flops`` FP32 FLOPs (an FMA counts 2) at the FP32 peak plus
+    ``n_single`` lone adds or compares, which issue at half that rate."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = (n_flops / FP32_FLOPS_PER_S
+             + n_single / FP32_INSTR_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -306,7 +311,7 @@ def k1_phase(timer, launches):
     ms = timer(lambda: sk.kpass_select_k(v, k))
     plain = timer(lambda: sk.select_k_plain(v, k))
     lib = timer(lambda: torch.topk(v, k, dim=1, largest=False))
-    b, by = bound(v.numel() * 4 + M * k * 8, v.numel())
+    b, by = bound(v.numel() * 4 + M * k * 8, 0.0, v.numel())
     return dict(name="select_k", route="cuda",
                 source="raft_tpu_torch/csrc/select_k.cu",
                 replaces="raft_tpu/matrix/select_k.py:127",
@@ -406,15 +411,19 @@ def k4_phase(timer, pidx, q, launches):
                 idx.sizes_dev, qr)
 
     shape = f"{M} queries x {N_PROBES} probes, pq_dim={PQ_DIM}, k={K0}"
+    # the path's LUT mode (bf16) on all its queries: the reported error
+    path = args(pidx, "bf16", q_rot, probed)
+    err = check_close(*ipq.ivf_pq_scan_plain(*path, K0, "l2"),
+                      *ipq.ivf_pq_scan(*path, K0, "l2"),
+                      f"K4 ivf_pq_scan bf16 LUT ({shape})")
     full = args(pidx, "f32", q_rot, probed)
-    err = check_close(*ipq.ivf_pq_scan_plain(*full, K0, "l2"),
-                      *ipq.ivf_pq_scan(*full, K0, "l2"),
-                      f"K4 ivf_pq_scan f32 LUT ({shape})")
-    for mode in ("bf16", "int8"):
-        sub = args(pidx, mode, q_rot[:1000], probed[:1000])
-        check_close(*ipq.ivf_pq_scan_plain(*sub, K0, "l2"),
-                    *ipq.ivf_pq_scan(*sub, K0, "l2"),
-                    f"K4 ivf_pq_scan {mode} LUT (1000 of {M} queries)")
+    check_close(*ipq.ivf_pq_scan_plain(*full, K0, "l2"),
+                *ipq.ivf_pq_scan(*full, K0, "l2"),
+                f"K4 ivf_pq_scan f32 LUT ({shape})")
+    sub = args(pidx, "int8", q_rot[:1000], probed[:1000])
+    check_close(*ipq.ivf_pq_scan_plain(*sub, K0, "l2"),
+                *ipq.ivf_pq_scan(*sub, K0, "l2"),
+                f"K4 ivf_pq_scan int8 LUT (1000 of {M} queries)")
     # the path's index with a small-integer codebook and centers: every
     # LUT entry and sum is exact, so kernel and plain version are equal
     rng = np.random.default_rng(SEED + 4)
@@ -433,16 +442,15 @@ def k4_phase(timer, pidx, q, launches):
                         f"K4 ivf_pq_scan {mode} LUT {metric}, integer "
                         "codebook/centers/queries (1000 queries)")
     # time in the path's LUT mode (bf16)
-    path = args(pidx, "bf16", q_rot, probed)
-
     def launch(sizes):
         return ipq.ivf_pq_scan_candidates(
             pidx.codes, pidx.row_norms, None, path[3], pidx.centers_rot,
             q_rot, probed, pidx.offsets_dev, sizes, K0, "l2")
 
     ms = timer(lambda: launch(pidx.sizes_dev))
-    # every list cut to one row: the per-pair LUT build, q·c_l and the
-    # output writes without the list scan
+    # every list cut to one row: the per-pair LUT build and each block's
+    # fixed cost (k-best init, q·c_l, ||q||², output writes) with almost
+    # no list scan
     lut_ms = timer(lambda: launch(torch.clamp_max(pidx.sizes_dev, 1)))
     plain = timer(lambda: ipq.ivf_pq_scan_plain(*path, K0, "l2"), reps=3,
                   warmup=0)
@@ -451,13 +459,15 @@ def k4_phase(timer, pidx, q, launches):
     distinct_rows = int(sizes[torch.unique(probed)].sum())
     pairs = M * N_PROBES
     book, pq_len = pidx.pq_book_size, pidx.pq_len
+    # the LUT depends on the query alone: its FMAs once per query; then
+    # one add per (pair, row, subspace)
     b, by = bound(distinct_rows * (PQ_DIM + 4) + q_rot.numel() * 4
                   + pidx.centers_rot.numel() * 4 + pidx.codebooks.numel() * 4
                   + pairs * (4 + K0 * 8),
-                  scanned * PQ_DIM + pairs * 2 * PQ_DIM * book * pq_len)
+                  M * 2 * PQ_DIM * book * pq_len, scanned * PQ_DIM)
     log(f"  K4 scans {scanned} (pair, row) products over {distinct_rows} "
-        f"distinct rows; with one row per list (LUT build only) "
-        f"{lut_ms:.2f} ms")
+        f"distinct rows; with one row per list (LUT build and per-block "
+        f"fixed cost) {lut_ms:.2f} ms")
     return dict(name="ivf_pq_scan", route="cuda",
                 source="raft_tpu_torch/csrc/ivf_pq_scan.cu",
                 replaces="raft_tpu/ops/ivf_pq_scan.py:290",

@@ -30,11 +30,12 @@
 // query's row with K1, exactly as merge_pairs orders the pairs. An empty
 // (or filter-pruned) list writes (+inf, -1) and builds no LUT.
 //
-// Bound on this card: one add per (pair, row, subspace) plus 2·pq_len
-// operations per LUT entry and pair — at m = 10,000, p = 20, pq_dim = 64,
-// book = 256 over 1,024 lists of 1M rows about 37 G operations, ~0.6 ms
-// at 67 TFLOP/s FP32; the distinct code bytes (~68 MB) take less. What
-// this first version pays above that bound: every LUT read is a shared-
+// Bound on this card: the LUT once per query (2·pq_len FLOPs per entry,
+// 0.66 G at m = 10,000, pq_dim = 64, book = 256, ~0.01 ms at 67 TFLOP/s
+// FP32) and one add per (pair, row, subspace) (~24 G over p = 20 probes
+// of 1,024 lists of 1M rows, ~0.72 ms at 33.5 T adds/s: a lone add is
+// half an FMA's two FLOPs); the distinct code bytes (~68 MB) take less.
+// What this first version pays above that bound: every LUT read is a shared-
 // memory load at a data-dependent address (random codes put several
 // lanes of a warp on one bank), every pair rebuilds its 64 KB LUT from a
 // 128 KB codebook read from L2, and every pair re-reads its list's codes.

@@ -49,6 +49,7 @@ from ..cluster import kmeans_balanced
 from ..core.bitset import Bitset
 from ..core.errors import expects
 from ..distance.distance_types import DistanceType, canonical_metric
+from ..distance.fused_l2_nn import fused_l2_nn_argmin
 from ..matrix.select_k import SelectAlgo
 from ..ops.ivf_pq_scan import (decoded_row_norms, ivf_pq_scan,
                                ivf_pq_scan_plain, lut_codebook,
@@ -352,12 +353,11 @@ def build(dataset, params: IndexParams | None = None, device=None) -> Index:
     return index
 
 
-def extend(index: Index, new_vectors, new_ids=None,
-           batch_size: int = 1 << 17) -> Index:
+def extend(index: Index, new_vectors, new_ids=None) -> Index:
     """Fill an empty index with vectors (ids 0..n-1 unless ``new_ids``):
     assign each to its nearest rotated center, encode its residual, and
-    scatter the lists (ivf_pq_build.cuh:1550), in batches bounded by
-    :func:`pq_chunk_rows`. Adding to a non-empty index is not ported
+    scatter the lists (ivf_pq_build.cuh:1550), in batches of
+    :func:`pq_chunk_rows` rows. Adding to a non-empty index is not ported
     yet."""
     expects(index.size == 0,
             "extend of a non-empty index is not ported yet")
@@ -369,15 +369,13 @@ def extend(index: Index, new_vectors, new_ids=None,
         new_ids = torch.arange(n_new, dtype=torch.int32, device=dev)
     else:
         new_ids = torch.as_tensor(new_ids).to(device=dev, dtype=torch.int32)
-    batch = min(batch_size, pq_chunk_rows(index.pq_dim, index.pq_book_size))
-    cr, cn = index.centers_rot, index.center_norms
+    batch = pq_chunk_rows(index.pq_dim, index.pq_book_size)
+    cr = index.centers_rot
     labels, codes = [], []
     for b0 in range(0, n_new, batch):
         xr = x[b0 : b0 + batch] @ index.rotation.T
         # nearest rotated center == nearest center (orthogonal rotation)
-        d2 = ((xr * xr).sum(dim=1, keepdim=True) - 2.0 * (xr @ cr.T)
-              + cn[None, :])
-        lb = d2.argmin(dim=1)
+        lb = fused_l2_nn_argmin(xr, cr)[0]
         codes.append(_encode(xr - cr[lb], index.codebooks))
         labels.append(lb)
     labels = torch.cat(labels) if labels else torch.zeros(

@@ -6,10 +6,10 @@ toolkit (``nvcc``) and PyTorch built for CUDA::
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels from ``raft_tpu_torch/csrc`` (one
+It builds the six CUDA kernels from ``raft_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once, into ``build/kernels/``), then:
 
-1. path: three paths through the public entry points at SIFT-1M's shape —
+1. path: four paths through the public entry points at SIFT-1M's shape —
    1,000,000 x 128 float32 rows and 10,000 queries in 1,000 overlapping
    Gaussian clusters (unit-normal centers, per-cluster spread 1.0-1.6:
    the clusters overlap, so true neighbors cross list boundaries and
@@ -19,15 +19,23 @@ It builds the four CUDA kernels from ``raft_tpu_torch/csrc`` (one
    - IVF-Flat: build (n_lists = 1024) and search (n_probes = 20);
    - IVF-PQ: build (n_lists = 1024, pq_dim = 64, pq_bits = 8,
      per-subspace codebooks), search (n_probes = 20, bf16 LUT, k0 = 20
-     candidates) and refine against the float32 rows to k = 10.
+     candidates) and refine against the float32 rows to k = 10;
+   - CAGRA: build with the reference's defaults (exact kNN graph of
+     intermediate degree 128 through K2 + K1, optimize to graph degree
+     64, covering seed set), the int8 edge store, and search (itopk 64,
+     width 1, 80 hops) with the edge engine (K5 per hop) and the fused
+     engine (K6); the plain gather engine is timed as a reference line.
    Each path runs with every launch counter set to 0 just before it, and
    fails if a kernel of the path did not launch. Checks: IVF-Flat
    recall@10 against the brute-force answer >= 0.90, IVF-PQ refined
-   recall@10 >= 0.85, the brute-force answer and the refined distances
-   against numpy on a few queries;
+   recall@10 >= 0.85, CAGRA recall@10 >= 0.90 with the edge and fused
+   engines equal in ids and distances, the brute-force answer and the
+   refined distances against numpy on a few queries;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the path's shapes (K4 also on an integer-valued copy of the IVF-PQ
-   index, where they must be equal), with the kernel's time (median of
+   index, K5 and K6 on the path's data, where they must be equal, and on
+   integer-valued copies; K5 also on a bf16 store), with the kernel's
+   time (median of
    CUDA-event timed calls after a warm-up, L2 flushed before each), the
    plain version's time, one PyTorch library call's time where one
    computes the same function, and the least time the card could take:
@@ -54,9 +62,12 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.matrix import select_k as sk
-from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, refine
+from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
+                                      refine)
 from raft_tpu_torch.ops import _cuda
+from raft_tpu_torch.ops import cagra_fused as cf
 from raft_tpu_torch.ops import fused_knn as fk
+from raft_tpu_torch.ops import graph_expand as ge
 from raft_tpu_torch.ops import ivf_pq_scan as ipq
 from raft_tpu_torch.ops import ivf_scan as iscan
 from raft_tpu_torch.stats.metrics import neighborhood_recall
@@ -66,13 +77,17 @@ N, D, M, K = 1_000_000, 128, 10_000, 10
 N_LISTS, N_PROBES = 1024, 20
 N_BLOBS = 1000
 PQ_DIM, PQ_BITS, K0 = 64, 8, 20   # raft-ann-bench's IVF-PQ setting, d = 128
+# CAGRA: cagra_types.hpp's index and search defaults
+CAGRA_D0, CAGRA_DEG, ITOPK = 128, 64, 64
+CAGRA_SP = cagra.SearchParams(itopk_size=ITOPK, search_width=1)
+CAGRA_MIN_RECALL = 0.90
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM, FP32 outside the tensor cores
 FP32_INSTR_PER_S = 33.5e12     # one add, compare or FMA per lane per clock
 RTOL = 1e-5                    # float32 sums in another order
 
 _COUNTERS = {"select_k": sk, "fused_knn": fk, "ivf_flat_scan": iscan,
-             "ivf_pq_scan": ipq}
+             "ivf_pq_scan": ipq, "graph_expand": ge, "cagra_fused": cf}
 
 
 def log(msg: str) -> None:
@@ -163,11 +178,17 @@ def check_close(ref_v, ref_i, v, i, what: str) -> float:
     return err
 
 
-def check_equal(ref, got, what: str) -> None:
+def check_equal(ref, got, what: str) -> float:
+    """Fail unless every tensor of ``got`` equals ``ref``'s; returns the
+    measured max |value - plain value| over the finite values (0.0)."""
     for a, b in zip(ref, got):
         if not torch.equal(a, b):
             raise AssertionError(f"{what}: kernel and plain version differ")
+    fin = torch.isfinite(ref[0])
+    err = float((got[0][fin] - ref[0][fin]).abs().max()) if fin.any() \
+        else 0.0
     log(f"  {what}: values and ids equal")
+    return err
 
 
 def run_path(name: str, kernels, fn, totals: dict):
@@ -280,6 +301,7 @@ def path_phase(x, q):
         f"{raw:.4f}, refined {refined:.4f}")
     if refined < 0.85:
         raise AssertionError(f"ivf_pq refined recall {refined:.4f} < 0.85")
+    cidx = cagra_path(x, q, bi, totals)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         " GiB")
 
@@ -297,7 +319,169 @@ def path_phase(x, q):
                 torch.gather(pi[:16].cpu(), 1, torch.from_numpy(order)),
                 rv[:16].cpu(), ri[:16].cpu(),
                 "refine vs numpy float64 (16 queries)")
-    return bidx, iidx, pidx, totals
+    return bidx, iidx, pidx, cidx, totals
+
+
+def cagra_path(x, q, bi, totals):
+    """The CAGRA path: build, edge store, search with the edge and fused
+    engines (counters reset before, read after); then the plain gather
+    engine as a reference line."""
+    def path():
+        params = cagra.IndexParams(intermediate_graph_degree=CAGRA_D0,
+                                   graph_degree=CAGRA_DEG,
+                                   knn_graph_algo="brute", seed=SEED)
+        cidx, t_build = host_time(lambda: cagra.build(x, params))
+        _, t_store = host_time(lambda: cagra.prepare_traversal(cidx))
+        runs = {}
+        for eng in ("edge", "fused"):
+            (d, i), t_first = host_time(lambda: cagra.search(
+                cidx, q, K, CAGRA_SP, engine=eng))
+            (d, i), t = host_time(lambda: cagra.search(cidx, q, K, CAGRA_SP,
+                                                       engine=eng))
+            runs[eng] = (d, i, t_first, t)
+        return cidx, t_build, t_store, runs
+
+    cidx, t_build, t_store, runs = run_path(
+        "cagra", ("fused_knn", "select_k", "graph_expand", "cagra_fused"),
+        path, totals)
+    st, bs = cidx.edge_store, cidx.build_stats
+    store_gb = (st.vecs.numel() * st.vecs.element_size()
+                + (st.aux.numel() + st.gp.numel()) * 4) / 1e9
+    log(f"cagra: build {t_build:.3f} s (knn_graph {bs['knn_graph_s']:.3f} s "
+        f"{bs['knn_algo']}, optimize {bs['optimize_s']:.3f} s, seeds "
+        f"{bs['seeds_s']:.3f} s: {cidx.seed_nodes.numel()} rows; degree "
+        f"{CAGRA_D0} -> {cidx.graph_degree}); {st.mode} edge store "
+        f"{store_gb:.2f} GB built in {t_store:.3f} s")
+    for eng, (d, i, t_first, t) in runs.items():
+        check_knn(f"cagra {eng}", d, i, K)
+        log(f"cagra {eng}: search(itopk={ITOPK}, width=1, k={K}) first "
+            f"{t_first * 1e3:.1f} ms, steady {t * 1e3:.1f} ms, "
+            f"{M / t:.0f} QPS")
+    (ed, ei, _, _), (fd, fi, _, _) = runs["edge"], runs["fused"]
+    if not (torch.equal(ei, fi) and torch.equal(ed, fd)):
+        raise AssertionError("cagra: the edge and fused engines differ")
+    recall = neighborhood_recall(ei, bi)
+    log(f"cagra recall@{K} vs brute force: {recall:.4f} (edge and fused "
+        "engines equal in ids and distances)")
+    if recall < CAGRA_MIN_RECALL:
+        raise AssertionError(f"cagra recall {recall:.4f} < "
+                             f"{CAGRA_MIN_RECALL}")
+    # the plain gather engine (bf16 rows): a reference line, no kernel of
+    # its own
+    sp = dataclasses.replace(CAGRA_SP, engine="gather")
+    (gd, gi), t_first = host_time(lambda: cagra.search(cidx, q, K, sp))
+    (gd, gi), t = host_time(lambda: cagra.search(cidx, q, K, sp))
+    check_knn("cagra gather", gd, gi, K)
+    log(f"cagra gather (plain, reference): first {t_first * 1e3:.1f} ms, "
+        f"steady {t * 1e3:.1f} ms, {M / t:.0f} QPS, recall@{K} "
+        f"{neighborhood_recall(gi, bi):.4f}")
+    return cidx
+
+
+def seeded_buffer(cidx, q):
+    """The path's seeded itopk buffer (bf16 seed scoring, the covering
+    set plus 16 random rows per query), as ``cagra.search`` builds it."""
+    cagra.prepare_search(cidx, CAGRA_SP.candidate_dtype)
+    return cagra._seed_buffer(cidx, cidx.score_bf16, None, q, None,
+                              min(ITOPK, 16), ITOPK, CAGRA_SP.seed)
+
+
+def k5_phase(timer, cidx, q, buf_i, launches):
+    st = cidx.edge_store
+    kp = min(cidx.graph_degree, ITOPK)
+    parents = buf_i[:, :1].contiguous()     # each query's first-hop parent
+    path = (parents, q, st.vecs, st.aux, kp, "l2", st.degree)
+    err = check_equal(ge.graph_expand_plain(*path), ge.graph_expand(*path),
+                      f"K5 graph_expand int8 store ({M} parents x "
+                      f"{st.degree} edges x {D}) k'={kp}, the path's data")
+    # the parents' own nodes as a small store: bf16 rows, and an
+    # integer-valued copy (int8 codes with unit scales, rounded queries)
+    sub, remap = torch.unique(parents.long(), return_inverse=True)
+    nbr = cidx.graph[sub].long()                          # (s, degree)
+    bf = torch.zeros((len(sub), st.deg_p, st.dim_p), dtype=torch.bfloat16,
+                     device=q.device)
+    bf[:, :st.degree, :D] = cidx.dataset[nbr].to(torch.bfloat16)
+    ones = torch.ones((len(sub), st.deg_p), device=q.device)
+    bf_aux = torch.stack([ones, bf.float().square().sum(-1)],
+                         dim=1).contiguous()
+    codes = st.vecs[sub].contiguous()
+    int_aux = torch.stack([ones, codes.float().square().sum(-1)],
+                          dim=1).contiguous()
+    pen = torch.where(torch.rand(ones.shape, device=q.device) < 0.25,
+                      float("inf"), 0.0).contiguous()
+    qi = torch.round(q)
+    rp = remap.int().contiguous()
+    for name, vecs, aux, qq, metric, pn in (
+            ("bf16 store", bf, bf_aux, q, "l2", None),
+            ("bf16 store, penalty", bf, bf_aux, q, "ip", pen),
+            ("integer-valued int8", codes, int_aux, qi, "l2", pen),
+            ("integer-valued int8", codes, int_aux, qi, "ip", None)):
+        a = (rp, qq, vecs, aux, kp, metric, st.degree, pn)
+        check_equal(ge.graph_expand_plain(*a), ge.graph_expand(*a),
+                    f"K5 graph_expand {name} {metric} ({M} parents)")
+    ms = timer(lambda: ge.graph_expand_kernel(*path))
+    plain = timer(lambda: ge.graph_expand_plain(*path), reps=3, warmup=0)
+    deg_p, dim_p = st.deg_p, st.dim_p
+    b, by = bound(M * (deg_p * dim_p + 2 * deg_p * 4 + dim_p * 4 + 4)
+                  + M * kp * 8, 2.0 * M * st.degree * D)
+    return dict(name="graph_expand", route="cuda",
+                source="raft_tpu_torch/csrc/graph_expand.cu",
+                replaces="raft_tpu/ops/graph_expand.py:261",
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=b, bound_by=by, library_ms=None,
+                shape=f"{M} (query, parent) pairs, int8 tiles "
+                      f"{deg_p} x {dim_p}, k'={kp}")
+
+
+def k6_phase(timer, cidx, q, buf_d, buf_i, launches):
+    st = cidx.edge_store
+    itopk, width, max_iter = cagra._plan_dims(CAGRA_SP, K)
+    kw = dict(itopk=itopk, width=width, max_iter=max_iter,
+              kprime=min(cidx.graph_degree, itopk), degree=st.degree,
+              metric="l2")
+    path = (q, buf_d, buf_i, st.vecs, st.aux, st.gp, None)
+    kd, ki, hops, parents = cf.fused_traverse_kernel(*path, **kw)
+    err = check_equal(cf.fused_traverse_plain(*path, **kw), (kd, ki),
+                      f"K6 cagra_fused int8 store ({M} queries, {max_iter} "
+                      "hops), the path's data")
+    # an integer-valued copy: the int8 codes with unit scales, rounded
+    # queries, and a buffer of their exact integer distances
+    codes, _ = cidx.score_i8
+    norms = codes.float().square().sum(1)
+    int_aux = torch.zeros_like(st.aux)
+    int_aux[:, 0, :st.degree] = 1.0
+    int_aux[:, 1, :st.degree] = norms[cidx.graph.long()]
+    qi = torch.round(q)
+    d = (qi[:, None, :] - codes[buf_i.long()].float()).square().sum(-1)
+    bd, order = torch.sort(d, dim=1, stable=True)
+    bi = torch.gather(buf_i, 1, order)
+    for metric in ("l2", "ip"):
+        a = (qi, bd, bi, st.vecs, int_aux, st.gp, None)
+        kwm = dict(kw, metric=metric)
+        check_equal(cf.fused_traverse_plain(*a, **kwm),
+                    cf.fused_traverse_kernel(*a, **kwm)[:2],
+                    f"K6 cagra_fused integer-valued int8 {metric} ({M} "
+                    "queries)")
+    del int_aux
+    ms = timer(lambda: cf.fused_traverse_kernel(*path, **kw))
+    plain = timer(lambda: cf.fused_traverse_plain(*path, **kw), reps=1,
+                  warmup=0)
+    n_par = int(parents.sum())
+    mean_hops = float(hops.float().mean())
+    deg_p, dim_p = st.deg_p, st.dim_p
+    b, by = bound(n_par * (deg_p * dim_p + 2 * deg_p * 4 + deg_p * 4)
+                  + M * dim_p * 4 + 2 * M * itopk * 8,
+                  2.0 * n_par * st.degree * D)
+    log(f"  K6 took {mean_hops:.2f} hops per query on average (max "
+        f"{int(hops.max())} of {max_iter}), {n_par} parent tiles in all")
+    return dict(name="cagra_fused", route="cuda",
+                source="raft_tpu_torch/csrc/cagra_fused.cu",
+                replaces="raft_tpu/ops/cagra_fused.py:285",
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=b, bound_by=by, library_ms=None,
+                mean_hops=mean_hops,
+                shape=f"{M} queries, itopk {itopk}, width {width}, "
+                      f"{max_iter} hops max, int8 tiles {deg_p} x {dim_p}")
 
 
 def k1_phase(timer, launches):
@@ -306,8 +490,8 @@ def k1_phase(timer, launches):
     vals[rng.random((M, N_LISTS)) < 0.02] = np.inf
     v = torch.from_numpy(vals).cuda()
     k = N_PROBES
-    check_equal(sk.select_k_plain(v, k), sk.kpass_select_k(v, k),
-                f"K1 select_k ({M}, {N_LISTS}) k={k}, integer rows")
+    err = check_equal(sk.select_k_plain(v, k), sk.kpass_select_k(v, k),
+                      f"K1 select_k ({M}, {N_LISTS}) k={k}, integer rows")
     ms = timer(lambda: sk.kpass_select_k(v, k))
     plain = timer(lambda: sk.select_k_plain(v, k))
     lib = timer(lambda: torch.topk(v, k, dim=1, largest=False))
@@ -315,7 +499,7 @@ def k1_phase(timer, launches):
     return dict(name="select_k", route="cuda",
                 source="raft_tpu_torch/csrc/select_k.cu",
                 replaces="raft_tpu/matrix/select_k.py:127",
-                launches=launches, max_abs_err=0.0, ms=ms, plain_ms=plain,
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
                 bound_ms=b, bound_by=by, library_ms=lib,
                 shape=f"({M}, {N_LISTS}) k={k}")
 
@@ -504,13 +688,17 @@ def main() -> int:
     log(f"data: {N} x {D} rows, {M} queries in {N_BLOBS} Gaussian clusters, "
         f"made in {t_data:.1f} s")
 
-    bidx, iidx, pidx, moved = path_phase(x, q)
+    bidx, iidx, pidx, cidx, moved = path_phase(x, q)
 
     timer = Timer()
     kernels = [k1_phase(timer, moved["select_k"]),
                k2_phase(timer, bidx, q, moved["fused_knn"]),
                k3_phase(timer, iidx, q, moved["ivf_flat_scan"]),
                k4_phase(timer, pidx, q, moved["ivf_pq_scan"])]
+    del iidx, pidx
+    buf_d, buf_i = seeded_buffer(cidx, q)
+    kernels += [k5_phase(timer, cidx, q, buf_i, moved["graph_expand"]),
+                k6_phase(timer, cidx, q, buf_d, buf_i, moved["cagra_fused"])]
     for kern in kernels:
         lib = kern["library_ms"]
         log(f"{kern['name']} [{kern['shape']}]: kernel_ms={kern['ms']:.3f} "

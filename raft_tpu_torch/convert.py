@@ -14,11 +14,11 @@ import numpy as np
 import torch
 
 from .distance.distance_types import DistanceType, canonical_metric
-from .neighbors import brute_force, ivf_flat, ivf_pq
+from .neighbors import brute_force, cagra, ivf_flat, ivf_pq
 from .utils import resolve_device
 
 __all__ = ["brute_force_index_from_numpy", "ivf_flat_index_from_numpy",
-           "ivf_pq_index_from_numpy"]
+           "ivf_pq_index_from_numpy", "cagra_index_from_numpy"]
 
 
 def _metric(arrays: Mapping, metric):
@@ -84,3 +84,18 @@ def ivf_pq_index_from_numpy(arrays: Mapping, metric=None,
         np.asarray(arrays["list_sizes_arr"], np.int64),
         _metric(arrays, metric), int(arrays["pq_bits"]),
         ivf_pq.CodebookGen(int(getattr(kind, "value", kind))))
+
+
+def cagra_index_from_numpy(arrays: Mapping, metric=None,
+                           device=None) -> cagra.Index:
+    """``arrays``: ``dataset`` (n, d) float32, ``graph`` (n, degree) and,
+    optionally, ``seed_nodes`` (s,) sorted unique rows (absent or None:
+    random seeding only); ``metric`` as in :func:`_metric`. The traversal
+    copies and the edge store are built on the port's side
+    (``cagra.prepare_search`` / ``prepare_traversal``)."""
+    dev = resolve_device(device)
+    seeds = arrays.get("seed_nodes")
+    return cagra.Index(
+        _tensor(arrays["dataset"], torch.float32, dev),
+        _tensor(arrays["graph"], torch.int32, dev), _metric(arrays, metric),
+        None if seeds is None else _tensor(seeds, torch.int32, dev))

@@ -23,7 +23,8 @@ __all__ = ["SOURCES", "build", "library", "check", "stream_of"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("select_k", "fused_knn", "ivf_flat_scan", "ivf_pq_scan")
+SOURCES = ("select_k", "fused_knn", "ivf_flat_scan", "ivf_pq_scan",
+           "graph_expand", "cagra_fused")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 
@@ -42,6 +43,13 @@ _SIGNATURES = {
     },
     "ivf_pq_scan": {
         "raft_ivf_pq_scan": ([_P] * 10 + [_I] * 7 + [_P] * 3, _I),
+    },
+    "graph_expand": {
+        "raft_graph_expand": ([_P] * 5 + [_I] * 8 + [_P] * 3, _I),
+    },
+    "cagra_fused": {
+        "raft_cagra_fused": ([_P] * 7 + [_I] * 11 + [_P] * 5, _I),
+        "raft_cagra_fused_smem": ([_I] * 5, ctypes.c_size_t),
     },
 }
 

@@ -15,7 +15,11 @@ inputs: the kernels, torch and XLA sum the dot products in different
 orders, so distances agree to ``rtol=1e-5, atol=1e-5·max|d|`` and ids are
 equal on at least 99% of rows (:func:`assert_knn_close`). K4 reads a
 codebook of small integers in its integer cases, so its LUT entries and
-sums stay exact in float32 and bfloat16.
+sums stay exact in float32 and bfloat16. K5 and K6 and their plain
+versions add in the same order (``graph_expand.lane_order_dot``), so they
+are equal on any input: on an edge store of small integers with integer
+scales (``edge_store``), where every score is an exact integer and ties
+abound, and on Gaussian queries with real scales.
 """
 import numpy as np
 import pytest
@@ -23,9 +27,14 @@ import torch
 
 from raft_tpu_torch.core.errors import RaftError
 from raft_tpu_torch.matrix import select_k as tsk
+from raft_tpu_torch.neighbors import brute_force
+from raft_tpu_torch.neighbors import cagra as tcagra
+from raft_tpu_torch.ops import cagra_fused as tcf
 from raft_tpu_torch.ops import fused_knn as tfk
+from raft_tpu_torch.ops import graph_expand as tge
 from raft_tpu_torch.ops import ivf_pq_scan as tpq
 from raft_tpu_torch.ops import ivf_scan as tis
+from raft_tpu_torch.stats.metrics import neighborhood_recall
 
 torch.set_num_threads(1)
 
@@ -128,6 +137,45 @@ def pq_scan_args(store, mode: str, device="cpu"):
     return args
 
 
+def edge_store(dtype, seed: int, integer: bool = True, n=3000, degree=40,
+               deg_p=64, dim=100, m=96, itopk=32):
+    """An edge store (CPU tensors): (n, deg_p, dim_p) rows of small
+    integers (int8 or bf16), per-edge scales and the matching norms in
+    ``aux``, padded graph rows, queries, an edge penalty (+inf on a
+    quarter of the edges), parents, and a sorted seeded buffer (distinct
+    ids, +inf tail). ``integer``: scales of 1 or 2 and integer queries,
+    so every score is an exact integer; else Gaussian queries and
+    uniform scales."""
+    rng = np.random.default_rng(seed)
+    dim_p = (dim + 127) // 128 * 128
+    rows = np.zeros((n, deg_p, dim_p), np.float32)
+    rows[:, :, :dim] = rng.integers(-3, 4, (n, deg_p, dim))
+    if integer:
+        scales = rng.integers(1, 3, (n, deg_p)).astype(np.float32)
+        q = rng.integers(-3, 4, (m, dim)).astype(np.float32)
+    else:
+        scales = rng.uniform(0.2, 0.6, (n, deg_p)).astype(np.float32)
+        q = rng.standard_normal((m, dim)).astype(np.float32)
+    aux = np.stack([scales, scales ** 2 * (rows ** 2).sum(-1)], axis=1)
+    gph = rng.integers(0, n, (n, deg_p)).astype(np.int32)
+    pen = np.where(rng.random((n, deg_p)) < 0.25, np.inf, 0.0).astype(
+        np.float32)
+    if integer:
+        buf_d = rng.integers(200, 900, (m, itopk)).astype(np.float32)
+    else:   # around the candidates' scores: ||q||² + ~64 +- 25
+        buf_d = ((q ** 2).sum(1)[:, None] + 64
+                 + rng.uniform(-25, 25, (m, itopk))).astype(np.float32)
+    buf_d = np.sort(buf_d, axis=1)
+    buf_d[:, itopk - 3:] = np.inf
+    buf_i = np.stack([rng.permutation(n)[:itopk] for _ in range(m)]).astype(
+        np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    return {"vecs": t(rows).to(dtype), "aux": t(aux), "gph": t(gph),
+            "q": t(q), "pen": t(pen), "degree": degree,
+            "parents": t(rng.integers(0, n, (m, 2)).astype(np.int32)),
+            "buf_d": t(buf_d), "buf_i": t(buf_i)}
+
+
 def test_kernel_entries_refuse_cpu_tensors():
     """The kernel-only entries launch or raise; they never run a plain
     version."""
@@ -144,6 +192,15 @@ def test_kernel_entries_refuse_cpu_tensors():
             st["codes"], st["row_norms"], None, st["codebooks"],
             st["centers_rot"], st["q_rot"], st["probed"], st["offsets"],
             st["sizes"], 3, "l2")
+    es = edge_store(torch.int8, 0, n=50, m=4)
+    with pytest.raises(RaftError):
+        tge.graph_expand_kernel(es["parents"], es["q"], es["vecs"],
+                                es["aux"], 4)
+    with pytest.raises(RaftError):
+        tcf.fused_traverse_kernel(es["q"], es["buf_d"], es["buf_i"],
+                                  es["vecs"], es["aux"], es["gph"],
+                                  itopk=32, width=1, max_iter=2, kprime=8,
+                                  degree=40)
 
 
 @pytest.mark.parametrize("integer", [True, False])
@@ -269,3 +326,81 @@ def test_ivf_pq_scan_kernel_byte_codes_and_padding():
         torch.cuda.synchronize()
         assert torch.equal(kv, pv) and torch.equal(ki, pi)
         assert bool((ki[:5] == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("penalty", [False, True])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_graph_expand_kernel_on_card(dtype, metric, penalty):
+    """K5 against its plain version, which adds in the kernel's order:
+    equal values and edge positions on an integer-valued store and on
+    Gaussian queries with real scales, pad edges and penalized edges as
+    (+inf, -1), for k' below and at deg_p."""
+    need_cuda()
+    for integer in (True, False):
+        es = {k: v.cuda() if torch.is_tensor(v) else v
+              for k, v in edge_store(dtype, 11, integer).items()}
+        pen = es["pen"] if penalty else None
+        for kout in (1, 24, 64):
+            args = (es["parents"], es["q"], es["vecs"], es["aux"], kout,
+                    metric, es["degree"], pen)
+            kv, ki = tge.graph_expand(*args)
+            pv, pi = tge.graph_expand_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("penalty", [False, True])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_cagra_fused_kernel_on_card(dtype, metric, penalty):
+    """K6 against its plain version (max_iter edge hops on the plain K5)
+    at width 1 and 3 and k' 1 and 16: equal buffers, ties included, on an
+    integer-valued store and on Gaussian queries with real scales."""
+    need_cuda()
+    for integer, (width, kprime) in ((True, (1, 16)), (True, (3, 16)),
+                                     (True, (2, 1)), (False, (1, 16)),
+                                     (False, (3, 16))):
+        es = {k: v.cuda() if torch.is_tensor(v) else v
+              for k, v in edge_store(dtype, 12, integer).items()}
+        pen = es["pen"] if penalty else None
+        kw = dict(itopk=32, width=width, max_iter=6, kprime=kprime,
+                  degree=es["degree"], metric=metric)
+        args = (es["q"], es["buf_d"], es["buf_i"], es["vecs"], es["aux"],
+                es["gph"], pen)
+        kd, ki, hops, parents = tcf.fused_traverse_kernel(*args, **kw)
+        pd, pi = tcf.fused_traverse_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(kd, pd) and torch.equal(ki, pi)
+        assert int(hops.max()) <= 6 and bool((parents <= hops * width).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+def test_cagra_engines_on_card(metric):
+    """A CAGRA index built on the card: the edge (K5) and fused (K6)
+    engines return equal ids and distances, through K2, K1, K5 and K6;
+    they and the gather engine (bf16 rows, so another traversal) reach
+    recall@10 >= 0.8 against brute force."""
+    need_cuda()
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((4000, 48)).astype(
+        np.float32)).cuda()
+    q = torch.from_numpy(rng.standard_normal((300, 48)).astype(
+        np.float32)).cuda()
+    idx = tcagra.build(x, tcagra.IndexParams(intermediate_graph_degree=48,
+                                             graph_degree=32,
+                                             metric=metric))
+    tcagra.prepare_traversal(idx)
+    sp = tcagra.SearchParams(itopk_size=32, search_width=2)
+    ev, ei = tcagra.search(idx, q, 10, sp, engine="edge")
+    fv, fi = tcagra.search(idx, q, 10, sp, engine="fused")
+    gv, gi = tcagra.search(idx, q, 10, sp, engine="gather")
+    torch.cuda.synchronize()
+    assert torch.equal(ei, fi) and torch.equal(ev, fv)
+    assert bool(((ei >= 0) & (ei < 4000)).all())
+    _, ref = brute_force.search(brute_force.build(x, metric), q, 10)
+    for ids in (ei, gi):
+        assert neighborhood_recall(ids, ref) >= 0.8

@@ -32,7 +32,8 @@ from raft_tpu.ops import filter_policy
 from raft_tpu_torch import convert
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.errors import RaftError
-from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, refine
+from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
+                                      refine)
 from raft_tpu_torch.stats.metrics import neighborhood_recall
 from test_torch_kernels import assert_knn_close
 
@@ -180,6 +181,17 @@ def test_entry_points_raise_without_cuda(data, monkeypatch):
         ivf_pq.build(x, ivf_pq.IndexParams(n_lists=4))
     with pytest.raises(RaftError):
         refine.refine(x, x[:3], np.zeros((3, 4), np.int32), 2)
+    with pytest.raises(RaftError):
+        cagra.build(x, cagra.IndexParams(intermediate_graph_degree=8,
+                                         graph_degree=4))
+    with pytest.raises(RaftError):
+        cagra.build_knn_graph(x, 4)
+    # a search runs where its index lives; the index carried from numpy
+    # (the way to a searchable index besides build) needs the card too
+    with pytest.raises(RaftError):
+        convert.cagra_index_from_numpy(
+            {"dataset": x, "graph": np.zeros((100, 4), np.int32),
+             "metric": "sqeuclidean"})
 
 
 def test_port_imports_no_jax():

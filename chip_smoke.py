@@ -39,7 +39,9 @@ It builds the six CUDA kernels from ``raft_tpu_torch/csrc`` (one
    CUDA-event timed calls after a warm-up, L2 flushed before each), the
    plain version's time, one PyTorch library call's time where one
    computes the same function, and the least time the card could take:
-   the larger of the bytes over 3.35 TB/s and the operations' time, with
+   the larger of the bytes over 3.35 TB/s (each input counted once: K5
+   and K6 read each distinct parent's tile once; K5 is timed on the
+   parents of a mid-traversal hop) and the operations' time, with
    FP32 FLOPs at 67 TFLOP/s (an FMA counts 2) and single adds or
    compares at half that, 33.5 T/s (H100 SXM data sheet).
 
@@ -81,6 +83,7 @@ PQ_DIM, PQ_BITS, K0 = 64, 8, 20   # raft-ann-bench's IVF-PQ setting, d = 128
 CAGRA_D0, CAGRA_DEG, ITOPK = 128, 64, 64
 CAGRA_SP = cagra.SearchParams(itopk_size=ITOPK, search_width=1)
 CAGRA_MIN_RECALL = 0.90
+K5_HOP = 32        # K5 is timed on the parents of this hop (of up to 80)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM, FP32 outside the tensor cores
 FP32_INSTR_PER_S = 33.5e12     # one add, compare or FMA per lane per clock
@@ -366,6 +369,27 @@ def cagra_path(x, q, bi, totals):
     if recall < CAGRA_MIN_RECALL:
         raise AssertionError(f"cagra recall {recall:.4f} < "
                              f"{CAGRA_MIN_RECALL}")
+    # what sets that recall: a wider buffer and a longer walk on the same
+    # graph; and its spread over other covering seed sets and random seed
+    # rows (the seed set's k-means is the build's one part that is not
+    # deterministic on the card)
+    for what, sp in (("itopk 128", dataclasses.replace(CAGRA_SP,
+                                                       itopk_size=128)),
+                     ("160 hops", dataclasses.replace(CAGRA_SP,
+                                                      max_iterations=160))):
+        _, i = cagra.search(cidx, q, K, sp, engine="fused")
+        log(f"cagra fused, {what}: recall@{K} "
+            f"{neighborhood_recall(i, bi):.4f}")
+    base, spread = cidx.seed_nodes, []
+    for s in range(1, 5):
+        cidx.seed_nodes = cagra.build_covering_seeds(
+            x, cagra.IndexParams(seed=s))
+        _, i = cagra.search(cidx, q, K, dataclasses.replace(CAGRA_SP, seed=s),
+                            engine="fused")
+        spread.append(neighborhood_recall(i, bi))
+    cidx.seed_nodes = base
+    log(f"cagra fused recall@{K} with seed sets and seed rows from seeds "
+        f"1-4: {', '.join(f'{r:.4f}' for r in spread)}")
     # the plain gather engine (bf16 rows): a reference line, no kernel of
     # its own
     sp = dataclasses.replace(CAGRA_SP, engine="gather")
@@ -386,14 +410,39 @@ def seeded_buffer(cidx, q):
                               min(ITOPK, 16), ITOPK, CAGRA_SP.seed)
 
 
-def k5_phase(timer, cidx, q, buf_i, launches):
+def walk(cidx, q, buf_d, buf_i):
+    """The path's traversal from the seeded buffer, hop by hop on the
+    plain K5 and select, for what the K5 and K6 bounds need: the parents
+    that hop :data:`K5_HOP` hands K5 (a query whose frontier has closed
+    hands it node 0), the finite parents expanded over all hops and the
+    distinct nodes among them."""
+    st = cidx.edge_store
+    itopk, width, max_iter = cagra._plan_dims(CAGRA_SP, K)
+    explored = torch.zeros(buf_d.shape, dtype=torch.bool, device=q.device)
+    seen = torch.zeros(cidx.size, dtype=torch.bool, device=q.device)
+    n_ok, hop_parents = 0, None
+    for h in range(max_iter):
+        psafe, ok, _ = cf.pick_parents(buf_d, buf_i, explored, width,
+                                       sk.select_k_plain)
+        if h == K5_HOP:
+            hop_parents = psafe.int().contiguous()
+        seen[psafe[ok]] = True
+        n_ok += int(ok.sum())
+        buf_d, buf_i, explored = cf.edge_hop(
+            q, buf_d, buf_i, explored, st.vecs, st.aux, st.gp, width=width,
+            kprime=min(cidx.graph_degree, itopk), degree=st.degree,
+            select=sk.select_k_plain, expand=ge.graph_expand_plain)
+    return hop_parents, n_ok, int(seen.sum())
+
+
+def k5_phase(timer, cidx, q, parents, launches):
     st = cidx.edge_store
     kp = min(cidx.graph_degree, ITOPK)
-    parents = buf_i[:, :1].contiguous()     # each query's first-hop parent
     path = (parents, q, st.vecs, st.aux, kp, "l2", st.degree)
     err = check_equal(ge.graph_expand_plain(*path), ge.graph_expand(*path),
-                      f"K5 graph_expand int8 store ({M} parents x "
-                      f"{st.degree} edges x {D}) k'={kp}, the path's data")
+                      f"K5 graph_expand int8 store ({M} parents of hop "
+                      f"{K5_HOP} x {st.degree} edges x {D}) k'={kp}, the "
+                      "path's data")
     # the parents' own nodes as a small store: bf16 rows, and an
     # integer-valued copy (int8 codes with unit scales, rounded queries)
     sub, remap = torch.unique(parents.long(), return_inverse=True)
@@ -422,18 +471,22 @@ def k5_phase(timer, cidx, q, buf_i, launches):
     ms = timer(lambda: ge.graph_expand_kernel(*path))
     plain = timer(lambda: ge.graph_expand_plain(*path), reps=3, warmup=0)
     deg_p, dim_p = st.deg_p, st.dim_p
-    b, by = bound(M * (deg_p * dim_p + 2 * deg_p * 4 + dim_p * 4 + 4)
-                  + M * kp * 8, 2.0 * M * st.degree * D)
+    # each distinct parent's tile and aux row once; per pair its query,
+    # parent id and k' outputs
+    b, by = bound(len(sub) * (deg_p * dim_p + 2 * deg_p * 4)
+                  + M * (dim_p * 4 + 4 + kp * 8), 2.0 * M * st.degree * D)
+    log(f"  K5 at hop {K5_HOP}: {M} pairs over {len(sub)} distinct parents")
     return dict(name="graph_expand", route="cuda",
                 source="raft_tpu_torch/csrc/graph_expand.cu",
                 replaces="raft_tpu/ops/graph_expand.py:261",
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
                 bound_ms=b, bound_by=by, library_ms=None,
-                shape=f"{M} (query, parent) pairs, int8 tiles "
-                      f"{deg_p} x {dim_p}, k'={kp}")
+                distinct_parents=len(sub),
+                shape=f"{M} (query, parent) pairs of hop {K5_HOP}, int8 "
+                      f"tiles {deg_p} x {dim_p}, k'={kp}")
 
 
-def k6_phase(timer, cidx, q, buf_d, buf_i, launches):
+def k6_phase(timer, cidx, q, buf_d, buf_i, walked, launches):
     st = cidx.edge_store
     itopk, width, max_iter = cagra._plan_dims(CAGRA_SP, K)
     kw = dict(itopk=itopk, width=width, max_iter=max_iter,
@@ -467,19 +520,27 @@ def k6_phase(timer, cidx, q, buf_d, buf_i, launches):
     plain = timer(lambda: cf.fused_traverse_plain(*path, **kw), reps=1,
                   warmup=0)
     n_par = int(parents.sum())
+    n_ok, distinct = walked
+    if n_ok != n_par:
+        raise AssertionError(f"K6 expanded {n_par} parents, the plain hop "
+                             f"loop {n_ok}")
     mean_hops = float(hops.float().mean())
     deg_p, dim_p = st.deg_p, st.dim_p
-    b, by = bound(n_par * (deg_p * dim_p + 2 * deg_p * 4 + deg_p * 4)
+    # each distinct expanded node's tile, aux row and graph row once (a
+    # node that several queries expand is read once); the queries and the
+    # buffers in and out; the scoring of every (query, parent) pair
+    b, by = bound(distinct * (deg_p * dim_p + 2 * deg_p * 4 + deg_p * 4)
                   + M * dim_p * 4 + 2 * M * itopk * 8,
                   2.0 * n_par * st.degree * D)
     log(f"  K6 took {mean_hops:.2f} hops per query on average (max "
-        f"{int(hops.max())} of {max_iter}), {n_par} parent tiles in all")
+        f"{int(hops.max())} of {max_iter}), {n_par} parents expanded, "
+        f"{distinct} distinct")
     return dict(name="cagra_fused", route="cuda",
                 source="raft_tpu_torch/csrc/cagra_fused.cu",
                 replaces="raft_tpu/ops/cagra_fused.py:285",
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
                 bound_ms=b, bound_by=by, library_ms=None,
-                mean_hops=mean_hops,
+                mean_hops=mean_hops, parents=n_par, distinct_parents=distinct,
                 shape=f"{M} queries, itopk {itopk}, width {width}, "
                       f"{max_iter} hops max, int8 tiles {deg_p} x {dim_p}")
 
@@ -697,8 +758,10 @@ def main() -> int:
                k4_phase(timer, pidx, q, moved["ivf_pq_scan"])]
     del iidx, pidx
     buf_d, buf_i = seeded_buffer(cidx, q)
-    kernels += [k5_phase(timer, cidx, q, buf_i, moved["graph_expand"]),
-                k6_phase(timer, cidx, q, buf_d, buf_i, moved["cagra_fused"])]
+    hop_parents, *walked = walk(cidx, q, buf_d, buf_i)
+    kernels += [k5_phase(timer, cidx, q, hop_parents, moved["graph_expand"]),
+                k6_phase(timer, cidx, q, buf_d, buf_i, walked,
+                         moved["cagra_fused"])]
     for kern in kernels:
         lib = kern["library_ms"]
         log(f"{kern['name']} [{kern['shape']}]: kernel_ms={kern['ms']:.3f} "

@@ -19,8 +19,10 @@ from pathlib import Path
 
 from ..core.errors import RaftError
 
-__all__ = ["SOURCES", "build", "library", "check", "stream_of"]
+__all__ = ["SOURCES", "SMEM_PER_BLOCK", "build", "library", "check",
+           "stream_of"]
 
+SMEM_PER_BLOCK = 232_448   # bytes of shared memory one block may use (sm_90)
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("select_k", "fused_knn", "ivf_flat_scan", "ivf_pq_scan",

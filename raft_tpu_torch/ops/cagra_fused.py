@@ -41,7 +41,6 @@ __all__ = ["fused_traverse", "fused_traverse_plain", "fused_traverse_kernel",
 launches = 0   # K6 launches since the last reset
 
 _METRIC_CODE = {"l2": 0, "ip": 1}
-_SMEM_LIMIT = 232_448             # bytes of shared memory a block can use
 _INF = float("inf")
 
 
@@ -95,12 +94,11 @@ def merge_candidates(buf_d, buf_i, explored, cand, cd, cand_ok, select):
 
 def edge_hop(queries, buf_d, buf_i, explored, vecs, aux, gph, pen=None, *,
              width: int, kprime: int, degree: int, metric: str = "l2",
-             plain: bool = False):
-    """One hop of the edge engine → (buf_d, buf_i, explored).
-    ``plain``: the plain K5 and the plain select instead of K5 and K1
-    (they compute the same values, so the result is the same)."""
-    select = select_k_plain if plain else select_k
-    expand = graph_expand_plain if plain else graph_expand
+             select: Callable = select_k, expand: Callable = graph_expand):
+    """One hop of the edge engine → (buf_d, buf_i, explored). ``select``
+    and ``expand`` default to the dispatching K1 and K5 wrappers; the
+    plain K6 passes their plain versions (the same values, so the same
+    result)."""
     m = buf_d.shape[0]
     psafe, parent_ok, explored = pick_parents(buf_d, buf_i, explored, width,
                                               select)
@@ -132,7 +130,7 @@ def fused_traverse_plain(queries, buf_d, buf_i, vecs, aux, gph, pen=None, *,
         buf_d, buf_i, explored = edge_hop(
             queries, buf_d, buf_i, explored, vecs, aux, gph, pen,
             width=width, kprime=kprime, degree=degree, metric=metric,
-            plain=True)
+            select=select_k_plain, expand=graph_expand_plain)
     return buf_d, buf_i
 
 
@@ -174,9 +172,9 @@ def fused_traverse_kernel(queries, buf_d, buf_i, vecs, aux, gph, pen=None,
             "pen must be a contiguous float32 (n, deg_p) tensor")
     lib = _cuda.library("cagra_fused")
     smem = lib.raft_cagra_fused_smem(itopk, width, kprime, deg_p, dim_p)
-    expects(smem <= _SMEM_LIMIT, "cagra_fused needs %d bytes of shared "
-            "memory (itopk %d, width %d, k' %d), above the card's %d", smem,
-            itopk, width, kprime, _SMEM_LIMIT)
+    expects(smem <= _cuda.SMEM_PER_BLOCK, "cagra_fused needs %d bytes of "
+            "shared memory (itopk %d, width %d, k' %d), above the card's %d",
+            smem, itopk, width, kprime, _cuda.SMEM_PER_BLOCK)
     q = pad_queries(queries.to(dev), dim_p)
     bd = buf_d.to(device=dev, dtype=torch.float32).contiguous()
     bi = buf_i.to(device=dev, dtype=torch.int32).contiguous()

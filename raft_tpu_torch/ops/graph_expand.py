@@ -41,7 +41,6 @@ launches = 0   # K5 launches since the last reset
 _METRIC_CODE = {"l2": 0, "ip": 1}
 _STORE_DTYPES = (torch.int8, torch.bfloat16)
 _KERNEL_WARPS = 4                 # warps (pairs) per block in the kernel
-_SMEM_LIMIT = 232_448             # bytes of shared memory a block can use
 
 
 def check_mode(mode: str) -> None:
@@ -150,8 +149,8 @@ def graph_expand_kernel(parents: torch.Tensor, queries: torch.Tensor,
                             and pen.device == vecs.device),
             "pen must be a contiguous float32 (n, deg_p) tensor")
     smem = _KERNEL_WARPS * (dim_p + deg_p) * 4
-    expects(smem <= _SMEM_LIMIT, "graph_expand needs %d bytes of shared "
-            "memory, above the card's %d", smem, _SMEM_LIMIT)
+    expects(smem <= _cuda.SMEM_PER_BLOCK, "graph_expand needs %d bytes of "
+            "shared memory, above the card's %d", smem, _cuda.SMEM_PER_BLOCK)
     m, width = parents.shape
     q = pad_queries(queries.to(vecs.device), dim_p)
     pids = parents.to(device=vecs.device, dtype=torch.int32).clamp(

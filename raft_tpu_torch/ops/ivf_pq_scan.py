@@ -54,7 +54,6 @@ _METRIC_CODE = {"l2": 0, "ip": 1}
 _LUT_MODES = ("f32", "bf16", "int8")
 _INF = float("inf")
 _THREADS = 256                 # rows per tile = threads of a K4 block
-_MAX_SMEM_BYTES = 232_448      # shared memory one block may use (H100)
 
 
 def pq_chunk_rows(pq_dim: int, book: int,
@@ -219,10 +218,10 @@ def ivf_pq_scan_candidates(codes: torch.Tensor, dn: torch.Tensor,
     expects(0 < k <= 1024, "k=%d out of range (max 1024)", k)
     expects(metric in _METRIC_CODE, "unknown metric %s", metric)
     smem = _scan_smem_bytes(pq_dim, book, rot_dim, k)
-    expects(smem <= _MAX_SMEM_BYTES,
+    expects(smem <= _cuda.SMEM_PER_BLOCK,
             "ivf_pq_scan kernel needs %d bytes of shared memory for a "
             "pq_dim=%d x book=%d LUT and k=%d (max %d)", smem, pq_dim, book,
-            k, _MAX_SMEM_BYTES)
+            k, _cuda.SMEM_PER_BLOCK)
     for t in (dn, penalty, cb_mode, centers_rot, q):
         if t is not None:
             expects(t.dtype == torch.float32 and t.is_contiguous()

@@ -33,7 +33,9 @@ from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.errors import RaftError
 from raft_tpu_torch.neighbors import cagra
 from raft_tpu_torch.stats.metrics import neighborhood_recall
-from test_torch_kernels import assert_knn_close
+from test_torch_kernels import (ENGINE_TEST_BUILD, ENGINE_TEST_FLOOR,
+                                ENGINE_TEST_SEARCH, assert_knn_close,
+                                engine_test_data)
 
 torch.set_num_threads(1)
 
@@ -211,3 +213,30 @@ def test_search_matches_jax_filtered(data, jax_index, jax_seeds, engine,
                                   engine, cdtype, keep)
     assert_knn_close(jd, ji, td, ti)
     assert keep[ti[ti >= 0]].all()
+
+
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+def test_engine_test_data_recall(metric):
+    """The data and plans of ``test_torch_kernels.py::
+    test_cagra_engines_on_card``, built and searched here: the port's
+    edge engine (the plain K5, which the card's K5 and K6 equal) and the
+    JAX package's gather engine clear that test's floor by >= 0.02, and
+    the port stays within 0.02 of JAX."""
+    x, q = engine_test_data()
+    _, ref = naive_knn(x, q, 10, metric)
+    ref = torch.from_numpy(ref)
+    tidx = cagra.build(x, cagra.IndexParams(metric=metric,
+                                            **ENGINE_TEST_BUILD),
+                       device="cpu")
+    _, ti = cagra.search(tidx, q, 10, cagra.SearchParams(
+        **ENGINE_TEST_SEARCH), engine="edge")
+    jidx = jcagra.build(x, jcagra.IndexParams(metric=metric, seed=0,
+                                              **ENGINE_TEST_BUILD))
+    _, ji = jcagra.search(jidx, jnp.asarray(q), 10, jcagra.SearchParams(
+        **ENGINE_TEST_SEARCH), engine="gather")
+    trec = neighborhood_recall(ti, ref)
+    jrec = neighborhood_recall(torch.from_numpy(np.array(ji)), ref)
+    print(f"engine test data, {metric}: port edge recall@10 {trec:.4f}, "
+          f"JAX gather {jrec:.4f}")
+    assert jrec >= ENGINE_TEST_FLOOR + 0.02
+    assert trec >= max(ENGINE_TEST_FLOOR + 0.02, jrec - 0.02)

@@ -377,24 +377,38 @@ def test_cagra_fused_kernel_on_card(dtype, metric, penalty):
         assert int(hops.max()) <= 6 and bool((parents <= hops * width).all())
 
 
+# the CAGRA engine test's data and plans, shared with the CPU test that
+# reads the recall its floor rests on (test_torch_cagra.py)
+ENGINE_TEST_BUILD = dict(intermediate_graph_degree=48, graph_degree=32)
+ENGINE_TEST_SEARCH = dict(itopk_size=32, search_width=2)
+ENGINE_TEST_FLOOR = 0.9
+
+
+def engine_test_data():
+    """(4000, 48) rows and (300, 48) queries, Gaussian, from seed 13."""
+    rng = np.random.default_rng(13)
+    return (rng.standard_normal((4000, 48)).astype(np.float32),
+            rng.standard_normal((300, 48)).astype(np.float32))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
 def test_cagra_engines_on_card(metric):
     """A CAGRA index built on the card: the edge (K5) and fused (K6)
     engines return equal ids and distances, through K2, K1, K5 and K6;
     they and the gather engine (bf16 rows, so another traversal) reach
-    recall@10 >= 0.8 against brute force."""
+    recall@10 >= ENGINE_TEST_FLOOR against brute force.
+    ``test_torch_cagra.py::test_engine_test_data_recall`` holds the CPU
+    build of this data (the plain K5, equal to the kernel) and the JAX
+    package's gather engine above the floor with room to spare: the floor
+    leaves room for the card's own build (k-means seeds with atomic
+    adds), not for a wrong traversal."""
     need_cuda()
-    rng = np.random.default_rng(13)
-    x = torch.from_numpy(rng.standard_normal((4000, 48)).astype(
-        np.float32)).cuda()
-    q = torch.from_numpy(rng.standard_normal((300, 48)).astype(
-        np.float32)).cuda()
-    idx = tcagra.build(x, tcagra.IndexParams(intermediate_graph_degree=48,
-                                             graph_degree=32,
-                                             metric=metric))
+    x, q = (torch.from_numpy(a).cuda() for a in engine_test_data())
+    idx = tcagra.build(x, tcagra.IndexParams(metric=metric,
+                                             **ENGINE_TEST_BUILD))
     tcagra.prepare_traversal(idx)
-    sp = tcagra.SearchParams(itopk_size=32, search_width=2)
+    sp = tcagra.SearchParams(**ENGINE_TEST_SEARCH)
     ev, ei = tcagra.search(idx, q, 10, sp, engine="edge")
     fv, fi = tcagra.search(idx, q, 10, sp, engine="fused")
     gv, gi = tcagra.search(idx, q, 10, sp, engine="gather")
@@ -403,4 +417,4 @@ def test_cagra_engines_on_card(metric):
     assert bool(((ei >= 0) & (ei < 4000)).all())
     _, ref = brute_force.search(brute_force.build(x, metric), q, 10)
     for ids in (ei, gi):
-        assert neighborhood_recall(ids, ref) >= 0.8
+        assert neighborhood_recall(ids, ref) >= ENGINE_TEST_FLOOR

@@ -6,10 +6,10 @@ toolkit (``nvcc``) and PyTorch built for CUDA::
 
     python3 chip_smoke.py
 
-It builds the six CUDA kernels from ``raft_tpu_torch/csrc`` (one
+It builds the eight CUDA kernels from ``raft_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once, into ``build/kernels/``), then:
 
-1. path: four paths through the public entry points at SIFT-1M's shape —
+1. path: the paths through the public entry points at SIFT-1M's shape —
    1,000,000 x 128 float32 rows and 10,000 queries in 1,000 overlapping
    Gaussian clusters (unit-normal centers, per-cluster spread 1.0-1.6:
    the clusters overlap, so true neighbors cross list boundaries and
@@ -25,17 +25,30 @@ It builds the six CUDA kernels from ``raft_tpu_torch/csrc`` (one
      64, covering seed set), the int8 edge store, and search (itopk 64,
      width 1, 80 hops) with the edge engine (K5 per hop) and the fused
      engine (K6); the plain gather engine is timed as a reference line.
+   - sharded search over 4 shards on the one card (the cross-card links
+     a multi-card deployment would use are replaced by the card's own
+     memory): brute force (250,000 rows a shard), IVF-Flat and IVF-PQ
+     with the single-card path's per-shard parameters, each searched
+     with the allgather (K1), ring (K7 a hop) and ring_pallas (K8)
+     merges, which must return the same ids and distances on every
+     shard; the ring must launch K7 p·(p−1) times a merge and
+     ring_pallas K8 once.
    Each path runs with every launch counter set to 0 just before it, and
    fails if a kernel of the path did not launch. Checks: IVF-Flat
    recall@10 against the brute-force answer >= 0.90, IVF-PQ refined
    recall@10 >= 0.85, CAGRA recall@10 >= 0.90 with the edge and fused
-   engines equal in ids and distances, the brute-force answer and the
-   refined distances against numpy on a few queries;
+   engines equal in ids and distances, sharded IVF-Flat and IVF-PQ
+   (raw) recall@10 >= 0.93 and >= 0.80, the sharded brute-force answer
+   against the single card's (recall >= 0.99; the share of equal rows is
+   printed), the brute-force answer and the refined distances against
+   numpy on a few queries;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the path's shapes (K4 also on an integer-valued copy of the IVF-PQ
    index, K5 and K6 on the path's data, where they must be equal, and on
-   integer-valued copies; K5 also on a bf16 store), with the kernel's
-   time (median of
+   integer-valued copies; K5 also on a bf16 store; K7 and K8, which must
+   be equal, on the path's candidates and on integer-valued lists with
+   cross-shard ties and a dead shard, at the path's k = 10 and at
+   k = 100, K8 also at p = 8), with the kernel's time (median of
    CUDA-event timed calls after a warm-up, L2 flushed before each), the
    plain version's time, one PyTorch library call's time where one
    computes the same function, and the least time the card could take:
@@ -43,7 +56,10 @@ It builds the six CUDA kernels from ``raft_tpu_torch/csrc`` (one
    and K6 read each distinct parent's tile once; K5 is timed on the
    parents of a mid-traversal hop) and the operations' time, with
    FP32 FLOPs at 67 TFLOP/s (an FMA counts 2) and single adds or
-   compares at half that, 33.5 T/s (H100 SXM data sheet).
+   compares at half that, 33.5 T/s (H100 SXM data sheet); K7's bound
+   counts one compare a cell in, K8's reads each shard's input and
+   writes its output once and counts a merge's p·k·log2(p) compares a
+   row. The sharded merge alone is timed per engine at k = 10 and 100.
 
 Prints progress lines, then a ``{"kernels": [...]}`` line, the card's name
 and power limit as ``nvidia-smi`` gives them, and last
@@ -63,6 +79,7 @@ import time
 import numpy as np
 import torch
 
+from raft_tpu_torch.comms import Mesh
 from raft_tpu_torch.matrix import select_k as sk
 from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
                                       refine)
@@ -72,6 +89,8 @@ from raft_tpu_torch.ops import fused_knn as fk
 from raft_tpu_torch.ops import graph_expand as ge
 from raft_tpu_torch.ops import ivf_pq_scan as ipq
 from raft_tpu_torch.ops import ivf_scan as iscan
+from raft_tpu_torch.ops import ring_topk as rt
+from raft_tpu_torch.parallel import sharded_ann, sharded_knn
 from raft_tpu_torch.stats.metrics import neighborhood_recall
 
 SEED = 0
@@ -84,13 +103,27 @@ CAGRA_D0, CAGRA_DEG, ITOPK = 128, 64, 64
 CAGRA_SP = cagra.SearchParams(itopk_size=ITOPK, search_width=1)
 CAGRA_MIN_RECALL = 0.90
 K5_HOP = 32        # K5 is timed on the parents of this hop (of up to 80)
+P_SHARDS = 4       # the sharded paths: 4 shards on the one card
+# sharded recall@10 floors, set under the first reading on the card
+# (H100, 700 W): IVF-Flat 0.9475, IVF-PQ (raw, no refine) 0.8208
+SHARD_MIN_RECALL = {"ivf_flat": 0.93, "ivf_pq": 0.80}
+RING_K = 100       # K7 and K8 are also timed at this k (the path's is K)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM, FP32 outside the tensor cores
 FP32_INSTR_PER_S = 33.5e12     # one add, compare or FMA per lane per clock
 RTOL = 1e-5                    # float32 sums in another order
 
-_COUNTERS = {"select_k": sk, "fused_knn": fk, "ivf_flat_scan": iscan,
-             "ivf_pq_scan": ipq, "graph_expand": ge, "cagra_fused": cf}
+# kernel name -> (wrapper module, its launch counter)
+_COUNTERS = {"select_k": (sk, "launches"), "fused_knn": (fk, "launches"),
+             "ivf_flat_scan": (iscan, "launches"),
+             "ivf_pq_scan": (ipq, "launches"),
+             "graph_expand": (ge, "launches"),
+             "cagra_fused": (cf, "launches"),
+             "merge_step": (rt, "merge_step_launches"),
+             "ring_topk": (rt, "ring_launches")}
+# the kernels each sharded merge engine launches on one card
+_MERGE_KERNELS = {"allgather": ("select_k",), "ring": ("merge_step",),
+                  "ring_pallas": ("ring_topk",)}
 
 
 def log(msg: str) -> None:
@@ -98,12 +131,13 @@ def log(msg: str) -> None:
 
 
 def reset_counts() -> None:
-    for mod in _COUNTERS.values():
-        mod.launches = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def counts() -> dict:
-    return {name: mod.launches for name, mod in _COUNTERS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in
+            _COUNTERS.items()}
 
 
 def smi_line() -> str:
@@ -305,6 +339,7 @@ def path_phase(x, q):
     if refined < 0.85:
         raise AssertionError(f"ivf_pq refined recall {refined:.4f} < 0.85")
     cidx = cagra_path(x, q, bi, totals)
+    sidx = sharded_paths(x, q, bv, bi, totals)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         " GiB")
 
@@ -322,7 +357,7 @@ def path_phase(x, q):
                 torch.gather(pi[:16].cpu(), 1, torch.from_numpy(order)),
                 rv[:16].cpu(), ri[:16].cpu(),
                 "refine vs numpy float64 (16 queries)")
-    return bidx, iidx, pidx, cidx, totals
+    return bidx, iidx, pidx, cidx, sidx, totals
 
 
 def cagra_path(x, q, bi, totals):
@@ -400,6 +435,262 @@ def cagra_path(x, q, bi, totals):
         f"steady {t * 1e3:.1f} ms, {M / t:.0f} QPS, recall@{K} "
         f"{neighborhood_recall(gi, bi):.4f}")
     return cidx
+
+
+def sharded_run(name: str, eng: str, kernels, fn, totals: dict, merges: int):
+    """One sharded path with one merge engine (:func:`run_path`), then the
+    merge kernels' counts: K7 p·(p−1) times a ``ring`` merge, K8 once a
+    ``ring_pallas`` merge, neither under ``allgather``."""
+    out = run_path(f"{name} ({eng})", tuple(kernels) + _MERGE_KERNELS[eng],
+                   fn, totals)
+    moved = counts()
+    want = {"merge_step": merges * P_SHARDS * (P_SHARDS - 1)
+            if eng == "ring" else 0,
+            "ring_topk": merges if eng == "ring_pallas" else 0}
+    got = {kern: moved[kern] for kern in want}
+    if got != want:
+        raise AssertionError(f"{name} ({eng}): merge launches {got}, "
+                             f"expected {want}")
+    return out
+
+
+def merged_copies(fn):
+    """Run ``fn`` with ``ring_topk.merge`` recording what it returns → the
+    last merge's copies, one per shard: (distances per shard, ids per
+    shard). A sharded search returns the first shard's copy only."""
+    seen, merge = [], rt.merge
+
+    def tap(*args, **kwargs):
+        seen.append(merge(*args, **kwargs))
+        return seen[-1]
+
+    rt.merge = tap
+    try:
+        fn()
+    finally:
+        rt.merge = merge
+    return seen[-1]
+
+
+def check_engines(name: str, results: dict):
+    """Every engine's merged copies, on every shard, equal → (d, ids)."""
+    ref_d, ref_i = results["allgather"][0][0], results["allgather"][1][0]
+    for eng, (ds, gs) in results.items():
+        for d, g in zip(ds, gs):
+            if not (torch.equal(d, ref_d) and torch.equal(g, ref_i)):
+                raise AssertionError(f"{name}: the {eng} merge differs")
+    log(f"{name}: the {len(results)} merge engines equal, and every "
+        f"shard's copy")
+    return ref_d, ref_i
+
+
+def sharded_paths(x, q, bv, bi, totals):
+    """The sharded paths over 4 shards on the first card, each merge
+    engine in turn: brute force (250,000 rows a shard), IVF-Flat and
+    IVF-PQ with the single-card path's per-shard parameters."""
+    mesh = Mesh([torch.device("cuda", 0)] * P_SHARDS)
+    sidx, t_build = host_time(lambda: sharded_knn.build(x, mesh))
+    log(f"sharded brute force: {P_SHARDS} shards of {sidx.shard_rows} rows "
+        f"on one card, build {t_build:.3f} s")
+    res = {}
+    for eng in rt.ENGINES:
+        def bf():
+            run = lambda: merged_copies(  # noqa: E731
+                lambda: sharded_knn.search(sidx, q, K, merge_engine=eng))
+            r, t_first = host_time(run)
+            r, t = host_time(run)
+            log(f"sharded brute force ({eng}): search(k={K}) first "
+                f"{t_first * 1e3:.1f} ms, steady {t * 1e3:.1f} ms, "
+                f"{M / t:.0f} QPS")
+            return r
+        res[eng] = sharded_run("sharded brute force", eng,
+                               ("fused_knn", "select_k"), bf, totals, 2)
+    sd, si = check_engines("sharded brute force", res)
+    check_knn("sharded brute force", sd, si, K)
+    rows_eq = float((si == bi).all(dim=1).float().mean())
+    err = float((sd - bv).abs().max())
+    recall = neighborhood_recall(si, bi)
+    log(f"sharded brute force vs the single card: ids equal on "
+        f"{rows_eq:.6f} of rows, recall@{K} {recall:.6f}, max |d - d_1| "
+        f"{err:.3g}")
+    if recall < 0.99:
+        raise AssertionError(f"sharded brute force recall {recall:.4f}")
+    timer = Timer()
+    for k in (K, RING_K):
+        ds, gs = sharded_knn.shard_candidates(sidx, q, k)
+        for eng in rt.ENGINES:
+            ms = timer(lambda: rt.merge(ds, gs, k, True, mesh, engine=eng))
+            log(f"sharded merge alone ({eng}, {P_SHARDS} x ({M}, {k})): "
+                f"{ms:.3f} ms")
+    del timer
+
+    fams = (
+        ("ivf_flat", lambda: sharded_ann.build_ivf_flat(
+            x, mesh, ivf_flat.IndexParams(n_lists=N_LISTS, seed=SEED)),
+         lambda idx, eng: sharded_ann.search_ivf_flat(
+             idx, q, K, ivf_flat.SearchParams(n_probes=N_PROBES),
+             merge_engine=eng), "ivf_flat_scan"),
+        ("ivf_pq", lambda: sharded_ann.build_ivf_pq(
+            x, mesh, ivf_pq.IndexParams(n_lists=N_LISTS, pq_dim=PQ_DIM,
+                                        pq_bits=PQ_BITS, seed=SEED)),
+         lambda idx, eng: sharded_ann.search_ivf_pq(
+             idx, q, K, ivf_pq.SearchParams(n_probes=N_PROBES),
+             merge_engine=eng), "ivf_pq_scan"))
+    for fam, build, search, scan in fams:
+        res, idx = {}, None
+        for eng in rt.ENGINES:
+            def path():
+                nonlocal idx
+                if idx is None:                # built in the first run
+                    idx, t_b = host_time(build)
+                    sizes = np.concatenate([s.list_sizes
+                                            for s in idx.shards])
+                    log(f"sharded {fam}: build {t_b:.3f} s over "
+                        f"{P_SHARDS} shards (list sizes min {sizes.min()} "
+                        f"median {int(np.median(sizes))} max "
+                        f"{sizes.max()})")
+                run = lambda: merged_copies(  # noqa: E731
+                    lambda: search(idx, eng))
+                r, t_first = host_time(run)
+                r, t = host_time(run)
+                log(f"sharded {fam} ({eng}): search(n_probes={N_PROBES}, "
+                    f"k={K}{', bf16 LUT' if fam == 'ivf_pq' else ''}) "
+                    f"first {t_first * 1e3:.1f} ms, steady "
+                    f"{t * 1e3:.1f} ms, {M / t:.0f} QPS")
+                return r
+            res[eng] = sharded_run(f"sharded {fam}", eng, (scan, "select_k"),
+                                   path, totals, 2)
+        del idx
+        fd, fi = check_engines(f"sharded {fam}", res)
+        check_knn(f"sharded {fam}", fd, fi, K)
+        recall = neighborhood_recall(fi, bi)
+        log(f"sharded {fam} recall@{K} vs brute force: {recall:.4f}")
+        if recall < SHARD_MIN_RECALL[fam]:
+            raise AssertionError(f"sharded {fam} recall {recall:.4f} < "
+                                 f"{SHARD_MIN_RECALL[fam]}")
+    return sidx
+
+
+def int_lists(p, k, seed):
+    """p >= 3 shards' (M, k) integer-valued lists on the card: sorted rows,
+    shard 1 a copy of shard 0's values (cross-shard ties), shard 2 dead
+    (+inf, -1)."""
+    rng = np.random.default_rng(seed)
+    d = np.sort(rng.integers(0, 40, (p, M, k)), axis=-1).astype(np.float32)
+    d[1] = d[0]
+    gid = rng.integers(0, N, (p, M, k)).astype(np.int32)
+    d[2], gid[2] = np.inf, -1
+    return ([torch.from_numpy(d[r]).cuda() for r in range(p)],
+            [torch.from_numpy(gid[r]).cuda() for r in range(p)])
+
+
+def k7_phase(timer, sidx, q, launches):
+    """K7 on shard 0's hop-0 fold of the path's candidates (its own list,
+    then shard p−1's block at positions (p−1)·k + j), at the path's k and
+    at k = RING_K; and on integer-valued lists with ties."""
+    p = sidx.n_shards
+    out = {}
+    for k in (K, RING_K):
+        ds, gs = sharded_knn.shard_candidates(sidx, q, k)
+        slot = torch.arange(k, dtype=torch.int32, device=q.device).repeat(M, 1)
+        args = (ds[0], slot, gs[0], ds[-1], (p - 1) * k + slot, gs[-1])
+        err = check_equal(rt.merge_step_plain(*args, k),
+                          rt.merge_step(*args, k),
+                          f"K7 merge_step ({M}, {k}) + ({M}, {k}) -> k={k}, "
+                          "the path's candidates")
+        di, gi = int_lists(3, k, SEED + 7)
+        for sel in (True, False):
+            a = (di[0] if sel else -di[0], slot, gi[0],
+                 di[1] if sel else -di[1], k + slot, gi[1])
+            check_equal(rt.merge_step_plain(*a, k, sel),
+                        rt.merge_step(*a, k, sel),
+                        f"K7 merge_step integer-valued, equal lists, "
+                        f"select_min={sel} (k={k})")
+        cat = torch.cat([args[0], args[3]], dim=1)
+        ms = timer(lambda: rt.merge_step(*args, k))
+        plain = timer(lambda: rt.merge_step_plain(*args, k))
+        lib = timer(lambda: torch.topk(cat, k, dim=1, largest=False))
+        w = 2 * k
+        # 12 B a cell in and out; at least one compare a cell in
+        b, by = bound(M * w * 12 + M * k * 12, 0.0, float(M) * w)
+        out[k] = dict(err=err, ms=ms, plain=plain, lib=lib, bound=b, by=by)
+        log(f"  K7 at k={k}: {ms:.4f} ms (plain {plain:.3f}, torch.topk "
+            f"{lib:.4f}, bound {b:.4f} by {by})")
+    r = out[K]
+    return dict(name="merge_step", route="cuda",
+                source="raft_tpu_torch/csrc/ring_topk.cu",
+                replaces="raft_tpu/ops/ring_topk.py:320", launches=launches,
+                max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain"],
+                bound_ms=r["bound"], bound_by=r["by"], library_ms=r["lib"],
+                **{f"k{RING_K}_{key}": out[RING_K][key2]
+                   for key, key2 in (("ms", "ms"), ("plain_ms", "plain"),
+                                     ("library_ms", "lib"),
+                                     ("bound_ms", "bound"))},
+                shape=f"({M}, {K}) + ({M}, {K}) -> k={K}")
+
+
+def k8_phase(timer, x, sidx, q, launches):
+    """K8 over the path's candidates at p = 4 and over an 8-shard split of
+    the same corpus, at the path's k and at k = RING_K; and on
+    integer-valued lists with ties and a dead shard."""
+    sidx8 = sharded_knn.build(x, Mesh([torch.device("cuda", 0)] * 8))
+    out = {}
+    for idx in (sidx, sidx8):
+        p, mesh = idx.n_shards, idx.mesh
+        for k in (K, RING_K):
+            ds, gs = sharded_knn.shard_candidates(idx, q, k)
+            got = rt.ring_topk(ds, gs, k, True, mesh)
+            err = check_equal(
+                [torch.cat(t) for t in rt.ring_topk_plain(ds, gs, k, True,
+                                                          mesh)],
+                [torch.cat(t) for t in got],
+                f"K8 ring_topk p={p} ({M}, {k}), the path's candidates")
+            ref = brute_force.knn_merge_parts(torch.stack(ds),
+                                              torch.stack(gs))
+            if not all(torch.equal(a, ref[0]) for a in got[0]) or not all(
+                    torch.equal(a, ref[1]) for a in got[1]):
+                raise AssertionError("K8 differs from knn_merge_parts")
+            di, gi = int_lists(p, k, SEED + 8)
+            for sel in (True, False):
+                di_s = di if sel else [-d for d in di]
+                check_equal(
+                    [torch.cat(t) for t in rt.ring_topk_plain(di_s, gi, k,
+                                                              sel, mesh)],
+                    [torch.cat(t) for t in rt.ring_topk(di_s, gi, k, sel,
+                                                        mesh)],
+                    f"K8 ring_topk p={p} integer-valued, ties and a dead "
+                    f"shard, select_min={sel} (k={k})")
+            status = []
+            ms = timer(lambda: status.extend(
+                rt.ring_topk_kernel(ds, gs, k, True, mesh)[1]))
+            if any(int(s.item()) for s in status):
+                raise AssertionError("K8: a ring wait timed out")
+            plain = timer(lambda: rt.ring_topk_plain(ds, gs, k, True, mesh),
+                          reps=3)
+            cat = torch.stack(ds, dim=1).reshape(M, p * k)
+            lib = timer(lambda: torch.topk(cat, k, dim=1, largest=False))
+            # each shard's input read once and its output written once;
+            # a merge of p lists compares each of the p·k cells of a row
+            # log2(p) times (the slots a hop and the rank fold's (2k)²
+            # compares are K8's design, not the merge's)
+            b, by = bound(2 * p * M * k * 8, 0.0,
+                          float(p) * M * k * np.log2(p))
+            out[p, k] = dict(err=err, ms=ms, plain=plain, lib=lib, bound=b,
+                             by=by)
+            log(f"  K8 at p={p}, k={k}: {ms:.4f} ms (plain {plain:.3f}, "
+                f"torch.topk {lib:.4f}, bound {b:.4f} by {by})")
+    r = out[P_SHARDS, K]
+    extra = {f"p{p}_k{k}_{key}": v[key2] for (p, k), v in out.items()
+             if (p, k) != (P_SHARDS, K)
+             for key, key2 in (("ms", "ms"), ("plain_ms", "plain"),
+                               ("library_ms", "lib"), ("bound_ms", "bound"))}
+    return dict(name="ring_topk", route="cuda",
+                source="raft_tpu_torch/csrc/ring_topk.cu",
+                replaces="raft_tpu/ops/ring_topk.py:416", launches=launches,
+                max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain"],
+                bound_ms=r["bound"], bound_by=r["by"], library_ms=r["lib"],
+                shape=f"p={P_SHARDS} shards on one card x ({M}, {K})",
+                **extra)
 
 
 def seeded_buffer(cidx, q):
@@ -749,7 +1040,7 @@ def main() -> int:
     log(f"data: {N} x {D} rows, {M} queries in {N_BLOBS} Gaussian clusters, "
         f"made in {t_data:.1f} s")
 
-    bidx, iidx, pidx, cidx, moved = path_phase(x, q)
+    bidx, iidx, pidx, cidx, sidx, moved = path_phase(x, q)
 
     timer = Timer()
     kernels = [k1_phase(timer, moved["select_k"]),
@@ -762,6 +1053,9 @@ def main() -> int:
     kernels += [k5_phase(timer, cidx, q, hop_parents, moved["graph_expand"]),
                 k6_phase(timer, cidx, q, buf_d, buf_i, walked,
                          moved["cagra_fused"])]
+    del cidx, buf_d, buf_i
+    kernels += [k7_phase(timer, sidx, q, moved["merge_step"]),
+                k8_phase(timer, x, sidx, q, moved["ring_topk"])]
     for kern in kernels:
         lib = kern["library_ms"]
         log(f"{kern['name']} [{kern['shape']}]: kernel_ms={kern['ms']:.3f} "

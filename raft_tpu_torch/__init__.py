@@ -4,18 +4,22 @@ A second package beside ``raft_tpu`` (the JAX reference, which it never
 imports). Module names mirror the JAX package so each file's counterpart
 is found by its path. It holds brute-force, IVF-Flat, IVF-PQ and CAGRA
 build and search (squared L2, L2, cosine and inner product; CAGRA L2 and
-inner product), ``refine``, and the primitives they call:
+inner product), ``refine``, sharded brute-force / IVF-Flat / IVF-PQ
+search over a mesh of shards, and the primitives they call:
 
 - ``core``      errors, the sample-filter bitset
 - ``distance``  metric types, fused L2 + argmin
 - ``matrix``    select_k (kernel K1)
 - ``ops``       the hand-written CUDA kernels' wrappers: fused_knn (K2),
                 ivf_scan (K3), ivf_pq_scan (K4), graph_expand (K5),
-                cagra_fused (K6); the row codecs (``quant``); and their
+                cagra_fused (K6), ring_topk (the cross-shard merge: K7
+                and K8); the row codecs (``quant``); and their
                 build/load helper ``_cuda``
+- ``comms``     the mesh of shards and the collectives between them
 - ``cluster``   k-means and balanced hierarchical k-means
 - ``neighbors`` brute_force, ivf_flat, ivf_pq, refine, cagra, the
                 inverted-list layout
+- ``parallel``  sharded_knn, sharded_ann (IVF-Flat, IVF-PQ)
 - ``stats``     neighborhood recall
 - ``convert``   indexes carried over from the JAX package as numpy arrays
 

@@ -13,12 +13,15 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from .comms import Mesh
 from .distance.distance_types import DistanceType, canonical_metric
 from .neighbors import brute_force, cagra, ivf_flat, ivf_pq
+from .parallel import sharded_ann
 from .utils import resolve_device
 
 __all__ = ["brute_force_index_from_numpy", "ivf_flat_index_from_numpy",
-           "ivf_pq_index_from_numpy", "cagra_index_from_numpy"]
+           "ivf_pq_index_from_numpy", "cagra_index_from_numpy",
+           "sharded_ivf_flat_from_numpy", "sharded_ivf_pq_from_numpy"]
 
 
 def _metric(arrays: Mapping, metric):
@@ -99,3 +102,55 @@ def cagra_index_from_numpy(arrays: Mapping, metric=None,
         _tensor(arrays["dataset"], torch.float32, dev),
         _tensor(arrays["graph"], torch.int32, dev), _metric(arrays, metric),
         None if seeds is None else _tensor(seeds, torch.int32, dev))
+
+
+def _shard_arrays(arrays: Mapping, r: int, row_fields) -> dict:
+    """Shard r of JAX's stacked (p, R, ...) arrays: its padding rows (past
+    the end of its last list) stripped, its list offsets completed to
+    (n_lists + 1,) and its sizes under the single index's names."""
+    offsets = np.asarray(arrays["offsets"][r], np.int64)
+    sizes = np.asarray(arrays["sizes"][r], np.int64)
+    end = int((offsets + sizes).max())
+    out = {f: np.asarray(arrays[f][r])[:end] for f in row_fields}
+    out["list_offsets"] = np.append(offsets, end)
+    out["list_sizes_arr"] = sizes
+    return out
+
+
+def sharded_ivf_flat_from_numpy(arrays: Mapping, mesh: Mesh,
+                                metric=None) -> sharded_ann.ShardedIvfFlat:
+    """``arrays``: the stacked fields of a JAX ``ShardedIvfFlat`` (float32
+    store): ``data`` (p, R, d), ``data_norms``, ``source_ids`` (GLOBAL ids,
+    -1 on padding), ``centers`` (p, L, d), ``center_norms``, ``offsets``,
+    ``sizes`` (p, L), and ``n_total``; ``metric`` as in :func:`_metric`.
+    One port index a shard, on ``mesh``'s devices."""
+    shards = []
+    for r, dev in enumerate(mesh.devices):
+        a = _shard_arrays(arrays, r, ("data", "data_norms", "source_ids"))
+        a.update(centers=arrays["centers"][r],
+                 center_norms=arrays["center_norms"][r])
+        shards.append(ivf_flat_index_from_numpy(a, _metric(arrays, metric),
+                                                dev))
+    return sharded_ann.ShardedIvfFlat(mesh, shards, int(arrays["n_total"]),
+                                      shards[0].metric)
+
+
+def sharded_ivf_pq_from_numpy(arrays: Mapping, mesh: Mesh,
+                              metric=None) -> sharded_ann.ShardedIvfPq:
+    """``arrays``: the stacked fields of a JAX ``ShardedIvfPq``: ``codes``
+    (p, R, pq_dim), ``source_ids`` (GLOBAL ids, -1 on padding),
+    ``centers_rot``, ``codebooks``, ``rotations``, ``offsets``, ``sizes``
+    (p, L), ``pq_bits``, ``codebook_kind`` and ``n_total``; ``metric`` as
+    in :func:`_metric`. One port index a shard, on ``mesh``'s devices."""
+    shards = []
+    for r, dev in enumerate(mesh.devices):
+        a = _shard_arrays(arrays, r, ("codes", "source_ids"))
+        a.update(centers_rot=arrays["centers_rot"][r],
+                 codebooks=arrays["codebooks"][r],
+                 rotation=arrays["rotations"][r], pq_bits=arrays["pq_bits"],
+                 codebook_kind=arrays.get("codebook_kind",
+                                          ivf_pq.CodebookGen.PER_SUBSPACE))
+        shards.append(ivf_pq_index_from_numpy(a, _metric(arrays, metric),
+                                              dev))
+    return sharded_ann.ShardedIvfPq(mesh, shards, int(arrays["n_total"]),
+                                    shards[0].metric)

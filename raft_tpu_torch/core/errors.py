@@ -1,12 +1,30 @@
 """Contract checks: counterpart of ``raft_tpu/core/errors.py``
-(``RaftError``, ``expects``)."""
+(``RaftError``, ``ShardsDownError``, ``expects``)."""
 from __future__ import annotations
 
-__all__ = ["RaftError", "expects"]
+__all__ = ["RaftError", "ShardsDownError", "expects"]
 
 
 class RaftError(RuntimeError):
     """Base exception for raft_tpu_torch (analog of ``raft::exception``)."""
+
+
+class ShardsDownError(RaftError):
+    """A sharded search found dead shards and the caller did not opt into
+    a degraded answer (``allow_partial=True``), or no shard is left.
+    ``shards_ok`` is the per-shard validity mask observed at search
+    time."""
+
+    def __init__(self, shards_ok):
+        self.shards_ok = [bool(x) for x in shards_ok]
+        down = [i for i, ok in enumerate(self.shards_ok) if not ok]
+        if not any(self.shards_ok):
+            msg = (f"sharded search: all {len(self.shards_ok)} shards "
+                   "unavailable — no surviving shard to degrade onto")
+        else:
+            msg = (f"sharded search: shard(s) {down} unavailable; pass "
+                   "allow_partial=True to accept a degraded merged result")
+        super().__init__(msg)
 
 
 def expects(cond: bool, msg: str, *args) -> None:

@@ -1,15 +1,17 @@
-// The (value, concat position) fold of K7, as a warp-level device
-// function: the counterpart of raft_tpu/ops/ring_topk.py::_vmem_fold,
-// used by K6 (cagra_fused.cu) to fold a hop's candidates into its itopk
-// buffer.
+// The (value, concat position) fold of K7, as warp-level device
+// functions: the counterparts of raft_tpu/ops/ring_topk.py::_vmem_fold.
 //
-// _vmem_fold takes k passes of (min value, then min position) over the
-// concatenation of a running list and a candidate block, carrying each
-// cell's global id and payloads. Where the running list is sorted by
-// (value, position) and every running entry precedes every candidate in
-// concat position (true of CAGRA's buffer and of K7's ring steps), those
-// k passes equal a stable merge of the two, running list first on equal
-// values, truncated to k. This function computes that merge by ranks:
+// warp_fold is K6's (cagra_fused.cu): it folds a hop's candidates into the
+// itopk buffer. _vmem_fold takes k passes of (min value, then min
+// position) over the concatenation of a running list and a candidate
+// block, carrying each cell's global id and payloads. Where the running
+// list is sorted by (value, position) and every running entry precedes
+// every candidate in concat position — true of CAGRA's buffer, whose
+// candidates are appended after it, and not of the ring (there a
+// shard's running positions start at r·k, and the block that arrives
+// from shard r−1 at hop 0 sits at (r−1)·k, before them) — those k passes
+// equal a stable merge of the two, running list first on equal values,
+// truncated to k. warp_fold computes that merge by ranks:
 //
 //   running entry i:  rank = i + #{c : cv[c] < rv[i]}
 //   candidate c:      rank = #{i : rv[i] <= cv[c]}
@@ -20,6 +22,16 @@
 // Ranks are distinct, so the k output slots are written exactly once.
 // A candidate that is not finite can never rank below k (the running
 // list has k entries and precedes it), so it is skipped.
+//
+// warp_lex_select is K7's and K8's (ring_topk.cu): the k best cells of
+// any w cells under the total order (key, explicit position, index), the
+// order of lax.sort(num_keys=2, is_stable=True) on (±distance,
+// position). It assumes nothing of either list: each cell's rank is the
+// count of cells before it in that order, so the inputs need not be
+// sorted, a cell that is not finite still ranks by its position, and the
+// cell index breaks a tie of (key, position) as the stable sort does.
+// Keys are order_key() of the float, so the integer order is the sort's:
+// -0.0 equals 0.0 and NaN follows +inf.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -60,6 +72,39 @@ __device__ __forceinline__ void warp_fold(const float* rv, const int* rg,
       og[r] = cg[c];
       oe[r] = 0;
     }
+  }
+}
+
+// The float's place in the sort order as an int: -0.0 as 0.0, every NaN
+// after +inf, otherwise the IEEE order.
+__device__ __forceinline__ int order_key(float v) {
+  if (isnan(v)) return INT_MAX;
+  const int i = __float_as_int(v);
+  if (i == INT_MIN) return 0;  // -0.0
+  return i ^ ((i >> 31) & 0x7fffffff);
+}
+
+// (ka, pa, ia) strictly before (kb, pb, ib).
+__device__ __forceinline__ bool lex_before(int ka, int pa, int ia, int kb,
+                                           int pb, int ib) {
+  return ka < kb || (ka == kb && (pa < pb || (pa == pb && ia < ib)));
+}
+
+// For each of the w cells (key[c], pos[c]) in shared memory whose rank in
+// the (key, position, index) order is below k, call emit(c, rank). The
+// lanes of one warp call it together; each rank below min(k, w) is
+// emitted exactly once.
+template <typename Emit>
+__device__ __forceinline__ void warp_lex_select(const int* key,
+                                                const int* pos, int w, int k,
+                                                int lane, Emit emit) {
+  for (int c = lane; c < w; c += 32) {
+    const int kc = key[c], pc = pos[c];
+    int r = 0;
+    for (int j = 0; j < w && r < k; ++j) {
+      r += lex_before(key[j], pos[j], j, kc, pc, c) ? 1 : 0;
+    }
+    if (r < k) emit(c, r);
   }
 }
 

@@ -26,7 +26,7 @@ SMEM_PER_BLOCK = 232_448   # bytes of shared memory one block may use (sm_90)
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("select_k", "fused_knn", "ivf_flat_scan", "ivf_pq_scan",
-           "graph_expand", "cagra_fused")
+           "graph_expand", "cagra_fused", "ring_topk")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 
@@ -52,6 +52,13 @@ _SIGNATURES = {
     "cagra_fused": {
         "raft_cagra_fused": ([_P] * 7 + [_I] * 11 + [_P] * 5, _I),
         "raft_cagra_fused_smem": ([_I] * 5, ctypes.c_size_t),
+    },
+    "ring_topk": {
+        "raft_merge_step": ([_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                             _P, _P, _P, _I, _P], _I),
+        "raft_ring_topk_capacity": ([_I, _I], _I),
+        "raft_ring_enable_peer": ([_I, _I], _I),
+        "raft_ring_topk": ([_P] * 8 + [_I] * 8 + [_P] * 2, _I),
     },
 }
 

@@ -19,12 +19,15 @@ sums stay exact in float32 and bfloat16. K5 and K6 and their plain
 versions add in the same order (``graph_expand.lane_order_dot``), so they
 are equal on any input: on an edge store of small integers with integer
 scales (``edge_store``), where every score is an exact integer and ties
-abound, and on Gaussian queries with real scales.
+abound, and on Gaussian queries with real scales. K7 and K8 move values
+and compute none, so they equal their plain versions (and
+``knn_merge_parts``) on any input.
 """
 import numpy as np
 import pytest
 import torch
 
+from raft_tpu_torch.comms import Mesh
 from raft_tpu_torch.core.errors import RaftError
 from raft_tpu_torch.matrix import select_k as tsk
 from raft_tpu_torch.neighbors import brute_force
@@ -34,6 +37,7 @@ from raft_tpu_torch.ops import fused_knn as tfk
 from raft_tpu_torch.ops import graph_expand as tge
 from raft_tpu_torch.ops import ivf_pq_scan as tpq
 from raft_tpu_torch.ops import ivf_scan as tis
+from raft_tpu_torch.ops import ring_topk as trt
 from raft_tpu_torch.stats.metrics import neighborhood_recall
 
 torch.set_num_threads(1)
@@ -201,6 +205,29 @@ def test_kernel_entries_refuse_cpu_tensors():
                                   es["vecs"], es["aux"], es["gph"],
                                   itopk=32, width=1, max_iter=2, kprime=8,
                                   degree=40)
+    ds, gs = ring_parts(4, 6, 5, 0)
+    with pytest.raises(RaftError):
+        trt.ring_topk_kernel(ds, gs, 5, True, Mesh(["cpu"] * 4))
+
+
+def ring_parts(p, m, k, seed, select_min=True, integer=True,
+               device="cpu"):
+    """p shards' (m, k) candidate lists: rows sorted except shard 0's,
+    shard 1 an exact copy of shard 0's values (cross-shard ties), shard 2
+    dead — (±inf, -1) — when p > 2; integer values with ties inside rows,
+    or Gaussian ones."""
+    rng = np.random.default_rng(seed)
+    d = (rng.integers(0, 20, (p, m, k)) if integer
+         else rng.standard_normal((p, m, k))).astype(np.float32)
+    d[1:] = np.sort(d[1:], axis=-1)
+    d[1] = d[0]
+    gid = rng.integers(0, 1 << 20, (p, m, k)).astype(np.int32)
+    if p > 2:
+        d[2], gid[2] = np.inf, -1
+    if not select_min:
+        d = -d
+    return ([torch.from_numpy(d[r]).to(device) for r in range(p)],
+            [torch.from_numpy(gid[r]).to(device) for r in range(p)])
 
 
 @pytest.mark.parametrize("integer", [True, False])
@@ -418,3 +445,120 @@ def test_cagra_engines_on_card(metric):
     _, ref = brute_force.search(brute_force.build(x, metric), q, 10)
     for ids in (ei, gi):
         assert neighborhood_recall(ids, ref) >= ENGINE_TEST_FLOOR
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(300, 16, 16, 16), (301, 10, 37, 20),
+                                   (257, 100, 100, 100), (64, 3, 5, 8)])
+@pytest.mark.parametrize("select_min", [True, False])
+def test_merge_step_kernel_on_card(shape, select_min):
+    """K7 against its plain version: integer values with ties inside rows
+    and across the lists, w1 != w2, k below and equal to w1 + w2,
+    infinities, unsorted lists, running positions above the block's."""
+    need_cuda()
+    m, w1, w2, k = shape
+    rng = np.random.default_rng(m + w1)
+    for above in (False, True):
+        d = rng.integers(0, 9, (m, w1 + w2)).astype(np.float32)
+        d[rng.random(d.shape) < 0.1] = np.inf
+        d[0] = np.inf
+        if not select_min:
+            d = -d
+        pos = np.stack([rng.permutation(w1 + w2 + 7)[: w1 + w2]
+                        for _ in range(m)]).astype(np.int32)
+        if above:
+            pos = -np.sort(-pos, axis=1)
+        gid = rng.integers(0, 1 << 20, (m, w1 + w2)).astype(np.int32)
+        t = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+             for a in (d[:, :w1], pos[:, :w1], gid[:, :w1], d[:, w1:],
+                       pos[:, w1:], gid[:, w1:])]
+        before = trt.merge_step_launches
+        got = trt.merge_step(*t, k, select_min)
+        want = trt.merge_step_plain(*t, k, select_min)
+        torch.cuda.synchronize()
+        assert trt.merge_step_launches == before + 1
+        for a, b in zip(want, got):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [2, 4, 8])
+@pytest.mark.parametrize("k", [10, 100])
+@pytest.mark.parametrize("select_min", [True, False])
+def test_ring_topk_kernel_on_card(p, k, select_min):
+    """K8 with p shards on one card against the plain ring and
+    knn_merge_parts: every shard's copy equal, ties across shards, a dead
+    shard, a last row tile that is not full."""
+    need_cuda()
+    mesh = Mesh(["cuda"] * p)
+    for integer in (True, False):
+        ds, gs = ring_parts(p, 1001, k, p * k, select_min, integer, "cuda")
+        before = trt.ring_launches
+        out_d, out_g = trt.ring_topk(ds, gs, k, select_min, mesh)
+        assert trt.ring_launches == before + 1
+        plain_d, plain_g = trt.ring_topk_plain(ds, gs, k, select_min, mesh)
+        ref_d, ref_i = brute_force.knn_merge_parts(
+            torch.stack(ds), torch.stack(gs), select_min)
+        torch.cuda.synchronize()
+        for r in range(p):
+            assert torch.equal(out_d[r], plain_d[r])
+            assert torch.equal(out_g[r], plain_g[r])
+            assert torch.equal(out_d[r], ref_d) and torch.equal(out_g[r],
+                                                                ref_i)
+    # the engines of merge, and the default engine, on the same shards
+    assert trt.resolve_engine(1001, k, p, mesh=mesh) == "ring_pallas"
+    for eng in trt.ENGINES:
+        md, mg = trt.merge(ds, gs, k, select_min, mesh, engine=eng)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, ref_d) for a in md)
+        assert all(torch.equal(a, ref_i) for a in mg)
+
+
+@pytest.mark.cuda
+def test_ring_topk_kernel_refuses_what_it_cannot_hold():
+    """k above RING_MAX_K: not ring_capable, so the default engine is
+    allgather and an explicit ring_pallas raises."""
+    need_cuda()
+    k = trt.RING_MAX_K + 1
+    mesh = Mesh(["cuda"] * 2)
+    ds, gs = ring_parts(2, 8, k, 0, device="cuda")
+    assert not trt.ring_capable(8, k, mesh)
+    assert trt.resolve_engine(8, k, 2, mesh=mesh) == "allgather"
+    with pytest.raises(RaftError):
+        trt.merge(ds, gs, k, True, mesh, engine="ring_pallas")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_card", [1, 2])
+@pytest.mark.parametrize("k", [10, 100])
+@pytest.mark.parametrize("select_min", [True, False])
+def test_ring_topk_kernel_across_cards(per_card, k, select_min):
+    """K8's cross-card mode: one shard a card, or shards alternating over
+    the cards (every neighbour on another card), one launch per card,
+    peer memory for the neighbours' slots; against the plain ring and
+    knn_merge_parts on the CPU."""
+    need_cuda()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("the cross-card ring needs at least 2 cards")
+    mesh = Mesh([f"cuda:{r % n}" for r in range(per_card * n)])
+    if not trt.ring_capable(1001, k, mesh):
+        pytest.skip("these cards have no peer access to each other")
+    # unrun until this test passes: the default keeps to one card
+    assert trt.resolve_engine(1001, k, mesh.size, mesh=mesh) == "allgather"
+    ds, gs = ring_parts(mesh.size, 1001, k, 9 + k, select_min)
+    want = trt.ring_topk_plain(ds, gs, k, select_min,
+                               Mesh(["cpu"] * mesh.size))
+    ref_d, ref_i = brute_force.knn_merge_parts(torch.stack(ds),
+                                               torch.stack(gs), select_min)
+    ds = [d.to(dev) for d, dev in zip(ds, mesh.devices)]
+    gs = [g.to(dev) for g, dev in zip(gs, mesh.devices)]
+    before = trt.ring_launches
+    out_d, out_g = trt.ring_topk(ds, gs, k, select_min, mesh)
+    assert trt.ring_launches == before + n
+    assert torch.cuda.current_device() == 0
+    for r, (d, g) in enumerate(zip(out_d, out_g)):
+        assert d.device == mesh.devices[r]
+        assert torch.equal(d.cpu(), want[0][r]) and torch.equal(
+            g.cpu(), want[1][r])
+        assert torch.equal(d.cpu(), ref_d) and torch.equal(g.cpu(), ref_i)

@@ -30,10 +30,12 @@ from raft_tpu.neighbors import brute_force as jbf
 from raft_tpu.neighbors import ivf_flat as jivf
 from raft_tpu.ops import filter_policy
 from raft_tpu_torch import convert
+from raft_tpu_torch.comms import Mesh
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.errors import RaftError
 from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
                                       refine)
+from raft_tpu_torch.parallel import sharded_ann, sharded_knn
 from raft_tpu_torch.stats.metrics import neighborhood_recall
 from test_torch_kernels import assert_knn_close
 
@@ -192,11 +194,18 @@ def test_entry_points_raise_without_cuda(data, monkeypatch):
         convert.cagra_index_from_numpy(
             {"dataset": x, "graph": np.zeros((100, 4), np.int32),
              "metric": "sqeuclidean"})
+    # the sharded entry points run where their mesh's shards are
+    with pytest.raises(RaftError):
+        sharded_knn.build(x, Mesh(["cuda"] * 2))
+    with pytest.raises(RaftError):
+        sharded_ann.build_ivf_flat(x, Mesh(["cuda:0"] * 2),
+                                   ivf_flat.IndexParams(n_lists=4))
 
 
 def test_port_imports_no_jax():
-    """Every module of raft_tpu_torch, and chip_smoke.py, import neither
-    jax nor raft_tpu."""
+    """Every module of raft_tpu_torch (the comms/ and parallel/
+    subpackages among them), and chip_smoke.py, import neither jax nor
+    raft_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import raft_tpu_torch\n"
@@ -209,6 +218,10 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m in ('jax', 'raft_tpu')\n"
         "       or m.startswith(('jax.', 'raft_tpu.'))]\n"
         "assert not bad, bad\n"
+        "assert {'raft_tpu_torch.comms.comms',\n"
+        "        'raft_tpu_torch.parallel.sharded_ann',\n"
+        "        'raft_tpu_torch.parallel.sharded_knn',\n"
+        "        'raft_tpu_torch.ops.ring_topk'} <= set(sys.modules)\n"
         "print('ok', len([m for m in sys.modules\n"
         "                 if m.startswith('raft_tpu_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

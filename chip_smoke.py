@@ -42,13 +42,21 @@ It builds the eight CUDA kernels from ``raft_tpu_torch/csrc`` (one
    against the single card's (recall >= 0.99; the share of equal rows is
    printed), the brute-force answer and the refined distances against
    numpy on a few queries;
+   Each path prints its launches per kernel and, for K1, per form (the
+   warp select for k <= 256, the k passes above).
 2. kernels: each kernel against its plain PyTorch version on the card at
-   the path's shapes (K4 also on an integer-valued copy of the IVF-PQ
+   the path's shapes (K1 at every (rows, n, k) the paths hand it — the
+   coarse probe, the brute-force and CAGRA-build split merges, the
+   IVF-Flat and IVF-PQ probe merges, refine, the edge engine's parent
+   pick and buffer merge, the allgather merge at k = 100 — each form on
+   the path's values and on integer-valued rows, the two forms timed in
+   turn; K4 also on an integer-valued copy of the IVF-PQ
    index, K5 and K6 on the path's data, where they must be equal, and on
    integer-valued copies; K5 also on a bf16 store; K7 and K8, which must
    be equal, on the path's candidates and on integer-valued lists with
    cross-shard ties and a dead shard, at the path's k = 10 and at
-   k = 100, K8 also at p = 8), with the kernel's time (median of
+   k = 100, K8 also at p = 8, at p = 16 (k = 10) and with fewer rows
+   than ring blocks (m = 1 and 100)), with the kernel's time (median of
    CUDA-event timed calls after a warm-up, L2 flushed before each), the
    plain version's time, one PyTorch library call's time where one
    computes the same function, and the least time the card could take:
@@ -56,10 +64,18 @@ It builds the eight CUDA kernels from ``raft_tpu_torch/csrc`` (one
    and K6 read each distinct parent's tile once; K5 is timed on the
    parents of a mid-traversal hop) and the operations' time, with
    FP32 FLOPs at 67 TFLOP/s (an FMA counts 2) and single adds or
-   compares at half that, 33.5 T/s (H100 SXM data sheet); K7's bound
+   compares at half that, 33.5 T/s (H100 SXM data sheet); K1's bound
+   reads its input once and writes k (value, column) pairs a row; K7's bound
    counts one compare a cell in, K8's reads each shard's input and
    writes its output once and counts a merge's p·k·log2(p) compares a
    row. The sharded merge alone is timed per engine at k = 10 and 100.
+   K1 (each form, at every shape) and K8 also report the card's time
+   alone (``device_ms``: calls queued back to back while the card is
+   still busy with flush writes, so the host work between them is
+   hidden): an event time includes the wrapper's host work wherever
+   that outlasts the L2 flush, which a loaded host makes happen for
+   these short kernels. K1's forms are timed with 9 calls a turn, K8
+   with 15.
 
 Prints progress lines, then a ``{"kernels": [...]}`` line, the card's name
 and power limit as ``nvidia-smi`` gives them, and last
@@ -114,7 +130,10 @@ FP32_INSTR_PER_S = 33.5e12     # one add, compare or FMA per lane per clock
 RTOL = 1e-5                    # float32 sums in another order
 
 # kernel name -> (wrapper module, its launch counter)
-_COUNTERS = {"select_k": (sk, "launches"), "fused_knn": (fk, "launches"),
+_COUNTERS = {"select_k": (sk, "launches"),
+             "select_k.warp": (sk, "warp_launches"),
+             "select_k.kpass": (sk, "kpass_launches"),
+             "fused_knn": (fk, "launches"),
              "ivf_flat_scan": (iscan, "launches"),
              "ivf_pq_scan": (ipq, "launches"),
              "graph_expand": (ge, "launches"),
@@ -185,6 +204,38 @@ class Timer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """The card's time in ms for one call of ``fn``, without the host
+    work around its launches: ``reps`` calls queued back to back behind
+    L2-flush writes that keep the card busy until the host has queued
+    them all, timed by events between the calls (L2 warm after the
+    first). If the card finished the writes before the host finished
+    queueing, it may have waited on the host: the lead is doubled and
+    the calls timed again."""
+    fn()
+    torch.cuda.synchronize()
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    lead = 16
+    for _ in range(6):
+        for _ in range(lead):
+            flush.zero_()
+        ahead = torch.cuda.Event()
+        ahead.record()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        caught_up = ahead.query()
+        end.synchronize()
+        if not caught_up:
+            return start.elapsed_time(end) / reps
+        lead *= 2
+    raise AssertionError("the host could not queue the calls ahead of the "
+                         "card")
 
 
 def bound(n_bytes: float, n_flops: float, n_single: float = 0.0):
@@ -630,67 +681,96 @@ def k7_phase(timer, sidx, q, launches):
 
 
 def k8_phase(timer, x, sidx, q, launches):
-    """K8 over the path's candidates at p = 4 and over an 8-shard split of
-    the same corpus, at the path's k and at k = RING_K; and on
-    integer-valued lists with ties and a dead shard."""
-    sidx8 = sharded_knn.build(x, Mesh([torch.device("cuda", 0)] * 8))
+    """K8 over the path's candidates at p = 4 and over 8- and 16-shard
+    splits of the same corpus, at the path's k and at k = RING_K (p = 16:
+    the path's k); on integer-valued lists with ties and a dead shard; and
+    at m = 1 and 100, fewer rows than the ring has blocks."""
     out = {}
-    for idx in (sidx, sidx8):
-        p, mesh = idx.n_shards, idx.mesh
-        for k in (K, RING_K):
+    for p, ks in ((P_SHARDS, (K, RING_K)), (8, (K, RING_K)), (16, (K,))):
+        idx = sidx if p == P_SHARDS else sharded_knn.build(
+            x, Mesh([torch.device("cuda", 0)] * p))
+        mesh = idx.mesh
+        for k in ks:
             ds, gs = sharded_knn.shard_candidates(idx, q, k)
-            got = rt.ring_topk(ds, gs, k, True, mesh)
-            err = check_equal(
-                [torch.cat(t) for t in rt.ring_topk_plain(ds, gs, k, True,
-                                                          mesh)],
-                [torch.cat(t) for t in got],
-                f"K8 ring_topk p={p} ({M}, {k}), the path's candidates")
-            ref = brute_force.knn_merge_parts(torch.stack(ds),
-                                              torch.stack(gs))
-            if not all(torch.equal(a, ref[0]) for a in got[0]) or not all(
-                    torch.equal(a, ref[1]) for a in got[1]):
-                raise AssertionError("K8 differs from knn_merge_parts")
+            err = k8_check(ds, gs, k, mesh, f"p={p} ({M}, {k}), the path's "
+                           "candidates")
             di, gi = int_lists(p, k, SEED + 8)
             for sel in (True, False):
-                di_s = di if sel else [-d for d in di]
-                check_equal(
-                    [torch.cat(t) for t in rt.ring_topk_plain(di_s, gi, k,
-                                                              sel, mesh)],
-                    [torch.cat(t) for t in rt.ring_topk(di_s, gi, k, sel,
-                                                        mesh)],
-                    f"K8 ring_topk p={p} integer-valued, ties and a dead "
-                    f"shard, select_min={sel} (k={k})")
-            status = []
-            ms = timer(lambda: status.extend(
-                rt.ring_topk_kernel(ds, gs, k, True, mesh)[1]))
-            if any(int(s.item()) for s in status):
-                raise AssertionError("K8: a ring wait timed out")
-            plain = timer(lambda: rt.ring_topk_plain(ds, gs, k, True, mesh),
-                          reps=3)
-            cat = torch.stack(ds, dim=1).reshape(M, p * k)
-            lib = timer(lambda: torch.topk(cat, k, dim=1, largest=False))
-            # each shard's input read once and its output written once;
-            # a merge of p lists compares each of the p·k cells of a row
-            # log2(p) times (the slots a hop and the rank fold's (2k)²
-            # compares are K8's design, not the merge's)
-            b, by = bound(2 * p * M * k * 8, 0.0,
-                          float(p) * M * k * np.log2(p))
-            out[p, k] = dict(err=err, ms=ms, plain=plain, lib=lib, bound=b,
-                             by=by)
-            log(f"  K8 at p={p}, k={k}: {ms:.4f} ms (plain {plain:.3f}, "
-                f"torch.topk {lib:.4f}, bound {b:.4f} by {by})")
+                k8_check(di if sel else [-d for d in di], gi, k, mesh,
+                         f"p={p} integer-valued, ties and a dead shard, "
+                         f"select_min={sel} (k={k})", sel)
+            del di, gi
+            out[p, k] = k8_time(timer, ds, gs, k, mesh)
+            out[p, k]["err"] = err
+            log(f"  K8 at p={p}, k={k}: {out[p, k]['ms']:.4f} ms (the kernel "
+                f"alone {out[p, k]['dev']:.4f}; plain "
+                f"{out[p, k]['plain']:.3f}, torch.topk {out[p, k]['lib']:.4f}"
+                f", bound {out[p, k]['bound']:.4f} by {out[p, k]['by']})")
+            if p == P_SHARDS and k == K:
+                # fewer rows than ring blocks: one row a block, or one
+                # block a shard
+                for m in (1, 100):
+                    dm = [d[:m].contiguous() for d in ds]
+                    gm = [g[:m].contiguous() for g in gs]
+                    k8_check(dm, gm, k, mesh, f"p={p} ({m}, {k}), the "
+                             "path's first rows")
+                    out[p, k, m] = k8_time(timer, dm, gm, k, mesh)
+                    log(f"  K8 at p={p}, k={k}, m={m}: "
+                        f"{out[p, k, m]['ms']:.4f} ms (the kernel alone "
+                        f"{out[p, k, m]['dev']:.4f})")
+        del idx
     r = out[P_SHARDS, K]
-    extra = {f"p{p}_k{k}_{key}": v[key2] for (p, k), v in out.items()
-             if (p, k) != (P_SHARDS, K)
-             for key, key2 in (("ms", "ms"), ("plain_ms", "plain"),
-                               ("library_ms", "lib"), ("bound_ms", "bound"))}
+    extra = {"p{}_k{}{}_{}".format(key[0], key[1],
+                                   f"_m{key[2]}" if len(key) > 2 else "",
+                                   name): v[name2]
+             for key, v in out.items() if key != (P_SHARDS, K)
+             for name, name2 in (("ms", "ms"), ("device_ms", "dev"),
+                                 ("plain_ms", "plain"),
+                                 ("library_ms", "lib"),
+                                 ("bound_ms", "bound"))}
     return dict(name="ring_topk", route="cuda",
                 source="raft_tpu_torch/csrc/ring_topk.cu",
                 replaces="raft_tpu/ops/ring_topk.py:416", launches=launches,
                 max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain"],
                 bound_ms=r["bound"], bound_by=r["by"], library_ms=r["lib"],
+                device_ms=r["dev"],
                 shape=f"p={P_SHARDS} shards on one card x ({M}, {K})",
                 **extra)
+
+
+def k8_check(ds, gs, k, mesh, what, sel=True) -> float:
+    """K8 against its plain version and knn_merge_parts on every shard;
+    the measured max |value - plain value| (0.0)."""
+    got = rt.ring_topk(ds, gs, k, sel, mesh)
+    err = check_equal(
+        [torch.cat(t) for t in rt.ring_topk_plain(ds, gs, k, sel, mesh)],
+        [torch.cat(t) for t in got], f"K8 ring_topk {what}")
+    ref = brute_force.knn_merge_parts(torch.stack(ds), torch.stack(gs), sel)
+    if not all(torch.equal(a, ref[0]) for a in got[0]) or not all(
+            torch.equal(a, ref[1]) for a in got[1]):
+        raise AssertionError(f"K8 differs from knn_merge_parts: {what}")
+    return err
+
+
+def k8_time(timer, ds, gs, k, mesh) -> dict:
+    """K8's time (the wrapper's launch, status read after all runs), its
+    plain version's and torch.topk's over the concatenation, and the
+    bound: each shard's input read once and its output written once, and
+    a merge of p lists comparing each of the p·k cells of a row log2(p)
+    times (the slots a hop, the sort and the rank searches are K8's
+    design, not the merge's)."""
+    p, m = len(ds), ds[0].shape[0]
+    status = []
+    ms = timer(lambda: status.extend(
+        rt.ring_topk_kernel(ds, gs, k, True, mesh)[1]), reps=15)
+    if any(int(s.item()) for s in status):
+        raise AssertionError("K8: a ring wait timed out")
+    dev = device_ms(lambda: rt.ring_topk_kernel(ds, gs, k, True, mesh))
+    plain = timer(lambda: rt.ring_topk_plain(ds, gs, k, True, mesh), reps=3)
+    cat = torch.stack(ds, dim=1).reshape(m, p * k)
+    lib = timer(lambda: torch.topk(cat, k, dim=1, largest=False))
+    b, by = bound(2 * p * m * k * 8, 0.0, float(p) * m * k * np.log2(p))
+    return dict(ms=ms, dev=dev, plain=plain, lib=lib, bound=b, by=by)
 
 
 def seeded_buffer(cidx, q):
@@ -836,24 +916,119 @@ def k6_phase(timer, cidx, q, buf_d, buf_i, walked, launches):
                       f"{max_iter} hops max, int8 tiles {deg_p} x {dim_p}")
 
 
-def k1_phase(timer, launches):
+def k1_inputs(x, q, bidx, iidx, pidx, cidx, sidx):
+    """K1's inputs at every (rows, n, k) shape the paths hand it, made the
+    way each path makes them → [(what, values (rows, n), k)]."""
+    st = cidx.edge_store
+    # coarse probe: ranking scores of the queries against the 1,024 centers
+    coarse = (iidx.center_norms[None, :] - 2.0 * (q @ iidx.centers.T))
+    # K2's corpus splits: brute force at k, CAGRA build's kNN graph at
+    # intermediate degree + 1 over one batch of its rows
+    qn = fk.prepare_norms("l2", q)
+    dn = fk.prepare_norms("l2", x, bidx.norms)
+    bf_cand = fk.fused_knn_candidates(q, qn, x, dn, None, K, "l2")[0]
+    xb = x[:32768]
+    build_cand = fk.fused_knn_candidates(xb, fk.prepare_norms("l2", xb), x,
+                                         dn, None, CAGRA_D0 + 1, "l2")[0]
+    # K3 and K4: each query's probes' candidates side by side
+    probed = iscan.coarse_probe(q, iidx.centers, N_PROBES, "l2",
+                                iidx.center_norms)
+    k3_cand = iscan.ivf_flat_scan_candidates(
+        iidx.data, iidx.data_norms, None, q, qn, probed.int(),
+        iidx.offsets_dev, iidx.sizes_dev, K, "l2")[0]
+    q_rot = (q @ pidx.rotation.T).contiguous()
+    pprobed = iscan.coarse_probe(q_rot, pidx.centers_rot, N_PROBES, "l2",
+                                 pidx.center_norms)
+    k4_cand = ipq.ivf_pq_scan_candidates(
+        pidx.codes, pidx.row_norms, None,
+        ipq.lut_codebook(pidx.codebooks, "bf16"), pidx.centers_rot, q_rot,
+        pprobed, pidx.offsets_dev, pidx.sizes_dev, K0, "l2")[0]
+    # refine: exact distances to the IVF-PQ search's k0 candidates
+    _, pi = ivf_pq.search(pidx, q, K0, ivf_pq.SearchParams(n_probes=N_PROBES))
+    ref = (x[pi.long()] - q[:, None, :]).square().sum(-1).contiguous()
+    # the edge engine's hop 0: the parent pick over the seeded buffer, then
+    # the buffer ++ the parent's k' candidates (before duplicate masking)
+    buf_d, buf_i = seeded_buffer(cidx, q)
+    kp = min(cidx.graph_degree, ITOPK)
+    psafe, _, _ = cf.pick_parents(buf_d, buf_i, torch.zeros_like(
+        buf_d, dtype=torch.bool), 1, sk.select_k_plain)
+    pv, _ = ge.graph_expand(psafe, q, st.vecs, st.aux, kp, "l2", st.degree)
+    edge_cat = torch.cat([buf_d, pv.reshape(M, kp)], dim=1).contiguous()
+    # the allgather merge of the 4 shards' lists at RING_K
+    ds, _ = sharded_knn.shard_candidates(sidx, q, RING_K)
+    gathered = torch.stack(ds, dim=1).reshape(M, -1).contiguous()
+    return [("coarse probe", coarse.contiguous(), N_PROBES),
+            ("brute-force split merge", bf_cand, K),
+            ("CAGRA build split merge", build_cand, CAGRA_D0 + 1),
+            ("IVF-Flat probe merge", k3_cand, K),
+            ("IVF-PQ probe merge", k4_cand, K0),
+            ("refine", ref, K),
+            ("edge engine parent pick", buf_d.contiguous(), 1),
+            ("edge engine buffer merge", edge_cat, ITOPK),
+            (f"allgather merge, p={P_SHARDS}", gathered, RING_K)]
+
+
+def k1_phase(timer, inputs, launches, by_form):
+    """K1 at every path shape, each form against the plain version on the
+    path's values and on integer-valued rows of the same shape (ties,
+    +inf cells, both selection directions), both forms timed in turn
+    beside the plain version and ``torch.topk``; the entry reports the
+    coarse probe's shape in the form the path takes there."""
     rng = np.random.default_rng(SEED + 1)
-    vals = rng.integers(0, 64, (M, N_LISTS)).astype(np.float32)
-    vals[rng.random((M, N_LISTS)) < 0.02] = np.inf
-    v = torch.from_numpy(vals).cuda()
-    k = N_PROBES
-    err = check_equal(sk.select_k_plain(v, k), sk.kpass_select_k(v, k),
-                      f"K1 select_k ({M}, {N_LISTS}) k={k}, integer rows")
-    ms = timer(lambda: sk.kpass_select_k(v, k))
-    plain = timer(lambda: sk.select_k_plain(v, k))
-    lib = timer(lambda: torch.topk(v, k, dim=1, largest=False))
-    b, by = bound(v.numel() * 4 + M * k * 8, 0.0, v.numel())
+    shapes, err = [], 0.0
+    for what, v, k in inputs:
+        rows, n = v.shape
+        ints = rng.integers(0, 64, (rows, n)).astype(np.float32)
+        ints[rng.random((rows, n)) < 0.02] = np.inf
+        vi = torch.from_numpy(ints).cuda()
+        forms = ("warp", "kpass") if k <= sk.WARP_MAX_K else ("kpass",)
+        for form in forms:
+            e = check_equal(sk.select_k_plain(v, k),
+                            sk.kpass_select_k(v, k, form=form),
+                            f"K1 {form} {what} ({rows}, {n}) k={k}, the "
+                            "path's values")
+            err = max(err, e)
+            for sel in (True, False):
+                a = vi if sel else -vi
+                check_equal(sk.select_k_plain(a, k, sel),
+                            sk.kpass_select_k(a, k, sel, form=form),
+                            f"K1 {form} {what} ({rows}, {n}) k={k}, integer "
+                            f"rows, select_min={sel}")
+        del vi
+        # forms in turn: warp, k-pass, k-pass, warp; the median of each.
+        # A wrapper call's event time includes its host work where that
+        # outlasts the L2 flush, so each form's kernel is also timed alone
+        ms = {f: [] for f in forms}
+        for f in forms + forms[::-1]:
+            ms[f].append(timer(lambda: sk.kpass_select_k(v, k, form=f),
+                               reps=9))
+        dev = {f: device_ms(lambda: sk.kpass_select_k(v, k, form=f))
+               for f in forms}
+        plain = timer(lambda: sk.select_k_plain(v, k))
+        lib = timer(lambda: torch.topk(v, k, dim=1, largest=False))
+        b, by = bound(rows * n * 4 + rows * k * 8, 0.0, float(rows) * n)
+        row = dict(what=what, shape=f"({rows}, {n}) k={k}",
+                   form=sk.select_form(k), plain_ms=plain, library_ms=lib,
+                   bound_ms=b, bound_by=by,
+                   **{f"{f}_ms": statistics.median(t) for f, t in ms.items()},
+                   **{f"{f}_device_ms": t for f, t in dev.items()})
+        shapes.append(row)
+        log(f"  K1 {what} ({rows}, {n}) k={k}: "
+            + ", ".join(f"{f} {row[f + '_ms']:.4f} ms (alone "
+                        f"{row[f + '_device_ms']:.4f})" for f in forms)
+            + f"; plain {plain:.3f}, torch.topk {lib:.4f}, bound {b:.4f} "
+            f"by {by}")
+    main = shapes[0]
     return dict(name="select_k", route="cuda",
                 source="raft_tpu_torch/csrc/select_k.cu",
                 replaces="raft_tpu/matrix/select_k.py:127",
-                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
-                bound_ms=b, bound_by=by, library_ms=lib,
-                shape=f"({M}, {N_LISTS}) k={k}")
+                launches=launches, max_abs_err=err,
+                ms=main[main["form"] + "_ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"], shape=main["shape"],
+                form=main["form"],
+                device_ms=main[main["form"] + "_device_ms"],
+                launches_by_form=by_form, shapes=shapes)
 
 
 def k2_phase(timer, bidx, q, launches):
@@ -1043,8 +1218,12 @@ def main() -> int:
     bidx, iidx, pidx, cidx, sidx, moved = path_phase(x, q)
 
     timer = Timer()
-    kernels = [k1_phase(timer, moved["select_k"]),
-               k2_phase(timer, bidx, q, moved["fused_knn"]),
+    k1_in = k1_inputs(x, q, bidx, iidx, pidx, cidx, sidx)
+    kernels = [k1_phase(timer, k1_in, moved["select_k"],
+                        {f: moved[f"select_k.{f}"] for f in ("warp",
+                                                             "kpass")})]
+    del k1_in
+    kernels += [k2_phase(timer, bidx, q, moved["fused_knn"]),
                k3_phase(timer, iidx, q, moved["ivf_flat_scan"]),
                k4_phase(timer, pidx, q, moved["ivf_pq_scan"])]
     del iidx, pidx

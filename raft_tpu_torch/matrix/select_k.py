@@ -6,7 +6,11 @@ ties going to the lowest column — the order of the JAX package's
 
 * ``KPASS`` — kernel K1 (``csrc/select_k.cu``), the port of the Pallas
   ``_kpass_2d``. :func:`kpass_select_k` launches it for a CUDA tensor and
-  takes the plain version for a CPU tensor.
+  takes the plain version for a CPU tensor. K1 has two forms, chosen by
+  k alone (:func:`select_form`): the warp select (a sorted queue in a
+  warp's registers, one warp per row) for k <= :data:`WARP_MAX_K`, and
+  the k passes of a block-wide arg-min above it. Each form has its own
+  launch counter.
 * ``TOPK`` — the plain version, :func:`select_k_plain`: a stable sort and
   a slice (``torch.topk`` is not used: its tie order is unspecified).
 
@@ -23,9 +27,14 @@ import torch
 from ..core.errors import expects
 from ..ops import _cuda
 
-__all__ = ["SelectAlgo", "select_k", "select_k_plain", "kpass_select_k"]
+__all__ = ["SelectAlgo", "WARP_MAX_K", "select_form", "select_k",
+           "select_k_plain", "kpass_select_k"]
 
-launches = 0   # K1 launches since the last reset
+WARP_MAX_K = 256   # the warp select's queue: at most 256 keys a warp
+
+launches = 0            # K1 launches since the last reset, both forms
+warp_launches = 0       # of them, the warp select's
+kpass_launches = 0      # of them, the k passes'
 
 
 class SelectAlgo(enum.Enum):
@@ -45,11 +54,23 @@ def select_k_plain(values: torch.Tensor, k: int, select_min: bool = True
     return (sv if select_min else -sv), si[..., :k].to(torch.int32)
 
 
-def kpass_select_k(values: torch.Tensor, k: int, select_min: bool = True
+def select_form(k: int) -> str:
+    """The form of K1 that selects k per row: ``"warp"`` (the warp select)
+    up to :data:`WARP_MAX_K`, ``"kpass"`` above it. A rule of shape: a
+    form that fails to build or launch raises."""
+    return "warp" if k <= WARP_MAX_K else "kpass"
+
+
+def kpass_select_k(values: torch.Tensor, k: int, select_min: bool = True,
+                   form: Optional[str] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K1 on a (rows, n) float32 tensor → (values, int32 columns)
-    (rows, k). A CPU tensor takes the plain version."""
-    global launches
+    (rows, k). ``form`` (``"warp"`` or ``"kpass"``) overrides
+    :func:`select_form`, for holding both forms against the plain version;
+    the warp select takes k <= :data:`WARP_MAX_K`. A CPU tensor takes the
+    plain version. NaN is never selected; a slot no other cell fills reads
+    (±inf, -1)."""
+    global launches, warp_launches, kpass_launches
     if values.device.type == "cpu":
         return select_k_plain(values, k, select_min)
     expects(values.is_cuda, "select_k kernel needs a CUDA tensor, got %s",
@@ -64,12 +85,21 @@ def kpass_select_k(values: torch.Tensor, k: int, select_min: bool = True
     oi = torch.empty((rows, k), dtype=torch.int32, device=values.device)
     if rows == 0:
         return ov, oi
+    form = select_form(k) if form is None else form
+    expects(form in ("warp", "kpass") and (form == "kpass"
+                                           or k <= WARP_MAX_K),
+            "select_k kernel: no form %r for k=%d", form, k)
     lib = _cuda.library("select_k")
-    status = lib.raft_select_k(values.data_ptr(), rows, n, k,
-                               int(select_min), ov.data_ptr(), oi.data_ptr(),
-                               _cuda.stream_of(values))
-    _cuda.check(status, "select_k")
+    entry = (lib.raft_select_k_warp if form == "warp"
+             else lib.raft_select_k_kpass)
+    status = entry(values.data_ptr(), rows, n, k, int(select_min),
+                   ov.data_ptr(), oi.data_ptr(), _cuda.stream_of(values))
+    _cuda.check(status, f"select_k ({form})")
     launches += 1
+    if form == "warp":
+        warp_launches += 1
+    else:
+        kpass_launches += 1
     return ov, oi
 
 

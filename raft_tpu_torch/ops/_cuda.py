@@ -33,7 +33,10 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of each library's entry points: name -> (argtypes, restype)
 _SIGNATURES = {
-    "select_k": {"raft_select_k": ([_P, _I, _I, _I, _I, _P, _P, _P], _I)},
+    "select_k": {
+        "raft_select_k_warp": ([_P, _I, _I, _I, _I, _P, _P, _P], _I),
+        "raft_select_k_kpass": ([_P, _I, _I, _I, _I, _P, _P, _P], _I),
+    },
     "fused_knn": {
         "raft_fused_knn": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _P, _P, _P], _I),
@@ -58,7 +61,7 @@ _SIGNATURES = {
                              _P, _P, _P, _I, _P], _I),
         "raft_ring_topk_capacity": ([_I, _I], _I),
         "raft_ring_enable_peer": ([_I, _I], _I),
-        "raft_ring_topk": ([_P] * 8 + [_I] * 8 + [_P] * 2, _I),
+        "raft_ring_topk": ([_P, _P] + [_I] * 10 + [_P] * 2, _I),
     },
 }
 

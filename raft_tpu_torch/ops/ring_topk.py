@@ -32,7 +32,7 @@ demotion to allgather: no fallback hides a kernel — a CUDA merge with
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,7 +42,7 @@ from ..utils import cdiv
 from . import _cuda
 
 __all__ = ["ENGINES", "ALL_ENGINES", "STEP_MAX_W", "RING_MAX_K",
-           "RING_MAX_SHARDS", "RING_ROWS", "per_hop_bytes",
+           "RING_MAX_SHARDS", "RingPlan", "ring_plan", "per_hop_bytes",
            "gathered_bytes", "merge_step", "merge_step_plain", "ring_topk",
            "ring_topk_kernel", "ring_topk_plain", "merge", "ring_capable",
            "resolve_engine", "active_engines", "note_engine"]
@@ -51,9 +51,9 @@ ENGINES = ("allgather", "ring", "ring_pallas")
 ALL_ENGINES = ENGINES + ("hier",)
 
 STEP_MAX_W = 16_384     # K7: a row's w1 + w2 cells staged in shared memory
-RING_MAX_K = 1024       # K8: a warp's 11·k words of shared memory, 4 warps
+RING_MAX_K = 1024       # K8: a warp's 5·k words of shared memory, 4 warps
+                        # (its form for k > 256)
 RING_MAX_SHARDS = 16    # K8: the kernel's table of per-shard pointers
-RING_ROWS = 4           # K8: rows of a tile (csrc/ring_topk.cu kRows)
 
 merge_step_launches = 0   # K7 launches since the last reset
 ring_launches = 0         # K8 launches since the last reset
@@ -190,94 +190,210 @@ def _cards(mesh: Mesh) -> dict:
     return cards
 
 
-def _ptrs(tensors) -> ctypes.Array:
-    return (ctypes.c_ulonglong * len(tensors))(
-        *[t.data_ptr() for t in tensors])
+class RingPlan(NamedTuple):
+    """K8's launch shape: ``blocks`` ring blocks a shard, each owning
+    ``rows`` consecutive rows (the last block may own fewer, none owns
+    none), ``steps`` hop steps a block, and the per-shard slot shape."""
+
+    blocks: int
+    rows: int
+    steps: int
+    slot_shape: Tuple[int, int, int]
+
+
+def ring_plan(m: int, k: int, p: int, shards_per_card: int,
+              capacity: int) -> RingPlan:
+    """K8's launch shape for p shards' (m, k) lists, at most
+    ``shards_per_card`` of them launched together on a card that keeps
+    ``capacity`` ring blocks resident: as many blocks a shard as fit and
+    have rows, each taking one row range through all p − 1 hops."""
+    expects(m >= 1 and k >= 1 and p >= 2, "ring_plan: m=%d, k=%d, p=%d",
+            m, k, p)
+    blocks = min(capacity // shards_per_card, m)
+    expects(blocks >= 1, "ring_topk: no ring block fits the card at k=%d",
+            k)
+    rows = cdiv(m, blocks)
+    return RingPlan(cdiv(m, rows), rows, p - 1, (2, m, k))
+
+
+_capacity: dict = {}   # (card, k) -> resident ring blocks
+
+
+def _on_card(card: int, fn):
+    """Run a library entry, which sets the card it acts on, with PyTorch's
+    current card the same (and restored after)."""
+    if card == torch.cuda.current_device():
+        return fn()
+    with torch.cuda.device(card):
+        return fn()
+
+
+class _Ring:
+    """What K8 needs of a (mesh, m, k) besides the call's tensors, worked
+    out once: the cards and their shards, whether the ring crosses cards,
+    the launch plan, and the pointer tables of the scratch (each shard's
+    running cells' positions and its (2, m, k) slots), which is kept for
+    the most recent ring on the streams it ran on."""
+
+    scratch_owner = None     # the _Ring whose scratch is allocated
+
+    def __init__(self, lib, mesh: Mesh, m: int, k: int):
+        p = mesh.size
+        expects(ring_capable(m, k, mesh),
+                "ring_topk kernel cannot run k=%d over %s (needs CUDA "
+                "shards, 2 <= p <= %d, k <= %d, peer access between "
+                "neighbouring cards)", k, mesh, RING_MAX_SHARDS, RING_MAX_K)
+        cards = _cards(mesh)
+        self.cross = len(cards) > 1
+        if self.cross:
+            for r in range(p):
+                a, b = mesh.devices[r].index, mesh.devices[(r + 1) % p].index
+                for x, y in ((a, b), (b, a)):
+                    if x != y:
+                        _cuda.check(_on_card(
+                            x, lambda: lib.raft_ring_enable_peer(x, y)),
+                            "peer access")
+        for c in cards:
+            if (c, k) not in _capacity:
+                cap = _on_card(c, lambda: lib.raft_ring_topk_capacity(c, k))
+                if cap < 0:
+                    _cuda.check(-cap, "ring_topk capacity")
+                _capacity[c, k] = cap
+        self.plan = min((ring_plan(m, k, p, len(sh), _capacity[c, k])
+                         for c, sh in cards.items()),
+                        key=lambda pl: pl.blocks)
+        self.p, self.m, self.k = p, m, k
+        self.cell = m * k * 4                 # bytes of one (m, k) list
+        # card, its shards, its device, the shards as a C array, and the
+        # words of its flags: (2, blocks) a shard, then the status word
+        self.cards = [(c, sh, mesh.devices[sh[0]], (ctypes.c_int * len(sh))(
+            *sh), 2 * len(sh) * self.plan.blocks + 1)
+            for c, sh in cards.items()]
+        self.scratch_key = None
+
+    def _scratch_ptrs(self, streams) -> list:
+        """The run_p, slot_d and slot_g pointers of every shard, in that
+        order; the scratch is allocated anew when another ring or other
+        streams used it last."""
+        if _Ring.scratch_owner is not self or self.scratch_key != streams:
+            if _Ring.scratch_owner is not None:
+                _Ring.scratch_owner.scratch = None
+            self.scratch = [torch.empty((len(sh), 5, self.m, self.k),
+                                        dtype=torch.int32, device=dev)
+                            for _, sh, dev, _, _ in self.cards]
+            ptrs = [0] * (3 * self.p)
+            for (_, sh, _, _, _), buf in zip(self.cards, self.scratch):
+                for j, r in enumerate(sh):
+                    base = buf.data_ptr() + 5 * j * self.cell
+                    ptrs[r] = base
+                    ptrs[self.p + r] = base + self.cell
+                    ptrs[2 * self.p + r] = base + 3 * self.cell
+            self.scratch_table = ptrs
+            self.scratch_key = streams
+            _Ring.scratch_owner = self
+        return self.scratch_table
+
+    def launch(self, lib, ds, gids, select_min: bool):
+        global ring_launches
+        p, m, k, cell = self.p, self.m, self.k, self.cell
+        blocks = self.plan.blocks
+        streams = tuple(torch.cuda.current_stream(c).cuda_stream
+                        for c, *_ in self.cards)
+        scratch = self._scratch_ptrs(streams)
+        out_d, out_g, status = [None] * p, [None] * p, []
+        ptr_d, ptr_g, ptr_f = [0] * p, [0] * p, [0] * p
+        for c, sh, dev, _, words in self.cards:
+            n = len(sh)
+            planes = torch.empty((2, n, m, k), dtype=torch.int32, device=dev)
+            # (2, blocks) flags a shard, then the status word
+            flags = torch.empty(words, dtype=torch.int32, device=dev)
+            if self.cross:   # else the library zeroes them
+                flags.zero_()
+            base, base_f = planes.data_ptr(), flags.data_ptr()
+            vd, vg = planes.unbind(0)
+            for j, r, d, g in zip(range(n), sh,
+                                  vd.view(torch.float32).unbind(0),
+                                  vg.unbind(0)):
+                out_d[r], out_g[r] = d, g
+                ptr_d[r] = base + j * cell
+                ptr_g[r] = base + (n + j) * cell
+                ptr_f[r] = base_f + j * 2 * blocks * 4
+            status.append(flags[-1:])
+        if self.cross:
+            # no card's ring starts before every card's inputs are written
+            # and its flags zeroed: both were queued on that card's current
+            # stream, so an event recorded there now covers them; every
+            # other card's stream waits on it. The rings' waits then
+            # measure the rings alone, not a neighbour's shard search.
+            done = {}
+            for c, *_ in self.cards:
+                done[c] = torch.cuda.Event()
+                done[c].record(torch.cuda.current_stream(c))
+            for c, *_ in self.cards:
+                for c2 in done:
+                    if c2 != c:
+                        torch.cuda.current_stream(c).wait_event(done[c2])
+        # the library's table: per shard in_d, in_g, out_d, out_g, run_p,
+        # slot_d, slot_g, flags, each a row of p pointers
+        table = (ctypes.c_ulonglong * (8 * p))(
+            *[t.data_ptr() for t in ds], *[t.data_ptr() for t in gids],
+            *ptr_d, *ptr_g, *scratch, *ptr_f)
+        for (c, sh, _, c_sh, _), st, stream in zip(self.cards, status,
+                                                   streams):
+            _cuda.check(_on_card(c, lambda: lib.raft_ring_topk(
+                table, c_sh, len(sh), p, m, k, int(select_min), blocks,
+                self.plan.rows, int(self.cross), int(not self.cross), c,
+                st.data_ptr(), stream)), "ring_topk")
+            ring_launches += 1
+        return (out_d, out_g), status
+
+
+_rings: dict = {}      # (mesh devices, m, k) -> _Ring
+
+
+def _check_lists(ds, gids, mesh: Mesh, m: int, k: int) -> None:
+    """Every shard's lists: contiguous (m, k) float32 / int32 on its own
+    CUDA card."""
+    shape = (m, k)
+    for r, dev in enumerate(mesh.devices):
+        d, g = ds[r], gids[r]
+        if not (d.dtype is torch.float32 and g.dtype is torch.int32
+                and d.shape == shape and g.shape == shape
+                and d.get_device() == dev.index == g.get_device()
+                and d.is_contiguous() and g.is_contiguous()):
+            raise RaftError(
+                f"ring_topk kernel: shard {r} takes contiguous ({m}, {k}) "
+                f"float32 distances and int32 ids on {dev}, got "
+                f"{d.dtype} {tuple(d.shape)} on {d.device} and {g.dtype} "
+                f"{tuple(g.shape)} on {g.device}")
 
 
 def ring_topk_kernel(ds, gids, k: int, select_min: bool, mesh: Mesh):
     """Launch K8 on CUDA shards without waiting for it → ((merged
     distances per shard, merged ids per shard), the status words: one
     int32 per card, set to 1 if a wait of the ring timed out). One
-    cooperative launch per card; :func:`ring_topk` reads the status."""
-    global ring_launches
+    cooperative launch per card, and one zero-fill of the card's flags and
+    status word before it (a memset in the library on one card);
+    :func:`ring_topk` reads the status. The
+    merged lists of the shards on a card are views of one tensor."""
     p = mesh.size
     m = ds[0].shape[0]
     expects(len(ds) == p and len(gids) == p,
             "ring_topk: %d/%d lists for %d shards", len(ds), len(gids), p)
-    expects(ring_capable(m, k, mesh),
-            "ring_topk kernel cannot run k=%d over %s (needs CUDA shards, "
-            "2 <= p <= %d, k <= %d, peer access between neighbouring "
-            "cards)", k, mesh, RING_MAX_SHARDS, RING_MAX_K)
-    for r, dev in enumerate(mesh.devices):
-        for t, dt in ((ds[r], torch.float32), (gids[r], torch.int32)):
-            expects(t.device == dev and t.dtype == dt
-                    and tuple(t.shape) == (m, k) and t.is_contiguous(),
-                    "ring_topk kernel: shard %d takes a contiguous (%d, %d) "
-                    "%s tensor on %s, got %s %s on %s", r, m, k, dt, dev,
-                    t.dtype, tuple(t.shape), t.device)
-    out_d = [torch.empty((m, k), dtype=torch.float32, device=d)
-             for d in mesh.devices]
-    out_g = [torch.empty((m, k), dtype=torch.int32, device=d)
-             for d in mesh.devices]
+    _check_lists(ds, gids, mesh, m, k)
     if m == 0:
-        return (out_d, out_g), []
+        return ([torch.empty((0, k), dtype=torch.float32, device=d)
+                 for d in mesh.devices],
+                [torch.empty((0, k), dtype=torch.int32, device=d)
+                 for d in mesh.devices]), []
     lib = _cuda.library("ring_topk")
-    cards = _cards(mesh)
-    cross = len(cards) > 1
-    # the library's entries set the card they act on; each runs under
-    # torch.cuda.device so PyTorch's current card is the same and is
-    # restored after
-    if cross:
-        for r in range(p):
-            a, b = mesh.devices[r].index, mesh.devices[(r + 1) % p].index
-            for x, y in ((a, b), (b, a)):
-                if x != y:
-                    with torch.cuda.device(x):
-                        _cuda.check(lib.raft_ring_enable_peer(x, y),
-                                    "peer access")
-    blocks = cdiv(m, RING_ROWS)
-    for card, shards in cards.items():
-        with torch.cuda.device(card):
-            cap = lib.raft_ring_topk_capacity(card, k)
-        if cap < 0:
-            _cuda.check(-cap, "ring_topk capacity")
-        blocks = min(blocks, cap // len(shards))
-    expects(blocks >= 1, "ring_topk: no ring block fits the card at k=%d",
-            k)
-    slot_d = [torch.empty((blocks, 2, RING_ROWS, k), dtype=torch.float32,
-                          device=d) for d in mesh.devices]
-    slot_g = [torch.empty((blocks, 2, RING_ROWS, k), dtype=torch.int32,
-                          device=d) for d in mesh.devices]
-    flags = [torch.zeros((2, blocks), dtype=torch.int32, device=d)
-             for d in mesh.devices]
-    status = {c: torch.zeros(1, dtype=torch.int32, device=f"cuda:{c}")
-              for c in cards}
-    if cross:
-        # no card's ring starts before every card's inputs are written and
-        # its flags zeroed: both were queued on that card's current
-        # stream, so an event recorded there now covers them; every other
-        # card's stream waits on it. The rings' waits then measure the
-        # rings alone, not a neighbour's shard search.
-        done = {}
-        for c in cards:
-            done[c] = torch.cuda.Event()
-            done[c].record(torch.cuda.current_stream(c))
-        for c in cards:
-            for c2 in cards:
-                if c2 != c:
-                    torch.cuda.current_stream(c).wait_event(done[c2])
-    table = [_ptrs(t) for t in (ds, gids, out_d, out_g, slot_d, slot_g,
-                                flags)]
-    for card, shards in cards.items():
-        with torch.cuda.device(card):
-            _cuda.check(lib.raft_ring_topk(
-                *table, (ctypes.c_int * len(shards))(*shards), len(shards),
-                p, m, k, int(select_min), blocks, int(cross), card,
-                status[card].data_ptr(),
-                torch.cuda.current_stream(card).cuda_stream), "ring_topk")
-        ring_launches += 1
-    return (out_d, out_g), list(status.values())
+    key = (tuple(mesh.devices), m, k)
+    ring = _rings.get(key)
+    if ring is None:
+        if len(_rings) >= 64:        # many batch shapes: start over
+            _rings.clear()
+        ring = _rings[key] = _Ring(lib, mesh, m, k)
+    return ring.launch(lib, ds, gids, select_min)
 
 
 def ring_topk(ds, gids, k: int, select_min: bool, mesh: Mesh):
@@ -334,8 +450,8 @@ def ring_capable(m: int, k: int, mesh: Mesh) -> bool:
     shard on a CUDA card, 2 <= p <= :data:`RING_MAX_SHARDS`, 1 <= k <=
     :data:`RING_MAX_K`, no more shards on a card than it has SMs (one
     ring block each is always resident), and peer access between
-    neighbouring shards on different cards. The kernel walks row tiles,
-    so any m fits."""
+    neighbouring shards on different cards. A ring block takes as many
+    rows as the plan gives it, so any m fits."""
     devs = mesh.devices
     p = len(devs)
     if not all(d.type == "cuda" for d in devs) or m < 0:

@@ -251,23 +251,66 @@ def test_plain_versions_agree_on_cpu(integer):
         assert_knn_close(bv, bi, sv, si)
 
 
+SELECT_KS = (1, 20, 32, 33, 64, 100, 129, 256, 257)
+
+
+def select_rows(n, select_min, seed, rows=300):
+    """Integer rows with heavy ties and ±inf cells, row 5 all ±inf; then
+    (from another generator) -0.0 against 0.0, and rows 6-9 with only 1,
+    19, 40 and 0 finite cells (fewer than most k)."""
+    rng = np.random.default_rng(seed)
+    bad = np.inf if select_min else -np.inf
+    x = rng.integers(0, 50, (rows, n)).astype(np.float32)
+    x[rng.random((rows, n)) < 0.05] = bad
+    x[5] = bad
+    more = np.random.default_rng(seed + 1)
+    x[x == 0] = np.where(more.random(int((x == 0).sum())) < 0.5, 0.0, -0.0)
+    for r, fin in zip(range(6, 10), (1, 19, 40, 0)):
+        x[r, fin:] = bad
+        x[r] = x[r, more.permutation(n)]
+    return torch.from_numpy(x).cuda()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [200, 1024, 20000])
+@pytest.mark.parametrize("n", [20, 140, 200, 1024, 1806, 20000])
 @pytest.mark.parametrize("select_min", [True, False])
 def test_select_k_kernel_on_card(n, select_min):
-    """K1 against its plain version: rows in shared memory (n <= 12288)
-    and streamed from device memory (n = 20000), heavy ties, infinities."""
+    """K1, each form, against its plain version: the warp select for
+    k <= 256 and the k passes for every k, rows in shared memory and (n =
+    20000) streamed from device memory, heavy ties, -0.0 against 0.0,
+    rows of ±inf and rows with fewer finite values than k. Each call
+    counts one launch of its form, and the default takes the form the
+    rule gives."""
     need_cuda()
-    rng = np.random.default_rng(n)
-    x = rng.integers(0, 50, (300, n)).astype(np.float32)
-    x[rng.random((300, n)) < 0.05] = np.inf if select_min else -np.inf
-    x[5] = np.inf if select_min else -np.inf
-    xc = torch.from_numpy(x).cuda()
-    for k in (1, 20, 100):
-        kv, ki = tsk.kpass_select_k(xc, k, select_min)
+    xc = select_rows(n, select_min, n)
+    for k in (k for k in SELECT_KS if k <= n):
         pv, pi = tsk.select_k_plain(xc, k, select_min)
-        torch.cuda.synchronize()
-        assert torch.equal(kv, pv) and torch.equal(ki, pi)
+        forms = ("warp", "kpass") if k <= tsk.WARP_MAX_K else ("kpass",)
+        for form in forms + (None,):
+            counts = (tsk.warp_launches, tsk.kpass_launches)
+            kv, ki = tsk.kpass_select_k(xc, k, select_min, form=form)
+            torch.cuda.synchronize()
+            assert torch.equal(kv, pv) and torch.equal(ki, pi), (k, form)
+            used = form or tsk.select_form(k)
+            assert (tsk.warp_launches - counts[0],
+                    tsk.kpass_launches - counts[1]) == (
+                        (1, 0) if used == "warp" else (0, 1))
+
+
+@pytest.mark.cuda
+def test_select_k_kernel_nan_is_never_selected():
+    """NaN cells are never selected (the plain sort would order them last):
+    a row with fewer than k cells that are not NaN ends in (±inf, -1)."""
+    need_cuda()
+    x = torch.full((4, 64), float("nan"), device="cuda")
+    x[:, :5] = torch.arange(5.0, device="cuda")
+    for form in ("warp", "kpass"):
+        for sel in (True, False):
+            v, i = tsk.kpass_select_k(x if sel else -x, 8, sel, form=form)
+            torch.cuda.synchronize()
+            assert i[:, 5:].eq(-1).all()
+            assert i[:, :5].eq(torch.arange(5, device="cuda")).all()
+            assert torch.isinf(v[:, 5:]).all()
 
 
 @pytest.mark.cuda
@@ -481,37 +524,73 @@ def test_merge_step_kernel_on_card(shape, select_min):
             assert torch.equal(a, b)
 
 
+def ring_odd_cells(ds, seed):
+    """The lists with -0.0 against 0.0 and NaN, -inf and +inf cells mixed
+    in (the ring orders NaN after +inf; select_k would drop it)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for d in ds:
+        d = d.cpu().numpy().copy()
+        z = d == 0
+        d[z] = np.where(rng.random(int(z.sum())) < 0.5, 0.0, -0.0)
+        for v, share in ((np.nan, 0.05), (-np.inf, 0.03), (np.inf, 0.05)):
+            d[rng.random(d.shape) < share] = v
+        out.append(torch.from_numpy(d).cuda())
+    return out
+
+
+def assert_bits_equal(a, b):
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("p", [2, 4, 8])
-@pytest.mark.parametrize("k", [10, 100])
+@pytest.mark.parametrize("p", [2, 3, 4, 8, 16])
+@pytest.mark.parametrize("k", [1, 10, 31, 64, 100, 256, 1024])
 @pytest.mark.parametrize("select_min", [True, False])
 def test_ring_topk_kernel_on_card(p, k, select_min):
     """K8 with p shards on one card against the plain ring and
-    knn_merge_parts: every shard's copy equal, ties across shards, a dead
-    shard, a last row tile that is not full."""
+    knn_merge_parts, on every shard's copy, each form of its row work
+    (k <= 32 in lane groups, k <= 256 in registers, k > 256 in shared
+    memory), at m = 1 (fewer rows than
+    ring blocks), 3, 1001 and 10,000: an unsorted shard 0, ties across
+    shards, a dead shard; and with -0.0 / NaN / ±inf cells against the
+    plain ring bit for bit. Two calls back to back on one stream must
+    both be right: no stale flag of the first reaches the second. (m =
+    10,000 where p·k <= 4,096: the host-side fixtures of the widest cases
+    would take most of the test's time.)"""
     need_cuda()
     mesh = Mesh(["cuda"] * p)
-    for integer in (True, False):
-        ds, gs = ring_parts(p, 1001, k, p * k, select_min, integer, "cuda")
-        before = trt.ring_launches
-        out_d, out_g = trt.ring_topk(ds, gs, k, select_min, mesh)
-        assert trt.ring_launches == before + 1
-        plain_d, plain_g = trt.ring_topk_plain(ds, gs, k, select_min, mesh)
-        ref_d, ref_i = brute_force.knn_merge_parts(
-            torch.stack(ds), torch.stack(gs), select_min)
-        torch.cuda.synchronize()
-        for r in range(p):
-            assert torch.equal(out_d[r], plain_d[r])
-            assert torch.equal(out_g[r], plain_g[r])
-            assert torch.equal(out_d[r], ref_d) and torch.equal(out_g[r],
-                                                                ref_i)
+    for m in (1, 3, 1001) + ((10_000,) if p * k <= 4096 else ()):
+        for integer in (True, False):
+            seed = p * k if m == 1001 else p * k + m
+            ds, gs = ring_parts(p, m, k, seed, select_min, integer, "cuda")
+            odd = ring_odd_cells(ds, m + k)
+            before = trt.ring_launches
+            first = trt.ring_topk(ds, gs, k, select_min, mesh)
+            second = trt.ring_topk(odd, gs, k, select_min, mesh)
+            assert trt.ring_launches == before + 2
+            plain = trt.ring_topk_plain(ds, gs, k, select_min, mesh)
+            plain_odd = trt.ring_topk_plain(odd, gs, k, select_min, mesh)
+            ref_d, ref_i = brute_force.knn_merge_parts(
+                torch.stack(ds).cpu(), torch.stack(gs).cpu(), select_min)
+            torch.cuda.synchronize()
+            for r in range(p):
+                assert torch.equal(first[0][r], plain[0][r])
+                assert torch.equal(first[1][r], plain[1][r])
+                assert torch.equal(first[0][r].cpu(), ref_d)
+                assert torch.equal(first[1][r].cpu(), ref_i)
+                assert_bits_equal(second[0][r], plain_odd[0][r])
+                assert torch.equal(second[1][r], plain_odd[1][r])
     # the engines of merge, and the default engine, on the same shards
+    ds, gs = ring_parts(p, 1001, k, p * k, select_min, True, "cuda")
     assert trt.resolve_engine(1001, k, p, mesh=mesh) == "ring_pallas"
-    for eng in trt.ENGINES:
+    ref_d, ref_i = brute_force.knn_merge_parts(
+        torch.stack(ds).cpu(), torch.stack(gs).cpu(), select_min)
+    for eng in trt.ENGINES if k <= 100 else ("ring_pallas",):
         md, mg = trt.merge(ds, gs, k, select_min, mesh, engine=eng)
         torch.cuda.synchronize()
-        assert all(torch.equal(a, ref_d) for a in md)
-        assert all(torch.equal(a, ref_i) for a in mg)
+        assert all(torch.equal(a.cpu(), ref_d) for a in md)
+        assert all(torch.equal(a.cpu(), ref_i) for a in mg)
 
 
 @pytest.mark.cuda

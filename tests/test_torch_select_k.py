@@ -69,3 +69,108 @@ def test_k_out_of_range_raises():
 
     with pytest.raises(RaftError):
         tsk.select_k(torch.zeros((2, 5)), 6)
+
+
+@pytest.mark.parametrize("k,form", [(1, "warp"), (20, "warp"), (256, "warp"),
+                                    (257, "kpass"), (1024, "kpass")])
+def test_form_is_chosen_by_k(k, form):
+    assert tsk.select_form(k) == form
+
+
+# --------------------------------------------------------------------------
+# The warp select, stated in numpy (csrc/select_k.cu::warp_select_kernel):
+# a queue of C = 32·R keys, key e in register e // 32 of lane e % 32; a
+# column enters the warp's buffer (C slots, filled in lane order) only if
+# it is before the k-th key; a full buffer is sorted descending by a
+# bitonic network, folded into the queue by an elementwise min and
+# bitonic-merged back.
+# --------------------------------------------------------------------------
+
+_IMAX = (1 << 31) - 1
+
+
+def _less(v, i, w, j):
+    return (v < w) | ((v == w) & (i < j))
+
+
+def _bitonic_step(v, c, s, j, desc):
+    lane = np.arange(32)
+    for r in range(v.shape[0]):
+        e = r * 32 + lane
+        asc = ((e & s) == 0) != desc
+        if j >= 32:
+            r2 = r | (j >> 5)
+            if r & (j >> 5):
+                continue
+            swap = np.where(asc, _less(v[r2], c[r2], v[r], c[r]),
+                            _less(v[r], c[r], v[r2], c[r2]))
+            v[[r, r2]] = np.where(swap, v[[r2, r]], v[[r, r2]])
+            c[[r, r2]] = np.where(swap, c[[r2, r]], c[[r, r2]])
+        else:
+            ov, oc = v[r][lane ^ j], c[r][lane ^ j]
+            take = ((lane & j) == 0) == asc
+            take = take == _less(ov, oc, v[r], c[r])
+            v[r] = np.where(take, ov, v[r])
+            c[r] = np.where(take, oc, c[r])
+
+
+def warp_select(row, k, select_min=True):
+    n, cap = len(row), max(32, 1 << (k - 1).bit_length())
+    rr = cap // 32
+    sign = np.float32(1 if select_min else -1)
+    qv = np.full((rr, 32), np.inf, np.float32)
+    qc = np.full((rr, 32), _IMAX, np.int64)
+    buf = []                       # the warp's buffer, in lane order
+    tv, tc = np.float32(np.inf), _IMAX
+
+    def fold():
+        bv = np.full(cap, np.inf, np.float32)
+        bc = np.full(cap, _IMAX, np.int64)
+        bv[:len(buf)] = [v for v, _ in buf]
+        bc[:len(buf)] = [c for _, c in buf]
+        bv, bc = bv.reshape(rr, 32), bc.reshape(rr, 32)
+        for s in (2 << i for i in range(rr.bit_length() + 4)):
+            for j in (s >> 1 >> i for i in range(s.bit_length() - 1)):
+                _bitonic_step(bv, bc, s, j, True)
+        take = _less(bv, bc, qv, qc)
+        qv[take], qc[take] = bv[take], bc[take]
+        for j in (16 * rr >> i for i in range((16 * rr).bit_length())):
+            _bitonic_step(qv, qc, 64 * rr, j, False)
+
+    for base in range(0, n, 32):
+        cols = np.arange(base, min(base + 32, n))
+        v = sign * row[cols]
+        buf += [(x, c) for x, c, ok in zip(v, cols, _less(v, cols, tv, tc))
+                if ok]
+        if len(buf) >= cap:
+            rest = buf[cap:]
+            del buf[cap:]
+            fold()
+            buf = rest
+            tv, tc = qv[(k - 1) // 32, (k - 1) % 32], qc[(k - 1) // 32,
+                                                         (k - 1) % 32]
+    if buf:
+        fold()
+    e = np.arange(k)
+    fv, fc = qv[e // 32, e % 32], qc[e // 32, e % 32]
+    empty = fc == _IMAX
+    return sign * np.where(empty, np.inf, fv), np.where(empty, -1, fc)
+
+
+@pytest.mark.parametrize("k,n", [(1, 64), (20, 1024), (32, 140), (33, 200),
+                                 (64, 128), (100, 400), (129, 520)])
+def test_warp_select_statement_matches_pallas_kernel(k, n):
+    """The numpy statement of the warp select equals the Pallas k-pass
+    (interpret mode) on integer rows with ties, +inf cells, a row of
+    nothing but +inf, and the max selection through negation."""
+    rng = np.random.default_rng(k + n)
+    x = rng.integers(0, 30, (6, n)).astype(np.float32)
+    x[rng.random((6, n)) < 0.1] = np.inf
+    x[2] = np.inf
+    jv, ji = _kpass_2d(jnp.asarray(x), k, True)
+    jv, ji = np.asarray(jv), np.asarray(ji)
+    for row in range(6):
+        for sel, xs in ((True, x[row]), (False, -x[row])):
+            v, c = warp_select(xs, k, sel)
+            np.testing.assert_array_equal(v, jv[row] if sel else -jv[row])
+            np.testing.assert_array_equal(c, ji[row])

@@ -44,18 +44,26 @@ It builds the eight CUDA kernels from ``raft_tpu_torch/csrc`` (one
    numpy on a few queries;
    Each path prints its launches per kernel and, for K1, per form (the
    warp select for k <= 256, the k passes above).
-2. kernels: each kernel against its plain PyTorch version on the card at
+2. determinism: the path's IVF-Flat and IVF-PQ indexes, built once more
+   from the same rows in the same process, must be bit-equal to the
+   path's (centers, lists, rotation, codebooks, codes).
+3. kernels: each kernel against its plain PyTorch version on the card at
    the path's shapes (K1 at every (rows, n, k) the paths hand it — the
-   coarse probe, the brute-force and CAGRA-build split merges, the
+   coarse probe, the brute-force split merge, the CAGRA build's at each
+   size of batch (full and last) whose K2 plan splits the corpus, the
    IVF-Flat and IVF-PQ probe merges, refine, the edge engine's parent
    pick and buffer merge, the allgather merge at k = 100 — each form on
    the path's values and on integer-valued rows, the two forms timed in
-   turn; K4 also on an integer-valued copy of the IVF-PQ
+   turn, and bit for bit on the path's values with NaN, -NaN, ±inf and
+   -0.0 cells mixed in; K2 on integer inputs at k = 10, 129 and 256 and
+   on the path's data at k = 10 and at the CAGRA build's k = 129; K4
+   also on an integer-valued copy of the IVF-PQ
    index, K5 and K6 on the path's data, where they must be equal, and on
    integer-valued copies; K5 also on a bf16 store; K7 and K8, which must
-   be equal, on the path's candidates and on integer-valued lists with
-   cross-shard ties and a dead shard, at the path's k = 10 and at
-   k = 100, K8 also at p = 8, at p = 16 (k = 10) and with fewer rows
+   be equal, on the path's candidates and on integer-valued lists (K8:
+   cross-shard ties and a dead shard; K7: unsorted, ties, NaN, ±inf and
+   -0.0, bit for bit), at the path's k = 10 and at k = 100, K7 also at
+   k = 300, K8 also at p = 8, at p = 16 (k = 10) and with fewer rows
    than ring blocks (m = 1 and 100)), with the kernel's time (median of
    CUDA-event timed calls after a warm-up, L2 flushed before each), the
    plain version's time, one PyTorch library call's time where one
@@ -64,12 +72,16 @@ It builds the eight CUDA kernels from ``raft_tpu_torch/csrc`` (one
    and K6 read each distinct parent's tile once; K5 is timed on the
    parents of a mid-traversal hop) and the operations' time, with
    FP32 FLOPs at 67 TFLOP/s (an FMA counts 2) and single adds or
-   compares at half that, 33.5 T/s (H100 SXM data sheet); K1's bound
+   compares at half that, 33.5 T/s (H100 SXM data sheet); K2's bound is
+   its f32-accurate product on the tensor cores, three TF32 products at
+   495 TFLOP/s (3xTF32), printed beside the FP32 pipe's and each one's
+   share, also at the CAGRA build's shape (one full batch) and for
+   the whole kNN-graph stage; K1's bound
    reads its input once and writes k (value, column) pairs a row; K7's bound
    counts one compare a cell in, K8's reads each shard's input and
    writes its output once and counts a merge's p·k·log2(p) compares a
    row. The sharded merge alone is timed per engine at k = 10 and 100.
-   K1 (each form, at every shape) and K8 also report the card's time
+   K1 (each form, at every shape), K7 and K8 also report the card's time
    alone (``device_ms``: calls queued back to back while the card is
    still busy with flush writes, so the host work between them is
    hidden): an event time includes the wrapper's host work wherever
@@ -86,6 +98,7 @@ result. Every matrix product runs in full float32 (TF32 off).
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import json
 import statistics
 import subprocess
@@ -119,6 +132,9 @@ CAGRA_D0, CAGRA_DEG, ITOPK = 128, 64, 64
 CAGRA_SP = cagra.SearchParams(itopk_size=ITOPK, search_width=1)
 CAGRA_MIN_RECALL = 0.90
 K5_HOP = 32        # K5 is timed on the parents of this hop (of up to 80)
+# the query rows of one K2 launch of the CAGRA build: build_knn_graph's own
+CAGRA_BATCH = inspect.signature(
+    cagra.build_knn_graph).parameters["batch"].default
 P_SHARDS = 4       # the sharded paths: 4 shards on the one card
 # sharded recall@10 floors, set under the first reading on the card
 # (H100, 700 W): IVF-Flat 0.9475, IVF-PQ (raw, no refine) 0.8208
@@ -127,7 +143,9 @@ RING_K = 100       # K7 and K8 are also timed at this k (the path's is K)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM, FP32 outside the tensor cores
 FP32_INSTR_PER_S = 33.5e12     # one add, compare or FMA per lane per clock
+TF32_FLOPS_PER_S = 495e12      # H100 SXM, dense TF32 on the tensor cores
 RTOL = 1e-5                    # float32 sums in another order
+K7_KS = (K, RING_K, 300)       # K7's k: the path's, RING_K, past K8's forms
 
 # kernel name -> (wrapper module, its launch counter)
 _COUNTERS = {"select_k": (sk, "launches"),
@@ -279,6 +297,27 @@ def check_equal(ref, got, what: str) -> float:
     return err
 
 
+def check_bits(ref, got, what: str) -> None:
+    """Fail unless the values of ``got`` equal ``ref``'s bit for bit (NaN
+    payloads and -0.0 included) and the other tensors are equal."""
+    if not (torch.equal(ref[0].view(torch.int32), got[0].view(torch.int32))
+            and all(torch.equal(a, b) for a, b in zip(ref[1:], got[1:]))):
+        raise AssertionError(f"{what}: kernel and plain version differ")
+    log(f"  {what}: equal bit for bit")
+
+
+def odd_cells(x, seed):
+    """A copy of ``x`` with NaN, -NaN, +inf, -inf and -0.0 cells mixed
+    in."""
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    x = x.clone()
+    for v, share in ((float("nan"), 0.05), (-float("nan"), 0.01),
+                     (float("inf"), 0.02), (-float("inf"), 0.02),
+                     (-0.0, 0.02)):
+        x[torch.rand(x.shape, generator=g, device=x.device) < share] = v
+    return x
+
+
 def run_path(name: str, kernels, fn, totals: dict):
     """Drive one path with every launch counter set to 0 just before it;
     read the counters just after, add them to ``totals``, and fail if a
@@ -409,6 +448,38 @@ def path_phase(x, q):
                 rv[:16].cpu(), ri[:16].cpu(),
                 "refine vs numpy float64 (16 queries)")
     return bidx, iidx, pidx, cidx, sidx, totals
+
+
+def determinism_phase(x, iidx, pidx):
+    """The path's IVF-Flat and IVF-PQ indexes built once more from the same
+    rows in this process, compared bit for bit with the path's: centers,
+    list contents and order, rotation, codebooks and codes (the k-means
+    and codebook sums take a fixed order, ``cluster.kmeans.segment_sum``,
+    and ``adjust_centers`` draws through integer sums)."""
+    bits = lambda a, b: torch.equal(a.view(torch.int32),  # noqa: E731
+                                    b.view(torch.int32))
+    a, t = host_time(lambda: ivf_flat.build(
+        x, ivf_flat.IndexParams(n_lists=N_LISTS, seed=SEED)))
+    if not (bits(a.centers, iidx.centers) and bits(a.data, iidx.data)
+            and torch.equal(a.source_ids, iidx.source_ids)
+            and np.array_equal(a.list_sizes, iidx.list_sizes)):
+        raise AssertionError("two IVF-Flat builds of one tree differ")
+    log(f"determinism: IVF-Flat built again ({t:.3f} s) is bit-equal to "
+        "the path's: centers, lists")
+    del a
+    b, t = host_time(lambda: ivf_pq.build(x, ivf_pq.IndexParams(
+        n_lists=N_LISTS, pq_dim=PQ_DIM, pq_bits=PQ_BITS, seed=SEED)))
+    if not (bits(b.centers_rot, pidx.centers_rot)
+            and bits(b.codebooks, pidx.codebooks)
+            and bits(b.rotation, pidx.rotation)
+            and torch.equal(b.codes, pidx.codes)
+            and torch.equal(b.source_ids, pidx.source_ids)
+            and np.array_equal(b.list_sizes, pidx.list_sizes)):
+        raise AssertionError("two IVF-PQ builds of one tree differ")
+    split = ", ".join(f"{k} {v:.3f} s" for k, v in b.build_seconds.items())
+    log(f"determinism: IVF-PQ built again ({t:.3f} s: {split}) is "
+        "bit-equal to the path's: centers, rotation, codebooks, codes, "
+        "lists")
 
 
 def cagra_path(x, q, bi, totals):
@@ -635,46 +706,88 @@ def int_lists(p, k, seed):
             [torch.from_numpy(gid[r]).cuda() for r in range(p)])
 
 
-def k7_phase(timer, sidx, q, launches):
-    """K7 on shard 0's hop-0 fold of the path's candidates (its own list,
-    then shard p−1's block at positions (p−1)·k + j), at the path's k and
-    at k = RING_K; and on integer-valued lists with ties."""
+def k7_lists(x, sidx, q, k):
+    """Shard 0's hop-0 fold at k on the path's data: its own list, then
+    shard p−1's block at positions (p−1)·k + j. Up to K2's MAX_K the
+    shards' candidate lists; above it each shard's exact distances to its
+    first k rows (the path's data, unsorted)."""
     p = sidx.n_shards
-    out = {}
-    for k in (K, RING_K):
+    slot = torch.arange(k, dtype=torch.int32, device=q.device).repeat(M, 1)
+    if k <= fk.MAX_K:
         ds, gs = sharded_knn.shard_candidates(sidx, q, k)
-        slot = torch.arange(k, dtype=torch.int32, device=q.device).repeat(M, 1)
-        args = (ds[0], slot, gs[0], ds[-1], (p - 1) * k + slot, gs[-1])
+        d0, g0, d1, g1 = ds[0], gs[0], ds[-1], gs[-1]
+    else:
+        qn = (q * q).sum(1)
+
+        def rows(r):
+            ids = torch.arange(r * sidx.shard_rows, r * sidx.shard_rows + k,
+                               device=q.device)
+            xr = x[ids]
+            d = (qn[:, None] + (xr * xr).sum(1)[None, :]
+                 - 2.0 * (q @ xr.T)).contiguous()
+            return d, ids.int().repeat(M, 1)
+
+        (d0, g0), (d1, g1) = rows(0), rows(p - 1)
+    return (d0, slot, g0, d1, (p - 1) * k + slot, g1)
+
+
+def odd_int_lists(k, seed):
+    """Two unsorted (M, k) integer-valued lists with ties inside and across
+    them, -0.0 against 0.0, NaN and ±inf cells; the ring's positions."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 40, (2, M, k)).astype(np.float32)
+    d[d == 0] = np.where(rng.random(int((d == 0).sum())) < 0.5, 0.0, -0.0)
+    for v, share in ((np.nan, 0.05), (np.inf, 0.03), (-np.inf, 0.02)):
+        d[rng.random(d.shape) < share] = v
+    gid = rng.integers(0, N, (2, M, k)).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa
+    slot = torch.arange(k, dtype=torch.int32, device="cuda").repeat(M, 1)
+    return (t(d[0]), slot, t(gid[0]), t(d[1]), k + slot, t(gid[1]))
+
+
+def k7_phase(timer, x, sidx, q, launches):
+    """K7 on shard 0's hop-0 fold of the path's data (:func:`k7_lists`) at
+    the path's k, at RING_K and at k = 300 (past K8's register forms),
+    and on unsorted integer-valued lists with ties, NaN, ±inf and -0.0,
+    both directions, against merge_step_plain bit for bit; timed beside
+    the plain version and torch.topk of the concatenation."""
+    out = {}
+    for k in K7_KS:
+        args = k7_lists(x, sidx, q, k)
         err = check_equal(rt.merge_step_plain(*args, k),
                           rt.merge_step(*args, k),
                           f"K7 merge_step ({M}, {k}) + ({M}, {k}) -> k={k}, "
-                          "the path's candidates")
-        di, gi = int_lists(3, k, SEED + 7)
+                          "the path's data")
+        odd = odd_int_lists(k, SEED + 7 + k)
         for sel in (True, False):
-            a = (di[0] if sel else -di[0], slot, gi[0],
-                 di[1] if sel else -di[1], k + slot, gi[1])
-            check_equal(rt.merge_step_plain(*a, k, sel),
-                        rt.merge_step(*a, k, sel),
-                        f"K7 merge_step integer-valued, equal lists, "
-                        f"select_min={sel} (k={k})")
+            a = odd if sel else (-odd[0],) + odd[1:3] + (-odd[3],) + odd[4:]
+            check_bits(rt.merge_step_plain(*a, k, sel),
+                       rt.merge_step(*a, k, sel),
+                       f"K7 merge_step integer-valued, unsorted, ties, NaN, "
+                       f"±inf, -0.0, select_min={sel} (k={k})")
+        del odd
         cat = torch.cat([args[0], args[3]], dim=1)
         ms = timer(lambda: rt.merge_step(*args, k))
+        dev = device_ms(lambda: rt.merge_step(*args, k))
         plain = timer(lambda: rt.merge_step_plain(*args, k))
         lib = timer(lambda: torch.topk(cat, k, dim=1, largest=False))
         w = 2 * k
         # 12 B a cell in and out; at least one compare a cell in
         b, by = bound(M * w * 12 + M * k * 12, 0.0, float(M) * w)
-        out[k] = dict(err=err, ms=ms, plain=plain, lib=lib, bound=b, by=by)
-        log(f"  K7 at k={k}: {ms:.4f} ms (plain {plain:.3f}, torch.topk "
-            f"{lib:.4f}, bound {b:.4f} by {by})")
+        out[k] = dict(err=err, ms=ms, dev=dev, plain=plain, lib=lib, bound=b,
+                      by=by)
+        log(f"  K7 at k={k}: {ms:.4f} ms (the kernel alone {dev:.4f}; plain "
+            f"{plain:.3f}, torch.topk {lib:.4f}, bound {b:.4f} by {by})")
     r = out[K]
     return dict(name="merge_step", route="cuda",
                 source="raft_tpu_torch/csrc/ring_topk.cu",
                 replaces="raft_tpu/ops/ring_topk.py:320", launches=launches,
                 max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain"],
                 bound_ms=r["bound"], bound_by=r["by"], library_ms=r["lib"],
-                **{f"k{RING_K}_{key}": out[RING_K][key2]
-                   for key, key2 in (("ms", "ms"), ("plain_ms", "plain"),
+                device_ms=r["dev"],
+                **{f"k{k}_{key}": out[k][key2] for k in K7_KS if k != K
+                   for key, key2 in (("ms", "ms"), ("device_ms", "dev"),
+                                     ("plain_ms", "plain"),
                                      ("library_ms", "lib"),
                                      ("bound_ms", "bound"))},
                 shape=f"({M}, {K}) + ({M}, {K}) -> k={K}")
@@ -916,20 +1029,32 @@ def k6_phase(timer, cidx, q, buf_d, buf_i, walked, launches):
                       f"{max_iter} hops max, int8 tiles {deg_p} x {dim_p}")
 
 
+def cagra_batches() -> dict:
+    """The CAGRA build's kNN-graph batches by size → {rows: first row}:
+    ``CAGRA_BATCH`` rows each and, where N is not a multiple, the last,
+    shorter one (each size has a K2 plan of its own)."""
+    return {min(CAGRA_BATCH, N - b0): b0 for b0 in range(0, N, CAGRA_BATCH)}
+
+
 def k1_inputs(x, q, bidx, iidx, pidx, cidx, sidx):
     """K1's inputs at every (rows, n, k) shape the paths hand it, made the
     way each path makes them → [(what, values (rows, n), k)]."""
     st = cidx.edge_store
     # coarse probe: ranking scores of the queries against the 1,024 centers
     coarse = (iidx.center_norms[None, :] - 2.0 * (q @ iidx.centers.T))
-    # K2's corpus splits: brute force at k, CAGRA build's kNN graph at
-    # intermediate degree + 1 over one batch of its rows
+    # K2's corpus splits: brute force at k, the CAGRA build's kNN graph at
+    # intermediate degree + 1 over each size of batch it runs
     qn = fk.prepare_norms("l2", q)
     dn = fk.prepare_norms("l2", x, bidx.norms)
     bf_cand = fk.fused_knn_candidates(q, qn, x, dn, None, K, "l2")[0]
-    xb = x[:32768]
-    build_cand = fk.fused_knn_candidates(xb, fk.prepare_norms("l2", xb), x,
-                                         dn, None, CAGRA_D0 + 1, "l2")[0]
+    build = []     # the batches whose K2 plan splits the corpus
+    for rows, b0 in cagra_batches().items():
+        xb = x[b0:b0 + rows]
+        cand, _, splits = fk.fused_knn_candidates(
+            xb, fk.prepare_norms("l2", xb), x, dn, None, CAGRA_D0 + 1, "l2")
+        if splits > 1:
+            build.append((f"CAGRA build split merge, a batch of {rows}",
+                          cand, CAGRA_D0 + 1))
     # K3 and K4: each query's probes' candidates side by side
     probed = iscan.coarse_probe(q, iidx.centers, N_PROBES, "l2",
                                 iidx.center_norms)
@@ -958,8 +1083,7 @@ def k1_inputs(x, q, bidx, iidx, pidx, cidx, sidx):
     ds, _ = sharded_knn.shard_candidates(sidx, q, RING_K)
     gathered = torch.stack(ds, dim=1).reshape(M, -1).contiguous()
     return [("coarse probe", coarse.contiguous(), N_PROBES),
-            ("brute-force split merge", bf_cand, K),
-            ("CAGRA build split merge", build_cand, CAGRA_D0 + 1),
+            ("brute-force split merge", bf_cand, K), *build,
             ("IVF-Flat probe merge", k3_cand, K),
             ("IVF-PQ probe merge", k4_cand, K0),
             ("refine", ref, K),
@@ -970,8 +1094,11 @@ def k1_inputs(x, q, bidx, iidx, pidx, cidx, sidx):
 
 def k1_phase(timer, inputs, launches, by_form):
     """K1 at every path shape, each form against the plain version on the
-    path's values and on integer-valued rows of the same shape (ties,
-    +inf cells, both selection directions), both forms timed in turn
+    path's values, on integer-valued rows of the same shape (ties, +inf
+    cells, both selection directions) and, bit for bit, on the path's
+    values with NaN, -NaN, ±inf and -0.0 cells mixed in (both
+    directions: the select_k order of matrix/select_k.py), both forms
+    timed in turn
     beside the plain version and ``torch.topk``; the entry reports the
     coarse probe's shape in the form the path takes there."""
     rng = np.random.default_rng(SEED + 1)
@@ -981,6 +1108,7 @@ def k1_phase(timer, inputs, launches, by_form):
         ints = rng.integers(0, 64, (rows, n)).astype(np.float32)
         ints[rng.random((rows, n)) < 0.02] = np.inf
         vi = torch.from_numpy(ints).cuda()
+        odd = odd_cells(v, SEED + rows + n)
         forms = ("warp", "kpass") if k <= sk.WARP_MAX_K else ("kpass",)
         for form in forms:
             e = check_equal(sk.select_k_plain(v, k),
@@ -994,7 +1122,12 @@ def k1_phase(timer, inputs, launches, by_form):
                             sk.kpass_select_k(a, k, sel, form=form),
                             f"K1 {form} {what} ({rows}, {n}) k={k}, integer "
                             f"rows, select_min={sel}")
-        del vi
+                check_bits(sk.select_k_plain(odd, k, sel),
+                           sk.kpass_select_k(odd, k, sel, form=form),
+                           f"K1 {form} {what} ({rows}, {n}) k={k}, the "
+                           f"path's values with NaN, ±inf and -0.0, "
+                           f"select_min={sel}")
+        del vi, odd
         # forms in turn: warp, k-pass, k-pass, warp; the median of each.
         # A wrapper call's event time includes its host work where that
         # outlasts the L2 flush, so each form's kernel is also timed alone
@@ -1031,7 +1164,14 @@ def k1_phase(timer, inputs, launches, by_form):
                 launches_by_form=by_form, shapes=shapes)
 
 
-def k2_phase(timer, bidx, q, launches):
+def k2_phase(timer, bidx, q, launches, knn_graph_s):
+    """K2 equal to its plain version on integer inputs (k = 10, 129, 256),
+    close to it on the path's data at k = 10 (l2, ip) and at the CAGRA
+    build's k = 129; timed at the brute-force path's shape and at the
+    CAGRA build's (one full batch against the corpus at k = 129),
+    each against two bounds: the FP32 pipe's and the 3xTF32 product's on
+    the tensor cores (three TF32 products, the least an f32-accurate
+    product costs there), which is the row's bound."""
     x, norms = bidx.dataset, bidx.norms
     rng = np.random.default_rng(SEED + 2)
     qi = torch.from_numpy(rng.integers(-3, 4, (256, 32)).astype(
@@ -1039,44 +1179,84 @@ def k2_phase(timer, bidx, q, launches):
     xi = torch.from_numpy(rng.integers(-3, 4, (50_000, 32)).astype(
         np.float32)).cuda()
     for metric in ("l2", "ip"):
-        check_equal(fk.fused_knn_plain(qi, xi, K, metric),
-                    fk.fused_knn(qi, xi, K, metric),
-                    f"K2 fused_knn {metric} (256, 50000, 32) k={K}, "
-                    "integer inputs")
+        for k in (K, CAGRA_D0 + 1, fk.MAX_K):
+            check_equal(fk.fused_knn_plain(qi, xi, k, metric),
+                        fk.fused_knn(qi, xi, k, metric),
+                        f"K2 fused_knn {metric} (256, 50000, 32) k={k}, "
+                        "integer inputs")
     sub = q[:512]
     qn = fk.prepare_norms("l2", q)
     out = {}
-    for metric in ("l2", "ip"):
-        pv, pi = fk.fused_knn_plain(sub, x, K, metric, norms)
-        kv, ki = fk.fused_knn(sub, x, K, metric, norms)
+    for metric, k in (("l2", K), ("ip", K), ("l2", CAGRA_D0 + 1)):
+        pv, pi = fk.fused_knn_plain(sub, x, k, metric, norms)
+        kv, ki = fk.fused_knn(sub, x, k, metric, norms)
         err = check_close(pv, pi, kv, ki,
                           f"K2 fused_knn {metric} (512 of {M} queries, "
-                          f"{N}, {D}) k={K}")
-        dn = fk.prepare_norms(metric, x, norms)
+                          f"{N}, {D}) k={k}")
+        out[metric, k] = err
+    dn = fk.prepare_norms("l2", x, norms)
+    times = {}
+    for metric in ("l2", "ip"):
         qm = qn if metric == "l2" else None
-        ms = timer(lambda: fk.fused_knn_candidates(q, qm, x, dn, None, K,
-                                                   metric))
-        log(f"  K2 {metric} at ({M}, {N}, {D}) k={K}: {ms:.2f} ms")
-        out[metric] = (err, ms)
+        dm = dn if metric == "l2" else None
+        times[metric] = timer(lambda: fk.fused_knn_candidates(
+            q, qm, x, dm, None, K, metric))
+    xb = x[:CAGRA_BATCH]
+    xbn = fk.prepare_norms("l2", xb)
+    t129 = timer(lambda: fk.fused_knn_candidates(xb, xbn, x, dn, None,
+                                                 CAGRA_D0 + 1, "l2"),
+                 reps=3)
     plain = timer(lambda: fk.fused_knn_plain(q, x, K, "l2", norms), reps=3,
                   warmup=0)
 
     def library():
-        for s in range(0, M, 1000):
-            dist = torch.addmm(norms[None, :], q[s:s + 1000], x.T,
+        for s0 in range(0, M, 1000):
+            dist = torch.addmm(norms[None, :], q[s0:s0 + 1000], x.T,
                                alpha=-2.0)
             torch.topk(dist, K, dim=1, largest=False)
 
     lib = timer(library, reps=3)
-    splits, _ = fk._split_plan(M, N, x.device)
-    b, by = bound((M * D + N * D + N + M) * 4 + M * splits * K * 8,
-                  2.0 * M * N * D)
+    splits, _ = fk._split_plan(M, N, K, D, "l2", x.device)
+    build_splits = {rows: fk._split_plan(rows, N, CAGRA_D0 + 1, D, "l2",
+                                         x.device)[0]
+                    for rows in cagra_batches()}
+    full = max(build_splits)            # CAGRA_BATCH rows, or N if fewer
+    splits129 = build_splits[full]
+
+    def bounds(m, k, sp):
+        """(3xTF32 bound, FP32 bound, bytes bound) in ms."""
+        n_bytes = (m * D + N * D + N + m) * 4 + m * sp * k * 8
+        b_bytes, _ = bound(n_bytes, 0.0)
+        flops = 2.0 * m * N * D
+        return (3 * flops / TF32_FLOPS_PER_S * 1e3,
+                flops / FP32_FLOPS_PER_S * 1e3, b_bytes)
+
+    tf, fp, by = bounds(M, K, splits)
+    tf129, fp129, _ = bounds(full, CAGRA_D0 + 1, splits129)
+    graph_tf = 3 * 2.0 * N * N * D / TF32_FLOPS_PER_S
+    ms = times["l2"]
+    log(f"  K2 l2 at ({M}, {N}, {D}) k={K}: {ms:.2f} ms ({splits} splits), "
+        f"ip {times['ip']:.2f} ms; 3xTF32 bound {tf:.2f} ms "
+        f"({tf / ms:.1%} of it), FP32 bound {fp:.2f} ms ({fp / ms:.1%}), "
+        f"bytes {by:.3f} ms")
+    log(f"  K2 l2 at the CAGRA build's ({full}, {N}, {D}) k="
+        f"{CAGRA_D0 + 1}: {t129:.2f} ms ({splits129} splits); 3xTF32 bound "
+        f"{tf129:.2f} ms ({tf129 / t129:.1%}), FP32 bound {fp129:.2f} ms "
+        f"({fp129 / t129:.1%}); corpus splits by batch size "
+        f"{build_splits}")
+    log(f"  CAGRA kNN-graph stage {knn_graph_s:.3f} s; its 3xTF32 bound "
+        f"{graph_tf:.3f} s ({graph_tf / knn_graph_s:.1%})")
     return dict(name="fused_knn", route="cuda",
                 source="raft_tpu_torch/csrc/fused_knn.cu",
                 replaces="raft_tpu/ops/fused_knn.py:336",
-                launches=launches, max_abs_err=out["l2"][0],
-                ms=out["l2"][1], plain_ms=plain, bound_ms=b, bound_by=by,
-                library_ms=lib, ip_ms=out["ip"][1],
+                launches=launches, max_abs_err=out["l2", K],
+                ms=ms, plain_ms=plain, bound_ms=tf, bound_by="operations",
+                bound_kind="3xTF32", library_ms=lib, fp32_bound_ms=fp,
+                bytes_bound_ms=by, ip_ms=times["ip"],
+                k129_ms=t129, k129_bound_ms=tf129, k129_fp32_bound_ms=fp129,
+                k129_max_abs_err=out["l2", CAGRA_D0 + 1],
+                k129_splits_by_batch=build_splits,
+                knn_graph_s=knn_graph_s, knn_graph_bound_s=graph_tf,
                 shape=f"({M}, {N}, {D}) k={K} l2, {splits} corpus splits")
 
 
@@ -1216,6 +1396,7 @@ def main() -> int:
         f"made in {t_data:.1f} s")
 
     bidx, iidx, pidx, cidx, sidx, moved = path_phase(x, q)
+    determinism_phase(x, iidx, pidx)
 
     timer = Timer()
     k1_in = k1_inputs(x, q, bidx, iidx, pidx, cidx, sidx)
@@ -1223,7 +1404,8 @@ def main() -> int:
                         {f: moved[f"select_k.{f}"] for f in ("warp",
                                                              "kpass")})]
     del k1_in
-    kernels += [k2_phase(timer, bidx, q, moved["fused_knn"]),
+    kernels += [k2_phase(timer, bidx, q, moved["fused_knn"],
+                         cidx.build_stats["knn_graph_s"]),
                k3_phase(timer, iidx, q, moved["ivf_flat_scan"]),
                k4_phase(timer, pidx, q, moved["ivf_pq_scan"])]
     del iidx, pidx
@@ -1233,7 +1415,7 @@ def main() -> int:
                 k6_phase(timer, cidx, q, buf_d, buf_i, walked,
                          moved["cagra_fused"])]
     del cidx, buf_d, buf_i
-    kernels += [k7_phase(timer, sidx, q, moved["merge_step"]),
+    kernels += [k7_phase(timer, x, sidx, q, moved["merge_step"]),
                 k8_phase(timer, x, sidx, q, moved["ring_topk"])]
     for kern in kernels:
         lib = kern["library_ms"]

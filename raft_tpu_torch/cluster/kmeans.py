@@ -14,7 +14,7 @@ import torch
 
 from ..distance.fused_l2_nn import fused_l2_nn_argmin
 
-__all__ = ["predict"]
+__all__ = ["predict", "segment_sum"]
 
 
 def _plus_plus(gen: torch.Generator, x: torch.Tensor, k: int
@@ -36,13 +36,33 @@ def _plus_plus(gen: torch.Generator, x: torch.Tensor, k: int
     return centers
 
 
+def segment_sum(x: torch.Tensor, labels: torch.Tensor, k: int
+                ) -> torch.Tensor:
+    """(k, d) sums of the finite rows of ``x`` (n, d) by label, exact in
+    fixed point, so any order of addition gives the same bits, on a card
+    as on the CPU (a float ``index_add_`` adds with atomics on a card, in
+    the order its threads arrive). Each column is scaled by the power of
+    two that puts its largest magnitude under 2**(62 - bits(n)), rounded
+    to int64 and summed there (n such terms stay under 2**62), then
+    scaled back: float32 rows lose nothing to the rounding while
+    n < 2**38."""
+    n, d = x.shape
+    top = x.abs().amax(dim=0) if n else x.new_zeros(d)
+    shift = 62 - n.bit_length() - torch.frexp(top)[1].long()
+    # the float64 2**shift, from its exponent bits
+    scale = ((shift.clamp_max(1000) + 1023) << 52).view(torch.float64)
+    q = (x * scale).round_().long()
+    sums = torch.zeros((k, d), dtype=torch.int64, device=x.device)
+    sums.index_add_(0, labels, q)
+    return (sums.double() / scale).to(x.dtype)
+
+
 def _update_centers(x: torch.Tensor, labels: torch.Tensor, k: int,
                     old_centers: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Segment-sum centroid update; empty clusters keep their old
-    center."""
-    sums = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
-    sums.index_add_(0, labels, x)
+    """Segment-sum centroid update (:func:`segment_sum`); empty clusters
+    keep their old center."""
+    sums = segment_sum(x, labels, k)
     counts = torch.bincount(labels, minlength=k).to(x.dtype)
     centers = sums / torch.clamp_min(counts, 1.0)[:, None]
     return torch.where((counts > 0)[:, None], centers, old_centers), counts

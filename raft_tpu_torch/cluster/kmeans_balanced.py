@@ -52,10 +52,14 @@ def adjust_centers(centers, counts, x, labels, threshold_ratio: float,
     k = centers.shape[0]
     avg = x.shape[0] / k
     small = counts < (avg / threshold_ratio)
-    w = counts[labels]
-    probs = w / torch.clamp_min(w.sum(), 1e-30)
-    picks = torch.multinomial(probs.clamp_min(1e-30), k, replacement=True,
-                              generator=gen)
+    # the draw goes through the integer weights' running sums, exact in any
+    # order, so the picks depend on the generator alone (torch.multinomial
+    # with replacement sums float weights in an order that changes from
+    # run to run on a card)
+    cum = torch.cumsum(counts.long()[labels], 0)
+    u = torch.rand(k, generator=gen, device=gen.device, dtype=torch.float64)
+    picks = torch.searchsorted(
+        cum, torch.clamp_max((u * cum[-1]).long(), cum[-1] - 1), right=True)
     donors = x[picks]
     new_centers = donors + 1e-3 * (donors - centers)
     return torch.where(small[:, None], new_centers, centers), small.sum()

@@ -1,5 +1,6 @@
-// The (value, concat position) folds of K6, K7 and K8, as warp-level
-// device functions: the counterparts of raft_tpu/ops/ring_topk.py::_vmem_fold.
+// The (value, concat position) folds of K6 and K8, and the ring's order,
+// as warp-level device functions: the counterparts of
+// raft_tpu/ops/ring_topk.py::_vmem_fold.
 //
 // warp_fold is K6's (cagra_fused.cu): it folds a hop's candidates into the
 // itopk buffer. _vmem_fold takes k passes of (min value, then min
@@ -23,15 +24,11 @@
 // A candidate that is not finite can never rank below k (the running
 // list has k entries and precedes it), so it is skipped.
 //
-// warp_lex_select is K7's (ring_topk.cu): the k best cells of
-// any w cells under the total order (key, explicit position, index), the
-// order of lax.sort(num_keys=2, is_stable=True) on (±distance,
-// position). It assumes nothing of either list: each cell's rank is the
-// count of cells before it in that order, so the inputs need not be
-// sorted, a cell that is not finite still ranks by its position, and the
-// cell index breaks a tie of (key, position) as the stable sort does.
-// Keys are order_key() of the float, so the integer order is the sort's:
-// -0.0 equals 0.0 and NaN follows +inf.
+// order_key and lex_before are the ring's order, shared by K7 and K8
+// (ring_topk.cu): the total order (key, explicit position, index) of
+// lax.sort(num_keys=2, is_stable=True) on (±distance, position). Keys are
+// order_key() of the float, so the integer order is the sort's: -0.0
+// equals 0.0 and NaN follows +inf.
 //
 // warp_sort_pairs and warp_merge_ranks are K8's (ring_topk.cu): the ring
 // sorts each shard's own list once, by (key, index), and from then on
@@ -44,9 +41,8 @@
 // beside it) and a block that arrives from one other shard (sorted, its
 // cell j at position (shard)·k + j) therefore merge by ranks: a cell's
 // rank is its index in its own list plus a binary-search count of the
-// other list's cells before it. O(k log k) a row, against
-// warp_lex_select's O(k²); the ranks are distinct, so each output slot
-// is written once.
+// other list's cells before it. O(k log k) a row; the ranks are
+// distinct, so each output slot is written once.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -103,24 +99,6 @@ __device__ __forceinline__ int order_key(float v) {
 __device__ __forceinline__ bool lex_before(int ka, int pa, int ia, int kb,
                                            int pb, int ib) {
   return ka < kb || (ka == kb && (pa < pb || (pa == pb && ia < ib)));
-}
-
-// For each of the w cells (key[c], pos[c]) in shared memory whose rank in
-// the (key, position, index) order is below k, call emit(c, rank). The
-// lanes of one warp call it together; each rank below min(k, w) is
-// emitted exactly once.
-template <typename Emit>
-__device__ __forceinline__ void warp_lex_select(const int* key,
-                                                const int* pos, int w, int k,
-                                                int lane, Emit emit) {
-  for (int c = lane; c < w; c += 32) {
-    const int kc = key[c], pc = pos[c];
-    int r = 0;
-    for (int j = 0; j < w && r < k; ++j) {
-      r += lex_before(key[j], pos[j], j, kc, pc, c) ? 1 : 0;
-    }
-    if (r < k) emit(c, r);
-  }
 }
 
 // Sort the n2 cells (key[e], idx[e]) in shared memory by (key, idx)

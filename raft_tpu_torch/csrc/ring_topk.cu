@@ -9,14 +9,28 @@
 // (m, k) candidate lists merged into one (m, k) list that every shard
 // holds, in p−1 hops with no host step between them.
 //
-// K7 on Hopper: one warp per row. The warp stages the row's w1 + w2 order
-// keys and positions in shared memory and ranks every cell by counting
-// the cells before it (lexfold::warp_lex_select); a cell whose rank is
-// below k is written to that output slot. The TPU's k extraction passes
-// (and its padding of rows to 8 and k to 128) have no counterpart. Bound
-// on this card: bytes — 12 B per input cell and 12 B per output cell (the
-// O(w²) rank compares a row are this design's, not the function's); at
-// the sharded path's k = 10 (w = 20) launch overhead dominates.
+// K7 on Hopper: sort once, merge by ranks. Each of the two lists is
+// sorted by (order key, position, index) — the inputs need not be sorted
+// — and a cell's rank in the merged list is its index in its own sorted
+// list plus a binary-search count of the other list's cells before it
+// (on equal (key, position) the running list's cells come first, as
+// their concat index is lower); a cell whose rank is below k is written
+// to that output slot. Two forms, by W = max(w1, w2):
+// W <= 32, a row takes G = the next power of two >= W lanes, 32 / G rows
+// a warp, each lane one cell of each list in registers: the sorts are
+// bitonic networks of shuffles and the rank searches binary searches over
+// shuffles (K8's lane-group form with the index as a third key). W > 32,
+// a row takes a warp and its cells (key, position, index: 12 B a cell)
+// are staged in shared memory: warp_sort_cells (a bitonic network whose
+// first step in each stage compares mirrored cells, so cells past the
+// list's end never move and take no storage), then binary searches over
+// the other sorted list; this covers every k <= w1 + w2 and w1 + w2 up to
+// 16,384. A cell carries only its key, position and index through the
+// sort; its distance and id are read again by index when it is written.
+// The TPU's k extraction passes (and its padding of rows to 8 and k to
+// 128) have no counterpart. Bound on this card: bytes — 12 B per input
+// cell and 12 B per output cell; the sorts' O(w log² w) compares a row
+// are this design's, not the function's.
 //
 // K8 on Hopper, after _ring_kernel's slot discipline: every block of the
 // ring is resident at once (a cooperative launch, which refuses a grid
@@ -68,38 +82,192 @@ namespace {
 // K7
 // ---------------------------------------------------------------------------
 
-constexpr int kStepMaxWarps = 8;
+constexpr int kStepWarps = 8;               // rows (or row groups) a block
 constexpr size_t kStepSmemTarget = 48 * 1024;
 
-__global__ void __launch_bounds__(kStepMaxWarps * 32)
-merge_step_kernel(const float* __restrict__ rd, const int* __restrict__ rp,
-                  const int* __restrict__ rg, int w1,
-                  const float* __restrict__ bd, const int* __restrict__ bp,
-                  const int* __restrict__ bg, int w2, int m, int k,
-                  int negate, float* __restrict__ od, int* __restrict__ op,
-                  int* __restrict__ og) {
+struct StepArgs {
+  const float* rd;  // the running list, (m, w1)
+  const int* rp;
+  const int* rg;
+  const float* bd;  // the arriving block, (m, w2)
+  const int* bp;
+  const int* bg;
+  float* od;        // the k best, (m, k)
+  int* op;
+  int* og;
+  int w1, w2, m, k;
+  float sign;       // -1 for a max merge
+};
+
+// Write cell `idx` of the running list (or of the block) of `row`, whose
+// position is `pos`, to output slot `rank`.
+__device__ __forceinline__ void step_emit(const StepArgs& a, size_t row,
+                                          bool from_b, int idx, int pos,
+                                          int rank) {
+  const size_t o = row * a.k + rank;
+  if (from_b) {
+    const size_t i = row * a.w2 + idx;
+    a.od[o] = a.bd[i];
+    a.og[o] = a.bg[i];
+  } else {
+    const size_t i = row * a.w1 + idx;
+    a.od[o] = a.rd[i];
+    a.og[o] = a.rg[i];
+  }
+  a.op[o] = pos;
+}
+
+// Ascending bitonic sort of one cell a lane over the G lanes of a group.
+__device__ __forceinline__ void lane_sort(int& key, int& pos, int& idx,
+                                          int G, int gl) {
+  for (int s = 2; s <= G; s <<= 1) {
+    for (int j = s >> 1; j > 0; j >>= 1) {
+      const int ok = __shfl_xor_sync(RAFT_FULL_MASK, key, j, G);
+      const int op = __shfl_xor_sync(RAFT_FULL_MASK, pos, j, G);
+      const int oi = __shfl_xor_sync(RAFT_FULL_MASK, idx, j, G);
+      const bool keep_min = ((gl & j) == 0) == ((gl & s) == 0);
+      if (keep_min == lexfold::lex_before(ok, op, oi, key, pos, idx)) {
+        key = ok;
+        pos = op;
+        idx = oi;
+      }
+    }
+  }
+}
+
+// Lists of at most 32 cells: a lane group a row.
+__global__ void __launch_bounds__(kStepWarps * 32)
+merge_step_lanes(StepArgs a, int G) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int grp = lane / G, gl = lane % G;
+  const long long r = ((long long)blockIdx.x * kStepWarps + warp) * (32 / G)
+                      + grp;
+  const bool live = r < a.m;  // every lane runs the shuffles
+  const size_t row = live ? (size_t)r : 0;
+  // an absent cell (INT_MAX, INT_MAX, INT_MAX) sorts after every cell
+  int ak = INT_MAX, ap = INT_MAX, ai = INT_MAX;
+  int bk = INT_MAX, bp = INT_MAX, bi = INT_MAX;
+  if (live && gl < a.w1) {
+    ak = lexfold::order_key(a.sign * a.rd[row * a.w1 + gl]);
+    ap = a.rp[row * a.w1 + gl];
+    ai = gl;
+  }
+  if (live && gl < a.w2) {
+    bk = lexfold::order_key(a.sign * a.bd[row * a.w2 + gl]);
+    bp = a.bp[row * a.w2 + gl];
+    bi = gl;
+  }
+  lane_sort(ak, ap, ai, G, gl);
+  lane_sort(bk, bp, bi, G, gl);
+  // my running cell counts the block's cells strictly before it; my
+  // block cell the running cells at or before its (key, position)
+  int cb = 0, ca = 0;
+  for (int step = G; step > 0; step >>= 1) {
+    const int eb = cb + step - 1, ea = ca + step - 1;
+    const int kb = __shfl_sync(RAFT_FULL_MASK, bk, min(eb, G - 1), G);
+    const int pb = __shfl_sync(RAFT_FULL_MASK, bp, min(eb, G - 1), G);
+    const int ka = __shfl_sync(RAFT_FULL_MASK, ak, min(ea, G - 1), G);
+    const int pa = __shfl_sync(RAFT_FULL_MASK, ap, min(ea, G - 1), G);
+    if (eb < a.w2 && (kb < ak || (kb == ak && pb < ap))) cb += step;
+    if (ea < a.w1 && (ka < bk || (ka == bk && pa <= bp))) ca += step;
+  }
+  if (live && gl < a.w1 && gl + cb < a.k) step_emit(a, row, false, ai, ap,
+                                                    gl + cb);
+  if (live && gl < a.w2 && gl + ca < a.k) step_emit(a, row, true, bi, bp,
+                                                    gl + ca);
+}
+
+// Sort the n cells (key, pos, idx) in shared memory ascending, in place,
+// with one warp: a bitonic network over the next power of two >= n whose
+// stages all sort ascending (the first step of a stage compares cell o of
+// a block with cell s − 1 − o), so the cells past n, after every cell,
+// never move and are never read. The caller syncs the warp before.
+__device__ void warp_sort_cells(int* key, int* pos, int* idx, int n,
+                                int lane) {
+  int n2 = 1;
+  while (n2 < n) n2 <<= 1;
+  for (int s = 2; s <= n2; s <<= 1) {
+    for (int j = s >> 1; j > 0; j >>= 1) {
+      for (int t = lane; t < (n2 >> 1); t += 32) {
+        const int o = t & (j - 1);
+        const int base = (t & ~(j - 1)) << 1;
+        const int i = base + o;
+        const int q = j == (s >> 1) ? base + s - 1 - o : i + j;
+        if (q < n) {
+          const int ki = key[i], pi = pos[i], ii = idx[i];
+          const int kq = key[q], pq = pos[q], iq = idx[q];
+          if (lexfold::lex_before(kq, pq, iq, ki, pi, ii)) {
+            key[i] = kq;
+            pos[i] = pq;
+            idx[i] = iq;
+            key[q] = ki;
+            pos[q] = pi;
+            idx[q] = ii;
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// Lists of more than 32 cells: a warp a row, 12 B a cell in shared memory.
+__global__ void __launch_bounds__(kStepWarps * 32)
+merge_step_smem(StepArgs a) {
   extern __shared__ int smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * warps + warp;
-  if (row >= m) return;  // warps are independent: no block barrier
-  const int w = w1 + w2;
-  int* key = smem + (size_t)warp * 2 * w;
-  int* pos = key + w;
-  const size_t r1 = (size_t)row * w1, r2 = (size_t)row * w2;
-  for (int c = lane; c < w; c += 32) {
-    const float v = c < w1 ? rd[r1 + c] : bd[r2 + c - w1];
-    key[c] = lexfold::order_key(negate ? -v : v);
-    pos[c] = c < w1 ? rp[r1 + c] : bp[r2 + c - w1];
+  const long long r = (long long)blockIdx.x * warps + warp;
+  if (r >= a.m) return;  // warps are independent: no block barrier
+  const size_t row = (size_t)r;
+  const int w1 = a.w1, w2 = a.w2, k = a.k;
+  int* ak = smem + (size_t)warp * 3 * (w1 + w2);
+  int* ap = ak + w1;
+  int* ai = ap + w1;
+  int* bk = ai + w1;
+  int* bp = bk + w2;
+  int* bi = bp + w2;
+  for (int c = lane; c < w1; c += 32) {
+    ak[c] = lexfold::order_key(a.sign * a.rd[row * w1 + c]);
+    ap[c] = a.rp[row * w1 + c];
+    ai[c] = c;
+  }
+  for (int c = lane; c < w2; c += 32) {
+    bk[c] = lexfold::order_key(a.sign * a.bd[row * w2 + c]);
+    bp[c] = a.bp[row * w2 + c];
+    bi[c] = c;
   }
   __syncwarp();
-  const size_t o = (size_t)row * k;
-  lexfold::warp_lex_select(key, pos, w, k, lane, [&](int c, int r) {
-    od[o + r] = c < w1 ? rd[r1 + c] : bd[r2 + c - w1];
-    op[o + r] = pos[c];
-    og[o + r] = c < w1 ? rg[r1 + c] : bg[r2 + c - w1];
-  });
+  warp_sort_cells(ak, ap, ai, w1, lane);
+  warp_sort_cells(bk, bp, bi, w2, lane);
+  for (int i = lane; i < w1 && i < k; i += 32) {
+    const int key = ak[i], pos = ap[i];
+    int lo = 0, hi = min(w2, k - i);  // the block's cells before mine
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (bk[mid] < key || (bk[mid] == key && bp[mid] < pos)) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    if (i + lo < k) step_emit(a, row, false, ai[i], pos, i + lo);
+  }
+  for (int j = lane; j < w2 && j < k; j += 32) {
+    const int key = bk[j], pos = bp[j];
+    int lo = 0, hi = min(w1, k - j);  // the running cells at or before
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (ak[mid] < key || (ak[mid] == key && ap[mid] <= pos)) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    if (j + lo < k) step_emit(a, row, true, bi[j], pos, j + lo);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -664,22 +832,37 @@ extern "C" int raft_merge_step(const void* rd, const void* rp, const void* rg,
                                const void* bg, int w2, int m, int k,
                                int select_min, void* od, void* op, void* og,
                                int device, void* stream) {
+  if (w1 < 0 || w2 < 0 || k < 1 || k > w1 + w2) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t row_bytes = 2 * (size_t)(w1 + w2) * sizeof(int);
+  StepArgs a{(const float*)rd, (const int*)rp, (const int*)rg,
+             (const float*)bd, (const int*)bp, (const int*)bg,
+             (float*)od,       (int*)op,       (int*)og,
+             w1, w2, m, k, select_min ? 1.f : -1.f};
+  const int w = w1 > w2 ? w1 : w2;
+  if (w <= 32) {
+    int G = 1;
+    while (G < w) G <<= 1;
+    const int rows = kStepWarps * (32 / G);  // rows a block
+    if (m > 0) {
+      merge_step_lanes<<<(m + rows - 1) / rows, kStepWarps * 32, 0,
+                         (cudaStream_t)stream>>>(a, G);
+    }
+    return (int)cudaGetLastError();
+  }
+  const size_t row_bytes = 3 * (size_t)(w1 + w2) * sizeof(int);
   int warps = (int)(kStepSmemTarget / row_bytes);
-  warps = warps < 1 ? 1 : (warps > kStepMaxWarps ? kStepMaxWarps : warps);
+  warps = warps < 1 ? 1 : (warps > kStepWarps ? kStepWarps : warps);
   const size_t smem = warps * row_bytes;
-  err = cudaFuncSetAttribute(merge_step_kernel,
+  err = cudaFuncSetAttribute(merge_step_smem,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (m > 0) {
-    merge_step_kernel<<<(m + warps - 1) / warps, warps * 32, smem,
-                        (cudaStream_t)stream>>>(
-        (const float*)rd, (const int*)rp, (const int*)rg, w1,
-        (const float*)bd, (const int*)bp, (const int*)bg, w2, m, k,
-        select_min ? 0 : 1, (float*)od, (int*)op, (int*)og);
+    merge_step_smem<<<(m + warps - 1) / warps, warps * 32, smem,
+                      (cudaStream_t)stream>>>(a);
   }
   return (int)cudaGetLastError();
 }

@@ -5,20 +5,23 @@
 // blocks, ties to the lowest column, an alive mask so that +inf values are
 // returned with their real column.
 //
-// Order and empty slots (both forms). Keys compare lexicographically as
-// (value, column): ties go to the lowest column, and +inf values are
-// legal keys returned with their column. NaN is never selected: a NaN
-// cell is before no key. A slot that no key fills (only in a row with
-// fewer than k cells that are not NaN) reads (+inf, -1), after negation
-// for a max selection, so (-inf, -1). A max selection negates the row as
-// it is read and the values as they are written.
+// Order (both forms): the order of the JAX package's select_k (lax.top_k),
+// stated in matrix/select_k.py. A cell's key is the int place of its
+// float in IEEE 754 totalOrder (-NaN < -inf < ... < -0.0 < +0.0 < ... <
+// +inf < +NaN), bitwise-inverted for a max selection; keys compare as
+// (key, column), so ties go to the lowest column in both directions, and
+// every cell, NaN and ±inf included, is a legal key returned with its
+// column. The value written back is the key mapped back to its float,
+// bit for bit. The empty key (INT_MAX, INT_MAX) comes after every legal
+// key; since k <= n it is never written, and a slot it would fill reads
+// (±inf, -1).
 //
 // The form is chosen by k alone (matrix/select_k.py::select_form):
 //
 // * warp select, k <= kWarpMaxK (256). The form of RAFT's
 //   select_warpsort.cuh, written anew. One warp per row, kWarpsPerBlock
 //   rows a block. The warp keeps the k best keys seen so far sorted
-//   across its registers: capacity C = the next power of two >=
+//   across its registers (the queue of warp_queue.cuh): capacity C = the next power of two >=
 //   max(k, 32), C/32 keys a lane, key e in register e / 32 of lane
 //   e % 32. The row is read coalesced, 32 columns a step. A column enters
 //   the warp's buffer (C keys in shared memory, filled in lane order by a
@@ -44,7 +47,7 @@
 // state in registers; its merges are the extra work. The k-pass form
 // costs k block-wide reductions with two barriers each and grows with k:
 // it stays only for k past the warp queue's 256 slots.
-#include "topk_common.cuh"
+#include "warp_queue.cuh"
 
 namespace {
 
@@ -55,140 +58,18 @@ namespace {
 constexpr int kWarpsPerBlock = 4;
 constexpr int kWarpMaxK = 256;
 
-// (v, i) keys with (+inf, INT_MAX) as the empty key: a legal +inf cell
-// (column < INT_MAX) comes before it.
-__device__ __forceinline__ void set_empty(float& v, int& i) {
-  v = CUDART_INF_F;
-  i = INT_MAX;
+// The cell's key: its place in totalOrder as an int, inverted for a max
+// selection (~ reverses the int order exactly, with no overflow).
+__device__ __forceinline__ int select_key(float x, int negate) {
+  const int b = __float_as_int(x);
+  const int t = b ^ ((b >> 31) & 0x7fffffff);
+  return negate ? ~t : t;
 }
 
-// One compare-exchange step of a bitonic network over the warp's C = 32·R
-// keys (key e in register e / 32 of lane e % 32), partners at distance j.
-// Key e ends ascending against its partner when (e & s) == 0, descending
-// otherwise, flipped by `desc`; s = 2C makes the whole step ascending.
-template <int R>
-__device__ __forceinline__ void bitonic_step(float (&v)[R], int (&c)[R],
-                                             int s, int j, bool desc,
-                                             int lane) {
-  if (j >= 32) {
-    const int jr = j >> 5;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r & jr) continue;
-      const int r2 = r | jr;
-      const int e = r * 32 + lane;
-      const bool asc = ((e & s) == 0) != desc;
-      const bool swap = asc ? key_less(v[r2], c[r2], v[r], c[r])
-                            : key_less(v[r], c[r], v[r2], c[r2]);
-      if (swap) {
-        const float tv = v[r];
-        const int tc = c[r];
-        v[r] = v[r2];
-        c[r] = c[r2];
-        v[r2] = tv;
-        c[r2] = tc;
-      }
-    }
-  } else {
-    const bool lower = (lane & j) == 0;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float ov = __shfl_xor_sync(RAFT_FULL_MASK, v[r], j);
-      const int oc = __shfl_xor_sync(RAFT_FULL_MASK, c[r], j);
-      const int e = r * 32 + lane;
-      const bool asc = ((e & s) == 0) != desc;
-      // the lower key of an ascending pair keeps the smaller key
-      const bool keep_min = lower == asc;
-      const bool other_less = key_less(ov, oc, v[r], c[r]);
-      if (keep_min == other_less) {
-        v[r] = ov;
-        c[r] = oc;
-      }
-    }
-  }
-}
-
-// Sort the warp's C keys, ascending or (desc) descending.
-template <int R>
-__device__ __forceinline__ void bitonic_sort(float (&v)[R], int (&c)[R],
-                                             bool desc, int lane) {
-#pragma unroll
-  for (int s = 2; s <= 32 * R; s <<= 1) {
-#pragma unroll
-    for (int j = s >> 1; j > 0; j >>= 1) {
-      bitonic_step<R>(v, c, s, j, desc, lane);
-    }
-  }
-}
-
-// Sort a bitonic sequence of the warp's C keys ascending.
-template <int R>
-__device__ __forceinline__ void bitonic_merge(float (&v)[R], int (&c)[R],
-                                              int lane) {
-#pragma unroll
-  for (int j = 16 * R; j > 0; j >>= 1) {
-    bitonic_step<R>(v, c, 64 * R, j, false, lane);
-  }
-}
-
-// Fold the buffer (bv, bc) into the ascending queue (qv, qc) → the C
-// smallest keys of both, ascending.
-template <int R>
-__device__ __forceinline__ void merge_buffer(float (&qv)[R], int (&qc)[R],
-                                             float (&bv)[R], int (&bc)[R],
-                                             int lane) {
-  bitonic_sort<R>(bv, bc, true, lane);
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (key_less(bv[r], bc[r], qv[r], qc[r])) {
-      qv[r] = bv[r];
-      qc[r] = bc[r];
-    }
-  }
-  bitonic_merge<R>(qv, qc, lane);
-}
-
-// Key k−1 of the queue, on every lane.
-template <int R>
-__device__ __forceinline__ void kth_key(const float (&qv)[R],
-                                        const int (&qc)[R], int k,
-                                        float& tv, int& tc) {
-  const int rk = (k - 1) >> 5;
-  float v = qv[0];
-  int c = qc[0];
-#pragma unroll
-  for (int r = 1; r < R; ++r) {
-    if (r == rk) {
-      v = qv[r];
-      c = qc[r];
-    }
-  }
-  tv = __shfl_sync(RAFT_FULL_MASK, v, (k - 1) & 31);
-  tc = __shfl_sync(RAFT_FULL_MASK, c, (k - 1) & 31);
-}
-
-// Move the warp buffer's first nb keys into registers (the rest empty)
-// and fold them into the queue.
-template <int R>
-__device__ __forceinline__ void fold_buffer(float (&qv)[R], int (&qc)[R],
-                                            const float* buf_v,
-                                            const int* buf_c, int nb,
-                                            int lane) {
-  float bv[R];
-  int bc[R];
-  __syncwarp();  // the buffer's last writes
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int e = r * 32 + lane;
-    if (e < nb) {
-      bv[r] = buf_v[e];
-      bc[r] = buf_c[e];
-    } else {
-      set_empty(bv[r], bc[r]);
-    }
-  }
-  __syncwarp();  // read before the buffer is written again
-  merge_buffer<R>(qv, qc, bv, bc, lane);
+// The float whose key is `key` (select_key's inverse).
+__device__ __forceinline__ float key_value(int key, int negate) {
+  const int t = negate ? ~key : key;
+  return __int_as_float(t ^ ((t >> 31) & 0x7fffffff));
 }
 
 template <int R>
@@ -197,21 +78,20 @@ warp_select_kernel(const float* __restrict__ x, int rows, int n, int k,
                    int negate, float* __restrict__ out_v,
                    int* __restrict__ out_i) {
   constexpr int C = 32 * R;
-  __shared__ float s_v[kWarpsPerBlock][C];  // each warp's buffer
+  __shared__ int s_v[kWarpsPerBlock][C];  // each warp's buffer
   __shared__ int s_c[kWarpsPerBlock][C];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const size_t row = (size_t)blockIdx.x * kWarpsPerBlock + warp;
   if (row >= (size_t)rows) return;  // warps are independent
   const float* src = x + row * (size_t)n;
-  const float sign = negate ? -1.f : 1.f;
-  float* buf_v = s_v[warp];
+  int* buf_v = s_v[warp];
   int* buf_c = s_c[warp];
-  float qv[R];
+  int qv[R];
   int qc[R];
 #pragma unroll
-  for (int r = 0; r < R; ++r) set_empty(qv[r], qc[r]);
-  float tv = CUDART_INF_F;  // the k-th key: (+inf, INT_MAX) while empty
+  for (int r = 0; r < R; ++r) warpq::set_empty(qv[r], qc[r]);
+  int tv = INT_MAX;  // the k-th key: (INT_MAX, INT_MAX) while empty
   int tc = INT_MAX;
   int nb = 0;  // keys in the warp's buffer, the same on every lane
   const unsigned below = (1u << lane) - 1;
@@ -220,7 +100,7 @@ warp_select_kernel(const float* __restrict__ x, int rows, int n, int k,
     const int col = base + lane;
     const float cur = nxt;
     if (base + 32 + lane < n) nxt = src[base + 32 + lane];
-    const float v = sign * cur;
+    const int v = select_key(cur, negate);
     const bool pass = col < n && key_less(v, col, tv, tc);
     const unsigned ballot = __ballot_sync(RAFT_FULL_MASK, pass);
     if (ballot == 0) continue;
@@ -232,8 +112,8 @@ warp_select_kernel(const float* __restrict__ x, int rows, int n, int k,
     }
     nb += __popc(ballot);
     if (nb >= C) {
-      fold_buffer<R>(qv, qc, buf_v, buf_c, C, lane);
-      kth_key<R>(qv, qc, k, tv, tc);
+      warpq::fold_buffer<int, R>(qv, qc, buf_v, buf_c, C, lane);
+      warpq::kth_key<int, R>(qv, qc, k, tv, tc);
       nb -= C;
       if (pass && at >= C) {  // what did not fit goes in after the fold
         buf_v[at - C] = v;
@@ -241,7 +121,7 @@ warp_select_kernel(const float* __restrict__ x, int rows, int n, int k,
       }
     }
   }
-  if (nb > 0) fold_buffer<R>(qv, qc, buf_v, buf_c, nb, lane);
+  if (nb > 0) warpq::fold_buffer<int, R>(qv, qc, buf_v, buf_c, nb, lane);
   float* ov = out_v + row * (size_t)k;
   int* oi = out_i + row * (size_t)k;
 #pragma unroll
@@ -249,7 +129,8 @@ warp_select_kernel(const float* __restrict__ x, int rows, int n, int k,
     const int e = r * 32 + lane;
     if (e < k) {
       const bool empty = qc[r] == INT_MAX;
-      ov[e] = sign * (empty ? CUDART_INF_F : qv[r]);
+      ov[e] = empty ? (negate ? -CUDART_INF_F : CUDART_INF_F)
+                    : key_value(qv[r], negate);
       oi[e] = empty ? -1 : qc[r];
     }
   }
@@ -260,31 +141,32 @@ warp_select_kernel(const float* __restrict__ x, int rows, int n, int k,
 // ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;
-constexpr int kSmemCols = 12288;  // 48 KB of row (+ the static red_* buffers)
+constexpr int kSmemCols = 12288;  // 48 KB of row keys (+ the static red_*)
 
 __global__ void __launch_bounds__(kThreads)
 kpass_kernel(const float* __restrict__ x, int n, int k, int negate,
              int in_smem, float* __restrict__ out_v, int* __restrict__ out_i) {
-  extern __shared__ float row_smem[];
-  __shared__ float red_v[kThreads / 32];
+  extern __shared__ int row_smem[];
+  __shared__ int red_v[kThreads / 32];
   __shared__ int red_i[kThreads / 32];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const size_t r = blockIdx.x;
   const float* src = x + r * (size_t)n;
-  const float sign = negate ? -1.f : 1.f;
   if (in_smem) {
-    for (int i = tid; i < n; i += kThreads) row_smem[i] = sign * src[i];
+    for (int i = tid; i < n; i += kThreads) {
+      row_smem[i] = select_key(src[i], negate);
+    }
     __syncthreads();
   }
-  float pv = -CUDART_INF_F;
+  int pv = INT_MIN;  // before every key: (INT_MIN, -1)
   int pc = -1;
   for (int t = 0; t < k; ++t) {
-    float bv = CUDART_INF_F;
+    int bv = INT_MAX;
     int bc = INT_MAX;
     for (int i = tid; i < n; i += kThreads) {
-      const float v = in_smem ? row_smem[i] : sign * src[i];
+      const int v = in_smem ? row_smem[i] : select_key(src[i], negate);
       if (key_less(pv, pc, v, i) && key_less(v, i, bv, bc)) {
         bv = v;
         bc = i;
@@ -292,7 +174,7 @@ kpass_kernel(const float* __restrict__ x, int n, int k, int negate,
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(RAFT_FULL_MASK, bv, off);
+      const int ov = __shfl_xor_sync(RAFT_FULL_MASK, bv, off);
       const int oc = __shfl_xor_sync(RAFT_FULL_MASK, bc, off);
       if (key_less(ov, oc, bv, bc)) {
         bv = ov;
@@ -314,8 +196,10 @@ kpass_kernel(const float* __restrict__ x, int n, int k, int negate,
     }
     __syncthreads();  // red_* is rewritten by the next pass
     if (tid == 0) {
-      out_v[r * k + t] = sign * bv;
-      out_i[r * k + t] = bc == INT_MAX ? -1 : bc;  // only NaN cells left
+      const bool empty = bc == INT_MAX;  // not reached: k <= n
+      out_v[r * k + t] = empty ? (negate ? -CUDART_INF_F : CUDART_INF_F)
+                               : key_value(bv, negate);
+      out_i[r * k + t] = empty ? -1 : bc;
     }
     pv = bv;
     pc = bc;
@@ -364,7 +248,7 @@ extern "C" int raft_select_k_kpass(const void* values, int rows, int n, int k,
                                    void* stream) {
   if (k < 1 || n < k) return (int)cudaErrorInvalidValue;
   const int in_smem = n <= kSmemCols;
-  const size_t smem = in_smem ? (size_t)n * sizeof(float) : 0;
+  const size_t smem = in_smem ? (size_t)n * sizeof(int) : 0;
   cudaError_t err = cudaFuncSetAttribute(
       kpass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

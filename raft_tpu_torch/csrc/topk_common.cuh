@@ -16,6 +16,9 @@
 __device__ __forceinline__ bool key_less(float v, int i, float w, int j) {
   return v < w || (v == w && i < j);
 }
+__device__ __forceinline__ bool key_less(int v, int i, int w, int j) {
+  return v < w || (v == w && i < j);
+}
 
 // Insert the candidate (cv, cid) into the sorted list (lv, li) of length k
 // held in shared memory and owned by one warp. All 32 lanes call it with

@@ -1,8 +1,20 @@
 """Batched top-k selection: counterpart of ``raft_tpu/matrix/select_k.py``.
 
-Returns the k smallest (or largest) entries of each row, best first, with
-ties going to the lowest column — the order of the JAX package's
-``lax.top_k`` and of its Pallas k-pass kernel. Two engines:
+Returns the k smallest (or largest) entries of each row, best first.
+
+The order is the JAX package's ``select_k`` (``lax.top_k``), measured on
+its CPU build, for every engine here and both forms of K1. Values order
+as IEEE 754 totalOrder: -NaN < -inf < ... < -0.0 < +0.0 < ... < +inf <
++NaN. ``select_min=True`` takes them ascending, so NaN comes after +inf
+and -0.0 before +0.0; ``select_min=False`` takes them descending, so NaN
+comes first, before +inf, and +0.0 before -0.0. Among equal values
+(equal bits) the lowest column comes first, in both directions. Every
+cell, NaN included, is returned with its column; an unfilled slot would
+read (±inf, -1), and since k <= n there is none. (JAX's own ring merge
+sorts with ``lax.sort``, which takes -0.0 as 0.0 and NaN after +inf in
+both directions; ``ops/ring_topk.py`` mirrors that one.)
+
+Two engines:
 
 * ``KPASS`` — kernel K1 (``csrc/select_k.cu``), the port of the Pallas
   ``_kpass_2d``. :func:`kpass_select_k` launches it for a CUDA tensor and
@@ -27,8 +39,9 @@ import torch
 from ..core.errors import expects
 from ..ops import _cuda
 
-__all__ = ["SelectAlgo", "WARP_MAX_K", "select_form", "select_k",
-           "select_k_plain", "kpass_select_k"]
+__all__ = ["SelectAlgo", "WARP_MAX_K", "order_key", "select_form",
+           "select_k", "select_k_plain", "smallest_k_plain",
+           "kpass_select_k"]
 
 WARP_MAX_K = 256   # the warp select's queue: at most 256 keys a warp
 
@@ -45,13 +58,42 @@ class SelectAlgo(enum.Enum):
     KPASS = "kpass"      # kernel K1 on CUDA
 
 
+_BITS = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def order_key(values: torch.Tensor, select_min: bool = True
+              ) -> torch.Tensor:
+    """Each value's place in the selection order as an integer: a float's
+    bits mapped to IEEE 754 totalOrder (the sign bit set flips the other
+    bits), bitwise-inverted for a max selection, which reverses the
+    integer order exactly. Integer values are their own place."""
+    if values.is_floating_point():
+        bits = _BITS[values.element_size()]
+        b = values.view(bits)
+        key = b ^ ((b >> (8 * values.element_size() - 1))
+                   & torch.iinfo(bits).max)
+    else:
+        key = values
+    return key if select_min else ~key
+
+
 def select_k_plain(values: torch.Tensor, k: int, select_min: bool = True
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K1: stable sort of each row, first k columns."""
-    v = values if select_min else -values
-    sv, si = torch.sort(v, dim=-1, stable=True)
-    sv = sv[..., :k]
-    return (sv if select_min else -sv), si[..., :k].to(torch.int32)
+    """Plain version of K1: a stable sort of each row's order keys (module
+    docstring), first k columns."""
+    si = torch.sort(order_key(values, select_min), dim=-1,
+                    stable=True).indices[..., :k]
+    return torch.gather(values, -1, si), si.to(torch.int32)
+
+
+def smallest_k_plain(values: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest of each row by float comparison: -0.0 equal to
+    +0.0, NaN after +inf, ties to the lowest column. The order in which
+    the scan kernels K2–K5 and their Pallas counterparts compare
+    distances, as opposed to :func:`select_k`'s totalOrder."""
+    sv, si = torch.sort(values, dim=-1, stable=True)
+    return sv[..., :k], si[..., :k].to(torch.int32)
 
 
 def select_form(k: int) -> str:
@@ -68,8 +110,8 @@ def kpass_select_k(values: torch.Tensor, k: int, select_min: bool = True,
     (rows, k). ``form`` (``"warp"`` or ``"kpass"``) overrides
     :func:`select_form`, for holding both forms against the plain version;
     the warp select takes k <= :data:`WARP_MAX_K`. A CPU tensor takes the
-    plain version. NaN is never selected; a slot no other cell fills reads
-    (±inf, -1)."""
+    plain version. The order, NaN and -0.0 included, is the module
+    docstring's."""
     global launches, warp_launches, kpass_launches
     if values.device.type == "cpu":
         return select_k_plain(values, k, select_min)

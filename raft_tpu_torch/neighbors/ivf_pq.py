@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..cluster import kmeans_balanced
+from ..cluster.kmeans import segment_sum
 from ..core.bitset import Bitset
 from ..core.errors import expects
 from ..distance.distance_types import DistanceType, canonical_metric
@@ -265,22 +266,21 @@ def _kmeans_fixed(x: torch.Tensor, k: int, iters: int,
                          dim=1)[:, :k]
     centers = torch.gather(x, 1, pick[:, :, None].expand(s_n, k, dim))
     chunk = pq_chunk_rows(s_n, k)
+    slot = torch.empty((s_n, t_n), dtype=torch.int64, device=dev)
     base = (torch.arange(s_n, device=dev) * k)[:, None]
     for _ in range(iters):
         cn = (centers * centers).sum(dim=2)[:, None, :]
-        sums = torch.zeros((s_n * k, dim), dtype=torch.float32, device=dev)
-        cnts = torch.zeros((s_n * k,), dtype=torch.float32, device=dev)
         for t0 in range(0, t_n, chunk):
             xc = x[:, t0 : t0 + chunk]
             # ||x||² is constant along the argmin: dropped
             d2 = torch.baddbmm(cn, xc, centers.transpose(1, 2), alpha=-2.0)
-            slot = (d2.argmin(dim=2) + base).reshape(-1)
-            sums.index_add_(0, slot, xc.reshape(-1, dim))
-            cnts.index_add_(0, slot, torch.ones_like(slot,
-                                                     dtype=torch.float32))
-        sums = sums.view(s_n, k, dim)
-        cnts = cnts.view(s_n, k, 1)
-        centers = torch.where(cnts > 0, sums / cnts.clamp_min(1.0), centers)
+            slot[:, t0 : t0 + chunk] = d2.argmin(dim=2) + base
+        # one sum a step over every problem's points, in a fixed order
+        sums = segment_sum(x.reshape(-1, dim), slot.view(-1),
+                           s_n * k).view(s_n, k, dim)
+        cnts = torch.bincount(slot.view(-1), minlength=s_n * k).view(
+            s_n, k, 1)
+        centers = torch.where(cnts > 0, sums / cnts.clamp_min(1), centers)
     return centers
 
 

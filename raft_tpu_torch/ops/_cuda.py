@@ -40,7 +40,7 @@ _SIGNATURES = {
     "fused_knn": {
         "raft_fused_knn": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _P, _P, _P], _I),
-        "raft_fused_knn_smem": ([_I], ctypes.c_size_t),
+        "raft_fused_knn_slots": ([_I, _I, _I, _I], _I),
     },
     "ivf_flat_scan": {
         "raft_ivf_flat_scan": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -8,11 +8,13 @@ row). The order is (value, smallest column); empty slots are (+inf, -1).
 
 On a CUDA tensor it launches K2 over query tiles x corpus splits
 (:func:`fused_knn_candidates`) and, when the corpus was split, merges the
-splits' candidates with K1. On a CPU tensor it takes the plain version,
+splits' candidates with K1. K2 forms the distance block on the tensor
+cores as 3xTF32 (each f32 operand split into two TF32 parts, three
+products summed in f32), the counterpart of the JAX package's
+``precision="highest"``. On a CPU tensor it takes the plain version,
 :func:`fused_knn_plain`: ``torch.matmul`` + norms + stable sort, chunked
-over queries. Every matrix product here runs in full float32
-(``torch.backends.cuda.matmul.allow_tf32`` must stay False), the
-counterpart of the JAX package's ``precision="highest"``.
+over queries, in full float32 (``torch.backends.cuda.matmul.allow_tf32``
+must stay False).
 
 Only float32 corpora are ported; the JAX kernel's bf16/int8/uint8/int4
 stores are later work.
@@ -24,17 +26,17 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.errors import expects
-from ..matrix.select_k import kpass_select_k, select_k_plain
+from ..matrix.select_k import kpass_select_k, smallest_k_plain
 from ..utils import cdiv, round_up_to
 from . import _cuda
 
 __all__ = ["fused_knn", "fused_knn_plain", "fused_knn_candidates",
-           "prepare_norms", "MAX_K"]
+           "prepare_norms", "block_queries", "split_plan", "MAX_K"]
 
 launches = 0   # K2 launches since the last reset
 
-MAX_K = 256    # the kernel keeps 64 sorted k-lists in shared memory
-_TM, _TN = 64, 64
+MAX_K = 256    # a K2 block keeps its queries' k-lists in shared memory
+_TN = 128      # K2's corpus tile
 _METRIC_CODE = {"l2": 0, "cos": 1, "ip": 2}
 
 
@@ -58,9 +60,9 @@ def _distances(dot, qn, dn, metric: str, penalty):
         s = 1.0 - dot / torch.clamp_min(qn[:, None] * dn[None, :], 1e-30)
     else:
         s = -dot
-    if penalty is not None:
-        s = s + penalty[None, :]
-    return s
+    # the penalty row is always added, as in the JAX kernel: a zero row
+    # turns -0.0 into +0.0, so no distance is -0.0
+    return s + (0.0 if penalty is None else penalty[None, :])
 
 
 def fused_knn_plain(queries: torch.Tensor, dataset: torch.Tensor, k: int,
@@ -84,7 +86,7 @@ def fused_knn_plain(queries: torch.Tensor, dataset: torch.Tensor, k: int,
         qc = q[s0 : s0 + chunk]
         s = _distances(qc @ d.T, None if qn is None else qn[s0 : s0 + chunk],
                        dn, metric, penalty)
-        v, i = select_k_plain(s, k)
+        v, i = smallest_k_plain(s, k)
         outs_v.append(v)
         outs_i.append(torch.where(torch.isfinite(v), i, -1))
     if m == 0:
@@ -93,15 +95,47 @@ def fused_knn_plain(queries: torch.Tensor, dataset: torch.Tensor, k: int,
     return torch.cat(outs_v), torch.cat(outs_i)
 
 
-def _split_plan(m: int, n: int, device) -> Tuple[int, int]:
-    """(splits, rows per split): split the corpus until the grid holds
-    about 16 blocks per SM (several waves at 4 resident blocks per SM, so
-    the last wave's tail is short), but keep at least 8 tiles per
-    split."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(1, min(cdiv(16 * sms, cdiv(m, _TM)), cdiv(n, 8 * _TN)))
-    rows = round_up_to(cdiv(n, splits), _TN)
-    return cdiv(n, rows), rows
+def block_queries(k: int) -> int:
+    """The queries one K2 block keeps for lists of width k: 128 up to
+    k = 64, 64 above (``csrc/fused_knn.cu``: its k-lists and candidate
+    buffers share the block's shared memory with the tile ring)."""
+    return 128 if k <= 64 else 64
+
+
+def split_plan(m: int, n: int, k: int, slots: int) -> Tuple[int, int]:
+    """(splits, rows per split) of K2's grid on a card that keeps ``slots``
+    of its blocks resident: about 4 waves of blocks, the split count taken
+    in [half, twice] that aim where the last wave is fullest (the fewest
+    splits among equals), at least 4 tiles a split."""
+    tiles = cdiv(m, block_queries(k))
+    most = max(1, cdiv(n, 4 * _TN))
+    aim = max(1, min(most, cdiv(4 * slots, tiles)))
+    best, fill = (1, round_up_to(n, _TN)), -1.0
+    for s in range(max(1, aim // 2), min(most, 2 * aim) + 1):
+        rows = round_up_to(cdiv(n, s), _TN)
+        blocks = tiles * cdiv(n, rows)
+        f = blocks / (cdiv(blocks, slots) * slots)
+        if f > fill + 1e-12:
+            best, fill = (cdiv(n, rows), rows), f
+    return best
+
+
+_slots: dict = {}   # (card, k, d, metric) -> resident K2 blocks
+
+
+def _split_plan(m: int, n: int, k: int, d: int, metric: str,
+                device) -> Tuple[int, int]:
+    card = torch.device(device).index
+    card = torch.cuda.current_device() if card is None else card
+    key = (card, k, d, metric)
+    if key not in _slots:
+        with torch.cuda.device(card):
+            got = _cuda.library("fused_knn").raft_fused_knn_slots(
+                k, d, _METRIC_CODE[metric], card)
+        if got < 0:
+            _cuda.check(-got, "fused_knn occupancy")
+        _slots[key] = got
+    return split_plan(m, n, k, _slots[key])
 
 
 def fused_knn_candidates(q: torch.Tensor, qn: Optional[torch.Tensor],
@@ -130,7 +164,7 @@ def fused_knn_candidates(q: torch.Tensor, qn: Optional[torch.Tensor],
     expects(metric == "ip" or (qn is not None and dn is not None),
             "metric %s needs query and corpus norms", metric)
     expects(penalty is None or penalty.shape == (n,), "penalty must be (n,)")
-    splits, per_split = _split_plan(m, n, q.device)
+    splits, per_split = _split_plan(m, n, k, dim, metric, q.device)
     out_v = torch.empty((m, splits * k), dtype=torch.float32,
                         device=q.device)
     out_i = torch.empty((m, splits * k), dtype=torch.int32, device=q.device)

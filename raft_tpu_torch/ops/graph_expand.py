@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.errors import expects
-from ..matrix.select_k import select_k_plain
+from ..matrix.select_k import smallest_k_plain
 from . import _cuda
 
 __all__ = ["graph_expand", "graph_expand_plain", "graph_expand_kernel",
@@ -113,7 +113,7 @@ def graph_expand_plain(parents: torch.Tensor, queries: torch.Tensor,
     if pen is not None:
         dist = dist + pen[pids]
     dist[..., degree:] = float("inf")
-    vals, pos = select_k_plain(dist, k_out)
+    vals, pos = smallest_k_plain(dist, k_out)
     return vals, torch.where(torch.isfinite(vals), pos, -1)
 
 

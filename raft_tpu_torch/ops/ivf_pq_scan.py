@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ..core.errors import expects
-from ..matrix.select_k import kpass_select_k, select_k_plain
+from ..matrix.select_k import kpass_select_k, smallest_k_plain
 from . import _cuda
 from .ivf_scan import _candidate_rows
 
@@ -182,7 +182,7 @@ def ivf_pq_scan_plain(codes: torch.Tensor, row_norms: torch.Tensor,
         if penalty is not None:
             dist = dist + penalty[rows]
         dist = torch.where(valid, dist, _INF)
-        v, loc = select_k_plain(dist, kk)
+        v, loc = smallest_k_plain(dist, kk)
         r = torch.gather(rows, 1, loc.long()).to(torch.int32)
         out_v[s0 : s0 + chunk, :kk] = v
         out_i[s0 : s0 + chunk, :kk] = torch.where(torch.isfinite(v), r, -1)

@@ -27,7 +27,7 @@ import torch
 
 from ..core.errors import expects
 from ..matrix.select_k import (SelectAlgo, kpass_select_k, select_k,
-                               select_k_plain)
+                               smallest_k_plain)
 from . import _cuda
 from .fused_knn import prepare_norms
 
@@ -120,7 +120,7 @@ def ivf_flat_scan_plain(data: torch.Tensor, data_norms: torch.Tensor,
         if penalty is not None:
             dist = dist + penalty[rows]
         dist = torch.where(valid, dist, _INF)
-        v, loc = select_k_plain(dist, kk)
+        v, loc = smallest_k_plain(dist, kk)
         r = torch.gather(rows, 1, loc.long()).to(torch.int32)
         out_v[s0 : s0 + chunk, :kk] = v
         out_i[s0 : s0 + chunk, :kk] = torch.where(torch.isfinite(v), r, -1)

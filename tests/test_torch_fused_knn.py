@@ -86,3 +86,49 @@ def test_k_past_survivors_pads():
                            penalty=torch.from_numpy(pen))
     assert (ti.numpy()[:, 3:] == -1).all()
     assert_knn_close(np.asarray(jv), np.asarray(ji), tv.numpy(), ti.numpy())
+
+
+@pytest.mark.parametrize("m,n,k,slots", [
+    (10_000, 1_000_000, 10, 132), (10_000, 1_000_000, 10, 264),
+    (32_768, 1_000_000, 129, 132), (512, 1_000_000, 10, 132),
+    (7, 40_000, 100, 132), (200, 40_000, 256, 132), (1, 100, 1, 132),
+    (10_000, 250_000, 10, 132)])
+def test_split_plan(m, n, k, slots):
+    """K2's grid: every corpus row in exactly one split of a multiple of
+    128 rows (at least 4 tiles unless the corpus is smaller), about 4 waves
+    of the card's resident blocks, and among the split counts near that
+    aim the one whose last wave is fullest."""
+    splits, rows = tfk.split_plan(m, n, k, slots)
+    assert rows % 128 == 0 and splits >= 1
+    assert (splits - 1) * rows < n <= splits * rows
+    assert rows >= min(4 * 128, -(-n // 128) * 128)
+    tiles = -(-m // tfk.block_queries(k))
+    blocks = tiles * splits
+    fill = blocks / (-(-blocks // slots) * slots)
+    aim = max(1, min(-(-n // 512), -(-4 * slots // tiles)))
+    for s in range(max(1, aim // 2), min(-(-n // 512), 2 * aim) + 1):
+        r = -(-(-(-n // s)) // 128) * 128
+        b = tiles * -(-n // r)
+        assert b / (-(-b // slots) * slots) <= fill + 1e-12
+
+
+def test_block_queries():
+    assert [tfk.block_queries(k) for k in (1, 64, 65, 129, 256)] == [
+        128, 128, 64, 64, 64]
+
+
+def test_zero_distance_is_positive_zero():
+    """The penalty row is always added, as in the JAX kernel (a zero row
+    when there is no filter): an inner product of +0.0 gives the distance
+    +0.0, never -0.0, so the split merge's totalOrder and the kernel's
+    float compare agree."""
+    q = torch.tensor([[1.0, 0.0], [0.0, 0.0]])
+    x = torch.tensor([[0.0, 1.0], [0.0, -2.0], [1.0, 1.0]])
+    v, i = tfk.fused_knn_plain(q, x, 3, "ip")
+    zero = v == 0
+    assert zero.any() and not torch.signbit(v[zero]).any()
+    jv, ji = jax_fused_knn(jnp.asarray(q.numpy()), jnp.asarray(x.numpy()),
+                           3, metric="ip")
+    np.testing.assert_array_equal(v.numpy().view(np.int32),
+                                  np.asarray(jv).view(np.int32))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))

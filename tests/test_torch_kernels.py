@@ -13,7 +13,10 @@ Tolerances. Integer-valued inputs: every product and sum is exact in
 float32, so values and ids, and their order, must be equal. Gaussian
 inputs: the kernels, torch and XLA sum the dot products in different
 orders, so distances agree to ``rtol=1e-5, atol=1e-5·max|d|`` and ids are
-equal on at least 99% of rows (:func:`assert_knn_close`). K4 reads a
+equal on at least 99% of rows (:func:`assert_knn_close`); K2, which sums
+as 3xTF32 on the tensor cores, is held there against its plain version
+and also against a float64 evaluation of the same formulas
+(:func:`exact_knn`). K4 reads a
 codebook of small integers in its integer cases, so its LUT entries and
 sums stay exact in float32 and bfloat16. K5 and K6 and their plain
 versions add in the same order (``graph_expand.lane_order_dot``), so they
@@ -32,6 +35,8 @@ from raft_tpu_torch.core.errors import RaftError
 from raft_tpu_torch.matrix import select_k as tsk
 from raft_tpu_torch.neighbors import brute_force
 from raft_tpu_torch.neighbors import cagra as tcagra
+from raft_tpu_torch.neighbors import ivf_flat as tivf
+from raft_tpu_torch.neighbors import ivf_pq as tivfpq
 from raft_tpu_torch.ops import cagra_fused as tcf
 from raft_tpu_torch.ops import fused_knn as tfk
 from raft_tpu_torch.ops import graph_expand as tge
@@ -297,45 +302,98 @@ def test_select_k_kernel_on_card(n, select_min):
                         (1, 0) if used == "warp" else (0, 1))
 
 
+def nan_rows(n, seed, rows=200):
+    """Rows of small integers with NaN, -NaN, ±inf, -0.0 and 0.0 cells
+    and ties; rows 0-3 with 0, 1, 7 and 19 cells that are not NaN (fewer
+    than most k), row 4 all NaN."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-3, 4, (rows, n)).astype(np.float32)
+    for v, share in ((np.nan, 0.15), (-np.float32(np.nan), 0.03),
+                     (np.inf, 0.05), (-np.inf, 0.05), (-0.0, 0.1)):
+        x[rng.random((rows, n)) < share] = v
+    for r, keep in zip(range(5), (0, 1, 7, 19, 0)):
+        x[r, keep:] = np.nan
+        x[r] = x[r, rng.permutation(n)]
+    return torch.from_numpy(x).cuda()
+
+
 @pytest.mark.cuda
-def test_select_k_kernel_nan_is_never_selected():
-    """NaN cells are never selected (the plain sort would order them last):
-    a row with fewer than k cells that are not NaN ends in (±inf, -1)."""
+@pytest.mark.parametrize("n", [40, 300, 20000])
+def test_select_k_kernel_nan_order(n):
+    """K1, both forms and both directions, equal to its plain version bit
+    for bit on rows with NaN, -NaN, ±inf and -0.0 against 0.0, at k under
+    and over each row's count of cells that are not NaN: NaN after +inf in
+    a min selection, first in a max selection, returned with its column
+    (the JAX package's select_k order)."""
     need_cuda()
-    x = torch.full((4, 64), float("nan"), device="cuda")
-    x[:, :5] = torch.arange(5.0, device="cuda")
-    for form in ("warp", "kpass"):
+    x = nan_rows(n, n)
+    for k in (k for k in (1, 5, 20, 33, 256, 257) if k <= n):
+        forms = ("warp", "kpass") if k <= tsk.WARP_MAX_K else ("kpass",)
         for sel in (True, False):
-            v, i = tsk.kpass_select_k(x if sel else -x, 8, sel, form=form)
-            torch.cuda.synchronize()
-            assert i[:, 5:].eq(-1).all()
-            assert i[:, :5].eq(torch.arange(5, device="cuda")).all()
-            assert torch.isinf(v[:, 5:]).all()
+            pv, pi = tsk.select_k_plain(x, k, sel)
+            for form in forms:
+                kv, ki = tsk.kpass_select_k(x, k, sel, form=form)
+                torch.cuda.synchronize()
+                assert_bits_equal(kv, pv)
+                assert torch.equal(ki, pi), (k, sel, form)
+                assert bool((ki >= 0).all())
+
+
+def exact_knn(q, x, k, metric, pen):
+    """The k nearest rows by the plain version's formulas evaluated in
+    float64 (ties to the lower row) → float32 values, int32 ids, -1 on
+    +inf slots."""
+    q, x, pen = q.double(), x.double(), pen.double()
+    dot = q @ x.T
+    qn, xn = (q * q).sum(1), (x * x).sum(1)
+    if metric == "l2":
+        dist = (qn[:, None] + xn[None, :] - 2 * dot).clamp_min(0)
+    elif metric == "cos":
+        dist = 1 - dot / (qn.sqrt()[:, None] * xn.sqrt()[None, :])
+    else:
+        dist = -dot
+    v, i = torch.sort(dist + pen[None, :], dim=1, stable=True)
+    v, i = v[:, :k].float(), i[:, :k].int()
+    return v, torch.where(torch.isfinite(v), i, -1)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [48, 100, 37])
 @pytest.mark.parametrize("metric", ["l2", "cos", "ip"])
 @pytest.mark.parametrize("m", [7, 200])
-def test_fused_knn_kernel_on_card(metric, m):
-    """K2 against its plain version, with the corpus split over blocks and
-    merged by K1: exact on integer-valued inputs, close on Gaussian."""
+def test_fused_knn_kernel_on_card(metric, m, d):
+    """K2 with the corpus split over blocks and merged by K1: equal to its
+    plain version on integer-valued inputs (3xTF32 holds them exactly; the
+    cosine's quotients close) at k up to MAX_K across the kernel's query
+    tiles (128 queries to k = 64, 64 above); on Gaussian inputs at
+    k <= 100 close to both the plain version and the float64 evaluation
+    of the same formulas. Gaussian inputs stop at k = 100: with 129 or
+    256 slots a row, near ties split the ids of more than 1% of the rows
+    between any two of the three summation orders, the plain version's
+    against float64 included, so the ids check cannot be met there; the
+    integer cases hold k > 100 exactly. m and n = 40,000 not multiples of
+    the tiles, d not a multiple of the 32-dimension stage (and d = 37 not
+    of the 16-byte copies), a penalty row dropping a fifth of the rows."""
     need_cuda()
-    rng = np.random.default_rng(m)
+    rng = np.random.default_rng(m + d)
     for integer in (True, False):
         gen = ((lambda s: rng.integers(-2, 3, s)) if integer
                else rng.standard_normal)
-        q = torch.from_numpy(gen((m, 48)).astype(np.float32)).cuda()
-        x = torch.from_numpy(gen((40000, 48)).astype(np.float32)).cuda()
-        pen = torch.where(torch.rand(40000, device="cuda") < 0.2,
-                          float("inf"), 0.0)
-        for k in (1, 17, 100):
+        q = torch.from_numpy(gen((m, d)).astype(np.float32)).cuda()
+        x = torch.from_numpy(gen((40000, d)).astype(np.float32)).cuda()
+        pen = torch.from_numpy(np.where(rng.random(40000) < 0.2, np.inf,
+                                        0.0).astype(np.float32)).cuda()
+        for k in (1, 17, 100, 129, 256) if integer else (1, 17, 100):
             kv, ki = tfk.fused_knn(q, x, k, metric, penalty=pen)
             pv, pi = tfk.fused_knn_plain(q, x, k, metric, penalty=pen)
             torch.cuda.synchronize()
             if integer and metric != "cos":
-                assert torch.equal(kv, pv) and torch.equal(ki, pi)
+                assert torch.equal(kv, pv) and torch.equal(ki, pi), k
             else:
                 assert_knn_close(pv.cpu(), pi.cpu(), kv.cpu(), ki.cpu())
+            if not integer:
+                ev, ei = exact_knn(q, x, k, metric, pen)
+                assert_knn_close(ev.cpu(), ei.cpu(), kv.cpu(), ki.cpu())
 
 
 @pytest.mark.cuda
@@ -454,6 +512,58 @@ ENGINE_TEST_SEARCH = dict(itopk_size=32, search_width=2)
 ENGINE_TEST_FLOOR = 0.9
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,d", [(200000, 1024, 128), (300, 7, 3),
+                                   (64, 200, 4), (0, 5, 2)])
+def test_segment_sum_on_card(n, k, d):
+    """``cluster.kmeans.segment_sum`` on the card: exact in fixed point, so
+    the same bits on a second call and as on the CPU, with empty
+    segments."""
+    from raft_tpu_torch.cluster.kmeans import segment_sum
+
+    need_cuda()
+    rng = np.random.default_rng(n + k)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    lab = torch.from_numpy(rng.integers(0, k, n))
+    lab[lab == 3] = 2
+    xc, lc = x.cuda(), lab.cuda()
+    a, b = segment_sum(xc, lc, k), segment_sum(xc, lc, k)
+    assert_bits_equal(a, b)
+    assert_bits_equal(a.cpu(), segment_sum(x, lab, k))
+
+
+@pytest.mark.cuda
+def test_ivf_builds_are_reproducible_on_card():
+    """Two IVF-Flat and two IVF-PQ builds of one tree in one process on the
+    card are bit-equal: centers, list contents and order, codebooks and
+    codes (the k-means and codebook sums are exact in fixed point,
+    ``cluster.kmeans.segment_sum``, where a float ``index_add_`` adds
+    with atomics)."""
+    need_cuda()
+    rng = np.random.default_rng(21)
+    centers = rng.standard_normal((50, 32)).astype(np.float32)
+    lab = rng.integers(0, 50, 30000)
+    x = torch.from_numpy(centers[lab] + rng.standard_normal(
+        (30000, 32)).astype(np.float32)).cuda()
+    flat = [tivf.build(x, tivf.IndexParams(n_lists=64, seed=3))
+            for _ in range(2)]
+    pq = [tivfpq.build(x, tivfpq.IndexParams(n_lists=64, pq_dim=8,
+                                             seed=3)) for _ in range(2)]
+    torch.cuda.synchronize()
+    a, b = flat
+    assert_bits_equal(a.centers, b.centers)
+    assert_bits_equal(a.data, b.data)
+    assert torch.equal(a.source_ids, b.source_ids)
+    assert np.array_equal(a.list_sizes, b.list_sizes)
+    a, b = pq
+    for t, u in ((a.centers_rot, b.centers_rot), (a.codebooks, b.codebooks),
+                 (a.rotation, b.rotation)):
+        assert_bits_equal(t, u)
+    assert torch.equal(a.codes, b.codes)
+    assert torch.equal(a.source_ids, b.source_ids)
+    assert np.array_equal(a.list_sizes, b.list_sizes)
+
+
 def engine_test_data():
     """(4000, 48) rows and (300, 48) queries, Gaussian, from seed 13."""
     rng = np.random.default_rng(13)
@@ -471,8 +581,8 @@ def test_cagra_engines_on_card(metric):
     ``test_torch_cagra.py::test_engine_test_data_recall`` holds the CPU
     build of this data (the plain K5, equal to the kernel) and the JAX
     package's gather engine above the floor with room to spare: the floor
-    leaves room for the card's own build (k-means seeds with atomic
-    adds), not for a wrong traversal."""
+    leaves room for the card's own build (other random numbers and float
+    sums in another order than the CPU's), not for a wrong traversal."""
     need_cuda()
     x, q = (torch.from_numpy(a).cuda() for a in engine_test_data())
     idx = tcagra.build(x, tcagra.IndexParams(metric=metric,
@@ -490,38 +600,65 @@ def test_cagra_engines_on_card(metric):
         assert neighborhood_recall(ids, ref) >= ENGINE_TEST_FLOOR
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(300, 16, 16, 16), (301, 10, 37, 20),
-                                   (257, 100, 100, 100), (64, 3, 5, 8)])
-@pytest.mark.parametrize("select_min", [True, False])
-def test_merge_step_kernel_on_card(shape, select_min):
-    """K7 against its plain version: integer values with ties inside rows
-    and across the lists, w1 != w2, k below and equal to w1 + w2,
-    infinities, unsorted lists, running positions above the block's."""
-    need_cuda()
-    m, w1, w2, k = shape
-    rng = np.random.default_rng(m + w1)
-    for above in (False, True):
-        d = rng.integers(0, 9, (m, w1 + w2)).astype(np.float32)
-        d[rng.random(d.shape) < 0.1] = np.inf
-        d[0] = np.inf
-        if not select_min:
-            d = -d
-        pos = np.stack([rng.permutation(w1 + w2 + 7)[: w1 + w2]
+def merge_lists(m, w1, w2, seed, odd=False, pos_ties=False, above=False):
+    """The six (m, w) lists of a merge_step: integer distances with ties
+    inside rows and across the lists, unsorted; with ``odd`` NaN, -0.0
+    against 0.0 and ±inf cells; positions distinct in a row, or drawn
+    from 0-3 (``pos_ties``: ties of (key, position) within and across the
+    lists), or with the running positions above the block's."""
+    rng = np.random.default_rng(seed)
+    w = w1 + w2
+    d = rng.integers(0, 9, (m, w)).astype(np.float32)
+    d[rng.random(d.shape) < 0.1] = np.inf
+    d[0] = np.inf
+    if odd:
+        d[d == 0] = np.where(rng.random(int((d == 0).sum())) < 0.5, 0.0,
+                             -0.0)
+        for v, share in ((np.nan, 0.08), (-np.inf, 0.05)):
+            d[rng.random(d.shape) < share] = v
+    if pos_ties:
+        pos = rng.integers(0, 4, (m, w)).astype(np.int32)
+    else:
+        pos = np.stack([rng.permutation(w + 7)[:w]
                         for _ in range(m)]).astype(np.int32)
         if above:
             pos = -np.sort(-pos, axis=1)
-        gid = rng.integers(0, 1 << 20, (m, w1 + w2)).astype(np.int32)
-        t = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
-             for a in (d[:, :w1], pos[:, :w1], gid[:, :w1], d[:, w1:],
-                       pos[:, w1:], gid[:, w1:])]
+    gid = rng.integers(0, 1 << 20, (m, w)).astype(np.int32)
+    return [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+            for a in (d[:, :w1], pos[:, :w1], gid[:, :w1], d[:, w1:],
+                      pos[:, w1:], gid[:, w1:])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(300, 16, 16, 16), (301, 10, 37, 20),
+                                   (257, 100, 100, 100), (64, 3, 5, 8),
+                                   (1, 10, 10, 10), (1001, 10, 10, 1),
+                                   (999, 31, 7, 38), (77, 200, 56, 256),
+                                   (33, 300, 300, 300), (1, 150, 40, 190),
+                                   (5, 5000, 3000, 300), (9, 40, 0, 40)])
+@pytest.mark.parametrize("select_min", [True, False])
+def test_merge_step_kernel_on_card(shape, select_min):
+    """K7 against its plain version, bit for bit: integer values with ties
+    inside rows and across the lists, w1 != w2, k below and equal to
+    w1 + w2, both forms (lists of up to 32 cells in lane groups, wider in
+    shared memory, up to 8,000 cells a row), m = 1 and m not a multiple of
+    the rows a block; unsorted lists with infinities, running positions
+    above the block's; NaN, -0.0 and ±inf cells; ties of (key, position)
+    broken by the concat index; a max merge (negated lists)."""
+    need_cuda()
+    m, w1, w2, k = shape
+    for case in ("plain", "above", "odd", "pos_ties"):
+        t = merge_lists(m, w1, w2, m + w1 + len(case), odd=case == "odd",
+                        pos_ties=case == "pos_ties", above=case == "above")
+        if not select_min:
+            t[0], t[3] = -t[0], -t[3]
         before = trt.merge_step_launches
         got = trt.merge_step(*t, k, select_min)
         want = trt.merge_step_plain(*t, k, select_min)
         torch.cuda.synchronize()
         assert trt.merge_step_launches == before + 1
-        for a, b in zip(want, got):
-            assert torch.equal(a, b)
+        assert_bits_equal(got[0], want[0])
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
 
 
 def ring_odd_cells(ds, seed):

@@ -4,7 +4,8 @@
 ``merge_step`` (the plain K7) is held against JAX's ``merge_step`` with
 the ``lax.sort`` fold (``engine="xla"``) and with the Pallas fold in
 interpret mode (``engine="pallas"``): distances, positions and ids equal
-exactly. ``merge`` with each engine — allgather, ring (the plain K7 a
+exactly; a numpy statement of the K7 kernel's sort-and-merge order
+(``k7_merge``) is held against both. ``merge`` with each engine — allgather, ring (the plain K7 a
 hop) and ring_pallas (K8's plain version) — over p = 8 CPU shards is held
 against JAX's ``knn_merge_parts`` and JAX's ring engine under
 ``shard_map`` on the 8-device CPU mesh, on JAX's own fixture: exact
@@ -106,6 +107,102 @@ def test_merge_step_contract():
     d, p, i = ring_topk.merge_step(run_d, run_p, g, blk_d, blk_p, g + 2, 2,
                                    select_min=False)
     assert d.tolist() == [[3.0, 1.0]] and i.tolist() == [[101, 102]]
+
+
+def _order_key(v):
+    """numpy counterpart of csrc/lexfold.cuh::order_key: -0.0 as 0.0,
+    every NaN after +inf, otherwise the IEEE order, as int64."""
+    i = v.astype(np.float32).view(np.int32).astype(np.int64)
+    key = np.where(i < 0, i ^ 0x7FFFFFFF, i)
+    key = np.where(v == 0, 0, key)
+    return np.where(np.isnan(v), np.iinfo(np.int32).max, key)
+
+
+def k7_merge(rd, rp, rg, bd, bp, bg, k, select_min):
+    """numpy statement of K7 (csrc/ring_topk.cu): each list sorted by
+    (order key of ±distance, position, index); a running cell's rank is
+    its index in its sorted list plus the block's cells strictly before
+    its (key, position), a block cell's its index plus the running cells
+    at or before its (key, position) (the running list comes first in
+    the concatenation); each cell ranked below k is written to that
+    slot, and every slot is written once."""
+    m, k_out = rd.shape[0], k
+    sign = np.float32(1 if select_min else -1)
+    out = [np.full((m, k_out), np.nan, np.float32),
+           np.full((m, k_out), -7, np.int32), np.full((m, k_out), -7,
+                                                       np.int32)]
+    seen = np.zeros((m, k_out), np.int32)
+    for row in range(m):
+        ka, kb = _order_key(sign * rd[row]), _order_key(sign * bd[row])
+        oa = np.lexsort((np.arange(len(ka)), rp[row], ka))
+        ob = np.lexsort((np.arange(len(kb)), bp[row], kb))
+        sa, pa, sb, pb = ka[oa], rp[row][oa], kb[ob], bp[row][ob]
+        for i, c in enumerate(oa):
+            rank = i + int(np.sum((sb < sa[i]) | ((sb == sa[i])
+                                                  & (pb < pa[i]))))
+            if rank < k_out:
+                for o, v in zip(out, (rd, rp, rg)):
+                    o[row, rank] = v[row, c]
+                seen[row, rank] += 1
+        for j, c in enumerate(ob):
+            rank = j + int(np.sum((sa < sb[j]) | ((sa == sb[j])
+                                                  & (pa <= pb[j]))))
+            if rank < k_out:
+                for o, v in zip(out, (bd, bp, bg)):
+                    o[row, rank] = v[row, c]
+                seen[row, rank] += 1
+    assert (seen == 1).all()
+    return tuple(out)
+
+
+def _odd_step_case(seed, m=9, w1=13, w2=6, pos_ties=True):
+    """Unsorted integer lists with NaN, -0.0 against 0.0 and ±inf cells;
+    positions drawn from 0-3 (ties of (key, position) within and across
+    the lists) or unique."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(-3, 4, (m, w1 + w2)).astype(np.float32)
+    d[d == 0] = np.where(rng.random(int((d == 0).sum())) < 0.5, 0.0, -0.0)
+    for v, share in ((np.nan, 0.15), (np.inf, 0.1), (-np.inf, 0.05)):
+        d[rng.random(d.shape) < share] = v
+    pos = (rng.integers(0, 4, (m, w1 + w2)) if pos_ties else np.stack(
+        [rng.permutation(w1 + w2 + 5)[: w1 + w2] for _ in range(m)])
+           ).astype(np.int32)
+    gid = rng.integers(0, 10_000, (m, w1 + w2)).astype(np.int32)
+    return (d[:, :w1], pos[:, :w1], gid[:, :w1], d[:, w1:], pos[:, w1:],
+            gid[:, w1:])
+
+
+@pytest.mark.parametrize("select_min", [True, False])
+@pytest.mark.parametrize("case", sorted(STEP_CASES) + ["odd_ties",
+                                                       "odd_unique"])
+def test_k7_sort_merge_statement(case, select_min):
+    """K7's sort-once, merge-by-ranks order equals merge_step_plain bit for
+    bit on every case, NaN, -0.0 and ties of (key, position) included,
+    and JAX's Pallas fold in interpret mode on JAX's cases (its fold
+    takes no NaN and needs unique positions)."""
+    if case.startswith("odd"):
+        args = _odd_step_case(7, pos_ties=case == "odd_ties")
+        if not select_min:
+            args = (-args[0],) + args[1:3] + (-args[3],) + args[4:]
+        ks = (1, 6, 19)
+    else:
+        c = dict(STEP_CASES[case])
+        ks = (c.pop("k"),)
+        args = _step_case(1, select_min=select_min, **c)
+    for k in ks:
+        got = k7_merge(*args, k, select_min)
+        want = ring_topk.merge_step_plain(*map(torch.from_numpy, args), k,
+                                          select_min)
+        np.testing.assert_array_equal(got[0].view(np.int32),
+                                      want[0].numpy().view(np.int32))
+        for a, b in zip(got[1:], want[1:]):
+            np.testing.assert_array_equal(a, b.numpy())
+        if not case.startswith("odd"):
+            jw = jrt.merge_step(*map(jnp.asarray, args), k,
+                                select_min=select_min, engine="pallas",
+                                interpret=True)
+            for a, b in zip(got, jw):
+                np.testing.assert_array_equal(a, np.asarray(b))
 
 
 @pytest.fixture(scope="module")
@@ -307,7 +404,8 @@ def k8_fold(ds, gids, k, select_min, hops=None):
 def _fold_fixture(name):
     """(p, m, k) lists: ``ties_dead`` is JAX's fixture (cross-shard exact
     ties, a dead shard); ``negzero_nan`` adds -0.0 against 0.0, NaN and
-    ±inf cells; both with shard 0 left unsorted."""
+    ±inf cells; ``nan_inf`` the same with every zero +0.0; all with shard
+    0 left unsorted."""
     rng = np.random.default_rng(11)
     p, m, k = 5, 12, 9
     d = rng.integers(-3, 4, (p, m, k)).astype(np.float32)
@@ -315,9 +413,9 @@ def _fold_fixture(name):
     d[3] = d[1]
     gid = rng.integers(0, 100_000, (p, m, k)).astype(np.int32)
     d[4], gid[4] = np.inf, -1
-    if name == "negzero_nan":
+    if name in ("negzero_nan", "nan_inf"):
         d[d == 0] = np.where(rng.random(int((d == 0).sum())) < 0.5, 0.0,
-                             -0.0)
+                             -0.0 if name == "negzero_nan" else 0.0)
         d[0][rng.random((m, k)) < 0.15] = np.nan
         d[2][rng.random((m, k)) < 0.15] = np.nan
         d[0][rng.random((m, k)) < 0.1] = -np.inf
@@ -372,11 +470,15 @@ def test_k8_fold_is_the_ring_hop_by_hop(fixture, select_min):
 
 
 @pytest.mark.parametrize("select_min", [True, False])
-@pytest.mark.parametrize("fixture", ["ties_dead", "negzero_nan"])
+@pytest.mark.parametrize("fixture", ["ties_dead", "negzero_nan", "nan_inf"])
 def test_k8_fold_matches_plain_ring_and_merge_parts(fixture, select_min):
     """The fold's result, on every shard, equals K8's plain version and
-    knn_merge_parts over the concatenation (NaN cells excepted from the
-    latter: select_k drops NaN, the ring orders it after +inf)."""
+    knn_merge_parts over the concatenation: on JAX's fixture, and with
+    NaN and ±inf cells in a min selection, where select_k and the ring
+    both order NaN after +inf. Two caveats of the reference, which the
+    port mirrors: in a max selection JAX's select_k puts NaN first and
+    JAX's ring last, and select_k orders -0.0 before 0.0 where the ring's
+    lax.sort takes them as equal, so neither case is compared."""
     d, gid = _fold_fixture(fixture)
     d = d if select_min else -d
     p, m, k = d.shape
@@ -389,12 +491,13 @@ def test_k8_fold_matches_plain_ring_and_merge_parts(fixture, select_min):
         np.testing.assert_array_equal(pd[r].numpy().view(np.int32),
                                       fd.view(np.int32))
         np.testing.assert_array_equal(pg[r].numpy(), fg)
-    if fixture == "ties_dead":
+    if fixture == "ties_dead" or (fixture == "nan_inf" and select_min):
         from raft_tpu_torch.neighbors import brute_force as tbf
 
         want = tbf.knn_merge_parts(torch.from_numpy(d), torch.from_numpy(gid),
                                    select_min)
-        np.testing.assert_array_equal(want[0].numpy(), got[0][0])
+        np.testing.assert_array_equal(want[0].numpy().view(np.int32),
+                                      got[0][0].view(np.int32))
         np.testing.assert_array_equal(want[1].numpy(), got[0][1])
 
 

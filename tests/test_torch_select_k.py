@@ -174,3 +174,66 @@ def test_warp_select_statement_matches_pallas_kernel(k, n):
             v, c = warp_select(xs, k, sel)
             np.testing.assert_array_equal(v, jv[row] if sel else -jv[row])
             np.testing.assert_array_equal(c, ji[row])
+
+
+def _odd_rows(seed, rows=64, n=300):
+    """Integer rows with NaN, -NaN, ±inf and -0.0 against 0.0 cells and
+    ties; rows 0-3 with 0, 1, 5 and 40 cells that are not NaN."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-3, 4, (rows, n)).astype(np.float32)
+    for v, share in ((np.nan, 0.2), (-np.float32(np.nan), 0.05),
+                     (np.inf, 0.05), (-np.inf, 0.05), (-0.0, 0.15)):
+        x[rng.random((rows, n)) < share] = v
+    for r, keep in zip(range(4), (0, 1, 5, 40)):
+        x[r, keep:] = np.nan
+        x[r] = x[r, rng.permutation(n)]
+    return x
+
+
+@pytest.mark.parametrize("select_min", [True, False])
+@pytest.mark.parametrize("k", [1, 3, 20, 300])
+def test_nan_and_signed_zero_order_matches_jax(k, select_min):
+    """The port's select_k (its plain version on the CPU) against JAX's
+    select_k (lax.top_k) on rows with NaN, -NaN, ±inf and -0.0 against
+    0.0, at k under and over each row's count of cells that are not NaN:
+    values bit for bit and ids equal (NaN after +inf in a min selection,
+    first in a max one, -0.0 before 0.0 in a min one)."""
+    x = _odd_rows(k + select_min)
+    jv, ji = jax_select_k(jnp.asarray(x), k, select_min=select_min,
+                          algo="topk")
+    tv, ti = tsk.select_k(torch.from_numpy(x), k, select_min=select_min)
+    np.testing.assert_array_equal(tv.numpy().view(np.int32),
+                                  np.asarray(jv).view(np.int32))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+def test_nan_order_on_the_measured_row():
+    """The row the rule was measured on: [3, nan, 1, inf, nan, 2]."""
+    x = torch.tensor([[3, np.nan, 1, np.inf, np.nan, 2]], dtype=torch.float32)
+    _, i = tsk.select_k(x, 6, select_min=True)
+    assert i.tolist() == [[2, 5, 0, 3, 1, 4]]
+    v, i = tsk.select_k(x, 6, select_min=False)
+    assert i.tolist() == [[1, 4, 3, 0, 5, 2]]
+    assert torch.isnan(v[0, :2]).all() and v[0, 2:].tolist() == [
+        np.inf, 3, 2, 1]
+
+
+@pytest.mark.parametrize("select_min", [True, False])
+def test_knn_merge_parts_nan_shards_match_jax(select_min):
+    """knn_merge_parts of both packages on shards with NaN, ±inf and -0.0
+    cells and a dead shard."""
+    from raft_tpu.neighbors import brute_force as jbf
+    from raft_tpu_torch.neighbors import brute_force as tbf
+
+    rng = np.random.default_rng(3)
+    d = _odd_rows(5, rows=3 * 24, n=9).reshape(3, 24, 9)
+    d[2] = np.inf if select_min else -np.inf
+    gid = rng.integers(0, 100_000, (3, 24, 9)).astype(np.int32)
+    gid[2] = -1
+    jv, ji = jbf.knn_merge_parts(jnp.asarray(d), jnp.asarray(gid),
+                                 select_min)
+    tv, ti = tbf.knn_merge_parts(torch.from_numpy(d), torch.from_numpy(gid),
+                                 select_min)
+    np.testing.assert_array_equal(tv.numpy().view(np.int32),
+                                  np.asarray(jv).view(np.int32))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))

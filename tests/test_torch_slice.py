@@ -249,3 +249,38 @@ def test_chip_smoke_fails_without_cuda(tmp_path, alone):
                          env=env)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("n,k,d", [(5000, 64, 16), (300, 7, 3), (64, 200, 4),
+                                   (0, 5, 2)])
+def test_segment_sum_matches_segment_sums(n, k, d):
+    """The IVF builds' segment sum (``cluster.kmeans.segment_sum``, exact
+    in fixed point, so two builds on a card are bit-equal) against
+    ``index_add_`` in float64 (equal to 1e-12) and JAX's ``segment_sum``
+    in float32 (sums in another order: rtol 1e-5); the same bits for the
+    rows in another order; labels with empty segments, an empty input and
+    more segments than rows. The card's result is held equal to the CPU's
+    in ``test_torch_kernels.py::test_segment_sum_on_card``."""
+    import jax
+
+    from raft_tpu_torch.cluster.kmeans import segment_sum
+
+    rng = np.random.default_rng(n + k)
+    x = rng.standard_normal((n, d))
+    lab = rng.integers(0, k, n)
+    lab[lab == 3] = 2
+    want = torch.zeros((k, d), dtype=torch.float64).index_add_(
+        0, torch.from_numpy(lab), torch.from_numpy(x))
+    got = segment_sum(torch.from_numpy(x), torch.from_numpy(lab), k)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-12)
+    x32 = x.astype(np.float32)
+    jw = jax.ops.segment_sum(jnp.asarray(x32), jnp.asarray(lab),
+                             num_segments=k)
+    got32 = segment_sum(torch.from_numpy(x32), torch.from_numpy(lab), k)
+    np.testing.assert_allclose(got32.numpy(), np.asarray(jw), rtol=1e-5,
+                               atol=1e-5)
+    perm = rng.permutation(n)
+    again = segment_sum(torch.from_numpy(x32[perm]),
+                        torch.from_numpy(lab[perm]), k)
+    assert torch.equal(again.view(torch.int32), got32.view(torch.int32))

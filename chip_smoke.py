@@ -42,8 +42,10 @@ It builds the eight CUDA kernels from ``raft_tpu_torch/csrc`` (one
    against the single card's (recall >= 0.99; the share of equal rows is
    printed), the brute-force answer and the refined distances against
    numpy on a few queries;
-   Each path prints its launches per kernel and, for K1, per form (the
-   warp select for k <= 256, the k passes above).
+   Each path prints its launches per kernel and, for K1, K3 and K4, per
+   form (K1: the warp select for k <= 256, the k passes above; K3 and K4:
+   the grouped form for k <= 256, the per-pair form above); the IVF paths
+   must launch K3 or K4 once a search (a shard), in the grouped form.
 2. determinism: the path's IVF-Flat and IVF-PQ indexes, built once more
    from the same rows in the same process, must be bit-equal to the
    path's (centers, lists, rotation, codebooks, codes).
@@ -56,8 +58,11 @@ It builds the eight CUDA kernels from ``raft_tpu_torch/csrc`` (one
    the path's values and on integer-valued rows, the two forms timed in
    turn, and bit for bit on the path's values with NaN, -NaN, ±inf and
    -0.0 cells mixed in; K2 on integer inputs at k = 10, 129 and 256 and
-   on the path's data at k = 10 and at the CAGRA build's k = 129; K4
-   also on an integer-valued copy of the IVF-PQ
+   on the path's data at k = 10 and at the CAGRA build's k = 129; K3 and
+   K4 in both forms (grouped, per-pair), each launched twice and
+   bit-equal, both timed, with the grouped form's tiles and the bytes
+   they read (K3's FP32 bound beside its 3xTF32 one); K4 in the bf16,
+   f32 and int8 LUT modes and on an integer-valued copy of the IVF-PQ
    index, K5 and K6 on the path's data, where they must be equal, and on
    integer-valued copies; K5 also on a bf16 store; K7 and K8, which must
    be equal, on the path's candidates and on integer-valued lists (K8:
@@ -153,7 +158,11 @@ _COUNTERS = {"select_k": (sk, "launches"),
              "select_k.kpass": (sk, "kpass_launches"),
              "fused_knn": (fk, "launches"),
              "ivf_flat_scan": (iscan, "launches"),
+             "ivf_flat_scan.group": (iscan, "group_launches"),
+             "ivf_flat_scan.pair": (iscan, "pair_launches"),
              "ivf_pq_scan": (ipq, "launches"),
+             "ivf_pq_scan.group": (ipq, "group_launches"),
+             "ivf_pq_scan.pair": (ipq, "pair_launches"),
              "graph_expand": (ge, "launches"),
              "cagra_fused": (cf, "launches"),
              "merge_step": (rt, "merge_step_launches"),
@@ -335,6 +344,23 @@ def run_path(name: str, kernels, fn, totals: dict):
     return out
 
 
+def by_form(moved: dict, kern: str) -> dict:
+    """A kernel's launches by form, out of the counts ``moved``."""
+    return {name.split(".")[1]: n for name, n in moved.items()
+            if name.startswith(f"{kern}.")}
+
+
+def check_scan_forms(name: str, scan: str, searches: int) -> None:
+    """The path just run launched the IVF scan kernel ``scan`` once a
+    search (one search a shard), each time in its grouped form."""
+    moved = counts()
+    got = (moved[scan], moved[f"{scan}.group"], moved[f"{scan}.pair"])
+    if got != (searches, searches, 0):
+        raise AssertionError(f"{name}: {scan} launches (all, grouped, "
+                             f"per-pair) {got}, expected ({searches}, "
+                             f"{searches}, 0)")
+
+
 def check_knn(what: str, v, i, k: int) -> None:
     if v.shape != (M, k) or i.shape != (M, k):
         raise AssertionError(f"{what}: shapes {tuple(v.shape)}")
@@ -380,7 +406,9 @@ def path_phase(x, q):
         return iidx, iv, ii, t_build, t_first, t
 
     iidx, iv, ii, t_ivf_build, t_ivf_first, t_ivf = run_path(
-        "ivf_flat", ("ivf_flat_scan", "select_k"), ivf_path, totals)
+        "ivf_flat", ("ivf_flat_scan", "ivf_flat_scan.group", "select_k"),
+        ivf_path, totals)
+    check_scan_forms("ivf_flat", "ivf_flat_scan", 2)
     sizes = iidx.list_sizes
     log(f"ivf_flat: build {t_ivf_build:.3f} s (list sizes min "
         f"{sizes.min()} median {int(np.median(sizes))} max {sizes.max()}), "
@@ -409,8 +437,9 @@ def path_phase(x, q):
                 t_ref_first, t_ref)
 
     (pidx, pv, pi, rv, ri, t_pq_build, t_pq_first, t_pq, t_ref_first,
-     t_ref) = run_path("ivf_pq", ("ivf_pq_scan", "select_k"), pq_path,
-                       totals)
+     t_ref) = run_path("ivf_pq", ("ivf_pq_scan", "ivf_pq_scan.group",
+                                  "select_k"), pq_path, totals)
+    check_scan_forms("ivf_pq", "ivf_pq_scan", 2)
     split = ", ".join(f"{k} {v:.3f} s" for k, v in
                       pidx.build_seconds.items())
     log(f"ivf_pq: build {t_pq_build:.3f} s ({split}; pq_dim={PQ_DIM}, "
@@ -680,8 +709,10 @@ def sharded_paths(x, q, bv, bi, totals):
                     f"first {t_first * 1e3:.1f} ms, steady "
                     f"{t * 1e3:.1f} ms, {M / t:.0f} QPS")
                 return r
-            res[eng] = sharded_run(f"sharded {fam}", eng, (scan, "select_k"),
+            res[eng] = sharded_run(f"sharded {fam}", eng,
+                                   (scan, f"{scan}.group", "select_k"),
                                    path, totals, 2)
+            check_scan_forms(f"sharded {fam} ({eng})", scan, 2 * P_SHARDS)
         del idx
         fd, fi = check_engines(f"sharded {fam}", res)
         check_knn(f"sharded {fam}", fd, fi, K)
@@ -1260,19 +1291,52 @@ def k2_phase(timer, bidx, q, launches, knn_graph_s):
                 shape=f"({M}, {N}, {D}) k={K} l2, {splits} corpus splits")
 
 
-def k3_phase(timer, iidx, q, launches):
+SCAN_FORMS = ("group", "pair")
+TILE_ROWS = 128    # the grouped scans' row tile (csrc/tf32_tile.cuh, BN)
+
+
+def group_tiles(probed, sizes, k: int):
+    """The grouped form's tiles at k: (live tiles, rows they read, queries
+    they gather) of ``ivf_scan.pack_pairs``."""
+    glist, _, gcount, _ = iscan.pack_pairs(probed.int(), N_LISTS,
+                                           fk.block_queries(k))
+    live = gcount > 0
+    return (int(live.sum()), int(sizes.long()[glist[live].long()].sum()),
+            int(gcount.sum()))
+
+
+def k3_phase(timer, iidx, q, launches, by_form):
+    """K3 in both forms against the plain version on the path's data (and
+    each launched twice, bit-equal), both timed at the path's shape; the
+    FP32 bound of the (pair, row) products is the row's, printed beside
+    their 3xTF32 bound and the grouped form's tiles and bytes."""
     probed = iscan.coarse_probe(q, iidx.centers, N_PROBES, "l2",
                                 iidx.center_norms)
     args = (iidx.data, iidx.data_norms, probed, iidx.offsets_dev,
             iidx.sizes_dev, q, K, "l2")
     pv, pi = iscan.ivf_flat_scan_plain(*args)
-    kv, ki = iscan.ivf_flat_scan(*args)
-    err = check_close(pv, pi, kv, ki, f"K3 ivf_flat_scan ({M} queries, "
-                      f"n_probes={N_PROBES}) k={K}")
+    errs = {}
+    for form in SCAN_FORMS:
+        kv, ki = iscan.ivf_flat_scan(*args, form=form)
+        what = f"K3 ivf_flat_scan {form} form ({M} queries, " \
+               f"n_probes={N_PROBES}) k={K}"
+        errs[form] = check_close(pv, pi, kv, ki, what)
+        check_bits((kv, ki), iscan.ivf_flat_scan(*args, form=form),
+                   f"{what}, launched twice")
     qn = fk.prepare_norms("l2", q)
-    ms = timer(lambda: iscan.ivf_flat_scan_candidates(
-        iidx.data, iidx.data_norms, None, q, qn, probed.int(),
-        iidx.offsets_dev, iidx.sizes_dev, K, "l2"))
+
+    def launch(form, sizes):
+        return iscan.ivf_flat_scan_candidates(
+            iidx.data, iidx.data_norms, None, q, qn, probed.int(),
+            iidx.offsets_dev, sizes, K, "l2", form)
+
+    times = {form: timer(lambda: launch(form, iidx.sizes_dev))
+             for form in SCAN_FORMS}
+    # every list cut to one tile: the grouped form's cost a group beside
+    # its tiles (the query gather, the first tile's selection into empty
+    # k-lists, the output)
+    one_tile = timer(lambda: launch("group", torch.clamp_max(
+        iidx.sizes_dev, TILE_ROWS)))
     plain = timer(lambda: iscan.ivf_flat_scan_plain(*args), reps=3,
                   warmup=0)
     sizes = iidx.sizes_dev.long()
@@ -1281,17 +1345,35 @@ def k3_phase(timer, iidx, q, launches):
     distinct_rows = int(sizes[lists].sum())
     b, by = bound(distinct_rows * (D + 1) * 4 + M * D * 4
                   + M * N_PROBES * (4 + K * 8), 2.0 * D * scanned)
+    tf = 3 * 2.0 * D * scanned / TF32_FLOPS_PER_S * 1e3
+    tiles, tile_rows, gathered = group_tiles(probed, sizes, K)
+    tile_bytes = tile_rows * (D + 1) * 4 + gathered * D * 4
     log(f"  K3 scans {scanned} (pair, row) products over {distinct_rows} "
-        "distinct rows")
+        f"distinct rows; grouped form {times['group']:.3f} ms, per-pair "
+        f"form {times['pair']:.3f} ms; FP32 bound {b:.4f} ms ({by}), "
+        f"3xTF32 bound {tf:.4f} ms; {tiles} group tiles read "
+        f"{tile_bytes / 1e9:.3f} GB (rows, norms, gathered queries); with "
+        f"every list cut to one tile {one_tile:.3f} ms")
     return dict(name="ivf_flat_scan", route="cuda",
                 source="raft_tpu_torch/csrc/ivf_flat_scan.cu",
                 replaces="raft_tpu/ops/ivf_scan.py:284", launches=launches,
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                bound_by=by, library_ms=None,
+                max_abs_err=errs["group"], ms=times["group"],
+                plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
+                form="group", pair_ms=times["pair"],
+                pair_max_abs_err=errs["pair"], tf32x3_bound_ms=tf,
+                one_tile_ms=one_tile, group_tiles=tiles,
+                group_bytes=tile_bytes,
+                launches_by_form=by_form,
                 shape=f"{M} queries x {N_PROBES} probes, k={K}")
 
 
-def k4_phase(timer, pidx, q, launches):
+def k4_phase(timer, pidx, q, launches, by_form):
+    """K4 in both forms against the plain version on the path's data (bf16
+    and f32 LUT modes on all queries, int8 on 1,000; each launched twice,
+    bit-equal) and on an integer-valued copy of the index (equal), both
+    timed at the path's shape (bf16 LUT); the row's bound is the least
+    work of the function (one LUT a query, one add a (pair, row,
+    subspace)), printed beside the grouped form's tiles and bytes."""
     q_rot = (q @ pidx.rotation.T).contiguous()
     probed = iscan.coarse_probe(q_rot, pidx.centers_rot, N_PROBES, "l2",
                                 pidx.center_norms)
@@ -1302,21 +1384,24 @@ def k4_phase(timer, pidx, q, launches):
                 idx.sizes_dev, qr)
 
     shape = f"{M} queries x {N_PROBES} probes, pq_dim={PQ_DIM}, k={K0}"
-    # the path's LUT mode (bf16) on all its queries: the reported error
     path = args(pidx, "bf16", q_rot, probed)
-    err = check_close(*ipq.ivf_pq_scan_plain(*path, K0, "l2"),
-                      *ipq.ivf_pq_scan(*path, K0, "l2"),
-                      f"K4 ivf_pq_scan bf16 LUT ({shape})")
-    full = args(pidx, "f32", q_rot, probed)
-    check_close(*ipq.ivf_pq_scan_plain(*full, K0, "l2"),
-                *ipq.ivf_pq_scan(*full, K0, "l2"),
-                f"K4 ivf_pq_scan f32 LUT ({shape})")
-    sub = args(pidx, "int8", q_rot[:1000], probed[:1000])
-    check_close(*ipq.ivf_pq_scan_plain(*sub, K0, "l2"),
-                *ipq.ivf_pq_scan(*sub, K0, "l2"),
-                f"K4 ivf_pq_scan int8 LUT (1000 of {M} queries)")
+    errs = {}
+    for mode, a, what in (
+            ("bf16", path, shape), ("f32", args(pidx, "f32", q_rot, probed),
+                                    shape),
+            ("int8", args(pidx, "int8", q_rot[:1000], probed[:1000]),
+             f"1000 of {M} queries")):
+        ref = ipq.ivf_pq_scan_plain(*a, K0, "l2")
+        for form in SCAN_FORMS:
+            got = ipq.ivf_pq_scan(*a, K0, "l2", form=form)
+            name = f"K4 ivf_pq_scan {form} form, {mode} LUT ({what})"
+            err = check_close(*ref, *got, name)
+            check_bits(got, ipq.ivf_pq_scan(*a, K0, "l2", form=form),
+                       f"{name}, launched twice")
+            if mode == "bf16":
+                errs[form] = err
     # the path's index with a small-integer codebook and centers: every
-    # LUT entry and sum is exact, so kernel and plain version are equal
+    # product and sum is exact, so kernel and plain version are equal
     rng = np.random.default_rng(SEED + 4)
     ints = lambda shape_: torch.from_numpy(rng.integers(  # noqa: E731
         -3, 4, shape_).astype(np.float32)).cuda()
@@ -1328,21 +1413,23 @@ def k4_phase(timer, pidx, q, launches):
     for mode in ("f32", "bf16"):
         a = args(iidx, mode, qi, pri)
         for metric in ("l2", "ip"):
-            check_equal(ipq.ivf_pq_scan_plain(*a, K0, metric),
-                        ipq.ivf_pq_scan(*a, K0, metric),
-                        f"K4 ivf_pq_scan {mode} LUT {metric}, integer "
-                        "codebook/centers/queries (1000 queries)")
+            ref = ipq.ivf_pq_scan_plain(*a, K0, metric)
+            for form in SCAN_FORMS:
+                check_equal(ref, ipq.ivf_pq_scan(*a, K0, metric, form=form),
+                            f"K4 ivf_pq_scan {form} form, {mode} LUT "
+                            f"{metric}, integer codebook/centers/queries "
+                            "(1000 queries)")
     # time in the path's LUT mode (bf16)
-    def launch(sizes):
+    def launch(form, sizes):
         return ipq.ivf_pq_scan_candidates(
             pidx.codes, pidx.row_norms, None, path[3], pidx.centers_rot,
-            q_rot, probed, pidx.offsets_dev, sizes, K0, "l2")
+            q_rot, probed, pidx.offsets_dev, sizes, K0, "l2", form)
 
-    ms = timer(lambda: launch(pidx.sizes_dev))
-    # every list cut to one row: the per-pair LUT build and each block's
-    # fixed cost (k-best init, q·c_l, ||q||², output writes) with almost
-    # no list scan
-    lut_ms = timer(lambda: launch(torch.clamp_max(pidx.sizes_dev, 1)))
+    times = {form: timer(lambda: launch(form, pidx.sizes_dev))
+             for form in SCAN_FORMS}
+    # every list cut to one tile, as for K3 (and q·c_l, ||q||²)
+    one_tile = timer(lambda: launch("group", torch.clamp_max(
+        pidx.sizes_dev, TILE_ROWS)))
     plain = timer(lambda: ipq.ivf_pq_scan_plain(*path, K0, "l2"), reps=3,
                   warmup=0)
     sizes = pidx.sizes_dev.long()
@@ -1356,15 +1443,24 @@ def k4_phase(timer, pidx, q, launches):
                   + pidx.centers_rot.numel() * 4 + pidx.codebooks.numel() * 4
                   + pairs * (4 + K0 * 8),
                   M * 2 * PQ_DIM * book * pq_len, scanned * PQ_DIM)
+    tiles, tile_rows, gathered = group_tiles(probed, sizes, K0)
+    tile_bytes = tile_rows * (PQ_DIM + 4) + gathered * pidx.rot_dim * 4
     log(f"  K4 scans {scanned} (pair, row) products over {distinct_rows} "
-        f"distinct rows; with one row per list (LUT build and per-block "
-        f"fixed cost) {lut_ms:.2f} ms")
+        f"distinct rows; grouped form {times['group']:.3f} ms, per-pair "
+        f"form {times['pair']:.3f} ms; bound {b:.4f} ms ({by}); {tiles} "
+        f"group tiles read {tile_bytes / 1e9:.3f} GB (codes, norms, "
+        f"gathered queries); with every list cut to one tile "
+        f"{one_tile:.3f} ms")
     return dict(name="ivf_pq_scan", route="cuda",
                 source="raft_tpu_torch/csrc/ivf_pq_scan.cu",
                 replaces="raft_tpu/ops/ivf_pq_scan.py:290",
-                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
-                bound_ms=b, bound_by=by, library_ms=None,
-                lut_only_ms=lut_ms, shape=f"{shape}, bf16 LUT")
+                launches=launches, max_abs_err=errs["group"],
+                ms=times["group"], plain_ms=plain, bound_ms=b, bound_by=by,
+                library_ms=None, form="group", pair_ms=times["pair"],
+                pair_max_abs_err=errs["pair"], one_tile_ms=one_tile,
+                group_tiles=tiles,
+                group_bytes=tile_bytes, launches_by_form=by_form,
+                shape=f"{shape}, bf16 LUT")
 
 
 def main() -> int:
@@ -1401,13 +1497,14 @@ def main() -> int:
     timer = Timer()
     k1_in = k1_inputs(x, q, bidx, iidx, pidx, cidx, sidx)
     kernels = [k1_phase(timer, k1_in, moved["select_k"],
-                        {f: moved[f"select_k.{f}"] for f in ("warp",
-                                                             "kpass")})]
+                        by_form(moved, "select_k"))]
     del k1_in
     kernels += [k2_phase(timer, bidx, q, moved["fused_knn"],
                          cidx.build_stats["knn_graph_s"]),
-               k3_phase(timer, iidx, q, moved["ivf_flat_scan"]),
-               k4_phase(timer, pidx, q, moved["ivf_pq_scan"])]
+               k3_phase(timer, iidx, q, moved["ivf_flat_scan"],
+                        by_form(moved, "ivf_flat_scan")),
+               k4_phase(timer, pidx, q, moved["ivf_pq_scan"],
+                        by_form(moved, "ivf_pq_scan"))]
     del iidx, pidx
     buf_d, buf_i = seeded_buffer(cidx, q)
     hop_parents, *walked = walk(cidx, q, buf_d, buf_i)

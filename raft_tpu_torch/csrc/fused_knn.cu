@@ -7,16 +7,12 @@
 // ids = -1 on +inf slots, the filter as an additive penalty row.
 //
 // Design on Hopper. The distance block goes through the tensor cores at
-// f32 accuracy as 3xTF32: each f32 operand x is split into hi = tf32(x)
-// and lo = tf32(x − hi) (cvt.rna.tf32.f32; the tensor core reads only an
-// f32 register's upper 19 bits, so both parts are converted explicitly),
-// and m16n8k8 TF32 mma.sync sums lo·hi, hi·lo and hi·hi in f32 (lo·lo,
-// 2^-22 of the product, is dropped). The tensor core truncates the sums
-// it forms (rounds toward zero), which biases a long accumulation toward
-// zero, so each 16 dimensions' six products are summed in a fresh
-// accumulator and added to the dot by an ordinary rounded add. Integer-
-// valued inputs of magnitude below 2^11 are held exactly by their hi
-// parts, so their dots are exact as long as the sums are below 2^24.
+// f32 accuracy as 3xTF32 (hi/lo TF32 parts; the six m16n8k8 mma.sync
+// products of 16 dimensions go into a fresh accumulator joined by a
+// rounded add;
+// integer-valued inputs below 2^11 give exact dots), with the ldmatrix
+// fragments, cp.async copies and fragment selection of tf32_tile.cuh,
+// which the grouped forms of K3 and K4 share.
 //
 // A block of 8 warps owns BM = 32·MF queries (MF = 4 for k <= 64, 2
 // above) and walks its split of the corpus in tiles of BN = 128 rows; the
@@ -75,159 +71,9 @@
 // but does not reach that rate on this card; wgmma with TMA loads and
 // warp specialisation, which would also overlap the selection with the
 // products, is the next step.
-#include <cstdint>
-#include <type_traits>
-
-#include "warp_queue.cuh"
+#include "tf32_tile.cuh"
 
 namespace {
-
-constexpr int BN = 128;        // corpus rows a tile
-constexpr int BK = 32;         // dimensions a pipeline stage
-constexpr int kThreads = 256;  // 8 warps: 2 along the queries x 4 the rows
-
-// Where float c (of 32) of row r of a staged tile lives: its 16-byte
-// chunk c / 4 is XORed with r % 8, so the 8 rows of a fragment's row group
-// read 8 different chunks (32 distinct banks) and a row's 8 chunks, as
-// cp.async writes them, still cover all 32 banks.
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * BK + ((((c >> 2) ^ r) & 7) << 2) + (c & 3);
-}
-
-__device__ __forceinline__ unsigned to_tf32(float x) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x ≈ hi + lo, both TF32.
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
-                                           unsigned& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// c += a·b on a 16 x 8 x 8 TF32 tile, f32 accumulation.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d = a·b on a 16 x 8 x 8 TF32 tile into a fresh f32 accumulator.
-__device__ __forceinline__ void mma_tf32_first(float (&d)[4],
-                                               const unsigned (&a)[4],
-                                               const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(0.f));
-}
-
-// Four 8 x 4 blocks of 32-bit words from shared memory, one register each
-// a lane: lane l of block q gets word l % 4 of row l / 4, lanes 8q..8q+7
-// give the rows' 16-byte addresses (ldmatrix .b16: a word is two b16).
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const float* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-// Copy 16 (or 4) bytes from device to shared memory asynchronously, or
-// zero-fill them when !valid (src is then not read).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(s), "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until the oldest group a ring of ns (2 or 3) stages needs has
-// landed: at most ns − 1 groups still in flight.
-__device__ __forceinline__ void cp_async_wait_stage(int ns) {
-  if (ns == 3) {
-    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
-  } else {
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  }
-}
-
-// The bits of this thread's 16·MF fragment values.
-template <int MF>
-using Pending =
-    typename std::conditional<(MF > 2), unsigned long long, unsigned>::type;
-
-// Start the copies of rows [row0, row0 + ROWS) x dimensions [k0, k0 + 32)
-// of the row-major (rows, d) matrix src into the swizzled block dst; rows
-// at or past row_end and dimensions past d read as zeros.
-template <int ROWS>
-__device__ __forceinline__ void copy_block(float* dst, const float* src,
-                                           int row0, int row_end, int k0,
-                                           int d, int vec, int tid) {
-  if (vec) {
-    for (int e = tid; e < ROWS * (BK / 4); e += kThreads) {
-      const int r = e >> 3, c = (e & 7) * 4;
-      const bool ok = row0 + r < row_end && k0 + c < d;
-      cp_async16(dst + swz(r, c),
-                 ok ? src + (size_t)(row0 + r) * d + k0 + c : src, ok);
-    }
-  } else {
-    for (int e = tid; e < ROWS * BK; e += kThreads) {
-      const int r = e >> 5, c = e & 31;
-      const bool ok = row0 + r < row_end && k0 + c < d;
-      cp_async4(dst + swz(r, c),
-                ok ? src + (size_t)(row0 + r) * d + k0 + c : src, ok);
-    }
-  }
-}
-
-// Fold row r's buffer (its first nb keys) into its k-list, with one warp.
-template <int R, int CAP>
-__device__ __forceinline__ void fold_row(float* list_v, int* list_c,
-                                         float* buf_v, int* buf_c,
-                                         int* buf_n, int r, int nb, int k,
-                                         int lane) {
-  float qv[R];
-  int qc[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int e = i * 32 + lane;
-    if (e < k) {
-      qv[i] = list_v[r * k + e];
-      qc[i] = list_c[r * k + e];
-    } else {
-      warpq::set_empty(qv[i], qc[i]);
-    }
-  }
-  warpq::fold_buffer<float, R>(qv, qc, buf_v + r * CAP, buf_c + r * CAP, nb,
-                               lane);
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int e = i * 32 + lane;
-    if (e < k) {
-      list_v[r * k + e] = qv[i];
-      list_c[r * k + e] = qc[i];
-    }
-  }
-  __syncwarp();
-  if (lane == 0) buf_n[r] = 0;
-}
 
 template <int MF, int R, int CAP, int METRIC>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -332,19 +178,8 @@ fused_knn_kernel(const float* __restrict__ q, const float* __restrict__ qn,
   if (a_res == 2) {  // the query tile landed: split it once
     cp_async_wait_stage(ns);
     __syncthreads();
-    float* a_lo = a_tile + nk * BM * BK;
-    for (int e = tid; e < nk * BM * BK; e += kThreads) {
-      unsigned hi, lo;
-      split_tf32(a_tile[e], hi, lo);
-      a_tile[e] = __uint_as_float(hi);
-      a_lo[e] = __uint_as_float(lo);
-    }
+    split_tile(a_tile, nk * BM * BK, tid);
   }
-  // each lane's row and 16-byte chunk in the ldmatrix blocks: A blocks
-  // (rows +0/+8) x (dims +0/+4), B blocks (j-block +0/+1) x (dims +0/+4)
-  const int lr = lane & 7, lq = lane >> 3;
-  const int a_row = wm * 16 * MF + lr + 8 * (lq & 1), a_chunk = lq >> 1;
-  const int b_row = wn * 32 + lr + 8 * (lq >> 1), b_chunk = lq & 1;
   for (int s = 0; s < total; ++s) {
     if (s + ns - 1 < total) load(s + ns - 1);
     cp_async_commit();
@@ -353,60 +188,8 @@ fused_knn_kernel(const float* __restrict__ q, const float* __restrict__ qn,
     const float* st = ring + (s % ns) * stage;
     const float* As = a_res ? a_tile + (s % nk) * BM * BK : st;
     const float* Bs = a_res ? st : st + BM * BK;
-    // two 8-dimension steps at a time: the tensor core truncates the f32
-    // sums it forms, so the 16 dimensions' six products are summed in a
-    // fresh accumulator, small ones first, and join the dot by a rounded
-    // add
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      unsigned bh[2][4][2], bl[2][4][2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int c4 = ((kk + 8 * u) >> 2) + b_chunk;
-#pragma unroll
-        for (int jp = 0; jp < 2; ++jp) {
-          unsigned raw[4];
-          ldsm_x4(raw, Bs + (b_row + 16 * jp) * BK + ((c4 ^ lr) & 7) * 4);
-#pragma unroll
-          for (int w = 0; w < 4; ++w) {
-            split_tf32(__uint_as_float(raw[w]), bh[u][2 * jp + (w >> 1)][w & 1],
-                       bl[u][2 * jp + (w >> 1)][w & 1]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < MF; ++i) {
-        unsigned ah[2][4], al[2][4];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int c4 = ((kk + 8 * u) >> 2) + a_chunk;
-          const int off = (a_row + 16 * i) * BK + ((c4 ^ lr) & 7) * 4;
-          if (a_res == 2) {
-            ldsm_x4(ah[u], As + off);
-            ldsm_x4(al[u], As + nk * BM * BK + off);
-          } else {
-            unsigned raw[4];
-            ldsm_x4(raw, As + off);
-#pragma unroll
-            for (int w = 0; w < 4; ++w) {
-              split_tf32(__uint_as_float(raw[w]), ah[u][w], al[u][w]);
-            }
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float t[4];
-          mma_tf32_first(t, al[0], bh[0][j]);
-          mma_tf32(t, ah[0], bl[0][j]);
-          mma_tf32(t, al[1], bh[1][j]);
-          mma_tf32(t, ah[1], bl[1][j]);
-          mma_tf32(t, ah[0], bh[0][j]);
-          mma_tf32(t, ah[1], bh[1][j]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] += t[e];
-        }
-      }
-    }
+    stage_dots<MF>(acc, As, a_res == 2 ? As + nk * BM * BK : nullptr, Bs,
+                   false, lane, wm, wn);
     __syncthreads();  // slot s % ns is read before a load overwrites it
     if (s % nk != nk - 1) continue;
 
@@ -425,20 +208,10 @@ fused_knn_kernel(const float* __restrict__ q, const float* __restrict__ qn,
                       : pen != nullptr ? side[BN + lc] : 0.f;
       }
     }
-    float tv[MF][2];
-    int tc[MF][2];
-#pragma unroll
-    for (int i = 0; i < MF; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        tv[i][h] = list_v[(wm * 16 * MF + 16 * i + g + 8 * h) * k + k - 1];
-      }
-    }
-    // the dots become distances in place, and each is offered at once;
-    // fragment value (i, j, e) sits at row 16·i + g + 8·(e / 2), column
-    // 8·j + 2·t4 + e % 2. What finds its buffer full stays pending. (Rows
-    // past m hold zero queries; their lists are never written out.)
-    Pending<MF> pend = 0;
+    // the dots become distances in place; fragment value (i, j, e) sits
+    // at row 16·i + g + 8·(e / 2), column 8·j + 2·t4 + e % 2 of the
+    // warp's piece. (Rows past m hold zero queries; their lists are never
+    // written out.)
 #pragma unroll
     for (int i = 0; i < MF; ++i) {
 #pragma unroll
@@ -446,8 +219,6 @@ fused_knn_kernel(const float* __restrict__ q, const float* __restrict__ qn,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int h = e >> 1, e1 = e & 1;
-          const int r = wm * 16 * MF + 16 * i + g + 8 * h;
-          const int col = c0 + wn * 32 + 8 * j + 2 * t4 + e1;
           const float dot = acc[i][j][e];
           float dist;
           if (METRIC == 0) {
@@ -461,66 +232,13 @@ fused_knn_kernel(const float* __restrict__ q, const float* __restrict__ qn,
           } else {
             dist = -dot;
           }
-          dist = __fadd_rn(dist, penc[j][e1]);
-          acc[i][j][e] = dist;
-          // every listed column precedes this tile's, so a key equal to
-          // the k-th is never before it here; the k-th of a short list
-          // is +inf
-          if (dist < tv[i][h]) {
-            const int slot = atomicAdd(&buf_n[r], 1);
-            if (slot < CAP) {
-              buf_v[r * CAP + slot] = dist;
-              buf_c[r * CAP + slot] = col;
-            } else {
-              pend |= (Pending<MF>)1 << ((i * 4 + j) * 4 + e);
-            }
-          }
+          acc[i][j][e] = __fadd_rn(dist, penc[j][e1]);
         }
       }
     }
-    // while some candidate found its buffer full: fold the full buffers
-    // and offer the pending candidates again, against the new k-th keys
-    while (__syncthreads_or(pend != 0)) {
-      for (int r = warp; r < BM; r += kThreads / 32) {
-        if (buf_n[r] >= CAP) {
-          fold_row<R, CAP>(list_v, list_c, buf_v, buf_c, buf_n, r, CAP, k,
-                           lane);
-        }
-      }
-      __syncthreads();
-      // the folds may have listed this tile's columns: compare whole keys
-#pragma unroll
-      for (int i = 0; i < MF; ++i) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = wm * 16 * MF + 16 * i + g + 8 * h;
-          tv[i][h] = list_v[r * k + k - 1];
-          tc[i][h] = list_c[r * k + k - 1];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < MF; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const Pending<MF> bit = (Pending<MF>)1 << ((i * 4 + j) * 4 + e);
-            if (!(pend & bit)) continue;
-            const int h = e >> 1;
-            const int r = wm * 16 * MF + 16 * i + g + 8 * h;
-            const int col = c0 + wn * 32 + 8 * j + 2 * t4 + (e & 1);
-            const float dist = acc[i][j][e];
-            if (key_less(dist, col, tv[i][h], tc[i][h])) {
-              const int slot = atomicAdd(&buf_n[r], 1);
-              if (slot >= CAP) continue;  // still pending
-              buf_v[r * CAP + slot] = dist;
-              buf_c[r * CAP + slot] = col;
-            }
-            pend &= ~bit;
-          }
-        }
-      }
-    }
+    offer_tile<MF, R, CAP>(acc, nullptr, c0 + wn * 32 + 2 * t4, list_v,
+                           list_c, buf_v, buf_c, buf_n, k, lane, warp, wm,
+                           g);
 
 #pragma unroll
     for (int i = 0; i < MF; ++i)
@@ -564,27 +282,11 @@ struct Plan {
 template <int MF, int R, int CAP, int METRIC>
 cudaError_t prepare(int k, int d, Plan* p) {
   constexpr int BM = 32 * MF;
-  const size_t nk = (d + BK - 1) / BK;
-  const size_t lists = (sizeof(float) + sizeof(int)) * (size_t)BM * (k + CAP) +
-                       sizeof(int) * (size_t)BM + sizeof(float) * 4 * 2 * BN;
-  const size_t limit = 232448;  // a block's shared memory on sm_90
   p->kern = (const void*)fused_knn_kernel<MF, R, CAP, METRIC>;
   p->bm = BM;
-  p->smem = 0;
-  for (int a_res = 2; a_res >= 0 && p->smem == 0; --a_res) {
-    for (int ns = 3; ns >= 2; --ns) {
-      const size_t bytes = sizeof(float) * BK *
-                               (a_res * nk * BM +
-                                (size_t)ns * ((a_res ? 0 : BM) + BN)) +
-                           lists;
-      if (bytes <= limit) {
-        p->smem = bytes;
-        p->a_res = a_res;
-        p->ns = ns;
-        break;
-      }
-    }
-  }
+  p->smem = fit_tiles(BM, d, 3,
+                      list_bytes(BM, k, CAP) + sizeof(float) * 4 * 2 * BN,
+                      &p->a_res, &p->ns);
   if (p->smem == 0) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(p->kern,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -4,56 +4,373 @@
 // Replaces the TPU kernel raft_tpu/ops/ivf_pq_scan.py::_scan_groups
 // (kernel _kernel -> _kernel_body): (query, probe) pairs packed 128 to a
 // group per list; the group's PQ distances in expanded form,
-//   l2: max(||q||² + ||c_l + dec_i||² - 2·q·c_l - 2·Σ_s q_s·cb[s, code_is], 0)
-//   ip: -q·c_l - Σ_s q_s·cb[s, code_is],
-// with the codes decoded by a one-hot GEMM against a block-diagonal
-// codebook matrix on the MXU (f32, bf16 or int8 codebook); the additive
+//   l2: max(||q||² + ||c_l + dec_i||² - 2·q·c_l - 2·q·dec_i, 0)
+//   ip: -q·c_l - q·dec_i,
+// with the list's codes decoded into rows (a one-hot GEMM against a
+// block-diagonal codebook matrix on the MXU: f32, bf16 or int8 codebook)
+// and the group's queries multiplied by the decoded rows; the additive
 // penalty row; rows outside the list masked; a per-pair top-k with ties
 // to the lower row.
 //
-// Design on Hopper. The one-hot decode GEMM and the 128-pair groups exist
-// to feed the MXU, and are dropped. One block of 256 threads owns one
-// (query, probe) pair, the role of ivf_pq_compute_similarity-inl.cuh:271
-// in the CUDA reference: the block builds the lookup table
-// lut[s][b] = Σ_l q[s·pq_len + l]·cb[s][b][l] in shared memory in float32
-// (the codebook arrives already rounded to the LUT mode), computes q·c_l
-// and ||q||² once, then streams the list's code rows: each thread reads
-// one row's pq_dim bytes (16-byte loads when pq_dim is a multiple of 16)
-// and sums its pq_dim LUT entries in subspace order. The epilogue follows
-// _kernel_body's order with __fadd_rn/__fmul_rn, so nvcc cannot contract
-// it into FMAs: max(((||q||² + dn) - 2·qc) + (-2·Σ), 0) + pen. Warp 0
-// keeps the pair's sorted k-best list (warp_offer; ties to the smaller
-// row). Pairs are launched in list order (the wrapper passes the sorted
-// pair order), so blocks that run together read the same list's codes
-// from L2. Each pair writes its k best to its own k columns of a
-// (m, p*k) buffer in probe-rank order, and the wrapper merges each
-// query's row with K1, exactly as merge_pairs orders the pairs. An empty
-// (or filter-pruned) list writes (+inf, -1) and builds no LUT.
+// Two forms, chosen by k in the wrapper (ops/ivf_scan.py::scan_form).
+//
+// The grouped form (k <= 256, raft_ivf_pq_scan_group) keeps the TPU
+// kernel's grouping and its decode. One block of 8 warps owns one group
+// tile of the wrapper's pack_pairs (BM = 128 queries of one list for
+// k <= 64, 64 above). It gathers the group's rotated queries into shared
+// memory once (resident, split into TF32 parts where they fit, else
+// streamed beside each stage), and computes q·c_l and ||q||² once per
+// (group query, list). No block builds a lookup table: each 32-dimension
+// stage of a 128-row tile is decoded into dense float32 rows in shared
+// memory, dec[r, s·pq_len + l] = cb[s, code[r, s], l], from the codes and
+// the codebook (the LUT mode's, always float32, read through the L1
+// cache), so a list's codes are decoded once per group and not once per
+// pair. Stages are decoded one ahead of the products into a 2-slot ring:
+// each thread has a stage's 16 code loads in flight together, two stages
+// ahead, and its 16 codebook loads behind the products of the stage
+// before, with one barrier a stage. The group x tile product runs on the
+// tensor cores as 3xTF32 with K2's rules (tf32_tile.cuh). Where every
+// codebook value is exact in TF32 — the bf16 LUT mode, whose codebook is
+// rounded to bfloat16 — the decoded rows' lo parts are zero and the two
+// products that read them are skipped: the sums are the same bits (the
+// wrapper computes that flag on the card). The sum q·dec_i is thus a dot
+// over the rotated dimensions, where the plain version sums lookup-table
+// entries subspace by subspace; on integer-valued inputs both are exact.
+// The epilogue keeps _kernel_body's order with __fadd_rn/__fmul_rn, so
+// nvcc cannot contract it into FMAs: max(((||q||² + dn) - 2·qc) +
+// (-2·Σ), 0), then + pen where there is a penalty row. The selection from
+// the accumulator fragments, the per-pair output slots (pair·k of the (m,
+// p*k) buffer, merged by the wrapper's K1 exactly as merge_pairs orders
+// the pairs) and the (+inf, -1) of an empty or filter-pruned list are
+// K3's grouped form's.
+//
+// The per-pair form (k up to 1024, raft_ivf_pq_scan_pair): one block of
+// 256 threads owns one (query, probe) pair, the role of
+// ivf_pq_compute_similarity-inl.cuh:271 in the CUDA reference; it builds
+// the pair's lookup table lut[s][b] = Σ_l q[s·pq_len + l]·cb[s][b][l] in
+// shared memory, then sums each row's pq_dim entries in subspace order,
+// and warp 0 keeps the pair's k-best list (warp_offer). Every pair
+// rebuilds its table and re-reads its list's codes.
 //
 // Bound on this card: the LUT once per query (2·pq_len FLOPs per entry,
 // 0.66 G at m = 10,000, pq_dim = 64, book = 256, ~0.01 ms at 67 TFLOP/s
 // FP32) and one add per (pair, row, subspace) (~24 G over p = 20 probes
 // of 1,024 lists of 1M rows, ~0.72 ms at 33.5 T adds/s: a lone add is
 // half an FMA's two FLOPs); the distinct code bytes (~68 MB) take less.
-// What this first version pays above that bound: every LUT read is a shared-
-// memory load at a data-dependent address (random codes put several
-// lanes of a warp on one bank), every pair rebuilds its 64 KB LUT from a
-// 128 KB codebook read from L2, and every pair re-reads its list's codes.
-// In the expanded form the LUT depends on the query alone, so the next
-// step is one LUT per query shared by its pairs (a block per query, or
-// per list with its queries' LUTs side by side), laid out against bank
-// conflicts (e.g. subspace-interleaved copies), with the codes of a list
-// read once for all the pairs that probe it.
-#include <cstdint>
-
-#include "topk_common.cuh"
+// That is the least work for the function; the grouped form does more
+// operations (a dot of rot_dim over each (group query, row) on the tensor
+// cores) to read and decode each list once per group.
+#include "tf32_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // rows per tile = threads of a block
+template <int MF, int R, int CAP>
+__global__ void __launch_bounds__(kThreads, 1)
+ivf_pq_group_kernel(const uint8_t* __restrict__ codes,
+                    const float* __restrict__ dn,
+                    const float* __restrict__ pen,
+                    const float* __restrict__ cb,
+                    const float* __restrict__ centers,
+                    const float* __restrict__ q,
+                    const int* __restrict__ exact,
+                    const int* __restrict__ order,
+                    const int* __restrict__ glist,
+                    const int* __restrict__ gstart,
+                    const int* __restrict__ gcount,
+                    const int* __restrict__ offsets,
+                    const int* __restrict__ sizes, int p, int pq_dim,
+                    int pq_len, int book, int k, int metric, int vec,
+                    int a_res, float* __restrict__ out_v,
+                    int* __restrict__ out_i) {
+  constexpr int BM = 32 * MF;
+  const int cnt = gcount[blockIdx.x];
+  if (cnt <= 0) return;  // past the live groups (block-uniform)
+  const int list = glist[blockIdx.x];
+  const int start = gstart[blockIdx.x];
+  const int c_begin = offsets[list];
+  const int c_end = c_begin + max(sizes[list], 0);
+  const int d = pq_dim * pq_len;  // rot_dim
+  const int nk = (d + BK - 1) / BK;
+  // the query tile resident (a_res 1, or 2 split into its TF32 parts) or
+  // a part of every ring stage (0); then the 2 ring stages
+  const int a_floats = a_res * nk * BM * BK;
+  const int stage = (a_res ? 0 : BM * BK) + BN * BK;
+  extern __shared__ __align__(16) float smem[];
+  float* a_tile = smem;
+  float* ring = smem + a_floats;
+  float* sides = ring + 2 * stage;           // 2 x (dn, pen) of a tile
+  float* list_v = sides + 2 * 2 * BN;        // BM x k sorted keys
+  int* list_c = (int*)(list_v + BM * k);
+  float* buf_v = (float*)(list_c + BM * k);  // BM x CAP candidates
+  int* buf_c = (int*)(buf_v + BM * CAP);
+  int* buf_n = buf_c + BM * CAP;             // BM counts
+  int* pairs = buf_n + BM;                   // the group's pairs (-1 past)
+  int* qrow = pairs + BM;                    // and their queries
+  float* qn_s = (float*)(qrow + BM);         // ||q||² of each
+  float* qc_s = qn_s + BM;                   // q·c_l of each
+  int* col_sub = (int*)(qc_s + BM);          // a dimension's subspace
+  int* col_cb = col_sub + nk * BK;           // and its codebook offset
 
-__global__ void __launch_bounds__(kThreads)
-ivf_pq_scan_kernel(const uint8_t* __restrict__ codes,
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;   // the fragment's row group
+  const int t4 = lane & 3;   // and the thread in it
+  const int wm = warp >> 2;  // 0..1 along the queries
+  const int wn = warp & 3;   // 0..3 along the rows
+
+  for (int r = tid; r < BM; r += kThreads) {
+    const int pr = r < cnt ? order[start + r] : -1;
+    pairs[r] = pr;
+    qrow[r] = pr < 0 ? -1 : pr / p;
+    buf_n[r] = 0;
+  }
+  for (int c = tid; c < nk * BK; c += kThreads) {
+    const int s = c / pq_len;
+    col_sub[c] = c < d ? s : -1;
+    col_cb[c] = (s * book) * pq_len + (c - s * pq_len);
+  }
+  for (int e = tid; e < BM * k; e += kThreads) {
+    list_v[e] = CUDART_INF_F;
+    list_c[e] = INT_MAX;
+  }
+  __syncthreads();
+  if (c_end <= c_begin) {  // an empty or filter-pruned list (block-uniform)
+    for (int e = tid; e < cnt * k; e += kThreads) {
+      const size_t o = (size_t)pairs[e / k] * k + e % k;
+      out_v[o] = CUDART_INF_F;
+      out_i[o] = -1;
+    }
+    return;
+  }
+  // q·c_l and ||q||² once per group query: warp w takes rows w, w + 8, ...
+  for (int r = warp; r < BM; r += kThreads / 32) {
+    const int qi = qrow[r];
+    float qc = 0.f, qq = 0.f;
+    if (qi >= 0) {
+      const float* qr = q + (size_t)qi * d;
+      const float* cl = centers + (size_t)list * d;
+      for (int c = lane; c < d; c += 32) {
+        const float a = qr[c];
+        qc = fmaf(a, cl[c], qc);
+        qq = fmaf(a, a, qq);
+      }
+    }
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      qc += __shfl_xor_sync(RAFT_FULL_MASK, qc, s);
+      qq += __shfl_xor_sync(RAFT_FULL_MASK, qq, s);
+    }
+    if (lane == 0) {
+      qc_s[r] = qc;
+      qn_s[r] = qq;
+    }
+  }
+  const bool b_exact = exact != nullptr && *exact != 0;
+  const int total = (c_end - c_begin + BN - 1) / BN * nk;
+
+  // stage s: tile s / nk, dimensions [32·(s % nk), +32), in ring slot
+  // s % 2. The group's queries' part (unless resident) comes by cp.async;
+  // the tile's part is decoded from the codes in three steps, so that the
+  // loads of a stage are in flight together and behind the products of
+  // the stage before: its codes to registers (fetch_codes, two stages
+  // ahead), its codebook values to registers (fetch_values, one ahead),
+  // and those into the slot (store_values). Thread (warp w, lane c)
+  // decodes column c of rows w, w + 8, ... With a tile's first stage its
+  // rows' norms and penalties go to side buffer tile % 2.
+  constexpr int kDec = BN * BK / kThreads;  // values a thread decodes
+  constexpr unsigned kNoCode = 0xffffffffu;
+  unsigned code[kDec];
+  float val[kDec];
+  float side_v = 0.f;
+  auto load_queries = [&](int s) {
+    if (!a_res) {
+      copy_gather<BM>(ring + (s & 1) * stage, q, qrow, (s % nk) * BK, d,
+                      vec, tid);
+    }
+  };
+  auto fetch_codes = [&](int s) {
+    const int tile = s / nk;
+    const int sub = col_sub[(s - tile * nk) * BK + lane];
+    const int r0 = c_begin + tile * BN + warp;
+#pragma unroll
+    for (int i = 0; i < kDec; ++i) {
+      const int row = r0 + 8 * i;
+      code[i] = row < c_end && sub >= 0
+                    ? (unsigned)__ldg(codes + (size_t)row * pq_dim + sub)
+                    : kNoCode;
+    }
+  };
+  auto fetch_values = [&](int s) {
+    const int tile = s / nk;
+    const int k0 = (s - tile * nk) * BK;
+    const float* cbc = cb + col_cb[k0 + lane];
+#pragma unroll
+    for (int i = 0; i < kDec; ++i) {
+      val[i] = code[i] != kNoCode ? __ldg(cbc + code[i] * pq_len) : 0.f;
+    }
+    if (k0 == 0) {
+      const int r = c_begin + tile * BN + (tid & (BN - 1));
+      const float* src = tid < BN ? dn : pen;
+      side_v = src != nullptr && r < c_end ? src[r] : 0.f;
+    }
+  };
+  auto store_values = [&](int s) {
+    const int tile = s / nk;
+    float* dst = ring + (s & 1) * stage + (a_res ? 0 : BM * BK);
+#pragma unroll
+    for (int i = 0; i < kDec; ++i) dst[swz(warp + 8 * i, lane)] = val[i];
+    if (s == tile * nk) sides[(tile & 1) * 2 * BN + tid] = side_v;
+  };
+
+  float acc[MF][4][4];
+#pragma unroll
+  for (int i = 0; i < MF; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  if (a_res) {
+    for (int kc = 0; kc < nk; ++kc) {
+      copy_gather<BM>(a_tile + kc * BM * BK, q, qrow, kc * BK, d, vec, tid);
+    }
+  }
+  load_queries(0);
+  cp_async_commit();
+  fetch_codes(0);
+  fetch_values(0);
+  store_values(0);
+  if (total > 1) fetch_codes(1);
+  cp_async_wait_all();
+  __syncthreads();
+  if (a_res == 2) {  // the query tile landed: split it once
+    split_tile(a_tile, nk * BM * BK, tid);
+    __syncthreads();
+  }
+  // this thread's rows of the tile: wm·16·MF + 16·i + g + 8·h
+  float qnr[MF][2], qcr[MF][2];
+#pragma unroll
+  for (int i = 0; i < MF; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wm * 16 * MF + 16 * i + g + 8 * h;
+      qnr[i][h] = qn_s[r];
+      qcr[i][h] = qc_s[r];
+    }
+  }
+  for (int s = 0; s < total; ++s) {
+    // the other slot was last read before the previous barrier
+    if (s + 1 < total) {
+      load_queries(s + 1);
+      fetch_values(s + 1);
+    }
+    cp_async_commit();
+    const float* st = ring + (s & 1) * stage;
+    const float* As = a_res ? a_tile + (s % nk) * BM * BK : st;
+    const float* Bs = a_res ? st : st + BM * BK;
+    stage_dots<MF>(acc, As, a_res == 2 ? As + nk * BM * BK : nullptr, Bs,
+                   b_exact, lane, wm, wn);
+    if (s + 1 < total) store_values(s + 1);
+    if (s + 2 < total) fetch_codes(s + 2);
+    cp_async_wait_all();
+    __syncthreads();
+    if (s % nk != nk - 1) continue;
+
+    // ---- the tile's dots are complete: distances, then the selection ----
+    const int tile = s / nk;
+    const int c0 = c_begin + tile * BN;
+    const float* side = sides + (tile & 1) * 2 * BN;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const int lc = wn * 32 + 8 * j + 2 * t4 + e1;
+        const bool past = c0 + lc >= c_end;
+#pragma unroll
+        for (int i = 0; i < MF; ++i) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float dot = acc[i][j][2 * h + e1];
+            float dist;
+            if (metric == 0) {
+              dist = fmaxf(
+                  __fadd_rn(__fsub_rn(__fadd_rn(qnr[i][h], side[lc]),
+                                      __fmul_rn(2.f, qcr[i][h])),
+                            __fmul_rn(-2.f, dot)),
+                  0.f);
+            } else {
+              dist = __fadd_rn(-qcr[i][h], __fmul_rn(-1.f, dot));
+            }
+            if (pen != nullptr) dist = __fadd_rn(dist, side[BN + lc]);
+            acc[i][j][2 * h + e1] = past ? CUDART_INF_F : dist;
+          }
+        }
+      }
+    }
+    offer_tile<MF, R, CAP>(acc, qrow, c0 + wn * 32 + 2 * t4, list_v, list_c,
+                           buf_v, buf_c, buf_n, k, lane, warp, wm, g);
+#pragma unroll
+    for (int i = 0; i < MF; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  }
+
+  // fold what is left, then write each pair's list into its own k columns
+  for (int r = warp; r < BM; r += kThreads / 32) {
+    const int nb = buf_n[r];
+    if (nb > 0) {
+      fold_row<R, CAP>(list_v, list_c, buf_v, buf_c, buf_n, r, nb, k, lane);
+    }
+    __syncwarp();
+    if (r >= cnt) continue;
+    const size_t o = (size_t)pairs[r] * k;
+    for (int e = lane; e < k; e += 32) {
+      const int c = list_c[r * k + e];
+      out_v[o + e] = list_v[r * k + e];
+      out_i[o + e] = c == INT_MAX ? -1 : c;
+    }
+  }
+}
+
+struct Plan {
+  const void* kern;
+  size_t smem;
+  int bm, a_res, ns;
+};
+
+template <int MF, int R, int CAP>
+cudaError_t prepare(int k, int d, Plan* p) {
+  constexpr int BM = 32 * MF;
+  const size_t nk = (d + BK - 1) / BK;
+  p->kern = (const void*)ivf_pq_group_kernel<MF, R, CAP>;
+  p->bm = BM;
+  p->smem = fit_tiles(BM, d, 2,
+                      list_bytes(BM, k, CAP) + sizeof(float) * 2 * 2 * BN +
+                          sizeof(int) * 4 * BM + sizeof(int) * 2 * nk * BK,
+                      &p->a_res, &p->ns);
+  if (p->smem == 0) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(p->kern,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)p->smem);
+}
+
+// By k, as K2 and K3.
+cudaError_t plan_for(int k, int d, Plan* p) {
+  if (k <= 32) return prepare<4, 1, 32>(k, d, p);
+  if (k <= 64) return prepare<4, 2, 64>(k, d, p);
+  if (k <= 128) return prepare<2, 4, 128>(k, d, p);
+  return prepare<2, 8, 64>(k, d, p);
+}
+
+// ---- the per-pair form ----
+
+constexpr int kPairThreads = 256;  // rows per tile = threads of a block
+
+__global__ void __launch_bounds__(kPairThreads)
+ivf_pq_pair_kernel(const uint8_t* __restrict__ codes,
                    const float* __restrict__ dn,
                    const float* __restrict__ pen,
                    const float* __restrict__ cb,
@@ -71,8 +388,8 @@ ivf_pq_scan_kernel(const uint8_t* __restrict__ codes,
   const int entries = pq_dim * book;
   float* lut = smem;                    // pq_dim x book
   float* qs = lut + entries;            // rot_dim
-  float* cand = qs + rot_dim;           // kThreads
-  float* lv = cand + kThreads;          // k
+  float* cand = qs + rot_dim;           // kPairThreads
+  float* lv = cand + kPairThreads;      // k
   int* li = (int*)(lv + k);             // k
 
   const int tid = threadIdx.x;
@@ -87,23 +404,23 @@ ivf_pq_scan_kernel(const uint8_t* __restrict__ codes,
   const size_t o = (size_t)qi * p * k + (size_t)rank * k;
 
   if (size <= 0) {  // block-uniform: no barrier is skipped by part of it
-    for (int j = tid; j < k; j += kThreads) {
+    for (int j = tid; j < k; j += kPairThreads) {
       out_v[o + j] = CUDART_INF_F;
       out_i[o + j] = -1;
     }
     return;
   }
 
-  for (int c = tid; c < rot_dim; c += kThreads) {
+  for (int c = tid; c < rot_dim; c += kPairThreads) {
     qs[c] = q[(size_t)qi * rot_dim + c];
   }
-  for (int j = tid; j < k; j += kThreads) {
+  for (int j = tid; j < k; j += kPairThreads) {
     lv[j] = CUDART_INF_F;
     li[j] = INT_MAX;
   }
   __syncthreads();
 
-  for (int e = tid; e < entries; e += kThreads) {
+  for (int e = tid; e < entries; e += kPairThreads) {
     const float* ce = cb + (size_t)e * pq_len;
     const float* qe = qs + (e / book) * pq_len;
     float v = 0.f;
@@ -129,7 +446,7 @@ ivf_pq_scan_kernel(const uint8_t* __restrict__ codes,
   const float qc = red[0];
   const float qn = red[1];
 
-  for (int r0 = 0; r0 < size; r0 += kThreads) {
+  for (int r0 = 0; r0 < size; r0 += kPairThreads) {
     const int row = r0 + tid;
     float dist = CUDART_INF_F;
     if (row < size) {
@@ -166,14 +483,14 @@ ivf_pq_scan_kernel(const uint8_t* __restrict__ codes,
     cand[tid] = dist;
     __syncthreads();
     if (warp == 0) {
-      for (int h = 0; h < kThreads; h += 32) {
+      for (int h = 0; h < kPairThreads; h += 32) {
         warp_offer(lv, li, k, cand[h + lane], off + r0 + h + lane, lane);
       }
     }
     __syncthreads();
   }
 
-  for (int j = tid; j < k; j += kThreads) {
+  for (int j = tid; j < k; j += kPairThreads) {
     const float v = lv[j];
     out_v[o + j] = v;
     out_i[o + j] = v < CUDART_INF_F ? li[j] : -1;
@@ -186,29 +503,69 @@ ivf_pq_scan_kernel(const uint8_t* __restrict__ codes,
 // (may be null for ip); pen: (rows,) additive penalty or null; cb:
 // (pq_dim, book, pq_len) float32 codebook of the LUT mode; centers:
 // (n_lists, pq_dim*pq_len) rotated centers; q: (m, pq_dim*pq_len)
-// rotated queries; probed: (m, p); order: a permutation of the m*p pairs
-// (the launch order). metric: 0 = squared L2, 1 = inner product (-dot).
-extern "C" int raft_ivf_pq_scan(const void* codes, const void* dn,
-                                const void* pen, const void* cb,
-                                const void* centers, const void* q,
-                                const void* probed, const void* order,
-                                const void* offsets, const void* sizes,
-                                int m, int p, int pq_dim, int pq_len,
-                                int book, int k, int metric, void* out_v,
-                                void* out_i, void* stream) {
+// rotated queries. metric: 0 = squared L2, 1 = inner product (-dot).
+//
+// The grouped form: exact points to an int, nonzero when every cb value
+// is exact in TF32 (or is null); order is the stable sort of the m*p
+// pairs by list id; group g of the n_groups (pack_pairs) scans list
+// glist[g] for the gcount[g] pairs order[gstart[g] ...] (none past the
+// live groups); qg must be the form's rows for k (128 up to k = 64, 64
+// above). 1 <= k <= 256.
+extern "C" int raft_ivf_pq_scan_group(
+    const void* codes, const void* dn, const void* pen, const void* cb,
+    const void* centers, const void* q, const void* exact,
+    const void* order, const void* glist, const void* gstart,
+    const void* gcount, const void* offsets, const void* sizes, int n_groups,
+    int qg, int p, int pq_dim, int pq_len, int book, int k, int metric,
+    void* out_v, void* out_i, void* stream) {
+  const int d = pq_dim * pq_len;
+  if (k < 1 || k > 256 || d < 1 || n_groups < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Plan pl;
+  cudaError_t err = plan_for(k, d, &pl);
+  if (err != cudaSuccess) return (int)err;
+  if (pl.bm != qg) return (int)cudaErrorInvalidValue;
+  if (n_groups == 0) return 0;
+  const int vec = d % 4 == 0 && (uintptr_t)q % 16 == 0;
+  void* args[] = {(void*)&codes,  (void*)&dn,     (void*)&pen,
+                  (void*)&cb,     (void*)&centers, (void*)&q,
+                  (void*)&exact,  (void*)&order,  (void*)&glist,
+                  (void*)&gstart, (void*)&gcount, (void*)&offsets,
+                  (void*)&sizes,  (void*)&p,      (void*)&pq_dim,
+                  (void*)&pq_len, (void*)&book,   (void*)&k,
+                  (void*)&metric, (void*)&vec,    (void*)&pl.a_res,
+                  (void*)&out_v,  (void*)&out_i};
+  err = cudaLaunchKernel(pl.kern, dim3(n_groups), dim3(kThreads), args,
+                         pl.smem, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The per-pair form: probed is (m, p), order a permutation of the m*p
+// pairs (the launch order); k up to 1024.
+extern "C" int raft_ivf_pq_scan_pair(const void* codes, const void* dn,
+                                     const void* pen, const void* cb,
+                                     const void* centers, const void* q,
+                                     const void* probed, const void* order,
+                                     const void* offsets, const void* sizes,
+                                     int m, int p, int pq_dim, int pq_len,
+                                     int book, int k, int metric,
+                                     void* out_v, void* out_i,
+                                     void* stream) {
   const size_t smem =
       sizeof(float) * ((size_t)pq_dim * book + (size_t)pq_dim * pq_len +
-                       kThreads) +
+                       kPairThreads) +
       (sizeof(float) + sizeof(int)) * (size_t)k;
   cudaError_t err = cudaFuncSetAttribute(
-      ivf_pq_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ivf_pq_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int vec16 =
       pq_dim % 16 == 0 && (reinterpret_cast<uintptr_t>(codes) & 15) == 0;
   const long long pairs = (long long)m * p;
   if (pairs > 0) {
-    ivf_pq_scan_kernel<<<(unsigned)pairs, kThreads, smem,
+    ivf_pq_pair_kernel<<<(unsigned)pairs, kPairThreads, smem,
                          (cudaStream_t)stream>>>(
         (const uint8_t*)codes, (const float*)dn, (const float*)pen,
         (const float*)cb, (const float*)centers, (const float*)q,

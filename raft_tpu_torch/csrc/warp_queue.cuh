@@ -1,10 +1,11 @@
-// The warp-select queue of K1 (select_k.cu) and K2 (fused_knn.cu): the
-// form of RAFT's select_warpsort.cuh, written anew.
+// The warp-select queue of K1 (select_k.cu), K2 (fused_knn.cu) and the
+// grouped forms of K3 and K4 (tf32_tile.cuh): the form of RAFT's
+// select_warpsort.cuh, written anew.
 //
 // A warp keeps the C = 32·R best keys it has seen sorted across its
 // registers, key e in register e / 32 of lane e % 32. Keys are (key,
 // column) pairs ordered by key_less; the key is an int (K1: the float's
-// place in the selection order) or a float (K2: a distance). Candidates
+// place in the selection order) or a float (K2–K4: a distance). Candidates
 // collect in a buffer of up to C keys in shared memory; fold_buffer loads
 // it into registers, sorts it descending with a bitonic network (shuffles
 // across lanes, register swaps within a lane), keeps the elementwise

@@ -43,11 +43,12 @@ _SIGNATURES = {
         "raft_fused_knn_slots": ([_I, _I, _I, _I], _I),
     },
     "ivf_flat_scan": {
-        "raft_ivf_flat_scan": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, _I, _P, _P, _P], _I),
+        "raft_ivf_flat_scan_group": ([_P] * 11 + [_I] * 6 + [_P] * 3, _I),
+        "raft_ivf_flat_scan_pair": ([_P] * 9 + [_I] * 5 + [_P] * 3, _I),
     },
     "ivf_pq_scan": {
-        "raft_ivf_pq_scan": ([_P] * 10 + [_I] * 7 + [_P] * 3, _I),
+        "raft_ivf_pq_scan_group": ([_P] * 13 + [_I] * 8 + [_P] * 3, _I),
+        "raft_ivf_pq_scan_pair": ([_P] * 10 + [_I] * 7 + [_P] * 3, _I),
     },
     "graph_expand": {
         "raft_graph_expand": ([_P] * 5 + [_I] * 8 + [_P] * 3, _I),

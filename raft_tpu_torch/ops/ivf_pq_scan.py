@@ -17,20 +17,28 @@ reads the codebook of the LUT mode (:func:`lut_codebook`): ``"f32"`` as
 it is, ``"bf16"`` rounded to bfloat16, ``"int8"`` quantized per subspace
 with a symmetric scale and decoded back to float32.
 
-On a CUDA tensor :func:`ivf_pq_scan` launches K4 once — one block per
-(query, probe) pair, each writing the pair's sorted k best into its own
-k columns of a (m, p*k) buffer in probe-rank order
-(:func:`ivf_pq_scan_candidates`) — and merges each query's row with K1,
-the ``merge_pairs`` order: equal values go to the lower probe rank, then
-the lower row. On a CPU tensor it takes the plain version,
-:func:`ivf_pq_scan_plain`, which gathers every probed row of each query
-back to back in probe order and makes one stable select.
+On a CUDA tensor :func:`ivf_pq_scan` launches K4 once
+(:func:`ivf_pq_scan_candidates`), each pair writing its sorted k best
+into its own k columns of a (m, p*k) buffer in probe-rank order, and
+merges each query's row with K1, the ``merge_pairs`` order: equal values
+go to the lower probe rank, then the lower row. K4 has K3's two forms,
+chosen by k alone (``ivf_scan.scan_form``): the grouped form (k <= 256)
+takes the pairs packed by list (``ivf_scan.pack_pairs``), decodes a
+list's codes into rows once per group tile and multiplies the group's
+queries by them on the tensor cores, as the TPU kernel does, so
+``Σ_s lut[s, code_is]`` becomes a dot of q with the decoded row over the
+rotated dimensions; the per-pair form (k up to 1024) builds each pair's
+lookup table in shared memory and sums it subspace by subspace. On a CPU
+tensor it takes the plain version, :func:`ivf_pq_scan_plain`, which
+gathers every probed row of each query back to back in probe order, sums
+LUT entries subspace by subspace and makes one stable select. On
+integer-valued inputs every order gives the same sums.
 
-``make_cb_matrix``, ``pad_codes_for_scan``, ``pack_pairs`` and
-``scan_window`` have no counterpart: the block-diagonal codebook matrix
-feeds the TPU's one-hot decode GEMM on the MXU, and the padding and pair
-packing serve its aligned DMA windows and VMEM. The CUDA kernel builds
-the LUT in shared memory and masks each list's range itself.
+``make_cb_matrix``, ``pad_codes_for_scan`` and ``scan_window`` have no
+counterpart: the block-diagonal codebook matrix feeds the TPU's one-hot
+decode GEMM on the MXU, and the padding serves its aligned DMA windows
+and VMEM. The CUDA kernels decode from the codebook and mask each list's
+range themselves.
 """
 from __future__ import annotations
 
@@ -42,18 +50,22 @@ import torch
 from ..core.errors import expects
 from ..matrix.select_k import kpass_select_k, smallest_k_plain
 from . import _cuda
-from .ivf_scan import _candidate_rows
+from .fused_knn import block_queries
+from .ivf_scan import _candidate_rows, check_form, pack_pairs
 
 __all__ = ["pq_chunk_rows", "decoded_row_norms", "int8_codebook",
            "lut_codebook", "pq_lut", "ivf_pq_scan", "ivf_pq_scan_plain",
            "ivf_pq_scan_candidates"]
 
-launches = 0   # K4 launches since the last reset
+launches = 0         # K4 launches since the last reset, both forms
+group_launches = 0   # of them, the grouped form's
+pair_launches = 0    # of them, the per-pair form's
 
 _METRIC_CODE = {"l2": 0, "ip": 1}
 _LUT_MODES = ("f32", "bf16", "int8")
 _INF = float("inf")
-_THREADS = 256                 # rows per tile = threads of a K4 block
+_THREADS = 256                 # rows per tile = threads of a per-pair block
+_TF32_LOW = 0x1FFF             # the f32 mantissa bits TF32 drops
 
 
 def pq_chunk_rows(pq_dim: int, book: int,
@@ -121,7 +133,8 @@ def lut_codebook(codebooks: torch.Tensor, mode: str) -> torch.Tensor:
 
 def pq_lut(q_rot: torch.Tensor, cb_mode: torch.Tensor) -> torch.Tensor:
     """(m, pq_dim, book) lookup table ``lut[s, b] = Σ_l q[s·pq_len + l] ·
-    cb[s, b, l]``, summed over l in order (the kernel's order)."""
+    cb[s, b, l]``, summed over l in order (the plain version's order; the
+    per-pair kernel's too)."""
     pq_dim, book, pq_len = cb_mode.shape
     qs = q_rot.reshape(q_rot.shape[0], pq_dim, pq_len)
     lut = torch.zeros((q_rot.shape[0], pq_dim, book), dtype=torch.float32,
@@ -132,8 +145,9 @@ def pq_lut(q_rot: torch.Tensor, cb_mode: torch.Tensor) -> torch.Tensor:
 
 
 def _scan_smem_bytes(pq_dim: int, book: int, rot_dim: int, k: int) -> int:
-    """Dynamic shared memory of one K4 block: the float32 LUT, the query,
-    one tile of candidate distances and the pair's k-best list."""
+    """Dynamic shared memory of one per-pair K4 block: the float32 LUT,
+    the query, one tile of candidate distances and the pair's k-best
+    list."""
     return 4 * (pq_dim * book + rot_dim + _THREADS) + 8 * k
 
 
@@ -194,11 +208,12 @@ def ivf_pq_scan_candidates(codes: torch.Tensor, dn: torch.Tensor,
                            cb_mode: torch.Tensor, centers_rot: torch.Tensor,
                            q: torch.Tensor, probed: torch.Tensor,
                            offsets: torch.Tensor, sizes: torch.Tensor,
-                           k: int, metric: str
+                           k: int, metric: str, form: Optional[str] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of K4 → per-pair (values, rows) (m, p*k), pairs in
-    probe-rank order within each query's row."""
-    global launches
+    probe-rank order within each query's row. ``form`` (``"group"`` or
+    ``"pair"``) overrides ``ivf_scan.scan_form``."""
+    global launches, group_launches, pair_launches
     expects(q.is_cuda, "ivf_pq_scan kernel needs CUDA tensors")
     m, rot_dim = q.shape
     p = probed.shape[1]
@@ -217,11 +232,13 @@ def ivf_pq_scan_candidates(codes: torch.Tensor, dn: torch.Tensor,
     expects(probed.shape[0] == m, "probed must be (%d, p)", m)
     expects(0 < k <= 1024, "k=%d out of range (max 1024)", k)
     expects(metric in _METRIC_CODE, "unknown metric %s", metric)
-    smem = _scan_smem_bytes(pq_dim, book, rot_dim, k)
-    expects(smem <= _cuda.SMEM_PER_BLOCK,
-            "ivf_pq_scan kernel needs %d bytes of shared memory for a "
-            "pq_dim=%d x book=%d LUT and k=%d (max %d)", smem, pq_dim, book,
-            k, _cuda.SMEM_PER_BLOCK)
+    form = check_form(form, k)
+    if form == "pair":
+        smem = _scan_smem_bytes(pq_dim, book, rot_dim, k)
+        expects(smem <= _cuda.SMEM_PER_BLOCK,
+                "ivf_pq_scan kernel needs %d bytes of shared memory for a "
+                "pq_dim=%d x book=%d LUT and k=%d (max %d)", smem, pq_dim,
+                book, k, _cuda.SMEM_PER_BLOCK)
     for t in (dn, penalty, cb_mode, centers_rot, q):
         if t is not None:
             expects(t.dtype == torch.float32 and t.is_contiguous()
@@ -238,19 +255,42 @@ def ivf_pq_scan_candidates(codes: torch.Tensor, dn: torch.Tensor,
     out_i = torch.empty((m, p * k), dtype=torch.int32, device=q.device)
     if m * p == 0:
         return out_v, out_i
-    # launch the pairs in list order: blocks that run together share a
-    # list, so its codes come from L2 after the first read
-    order = torch.argsort(probed.reshape(-1), stable=True).to(torch.int32)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _cuda.library("ivf_pq_scan")
-    status = lib.raft_ivf_pq_scan(
-        codes.data_ptr(), ptr(dn), ptr(penalty), cb_mode.data_ptr(),
-        centers_rot.data_ptr(), q.data_ptr(), probed.data_ptr(),
-        order.data_ptr(), offsets.data_ptr(), sizes.data_ptr(), m, p,
-        pq_dim, pq_len, book, k, _METRIC_CODE[metric], out_v.data_ptr(),
-        out_i.data_ptr(), _cuda.stream_of(q))
-    _cuda.check(status, "ivf_pq_scan")
+    if form == "group":
+        qg = block_queries(k)
+        glist, gstart, gcount, order = pack_pairs(probed, offsets.shape[0],
+                                                  qg)
+        # on the card, without a host sync: is every codebook value exact
+        # in TF32 (the bf16 LUT mode)? Then K4 skips the products of the
+        # decoded rows' lo parts, which are zero
+        exact = ((cb_mode.view(torch.int32) & _TF32_LOW) == 0).all().to(
+            torch.int32)
+        status = lib.raft_ivf_pq_scan_group(
+            codes.data_ptr(), ptr(dn), ptr(penalty), cb_mode.data_ptr(),
+            centers_rot.data_ptr(), q.data_ptr(), exact.data_ptr(),
+            order.data_ptr(), glist.data_ptr(), gstart.data_ptr(),
+            gcount.data_ptr(), offsets.data_ptr(), sizes.data_ptr(),
+            glist.shape[0], qg, p, pq_dim, pq_len, book, k,
+            _METRIC_CODE[metric], out_v.data_ptr(), out_i.data_ptr(),
+            _cuda.stream_of(q))
+    else:
+        # the pairs in list order, so that blocks that run together read
+        # the same list
+        order = torch.argsort(probed.reshape(-1), stable=True).to(
+            torch.int32)
+        status = lib.raft_ivf_pq_scan_pair(
+            codes.data_ptr(), ptr(dn), ptr(penalty), cb_mode.data_ptr(),
+            centers_rot.data_ptr(), q.data_ptr(), probed.data_ptr(),
+            order.data_ptr(), offsets.data_ptr(), sizes.data_ptr(), m, p,
+            pq_dim, pq_len, book, k, _METRIC_CODE[metric], out_v.data_ptr(),
+            out_i.data_ptr(), _cuda.stream_of(q))
+    _cuda.check(status, f"ivf_pq_scan ({form})")
     launches += 1
+    if form == "group":
+        group_launches += 1
+    else:
+        pair_launches += 1
     return out_v, out_i
 
 
@@ -259,7 +299,8 @@ def ivf_pq_scan(codes: torch.Tensor, row_norms: torch.Tensor,
                 probed: torch.Tensor, offsets: torch.Tensor,
                 sizes: torch.Tensor, q_rot: torch.Tensor, k: int,
                 metric: str = "l2",
-                penalty: Optional[torch.Tensor] = None
+                penalty: Optional[torch.Tensor] = None,
+                form: Optional[str] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scan the probed PQ lists → per-query k best (min-space values,
     int32 rows of ``codes``, -1 where fewer than k candidates).
@@ -268,8 +309,10 @@ def ivf_pq_scan(codes: torch.Tensor, row_norms: torch.Tensor,
     (pq_dim, book, pq_len) codebook of the LUT mode (:func:`lut_codebook`),
     ``offsets``/``sizes`` (n_lists,) each list's first row and length,
     ``q_rot`` the rotated queries, ``penalty`` an optional (rows,)
-    additive row penalty."""
+    additive row penalty. ``form`` overrides ``ivf_scan.scan_form`` on
+    the card (one plain version serves both forms on the CPU)."""
     if codes.device.type == "cpu":
+        expects(form in (None, "group", "pair"), "unknown form %r", form)
         return ivf_pq_scan_plain(codes, row_norms, centers_rot, cb_mode,
                                  probed, offsets, sizes, q_rot, k, metric,
                                  penalty)
@@ -280,7 +323,8 @@ def ivf_pq_scan(codes: torch.Tensor, row_norms: torch.Tensor,
     cand_v, cand_i = ivf_pq_scan_candidates(
         codes, f32(row_norms) if metric == "l2" else None,
         None if penalty is None else f32(penalty), f32(cb_mode),
-        f32(centers_rot), f32(q_rot), probed, offsets, sizes, k, metric)
+        f32(centers_rot), f32(q_rot), probed, offsets, sizes, k, metric,
+        form)
     vals, pos = kpass_select_k(cand_v, k)
     rows = torch.gather(cand_i, 1, pos.long())
     return vals, torch.where(torch.isfinite(vals), rows, -1)

@@ -1,18 +1,28 @@
 """IVF-Flat probe selection and list scan: counterpart of
-``raft_tpu/ops/ivf_scan.py`` (``coarse_probe``, ``merge_pairs`` semantics,
-``ivf_flat_scan``), with kernel K3 (``csrc/ivf_flat_scan.cu``).
+``raft_tpu/ops/ivf_scan.py`` (``coarse_probe``, ``pack_pairs``,
+``merge_pairs`` semantics, ``ivf_flat_scan``), with kernel K3
+(``csrc/ivf_flat_scan.cu``).
 
 ``ivf_flat_scan`` returns, for each query, the k best rows (ids into the
 cluster-sorted data, -1 for empty slots) over its probed lists, in the
 min-space of the metric ("l2", "cos", or "ip" as -dot). On a CUDA tensor
-it launches K3 once — one block per (query, probe) pair, each writing the
-pair's sorted k best into its own k columns of a (m, p*k) buffer in
-probe-rank order (:func:`ivf_flat_scan_candidates`) — and merges each
-query's row with K1, the ``merge_pairs`` order: equal values go to the
-lower probe rank, then the lower row. The TPU kernel's packing of pairs
-into 128-query groups per list (``pack_pairs``) and its aligned DMA
-padding (``pad_for_scan``, ``scan_window``) serve the MXU and VMEM and
-have no counterpart here: the kernel masks each list's range itself.
+it launches K3 once (:func:`ivf_flat_scan_candidates`), each pair writing
+its sorted k best into its own k columns of a (m, p*k) buffer in
+probe-rank order, and merges each query's row with K1, the
+``merge_pairs`` order: equal values go to the lower probe rank, then the
+lower row. K3 has two forms, chosen by k alone (:func:`scan_form`):
+
+- ``"group"`` (k <= :data:`GROUP_MAX_K`): the pairs are packed by list
+  into group tiles (:func:`pack_pairs`, the JAX package's grouping) and
+  one block scans a list once for a whole group of its queries, on the
+  tensor cores;
+- ``"pair"`` (k up to 1024): one block per (query, probe) pair, each
+  reading its whole list.
+
+The TPU kernel's aligned DMA padding (``pad_for_scan``, ``scan_window``)
+serves VMEM and has no counterpart here: the kernels mask each list's
+range themselves. Kernel K4 (``ivf_pq_scan``) shares the grouping and
+the forms.
 
 On a CPU tensor it takes the plain version, :func:`ivf_flat_scan_plain`:
 gather every probed row of each query back to back in probe order, score
@@ -28,13 +38,19 @@ import torch
 from ..core.errors import expects
 from ..matrix.select_k import (SelectAlgo, kpass_select_k, select_k,
                                smallest_k_plain)
+from ..utils import cdiv
 from . import _cuda
-from .fused_knn import prepare_norms
+from .fused_knn import MAX_K, block_queries, prepare_norms
 
-__all__ = ["coarse_probe", "ivf_flat_scan", "ivf_flat_scan_plain",
+__all__ = ["coarse_probe", "pack_pairs", "scan_form", "check_form",
+           "GROUP_MAX_K", "ivf_flat_scan", "ivf_flat_scan_plain",
            "ivf_flat_scan_candidates"]
 
-launches = 0   # K3 launches since the last reset
+launches = 0         # K3 launches since the last reset, both forms
+group_launches = 0   # of them, the grouped form's
+pair_launches = 0    # of them, the per-pair form's
+
+GROUP_MAX_K = MAX_K  # a group's k-lists share the block's shared memory
 
 _METRIC_CODE = {"l2": 0, "cos": 1, "ip": 2}
 _INF = float("inf")
@@ -127,15 +143,66 @@ def ivf_flat_scan_plain(data: torch.Tensor, data_norms: torch.Tensor,
     return out_v, out_i
 
 
+def pack_pairs(probed: torch.Tensor, n_lists: int, qg: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                          torch.Tensor]:
+    """Pack the (query, probe) pairs into group tiles of at most ``qg``
+    pairs of one list, the JAX package's ``pack_pairs``: one stable sort of
+    the pairs' list ids, each list's pairs cut into ``cdiv(count, qg)``
+    tiles in sorted order. → int32 ``(glist, gstart, gcount, order)``:
+    ``order`` (m*p,) the sorted pair order (pair = query·p + probe rank);
+    for each of the static ``cdiv(m·p, qg) + n_lists`` group tiles its
+    list, the index into ``order`` of its first pair, and its count of
+    pairs — 0 past the live tiles, where ``glist`` and ``gstart`` are
+    unspecified. No host synchronisation."""
+    m, p = probed.shape
+    dev = probed.device
+    lids = probed.reshape(-1).long()
+    order = torch.argsort(lids, stable=True)
+    slids = lids[order]
+    lists = torch.arange(n_lists, device=dev)
+    starts = torch.searchsorted(slids, lists)
+    ends = torch.searchsorted(slids, lists, right=True)
+    gcounts = (ends - starts + qg - 1) // qg      # tiles of each list
+    gbase = torch.cumsum(gcounts, 0) - gcounts    # its first tile
+    gids = torch.arange(cdiv(m * p, qg) + n_lists, device=dev)
+    glist = (torch.searchsorted(gbase, gids, right=True) - 1).clamp(
+        0, n_lists - 1)
+    within = gids - gbase[glist]
+    gstart = starts[glist] + within * qg
+    gcount = torch.where(within < gcounts[glist],
+                         torch.clamp(ends[glist] - gstart, max=qg), 0)
+    return (glist.to(torch.int32), gstart.to(torch.int32),
+            gcount.to(torch.int32), order.to(torch.int32))
+
+
+def scan_form(k: int) -> str:
+    """The form of K3 and K4 for k per pair: ``"group"`` up to
+    :data:`GROUP_MAX_K`, ``"pair"`` above. A rule of shape: a form that
+    fails to build, launch or fit raises."""
+    return "group" if k <= GROUP_MAX_K else "pair"
+
+
+def check_form(form: Optional[str], k: int) -> str:
+    """``form`` (None: :func:`scan_form`), checked against k."""
+    form = scan_form(k) if form is None else form
+    expects(form in ("group", "pair") and (form == "pair"
+                                           or k <= GROUP_MAX_K),
+            "IVF scan kernel: no form %r for k=%d", form, k)
+    return form
+
+
 def ivf_flat_scan_candidates(data: torch.Tensor, dn: Optional[torch.Tensor],
                              penalty: Optional[torch.Tensor],
                              q: torch.Tensor, qn: Optional[torch.Tensor],
                              probed: torch.Tensor, offsets: torch.Tensor,
-                             sizes: torch.Tensor, k: int, metric: str
+                             sizes: torch.Tensor, k: int, metric: str,
+                             form: Optional[str] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of K3 → per-pair (values, rows) (m, p*k), pairs in
-    probe-rank order within each query's row."""
-    global launches
+    probe-rank order within each query's row. ``form`` (``"group"`` or
+    ``"pair"``) overrides :func:`scan_form`."""
+    global launches, group_launches, pair_launches
     expects(q.is_cuda, "ivf_flat_scan kernel needs CUDA tensors")
     m, dim = q.shape
     p = probed.shape[1]
@@ -144,6 +211,7 @@ def ivf_flat_scan_candidates(data: torch.Tensor, dn: Optional[torch.Tensor],
     expects(probed.shape[0] == m, "probed must be (%d, p)", m)
     expects(0 < k <= 1024, "k=%d out of range (max 1024)", k)
     expects(metric in _METRIC_CODE, "unknown metric %s", metric)
+    form = check_form(form, k)
     for t in (data, dn, penalty, q, qn):
         if t is not None:
             expects(t.dtype == torch.float32 and t.is_contiguous()
@@ -161,18 +229,34 @@ def ivf_flat_scan_candidates(data: torch.Tensor, dn: Optional[torch.Tensor],
     out_i = torch.empty((m, p * k), dtype=torch.int32, device=q.device)
     if m * p == 0:
         return out_v, out_i
-    # launch the pairs in list order: blocks that run together share a
-    # list, so its rows come from L2 after the first read
-    order = torch.argsort(probed.reshape(-1), stable=True).to(torch.int32)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _cuda.library("ivf_flat_scan")
-    status = lib.raft_ivf_flat_scan(
-        data.data_ptr(), ptr(dn), ptr(penalty), q.data_ptr(), ptr(qn),
-        probed.data_ptr(), order.data_ptr(), offsets.data_ptr(),
-        sizes.data_ptr(), m, p, dim, k, _METRIC_CODE[metric],
-        out_v.data_ptr(), out_i.data_ptr(), _cuda.stream_of(q))
-    _cuda.check(status, "ivf_flat_scan")
+    if form == "group":
+        qg = block_queries(k)
+        glist, gstart, gcount, order = pack_pairs(probed, offsets.shape[0],
+                                                  qg)
+        status = lib.raft_ivf_flat_scan_group(
+            data.data_ptr(), ptr(dn), ptr(penalty), q.data_ptr(), ptr(qn),
+            order.data_ptr(), glist.data_ptr(), gstart.data_ptr(),
+            gcount.data_ptr(), offsets.data_ptr(), sizes.data_ptr(),
+            glist.shape[0], qg, p, dim, k, _METRIC_CODE[metric],
+            out_v.data_ptr(), out_i.data_ptr(), _cuda.stream_of(q))
+    else:
+        # the pairs in list order, so that blocks that run together read
+        # the same list
+        order = torch.argsort(probed.reshape(-1), stable=True).to(
+            torch.int32)
+        status = lib.raft_ivf_flat_scan_pair(
+            data.data_ptr(), ptr(dn), ptr(penalty), q.data_ptr(), ptr(qn),
+            probed.data_ptr(), order.data_ptr(), offsets.data_ptr(),
+            sizes.data_ptr(), m, p, dim, k, _METRIC_CODE[metric],
+            out_v.data_ptr(), out_i.data_ptr(), _cuda.stream_of(q))
+    _cuda.check(status, f"ivf_flat_scan ({form})")
     launches += 1
+    if form == "group":
+        group_launches += 1
+    else:
+        pair_launches += 1
     return out_v, out_i
 
 
@@ -180,14 +264,18 @@ def ivf_flat_scan(data: torch.Tensor, data_norms: torch.Tensor,
                   probed: torch.Tensor, offsets: torch.Tensor,
                   sizes: torch.Tensor, queries: torch.Tensor, k: int,
                   metric: str = "l2",
-                  penalty: Optional[torch.Tensor] = None
+                  penalty: Optional[torch.Tensor] = None,
+                  form: Optional[str] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scan the probed lists → per-query k best (min-space values, int32
     rows of ``data``, -1 where fewer than k candidates). ``data`` is the
     cluster-sorted (rows, d) float32 store, ``data_norms`` its squared row
     norms, ``offsets``/``sizes`` (n_lists,) each list's first row and
-    length, ``penalty`` an optional (rows,) additive row penalty."""
+    length, ``penalty`` an optional (rows,) additive row penalty.
+    ``form`` overrides :func:`scan_form` on the card (one plain version
+    serves both forms on the CPU)."""
     if data.device.type == "cpu":
+        expects(form in (None, "group", "pair"), "unknown form %r", form)
         return ivf_flat_scan_plain(data, data_norms, probed, offsets, sizes,
                                    queries, k, metric, penalty)
     dev = data.device
@@ -199,7 +287,7 @@ def ivf_flat_scan(data: torch.Tensor, data_norms: torch.Tensor,
     cand_v, cand_i = ivf_flat_scan_candidates(
         data, None if dn is None else dn.contiguous(),
         None if penalty is None else penalty.contiguous(), q, qn, probed,
-        offsets, sizes, k, metric)
+        offsets, sizes, k, metric, form)
     vals, pos = kpass_select_k(cand_v, k)
     rows = torch.gather(cand_i, 1, pos.long())
     return vals, torch.where(torch.isfinite(vals), rows, -1)

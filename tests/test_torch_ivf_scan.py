@@ -15,6 +15,7 @@ import torch
 
 from raft_tpu.ops.ivf_scan import coarse_probe as jax_coarse_probe
 from raft_tpu.ops.ivf_scan import ivf_flat_scan as jax_ivf_flat_scan
+from raft_tpu.ops.ivf_scan import pack_pairs as jax_pack_pairs
 from raft_tpu_torch.ops import ivf_scan as tis
 from test_torch_kernels import assert_knn_close
 
@@ -94,3 +95,69 @@ def test_coarse_probe_matches(metric):
             survivors=None if survivors is None
             else torch.from_numpy(survivors))
         np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+
+
+def _probes(kind: str, m=300, p=6, lists=40, seed=7):
+    """(m, p) distinct probed lists a query: uniform draws, or skewed —
+    list 5 probed by every query, list 9 by one, lists 30 and up by
+    none."""
+    rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        return np.stack([rng.permutation(lists)[:p] for _ in range(m)])
+    others = np.array([c for c in range(30) if c not in (5, 9)])
+    probed = np.stack([np.concatenate(
+        [[5], rng.permutation(others)[:p - 1]]) for _ in range(m)])
+    probed[0, 1] = 9
+    return probed
+
+
+@pytest.mark.parametrize("kind", ["uniform", "skewed"])
+def test_pack_pairs_matches_jax(kind):
+    """The port's grouping against the JAX package's at its 128 queries a
+    group: the same sorted pair order, and for each live group tile the
+    same list, first sorted pair and count of pairs (JAX's ``flat`` puts
+    sorted pair i in slot group·128 + lane)."""
+    probed = _probes(kind).astype(np.int32)
+    m, p = probed.shape
+    _, jlist, jalive, flat, jorder, n_groups = jax_pack_pairs(
+        jnp.asarray(probed), 40)
+    glist, gstart, gcount, order = tis.pack_pairs(torch.from_numpy(probed),
+                                                  40, 128)
+    assert glist.shape == (n_groups,) and order.dtype == torch.int32
+    np.testing.assert_array_equal(order.numpy(), np.asarray(jorder))
+    group_of = np.asarray(flat) // 128
+    live = np.asarray(jalive)
+    np.testing.assert_array_equal(gcount.numpy() > 0, live)
+    for g in np.nonzero(live)[0]:
+        at = np.nonzero(group_of == g)[0]
+        assert (int(glist[g]), int(gstart[g]), int(gcount[g])) == (
+            int(np.asarray(jlist)[g]), int(at.min()), len(at))
+
+
+@pytest.mark.parametrize("qg", [1, 7, 64, 128, 300])
+@pytest.mark.parametrize("kind", ["uniform", "skewed"])
+def test_pack_pairs_covers_every_pair_once(kind, qg):
+    """At any group size: every pair in exactly one live group tile of its
+    own list, at most ``qg`` to a tile, a list's tiles back to back in
+    the sorted order, and the static bound of tiles."""
+    probed = _probes(kind)
+    m, p = probed.shape
+    glist, gstart, gcount, order = (t.numpy() for t in tis.pack_pairs(
+        torch.from_numpy(probed.astype(np.int32)), 40, qg))
+    assert len(glist) == -(-m * p // qg) + 40
+    assert gcount.max() <= qg and gcount.min() >= 0
+    seen = np.zeros(m * p, np.int64)
+    flat = probed.reshape(-1)
+    live = np.nonzero(gcount)[0]
+    for g in live:
+        pairs = order[gstart[g]:gstart[g] + gcount[g]]
+        seen[pairs] += 1
+        assert (flat[pairs] == glist[g]).all()
+    assert (seen == 1).all()
+    assert sorted(np.sort(order)) == list(range(m * p))
+    # tiles in sorted order: each starts where the last one ended
+    np.testing.assert_array_equal(gstart[live][1:],
+                                  (gstart[live] + gcount[live])[:-1])
+    n_tiles = -(-np.bincount(flat, minlength=40) // qg)
+    np.testing.assert_array_equal(np.bincount(glist[live], minlength=40),
+                                  n_tiles)

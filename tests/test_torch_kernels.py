@@ -16,9 +16,13 @@ orders, so distances agree to ``rtol=1e-5, atol=1e-5·max|d|`` and ids are
 equal on at least 99% of rows (:func:`assert_knn_close`); K2, which sums
 as 3xTF32 on the tensor cores, is held there against its plain version
 and also against a float64 evaluation of the same formulas
-(:func:`exact_knn`). K4 reads a
-codebook of small integers in its integer cases, so its LUT entries and
-sums stay exact in float32 and bfloat16. K5 and K6 and their plain
+(:func:`exact_knn`). K3 and K4 run in both forms (grouped and
+per-pair); K4 reads a codebook of small integers in its integer cases,
+so its sums stay exact in every LUT mode and either order (LUT entries
+subspace by subspace, or a dot over the decoded row). Over 129 and more
+slots a row, near ties split the ids of more than 1% of the rows between
+any two float orders, so the K2–K4 tests hold Gaussian inputs at k <= 64
+(K2: <= 100) and integer inputs at every k. K5 and K6 and their plain
 versions add in the same order (``graph_expand.lane_order_dot``), so they
 are equal on any input: on an edge store of small integers with integer
 scales (``edge_store``), where every score is an exact integer and ties
@@ -396,22 +400,83 @@ def test_fused_knn_kernel_on_card(metric, m, d):
                 assert_knn_close(ev.cpu(), ei.cpu(), kv.cpu(), ki.cpu())
 
 
+# the IVF scans' k by form; Gaussian inputs take k <= 64 only: over 129
+# and more slots a row, near ties split the ids of more than 1% of the
+# rows between any two float orders (as in K2's test)
+SCAN_KS = {"group": (1, 10, 64, 129, 256), "pair": (1, 10, 64, 129, 256,
+                                                    1000)}
+GAUSSIAN_MAX_K = 64
+
+
+def scan_cases(integer: bool):
+    """(form, k) of the IVF scans' card tests."""
+    return [(form, k) for form, ks in SCAN_KS.items() for k in ks
+            if integer or k <= GAUSSIAN_MAX_K]
+
+
+def skewed_probes(m: int, lists: int, p: int, seed: int) -> torch.Tensor:
+    """(m, p) distinct probed lists a query at the grouped forms' group
+    boundaries (128 queries a group up to k = 64, 64 above): list 0
+    probed by every query, lists 1 and 2 by exactly 128 and 129, lists 4
+    and 5 by exactly 64 and 65, list 7 by one query; the rest drawn from
+    lists 6 and 8 up (list 3, empty in the stores here, among them)."""
+    assert m >= 258 and p >= 4 and lists >= 12
+    rng = np.random.default_rng(seed)
+    rest = np.array([3, 6] + list(range(8, lists)))
+    probed = np.zeros((m, p), np.int64)
+    probed[:, 1] = -1
+    probed[:128, 1], probed[128:257, 1], probed[257, 1] = 1, 2, 7
+    probed[:, 2] = -1
+    probed[:64, 2], probed[64:129, 2] = 4, 5
+    for qi in range(m):
+        free = [c for c in rng.permutation(rest)]
+        for j in range(1, p):
+            if probed[qi, j] < 0 or j >= 3:
+                probed[qi, j] = free.pop()
+    counts = np.bincount(probed.reshape(-1), minlength=lists)
+    assert counts[0] == m and tuple(counts[[1, 2, 4, 5, 7]]) == (
+        128, 129, 64, 65, 1)
+    assert all(len(set(r)) == p for r in probed.tolist())
+    return torch.from_numpy(probed.astype(np.int32))
+
+
+def scan_both(kernel, plain, args, k, form, exact: bool):
+    """One scan kernel form against its plain version: equal (values and
+    ids, their order too) when ``exact``, else within
+    :func:`assert_knn_close`; a second launch equal bit for bit."""
+    kv, ki = kernel(*args, form=form)
+    pv, pi = plain(*args)
+    kv2, ki2 = kernel(*args, form=form)
+    torch.cuda.synchronize()
+    assert_bits_equal(kv, kv2)
+    assert torch.equal(ki, ki2)
+    if exact:
+        assert torch.equal(kv, pv) and torch.equal(ki, pi), (form, k)
+    else:
+        assert_knn_close(pv.cpu(), pi.cpu(), kv.cpu(), ki.cpu())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", ["l2", "cos", "ip"])
 def test_ivf_flat_scan_kernel_on_card(metric):
-    """K3 + the K1 merge against the plain version: exact on
-    integer-valued inputs, close on Gaussian ones."""
+    """K3 + the K1 merge, both forms, against the plain version with and
+    without the penalty row, with an empty list (:func:`scan_cases`: k =
+    1, 10, 64, 129 and 256, and 1000 for the per-pair form; Gaussian
+    inputs to k = 64): equal on integer-valued inputs (l2, ip), close on
+    Gaussian ones; two launches bit-equal. On the store's probes and on
+    probes skewed across the group boundaries (:func:`skewed_probes`), over
+    lists of ~250 rows, longer than one 128-row tile."""
     need_cuda()
     for integer in (True, False):
-        c = [t.cuda() for t in _ivf_store(integer, 3)]
-        for k in (1, 10, 64):
-            kv, ki = tis.ivf_flat_scan(*c[:6], k, metric, c[6])
-            pv, pi = tis.ivf_flat_scan_plain(*c[:6], k, metric, c[6])
-            torch.cuda.synchronize()
-            if integer and metric != "cos":
-                assert torch.equal(kv, pv) and torch.equal(ki, pi)
-            else:
-                assert_knn_close(pv.cpu(), pi.cpu(), kv.cpu(), ki.cpu())
+        c = [t.cuda() for t in _ivf_store(integer, 3, m=300)]
+        skewed = skewed_probes(300, 24, 6, 13).cuda()
+        for probed in (c[2], skewed):
+            a = c[:2] + [probed] + c[3:6]
+            for penalty in (c[6], None):
+                for form, k in scan_cases(integer):
+                    scan_both(tis.ivf_flat_scan, tis.ivf_flat_scan_plain,
+                              (*a, k, metric, penalty), k, form,
+                              integer and metric != "cos")
 
 
 @pytest.mark.cuda
@@ -419,41 +484,83 @@ def test_ivf_flat_scan_kernel_on_card(metric):
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 @pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
 def test_ivf_pq_scan_kernel_on_card(mode, metric, pq_bits):
-    """K4 + the K1 merge against the plain version, with the penalty row
-    and an empty list: exact on small-integer inputs (f32 and bf16 LUT
-    modes; the int8 scales are not integers), close on Gaussian ones."""
+    """K4 + the K1 merge, both forms, against the plain version with the
+    penalty row and an empty list (:func:`scan_cases`): equal on
+    small-integer inputs in every LUT mode (int8: with an entry of 127 in
+    each subspace, so that its scale is 1; with the scale 3/127 of a
+    codebook of -3..3 the distances tie by the thousand and the two sum
+    orders break the ties apart), close on Gaussian ones; two launches
+    bit-equal. Also on probes skewed across the group boundaries
+    (:func:`skewed_probes`)."""
     need_cuda()
     for integer in (True, False):
         st = pq_store(integer, 5 + pq_bits, pq_bits, n=12000, pq_dim=16,
-                      pq_len=2, lists=24, m=150, p=6)
+                      pq_len=2, lists=24, m=300, p=6)
+        if integer and mode == "int8":
+            # an entry of 127 in every subspace: the int8 scale is then 1
+            # and the decoded codebook the integers themselves
+            st["codebooks"][:, 0, 0] = 127.0
+            st["row_norms"] = tpq.decoded_row_norms(
+                st["codes"], st["centers_rot"], st["codebooks"],
+                st["list_offsets"])
         args = pq_scan_args(st, mode, "cuda")
         pen = st["penalty"].cuda()
-        for k in (1, 10, 64):
-            kv, ki = tpq.ivf_pq_scan(*args, k, metric, pen)
-            pv, pi = tpq.ivf_pq_scan_plain(*args, k, metric, pen)
-            torch.cuda.synchronize()
-            if integer and mode != "int8":
-                assert torch.equal(kv, pv) and torch.equal(ki, pi)
-            else:
-                assert_knn_close(pv.cpu(), pi.cpu(), kv.cpu(), ki.cpu())
+        skewed = skewed_probes(300, 24, 6, 14 + pq_bits).cuda()
+        for probed in (args[4], skewed):
+            a = args[:4] + [probed] + args[5:]
+            for form, k in scan_cases(integer):
+                scan_both(tpq.ivf_pq_scan, tpq.ivf_pq_scan_plain,
+                          (*a, k, metric, pen), k, form, integer)
 
 
 @pytest.mark.cuda
 def test_ivf_pq_scan_kernel_byte_codes_and_padding():
-    """K4 with a pq_dim that is not a multiple of 16 (byte loads), a probe
-    of only the empty list, and k past the candidates: (+inf, -1) slots
-    as in the plain version."""
+    """K4, both forms, with a pq_dim that is not a multiple of 16 (pq_dim
+    6, pq_len 3: rot_dim 18, byte loads), a probe of only the empty list,
+    and k past the candidates: (+inf, -1) slots as in the plain
+    version."""
     need_cuda()
     st = pq_store(True, 9, 8, n=3000, pq_dim=6, pq_len=3, lists=12, m=40,
                   p=3)
     st["probed"][:5] = 3                          # only the empty list
     args = pq_scan_args(st, "f32", "cuda")
-    for k in (5, 1000):
-        kv, ki = tpq.ivf_pq_scan(*args, k, "l2")
+    for form, k in (("group", 5), ("pair", 5), ("group", 256),
+                    ("pair", 1000)):
+        kv, ki = tpq.ivf_pq_scan(*args, k, "l2", form=form)
         pv, pi = tpq.ivf_pq_scan_plain(*args, k, "l2")
         torch.cuda.synchronize()
-        assert torch.equal(kv, pv) and torch.equal(ki, pi)
+        assert torch.equal(kv, pv) and torch.equal(ki, pi), (form, k)
         assert bool((ki[:5] == -1).all())
+
+
+@pytest.mark.cuda
+def test_ivf_scans_group_without_host_sync():
+    """The grouped forms' packing and both K3 and K4 launches, each form,
+    run without a host synchronisation; each kernel counts its launches
+    by form."""
+    need_cuda()
+    c = [t.cuda() for t in _ivf_store(False, 4)]
+    data, norms, probed, offsets, sizes, q, pen = c
+    qn = tfk.prepare_norms("l2", q)
+    st = pq_store(False, 6, n=3000, lists=16)
+    a = pq_scan_args(st, "bf16", "cuda")
+    torch.cuda.synchronize()
+    before = (tis.group_launches, tis.pair_launches, tpq.group_launches,
+              tpq.pair_launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tis.pack_pairs(probed, offsets.shape[0], 128)
+        for form in ("group", "pair"):
+            tis.ivf_flat_scan_candidates(data, norms, pen, q, qn, probed,
+                                         offsets, sizes, 10, "l2", form)
+            tpq.ivf_pq_scan_candidates(a[0], a[1], None, a[3], a[2], a[7],
+                                       a[4], a[5], a[6], 10, "l2", form)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    after = (tis.group_launches, tis.pair_launches, tpq.group_launches,
+             tpq.pair_launches)
+    assert tuple(x - y for x, y in zip(after, before)) == (1, 1, 1, 1)
 
 
 @pytest.mark.cuda

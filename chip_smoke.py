@@ -64,7 +64,10 @@ It builds the eight CUDA kernels from ``raft_tpu_torch/csrc`` (one
    they read (K3's FP32 bound beside its 3xTF32 one); K4 in the bf16,
    f32 and int8 LUT modes and on an integer-valued copy of the IVF-PQ
    index, K5 and K6 on the path's data, where they must be equal, and on
-   integer-valued copies; K5 also on a bf16 store; K7 and K8, which must
+   integer-valued copies; K5 also on a bf16 store; K6 launched twice,
+   bit-equal, and timed cut to 8, 32 and 80 hops (the cost of a hop);
+   K5's and K6's registers, spills and resident warps an SM (as the card
+   reports them for the path's shape); K7 and K8, which must
    be equal, on the path's candidates and on integer-valued lists (K8:
    cross-shard ties and a dead shard; K7: unsorted, ties, NaN, ±inf and
    -0.0, bit for bit), at the path's k = 10 and at k = 100, K7 also at
@@ -986,6 +989,10 @@ def k5_phase(timer, cidx, q, parents, launches):
     ms = timer(lambda: ge.graph_expand_kernel(*path))
     plain = timer(lambda: ge.graph_expand_plain(*path), reps=3, warmup=0)
     deg_p, dim_p = st.deg_p, st.dim_p
+    info = ge.kernel_info(deg_p, dim_p, st.vecs.dtype)
+    log(f"  K5 at tiles {deg_p} x {dim_p}: {info['registers']} registers, "
+        f"{info['local_bytes']} bytes of local memory (spills) a thread, "
+        f"{info['warps_per_sm']} warps resident an SM")
     # each distinct parent's tile and aux row once; per pair its query,
     # parent id and k' outputs
     b, by = bound(len(sub) * (deg_p * dim_p + 2 * deg_p * 4)
@@ -996,7 +1003,7 @@ def k5_phase(timer, cidx, q, parents, launches):
                 replaces="raft_tpu/ops/graph_expand.py:261",
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
                 bound_ms=b, bound_by=by, library_ms=None,
-                distinct_parents=len(sub),
+                distinct_parents=len(sub), **info,
                 shape=f"{M} (query, parent) pairs of hop {K5_HOP}, int8 "
                       f"tiles {deg_p} x {dim_p}, k'={kp}")
 
@@ -1012,6 +1019,20 @@ def k6_phase(timer, cidx, q, buf_d, buf_i, walked, launches):
     err = check_equal(cf.fused_traverse_plain(*path, **kw), (kd, ki),
                       f"K6 cagra_fused int8 store ({M} queries, {max_iter} "
                       "hops), the path's data")
+    # a query's result does not depend on which persistent warp takes it
+    check_bits((kd, ki, hops, parents),
+               cf.fused_traverse_kernel(*path, **kw),
+               "K6 cagra_fused launched twice")
+    # the seed in any order: K6 sorts each buffer as it loads it
+    g = torch.Generator(device=q.device).manual_seed(3)
+    perm = torch.argsort(torch.rand(buf_d.shape, device=q.device,
+                                    generator=g), dim=1)
+    shuffled = (q, buf_d.gather(1, perm), buf_i.gather(1, perm), st.vecs,
+                st.aux, st.gp, None)
+    check_equal(cf.fused_traverse_plain(*shuffled, **kw),
+                cf.fused_traverse_kernel(*shuffled, **kw)[:2],
+                f"K6 cagra_fused on the path's buffer shuffled ({M} "
+                "queries)")
     # an integer-valued copy: the int8 codes with unit scales, rounded
     # queries, and a buffer of their exact integer distances
     codes, _ = cidx.score_i8
@@ -1034,6 +1055,24 @@ def k6_phase(timer, cidx, q, buf_d, buf_i, walked, launches):
     ms = timer(lambda: cf.fused_traverse_kernel(*path, **kw))
     plain = timer(lambda: cf.fused_traverse_plain(*path, **kw), reps=1,
                   warmup=0)
+    # the cost of a hop: K6 cut to 8, 32 and max_iter hops
+    by_iter = {}
+    for it in sorted({8, 32, max_iter}):
+        kwi = dict(kw, max_iter=it)
+        h = cf.fused_traverse_kernel(*path, **kwi)[2]
+        by_iter[it] = (timer(lambda: cf.fused_traverse_kernel(*path, **kwi)),
+                       float(h.float().mean()))
+    (t0, h0), (t1, h1) = by_iter[8], by_iter[max_iter]
+    slope = (t1 - t0) / (h1 - h0)
+    log("  K6 by max_iter: " + ", ".join(
+        f"{it}: {t:.3f} ms ({h:.2f} hops)" for it, (t, h) in by_iter.items())
+        + f"; a hop of all {M} queries {slope * 1e3:.1f} us, "
+        f"{slope * 1e6 / M:.2f} ns a query")
+    info = cf.kernel_info(itopk, width, kw["kprime"], st.deg_p, st.dim_p,
+                          st.vecs.dtype)
+    log(f"  K6 at the path's shape: {info['registers']} registers, "
+        f"{info['local_bytes']} bytes of local memory (spills) a thread, "
+        f"{info['warps_per_sm']} warps resident an SM")
     n_par = int(parents.sum())
     n_ok, distinct = walked
     if n_ok != n_par:
@@ -1056,6 +1095,8 @@ def k6_phase(timer, cidx, q, buf_d, buf_i, walked, launches):
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
                 bound_ms=b, bound_by=by, library_ms=None,
                 mean_hops=mean_hops, parents=n_par, distinct_parents=distinct,
+                ms_by_max_iter={it: t for it, (t, _) in by_iter.items()},
+                hop_ms=slope, **info,
                 shape=f"{M} queries, itopk {itopk}, width {width}, "
                       f"{max_iter} hops max, int8 tiles {deg_p} x {dim_p}")
 

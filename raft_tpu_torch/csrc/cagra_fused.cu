@@ -5,211 +5,479 @@
 // query, max_iter hops of the edge engine's hop body — pick the `width`
 // best unexplored entries as parents (lowest buffer position on ties),
 // score their edge tiles as K5 does, keep each parent's k' best, drop
-// candidates already in the buffer or earlier in (parent, rank) order,
+// candidates whose id is in the buffer or earlier in (parent, rank) order,
 // and fold the rest into the buffer by (value, concat position) with the
-// explored flags carried.
+// explored flags carried. The TPU's grid axis over hops becomes a loop
+// inside the warp, and the grid's fixed hop count an early exit: a hop
+// with no finite unexplored entry changes nothing (the JAX kernel's extra
+// grid steps are exact no-ops), so the warp stops there. A parent that is
+// not finite is not expanded: its candidates would all be +inf, and since
+// picks come in ascending order it can only follow the finite ones, so
+// neither its tile nor its ids can change the result.
 //
-// Design on Hopper, after the reference's persistent search_single_cta
-// kernel: one warp per query, four queries to a block, and the query's
-// whole state in shared memory for every hop — its vector, the itopk
-// buffer (distances, ids, explored flags), the hop's candidates and the
-// fold's output. Scoring and the per-parent top-k' are K5's device
-// functions (edge_score.cuh), so both engines compute the same bits; the
-// fold is K7's (value, position) fold as a stable rank merge
-// (lexfold.cuh). The TPU's grid axis over hops becomes a loop inside the
-// warp, and the grid's fixed hop count an early exit: a hop with no
-// finite unexplored entry changes nothing (the JAX kernel's extra grid
-// steps are exact no-ops), so the warp stops there. A parent that is not
-// finite is not expanded: its candidates would all be +inf, and since
-// picks come in ascending order it can only precede other such parents,
-// so neither its tile nor its ids can change the result.
+// Bound on this card: per hop a query reads `width` tiles (8 KB at 64 x
+// 128 int8), aux and graph rows, so the bytes of the hops taken bound it;
+// but a hop is a chain — pick, load, score, select, dedup, fold — whose
+// every step waits on the one before, so instructions and latency are
+// what a design has to cut.
 //
-// Bound on this card: per hop each query reads `width` tiles (8 KB at
-// 64 x 128 int8), aux and graph rows, so the bytes of the hops actually
-// taken bound it. This version has one warp walk a query's hops in
-// sequence, so each hop waits on its tiles' latency; the dedup and fold
-// are O(k'·(itopk + k')) shared-memory compares per hop.
+// Design on Hopper:
+// - Persistent warps, four to a block (fewer when a wide tile leaves four
+//   above the card's shared memory a block), as many blocks as the card
+//   keeps resident. A warp takes its next query from a counter in device
+//   memory (atomicAdd; the entry zeroes it by a memset on the stream), so
+//   no block waits on its slowest query and no partial second wave runs
+//   at low occupancy. A query's result does not depend on which warp
+//   takes it.
+// - The buffer lives in registers: L = 32·NL cells (NL = 1, 2, 4, 8; L >=
+//   itopk and deg_p), cell n = 32g + lane in register g, each a 64-bit
+//   key (edge::sort_key: value order bits, buffer slot, the explored
+//   flag in bit 0) and an id. Cells past itopk are +inf pads. A query's
+//   seeded buffer is sorted by (value, slot) when it is loaded: each cell
+//   counts the keys below its own in shared memory and moves there with
+//   its id (a sort network in registers cost more registers and time). So
+//   the seed may come in any order: the plain hop's picks and fold, by
+//   (value, buffer position), read it in just that order.
+// - Scoring and the per-parent top-k' are edge_score.cuh's, so K5 and K6
+//   compute the same bits: the tile staged in the warp's shared memory,
+//   the rows' sums by a reduce-scatter, a bitonic sort in registers.
+// - Picks: the buffer is sorted by (value, slot), so the `width` best
+//   unexplored entries are the first unexplored finite cells: one ballot
+//   a register.
+// - Dedup, in rank order: a candidate is dropped when its id is in the
+//   buffer as it stands this hop, at an earlier rank of its parent, or
+//   among an earlier parent's k' (dup_mask's rule: a node that has left
+//   the buffer may come back). Of the hop's last parent only the ranks
+//   below the buffer's last value take part: no other can enter the
+//   buffer, and it could drop only later ranks of its own, which cannot
+//   enter either. That leaves a few ranks a hop on the path's data, each
+//   broadcast to the warp and compared with the buffer's ids and the
+//   earlier ranks' in registers (and the earlier parents' ids in shared
+//   memory): no table to build. A hop whose last parent has no such rank
+//   skips its sort, dedup and fold.
+// - Fold: each parent's survivors (finite, not dropped) are compacted in
+//   rank order, so they stay sorted; they carry slot L + concat position,
+//   after every buffer slot. The buffer's L best of both lists is
+//   min(A[n], B[L - 1 - n]), a bitonic sequence, sorted by a bitonic
+//   merge of log2 L shuffle steps; then cells take slots n again (a
+//   parent's merge keeps the total order of the next). O(log L) a cell.
 #include "edge_score.cuh"
-#include "lexfold.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
 
-// 4-byte words of shared memory one warp uses.
-__host__ __device__ inline size_t warp_words(int itopk, int width, int kprime,
-                                             int deg_p, int dim_p) {
-  return (size_t)dim_p + deg_p + 6 * (size_t)itopk +
-         2 * (size_t)width * kprime + width;
+// Cells a lane holds: the next power of two of max(itopk, deg_p) / 32.
+inline int cells_per_lane(int itopk, int deg_p) {
+  const int need = itopk > deg_p ? itopk : deg_p;
+  int nl = 1;
+  while (nl * 32 < need) nl <<= 1;
+  return nl;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
+// 4-byte words of shared memory one warp uses (a multiple of 4, so every
+// part is 16-byte aligned): the tile stage, the query, the compaction
+// scratch (L keys, L ids), the ids of the hop's earlier parents'
+// candidates, the parent ids.
+__host__ __device__ inline size_t warp_words(int cells, int width,
+                                             int kprime, int dim_p,
+                                             int elem_bytes) {
+  const size_t seen = ((size_t)(width - 1) * kprime + 3) & ~(size_t)3;
+  const size_t w = edge::stage_words(elem_bytes) + dim_p +
+                   3 * (size_t)cells + seen + (size_t)width;
+  return (w + 3) & ~(size_t)3;
+}
+
+inline size_t warp_bytes(int itopk, int width, int kprime, int deg_p,
+                         int dim_p, int store_bf16) {
+  return sizeof(float) *
+         warp_words(32 * cells_per_lane(itopk, deg_p), width, kprime, dim_p,
+                    store_bf16 ? 2 : 1);
+}
+
+// One step J of the bitonic merge of the warp's NL·32 cells: the lower
+// cell of each pair (n, n ^ J) keeps the smaller key, with its id.
+template <int NL, int J>
+__device__ __forceinline__ void merge_step(uint64_t (&key)[NL],
+                                           int (&id)[NL], int lane) {
+  if constexpr (J >= 32) {
+    constexpr int jr = J / 32;
+#pragma unroll
+    for (int g = 0; g < NL; ++g) {
+      if ((g & jr) == 0 && key[g | jr] < key[g]) {
+        const uint64_t tk = key[g];
+        key[g] = key[g | jr];
+        key[g | jr] = tk;
+        const int ti = id[g];
+        id[g] = id[g | jr];
+        id[g | jr] = ti;
+      }
+    }
+  } else {
+    const bool lower = (lane & J) == 0;
+#pragma unroll
+    for (int g = 0; g < NL; ++g) {
+      const uint64_t o = __shfl_xor_sync(RAFT_FULL_MASK, key[g], J);
+      const int oi = __shfl_xor_sync(RAFT_FULL_MASK, id[g], J);
+      if (lower ? (o < key[g]) : (key[g] < o)) {
+        key[g] = o;
+        id[g] = oi;
+      }
+    }
+  }
+  if constexpr (J > 1) merge_step<NL, J / 2>(key, id, lane);
+}
+
+// The L best cells of the sorted lists A (ak, ai) and B (bk, bi), sorted,
+// into A.
+template <int NL>
+__device__ __forceinline__ void merge_lists(uint64_t (&ak)[NL],
+                                            int (&ai)[NL],
+                                            const uint64_t (&bk)[NL],
+                                            const int (&bi)[NL], int lane) {
+#pragma unroll
+  for (int g = 0; g < NL; ++g) {  // B[L - 1 - n] is cell (NL-1-g, 31-lane)
+    const uint64_t rk = __shfl_xor_sync(RAFT_FULL_MASK, bk[NL - 1 - g], 31);
+    const int ri = __shfl_xor_sync(RAFT_FULL_MASK, bi[NL - 1 - g], 31);
+    if (rk < ak[g]) {
+      ak[g] = rk;
+      ai[g] = ri;
+    }
+  }
+  merge_step<NL, NL * 16>(ak, ai, lane);
+}
+
+template <typename T, int NL, bool kOneChunk>
+__global__ void __launch_bounds__(kWarps * 32, NL <= 2 ? 4 : 2)
 cagra_fused_kernel(const float* __restrict__ q, const float* __restrict__ bd0,
-                   const int* __restrict__ bi0, const T* __restrict__ vecs,
+                   const int* __restrict__ bi0, const void* __restrict__ vp,
                    const float* __restrict__ aux, const int* __restrict__ gph,
                    const float* __restrict__ pen, int m, int n, int itopk,
                    int width, int max_iter, int kprime, int deg_p, int dim_p,
-                   int degree, int metric, float* __restrict__ out_d,
-                   int* __restrict__ out_i, int* __restrict__ out_hops,
-                   int* __restrict__ out_parents) {
-  extern __shared__ float smem[];
+                   int degree, int metric, int* counter,
+                   float* __restrict__ out_d, int* __restrict__ out_i,
+                   int* __restrict__ out_hops, int* __restrict__ out_parents) {
+  constexpr int L = NL * 32;
+  extern __shared__ __align__(16) float smem[];
+  const T* vecs = static_cast<const T*>(vp);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int qi = blockIdx.x * kWarps + warp;
-  if (qi >= m) return;  // warps are independent: no block barrier
-  float* qs = smem + (size_t)warp * warp_words(itopk, width, kprime, deg_p,
-                                               dim_p);
-  float* sc = qs + dim_p;
-  float* bd = sc + deg_p;
-  int* bi = reinterpret_cast<int*>(bd + itopk);
-  int* be = bi + itopk;
-  float* nd = reinterpret_cast<float*>(be + itopk);
-  int* ni = reinterpret_cast<int*>(nd + itopk);
-  int* ne = ni + itopk;
-  float* cv = reinterpret_cast<float*>(ne + itopk);
-  int* ci = reinterpret_cast<int*>(cv + width * kprime);
-  int* par = ci + width * kprime;
+  float* base = smem + (size_t)warp * warp_words(L, width, kprime, dim_p,
+                                                 sizeof(T));
+  edge::TileScorer<T, NL, kOneChunk> sc;
+  sc.stage = reinterpret_cast<uint32_t*>(base);
+  float* qs = base + edge::stage_words(sizeof(T));
+  uint64_t* sk = reinterpret_cast<uint64_t*>(qs + dim_p);  // compaction
+  int* sid = reinterpret_cast<int*>(sk + L);
+  int* seen = sid + L;  // earlier parents' candidate ids, this hop
+  int* par = seen + (((width - 1) * kprime + 3) & ~3);
+  const unsigned below = (1u << lane) - 1u;
+  const size_t tile = (size_t)deg_p * dim_p;
+  // the buffer's last cell: its value bounds what a candidate can enter
+  const int last_reg = (itopk - 1) >> 5, last_lane = (itopk - 1) & 31;
 
-  for (int d = lane; d < dim_p; d += 32) qs[d] = q[(size_t)qi * dim_p + d];
-  for (int i = lane; i < itopk; i += 32) {
-    bd[i] = bd0[(size_t)qi * itopk + i];
-    bi[i] = bi0[(size_t)qi * itopk + i];
-    be[i] = 0;
-  }
-  __syncwarp();
-  const float qn = edge::warp_sqnorm(qs, dim_p, lane);
-
-  int hops = 0, expanded = 0;
-  for (int h = 0; h < max_iter; ++h) {
-    // parents: successive masked arg-mins by (value, buffer position)
-    int n_ok = 0;
-    for (int w = 0; w < width; ++w) {
-      float bv = CUDART_INF_F;
-      int bp = INT_MAX;
-      for (int i = lane; i < itopk; i += 32) {
-        const float v = be[i] ? CUDART_INF_F : bd[i];
-        if (key_less(v, i, bv, bp)) {
-          bv = v;
-          bp = i;
-        }
-      }
+  for (;;) {
+    int qi = 0;
+    if (lane == 0) qi = atomicAdd(counter, 1);
+    qi = __shfl_sync(RAFT_FULL_MASK, qi, 0);
+    if (qi >= m) break;
+    for (int d = lane; d < dim_p; d += 32) qs[d] = q[(size_t)qi * dim_p + d];
+    uint64_t bk[NL];
+    int bid[NL];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(RAFT_FULL_MASK, bv, off);
-        const int op = __shfl_xor_sync(RAFT_FULL_MASK, bp, off);
-        if (key_less(ov, op, bv, bp)) {
-          bv = ov;
-          bp = op;
+    for (int g = 0; g < NL; ++g) {
+      const int c = g * 32 + lane;
+      const bool real = c < itopk;
+      // pads sort after every real cell, whatever its value
+      bk[g] = real ? edge::sort_key(bd0[(size_t)qi * itopk + c], c)
+                   : (0xffffffffull << 32) | ((uint64_t)c << 2);
+      bid[g] = real ? bi0[(size_t)qi * itopk + c] : -1;
+    }
+    if (max_iter > 0) {  // no hop: the buffer stays as it came
+      // each cell's rank among the L keys (distinct: a pad's key holds its
+      // slot), then every cell is written to its rank, with its id
+#pragma unroll
+      for (int g = 0; g < NL; ++g) {
+        sk[g * 32 + lane] = bk[g];
+        sid[g * 32 + lane] = bid[g];
+      }
+      __syncwarp();
+      int rk[NL];
+#pragma unroll
+      for (int g = 0; g < NL; ++g) rk[g] = 0;
+      for (int t = 0; t < L; ++t) {
+        const uint64_t o = sk[t];
+#pragma unroll
+        for (int g = 0; g < NL; ++g) rk[g] += o < bk[g] ? 1 : 0;
+      }
+      __syncwarp();
+#pragma unroll
+      for (int g = 0; g < NL; ++g) {
+        sk[rk[g]] = bk[g];
+        sid[rk[g]] = bid[g];
+      }
+      __syncwarp();
+#pragma unroll
+      for (int g = 0; g < NL; ++g) {
+        const int c = g * 32 + lane;
+        if (c < itopk) {  // cells take slots n, as after a fold
+          bk[g] = (sk[c] & ~0xfffffffcull) | ((uint64_t)c << 2);
+          bid[g] = sid[c];
+        } else {
+          bk[g] = edge::sort_key(CUDART_INF_F, c);
+          bid[g] = -1;
         }
       }
-      if (!isfinite(bv)) break;
-      if (lane == 0) {
-        be[bp] = 1;
-        par[w] = bi[bp];
+    }
+    __syncwarp();
+    float qn = edge::warp_sqnorm(qs, dim_p, lane);
+
+    int hops = 0, expanded = 0;
+    for (int h = 0; h < max_iter; ++h) {
+      // parents: the first `width` unexplored finite cells
+      int n_ok = 0;
+#pragma unroll
+      for (int g = 0; g < NL; ++g) {
+        const bool open = g * 32 + lane < itopk && !(bk[g] & 1u) &&
+                          edge::key_finite(bk[g]);
+        unsigned mk = __ballot_sync(RAFT_FULL_MASK, open);
+        while (mk != 0u && n_ok < width) {
+          const int b = __ffs(mk) - 1;
+          mk &= mk - 1u;
+          if (lane == b) bk[g] |= 1u;
+          const int pid = __shfl_sync(RAFT_FULL_MASK, bid[g], b);
+          if (lane == 0) par[n_ok] = pid;
+          ++n_ok;
+        }
       }
       __syncwarp();
-      ++n_ok;
-    }
-    if (n_ok == 0) break;  // frontier closed: every later hop is a no-op
-    ++hops;
-    expanded += n_ok;
+      if (n_ok == 0) break;  // frontier closed: every later hop is a no-op
+      ++hops;
+      expanded += n_ok;
+      // the ids of the buffer as it stands this hop
+      int hid[NL];
+#pragma unroll
+      for (int g = 0; g < NL; ++g) hid[g] = g * 32 + lane < itopk ? bid[g]
+                                                                 : INT_MIN;
 
-    for (int w = 0; w < n_ok; ++w) {
-      const size_t pid = (size_t)min(max(par[w], 0), n - 1);
-      edge::score_tile(vecs + pid * deg_p * dim_p, aux + pid * 2 * deg_p,
-                       pen != nullptr ? pen + pid * deg_p : nullptr, qs, qn,
-                       deg_p, dim_p, degree, metric, sc, lane);
-      __syncwarp();
-      edge::tile_topk(sc, deg_p, kprime, gph + pid * deg_p, cv + w * kprime,
-                      ci + w * kprime, lane);
-      __syncwarp();
-    }
-
-    // dedup: against every buffer id and every earlier candidate id
-    const int nc = n_ok * kprime;
-    for (int c = lane; c < nc; c += 32) {
-      if (!isfinite(cv[c])) {
-        cv[c] = CUDART_INF_F;
-        continue;
+      for (int w = 0; w < n_ok; ++w) {
+        const size_t pid = (size_t)min(max(par[w], 0), n - 1);
+        int idr[NL];
+#pragma unroll
+        for (int g = 0; g < NL; ++g) {
+          const int e = g * 32 + lane;
+          idr[g] = e < deg_p ? __ldg(gph + pid * deg_p + e) : -1;
+        }
+        sc.issue(vecs + pid * tile, aux + pid * 2 * deg_p,
+                 pen != nullptr ? pen + pid * deg_p : nullptr, deg_p, dim_p,
+                 lane);
+        float dist[NL];
+        sc.finish(qs, qn, false, dim_p, degree, metric, pen != nullptr, lane,
+                  dist);
+        // the ranks that can drop or be dropped: all k' of a parent whose
+        // ids can still drop a later parent's; of the last parent only
+        // those below the buffer's last value — no other can enter the
+        // buffer, and it can drop only later ranks, which cannot either
+        const bool last = w == n_ok - 1;
+        int lim = kprime;
+        if (last) {
+          uint32_t th = 0u;  // the buffer's last value's order bits
+#pragma unroll
+          for (int g = 0; g < NL; ++g) {
+            const uint32_t t = __shfl_sync(RAFT_FULL_MASK,
+                                           (uint32_t)(bk[g] >> 32), last_lane);
+            if (g == last_reg) th = t;
+          }
+          int under = 0;
+#pragma unroll
+          for (int g = 0; g < NL; ++g) {
+            under += __popc(__ballot_sync(
+                RAFT_FULL_MASK,
+                (uint32_t)(edge::sort_key(dist[g], 0) >> 32) < th));
+          }
+          if (under == 0) continue;  // nothing can enter the buffer
+          lim = min(lim, under);
+        }
+        uint64_t ck[NL];
+        edge::sort_tile<NL>(dist, lane, ck);
+        int cid[NL];  // rank 32g + lane's id; -1 past the finite values
+#pragma unroll
+        for (int g = 0; g < NL; ++g) {
+          const int e = edge::key_pos(ck[g]);
+          int id = -1;
+#pragma unroll
+          for (int gg = 0; gg < NL; ++gg) {
+            const int t = __shfl_sync(RAFT_FULL_MASK, idr[gg], e & 31);
+            if (gg == (e >> 5)) id = t;
+          }
+          cid[g] = edge::key_finite(ck[g]) ? id : -1;
+        }
+        // dedup in rank order: rank j is dropped when its id is in the
+        // buffer, at an earlier rank, or among an earlier parent's k'
+        bool drop[NL];
+#pragma unroll
+        for (int g = 0; g < NL; ++g) drop[g] = false;
+        for (int j = 0; j < lim; ++j) {
+          int src = cid[0];
+#pragma unroll
+          for (int g = 1; g < NL; ++g) {
+            if (g == (j >> 5)) src = cid[g];
+          }
+          const int x = __shfl_sync(RAFT_FULL_MASK, src, j & 31);
+          bool hit = false;
+#pragma unroll
+          for (int g = 0; g < NL; ++g) {
+            hit |= hid[g] == x || (cid[g] == x && g * 32 + lane < j);
+          }
+          for (int s = lane; s < w * kprime; s += 32) hit |= seen[s] == x;
+          const bool any = __any_sync(RAFT_FULL_MASK, hit);
+#pragma unroll
+          for (int g = 0; g < NL; ++g) {
+            drop[g] |= any && g == (j >> 5) && lane == (j & 31);
+          }
+        }
+        if (!last) {
+#pragma unroll
+          for (int g = 0; g < NL; ++g) {
+            const int r = g * 32 + lane;
+            if (r < kprime) seen[w * kprime + r] = cid[g];
+          }
+        }
+        // the survivors, compacted in rank order
+        int cnt = 0;
+#pragma unroll
+        for (int g = 0; g < NL; ++g) {
+          const int r = g * 32 + lane;
+          const bool ok = r < lim && !drop[g] && edge::key_finite(ck[g]);
+          const unsigned okm = __ballot_sync(RAFT_FULL_MASK, ok);
+          if (ok) {
+            const int dst = cnt + __popc(okm & below);
+            sk[dst] = (ck[g] & ~0xfffffffcull) |
+                      ((uint64_t)(L + w * kprime + r) << 2);
+            sid[dst] = cid[g];
+          }
+          cnt += __popc(okm);
+        }
+        __syncwarp();
+        if (cnt == 0) continue;  // nothing to fold
+        uint64_t nk[NL];
+        int ni[NL];
+#pragma unroll
+        for (int g = 0; g < NL; ++g) {
+          const int c = g * 32 + lane;
+          nk[g] = c < cnt ? sk[c]
+                          : edge::sort_key(CUDART_INF_F, (width + 1) * L + c);
+          ni[g] = c < cnt ? sid[c] : -1;
+        }
+        __syncwarp();
+        merge_lists<NL>(bk, bid, nk, ni, lane);
+        // cells take their slots again; past itopk they become pads
+#pragma unroll
+        for (int g = 0; g < NL; ++g) {
+          const int c = g * 32 + lane;
+          if (c < itopk) {
+            bk[g] = (bk[g] & ~0xfffffffcull) | ((uint64_t)c << 2);
+          } else {
+            bk[g] = edge::sort_key(CUDART_INF_F, c);
+            bid[g] = -1;
+          }
+        }
       }
-      const int id = ci[c];
-      bool dup = false;
-      for (int i = 0; i < itopk && !dup; ++i) dup = bi[i] == id;
-      for (int c2 = 0; c2 < c && !dup; ++c2) dup = ci[c2] == id;
-      if (dup) cv[c] = CUDART_INF_F;
     }
-    __syncwarp();
-    lexfold::warp_fold(bd, bi, be, itopk, cv, ci, nc, nd, ni, ne, lane);
-    __syncwarp();
-    for (int i = lane; i < itopk; i += 32) {
-      bd[i] = nd[i];
-      bi[i] = ni[i];
-      be[i] = ne[i];
-    }
-    __syncwarp();
-  }
 
-  for (int i = lane; i < itopk; i += 32) {
-    out_d[(size_t)qi * itopk + i] = bd[i];
-    out_i[(size_t)qi * itopk + i] = bi[i];
-  }
-  if (lane == 0) {
-    out_hops[qi] = hops;
-    out_parents[qi] = expanded;
+#pragma unroll
+    for (int g = 0; g < NL; ++g) {
+      const int c = g * 32 + lane;
+      if (c < itopk) {
+        out_d[(size_t)qi * itopk + c] = edge::key_value(bk[g]);
+        out_i[(size_t)qi * itopk + c] = bid[g];
+      }
+    }
+    if (lane == 0) {
+      out_hops[qi] = hops;
+      out_parents[qi] = expanded;
+    }
+    __syncwarp();  // every lane is done with the state before the next query
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* bd0, const void* bi0, const void* vecs,
-           const void* aux, const void* gph, const void* pen, int m, int n,
-           int itopk, int width, int max_iter, int kprime, int deg_p,
-           int dim_p, int degree, int metric, void* out_d, void* out_i,
-           void* out_hops, void* out_parents, cudaStream_t stream) {
-  const size_t smem = kWarps * sizeof(float) *
-                      warp_words(itopk, width, kprime, deg_p, dim_p);
-  cudaError_t err = cudaFuncSetAttribute(
-      cagra_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (m + kWarps - 1) / kWarps;
-  if (blocks > 0) {
-    cagra_fused_kernel<T><<<blocks, kWarps * 32, smem, stream>>>(
-        (const float*)q, (const float*)bd0, (const int*)bi0, (const T*)vecs,
-        (const float*)aux, (const int*)gph, (const float*)pen, m, n, itopk,
-        width, max_iter, kprime, deg_p, dim_p, degree, metric, (float*)out_d,
-        (int*)out_i, (int*)out_hops, (int*)out_parents);
+template <int NL, bool kOneChunk>
+const void* kernel_of(int store_bf16) {
+  return store_bf16
+             ? (const void*)&cagra_fused_kernel<uint16_t, NL, kOneChunk>
+             : (const void*)&cagra_fused_kernel<int8_t, NL, kOneChunk>;
+}
+
+// dim_p 128 takes the one-chunk instance (see edge::TileScorer)
+template <int NL>
+const void* kernel_of(int dim_p, int store_bf16) {
+  return dim_p == edge::kChunk ? kernel_of<NL, true>(store_bf16)
+                               : kernel_of<NL, false>(store_bf16);
+}
+
+// The instance for the shape, or null past itopk / deg_p 256.
+const void* kernel_for(int itopk, int deg_p, int dim_p, int store_bf16) {
+  switch (cells_per_lane(itopk, deg_p)) {
+    case 1:
+      return kernel_of<1>(dim_p, store_bf16);
+    case 2:
+      return kernel_of<2>(dim_p, store_bf16);
+    case 4:
+      return kernel_of<4>(dim_p, store_bf16);
+    case 8:
+      return kernel_of<8>(dim_p, store_bf16);
+    default:
+      return nullptr;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared memory one launch asks for, in bytes (the wrapper refuses shapes
-// above the card's per-block limit).
+// Shared memory one warp uses, in bytes (the wrapper refuses a shape
+// above the card's per-block limit; a launch puts as many warps in a
+// block as that limit holds, at most four).
 extern "C" size_t raft_cagra_fused_smem(int itopk, int width, int kprime,
-                                        int deg_p, int dim_p) {
-  return kWarps * sizeof(float) *
-         warp_words(itopk, width, kprime, deg_p, dim_p);
+                                        int deg_p, int dim_p,
+                                        int store_bf16) {
+  return warp_bytes(itopk, width, kprime, deg_p, dim_p, store_bf16);
+}
+
+// For a shape: the kernel's registers a thread, its local memory a thread
+// in bytes (spills), and the warps an SM keeps resident, in info[0..2].
+extern "C" int raft_cagra_fused_info(int itopk, int width, int kprime,
+                                     int deg_p, int dim_p, int store_bf16,
+                                     int* info) {
+  const void* kern = kernel_for(itopk, deg_p, dim_p, store_bf16);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)edge::instance_info(
+      kern, kWarps,
+      warp_bytes(itopk, width, kprime, deg_p, dim_p, store_bf16), info);
 }
 
 // store_bf16: 0 for an int8 store, 1 for a bf16 store (its raw bits).
+// itopk and deg_p at most 256, deg_p a multiple of 32, dim_p of 128;
+// the rows of bd0 in any order. counter: one int of device memory,
+// zeroed here on the stream.
 extern "C" int raft_cagra_fused(const void* q, const void* bd0,
                                 const void* bi0, const void* vecs,
                                 const void* aux, const void* gph,
                                 const void* pen, int m, int n, int itopk,
                                 int width, int max_iter, int kprime,
                                 int deg_p, int dim_p, int degree, int metric,
-                                int store_bf16, void* out_d, void* out_i,
-                                void* out_hops, void* out_parents,
-                                void* stream) {
+                                int store_bf16, void* counter, void* out_d,
+                                void* out_i, void* out_hops,
+                                void* out_parents, void* stream) {
+  const void* kern = kernel_for(itopk, deg_p, dim_p, store_bf16);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (store_bf16) {
-    return launch<uint16_t>(q, bd0, bi0, vecs, aux, gph, pen, m, n, itopk,
-                            width, max_iter, kprime, deg_p, dim_p, degree,
-                            metric, out_d, out_i, out_hops, out_parents, s);
-  }
-  return launch<int8_t>(q, bd0, bi0, vecs, aux, gph, pen, m, n, itopk, width,
-                        max_iter, kprime, deg_p, dim_p, degree, metric, out_d,
-                        out_i, out_hops, out_parents, s);
+  cudaError_t err = cudaMemsetAsync(counter, 0, sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&q,      &bd0,    &bi0,    &vecs,     &aux,
+                  &gph,    &pen,    &m,      &n,        &itopk,
+                  &width,  &max_iter, &kprime, &deg_p,  &dim_p,
+                  &degree, &metric, &counter, &out_d,
+                  &out_i,  &out_hops, &out_parents};
+  return (int)edge::launch_persistent(
+      kern, kWarps,
+      warp_bytes(itopk, width, kprime, deg_p, dim_p, store_bf16), m, args, s);
 }

@@ -1,28 +1,8 @@
-// The (value, concat position) folds of K6 and K8, and the ring's order,
-// as warp-level device functions: the counterparts of
-// raft_tpu/ops/ring_topk.py::_vmem_fold.
-//
-// warp_fold is K6's (cagra_fused.cu): it folds a hop's candidates into the
-// itopk buffer. _vmem_fold takes k passes of (min value, then min
-// position) over the concatenation of a running list and a candidate
-// block, carrying each cell's global id and payloads. Where the running
-// list is sorted by (value, position) and every running entry precedes
-// every candidate in concat position — true of CAGRA's buffer, whose
-// candidates are appended after it, and not of the ring (there a
-// shard's running positions start at r·k, and the block that arrives
-// from shard r−1 at hop 0 sits at (r−1)·k, before them) — those k passes
-// equal a stable merge of the two, running list first on equal values,
-// truncated to k. warp_fold computes that merge by ranks:
-//
-//   running entry i:  rank = i + #{c : cv[c] < rv[i]}
-//   candidate c:      rank = #{i : rv[i] <= cv[c]}
-//                          + #{c' : (cv[c'], c') < (cv[c], c)}
-//
-// and writes each entry whose rank is below k to that slot. The
-// candidates need not be sorted: their concat position is their index.
-// Ranks are distinct, so the k output slots are written exactly once.
-// A candidate that is not finite can never rank below k (the running
-// list has k entries and precedes it), so it is skipped.
+// The ring's order and folds, shared by K7 and K8 (ring_topk.cu), as
+// warp-level device functions: the counterparts of
+// raft_tpu/ops/ring_topk.py::_vmem_fold, which takes k passes of (min
+// value, then min position) over the concatenation of a running list and
+// a candidate block, carrying each cell's global id and payloads.
 //
 // order_key and lex_before are the ring's order, shared by K7 and K8
 // (ring_topk.cu): the total order (key, explicit position, index) of
@@ -50,41 +30,6 @@
 #include "topk_common.cuh"
 
 namespace lexfold {
-
-// Fold (cv, cg) of length nc into the sorted running list (rv, rg, re) of
-// length k, writing the k best to (ov, og, oe). re is the running list's
-// int payload (CAGRA's explored flags); candidates carry payload 0. The
-// output arrays must not alias the inputs; the caller syncs the warp
-// before reading them.
-__device__ __forceinline__ void warp_fold(const float* rv, const int* rg,
-                                          const int* re, int k,
-                                          const float* cv, const int* cg,
-                                          int nc, float* ov, int* og,
-                                          int* oe, int lane) {
-  for (int i = lane; i < k; i += 32) {
-    const float v = rv[i];
-    int r = i;
-    for (int c = 0; c < nc; ++c) r += cv[c] < v ? 1 : 0;
-    if (r < k) {
-      ov[r] = v;
-      og[r] = rg[i];
-      oe[r] = re[i];
-    }
-  }
-  for (int c = lane; c < nc; c += 32) {
-    const float v = cv[c];
-    if (!isfinite(v)) continue;
-    int r = 0;
-    for (int i = 0; i < k; ++i) r += rv[i] <= v ? 1 : 0;
-    if (r >= k) continue;
-    for (int c2 = 0; c2 < nc; ++c2) r += key_less(cv[c2], c2, v, c) ? 1 : 0;
-    if (r < k) {
-      ov[r] = v;
-      og[r] = cg[c];
-      oe[r] = 0;
-    }
-  }
-}
 
 // The float's place in the sort order as an int: -0.0 as 0.0, every NaN
 // after +inf, otherwise the IEEE order.

@@ -52,10 +52,13 @@ _SIGNATURES = {
     },
     "graph_expand": {
         "raft_graph_expand": ([_P] * 5 + [_I] * 8 + [_P] * 3, _I),
+        "raft_graph_expand_info": ([_I] * 3 + [_P], _I),
+        "raft_graph_expand_smem": ([_I] * 2, ctypes.c_size_t),
     },
     "cagra_fused": {
-        "raft_cagra_fused": ([_P] * 7 + [_I] * 11 + [_P] * 5, _I),
-        "raft_cagra_fused_smem": ([_I] * 5, ctypes.c_size_t),
+        "raft_cagra_fused": ([_P] * 7 + [_I] * 11 + [_P] * 6, _I),
+        "raft_cagra_fused_smem": ([_I] * 6, ctypes.c_size_t),
+        "raft_cagra_fused_info": ([_I] * 6 + [_P], _I),
     },
     "ring_topk": {
         "raft_merge_step": ([_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,

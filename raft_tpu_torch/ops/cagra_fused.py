@@ -18,7 +18,8 @@ buffer: K6 on CUDA (:func:`fused_traverse_kernel`), the plain version
 (:func:`fused_traverse_plain`, ``max_iter`` calls of :func:`edge_hop` on
 the plain K5 and the plain select) on the CPU. A hop whose buffer has no
 finite unexplored entry changes no distance or id, so K6 stops early and
-the results agree. Dense stores (int8, bf16) only: the int4 mode raises.
+the results agree. Dense stores (int8, bf16) only: the int4 mode raises;
+K6 takes itopk and deg_p up to 256.
 ``fused_capable`` (the TPU's 8 MB VMEM cap) and ``one_dispatch_stats``
 (a jaxpr walk) have no counterpart: K6 checks its own shared-memory need
 and raises above the card's limit.
@@ -32,11 +33,12 @@ import torch
 from ..core.errors import expects
 from ..matrix.select_k import select_k, select_k_plain
 from . import _cuda
-from .graph_expand import (check_mode, graph_expand, graph_expand_plain,
-                           pad_queries)
+from .graph_expand import (MAX_DEG_P, card_info, check_mode, check_tile,
+                           graph_expand, graph_expand_plain, pad_queries)
 
 __all__ = ["fused_traverse", "fused_traverse_plain", "fused_traverse_kernel",
-           "edge_hop", "pick_parents", "merge_candidates", "dup_mask"]
+           "edge_hop", "pick_parents", "merge_candidates", "dup_mask",
+           "kernel_info"]
 
 launches = 0   # K6 launches since the last reset
 
@@ -140,7 +142,9 @@ def fused_traverse_kernel(queries, buf_d, buf_i, vecs, aux, gph, pen=None,
     """One launch of K6 on CUDA tensors → (buf_d (m, itopk) float32,
     buf_i (m, itopk) int32, hops (m,) int32, parents (m,) int32): the
     hops each query took before its frontier closed, and the parents it
-    expanded."""
+    expanded. The rows of ``buf_d`` may come in any order: K6 sorts each
+    by (value, position) as it loads it, the order in which the plain
+    hop picks and folds."""
     global launches
     expects(vecs.is_cuda, "cagra_fused kernel needs a CUDA tensor, got %s",
             vecs.device)
@@ -151,15 +155,14 @@ def fused_traverse_kernel(queries, buf_d, buf_i, vecs, aux, gph, pen=None,
             "bfloat16 tensor, got %s %s", vecs.dtype, tuple(vecs.shape))
     n, deg_p, dim_p = vecs.shape
     dev = vecs.device
-    expects(deg_p % 32 == 0 and dim_p % 128 == 0,
-            "edge store tiles must be (32·a, 128·b), got (%d, %d)", deg_p,
-            dim_p)
+    check_tile(deg_p, dim_p)
     expects(0 < degree <= deg_p and 0 < kprime <= deg_p and width > 0,
             "degree %d / kprime %d / width %d out of range for deg_p %d",
             degree, kprime, width, deg_p)
     m = buf_d.shape[0]
-    expects(buf_d.shape == (m, itopk) and buf_i.shape == (m, itopk),
-            "buffers must be (m, %d)", itopk)
+    expects(buf_d.shape == (m, itopk) and buf_i.shape == (m, itopk)
+            and 0 < itopk <= MAX_DEG_P,
+            "buffers must be (m, %d), itopk at most %d", itopk, MAX_DEG_P)
     expects(aux.shape == (n, 2, deg_p) and aux.dtype == torch.float32
             and aux.is_contiguous() and aux.device == dev,
             "aux must be a contiguous float32 (n, 2, deg_p) tensor")
@@ -171,10 +174,12 @@ def fused_traverse_kernel(queries, buf_d, buf_i, vecs, aux, gph, pen=None,
                             and pen.is_contiguous() and pen.device == dev),
             "pen must be a contiguous float32 (n, deg_p) tensor")
     lib = _cuda.library("cagra_fused")
-    smem = lib.raft_cagra_fused_smem(itopk, width, kprime, deg_p, dim_p)
+    smem = lib.raft_cagra_fused_smem(itopk, width, kprime, deg_p, dim_p,
+                                     int(vecs.dtype == torch.bfloat16))
     expects(smem <= _cuda.SMEM_PER_BLOCK, "cagra_fused needs %d bytes of "
-            "shared memory (itopk %d, width %d, k' %d), above the card's %d",
-            smem, itopk, width, kprime, _cuda.SMEM_PER_BLOCK)
+            "shared memory a warp (itopk %d, width %d, k' %d, dim_p %d), "
+            "above the card's %d a block", smem, itopk, width, kprime, dim_p,
+            _cuda.SMEM_PER_BLOCK)
     q = pad_queries(queries.to(dev), dim_p)
     bd = buf_d.to(device=dev, dtype=torch.float32).contiguous()
     bi = buf_i.to(device=dev, dtype=torch.int32).contiguous()
@@ -184,17 +189,30 @@ def fused_traverse_kernel(queries, buf_d, buf_i, vecs, aux, gph, pen=None,
     parents = torch.zeros((m,), dtype=torch.int32, device=dev)
     if m == 0:
         return out_d, out_i, hops, parents
+    # the persistent warps' query counter, zeroed by the library on the
+    # stream
+    counter = torch.empty((1,), dtype=torch.int32, device=dev)
     status = lib.raft_cagra_fused(
         q.data_ptr(), bd.data_ptr(), bi.data_ptr(), vecs.data_ptr(),
         aux.data_ptr(), gph.data_ptr(),
         None if pen is None else pen.data_ptr(), m, n, itopk, width,
         max_iter, kprime, deg_p, dim_p, degree, _METRIC_CODE[metric],
-        int(vecs.dtype == torch.bfloat16), out_d.data_ptr(),
+        int(vecs.dtype == torch.bfloat16), counter.data_ptr(),
+        out_d.data_ptr(),
         out_i.data_ptr(), hops.data_ptr(), parents.data_ptr(),
         _cuda.stream_of(vecs))
     _cuda.check(status, "cagra_fused")
     launches += 1
     return out_d, out_i, hops, parents
+
+
+def kernel_info(itopk: int, width: int, kprime: int, deg_p: int,
+                dim_p: int, dtype=torch.int8) -> dict:
+    """K6's :func:`~raft_tpu_torch.ops.graph_expand.card_info` at a
+    traversal's shape."""
+    return card_info(_cuda.library("cagra_fused"), "raft_cagra_fused_info",
+                     itopk, width, kprime, deg_p, dim_p,
+                     int(dtype == torch.bfloat16))
 
 
 def fused_traverse(queries, buf_d, buf_i, vecs, aux, gph, pen=None, *,

@@ -18,13 +18,15 @@ tensor it takes the plain version, :func:`graph_expand_plain`, which adds
 in the kernel's order (:func:`lane_order_dot`: 32 lane partial sums over
 4-dim groups of each 128-dim chunk, then an xor butterfly), so the two
 agree bit for bit on any input, as do K6 and its plain version. Only the
-dense stores (int8, bf16) are ported: the int4 and PQ modes raise. The
+dense stores (int8, bf16) are ported: the int4 and PQ modes raise; K5
+and K6 take tiles of up to 256 edges (:func:`check_tile`). The
 TPU kernel's choices that serve its hardware have no counterpart here:
 ``_pick_pq`` (queries per grid step), the one-hot matmul that routes each
 parent its query row, and the 128-lane output padding (``kp``).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -34,19 +36,27 @@ from ..matrix.select_k import smallest_k_plain
 from . import _cuda
 
 __all__ = ["graph_expand", "graph_expand_plain", "graph_expand_kernel",
-           "lane_order_dot", "check_mode", "pad_queries"]
+           "lane_order_dot", "check_mode", "check_tile", "pad_queries",
+           "kernel_info"]
 
 launches = 0   # K5 launches since the last reset
 
 _METRIC_CODE = {"l2": 0, "ip": 1}
 _STORE_DTYPES = (torch.int8, torch.bfloat16)
-_KERNEL_WARPS = 4                 # warps (pairs) per block in the kernel
+MAX_DEG_P = 256                   # the kernels sort at most 8 keys a lane
 
 
 def check_mode(mode: str) -> None:
     """Only the dense storage mode (int8 / bf16 rows) is ported."""
     expects(mode in ("dense", "int4", "pq"), "unknown store mode %r", mode)
     expects(mode == "dense", "store mode %r is not ported yet", mode)
+
+
+def check_tile(deg_p: int, dim_p: int) -> None:
+    """The tile shapes K5 and K6 take: (32·a, 128·b), deg_p <= 256."""
+    expects(deg_p % 32 == 0 and dim_p % 128 == 0 and deg_p <= MAX_DEG_P,
+            "edge store tiles must be (32·a <= %d, 128·b), got (%d, %d)",
+            MAX_DEG_P, deg_p, dim_p)
 
 
 def pad_queries(queries: torch.Tensor, dim_p: int) -> torch.Tensor:
@@ -134,9 +144,7 @@ def graph_expand_kernel(parents: torch.Tensor, queries: torch.Tensor,
             "bfloat16 tensor, got %s %s", vecs.dtype, tuple(vecs.shape))
     n, deg_p, dim_p = vecs.shape
     degree = deg_p if degree is None else degree
-    expects(deg_p % 32 == 0 and dim_p % 128 == 0,
-            "edge store tiles must be (32·a, 128·b), got (%d, %d)", deg_p,
-            dim_p)
+    check_tile(deg_p, dim_p)
     expects(0 < degree <= deg_p and 0 < k_out <= deg_p,
             "degree %d / k_out %d out of range for deg_p %d", degree, k_out,
             deg_p)
@@ -148,9 +156,11 @@ def graph_expand_kernel(parents: torch.Tensor, queries: torch.Tensor,
                             and pen.is_contiguous()
                             and pen.device == vecs.device),
             "pen must be a contiguous float32 (n, deg_p) tensor")
-    smem = _KERNEL_WARPS * (dim_p + deg_p) * 4
+    lib = _cuda.library("graph_expand")
+    smem = lib.raft_graph_expand_smem(dim_p, int(vecs.dtype == torch.bfloat16))
     expects(smem <= _cuda.SMEM_PER_BLOCK, "graph_expand needs %d bytes of "
-            "shared memory, above the card's %d", smem, _cuda.SMEM_PER_BLOCK)
+            "shared memory a warp (dim_p %d), above the card's %d a block",
+            smem, dim_p, _cuda.SMEM_PER_BLOCK)
     m, width = parents.shape
     q = pad_queries(queries.to(vecs.device), dim_p)
     pids = parents.to(device=vecs.device, dtype=torch.int32).clamp(
@@ -161,7 +171,6 @@ def graph_expand_kernel(parents: torch.Tensor, queries: torch.Tensor,
                         device=vecs.device)
     if m * width == 0:
         return out_v, out_i
-    lib = _cuda.library("graph_expand")
     status = lib.raft_graph_expand(
         pids.data_ptr(), q.data_ptr(), vecs.data_ptr(), aux.data_ptr(),
         None if pen is None else pen.data_ptr(), m * width, width, deg_p,
@@ -171,6 +180,21 @@ def graph_expand_kernel(parents: torch.Tensor, queries: torch.Tensor,
     _cuda.check(status, "graph_expand")
     launches += 1
     return out_v, out_i
+
+
+def card_info(lib, entry: str, *args) -> dict:
+    """A kernel's registers a thread, local memory a thread (bytes:
+    spills) and resident warps an SM, as the card reports them."""
+    info = (ctypes.c_int * 3)()
+    _cuda.check(getattr(lib, entry)(*args, ctypes.addressof(info)), entry)
+    return dict(registers=info[0], local_bytes=info[1],
+                warps_per_sm=info[2])
+
+
+def kernel_info(deg_p: int, dim_p: int, dtype=torch.int8) -> dict:
+    """K5's :func:`card_info` at a store's tile shape."""
+    return card_info(_cuda.library("graph_expand"), "raft_graph_expand_info",
+                     deg_p, dim_p, int(dtype == torch.bfloat16))
 
 
 def graph_expand(parents: torch.Tensor, queries: torch.Tensor,

@@ -20,9 +20,12 @@ from raft_tpu.neighbors import cagra as jcagra
 from raft_tpu.ops.cagra_fused import fused_traverse as jax_fused_traverse
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.errors import RaftError
+from raft_tpu_torch.matrix.select_k import select_k_plain
 from raft_tpu_torch.neighbors import cagra
 from raft_tpu_torch.ops import cagra_fused as tcf
-from test_torch_kernels import assert_knn_close
+from raft_tpu_torch.ops import graph_expand as tge
+from test_torch_graph_expand import key_value, sort_key
+from test_torch_kernels import assert_knn_close, edge_store
 
 torch.set_num_threads(1)
 
@@ -118,3 +121,165 @@ def test_fused_traverse_refuses_int4_store(port_index):
         tcf.fused_traverse(q, buf, buf.int(), st.vecs, st.aux, st.gp,
                            itopk=16, width=1, max_iter=1, kprime=16,
                            degree=DEG, mode="int4")
+
+
+# --- K6's hop (csrc/cagra_fused.cu) as numpy statements, in the order the
+# kernel decides, held hop by hop against the plain edge hop
+
+def merge_lists(ak, ai, bk, bi):
+    """The L best cells of two sorted key lists, sorted: C = min(A[n],
+    B[L - 1 - n]) (a bitonic sequence), then the bitonic merge — at J =
+    L/2 ... 1 the lower cell of (n, n ^ J) keeps the smaller key."""
+    rk, ri = bk[::-1], bi[::-1]
+    take = rk < ak
+    k, i = np.where(take, rk, ak), np.where(take, ri, ai)
+    n = np.arange(len(k))
+    j = len(k) // 2
+    while j:
+        ok, oi = k[n ^ j], i[n ^ j]
+        sw = np.where((n & j) == 0, ok < k, k < ok)
+        k, i = np.where(sw, ok, k), np.where(sw, oi, i)
+        j //= 2
+    return k, i
+
+
+def k6_load(bd, bi, itopk, L):
+    """K6's load of a seeded buffer (rows in any order) → (cells, ids):
+    sort_key(value, slot) for the itopk real cells and all-ones order bits
+    above the slot for the pads, so every key is distinct and the pads
+    sort after every real cell; each cell's rank is the count of keys
+    below its own, and the cell moves there with its id; then cells take
+    slots 0 ... again and past itopk become +inf pads — the order in
+    which the plain hop picks and folds, (value, buffer position)."""
+    m = bd.shape[0]
+    cells = np.broadcast_to(np.arange(L), (m, L))
+    vals = np.pad(bd.astype(np.float32), ((0, 0), (0, L - itopk)))
+    k = np.where(cells < itopk, sort_key(vals, cells),
+                 (np.uint64(0xffffffff) << np.uint64(32))
+                 | (cells.astype(np.uint64) << np.uint64(2)))
+    rank = (k[:, None, :] < k[:, :, None]).sum(-1)
+    ids = np.pad(bi.astype(np.int64), ((0, 0), (0, L - itopk)),
+                 constant_values=-1)
+    sk, si = np.empty_like(k), np.empty_like(ids)
+    np.put_along_axis(sk, rank, k, axis=1)
+    np.put_along_axis(si, rank, ids, axis=1)
+    k = (sk & ~np.uint64(0xfffffffc)) | (cells.astype(np.uint64) << 2)
+    ids = si
+    pad = sort_key(np.full((m, L), np.inf, np.float32), cells)
+    real = cells < itopk
+    return np.where(real, k, pad), np.where(real, ids, -1)
+
+
+def k6_hop(q, bk, bi, vecs, aux, gph, pen, itopk, width, kprime, degree,
+           metric):
+    """One hop of K6 on numpy rows of cells → (bk, bi). A row's L cells
+    (L = 32 · the next power of two of max(itopk, deg_p) / 32) hold
+    sort_key(value, slot) with the explored flag in bit 0, and ids; cells
+    past itopk are +inf pads. Parents are the first `width` unexplored
+    finite cells; each parent's k' best come from the plain K5 (its
+    scoring and selection: edge_score.cuh). Of the last parent only the
+    ranks below the buffer's last value take part (none: the hop ends).
+    A rank that takes part is dropped when its id is in the buffer as it
+    stood when the hop began, at an earlier rank of its parent, or among
+    an earlier parent's k'. Each parent's survivors keep rank order with
+    slot L + concat position and fold into the buffer by
+    :func:`merge_lists`, whose cells then take slots 0 ... again (past
+    itopk: pads)."""
+    m, L = bk.shape
+    bk, bi = bk.copy(), bi.copy()
+    pad = lambda pos: sort_key(np.full(len(pos), np.inf,  # noqa: E731
+                                       np.float32), pos)
+    for row in range(m):
+        open_ = ((np.arange(L) < itopk) & ((bk[row] & 1) == 0)
+                 & ((bk[row] >> 32) < 0xff800000))
+        pick = np.flatnonzero(open_)[:width]
+        bk[row, pick] |= 1
+        held = set(bi[row, :itopk].tolist())     # the buffer, and then the
+        for w, p in enumerate(bi[row, pick]):   # earlier parents' k' ids
+            pids = torch.tensor([[p]], dtype=torch.int32)
+            cv, ce = tge.graph_expand_plain(pids, q[row:row + 1], vecs, aux,
+                                            kprime, metric, degree, pen)
+            cv, ce = cv[0, 0].numpy(), ce[0, 0].numpy()
+            ci = np.where(ce >= 0, gph.numpy()[p, np.maximum(ce, 0)], -1)
+            lim = kprime
+            if w == len(pick) - 1:
+                th = bk[row, itopk - 1] >> np.uint64(32)
+                lim = min(lim, int(((sort_key(cv, np.zeros(kprime))
+                                     >> np.uint64(32)) < th).sum()))
+                if lim == 0:
+                    continue
+            keep = np.array([j < lim and np.isfinite(cv[j])
+                             and ci[j] not in held
+                             and ci[j] not in ci[:j] for j in range(kprime)])
+            held |= set(ci.tolist())
+            cnt = int(keep.sum())
+            if cnt == 0:
+                continue
+            r = np.flatnonzero(keep)
+            nk = pad((width + 1) * L + np.arange(L))
+            ni = np.full(L, -1, np.int64)
+            nk[:cnt] = sort_key(cv[r], L + w * kprime + r)
+            ni[:cnt] = ci[r]
+            k, i = merge_lists(bk[row], bi[row], nk, ni)
+            c = np.arange(L)
+            k = (k & ~np.uint64(0xfffffffc)) | (c.astype(np.uint64) << 2)
+            k[itopk:], i[itopk:] = pad(c[itopk:]), -1
+            bk[row], bi[row] = k, i
+    return bk, bi
+
+
+@pytest.mark.parametrize("integer,n,width,kprime,closed", [
+    (False, 3000, 1, 40, False), (True, 3000, 2, 16, True),
+    (True, 120, 3, 24, True), (True, 120, 1, 64, False),
+    (False, 150, 2, 64, True)])
+def test_k6_hop_statement_is_the_edge_hop(integer, n, width, kprime,
+                                          closed):
+    """Hop by hop, the kernel's rules — ballot picks, the last parent's
+    threshold, the dedup by rank, the register merge — give the plain
+    edge hop's buffer (distances bit for bit, ids) and explored flags
+    (where the buffer is finite), on Gaussian, tie-heavy integer and
+    duplicate-heavy (n = 120: ids repeat within graph rows and between
+    rows and the buffer) stores at width 1–3, k' up to deg_p, with
+    frontiers closing early."""
+    itopk = 48                                  # L = 64: 16 pad cells
+    es = edge_store(torch.int8, 7, integer, n=n, degree=60, m=24,
+                    itopk=itopk, closed=closed)
+    kw = dict(width=width, kprime=kprime, degree=es["degree"], metric="l2")
+    hops_against_edge_hop(es, es["buf_d"], es["buf_i"], itopk, kw)
+
+
+@pytest.mark.parametrize("integer,width", [(True, 2), (False, 1)])
+def test_k6_load_takes_a_shuffled_seed_as_the_edge_hop_does(integer, width):
+    """A seeded buffer whose rows are shuffled out of order (integer
+    values: ties between buffer cells): K6's load, by (value, slot) with
+    the ids following, and its hops give the plain edge hop's buffers from
+    the same shuffled seed, hop by hop."""
+    itopk = 48
+    es = edge_store(torch.int8, 8, integer, n=3000, degree=60, m=24,
+                    itopk=itopk)
+    perm = torch.from_numpy(np.argsort(
+        np.random.default_rng(9).random((24, itopk)), axis=1))
+    kw = dict(width=width, kprime=24, degree=es["degree"], metric="l2")
+    hops_against_edge_hop(es, es["buf_d"].gather(1, perm),
+                          es["buf_i"].gather(1, perm), itopk, kw)
+
+
+def hops_against_edge_hop(es, bd, bi, itopk, kw, hops=5):
+    """k6_load, then ``hops`` k6_hop steps beside as many plain edge
+    hops from the same seed: equal distances (bits), ids and, where the
+    buffer is finite, explored flags after every hop."""
+    be = torch.zeros(bd.shape, dtype=torch.bool)
+    sk, si = k6_load(bd.numpy(), bi.numpy(), itopk, 64)
+    for _ in range(hops):
+        bd, bi, be = tcf.edge_hop(
+            es["q"], bd, bi, be, es["vecs"], es["aux"], es["gph"], es["pen"],
+            select=select_k_plain, expand=tge.graph_expand_plain, **kw)
+        sk, si = k6_hop(es["q"], sk, si, es["vecs"], es["aux"], es["gph"],
+                        es["pen"], itopk=itopk, **kw)
+        np.testing.assert_array_equal(
+            key_value(sk[:, :itopk]).view(np.int32),
+            bd.numpy().view(np.int32))
+        np.testing.assert_array_equal(si[:, :itopk], bi.numpy())
+        fin = np.isfinite(bd.numpy())
+        np.testing.assert_array_equal((sk[:, :itopk] & 1).astype(bool)[fin],
+                                      be.numpy()[fin])

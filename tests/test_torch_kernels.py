@@ -151,14 +151,16 @@ def pq_scan_args(store, mode: str, device="cpu"):
 
 
 def edge_store(dtype, seed: int, integer: bool = True, n=3000, degree=40,
-               deg_p=64, dim=100, m=96, itopk=32):
+               deg_p=64, dim=100, m=96, itopk=32, closed=False):
     """An edge store (CPU tensors): (n, deg_p, dim_p) rows of small
     integers (int8 or bf16), per-edge scales and the matching norms in
     ``aux``, padded graph rows, queries, an edge penalty (+inf on a
     quarter of the edges), parents, and a sorted seeded buffer (distinct
     ids, +inf tail). ``integer``: scales of 1 or 2 and integer queries,
     so every score is an exact integer; else Gaussian queries and
-    uniform scales."""
+    uniform scales. ``closed``: nodes 0-3 link only to each other, and
+    every 7th query's buffer holds just them, so its frontier closes
+    within a few hops."""
     rng = np.random.default_rng(seed)
     dim_p = (dim + 127) // 128 * 128
     rows = np.zeros((n, deg_p, dim_p), np.float32)
@@ -182,6 +184,11 @@ def edge_store(dtype, seed: int, integer: bool = True, n=3000, degree=40,
     buf_d[:, itopk - 3:] = np.inf
     buf_i = np.stack([rng.permutation(n)[:itopk] for _ in range(m)]).astype(
         np.int32)
+    if closed:
+        gph[:4] = rng.integers(0, 4, (4, deg_p))
+        buf_i[::7, :4] = np.arange(4)
+        buf_i[::7, 4:] = -1
+        buf_d[::7, 4:] = np.inf
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
     return {"vecs": t(rows).to(dtype), "aux": t(aux), "gph": t(gph),
             "q": t(q), "pen": t(pen), "degree": degree,
@@ -563,6 +570,26 @@ def test_ivf_scans_group_without_host_sync():
     assert tuple(x - y for x, y in zip(after, before)) == (1, 1, 1, 1)
 
 
+# K5's and K6's card shapes past the first ones (seed 11 / 12, dim 100,
+# deg_p 64, degree 40): (integer, n, degree, deg_p, dim, m); 9,000
+# queries (18,000 pairs) run the persistent warps past one wave of the
+# card; n = 400 makes duplicate ids within a graph row and between rows
+# and the buffer common; dims 1000 and 768 (dim_p 1024 and 768) are wide
+# stores, whose tiles the kernels stage one 128-dim chunk at a time
+EDGE_SHAPES = [(True, 5000, 64, 64, 128, 9000),
+               (True, 3000, 90, 96, 200, 300),
+               (False, 3000, 90, 96, 200, 300),
+               (True, 400, 128, 128, 256, 200),
+               (False, 400, 128, 128, 256, 200),
+               (True, 300, 64, 64, 1000, 200),
+               (False, 300, 64, 64, 768, 200)]
+
+
+def card_store(dtype, seed, integer, **shape):
+    return {k: v.cuda() if torch.is_tensor(v) else v
+            for k, v in edge_store(dtype, seed, integer, **shape).items()}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("penalty", [False, True])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
@@ -571,19 +598,22 @@ def test_graph_expand_kernel_on_card(dtype, metric, penalty):
     """K5 against its plain version, which adds in the kernel's order:
     equal values and edge positions on an integer-valued store and on
     Gaussian queries with real scales, pad edges and penalized edges as
-    (+inf, -1), for k' below and at deg_p."""
+    (+inf, -1), for k' below and at deg_p; then at the EDGE_SHAPES (deg_p
+    96 and 128, dim_p 256, 768 and 1024, 18,000 pairs) with k' = deg_p."""
     need_cuda()
-    for integer in (True, False):
-        es = {k: v.cuda() if torch.is_tensor(v) else v
-              for k, v in edge_store(dtype, 11, integer).items()}
+    cases = [(integer, dict(), kout) for integer in (True, False)
+             for kout in (1, 24, 64)]
+    cases += [(integer, dict(n=n, degree=deg, deg_p=deg_p, dim=dim, m=m),
+               deg_p) for integer, n, deg, deg_p, dim, m in EDGE_SHAPES]
+    for integer, shape, kout in cases:
+        es = card_store(dtype, 11, integer, **shape)
         pen = es["pen"] if penalty else None
-        for kout in (1, 24, 64):
-            args = (es["parents"], es["q"], es["vecs"], es["aux"], kout,
-                    metric, es["degree"], pen)
-            kv, ki = tge.graph_expand(*args)
-            pv, pi = tge.graph_expand_plain(*args)
-            torch.cuda.synchronize()
-            assert torch.equal(kv, pv) and torch.equal(ki, pi)
+        args = (es["parents"], es["q"], es["vecs"], es["aux"], kout, metric,
+                es["degree"], pen)
+        kv, ki = tge.graph_expand(*args)
+        pv, pi = tge.graph_expand_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(kv, pv) and torch.equal(ki, pi), (shape, kout)
 
 
 @pytest.mark.cuda
@@ -593,23 +623,50 @@ def test_graph_expand_kernel_on_card(dtype, metric, penalty):
 def test_cagra_fused_kernel_on_card(dtype, metric, penalty):
     """K6 against its plain version (max_iter edge hops on the plain K5)
     at width 1 and 3 and k' 1 and 16: equal buffers, ties included, on an
-    integer-valued store and on Gaussian queries with real scales."""
+    integer-valued store and on Gaussian queries with real scales, and on
+    seeded buffers shuffled out of order (also at max_iter 0, where both
+    return the seed as it came); then at the EDGE_SHAPES with k' = deg_p
+    or itopk, itopk 64 and 128, width 1-3, every 7th query's frontier
+    closing early. A second launch gives the same bits, and the hop and
+    parent counts hold."""
     need_cuda()
-    for integer, (width, kprime) in ((True, (1, 16)), (True, (3, 16)),
-                                     (True, (2, 1)), (False, (1, 16)),
-                                     (False, (3, 16))):
-        es = {k: v.cuda() if torch.is_tensor(v) else v
-              for k, v in edge_store(dtype, 12, integer).items()}
+    cases = [(integer, dict(), width, kprime, 32, hops_max, shuffle)
+             for integer, (width, kprime), hops_max, shuffle in (
+                 (True, (1, 16), 6, False), (True, (3, 16), 6, False),
+                 (True, (2, 1), 6, False), (False, (1, 16), 6, False),
+                 (False, (3, 16), 6, False), (True, (2, 16), 6, True),
+                 (False, (1, 16), 6, True), (True, (1, 16), 0, True))]
+    for (integer, n, deg, deg_p, dim, m), (width, itopk) in zip(
+            EDGE_SHAPES, ((1, 64), (2, 128), (3, 64), (3, 128), (2, 64),
+                          (1, 64), (2, 64))):
+        cases.append((integer, dict(n=n, degree=deg, deg_p=deg_p, dim=dim,
+                                    m=m, closed=True),
+                      width, min(deg_p, itopk), itopk, 12, False))
+    for integer, shape, width, kprime, itopk, hops_max, shuffle in cases:
+        es = card_store(dtype, 12, integer, itopk=itopk, **shape)
         pen = es["pen"] if penalty else None
-        kw = dict(itopk=32, width=width, max_iter=6, kprime=kprime,
-                  degree=es["degree"], metric=metric)
-        args = (es["q"], es["buf_d"], es["buf_i"], es["vecs"], es["aux"],
-                es["gph"], pen)
+        kw = dict(itopk=itopk, width=width, max_iter=hops_max,
+                  kprime=kprime, degree=es["degree"], metric=metric)
+        bd, bi = es["buf_d"], es["buf_i"]
+        if shuffle:     # each row's cells in a random order
+            g = torch.Generator().manual_seed(13)
+            perm = torch.argsort(torch.rand(bd.shape, generator=g),
+                                 dim=1).cuda()
+            bd, bi = bd.gather(1, perm), bi.gather(1, perm)
+        args = (es["q"], bd, bi, es["vecs"], es["aux"], es["gph"], pen)
         kd, ki, hops, parents = tcf.fused_traverse_kernel(*args, **kw)
+        kd2, ki2, hops2, parents2 = tcf.fused_traverse_kernel(*args, **kw)
         pd, pi = tcf.fused_traverse_plain(*args, **kw)
         torch.cuda.synchronize()
-        assert torch.equal(kd, pd) and torch.equal(ki, pi)
-        assert int(hops.max()) <= 6 and bool((parents <= hops * width).all())
+        what = (shape, width, kprime, itopk, hops_max, shuffle)
+        assert torch.equal(kd, pd) and torch.equal(ki, pi), what
+        assert torch.equal(kd.view(torch.int32), kd2.view(torch.int32))
+        assert torch.equal(ki, ki2) and torch.equal(hops, hops2)
+        assert torch.equal(parents, parents2)
+        assert int(hops.max()) <= hops_max, what
+        assert bool((parents <= hops * width).all()), what
+        if shape.get("closed"):
+            assert int(hops[::7].max()) < hops_max, what
 
 
 # the CAGRA engine test's data and plans, shared with the CPU test that

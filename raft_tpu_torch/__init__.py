@@ -13,13 +13,23 @@ search over a mesh of shards, and the primitives they call:
 - ``ops``       the hand-written CUDA kernels' wrappers: fused_knn (K2),
                 ivf_scan (K3), ivf_pq_scan (K4), graph_expand (K5),
                 cagra_fused (K6), ring_topk (the cross-shard merge: K7
-                and K8); the row codecs (``quant``); and their
-                build/load helper ``_cuda``
+                and K8); the row codecs (``quant``); NN-descent's
+                batched builder (plain PyTorch around K1); the verdict
+                cache and timer of measured engine races
+                (``autotune``); and the kernels' build/load helper
+                ``_cuda``
 - ``comms``     the mesh of shards and the collectives between them
 - ``cluster``   k-means and balanced hierarchical k-means
-- ``neighbors`` brute_force, ivf_flat, ivf_pq, refine, cagra, the
+- ``neighbors`` brute_force, ivf_flat, ivf_pq, refine, cagra (with its
+                exact, NN-descent and IVF-PQ graph builders and the
+                measured engine race ``tune_search``), nn_descent, the
                 inverted-list layout
 - ``parallel``  sharded_knn, sharded_ann (IVF-Flat, IVF-PQ)
+- ``random``    RngState (a ``torch.Generator`` on a device), the
+                distributions, make_blobs / make_regression / rmat
+- ``bench``     the ANN benchmark harness (``python -m
+                raft_tpu_torch.bench``): datasets, ground truth, the
+                QPS-at-recall sweeps in Google-Benchmark JSON
 - ``stats``     neighborhood recall
 - ``convert``   indexes carried over from the JAX package as numpy arrays
 

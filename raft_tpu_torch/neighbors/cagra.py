@@ -3,13 +3,16 @@
 ``build_knn_graph``, ``optimize``, ``build``, ``build_covering_seeds``,
 ``prepare_search``, ``prepare_traversal``, ``search``).
 
-Build: the exact all-points kNN graph (``knn_graph_algo="brute"``:
-brute-force search through K2 + the K1 merge, in query batches), the
+Build: the all-points kNN graph (:func:`build_knn_graph`: the exact
+graph by brute-force search through K2 + the K1 merge, batched
+NN-descent, or the reference's IVF-PQ candidate pass + refine), the
 detour-count prune plus reverse-edge merge of ``optimize`` (plain
 PyTorch, bit-equal to the JAX package's), and the covering seed set
-(nearest rows to fixed-iteration k-means centers). ``"auto"`` takes the
-exact graph up to :data:`BRUTE_N` rows; NN-descent and the IVF-PQ graph
-pass, and ``BuildAlgo.NN_DESCENT``, are not ported yet.
+(nearest rows to fixed-iteration k-means centers). ``"auto"`` follows a
+recorded verdict, else takes the exact graph up to :data:`BRUTE_N` rows
+and NN-descent above. ``BuildAlgo.NN_DESCENT`` runs NN-descent whatever
+``knn_graph_algo`` says. A builder's failure raises: there is no guarded
+fallback to another builder.
 
 Search: seed the itopk buffer (per-query random rows drawn by
 :func:`_draw_seeds`, plus the shared covering set), run the hop loop,
@@ -23,15 +26,16 @@ then re-score the returned k exactly in float32. Engines:
   entry is left, which costs one host read per hop;
 * ``"fused"`` — the whole traversal in one K6 launch, equal to the edge
   engine in ids and distances;
-* ``"auto"`` — ``"edge"`` on CUDA when a store is attached, else
-  ``"gather"`` (no autotune cache).
+* ``"auto"`` — the verdict :func:`tune_search` recorded for the
+  shape; without one, ``"edge"`` on CUDA when a store is attached, else
+  ``"gather"`` (the JAX package's store rule).
 
 Every selection (the buffer, the parent pick, the merges, the final
 re-rank) goes through ``select_k`` — K1 on CUDA. A filtered search
 equals the JAX package's under ``filter_policy.suspended()``: the
 adaptive widen/crossover is not ported. Not ported either: the guarded
 fallback chains (a kernel failure raises), int4 and PQ edge stores,
-``save``/``load``, ``health``, ``tune_search``, ``make_searcher`` and the
+``save``/``load``, ``health``, ``make_searcher`` and the
 deadline/``query_chunk`` path. The TPU-only build paths
 (``_parted_brute_graph``'s compile cap, the tail-wrapping batch loop)
 have no counterpart. Every matrix product runs in full float32
@@ -51,17 +55,20 @@ from ..core.bitset import Bitset
 from ..core.errors import expects
 from ..distance.distance_types import DistanceType, canonical_metric
 from ..matrix.select_k import select_k
-from ..ops.cagra_fused import (dup_mask, edge_hop, fused_traverse,
-                               merge_candidates, pick_parents)
+from ..ops import autotune
+from ..ops import nn_descent as nnd
+from ..ops.cagra_fused import (dup_mask, edge_hop, fused_capable,
+                               fused_traverse, merge_candidates,
+                               pick_parents)
 from ..ops.quant import quantize_rows
 from ..utils import resolve_device, round_up_to
-from . import brute_force
+from . import brute_force, ivf_pq, refine
 from .ivf_pq import _kmeans_fixed
 
 __all__ = ["BuildAlgo", "IndexParams", "SearchParams", "Index", "EdgeStore",
            "ENGINES", "BRUTE_N", "build", "build_knn_graph", "optimize",
            "build_covering_seeds", "prepare_search", "prepare_traversal",
-           "search"]
+           "search", "tune_search", "resolve_engine"]
 
 ENGINES = ("gather", "edge", "fused")
 # knn_graph_algo="auto": the exact graph up to this many rows, NN-descent
@@ -84,13 +91,15 @@ class IndexParams:
     """Mirror of cagra::index_params (cagra_types.hpp:66). ``seed``: the
     covering seed set's subsample and k-means seed. ``seed_nodes``: size
     of that set; -1 → max(128, min(2048, n // 64)) when n is more than 4x
-    that, 0 → none. NN-descent (and its ``nn_descent_niter``) is not
-    ported."""
+    that, 0 → none. ``nn_descent_niter``: NN-descent's round cap (the
+    update-rate stop usually comes first). ``knn_graph_algo``: the graph
+    builder of :func:`build_knn_graph` under ``BuildAlgo.IVF_PQ``."""
 
     intermediate_graph_degree: int = 128
     graph_degree: int = 64
     build_algo: BuildAlgo = BuildAlgo.IVF_PQ
     metric: DistanceType | str = DistanceType.L2Expanded
+    nn_descent_niter: int = 20
     seed: int = 0
     knn_graph_algo: str = "auto"
     seed_nodes: int = -1
@@ -192,30 +201,99 @@ def _drop_self_pad(ref: torch.Tensor, rows: torch.Tensor, k: int, n: int
         torch.int32)
 
 
+def _graph_algo_key(n: int, dim: int, k: int, mt: DistanceType,
+                    device) -> str:
+    """Verdict key of the graph-builder race for this shape class; the
+    metric is a tag, so a verdict for one metric never steers another."""
+    return autotune.shape_bucket("cagra_knn_graph", device, m=mt.name, n=n,
+                                 d=dim, k=k)
+
+
+def _resolve_graph_algo(n: int, dim: int, k: int, algo: str,
+                        mt: DistanceType, device) -> str:
+    """The builder ``algo="auto"`` stands for: a recorded verdict for the
+    shape class, else the exact graph up to :data:`BRUTE_N` rows, then
+    NN-descent where it serves the metric, else the IVF-PQ pass."""
+    if algo != "auto":
+        return algo
+    hit = autotune.lookup(_graph_algo_key(n, dim, k, mt, device))
+    if hit in ("brute", "ivf_pq", "nn_descent") and (
+            hit != "nn_descent" or nnd.supports(mt)):
+        return hit
+    if n <= BRUTE_N:
+        return "brute"
+    return "nn_descent" if nnd.supports(mt) else "ivf_pq"
+
+
 def build_knn_graph(dataset, k: int, metric=DistanceType.L2Expanded,
-                    batch: int = 32768, algo: str = "auto",
-                    device=None) -> torch.Tensor:
+                    seed: int = 0, batch: int = 32768, algo: str = "auto",
+                    nnd_rounds: int = nnd.ROUNDS, init_graph=None,
+                    info: Optional[dict] = None, device=None
+                    ) -> torch.Tensor:
     """All-points kNN graph (cagra_build.cuh:43) → (n, k) int32 neighbor
-    ids on the device, self-edges removed. ``algo``: "brute" (exact:
-    brute-force search, K2 + K1 on CUDA, ``batch`` query rows at a time)
-    or "auto" (brute up to :data:`BRUTE_N` rows); the random builders,
-    "nn_descent" and "ivf_pq", are not ported yet."""
+    ids on the device, self-edges removed. ``algo``:
+
+    * ``"brute"`` — exact: brute-force search (K2 + K1 on CUDA),
+      ``batch`` query rows at a time;
+    * ``"nn_descent"`` — batched NN-descent (``ops.nn_descent``), at most
+      ``nnd_rounds`` rounds, from ``init_graph`` when given, each joined
+      node offering a fresh sample of its list and its reverse sample
+      (the descent's default ``exposure="sampled"``; the JAX package's
+      route offers its closest neighbors, which on 128-dim Gaussian
+      clusters at 1M rows stalls at ~0.5 edge recall); approximate by
+      design;
+    * ``"ivf_pq"`` — the reference's pass: an IVF-PQ index (4-bit codes,
+      pq_dim = min(dim, 4 x the default), 2·√n lists in [16, 1024])
+      searched for 2k + 1 candidates a row (int8 LUT), refined exactly
+      to k + 1 on a bf16 copy of the rows;
+    * ``"auto"`` — see :func:`_resolve_graph_algo`.
+
+    ``info``: a dict to which the builder that ran is written
+    (``info["algo"]``; NN-descent adds its rounds and last update
+    rate)."""
     dev = resolve_device(device)
     x = torch.as_tensor(dataset).to(device=dev, dtype=torch.float32)
-    n = x.shape[0]
+    n, dim = x.shape
+    mt = canonical_metric(metric)
     expects(algo in ("auto", "brute", "ivf_pq", "nn_descent"),
             "unknown knn_graph algo %r", algo)
-    if algo == "auto":
-        algo = "brute" if n <= BRUTE_N else "nn_descent"
-    expects(algo == "brute", "knn_graph algo %r is not ported yet (n=%d)",
-            algo, n)
-    index = brute_force.build(x, canonical_metric(metric), device=dev)
-    kq = min(n, k + 1)
+    algo = _resolve_graph_algo(n, dim, k, algo, mt, dev)
+    info = {} if info is None else info
+    info["algo"] = algo
+    if algo == "nn_descent":
+        def progress(r, _rounds, rate, _s):
+            info.update(nnd_rounds=r, nnd_update_rate=rate)
+
+        return nnd.build_graph(x, k, mt, rounds=nnd_rounds, seed=seed,
+                               init_graph=init_graph, progress=progress,
+                               device=dev)
     graph = torch.empty((n, k), dtype=torch.int32, device=dev)
+    if algo == "brute":
+        index = brute_force.build(x, mt, device=dev)
+        kq = min(n, k + 1)
+
+        def step(rows):
+            return brute_force.search(index, x[rows], kq)[1]
+    else:
+        n_lists = max(16, min(1024, int(np.sqrt(n) * 2)))
+        pq_dim = min(dim, 4 * ivf_pq._default_pq_dim(dim))
+        pq_index = ivf_pq.build(x, ivf_pq.IndexParams(
+            n_lists=n_lists, pq_dim=pq_dim, pq_bits=4, metric=mt,
+            seed=seed), device=dev)
+        # candidate recall, not search recall, is the bar here: refine
+        # and optimize()'s pruning absorb imperfect candidates
+        sp = ivf_pq.SearchParams(max(16, min(64, n_lists // 8)),
+                                 lut_dtype="int8")
+        gpu_k = min(n, 2 * k + 1)   # refine rate 2, room for the self match
+        x_bf16 = x.to(torch.bfloat16)
+
+        def step(rows):
+            qb = x[rows]
+            _, cand = ivf_pq.search(pq_index, qb, gpu_k, sp)
+            return refine.refine(x_bf16, qb, cand, k + 1, mt, device=dev)[1]
     for b0 in range(0, n, batch):
         rows = torch.arange(b0, min(b0 + batch, n), device=dev)
-        _, cand = brute_force.search(index, x[b0:b0 + batch], kq)
-        graph[b0:b0 + batch] = _drop_self_pad(cand.long(), rows, k, n)
+        graph[b0:b0 + batch] = _drop_self_pad(step(rows).long(), rows, k, n)
     return graph
 
 
@@ -359,7 +437,10 @@ def _covering_seeds(dataset: torch.Tensor, s: int, seed: int
 def build(dataset, params: IndexParams | None = None, device=None) -> Index:
     """kNN graph → optimize → covering seeds → index (cagra_build.cuh:292),
     on ``device`` (the CUDA card by default). ``build_stats`` holds the
-    stage seconds (``knn_graph_s``, ``optimize_s``, ``seeds_s``)."""
+    graph builder that ran (``knn_algo``), the stage seconds
+    (``knn_graph_s``, ``optimize_s``, ``seeds_s``) and, after
+    NN-descent, its rounds and last update rate (``nnd_rounds``,
+    ``nnd_update_rate``)."""
     p = params or IndexParams()
     dev = resolve_device(device)
     x = torch.as_tensor(dataset).to(device=dev, dtype=torch.float32)
@@ -368,13 +449,16 @@ def build(dataset, params: IndexParams | None = None, device=None) -> Index:
     n = x.shape[0]
     mt = canonical_metric(p.metric)
     expects(mt in _METRICS, "cagra supports L2/IP metrics, got %s", mt.name)
-    expects(p.build_algo is BuildAlgo.IVF_PQ,
-            "BuildAlgo.NN_DESCENT is not ported yet")
     d0 = min(p.intermediate_graph_degree, n - 1)
     degree = min(p.graph_degree, d0)
+    algo = ("nn_descent" if p.build_algo is BuildAlgo.NN_DESCENT
+            else p.knn_graph_algo)
+    ginfo = {}
     _sync(dev)
     t0 = time.perf_counter()
-    knn = build_knn_graph(x, d0, mt, algo=p.knn_graph_algo, device=dev)
+    knn = build_knn_graph(x, d0, mt, p.seed, algo=algo,
+                          nnd_rounds=p.nn_descent_niter, info=ginfo,
+                          device=dev)
     _sync(dev)
     t1 = time.perf_counter()
     graph = optimize(knn, degree)
@@ -384,9 +468,11 @@ def build(dataset, params: IndexParams | None = None, device=None) -> Index:
     _sync(dev)
     t3 = time.perf_counter()
     index = Index(x, graph, mt, seeds)
-    index.build_stats = {"n": n, "knn_algo": "brute",
+    index.build_stats = {"n": n, "knn_algo": ginfo["algo"],
                          "knn_graph_s": t1 - t0, "optimize_s": t2 - t1,
-                         "seeds_s": t3 - t2}
+                         "seeds_s": t3 - t2,
+                         **{k: v for k, v in ginfo.items()
+                            if k.startswith("nnd_")}}
     return index
 
 
@@ -462,6 +548,69 @@ def _plan_dims(p: SearchParams, k: int) -> Tuple[int, int, int]:
     width = max(1, p.search_width)
     max_iter = p.max_iterations or (itopk // width + 16)
     return itopk, width, max(int(max_iter), int(p.min_iterations))
+
+
+def _tune_key(index: Index, m: int, k: int, p: SearchParams,
+              store: Optional[EdgeStore]) -> str:
+    """Verdict key of the engine race: the shape class and the storage the
+    engines read (the edge store's mode, else the gather engine's
+    candidate dtype), since the crossovers move with the element
+    width."""
+    sd = store.mode if store is not None else str(p.candidate_dtype)
+    return autotune.shape_bucket(
+        "cagra_search", index.device, n=index.size, m=m, d=index.dim, k=k,
+        deg=index.graph_degree, itopk=max(p.itopk_size, k),
+        w=max(1, p.search_width), store=sd)
+
+
+def resolve_engine(index: Index, m: int, k: int,
+                   params: SearchParams | None = None) -> str:
+    """The engine ``engine="auto"`` runs for ``m`` queries at ``k``: the
+    verdict :func:`tune_search` recorded for the shape (a store-backed
+    one only while the store is attached); without one, the JAX
+    package's store rule — ``"edge"`` on CUDA when an edge store is
+    attached, else ``"gather"``."""
+    p = params or SearchParams()
+    store = index.edge_store
+    hit = autotune.lookup(_tune_key(index, m, k, p, store))
+    if hit == "gather" or (hit in ("edge", "fused") and store is not None):
+        return hit
+    return ("edge" if store is not None and index.device.type == "cuda"
+            else "gather")
+
+
+def tune_search(index: Index, queries, k: int,
+                params: SearchParams | None = None, reps: int = 3,
+                store_dtype: str = "int8", engines=None):
+    """Race the traversal engines (every member of :data:`ENGINES`, or
+    ``engines``) on ``queries`` and record the fastest for the shape
+    class, which ``engine="auto"`` then runs (:func:`resolve_engine`).
+    The edge store (``store_dtype``) is attached for the race and dropped
+    again when ``"gather"`` wins, the verdict then also recorded under
+    the storeless key. The fused engine sits the race out only where
+    ``ops.cagra_fused.fused_capable`` says K6 cannot serve the shape; a
+    candidate that raises fails the race. Returns (winner, {engine:
+    median seconds})."""
+    p = params or SearchParams()
+    q = torch.as_tensor(queries).to(device=index.device,
+                                    dtype=torch.float32).contiguous()
+    prepare_traversal(index, store_dtype)
+    prepare_search(index, p.candidate_dtype)
+    st = index.edge_store
+    key = _tune_key(index, q.shape[0], k, p, st)
+    itopk, width, max_iter = _plan_dims(p, k)
+    kprime = min(index.graph_degree, itopk)
+    cands = {e: (lambda qq, e=e: search(index, qq, k, p, engine=e))
+             for e in (engines or ENGINES)
+             if e != "fused" or fused_capable(
+                 itopk, width, kprime, st.deg_p, st.dim_p, st.vecs.dtype,
+                 max_iter, index.device)}
+    winner, timings = autotune.tune_best(key, cands, q, reps=reps,
+                                         force=True)
+    if winner not in ("edge", "fused"):
+        index.edge_store = None
+        autotune.record(_tune_key(index, q.shape[0], k, p, None), winner)
+    return winner, timings
 
 
 def _query_dists(qc: torch.Tensor, vecs: torch.Tensor, mt: DistanceType
@@ -614,8 +763,7 @@ def search(index: Index, queries, k: int,
     expects(eng in ("auto",) + ENGINES, "unknown cagra traversal engine %r",
             eng)
     if eng == "auto":
-        eng = ("edge" if index.edge_store is not None and dev.type == "cuda"
-               else "gather")
+        eng = resolve_engine(index, q.shape[0], k, p)
     prepare_search(index, p.candidate_dtype)
     if p.candidate_dtype in ("int8", "i8"):
         score, scales = index.score_i8

@@ -20,9 +20,9 @@ the plain K5 and the plain select) on the CPU. A hop whose buffer has no
 finite unexplored entry changes no distance or id, so K6 stops early and
 the results agree. Dense stores (int8, bf16) only: the int4 mode raises;
 K6 takes itopk and deg_p up to 256.
-``fused_capable`` (the TPU's 8 MB VMEM cap) and ``one_dispatch_stats``
-(a jaxpr walk) have no counterpart: K6 checks its own shared-memory need
-and raises above the card's limit.
+:func:`fused_capable` says whether K6 can serve a shape (the JAX
+package's VMEM cap becomes the card's shared memory a block);
+``one_dispatch_stats`` (a jaxpr walk) has no counterpart.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ from .graph_expand import (MAX_DEG_P, card_info, check_mode, check_tile,
 
 __all__ = ["fused_traverse", "fused_traverse_plain", "fused_traverse_kernel",
            "edge_hop", "pick_parents", "merge_candidates", "dup_mask",
-           "kernel_info"]
+           "kernel_info", "fused_capable"]
 
 launches = 0   # K6 launches since the last reset
 
@@ -204,6 +204,25 @@ def fused_traverse_kernel(queries, buf_d, buf_i, vecs, aux, gph, pen=None,
     _cuda.check(status, "cagra_fused")
     launches += 1
     return out_d, out_i, hops, parents
+
+
+def fused_capable(itopk: int, width: int, kprime: int, deg_p: int,
+                  dim_p: int, store_dtype, max_iter: int, device) -> bool:
+    """Whether the fused traversal serves this shape on ``device``: at
+    least one hop, itopk and deg_p at most 256 (``check_tile``'s and the
+    buffer's limit) and, on CUDA, K6's shared memory a warp
+    (``raft_cagra_fused_smem``) within the card's limit a block.
+    ``tune_search`` leaves the fused engine out of its race where this
+    is false."""
+    if max_iter < 1 or not (0 < itopk <= MAX_DEG_P and 0 < deg_p <= MAX_DEG_P
+                            and 0 < kprime <= deg_p):
+        return False
+    if torch.device(device).type != "cuda":
+        return True
+    smem = _cuda.library("cagra_fused").raft_cagra_fused_smem(
+        itopk, width, kprime, deg_p, dim_p,
+        int(store_dtype == torch.bfloat16))
+    return smem <= _cuda.SMEM_PER_BLOCK
 
 
 def kernel_info(itopk: int, width: int, kprime: int, deg_p: int,

@@ -112,8 +112,8 @@ def test_knn_graph_brute_matches_jax(data):
                                    device="cpu")
         assert tg.dtype == torch.int32
         np.testing.assert_array_equal(tg.numpy(), jg)
-    with pytest.raises(RaftError, match="not ported"):
-        cagra.build_knn_graph(xi, D0, algo="nn_descent", device="cpu")
+    with pytest.raises(RaftError, match="unknown knn_graph algo"):
+        cagra.build_knn_graph(xi, D0, algo="exact", device="cpu")
 
 
 @pytest.mark.parametrize("graph_degree", [DEG, 11])

@@ -541,6 +541,86 @@ def test_ivf_pq_scan_kernel_byte_codes_and_padding():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_ivf_pq_scan_kernel_graph_pass_k(metric):
+    """K4 at the CAGRA IVF-PQ graph pass's shape: 4-bit codes at pq_len 1
+    (pq_dim = rot_dim), the int8 LUT, k = 2·128 + 1 = 257, past the
+    grouped form, so the default is the per-pair form: equal to the plain
+    version on small integers (an entry of 127 in each subspace: the int8
+    scale is 1), one per-pair launch a call."""
+    need_cuda()
+    st = pq_store(True, 17, 4, n=8000, pq_dim=128, pq_len=1, lists=16,
+                  m=120, p=6)
+    st["codebooks"][:, 0, 0] = 127.0
+    st["row_norms"] = tpq.decoded_row_norms(
+        st["codes"], st["centers_rot"], st["codebooks"], st["list_offsets"])
+    args = pq_scan_args(st, "int8", "cuda")
+    assert tis.scan_form(257) == "pair"
+    before = (tpq.group_launches, tpq.pair_launches)
+    kv, ki = tpq.ivf_pq_scan(*args, 257, metric)
+    pv, pi = tpq.ivf_pq_scan_plain(*args, 257, metric)
+    torch.cuda.synchronize()
+    assert (tpq.group_launches - before[0],
+            tpq.pair_launches - before[1]) == (0, 1)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+# NN-descent's merge at the knob defaults (s = 16, join = 24) for k = 64
+# and 128: (batch rows, k + 2s(1 + join)) with the JAX package's closest
+# exposure, (batch rows, k + 2s(1 + join + s)) with CAGRA's sampled one
+NND_MERGE_SHAPES = ((8192, 864, 64), (8192, 928, 128), (8192, 1376, 64),
+                    (8192, 1440, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,k", NND_MERGE_SHAPES)
+def test_select_k_kernel_nn_descent_merge(rows, n, k):
+    """K1, both forms, at the NN-descent merge shapes: the sorted list's
+    k values (ties, +inf slots) then candidates (ties, +inf for masked
+    ones), and the same shape in Gaussian values; equal to the plain
+    version."""
+    need_cuda()
+    rng = np.random.default_rng(n)
+    cur = np.sort(rng.integers(0, 400, (rows, k)).astype(np.float32), 1)
+    cur[rng.random(rows) < 0.1, k // 2:] = np.inf
+    cand = rng.integers(0, 500, (rows, n - k)).astype(np.float32)
+    cand[rng.random((rows, n - k)) < 0.3] = np.inf
+    ints = torch.from_numpy(np.concatenate([cur, cand], 1)).cuda()
+    gauss = torch.from_numpy(rng.standard_normal((rows, n)).astype(
+        np.float32)).cuda()
+    for x in (ints, gauss):
+        pv, pi = tsk.select_k_plain(x, k)
+        for form in ("warp", "kpass"):
+            kv, ki = tsk.kpass_select_k(x, k, form=form)
+            torch.cuda.synchronize()
+            assert torch.equal(kv, pv) and torch.equal(ki, pi), form
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_cagra_fused_kernel_itopk_256(dtype):
+    """K6 at the bench sweep's widest buffer, itopk 256, over a degree-32
+    graph (deg_p 32, dim_p 128): equal to its plain version where
+    ``fused_capable`` says the card serves the shape; where it says not,
+    the kernel refuses the shape (its shared-memory check)."""
+    need_cuda()
+    es = card_store(dtype, 14, True, n=3000, degree=32, deg_p=32, dim=128,
+                    m=200, itopk=256)
+    kw = dict(itopk=256, width=1, max_iter=12, kprime=32, degree=32,
+              metric="l2")
+    args = (es["q"], es["buf_d"], es["buf_i"], es["vecs"], es["aux"],
+            es["gph"], None)
+    if not tcf.fused_capable(256, 1, 32, 32, 128, dtype, 12, "cuda"):
+        with pytest.raises(RaftError, match="shared memory"):
+            tcf.fused_traverse_kernel(*args, **kw)
+        return
+    kd, ki, _, _ = tcf.fused_traverse_kernel(*args, **kw)
+    pd, pi = tcf.fused_traverse_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+
+
+@pytest.mark.cuda
 def test_ivf_scans_group_without_host_sync():
     """The grouped forms' packing and both K3 and K4 launches, each form,
     run without a host synchronisation; each kernel counts its launches

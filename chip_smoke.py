@@ -7,7 +7,8 @@ toolkit (``nvcc``) and PyTorch built for CUDA::
     python3 chip_smoke.py
 
 It builds the eight CUDA kernels from ``raft_tpu_torch/csrc`` (one
-``nvcc`` per source, all at once, into ``build/kernels/``), then:
+``nvcc`` per source, all at once, into ``build/kernels/``; K2 and K3 are
+one library a store: f32, bf16, int8, uint8 and, for K2, int4), then:
 
 1. path: the paths through the public entry points at SIFT-1M's shape —
    1,000,000 x 128 float32 rows and 10,000 queries in 1,000 overlapping
@@ -74,7 +75,20 @@ It builds the eight CUDA kernels from ``raft_tpu_torch/csrc`` (one
    n_probes (within 0.005), each CAGRA point's engine the fastest of
    its own race, and its timed searches launching the kernel of that
    engine and no other (K6 for fused, K5 for edge, neither for gather).
-5. kernels: each kernel against its plain PyTorch version on the card at
+   Then brute force and IVF-Flat again with ``--dtype int8`` on the same
+   data (``build/bench/blobs-1000000x128.int8.bench.json``), launching
+   only K2's and K3's int8 forms.
+5. stores: the low-precision stores through the entry points, each path
+   with the counters reset before it, no plain version of K2 or K3
+   allowed to run, and every K2 or K3 launch the store's form: brute
+   force at bf16, int8 and int4 on the path's data (QPS, recall@10
+   against the f32 index's ids; bf16 >= 0.95), uint8 on the bench's
+   byte-grid remap of the path's rows and queries (ids equal to the f32
+   index's on the same byte rows; whether the values are bit-equal is
+   printed), IVF-Flat (n_lists 1024, n_probes 20) at bf16 and int8 and
+   uint8 on the remapped rows (recall@10 against f32 brute force on the
+   same rows; >= 0.90 but for int8, whose quantization sets it).
+6. kernels: each kernel against its plain PyTorch version on the card at
    the path's shapes (K1 at every (rows, n, k) the paths hand it — the
    coarse probe, the brute-force split merge, the CAGRA build's at each
    size of batch (full and last) whose K2 plan splits the corpus, the
@@ -126,7 +140,18 @@ It builds the eight CUDA kernels from ``raft_tpu_torch/csrc`` (one
    hidden): an event time includes the wrapper's host work wherever
    that outlasts the L2 flush, which a loaded host makes happen for
    these short kernels. K1's forms are timed with 9 calls a turn, K8
-   with 15.
+   with 15. The store forms (rows ``fused_knn.<store>``,
+   ``ivf_flat_scan.<store>``): K2's equal to the plain version on
+   integer-valued stores (k = 10 and 129) and close on the path's
+   stores (512 queries; int4 also at d = 100, half_p 64; uint8 with its
+   tolerance scaled to the norms, as the expanded L2 formula's rounding
+   is, and bit-equal to the f32 form on the same byte rows), timed at
+   the path's shape beside the bf16 GEMM + ``torch.topk`` (bf16) or
+   dequantize + the f32 GEMM + ``torch.topk`` (the others), bound by
+   one product at 989 TFLOP/s bf16 (bf16) or two TF32 products (the
+   others); K3's in both forms on the path's store indexes, each
+   launched twice, bit-equal, equal to the plain version on integer
+   stores, bound by two TF32 products a (pair, row).
 
 Prints progress lines, then a ``{"kernels": [...]}`` line, the card's name
 and power limit as ``nvidia-smi`` gives them, and last
@@ -160,6 +185,7 @@ from raft_tpu_torch.ops import fused_knn as fk
 from raft_tpu_torch.ops import graph_expand as ge
 from raft_tpu_torch.ops import ivf_pq_scan as ipq
 from raft_tpu_torch.ops import ivf_scan as iscan
+from raft_tpu_torch.ops import quant
 from raft_tpu_torch.ops import ring_topk as rt
 from raft_tpu_torch.parallel import sharded_ann, sharded_knn
 from raft_tpu_torch.stats.metrics import neighborhood_recall
@@ -197,15 +223,21 @@ BENCH_SPEC, BENCH_QUERIES, BENCH_GT_K, BENCH_REPS = (
     "blobs-1000000x128", 10_000, 100, 5)
 BENCH_TARGET = 0.95            # the north star: QPS at recall@10 >= 0.95
 BENCH_OUT = "build/bench"      # its Google-Benchmark JSON goes here
+BENCH_STORE = "int8"           # the bench's low-precision run (--dtype)
 
 # kernel name -> (wrapper module, its launch counter)
+STORE_NAMES = ("bfloat16", "int8", "uint8", "int4")
 _COUNTERS = {"select_k": (sk, "launches"),
              "select_k.warp": (sk, "warp_launches"),
              "select_k.kpass": (sk, "kpass_launches"),
              "fused_knn": (fk, "launches"),
+             **{f"fused_knn.{s}": (fk, f"launches_{s}")
+                for s in STORE_NAMES},
              "ivf_flat_scan": (iscan, "launches"),
              "ivf_flat_scan.group": (iscan, "group_launches"),
              "ivf_flat_scan.pair": (iscan, "pair_launches"),
+             **{f"ivf_flat_scan.{s}": (iscan, f"launches_{s}")
+                for s in STORE_NAMES[:3]},
              "ivf_pq_scan": (ipq, "launches"),
              "ivf_pq_scan.group": (ipq, "group_launches"),
              "ivf_pq_scan.pair": (ipq, "pair_launches"),
@@ -321,18 +353,21 @@ def bound(n_bytes: float, n_flops: float, n_single: float = 0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_close(ref_v, ref_i, v, i, what: str) -> float:
-    """Values to rtol=1e-5, atol=1e-5·max|d| (float32 sums in another
-    order); ids equal on >= 99% of rows. Returns max |v - ref_v|."""
+def check_close(ref_v, ref_i, v, i, what: str, min_rows: float = 0.99,
+                scale=None) -> float:
+    """Values to rtol=1e-5, atol=1e-5·``scale`` (max|d| unless given;
+    float32 sums in another order); ids equal on >= ``min_rows`` of the
+    rows (99%). Returns max |v - ref_v|."""
     fin = torch.isfinite(ref_v)
     if not torch.equal(torch.isfinite(v), fin):
         raise AssertionError(f"{what}: +inf slots differ")
     err = float((v[fin] - ref_v[fin]).abs().max()) if fin.any() else 0.0
-    atol = RTOL * float(ref_v[fin].abs().max())
+    atol = RTOL * (float(ref_v[fin].abs().max()) if scale is None
+                   else scale)
     if not torch.allclose(v[fin], ref_v[fin], rtol=RTOL, atol=atol):
         raise AssertionError(f"{what}: values differ by up to {err}")
     rows_eq = float((i == ref_i).all(dim=1).float().mean())
-    if rows_eq < 0.99:
+    if rows_eq < min_rows:
         raise AssertionError(f"{what}: ids equal on {rows_eq:.4f} of rows")
     log(f"  {what}: max_abs_err={err:.3g} ids equal on {rows_eq:.4f} of "
         "rows")
@@ -391,9 +426,11 @@ def run_path(name: str, kernels, fn, totals: dict):
 
 
 def by_form(moved: dict, kern: str) -> dict:
-    """A kernel's launches by form, out of the counts ``moved``."""
+    """A kernel's launches by form, out of the counts ``moved`` (its
+    stores' counts left out)."""
     return {name.split(".")[1]: n for name, n in moved.items()
-            if name.startswith(f"{kern}.")}
+            if name.startswith(f"{kern}.")
+            and name.split(".")[1] not in STORE_NAMES}
 
 
 def check_scan_forms(name: str, scan: str, searches: int) -> None:
@@ -1048,7 +1085,66 @@ def bench_phase(totals, dev):
         raise AssertionError("bench: the CAGRA case's K1 merge or K6 at "
                              "itopk 256 was not reached")
     log(f"bench: wrote {out}")
+    bench_store_run(base, queries, gt, metric, totals, dev)
     return k1_cap.call, k6_cap.call
+
+
+def bench_store_run(base, queries, gt, metric, totals, dev) -> None:
+    """The bench with ``--dtype`` BENCH_STORE for brute force and IVF-Flat
+    on the same data and ground truth: each point's QPS and recall@10, the
+    best QPS at recall@10 >= BENCH_TARGET a family; IVF recall
+    non-decreasing in n_probes (0.005); no
+    plain version runs, and every K2 / K3 launch is the store's form (the
+    store's recall is printed, not held: its quantization, not the port,
+    sets it)."""
+    algos = ("raft_brute_force", "raft_ivf_flat")
+    with no_plain():
+        results = run_path(
+            f"bench.{BENCH_STORE}",
+            ("fused_knn", f"fused_knn.{BENCH_STORE}", "ivf_flat_scan",
+             f"ivf_flat_scan.{BENCH_STORE}"),
+            lambda: bench.run_benchmarks(base, queries, gt, k=K,
+                                         metric=metric, algos=algos,
+                                         reps=BENCH_REPS, verbose=False,
+                                         dtype=BENCH_STORE, device=dev),
+            totals)
+    moved = counts()
+    for kern in ("fused_knn", "ivf_flat_scan"):
+        if moved[kern] != moved[f"{kern}.{BENCH_STORE}"]:
+            raise AssertionError(f"bench.{BENCH_STORE}: {kern} launched "
+                                 "other forms than the store's")
+    from raft_tpu_torch.bench.runner import to_gbench_json
+
+    out = f"{BENCH_OUT}/{BENCH_SPEC}.{BENCH_STORE}.bench.json"
+    with open(out, "w") as f:
+        f.write(to_gbench_json(results, {
+            "dataset": BENCH_SPEC, "dtype": BENCH_STORE,
+            "executable": "chip_smoke.py",
+            "device_name": torch.cuda.get_device_name(dev),
+            "nvidia_smi": smi_line()}))
+    by_algo = {}
+    for r in results:
+        by_algo.setdefault(r.algo, []).append(r)
+        log(f"bench {r.name}: {r.qps:.0f} QPS, recall@{K} {r.recall:.4f}, "
+            f"build {r.build_time:.2f} s")
+    for algo, rs in by_algo.items():
+        hit = [r for r in rs if r.recall >= BENCH_TARGET]
+        if hit:
+            b = max(hit, key=lambda r: r.qps)
+            log(f"bench {algo} ({BENCH_STORE}): best QPS at recall@{K} >= "
+                f"{BENCH_TARGET}: {b.qps:.0f} ({b.name}, recall "
+                f"{b.recall:.4f})")
+        else:
+            b = max(rs, key=lambda r: r.recall)
+            log(f"bench {algo} ({BENCH_STORE}): no point reached recall@{K} "
+                f"{BENCH_TARGET}; highest {b.recall:.4f} at {b.qps:.0f} QPS")
+    rs = sorted(by_algo["raft_ivf_flat"],
+                key=lambda r: r.search_params["n_probes"])
+    for a, b in zip(rs, rs[1:]):
+        if b.recall < a.recall - 0.005:
+            raise AssertionError(f"bench: recall falls from {a.name} to "
+                                 f"{b.name}")
+    log(f"bench: wrote {out}")
 
 
 def int_lists(p, k, seed):
@@ -1906,6 +2002,365 @@ def k6_itopk256(timer, call) -> dict:
                 itopk256_mean_hops=float(hops.float().mean()))
 
 
+# ---- the stores phase: brute force and IVF-Flat in low-precision stores ----
+
+BF_STORES = ("bfloat16", "int8", "int4")    # brute force on the path's data
+IVF_STORES = ("bfloat16", "int8")           # IVF-Flat on the path's data
+BF16_MIN_RECALL = 0.95      # tests/test_brute_force.py's floor for bf16
+# uint8 on the byte grid: its distances (~1e5) are what is left of
+# ||q||² + ||x||² - 2·q·x at ~1e7 each, so the float32 rounding of the two
+# orders of summation (a few units) is held relative to the norms
+# (``uint8_scale``), and ids on >= 95% of the rows (near ties are dense
+# there); the form is also held bit for bit to the f32 form on the same
+# byte rows
+STORE_ROWS_EQUAL = {"uint8": 0.95}
+
+
+def uint8_scale(qq, norms) -> float:
+    """The magnitude the expanded L2 formula's rounding scales with."""
+    return float((qq * qq).sum(1).max() + norms.max())
+INT4_ODD_DIM, INT4_ODD_ROWS = 100, 200_000   # int4 at half_p 64 < d / 2
+BF16_FLOPS_PER_S = 989e12      # H100 SXM, dense bf16 on the tensor cores
+
+
+class no_plain:
+    """Fail if a plain version of K2 or K3 runs inside the ``with`` block
+    (the store paths must go through the kernels)."""
+
+    SITES = ((fk, "fused_knn_plain"), (brute_force, "fused_knn_plain"),
+             (iscan, "ivf_flat_scan_plain"),
+             (ivf_flat, "ivf_flat_scan_plain"))
+
+    def __enter__(self):
+        self.orig = [getattr(m, n) for m, n in self.SITES]
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("a plain version ran on a store path")
+
+        for m, n in self.SITES:
+            setattr(m, n, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), f in zip(self.SITES, self.orig):
+            setattr(m, n, f)
+
+
+def store_path(name: str, kern: str, store: str, fn, totals: dict,
+               extra=()):
+    """:func:`run_path` for a store path, with no plain version allowed:
+    every launch of ``kern`` (K2 or K3) on it must be the store's form."""
+    with no_plain():
+        out = run_path(name, (kern, f"{kern}.{store}", "select_k", *extra),
+                       fn, totals)
+    moved = counts()
+    if moved[kern] != moved[f"{kern}.{store}"]:
+        raise AssertionError(f"{name}: {moved[kern]} launches of {kern}, "
+                             f"{moved[f'{kern}.{store}']} of its {store} form")
+    return out
+
+
+def int_store(store: str, n: int, d: int, m: int, seed: int):
+    """Integer-valued rows a store holds exactly at a scale of 1 (bf16 in
+    [-8, 8]; int8 in [-127, 127] and int4 in [-7, 7], each row reaching the
+    bound in its first column; uint8 bytes) and integer queries, so every
+    dot and distance is exact in float32 → (f32 rows, queries) on the
+    card."""
+    rng = np.random.default_rng(seed)
+    if store == "uint8":
+        x = rng.integers(0, 256, (n, d))
+        q = rng.integers(0, 256, (m, d))
+    else:
+        lim = {"bfloat16": 8, "int8": 127, "int4": 7}[store]
+        x = rng.integers(-lim, lim + 1, (n, d))
+        if store != "bfloat16":
+            x[:, 0] = np.where(rng.random(n) < 0.5, -lim, lim)
+        q = rng.integers(-3, 4, (m, d))
+    return (torch.from_numpy(x.astype(np.float32)).cuda(),
+            torch.from_numpy(q.astype(np.float32)).cuda())
+
+
+def stores_phase(x, q, totals):
+    """The stores through the public entry points, each path with the
+    counters reset before it, no plain version allowed, and every K2 or
+    K3 launch the store's form: brute force at bf16, int8 and int4 on the
+    path's data (QPS, recall@10 against the f32 index's ids; bf16 held at
+    >= BF16_MIN_RECALL), uint8 on the bench's byte-grid remap of the
+    path's data (ids equal to the f32 index's on the same byte rows;
+    whether the values are bit-equal is printed), IVF-Flat at bf16 and
+    int8 (n_lists 1024, n_probes 20) and uint8 on the remapped data.
+    → the indexes and queries the kernel checks take."""
+    (_, ref_i), _ = host_time(lambda: brute_force.search(
+        brute_force.build(x), q, K))
+    out = {"x": x, "q": q}
+    for store in BF_STORES:
+        def path(store=store):
+            idx, t_build = host_time(lambda: brute_force.build(x,
+                                                               dtype=store))
+            _, t_first = host_time(lambda: brute_force.search(idx, q, K))
+            (v, i), t = host_time(lambda: brute_force.search(idx, q, K))
+            return idx, v, i, t_build, t_first, t
+
+        idx, v, i, tb, tf, t = store_path(f"brute_force.{store}",
+                                          "fused_knn", store, path, totals)
+        check_knn(f"brute_force.{store}", v, i, K)
+        recall = neighborhood_recall(i, ref_i)
+        mib = (idx.dataset.numel() * idx.dataset.element_size()
+               + (0 if idx.scales is None else idx.scales.numel() * 4)) / 2**20
+        log(f"brute_force.{store}: build {tb:.3f} s ({mib:.1f} MiB stored), "
+            f"search(k={K}) first {tf * 1e3:.1f} ms, steady {t * 1e3:.1f} "
+            f"ms, {M / t:.0f} QPS, recall@{K} vs the f32 index {recall:.4f}")
+        if store == "bfloat16" and recall < BF16_MIN_RECALL:
+            raise AssertionError(f"bf16 brute-force recall {recall:.4f} < "
+                                 f"{BF16_MIN_RECALL}")
+        out[f"bf.{store}"] = idx
+
+    # uint8: the bench's byte-grid remap of the path's rows and queries
+    xb, qb = bench.byte_grid(x, q, "sqeuclidean",
+                             ("raft_brute_force", "raft_ivf_flat"))
+    f32b = brute_force.build(xb)
+    fv, fi = brute_force.search(f32b, qb, K)
+    del f32b
+
+    def u8_path():
+        idx, t_build = host_time(lambda: brute_force.build(xb,
+                                                           dtype="uint8"))
+        _, t_first = host_time(lambda: brute_force.search(idx, qb, K))
+        (v, i), t = host_time(lambda: brute_force.search(idx, qb, K))
+        return idx, v, i, t_build, t_first, t
+
+    idx, v, i, tb, tf, t = store_path("brute_force.uint8", "fused_knn",
+                                      "uint8", u8_path, totals)
+    if not torch.equal(i, fi):
+        raise AssertionError("uint8 brute force: ids differ from the f32 "
+                             "index's on the same byte rows")
+    same_bits = torch.equal(v.view(torch.int32), fv.view(torch.int32))
+    log(f"brute_force.uint8 (byte grid): build {tb:.3f} s, search first "
+        f"{tf * 1e3:.1f} ms, steady {t * 1e3:.1f} ms, {M / t:.0f} QPS; ids "
+        f"equal to the f32 index's on the same rows; values bit-equal: "
+        f"{same_bits}")
+    out.update({"bf.uint8": idx, "xb": xb, "qb": qb})
+
+    for store in IVF_STORES + ("uint8",):
+        rows, qq, ref = (xb, qb, fi) if store == "uint8" else (x, q, ref_i)
+
+        def ivf_path(store=store, rows=rows, qq=qq):
+            params = ivf_flat.IndexParams(n_lists=N_LISTS, seed=SEED,
+                                          dtype=store)
+            idx, t_build = host_time(lambda: ivf_flat.build(rows, params))
+            sp = ivf_flat.SearchParams(n_probes=N_PROBES)
+            _, t_first = host_time(lambda: ivf_flat.search(idx, qq, K, sp))
+            (v, i), t = host_time(lambda: ivf_flat.search(idx, qq, K, sp))
+            return idx, v, i, t_build, t_first, t
+
+        name = f"ivf_flat.{store}"
+        idx, v, i, tb, tf, t = store_path(name, "ivf_flat_scan", store,
+                                          ivf_path, totals,
+                                          ("ivf_flat_scan.group",))
+        check_scan_forms(name, "ivf_flat_scan", 2)
+        check_knn(name, v, i, K)
+        recall = neighborhood_recall(i, ref)
+        log(f"{name}{' (byte grid)' if store == 'uint8' else ''}: build "
+            f"{tb:.3f} s, search(n_probes={N_PROBES}, k={K}) first "
+            f"{tf * 1e3:.1f} ms, steady {t * 1e3:.1f} ms, {M / t:.0f} QPS, "
+            f"recall@{K} vs f32 brute force on the same rows {recall:.4f}")
+        if store != "int8" and recall < 0.90:
+            raise AssertionError(f"{name} recall {recall:.4f} < 0.90")
+        out[f"ivf.{store}"] = idx
+    return out
+
+
+def k2_store_phase(timer, st, moved) -> list:
+    """K2's store forms: equal to the plain version on integer-valued
+    stores (k = 10 and 129), close to it on the path's stores (512
+    queries; int4 also at d = 100, half_p 64, on 200,000 rows), each timed
+    at the path's shape (10,000 queries, 1M rows, k = 10) beside its plain
+    version and one library call: the bf16 GEMM + ``torch.topk``
+    (bfloat16), dequantize + the f32 GEMM + ``torch.topk`` (the others).
+    The bound is the product's least time: one pass at the bf16 rate for
+    bf16 (its products exact), two TF32 passes (2xTF32) for the byte and
+    int4 stores, the bytes read once being far less."""
+    rows = []
+    for store in ("bfloat16", "int8", "uint8", "int4"):
+        idx = st[f"bf.{store}"]
+        qq = st["qb"] if store == "uint8" else st["q"]
+        xs, sc, dim4, norms = (idx.dataset, idx.scales, idx.logical_dim,
+                               idx.norms)
+        xi, qi = int_store(store, 50_000, 32, 256, SEED + 11)
+        si, ssc = quant.quantize_rows(xi, store)
+        d4i = 32 if store == "int4" else None
+        for k in (K, CAGRA_D0 + 1):
+            check_equal(fk.fused_knn_plain(qi, si, k, "l2", scales=ssc,
+                                           int4_dim=d4i),
+                        fk.fused_knn(qi, si, k, "l2", scales=ssc,
+                                     int4_dim=d4i),
+                        f"K2.{store} l2 (256, 50000, 32) k={k}, integer "
+                        "store")
+        sub = qq[:512]
+        pv, pi = fk.fused_knn_plain(sub, xs, K, "l2", norms, None, sc, dim4)
+        kv, ki = fk.fused_knn(sub, xs, K, "l2", norms, None, sc, dim4)
+        err = check_close(pv, pi, kv, ki, f"K2.{store} l2 (512 of {M} "
+                          f"queries, {N}, {D}) k={K}",
+                          STORE_ROWS_EQUAL.get(store, 0.99),
+                          uint8_scale(sub, norms) if store == "uint8"
+                          else None)
+        extra = {}
+        if store == "uint8":
+            check_bits(fk.fused_knn(sub, st["xb"], K, "l2", norms), (kv, ki),
+                       "K2.uint8 against the f32 form on the same byte rows "
+                       "(512 queries)")
+        if store == "int4":
+            xo = st["x"][:INT4_ODD_ROWS, :INT4_ODD_DIM]
+            po = brute_force.build(xo, dtype="int4")
+            qo = sub[:, :INT4_ODD_DIM]
+            pv, pi = fk.fused_knn_plain(qo, po.dataset, K, "l2", po.norms,
+                                        None, po.scales, INT4_ODD_DIM)
+            kv, ki = fk.fused_knn(qo, po.dataset, K, "l2", po.norms, None,
+                                  po.scales, INT4_ODD_DIM)
+            extra["d100_max_abs_err"] = check_close(
+                pv, pi, kv, ki, f"K2.int4 l2 (512, {INT4_ODD_ROWS}, "
+                f"{INT4_ODD_DIM}: half_p {po.dataset.shape[1]}) k={K}")
+            del po
+        qk = fk.kernel_queries(qq, store, xs.shape[1]).contiguous()
+        qn = fk.prepare_norms("l2", qq)
+        dn = fk.prepare_norms("l2", None, norms)
+        ms = timer(lambda: fk.fused_knn_candidates(qk, qn, xs, dn, None, K,
+                                                   "l2", sc, store))
+        splits, _ = fk._split_plan(M, N, K, qk.shape[1], "l2", xs.device,
+                                   store)
+        plain = timer(lambda: fk.fused_knn_plain(qq, xs, K, "l2", norms,
+                                                 None, sc, dim4),
+                      reps=1, warmup=0)
+
+        def library():
+            if store == "bfloat16":
+                a, b = qq.to(torch.bfloat16), xs
+                nb = norms.to(torch.bfloat16)
+            else:
+                a, b, nb = qq, quant.dequantize_store(xs, sc, dim4), norms
+            for s0 in range(0, M, 1000):
+                dist = torch.addmm(nb[None, :], a[s0:s0 + 1000], b.T,
+                                   alpha=-2.0)
+                torch.topk(dist, K, dim=1, largest=False)
+
+        lib = timer(library, reps=3)
+        flops = 2.0 * M * N * D
+        if store == "bfloat16":
+            t_ops, kind = flops / BF16_FLOPS_PER_S * 1e3, "bf16"
+        else:
+            t_ops, kind = 2 * flops / TF32_FLOPS_PER_S * 1e3, "2xTF32"
+        n_bytes = (xs.numel() * xs.element_size() + M * D * 4 + N * 4
+                   + (0 if sc is None else N * 4) + M * splits * K * 8)
+        t_bytes, _ = bound(n_bytes, 0.0)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        launches = moved[f"fused_knn.{store}"]
+        log(f"  K2.{store} at ({M}, {N}, {D}) k={K}: {ms:.2f} ms ({splits} "
+            f"splits); {kind} bound {t_ops:.2f} ms ({t_ops / ms:.1%} of it), "
+            f"bytes {t_bytes:.3f} ms; plain {plain:.1f} ms, library "
+            f"{lib:.2f} ms; launches {launches}")
+        rows.append(dict(
+            name=f"fused_knn.{store}", route="cuda",
+            source=f"raft_tpu_torch/csrc/fused_knn_{store}.cu",
+            replaces="raft_tpu/ops/fused_knn.py:336", launches=launches,
+            max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=max(t_ops, t_bytes), bound_by=by, bound_kind=kind,
+            library_ms=lib, bytes_bound_ms=t_bytes, splits=splits,
+            shape=f"({M}, {N}, {D}) k={K} l2, {store} corpus"
+                  + (" (byte grid)" if store == "uint8" else ""),
+            **extra))
+    return rows
+
+
+def k3_store_phase(timer, st, moved) -> list:
+    """K3's store forms in both forms on the path's store indexes
+    (uint8 on the byte grid) against the plain version, each launched
+    twice, bit-equal; equal to it on integer-valued stores (a 50,000-row
+    index of each store, and the uint8 path index with its queries
+    rounded to bytes); both forms timed at the path's shape. The bound is
+    2xTF32 over the (pair, row) products, the bytes read once being
+    less."""
+    rows = []
+    for store in ("bfloat16", "int8", "uint8"):
+        idx = st[f"ivf.{store}"]
+        qq = st["qb"] if store == "uint8" else st["q"]
+        sc = idx.scales
+        probed = iscan.coarse_probe(qq, idx.centers, N_PROBES, "l2",
+                                    idx.center_norms)
+        args = (idx.data, idx.data_norms, probed, idx.offsets_dev,
+                idx.sizes_dev, qq, K, "l2")
+        pv, pi = iscan.ivf_flat_scan_plain(*args, scales=sc)
+        errs = {}
+        for form in SCAN_FORMS:
+            kv, ki = iscan.ivf_flat_scan(*args, form=form, scales=sc)
+            what = (f"K3.{store} {form} form ({M} queries, n_probes="
+                    f"{N_PROBES}) k={K}")
+            errs[form] = check_close(pv, pi, kv, ki, what,
+                                     STORE_ROWS_EQUAL.get(store, 0.99),
+                                     uint8_scale(qq, idx.data_norms)
+                                     if store == "uint8" else None)
+            check_bits((kv, ki), iscan.ivf_flat_scan(*args, form=form,
+                                                     scales=sc),
+                       f"{what}, launched twice")
+        # integer-valued: a small index of the store (uint8: the path's
+        # index with its queries rounded to bytes)
+        if store == "uint8":
+            qi = torch.round(qq[:2000])
+            ia = (idx.data, idx.data_norms,
+                  iscan.coarse_probe(qi, idx.centers, N_PROBES, "l2",
+                                     idx.center_norms),
+                  idx.offsets_dev, idx.sizes_dev, qi, K, "l2")
+            isc = sc
+        else:
+            xi, qi = int_store(store, 50_000, 32, 2000, SEED + 12)
+            small = ivf_flat.build(xi, ivf_flat.IndexParams(
+                n_lists=64, seed=SEED, dtype=store))
+            ia = (small.data, small.data_norms,
+                  iscan.coarse_probe(qi, small.centers, 8, "l2",
+                                     small.center_norms),
+                  small.offsets_dev, small.sizes_dev, qi, K, "l2")
+            isc = small.scales
+        ref = iscan.ivf_flat_scan_plain(*ia, scales=isc)
+        for form in SCAN_FORMS:
+            check_equal(ref, iscan.ivf_flat_scan(*ia, form=form,
+                                                 scales=isc),
+                        f"K3.{store} {form} form, integer store")
+        qn = fk.prepare_norms("l2", qq)
+
+        def launch(form):
+            return iscan.ivf_flat_scan_candidates(
+                idx.data, idx.data_norms, None, qq, qn, probed.int(),
+                idx.offsets_dev, idx.sizes_dev, K, "l2", form, sc)
+
+        times = {form: timer(lambda: launch(form)) for form in SCAN_FORMS}
+        plain = timer(lambda: iscan.ivf_flat_scan_plain(*args, scales=sc),
+                      reps=1, warmup=0)
+        sizes = idx.sizes_dev.long()
+        scanned = int(sizes[probed.long()].sum())
+        distinct = int(sizes[torch.unique(probed)].sum())
+        t_ops = 2 * 2.0 * D * scanned / TF32_FLOPS_PER_S * 1e3
+        elem = idx.data.element_size()
+        t_bytes, _ = bound(distinct * (D * elem + 4 + (4 if sc is not None
+                                                       else 0))
+                           + M * D * 4 + M * N_PROBES * (4 + K * 8), 0.0)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        launches = moved[f"ivf_flat_scan.{store}"]
+        log(f"  K3.{store}: grouped {times['group']:.3f} ms, per-pair "
+            f"{times['pair']:.3f} ms over {scanned} (pair, row) products; "
+            f"2xTF32 bound {t_ops:.4f} ms, bytes {t_bytes:.4f} ms; plain "
+            f"{plain:.1f} ms; launches {launches}")
+        rows.append(dict(
+            name=f"ivf_flat_scan.{store}", route="cuda",
+            source=f"raft_tpu_torch/csrc/ivf_flat_scan_{store}.cu",
+            replaces="raft_tpu/ops/ivf_scan.py:284", launches=launches,
+            max_abs_err=errs["group"], ms=times["group"], plain_ms=plain,
+            bound_ms=max(t_ops, t_bytes), bound_by=by, bound_kind="2xTF32",
+            library_ms=None, form="group", pair_ms=times["pair"],
+            pair_max_abs_err=errs["pair"],
+            shape=f"{M} queries x {N_PROBES} probes, k={K}, {store} lists"
+                  + (" (byte grid)" if store == "uint8" else "")))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; it runs only on an NVIDIA "
@@ -1938,6 +2393,11 @@ def main() -> int:
     determinism_phase(x, iidx, pidx)
     k1_route, k4_route = graph_route_phase(x, q, bidx, cidx, moved)
     k1_bench, k6_bench = bench_phase(moved, torch.device("cuda", 0))
+    stores = stores_phase(x, q, moved)
+    # the f32 forms' launches: every store's form counts under K2 and K3 too
+    f32 = {kern: moved[kern] - sum(moved.get(f"{kern}.{st}", 0)
+                                   for st in STORE_NAMES)
+           for kern in ("fused_knn", "ivf_flat_scan")}
 
     timer = Timer()
     k1_in = k1_inputs(x, q, bidx, iidx, pidx, cidx, sidx) + [
@@ -1948,15 +2408,18 @@ def main() -> int:
     kernels = [k1_phase(timer, k1_in, moved["select_k"],
                         by_form(moved, "select_k"))]
     del k1_in
-    kernels += [k2_phase(timer, bidx, q, moved["fused_knn"],
+    kernels += [k2_phase(timer, bidx, q, f32["fused_knn"],
                          cidx.build_stats["knn_graph_s"]),
-               k3_phase(timer, iidx, q, moved["ivf_flat_scan"],
+               k3_phase(timer, iidx, q, f32["ivf_flat_scan"],
                         by_form(moved, "ivf_flat_scan")),
                {**k4_phase(timer, pidx, q, moved["ivf_pq_scan"],
                            by_form(moved, "ivf_pq_scan")),
                 **k4_graph_pass(timer, k4_route)}]
     del k4_route
     del iidx, pidx
+    kernels += (k2_store_phase(timer, stores, moved)
+                + k3_store_phase(timer, stores, moved))
+    del stores
     buf_d, buf_i = seeded_buffer(cidx, q)
     hop_parents, *walked = walk(cidx, q, buf_d, buf_i)
     kernels += [k5_phase(timer, cidx, q, hop_parents, moved["graph_expand"]),

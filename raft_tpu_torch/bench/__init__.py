@@ -12,10 +12,10 @@ CLI: ``python -m raft_tpu_torch.bench run --dataset blobs-100000x128``
 """
 from .datasets import (generate_groundtruth, load_dataset, read_fbin,
                        read_ibin, write_fbin, write_ibin)
-from .runner import BenchResult, default_configs, run_benchmarks
+from .runner import BenchResult, byte_grid, default_configs, run_benchmarks
 
 __all__ = [
     "read_fbin", "write_fbin", "read_ibin", "write_ibin", "load_dataset",
     "generate_groundtruth", "run_benchmarks", "default_configs",
-    "BenchResult",
+    "byte_grid", "BenchResult",
 ]

@@ -163,8 +163,9 @@ def _sweep_args(p, algorithms_help: str):
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--metric", default=None)
     p.add_argument("--dtype", default="float32",
-                   choices=["float32", "bfloat16", "int8", "uint8"],
-                   help="dataset storage dtype (only float32 is ported)")
+                   choices=["float32", "bfloat16", "int8", "uint8", "int4"],
+                   help="dataset storage dtype (brute force / ivf_flat; "
+                        "int4: brute force only)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
     p.add_argument("--output", default=None)

@@ -5,7 +5,11 @@ Latency, QPS as ``items_per_second``, end_to_end; sweeps from the
 raft-ann-bench configs).
 
 The schema is the JAX package's, so the reference's export and plot
-tooling applies. A CAGRA case races the traversal engines
+tooling applies. ``dtype`` stores brute force and IVF-Flat in a
+low-precision rung (bfloat16, int8, uint8; int4 for brute force only) and
+tags their results' names with it; uint8 on a float corpus maps base and
+queries onto the byte grid first (:func:`byte_grid`), as the JAX harness
+does. A CAGRA case races the traversal engines
 (``cagra.tune_search``) on the benchmark's queries at each itopk point
 before it is timed, so ``engine="auto"`` runs the measured winner; the
 case's entry adds the engine that ran (``engine``) and the race's median
@@ -24,8 +28,12 @@ import torch
 from ..core.errors import expects
 from ..utils import resolve_device
 
-__all__ = ["BenchResult", "default_configs", "run_benchmarks",
-           "to_gbench_json"]
+__all__ = ["BenchResult", "DTYPES", "default_configs", "byte_grid",
+           "run_benchmarks", "to_gbench_json"]
+
+# the stores --dtype takes; int4 for brute force only (IVF-Flat has none)
+DTYPES = ("float32", "bfloat16", "int8", "uint8", "int4")
+_DTYPE_ALGOS = ("raft_brute_force", "raft_ivf_flat")
 
 
 @dataclasses.dataclass
@@ -66,11 +74,11 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _bf_case(base, metric, dev):
+def _bf_case(base, metric, dev, dtype="float32"):
     from ..neighbors import brute_force
 
     def build():
-        return brute_force.build(base, metric, device=dev)
+        return brute_force.build(base, metric, dtype=dtype, device=dev)
 
     def make_search(index, q, k):
         return (lambda qq: brute_force.search(index, qq, k)), {}
@@ -78,12 +86,13 @@ def _bf_case(base, metric, dev):
     return build, make_search, [{}]
 
 
-def _ivf_flat_case(base, metric, n_lists, probe_sweep, dev):
+def _ivf_flat_case(base, metric, n_lists, probe_sweep, dev,
+                   dtype="float32"):
     from ..neighbors import ivf_flat
 
     def build():
         return ivf_flat.build(base, ivf_flat.IndexParams(
-            n_lists=n_lists, metric=metric), device=dev)
+            n_lists=n_lists, metric=metric, dtype=dtype), device=dev)
 
     def make_search(index, q, k, n_probes=20):
         sp = ivf_flat.SearchParams(n_probes=n_probes)
@@ -139,11 +148,14 @@ def default_configs(base, metric, algos: Sequence[str],
     (docs/ann_benchmarks_param_tuning.md:10-96) scaled to the dataset:
     n_lists = 2·√n in [64, 4096], pq_dim = d / 2 rounded down to a
     multiple of 8, probes 1-100, CAGRA graph degree 32 (intermediate 64)
-    and itopk 32-256; each one overridable. → {algo: ((build,
-    make_search, sweep), tag)}."""
+    and itopk 32-256; each one overridable. ``dtype``: the store of brute
+    force and IVF-Flat (the other families ignore it), in their results'
+    tags. → {algo: ((build, make_search, sweep), tag)}."""
     dev = resolve_device(device)
-    expects(dtype == "float32", "bench dtype %r is not ported yet "
-            "(float32 only)", dtype)
+    expects(dtype in DTYPES, "bench dtype must be one of %s, got %r",
+            DTYPES, dtype)
+    expects(dtype != "int4" or "raft_ivf_flat" not in algos,
+            "IVF-Flat has no int4 store (int4 is a brute-force store)")
     n = len(base)
     if n_lists is None:
         n_lists = max(64, min(4096, int(np.sqrt(n) * 2)))
@@ -153,14 +165,15 @@ def default_configs(base, metric, algos: Sequence[str],
         probe_sweep = [1, 2, 5, 10, 20, 50, 100]
     if itopk_sweep is None:
         itopk_sweep = [32, 64, 128, 256]
+    dtag = "" if dtype == "float32" else f".{dtype}"
     cases = {}
     for a in algos:
         if a == "raft_brute_force":
-            cases[a] = (_bf_case(base, metric, dev), "")
+            cases[a] = (_bf_case(base, metric, dev, dtype), dtag.lstrip("."))
         elif a == "raft_ivf_flat":
             cases[a] = (_ivf_flat_case(base, metric, n_lists,
-                                       list(probe_sweep), dev),
-                        f"nlist{n_lists}")
+                                       list(probe_sweep), dev, dtype),
+                        f"nlist{n_lists}{dtag}")
         elif a == "raft_ivf_pq":
             cases[a] = (_ivf_pq_case(base, metric, n_lists, pq_dim,
                                      list(probe_sweep), dev),
@@ -172,6 +185,37 @@ def default_configs(base, metric, algos: Sequence[str],
         else:
             expects(False, "unknown algo %r", a)
     return cases
+
+
+def byte_grid(base: torch.Tensor, queries: torch.Tensor, metric,
+              algos: Sequence[str]):
+    """(base, queries) for a uint8 store: as they are when the corpus is
+    already bytes (integral in [0, 255]); else both moved onto the byte
+    grid by one affine map, ``round((x - min) · 255 / (max - min))`` for
+    the base and the same map unrounded for the queries, the JAX harness's
+    remap. The shared shift keeps only L2 order, and only brute force and
+    IVF-Flat take the store, so a float corpus needs an L2 metric and
+    those two algorithms alone (others would run on remapped data against
+    the original ground truth)."""
+    from ..distance.distance_types import DistanceType, canonical_metric
+
+    mn, mx = float(base.min()), float(base.max())
+    sample = base[:: max(1, len(base) // 4096)]
+    maybe_bytes = (mn >= 0 and mx <= 255
+                   and torch.equal(sample, torch.round(sample)))
+    if maybe_bytes and all(torch.equal(c, torch.round(c))
+                           for c in torch.split(base, 1 << 16)):
+        return base, queries
+    expects(canonical_metric(metric) in (DistanceType.L2Expanded,
+                                         DistanceType.L2SqrtExpanded),
+            "uint8 on a float corpus requires an L2 metric (the byte-grid "
+            "shift reorders cosine/IP neighbors); got %r", metric)
+    expects(set(algos) <= set(_DTYPE_ALGOS),
+            "uint8 on a float corpus: restrict --algorithms to "
+            "raft_brute_force/raft_ivf_flat (other algos ignore dtype and "
+            "would run on remapped data vs original gt)")
+    scale = 255.0 / max(mx - mn, 1e-30)
+    return (torch.round((base - mn) * scale), (queries - mn) * scale)
 
 
 def run_benchmarks(
@@ -196,12 +240,12 @@ def run_benchmarks(
     from ..stats.metrics import neighborhood_recall
 
     dev = resolve_device(device)
-    # the bf16, int8 and uint8 stores (and uint8's byte-grid remap of a
-    # float corpus) come with the quantized kernels (ROADMAP queue A3)
-    expects(dtype == "float32", "bench dtype %r is not ported yet "
-            "(float32 only)", dtype)
+    expects(dtype in DTYPES, "bench dtype must be one of %s, got %r",
+            DTYPES, dtype)
     base = torch.as_tensor(base).to(device=dev, dtype=torch.float32)
     queries = torch.as_tensor(queries).to(device=dev, dtype=torch.float32)
+    if dtype == "uint8":
+        base, queries = byte_grid(base, queries, metric, algos)
     gt = torch.as_tensor(gt_indices)[:, :k].to(dev)
     if batch_size:
         queries, gt = queries[:batch_size], gt[:batch_size]

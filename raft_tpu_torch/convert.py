@@ -5,6 +5,12 @@ arrays (``np.asarray(index.<field>)``), and returns the port's index on
 ``device``. Search parity between the packages is checked on such a
 carried index, since k-means randomness differs between ``jax.random``
 and ``torch.Generator``.
+
+A low-precision store keeps its dtype: int8 and uint8 as they are, int4
+as its packed int8 bytes with ``logical_dim``, and bfloat16, which numpy
+has no type of, as 16-bit words (an ``ml_dtypes`` bfloat16 array, which
+``np.asarray`` of a JAX bf16 array gives, or its ``.view(np.uint16)``),
+viewed as ``torch.bfloat16`` on the port's side.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import torch
 from .comms import Mesh
 from .distance.distance_types import DistanceType, canonical_metric
 from .neighbors import brute_force, cagra, ivf_flat, ivf_pq
+from .ops.quant import dequantize_store
 from .parallel import sharded_ann
 from .utils import resolve_device
 
@@ -35,37 +42,64 @@ def _tensor(a, dtype, dev) -> torch.Tensor:
     return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
 
 
+_STORED = {np.dtype(np.float32): torch.float32, np.dtype(np.int8): torch.int8,
+           np.dtype(np.uint8): torch.uint8}
+
+
+def _rows(a, dev) -> torch.Tensor:
+    """A store's rows as they are stored: float32, int8, uint8, or
+    bfloat16 carried as 16-bit words."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16" or a.dtype == np.uint16:
+        words = torch.from_numpy(np.array(a).view(np.int16))
+        return words.view(torch.bfloat16).to(dev)
+    if a.dtype not in _STORED:
+        a = a.astype(np.float32)
+    return torch.tensor(a, dtype=_STORED[a.dtype], device=dev)
+
+
+def _optional(arrays: Mapping, name: str, dtype, dev):
+    a = arrays.get(name)
+    return None if a is None else _tensor(a, dtype, dev)
+
+
 def brute_force_index_from_numpy(arrays: Mapping, metric=None,
                                  device=None) -> brute_force.Index:
-    """``arrays``: ``dataset`` (n, d) float32 and, for the L2 and cosine
-    metrics, ``norms`` (n,) (derived when absent); ``metric`` as in
-    :func:`_metric`."""
+    """``arrays``: ``dataset`` (n, d) in its store (:func:`_rows`; int4:
+    the (n, half_p) bytes), ``scales`` (n,) for int8 and int4 stores,
+    ``logical_dim`` for int4 and, for the L2 and cosine metrics, ``norms``
+    (n,) (derived from the dequantized rows when absent); ``metric`` as
+    in :func:`_metric`."""
     dev = resolve_device(device)
     mt = _metric(arrays, metric)
-    dataset = _tensor(arrays["dataset"], torch.float32, dev)
-    norms = arrays.get("norms")
-    if norms is not None:
-        norms = _tensor(norms, torch.float32, dev)
-    elif mt is not DistanceType.InnerProduct:
-        norms = (dataset * dataset).sum(dim=1)
-    return brute_force.Index(dataset, norms, mt)
+    dataset = _rows(arrays["dataset"], dev)
+    scales = _optional(arrays, "scales", torch.float32, dev)
+    dim = arrays.get("logical_dim")
+    dim = None if dim is None else int(dim)
+    norms = _optional(arrays, "norms", torch.float32, dev)
+    if norms is None and mt is not DistanceType.InnerProduct:
+        deq = dequantize_store(dataset, scales, dim)
+        norms = (deq * deq).sum(dim=1)
+    return brute_force.Index(dataset, norms, mt, scales, dim)
 
 
 def ivf_flat_index_from_numpy(arrays: Mapping, metric=None,
                               device=None) -> ivf_flat.Index:
-    """``arrays``: ``data``, ``data_norms``, ``source_ids``, ``centers``,
-    ``center_norms``, ``list_offsets`` and ``list_sizes_arr`` (the JAX
+    """``arrays``: ``data`` (in its store, :func:`_rows`), ``data_norms``,
+    ``source_ids``, ``centers``, ``center_norms``, ``list_offsets``,
+    ``list_sizes_arr`` and, for an int8 store, ``scales`` (the JAX
     index's field names); ``metric`` as in :func:`_metric`."""
     dev = resolve_device(device)
     return ivf_flat.Index(
-        _tensor(arrays["data"], torch.float32, dev),
+        _rows(arrays["data"], dev),
         _tensor(arrays["data_norms"], torch.float32, dev),
         _tensor(arrays["source_ids"], torch.int32, dev),
         _tensor(arrays["centers"], torch.float32, dev),
         _tensor(arrays["center_norms"], torch.float32, dev),
         np.asarray(arrays["list_offsets"], np.int64),
         np.asarray(arrays["list_sizes_arr"], np.int64),
-        _metric(arrays, metric))
+        _metric(arrays, metric), _optional(arrays, "scales", torch.float32,
+                                           dev))
 
 
 def ivf_pq_index_from_numpy(arrays: Mapping, metric=None,

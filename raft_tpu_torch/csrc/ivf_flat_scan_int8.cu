@@ -1,0 +1,5 @@
+// K3 (ivf_flat_scan.cuh), both forms, over int8 lists with per-row scales; one
+// library a store, so that the stores' builds run in parallel.
+#include "ivf_flat_scan.cuh"
+
+RAFT_IVF_FLAT_SCAN_ENTRIES(kI8)

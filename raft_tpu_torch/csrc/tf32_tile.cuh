@@ -28,6 +28,16 @@
 // k-th keys. Equal keys compare by column, so the (value, column) order is
 // exact whatever the order in which candidates arrive, and the result is
 // the same bits run to run.
+//
+// Low-precision stores (K2's and K3's store forms): the row tile is staged
+// as its stored bytes (copy_raw: a 32-dimension stage row is 64 B at bf16,
+// 32 B at int8 / uint8 and, for int4, 32 bytes whose low or high nibbles
+// are the stage's 32 dimensions) and widened to f32 in one pass into a
+// swizzled block (widen_stage) before its fragments are built. Every
+// stored value is exact in TF32 (bf16's 8-bit significand, integers below
+// 2^11, nibbles), so the row needs no lo part and the f32 query's two
+// parts give the dot as 2xTF32 (B_EXACT); a query that is exact in TF32
+// too (K2's bf16 store rounds it to bf16) needs one product (A_EXACT).
 #pragma once
 
 #include <cstdint>
@@ -41,6 +51,35 @@ constexpr int BN = 128;        // rows a tile
 constexpr int BK = 32;         // dimensions a pipeline stage
 constexpr int kThreads = 256;  // 8 warps: 2 along the queries x 4 the rows
 constexpr size_t kSmemLimit = 232448;  // a block's shared memory on sm_90
+
+// The stores a tile may hold: the element type as stored and its bytes.
+enum StoreKind : int { kF32 = 0, kBF16 = 1, kI8 = 2, kU8 = 3, kI4 = 4 };
+template <int S>
+struct TileStore;
+template <>
+struct TileStore<kF32> {
+  using T = float;
+};
+template <>
+struct TileStore<kBF16> {
+  using T = unsigned short;  // the raw bits
+};
+template <>
+struct TileStore<kI8> {
+  using T = signed char;
+};
+template <>
+struct TileStore<kU8> {
+  using T = unsigned char;
+};
+template <>
+struct TileStore<kI4> {
+  using T = signed char;  // two nibbles a byte
+};
+template <int S>
+__host__ __device__ constexpr int store_bytes() {
+  return (int)sizeof(typename TileStore<S>::T);
+}
 
 // Where float c (of 32) of row r of a staged tile lives: its 16-byte
 // chunk c / 4 is XORed with r % 8, so the 8 rows of a fragment's row group
@@ -181,6 +220,85 @@ __device__ __forceinline__ void copy_gather(float* dst, const float* src,
   }
 }
 
+// One stored value widened to f32 (int4: the low nibble of the byte, or
+// the high one when hi).
+template <int S>
+__device__ __forceinline__ float widen1(typename TileStore<S>::T v,
+                                        bool hi = false) {
+  if constexpr (S == kF32) {
+    return v;
+  } else if constexpr (S == kBF16) {
+    return __uint_as_float((unsigned)v << 16);
+  } else if constexpr (S == kI4) {
+    const unsigned w = (unsigned)(int)v;
+    return (float)((int)(w << (hi ? 24 : 28)) >> 28);
+  } else {
+    return (float)v;
+  }
+}
+
+// Start the copies of stored rows [row0, row0 + ROWS) x elements
+// [e0, e0 + 32) of the row-major (rows, w) store src into the raw stage
+// dst (ROWS rows of 32 elements); rows at or past row_end and elements
+// past w read as zeros. vec: 16-byte cp.async copies (w elements a
+// multiple of 16 bytes, src 16-byte aligned), else element by element,
+// stored synchronously (the stage is read only after a later barrier).
+template <int S, int ROWS>
+__device__ __forceinline__ void copy_raw(void* dst, const void* src,
+                                         int row0, int row_end, int e0,
+                                         int w, int vec, int tid) {
+  using T = typename TileStore<S>::T;
+  constexpr int PER = 16 / sizeof(T);   // elements a 16-byte chunk
+  constexpr int CH = BK / PER;          // chunks a stage row
+  T* d = (T*)dst;
+  const T* s = (const T*)src;
+  if (vec) {
+    for (int e = tid; e < ROWS * CH; e += kThreads) {
+      const int r = e / CH, c = (e % CH) * PER;
+      const bool ok = row0 + r < row_end && e0 + c < w;
+      cp_async16((float*)(d + r * BK + c),
+                 (const float*)(ok ? s + (size_t)(row0 + r) * w + e0 + c
+                                   : s),
+                 ok);
+    }
+  } else {
+    for (int e = tid; e < ROWS * BK; e += kThreads) {
+      const int r = e / BK, c = e % BK;
+      const bool ok = row0 + r < row_end && e0 + c < w;
+      d[r * BK + c] = ok ? s[(size_t)(row0 + r) * w + e0 + c] : (T)0;
+    }
+  }
+}
+
+// Widen a raw stage (ROWS rows of 32 stored elements) into the swizzled
+// f32 block dst, 4 values (one 16-byte chunk) a thread at a time; hi:
+// the int4 stage's high nibbles. Called by all threads of the block.
+template <int S, int ROWS>
+__device__ __forceinline__ void widen_stage(float* dst, const void* raw,
+                                            bool hi, int tid) {
+  using T = typename TileStore<S>::T;
+  const T* s = (const T*)raw;
+  for (int e = tid; e < ROWS * (BK / 4); e += kThreads) {
+    const int r = e >> 3, c = (e & 7) * 4;
+    const T* p = s + r * BK + c;
+    float4 v;
+    if constexpr (S == kBF16) {
+      const uint2 w = *(const uint2*)p;
+      v = make_float4(__uint_as_float(w.x << 16),
+                      __uint_as_float(w.x & 0xffff0000u),
+                      __uint_as_float(w.y << 16),
+                      __uint_as_float(w.y & 0xffff0000u));
+    } else {
+      const unsigned w = *(const unsigned*)p;
+      v = make_float4(widen1<S>((T)(w & 0xff), hi),
+                      widen1<S>((T)((w >> 8) & 0xff), hi),
+                      widen1<S>((T)((w >> 16) & 0xff), hi),
+                      widen1<S>((T)(w >> 24), hi));
+    }
+    *(float4*)(dst + swz(r, c)) = v;
+  }
+}
+
 // Split a resident tile of n floats in place into its TF32 hi parts and,
 // n floats on, its lo parts.
 __device__ __forceinline__ void split_tile(float* tile, int n, int tid) {
@@ -197,8 +315,10 @@ __device__ __forceinline__ void split_tile(float* tile, int n, int tid) {
 // or raw floats split here when a_lo is null), B the 128 x 32 row block.
 // B_EXACT (runtime, block-uniform): every B value is exact in TF32, so
 // its lo parts are zero and the two products that read them are skipped;
-// they would add exact zeros, so the sums are the same bits.
-template <int MF>
+// they would add exact zeros, so the sums are the same bits. A_EXACT:
+// every A value is exact in TF32 as well (with B_EXACT), so one product
+// of the hi parts is the whole product.
+template <int MF, bool A_EXACT = false>
 __device__ __forceinline__ void stage_dots(float (&acc)[MF][4][4],
                                            const float* As, const float* a_lo,
                                            const float* Bs, bool b_exact,
@@ -256,6 +376,13 @@ __device__ __forceinline__ void stage_dots(float (&acc)[MF][4][4],
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float t[4];
+        if (A_EXACT) {
+          mma_tf32_first(t, ah[0], bh[0][j]);
+          mma_tf32(t, ah[1], bh[1][j]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += t[e];
+          continue;
+        }
         mma_tf32_first(t, al[0], bh[0][j]);
         if (!b_exact) mma_tf32(t, ah[0], bl[0][j]);
         mma_tf32(t, al[1], bh[1][j]);
@@ -395,17 +522,17 @@ __device__ __forceinline__ void offer_tile(
 // The first layout whose shared memory fits: the query tile resident
 // split into its TF32 parts (a_res 2), resident as it is (1), or streamed
 // through the ring beside the row tile (0), each with a ring of ns_max
-// stages and then of 2. fixed: the bytes beside the tiles. Returns the
-// bytes, or 0 when nothing fits.
+// stages and then of 2. fixed: the bytes beside the tiles; b_stage: the
+// bytes of a stage's row tile (f32 unless the rows are a low-precision
+// store). Returns the bytes, or 0 when nothing fits.
 inline size_t fit_tiles(int bm, int d, int ns_max, size_t fixed, int* a_res,
-                        int* ns) {
+                        int* ns, size_t b_stage = sizeof(float) * BK * BN) {
   const size_t nk = (d + BK - 1) / BK;
   for (int a = 2; a >= 0; --a) {
     for (int s = ns_max; s >= 2; --s) {
       const size_t bytes =
-          sizeof(float) * BK *
-              (a * nk * bm + (size_t)s * ((a ? 0 : bm) + BN)) +
-          fixed;
+          sizeof(float) * BK * a * nk * bm +
+          (size_t)s * (sizeof(float) * BK * (a ? 0 : bm) + b_stage) + fixed;
       if (bytes <= kSmemLimit) {
         *a_res = a;
         *ns = s;

@@ -1,6 +1,6 @@
 """Inverted-list layout: counterpart of
 ``raft_tpu/neighbors/_list_layout.py`` (``count_sizes``, ``plan_offsets``,
-``_dest_rows``, ``scatter_build``).
+``_dest_rows``, ``scatter_build``, ``list_skew``).
 
 Lists are contiguous row ranges of one dense array, each list's start
 aligned to 8 rows. Inside a list, rows keep their input order (a stable
@@ -14,7 +14,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["count_sizes", "plan_offsets", "scatter_build"]
+__all__ = ["count_sizes", "plan_offsets", "scatter_build", "list_skew"]
 
 _ALIGN = 8
 
@@ -66,3 +66,25 @@ def scatter_build(labels: torch.Tensor, arrays: Sequence[torch.Tensor],
         buf[dest] = arr[order]
         out.append(buf)
     return out, offsets, sizes
+
+
+def list_skew(sizes: np.ndarray) -> dict:
+    """List-size skew for the IVF health reports: the row count, min,
+    mean, p99 and max list size, their coefficient of variation, max over
+    mean, and the empty lists."""
+    s = np.asarray(sizes, np.float64)
+    if s.size == 0 or s.sum() == 0:
+        return {"n_lists": int(s.size), "rows": 0,
+                "empty_lists": int(s.size)}
+    mean = float(s.mean())
+    return {
+        "n_lists": int(s.size),
+        "rows": int(s.sum()),
+        "min": int(s.min()),
+        "mean": round(mean, 1),
+        "p99": int(np.percentile(s, 99)),
+        "max": int(s.max()),
+        "cv": round(float(s.std() / max(mean, 1e-30)), 4),
+        "max_over_mean": round(float(s.max() / max(mean, 1e-30)), 2),
+        "empty_lists": int((s == 0).sum()),
+    }

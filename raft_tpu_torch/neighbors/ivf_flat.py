@@ -1,9 +1,11 @@
 """IVF-Flat index: counterpart of ``raft_tpu/neighbors/ivf_flat.py``
 (``IndexParams``, ``SearchParams``, ``Index``, ``build``, ``extend``,
-``search``).
+``search``, ``reconstruct``, ``health``).
 
-Lists are contiguous row ranges of one cluster-sorted float32 array
-(``_list_layout``). Search is two stages: a coarse probe (one
+Lists are contiguous row ranges of one cluster-sorted array
+(``_list_layout``), stored float32, bfloat16, int8 with per-row scales or
+uint8 (``IndexParams.dtype``, ``ops/quant``), with the squared norms of the
+dequantized rows beside them. Search is two stages: a coarse probe (one
 ``torch.matmul`` over the centers and a select, kernel K1 on CUDA) picks
 ``n_probes`` lists per query, then the list scan (kernel K3 on CUDA, with
 the K1 merge) returns each query's k best rows, mapped to source ids.
@@ -17,10 +19,10 @@ the probe and gather + score + stable select for the scan
 A filter removes rows through an additive penalty row in sorted row
 order, and lists with no surviving row are pruned from the probe — the
 JAX package's search under ``filter_policy.suspended()``. Its adaptive
-widen/crossover policy, ``extend`` into a non-empty index, low-precision
-stores, host streaming and serialization are not ported yet. Every matrix
-product runs in full float32 (``torch.backends.cuda.matmul.allow_tf32``
-False), as the JAX package's ``precision="highest"``.
+widen/crossover policy, ``extend`` into a non-empty index, host streaming
+and serialization are not ported yet. Every matrix product runs in full
+float32 (``torch.backends.cuda.matmul.allow_tf32`` False), as the JAX
+package's ``precision="highest"``.
 """
 from __future__ import annotations
 
@@ -36,13 +38,14 @@ from ..core.errors import expects
 from ..distance.distance_types import DistanceType, canonical_metric
 from ..matrix.select_k import SelectAlgo
 from ..ops.ivf_scan import coarse_probe, ivf_flat_scan, ivf_flat_scan_plain
-from ..ops.quant import quantize_rows
+from ..ops.quant import (STORES, dequantize_rows, int8_scale_report,
+                         quantize_rows, store_dtype)
 from ..utils import resolve_device, run_query_chunks
-from ._list_layout import scatter_build
-from .brute_force import _KERNEL_METRICS, _postprocess
+from ._list_layout import list_skew, scatter_build
+from .brute_force import _KERNEL_METRICS, _postprocess, health_sample_rows
 
 __all__ = ["IndexParams", "SearchParams", "Index", "build", "extend",
-           "search"]
+           "search", "reconstruct", "health"]
 
 @dataclasses.dataclass
 class IndexParams:
@@ -53,6 +56,9 @@ class IndexParams:
     kmeans_n_iters: int = 20
     kmeans_trainset_fraction: float = 0.5
     seed: int = 0
+    # the lists' store: float32 | bfloat16 | int8 (per-row scales) |
+    # uint8 (byte-valued corpora, exact)
+    dtype: str = "float32"
 
 
 @dataclasses.dataclass
@@ -66,10 +72,12 @@ class SearchParams:
 class Index:
     """Cluster-sorted IVF-Flat index.
 
-    ``data``: (cap_total, d) float32 rows sorted by list (rows in
-    [offset + size, next offset) are unread slack); ``data_norms`` their
-    squared norms; ``source_ids``: (cap_total,) int32 original ids (-1 on
-    slack); ``centers``/``center_norms``: the coarse quantizer;
+    ``data``: (cap_total, d) rows sorted by list, in the store (rows in
+    [offset + size, next offset) are unread slack); ``data_norms`` the
+    squared norms of the dequantized rows; ``scales`` (cap_total,) the
+    per-row factors of an int8 store (1.0 on slack); ``source_ids``:
+    (cap_total,) int32 original ids (-1 on slack);
+    ``centers``/``center_norms``: the coarse quantizer;
     ``list_offsets`` (n_lists + 1,) and ``list_sizes`` (n_lists,) host
     int64 arrays. ``offsets_dev``/``sizes_dev`` are their int32 copies on
     the index's device, made once for the scan."""
@@ -82,6 +90,7 @@ class Index:
     list_offsets: np.ndarray
     list_sizes: np.ndarray
     metric: DistanceType
+    scales: Optional[torch.Tensor] = None
     offsets_dev: torch.Tensor = dataclasses.field(init=False, repr=False)
     sizes_dev: torch.Tensor = dataclasses.field(init=False, repr=False)
 
@@ -109,6 +118,10 @@ class Index:
     def device(self) -> torch.device:
         return self.data.device
 
+    @property
+    def store_name(self) -> str:
+        return store_dtype(self.data.dtype)
+
 
 def build(dataset, params: IndexParams | None = None, device=None) -> Index:
     """Train the coarse quantizer on a strided subsample and fill the lists
@@ -123,6 +136,8 @@ def build(dataset, params: IndexParams | None = None, device=None) -> Index:
     expects(mt in _KERNEL_METRICS,
             "ivf_flat supports L2/IP/cosine metrics, got %s", mt.name)
     expects(p.n_lists <= n, "n_lists %d > n %d", p.n_lists, n)
+    store = store_dtype(p.dtype)
+    expects(store != "int4", "IVF-Flat has no int4 store")
 
     n_train = max(p.n_lists, int(n * p.kmeans_trainset_fraction))
     stride = max(1, n // n_train)
@@ -131,18 +146,21 @@ def build(dataset, params: IndexParams | None = None, device=None) -> Index:
         kmeans_balanced.BalancedKMeansParams(n_iters=p.kmeans_n_iters,
                                              seed=p.seed))
     index = Index(
-        torch.zeros((0, d), dtype=torch.float32, device=dev),
+        torch.zeros((0, d), dtype=STORES[store], device=dev),
         torch.zeros((0,), dtype=torch.float32, device=dev),
         torch.zeros((0,), dtype=torch.int32, device=dev), centers,
         (centers * centers).sum(dim=1), np.zeros(p.n_lists + 1, np.int64),
-        np.zeros(p.n_lists, np.int64), mt)
+        np.zeros(p.n_lists, np.int64), mt,
+        torch.zeros((0,), dtype=torch.float32, device=dev)
+        if store == "int8" else None)
     return extend(index, dataset)
 
 
 def extend(index: Index, new_vectors, new_ids=None) -> Index:
     """Fill an empty index with vectors (ids 0..n-1 unless ``new_ids``):
-    assign each to its nearest center and scatter the lists. Adding to a
-    non-empty index is not ported yet."""
+    assign each to its nearest center, code them in the index's store and
+    scatter the lists, the scales with their rows. Adding to a non-empty
+    index is not ported yet."""
     expects(index.size == 0,
             "extend of a non-empty index is not ported yet")
     dev = index.device
@@ -156,12 +174,17 @@ def extend(index: Index, new_vectors, new_ids=None) -> Index:
     else:
         new_ids = torch.as_tensor(new_ids).to(device=dev, dtype=torch.int32)
     labels, _ = kmeans_balanced.predict(new_vectors, index.centers)
-    stored, _ = quantize_rows(new_vectors)
-    norms = (stored * stored).sum(dim=1)
-    (data, data_norms, ids), offsets, sizes = scatter_build(
-        labels, [stored, norms, new_ids], [0, 0.0, -1], index.n_lists)
-    return Index(data, data_norms, ids, index.centers, index.center_norms,
-                 offsets, sizes, index.metric)
+    stored, scales = quantize_rows(new_vectors, index.data.dtype)
+    deq = dequantize_rows(stored, scales)
+    norms = (deq * deq).sum(dim=1)      # the norms of the stored rows
+    arrays, fills = [stored, norms, new_ids], [0, 0.0, -1]
+    if scales is not None:
+        arrays.append(scales)
+        fills.append(1.0)
+    out, offsets, sizes = scatter_build(labels, arrays, fills, index.n_lists)
+    return Index(out[0], out[1], out[2], index.centers, index.center_norms,
+                 offsets, sizes, index.metric,
+                 out[3] if scales is not None else None)
 
 
 def _filter_rows(index: Index, filter: Bitset):
@@ -213,7 +236,49 @@ def search(index: Index, queries, k: int,
                           SelectAlgo.TOPK if plain else SelectAlgo.AUTO)
     scan = ivf_flat_scan_plain if plain else ivf_flat_scan
     vals, rows = scan(index.data, index.data_norms, probed,
-                      index.offsets_dev, sizes, q, k, metric, pen)
+                      index.offsets_dev, sizes, q, k, metric, pen,
+                      scales=index.scales)
     ids = torch.where(rows >= 0, index.source_ids[rows.clamp_min(0).long()],
                       -1)
     return _postprocess(mt, vals), ids
+
+
+def reconstruct(index: Index, row_ids) -> torch.Tensor:
+    """Stored rows back to f32 vectors by physical row id (positions in
+    the cluster-sorted ``index.data``, what the scan returns before the
+    source-id remap): exact for float32 and uint8 stores, dequantized
+    (times the row's scale) for int8, widened for bfloat16. Raises on ids
+    out of range or on slack rows."""
+    rid = torch.as_tensor(row_ids).to(device=index.device,
+                                      dtype=torch.int64).reshape(-1)
+    cap = index.data.shape[0]
+    expects(rid.numel() == 0 or (int(rid.min()) >= 0
+                                 and int(rid.max()) < cap),
+            "row_ids out of range [0, %d)", cap)
+    expects(bool((index.source_ids[rid] >= 0).all()),
+            "row_ids hit capacity-slack rows (source_id -1)")
+    scales = None if index.scales is None else index.scales[rid]
+    return dequantize_rows(index.data[rid], scales)
+
+
+def health(index: Index, sample: int = 256) -> dict:
+    """Index health report: list-size skew and the store; an int8 store
+    adds the sampled per-row scale stats over real rows (slack rows hold
+    no data), as the JAX package reports them."""
+    report = {"family": "ivf_flat", "n": int(index.size),
+              "dim": int(index.dim), "metric": index.metric.name,
+              "store_dtype": index.store_name,
+              "lists": list_skew(index.list_sizes)}
+    store = index.store_name
+    if store == "int8" and index.scales is not None:
+        rows = torch.as_tensor(health_sample_rows(index.data.shape[0],
+                                                  sample),
+                               device=index.device)
+        sc = index.scales[rows][index.source_ids[rows] >= 0]
+        if sc.numel():
+            report["quant"] = int8_scale_report(sc)
+    elif store == "bfloat16":
+        report["quant"] = {"bfloat16": {"rel_step": 2.0 ** -8}}
+    elif store == "uint8":
+        report["quant"] = {"uint8": {"exact": True}}
+    return report

@@ -19,14 +19,25 @@ from pathlib import Path
 
 from ..core.errors import RaftError
 
-__all__ = ["SOURCES", "SMEM_PER_BLOCK", "build", "library", "check",
-           "stream_of"]
+__all__ = ["SOURCES", "STORE_SOURCES", "SMEM_PER_BLOCK", "build",
+           "library", "check", "stream_of"]
 
 SMEM_PER_BLOCK = 232_448   # bytes of shared memory one block may use (sm_90)
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("select_k", "fused_knn", "ivf_flat_scan", "ivf_pq_scan",
-           "graph_expand", "cagra_fused", "ring_topk")
+# K2 and K3 are one library a store (csrc/fused_knn*.cu, ivf_flat_scan*.cu),
+# so that their builds run side by side
+STORE_SOURCES = {
+    "fused_knn": {s: "fused_knn" if s == "float32" else f"fused_knn_{s}"
+                  for s in ("float32", "bfloat16", "int8", "uint8",
+                            "int4")},
+    "ivf_flat_scan": {s: "ivf_flat_scan" if s == "float32"
+                      else f"ivf_flat_scan_{s}"
+                      for s in ("float32", "bfloat16", "int8", "uint8")},
+}
+SOURCES = (*STORE_SOURCES["fused_knn"].values(),
+           *STORE_SOURCES["ivf_flat_scan"].values(), "select_k",
+           "ivf_pq_scan", "graph_expand", "cagra_fused", "ring_topk")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 
@@ -37,15 +48,14 @@ _SIGNATURES = {
         "raft_select_k_warp": ([_P, _I, _I, _I, _I, _P, _P, _P], _I),
         "raft_select_k_kpass": ([_P, _I, _I, _I, _I, _P, _P, _P], _I),
     },
-    "fused_knn": {
-        "raft_fused_knn": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _P, _P, _P], _I),
+    **{lib: {
+        "raft_fused_knn": ([_P] * 6 + [_I] * 7 + [_P] * 3, _I),
         "raft_fused_knn_slots": ([_I, _I, _I, _I], _I),
-    },
-    "ivf_flat_scan": {
-        "raft_ivf_flat_scan_group": ([_P] * 11 + [_I] * 6 + [_P] * 3, _I),
-        "raft_ivf_flat_scan_pair": ([_P] * 9 + [_I] * 5 + [_P] * 3, _I),
-    },
+    } for lib in STORE_SOURCES["fused_knn"].values()},
+    **{lib: {
+        "raft_ivf_flat_scan_group": ([_P] * 12 + [_I] * 6 + [_P] * 3, _I),
+        "raft_ivf_flat_scan_pair": ([_P] * 10 + [_I] * 5 + [_P] * 3, _I),
+    } for lib in STORE_SOURCES["ivf_flat_scan"].values()},
     "ivf_pq_scan": {
         "raft_ivf_pq_scan_group": ([_P] * 13 + [_I] * 8 + [_P] * 3, _I),
         "raft_ivf_pq_scan_pair": ([_P] * 10 + [_I] * 7 + [_P] * 3, _I),

@@ -28,6 +28,14 @@ On a CPU tensor it takes the plain version, :func:`ivf_flat_scan_plain`:
 gather every probed row of each query back to back in probe order, score
 them, one stable select — the same order, since a stable select over the
 concatenation breaks ties by probe rank and then by row.
+
+The lists may be stored float32, bfloat16, int8 with per-row ``scales``
+or uint8 (``ops/quant``); each store has its own form of K3 (one library a
+store, ``_cuda.STORE_SOURCES``). Both K3 and the plain version compute
+what the JAX package's ``algo="xla"`` engine computes for such lists: the
+f32 query against the row widened to f32, the finished dot times the
+row's scale, ``(q·r)·s`` (JAX's Pallas scan rounds the query to bf16 for
+these stores, a throughput choice of the TPU).
 """
 from __future__ import annotations
 
@@ -40,7 +48,8 @@ from ..matrix.select_k import (SelectAlgo, kpass_select_k, select_k,
                                smallest_k_plain)
 from ..utils import cdiv
 from . import _cuda
-from .fused_knn import MAX_K, block_queries, prepare_norms
+from .fused_knn import MAX_K, block_queries, corpus_norms, prepare_norms
+from .quant import store_dtype
 
 __all__ = ["coarse_probe", "pack_pairs", "scan_form", "check_form",
            "GROUP_MAX_K", "ivf_flat_scan", "ivf_flat_scan_plain",
@@ -49,6 +58,8 @@ __all__ = ["coarse_probe", "pack_pairs", "scan_form", "check_form",
 launches = 0         # K3 launches since the last reset, both forms
 group_launches = 0   # of them, the grouped form's
 pair_launches = 0    # of them, the per-pair form's
+# of them, each low-precision store's form (both forms)
+launches_bfloat16 = launches_int8 = launches_uint8 = 0
 
 GROUP_MAX_K = MAX_K  # a group's k-lists share the block's shared memory
 
@@ -103,11 +114,16 @@ def ivf_flat_scan_plain(data: torch.Tensor, data_norms: torch.Tensor,
                         probed: torch.Tensor, offsets: torch.Tensor,
                         sizes: torch.Tensor, queries: torch.Tensor, k: int,
                         metric: str = "l2",
-                        penalty: Optional[torch.Tensor] = None
+                        penalty: Optional[torch.Tensor] = None,
+                        scales: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K3 (+ the K1 merge): gather, score, stable select,
+    """Plain version of K3 (+ the K1 merge): gather, score (a store's rows
+    widened to f32, the dot times the row's scale), stable select,
     chunked over queries so the gathered rows stay within 256 MiB."""
     expects(metric in _METRIC_CODE, "unknown metric %s", metric)
+    expects(store_dtype(data.dtype) not in ("int8", "int4")
+            or scales is not None,
+            "int8 lists require per-row dequant scales")
     q = queries.to(torch.float32)
     m, dim = q.shape
     dev = q.device
@@ -118,13 +134,16 @@ def ivf_flat_scan_plain(data: torch.Tensor, data_norms: torch.Tensor,
     max_rows = max(1, int(sizes.long()[probed.long()].sum(dim=1).max()))
     kk = min(k, max_rows)
     qn = prepare_norms(metric, q)
-    dn = prepare_norms(metric, data, data_norms)
+    dn = corpus_norms(metric, data, data_norms, scales, None)
     chunk = int(max(1, (256 << 20) // (max_rows * dim * 4)))
     for s0 in range(0, m, chunk):
         qc = q[s0 : s0 + chunk]
         rows, valid, _ = _candidate_rows(probed[s0 : s0 + chunk], offsets,
                                          sizes, max_rows)
-        dot = torch.bmm(data[rows], qc[:, :, None])[:, :, 0]
+        dot = torch.bmm(data[rows].to(torch.float32),
+                        qc[:, :, None])[:, :, 0]
+        if scales is not None:
+            dot = dot * scales[rows]
         if metric == "l2":
             dist = torch.clamp_min(qn[s0 : s0 + chunk, None] + dn[rows]
                                    - 2.0 * dot, 0.0)
@@ -197,27 +216,38 @@ def ivf_flat_scan_candidates(data: torch.Tensor, dn: Optional[torch.Tensor],
                              q: torch.Tensor, qn: Optional[torch.Tensor],
                              probed: torch.Tensor, offsets: torch.Tensor,
                              sizes: torch.Tensor, k: int, metric: str,
-                             form: Optional[str] = None
+                             form: Optional[str] = None,
+                             scales: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of K3 → per-pair (values, rows) (m, p*k), pairs in
-    probe-rank order within each query's row. ``form`` (``"group"`` or
-    ``"pair"``) overrides :func:`scan_form`."""
+    """One launch of the form of K3 for the lists' store → per-pair
+    (values, rows) (m, p*k), pairs in probe-rank order within each
+    query's row. ``form`` (``"group"`` or ``"pair"``) overrides
+    :func:`scan_form`; ``scales``: a low-precision store's per-row
+    factors."""
     global launches, group_launches, pair_launches
     expects(q.is_cuda, "ivf_flat_scan kernel needs CUDA tensors")
+    store = store_dtype(data.dtype)
+    expects(store != "int4", "IVF-Flat has no int4 store")
     m, dim = q.shape
     p = probed.shape[1]
-    expects(data.dim() == 2 and data.shape[1] == dim,
-            "data must be (rows, %d), got %s", dim, tuple(data.shape))
+    expects(data.dim() == 2 and data.shape[1] == dim
+            and data.is_contiguous() and data.device == q.device,
+            "data must be contiguous (rows, %d) on %s, got %s", dim,
+            q.device, tuple(data.shape))
     expects(probed.shape[0] == m, "probed must be (%d, p)", m)
     expects(0 < k <= 1024, "k=%d out of range (max 1024)", k)
     expects(metric in _METRIC_CODE, "unknown metric %s", metric)
+    expects(store != "float32" or scales is None,
+            "float32 lists carry no scales")
+    expects(store != "int8" or scales is not None,
+            "int8 lists require per-row dequant scales")
     form = check_form(form, k)
-    for t in (data, dn, penalty, q, qn):
+    for t in (dn, penalty, q, qn, scales):
         if t is not None:
             expects(t.dtype == torch.float32 and t.is_contiguous()
                     and t.device == q.device,
-                    "ivf_flat_scan kernel takes contiguous float32 tensors "
-                    "on %s", q.device)
+                    "ivf_flat_scan kernel takes contiguous float32 queries, "
+                    "norms, penalties and scales on %s", q.device)
     for t in (probed, offsets, sizes):
         expects(t.dtype == torch.int32 and t.is_contiguous()
                 and t.device == q.device,
@@ -230,13 +260,14 @@ def ivf_flat_scan_candidates(data: torch.Tensor, dn: Optional[torch.Tensor],
     if m * p == 0:
         return out_v, out_i
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    lib = _cuda.library("ivf_flat_scan")
+    lib = _cuda.library(_cuda.STORE_SOURCES["ivf_flat_scan"][store])
     if form == "group":
         qg = block_queries(k)
         glist, gstart, gcount, order = pack_pairs(probed, offsets.shape[0],
                                                   qg)
         status = lib.raft_ivf_flat_scan_group(
-            data.data_ptr(), ptr(dn), ptr(penalty), q.data_ptr(), ptr(qn),
+            data.data_ptr(), ptr(dn), ptr(penalty), ptr(scales),
+            q.data_ptr(), ptr(qn),
             order.data_ptr(), glist.data_ptr(), gstart.data_ptr(),
             gcount.data_ptr(), offsets.data_ptr(), sizes.data_ptr(),
             glist.shape[0], qg, p, dim, k, _METRIC_CODE[metric],
@@ -247,12 +278,15 @@ def ivf_flat_scan_candidates(data: torch.Tensor, dn: Optional[torch.Tensor],
         order = torch.argsort(probed.reshape(-1), stable=True).to(
             torch.int32)
         status = lib.raft_ivf_flat_scan_pair(
-            data.data_ptr(), ptr(dn), ptr(penalty), q.data_ptr(), ptr(qn),
+            data.data_ptr(), ptr(dn), ptr(penalty), ptr(scales),
+            q.data_ptr(), ptr(qn),
             probed.data_ptr(), order.data_ptr(), offsets.data_ptr(),
             sizes.data_ptr(), m, p, dim, k, _METRIC_CODE[metric],
             out_v.data_ptr(), out_i.data_ptr(), _cuda.stream_of(q))
-    _cuda.check(status, f"ivf_flat_scan ({form})")
+    _cuda.check(status, f"ivf_flat_scan ({form}, {store})")
     launches += 1
+    if store != "float32":
+        globals()[f"launches_{store}"] += 1
     if form == "group":
         group_launches += 1
     else:
@@ -265,29 +299,32 @@ def ivf_flat_scan(data: torch.Tensor, data_norms: torch.Tensor,
                   sizes: torch.Tensor, queries: torch.Tensor, k: int,
                   metric: str = "l2",
                   penalty: Optional[torch.Tensor] = None,
-                  form: Optional[str] = None
+                  form: Optional[str] = None,
+                  scales: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scan the probed lists → per-query k best (min-space values, int32
     rows of ``data``, -1 where fewer than k candidates). ``data`` is the
-    cluster-sorted (rows, d) float32 store, ``data_norms`` its squared row
-    norms, ``offsets``/``sizes`` (n_lists,) each list's first row and
-    length, ``penalty`` an optional (rows,) additive row penalty.
+    cluster-sorted (rows, d) store (float32, bfloat16, int8 with
+    ``scales``, or uint8), ``data_norms`` the squared norms of its
+    dequantized rows, ``offsets``/``sizes`` (n_lists,) each list's first
+    row and length, ``penalty`` an optional (rows,) additive row penalty.
     ``form`` overrides :func:`scan_form` on the card (one plain version
     serves both forms on the CPU)."""
     if data.device.type == "cpu":
         expects(form in (None, "group", "pair"), "unknown form %r", form)
         return ivf_flat_scan_plain(data, data_norms, probed, offsets, sizes,
-                                   queries, k, metric, penalty)
+                                   queries, k, metric, penalty, scales)
     dev = data.device
     q = queries.to(device=dev, dtype=torch.float32).contiguous()
     qn = prepare_norms(metric, q)
-    dn = prepare_norms(metric, data, data_norms)
+    dn = corpus_norms(metric, data, data_norms, scales, None)
     probed, offsets, sizes = (t.to(device=dev, dtype=torch.int32)
                               .contiguous() for t in (probed, offsets, sizes))
     cand_v, cand_i = ivf_flat_scan_candidates(
         data, None if dn is None else dn.contiguous(),
         None if penalty is None else penalty.contiguous(), q, qn, probed,
-        offsets, sizes, k, metric, form)
+        offsets, sizes, k, metric, form,
+        None if scales is None else scales.to(torch.float32).contiguous())
     vals, pos = kpass_select_k(cand_v, k)
     rows = torch.gather(cand_i, 1, pos.long())
     return vals, torch.where(torch.isfinite(vals), rows, -1)

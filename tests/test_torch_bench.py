@@ -222,22 +222,31 @@ class TestRunner:
             assert r.recall >= 0.9
 
     def test_dtypes_not_ported(self, tiny):
+        """Every store is ported: the tags of the JAX harness, and what
+        stays refused is refused in both packages (an unknown dtype, int4
+        for IVF-Flat, uint8's byte-grid remap of a float corpus with a
+        non-L2 metric or an algorithm that ignores the store)."""
         base, q, gt, _ = tiny
-        with pytest.raises(RaftError, match="not ported yet"):
-            bench.run_benchmarks(base, q, gt, algos=("raft_brute_force",),
-                                 dtype="bfloat16", device="cpu")
-        # uint8 raises before any work, whatever the metric and algos
-        for metric, algo in (("sqeuclidean", "raft_brute_force"),
-                             ("cosine", "raft_brute_force"),
+        algos = ("raft_brute_force", "raft_ivf_flat", "raft_ivf_pq")
+        for dtype in ("bfloat16", "int8", "uint8"):
+            got = bench.default_configs(base, "sqeuclidean", algos,
+                                        dtype=dtype, device="cpu")
+            want = jbench.default_configs(base, "sqeuclidean", algos,
+                                          dtype=dtype)
+            assert {a: t for a, (_, t) in got.items()} == {
+                a: t for a, (_, t) in want.items()}
+        with pytest.raises(RaftError):
+            bench.default_configs(base, "sqeuclidean", algos, dtype="fp8",
+                                  device="cpu")
+        with pytest.raises(RaftError, match="int4"):
+            bench.default_configs(base, "sqeuclidean", ("raft_ivf_flat",),
+                                  dtype="int4", device="cpu")
+        for metric, algo in (("cosine", "raft_brute_force"),
                              ("sqeuclidean", "raft_cagra")):
-            with pytest.raises(RaftError, match="not ported yet"):
+            with pytest.raises(RaftError, match="uint8 on a float corpus"):
                 bench.run_benchmarks(base, q, gt, metric=metric,
                                      algos=(algo,), dtype="uint8",
                                      device="cpu")
-        with pytest.raises(RaftError, match="not ported yet"):
-            bench.default_configs(base, "sqeuclidean",
-                                  ("raft_brute_force",), dtype="int8",
-                                  device="cpu")
 
 
 class TestCli:

@@ -30,6 +30,8 @@ abound, and on Gaussian queries with real scales. K7 and K8 move values
 and compute none, so they equal their plain versions (and
 ``knn_merge_parts``) on any input.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -46,6 +48,7 @@ from raft_tpu_torch.ops import fused_knn as tfk
 from raft_tpu_torch.ops import graph_expand as tge
 from raft_tpu_torch.ops import ivf_pq_scan as tpq
 from raft_tpu_torch.ops import ivf_scan as tis
+from raft_tpu_torch.ops import quant as tq
 from raft_tpu_torch.ops import ring_topk as trt
 from raft_tpu_torch.stats.metrics import neighborhood_recall
 
@@ -101,6 +104,40 @@ def _ivf_store(integer: bool, seed: int, n=6000, d=40, lists=24, m=150,
     return [torch.from_numpy(a) for a in
             (data, norms, probed.astype(np.int32), offsets.astype(np.int32),
              sizes.astype(np.int32), q, pen)]
+
+
+STORE_NAMES = ("bfloat16", "int8", "uint8", "int4")
+
+
+def store_case(store: str, integer: bool, n: int, d: int, m: int,
+               seed: int):
+    """A corpus in a low-precision store and its queries, made with numpy.
+    ``integer``: rows the store holds exactly at a scale of 1 (bf16:
+    integers in [-8, 8]; int8 in [-127, 127] and int4 in [-7, 7], each
+    row reaching the bound in its first column; uint8: bytes) and integer
+    queries (in [-3, 3]; bytes for uint8), so every product, dot and
+    distance is exact in float32. Otherwise Gaussian rows (uint8: bytes)
+    and real-valued queries. → (stored rows, scales | None, int4_dim |
+    None, queries), CPU tensors, coded by ``ops.quant.quantize_rows``."""
+    rng = np.random.default_rng(seed)
+    if store == "uint8":
+        x = rng.integers(0, 256, (n, d)).astype(np.float32)
+        q = (rng.integers(0, 256, (m, d)) if integer
+             else rng.uniform(0, 255, (m, d))).astype(np.float32)
+    elif integer:
+        lim = {"bfloat16": 8, "int8": 127, "int4": 7}[store]
+        x = rng.integers(-lim, lim + 1, (n, d)).astype(np.float32)
+        if store != "bfloat16":
+            x[:, 0] = np.where(rng.random(n) < 0.5, -lim, lim)
+        q = rng.integers(-3, 4, (m, d)).astype(np.float32)
+    else:
+        x = rng.standard_normal((n, d)).astype(np.float32)
+        q = rng.standard_normal((m, d)).astype(np.float32)
+    stored, scales = tq.quantize_rows(torch.from_numpy(x), store)
+    if integer and scales is not None:
+        assert bool((scales == 1.0).all())
+    return (stored, scales, d if store == "int4" else None,
+            torch.from_numpy(q))
 
 
 def pq_store(integer: bool, seed: int, pq_bits: int = 8, n=4000, pq_dim=8,
@@ -407,6 +444,80 @@ def test_fused_knn_kernel_on_card(metric, m, d):
                 assert_knn_close(ev.cpu(), ei.cpu(), kv.cpu(), ki.cpu())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [48, 100, 128])
+@pytest.mark.parametrize("metric", ["l2", "cos", "ip"])
+@pytest.mark.parametrize("store", STORE_NAMES)
+def test_fused_knn_store_kernel_on_card(store, metric, d):
+    """K2's store forms (:func:`store_case`), the corpus split over blocks
+    and merged by K1, against the plain version: equal on integer-valued
+    stores (l2, ip) at k up to MAX_K, close on Gaussian ones at k <= 100
+    (:func:`assert_knn_close`, as K2's f32 test); n = 40,000 and m = 200
+    not multiples of the tiles, a penalty row dropping a fifth of the
+    rows, d = 100 rows that are no multiple of 16 bytes in any store but
+    int4 (the copies element by element), int4 at half_p 64 for every d.
+    Each call launches the store's form, counted under its store; uint8
+    as :func:`store_rows_equal` says."""
+    need_cuda()
+    rng = np.random.default_rng(d)
+    pen = torch.from_numpy(np.where(rng.random(40000) < 0.2, np.inf,
+                                    0.0).astype(np.float32)).cuda()
+    for integer in (True, False):
+        x, sc, dim4, q = store_case(store, integer, 40000, d, 200, d)
+        x, q = x.cuda(), q.cuda()
+        sc = None if sc is None else sc.cuda()
+        for k in (1, 17, 100, 129, 256) if integer else (1, 17, 100):
+            before = getattr(tfk, f"launches_{store}")
+            kv, ki = tfk.fused_knn(q, x, k, metric, penalty=pen, scales=sc,
+                                   int4_dim=dim4)
+            pv, pi = tfk.fused_knn_plain(q, x, k, metric, penalty=pen,
+                                         scales=sc, int4_dim=dim4)
+            torch.cuda.synchronize()
+            assert getattr(tfk, f"launches_{store}") == before + 1
+            if integer and metric != "cos":
+                assert torch.equal(kv, pv) and torch.equal(ki, pi), k
+            else:
+                assert_knn_close(pv.cpu(), pi.cpu(), kv.cpu(), ki.cpu(),
+                                 min_rows_equal=store_rows_equal(store))
+            if store == "uint8":
+                fv, fi = tfk.fused_knn(q, x.float(), k, metric, penalty=pen)
+                torch.cuda.synchronize()
+                assert_bits_equal(kv, fv)
+                assert torch.equal(ki, fi), k
+
+
+def store_rows_equal(store: str) -> float:
+    """The share of rows whose ids must be equal to the plain version's
+    on a store's real-valued case: 0.99 as in K2's f32 test. uint8 is held
+    instead bit for bit to the f32 form on its rows widened to f32 (a byte
+    is exact in TF32, so the f32 form's products that read the rows' lo
+    parts add exact zeros), and to the plain version on values alone: its
+    byte rows in the positive orthant against queries in [0, 255] give
+    distances so concentrated that near ties are dense (3–8% of the rows
+    at k = 17 or 100 in the card runs), each held to the values' window
+    slot by slot."""
+    return 0.0 if store == "uint8" else 0.99
+
+
+def test_store_kernels_refuse_what_they_cannot_take():
+    """The store forms' contract, checked before any launch: a store's
+    dtype, its scales (int8 and int4 need them, float32 takes none), and
+    IVF-Flat has no int4 store."""
+    x = torch.zeros((8, 32), dtype=torch.int8)
+    q = torch.zeros((4, 32))
+    with pytest.raises(RaftError, match="scales"):
+        tfk.fused_knn_plain(q, x, 2, "l2")
+    one = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(RaftError, match="scales"):
+        tis.ivf_flat_scan(x, None, torch.zeros((4, 1), dtype=torch.int32),
+                          one, one + 8, q, 2, "ip")
+    with pytest.raises(RaftError):
+        tfk.fused_knn_plain(q, x.to(torch.int16), 2, "l2")
+    with pytest.raises(RaftError):
+        tivf.build(np.zeros((64, 32), np.float32),
+                   tivf.IndexParams(n_lists=4, dtype="int4"), device="cpu")
+
+
 # the IVF scans' k by form; Gaussian inputs take k <= 64 only: over 129
 # and more slots a row, near ties split the ids of more than 1% of the
 # rows between any two float orders (as in K2's test)
@@ -447,7 +558,8 @@ def skewed_probes(m: int, lists: int, p: int, seed: int) -> torch.Tensor:
     return torch.from_numpy(probed.astype(np.int32))
 
 
-def scan_both(kernel, plain, args, k, form, exact: bool):
+def scan_both(kernel, plain, args, k, form, exact: bool,
+              min_rows_equal: float = 0.99):
     """One scan kernel form against its plain version: equal (values and
     ids, their order too) when ``exact``, else within
     :func:`assert_knn_close`; a second launch equal bit for bit."""
@@ -460,7 +572,8 @@ def scan_both(kernel, plain, args, k, form, exact: bool):
     if exact:
         assert torch.equal(kv, pv) and torch.equal(ki, pi), (form, k)
     else:
-        assert_knn_close(pv.cpu(), pi.cpu(), kv.cpu(), ki.cpu())
+        assert_knn_close(pv.cpu(), pi.cpu(), kv.cpu(), ki.cpu(),
+                         min_rows_equal=min_rows_equal)
 
 
 @pytest.mark.cuda
@@ -484,6 +597,51 @@ def test_ivf_flat_scan_kernel_on_card(metric):
                     scan_both(tis.ivf_flat_scan, tis.ivf_flat_scan_plain,
                               (*a, k, metric, penalty), k, form,
                               integer and metric != "cos")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 64])
+@pytest.mark.parametrize("metric", ["l2", "cos", "ip"])
+@pytest.mark.parametrize("store", ("bfloat16", "int8", "uint8"))
+def test_ivf_flat_scan_store_kernel_on_card(store, metric, d):
+    """K3's store forms + the K1 merge, both forms, against the plain
+    version (:func:`scan_cases`), with and without the penalty row, on
+    the store's probes and on probes skewed across the group boundaries:
+    equal on integer-valued lists (:func:`store_case`; l2, ip), close on
+    Gaussian ones (uint8: :func:`store_rows_equal`, and bit-equal to the
+    f32 form on its lists widened); two launches bit-equal; each launch
+    counted under the store. d = 40 rows are no multiple of 16 bytes at
+    int8 / uint8 (the copies element by element), d = 64 rows are."""
+    need_cuda()
+    for integer in (True, False):
+        c = _ivf_store(integer, 3, d=d, m=300)
+        rows = c[0].shape[0]
+        data, sc, _, q = store_case(store, integer, rows, d, 300, d + 7)
+        deq = tq.dequantize_rows(data, sc)
+        norms = (deq * deq).sum(1)
+        c = [t.cuda() for t in (data, norms, *c[2:5], q, c[6])]
+        sc = None if sc is None else sc.cuda()
+        kernel = functools.partial(tis.ivf_flat_scan, scales=sc)
+        plain = functools.partial(tis.ivf_flat_scan_plain, scales=sc)
+        skewed = skewed_probes(300, 24, 6, 13).cuda()
+        for probed in (c[2], skewed):
+            a = c[:2] + [probed] + c[3:6]
+            for penalty in (c[6], None):
+                for form, k in scan_cases(integer):
+                    before = getattr(tis, f"launches_{store}")
+                    scan_both(kernel, plain, (*a, k, metric, penalty), k,
+                              form, integer and metric != "cos",
+                              store_rows_equal(store))
+                    assert getattr(tis, f"launches_{store}") == before + 2
+                    if store == "uint8":
+                        wide = [c[0].float()] + a[1:]
+                        args = (*a, k, metric, penalty)
+                        fv, fi = tis.ivf_flat_scan(*wide, k, metric,
+                                                   penalty, form=form)
+                        kv, ki = kernel(*args, form=form)
+                        torch.cuda.synchronize()
+                        assert_bits_equal(kv, fv)
+                        assert torch.equal(ki, fi), (form, k)
 
 
 @pytest.mark.cuda

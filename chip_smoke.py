@@ -8,7 +8,8 @@ toolkit (``nvcc``) and PyTorch built for CUDA::
 
 It builds the eight CUDA kernels from ``raft_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once, into ``build/kernels/``; K2 and K3 are
-one library a store: f32, bf16, int8, uint8 and, for K2, int4), then:
+one library a store: f32, bf16, int8, uint8 and, for K2, int4; K5 one a
+store mode: dense, int4, pq; K6 dense and int4), then:
 
 1. path: the paths through the public entry points at SIFT-1M's shape —
    1,000,000 x 128 float32 rows and 10,000 queries in 1,000 overlapping
@@ -153,6 +154,32 @@ one library a store: f32, bf16, int8, uint8 and, for K2, int4), then:
    launched twice, bit-equal, equal to the plain version on integer
    stores, bound by two TF32 products a (pair, row).
 
+7. edge stores, after the kernel phases of K5 and K6 and on the path's
+   CAGRA index, its int8 store dropped first: the int4 store (split-half
+   nibbles, ~4.1 GB of codes) and the pq store (``default_pq_dim(128)`` =
+   16 codes a row over 256-word codebooks, int8 LUT, ~1.0 GB), each
+   built at the path's width (bytes and seconds printed) and searched
+   through the entry point with the counters reset before each engine's
+   run: int4 with the edge and the fused engine, which must be equal in
+   ids and distances and launch only K5's or K6's int4 form besides K1;
+   pq with the edge engine, only K5's pq form, and an explicit fused
+   search must raise. Each store's raw recall@10 against brute force and
+   JAX's serving recipe (search at k = itopk, refine to 10): int4's at
+   least 0.95 of the int8 store's (JAX's contract), pq's share printed
+   (gated once its first card run met the contract: ``PQ_MIN_RATIO``).
+   ``tune_search`` at each store (pq's race has no fused lane). Then K5's
+   int4 and pq forms on the path's hop-32 parents and K6's int4 form on
+   the path's seeded buffer against their plain versions, bit for bit:
+   on the path's store, with a penalty at the ip metric, on
+   integer-valued copies (int4: nibbles with unit scales; pq: integer
+   codebooks of per-subspace absmax 127, so the int8 LUT's scale is 1,
+   in both LUT modes) at both metrics, K5's pq form also at pq_dim 64
+   (pq_len 2) and on a real f32 LUT; K6 launched twice, bit-equal. Each
+   is timed beside its plain version and its bound: the bytes of the
+   distinct parents' tiles and aux rows (pq: plus its codebook once a
+   block; K6: the int4 traversal's own parents), with registers, spills
+   and resident warps.
+
 Prints progress lines, then a ``{"kernels": [...]}`` line, the card's name
 and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -175,6 +202,7 @@ import torch
 
 from raft_tpu_torch import bench
 from raft_tpu_torch.comms import Mesh
+from raft_tpu_torch.core.errors import RaftError
 from raft_tpu_torch.matrix import select_k as sk
 from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
                                       refine)
@@ -242,7 +270,11 @@ _COUNTERS = {"select_k": (sk, "launches"),
              "ivf_pq_scan.group": (ipq, "group_launches"),
              "ivf_pq_scan.pair": (ipq, "pair_launches"),
              "graph_expand": (ge, "launches"),
+             **{f"graph_expand.{m}": (ge, f"launches_{m}")
+                for m in ("dense", "int4", "pq")},
              "cagra_fused": (cf, "launches"),
+             **{f"cagra_fused.{m}": (cf, f"launches_{m}")
+                for m in ("dense", "int4")},
              "merge_step": (rt, "merge_step_launches"),
              "ring_topk": (rt, "ring_launches")}
 # the kernels each sharded merge engine launches on one card
@@ -1349,11 +1381,11 @@ def seeded_buffer(cidx, q):
 
 
 def walk(cidx, q, buf_d, buf_i):
-    """The path's traversal from the seeded buffer, hop by hop on the
-    plain K5 and select, for what the K5 and K6 bounds need: the parents
-    that hop :data:`K5_HOP` hands K5 (a query whose frontier has closed
-    hands it node 0), the finite parents expanded over all hops and the
-    distinct nodes among them."""
+    """The path's traversal from the seeded buffer over the index's edge
+    store, hop by hop on the plain K5 and select, for what the K5 and K6
+    bounds need: the parents that hop :data:`K5_HOP` hands K5 (a query
+    whose frontier has closed hands it node 0), the finite parents
+    expanded over all hops and the distinct nodes among them."""
     st = cidx.edge_store
     itopk, width, max_iter = cagra._plan_dims(CAGRA_SP, K)
     explored = torch.zeros(buf_d.shape, dtype=torch.bool, device=q.device)
@@ -1369,7 +1401,8 @@ def walk(cidx, q, buf_d, buf_i):
         buf_d, buf_i, explored = cf.edge_hop(
             q, buf_d, buf_i, explored, st.vecs, st.aux, st.gp, width=width,
             kprime=min(cidx.graph_degree, itopk), degree=st.degree,
-            select=sk.select_k_plain, expand=ge.graph_expand_plain)
+            select=sk.select_k_plain, expand=ge.graph_expand_plain,
+            mode=st.kernel_mode, cb=st.cb, cb_scale=st.cb_scale)
     return hop_parents, n_ok, int(seen.sum())
 
 
@@ -1409,7 +1442,7 @@ def k5_phase(timer, cidx, q, parents, launches):
     ms = timer(lambda: ge.graph_expand_kernel(*path))
     plain = timer(lambda: ge.graph_expand_plain(*path), reps=3, warmup=0)
     deg_p, dim_p = st.deg_p, st.dim_p
-    info = ge.kernel_info(deg_p, dim_p, st.vecs.dtype)
+    info = ge.kernel_info(deg_p, dim_p, st.mode)
     log(f"  K5 at tiles {deg_p} x {dim_p}: {info['registers']} registers, "
         f"{info['local_bytes']} bytes of local memory (spills) a thread, "
         f"{info['warps_per_sm']} warps resident an SM")
@@ -1489,7 +1522,7 @@ def k6_phase(timer, cidx, q, buf_d, buf_i, walked, launches):
         + f"; a hop of all {M} queries {slope * 1e3:.1f} us, "
         f"{slope * 1e6 / M:.2f} ns a query")
     info = cf.kernel_info(itopk, width, kw["kprime"], st.deg_p, st.dim_p,
-                          st.vecs.dtype)
+                          st.mode)
     log(f"  K6 at the path's shape: {info['registers']} registers, "
         f"{info['local_bytes']} bytes of local memory (spills) a thread, "
         f"{info['warps_per_sm']} warps resident an SM")
@@ -2361,6 +2394,315 @@ def k3_store_phase(timer, st, moved) -> list:
     return rows
 
 
+# the edge-store phase: CAGRA's packed stores on the path's index, JAX's
+# pq_dim for d = 128 and int8 LUT; int4's refined recall at least this
+# share of the int8 store's (JAX's test_quant_ladder contract); pq's share
+# is printed, and gated only where its first card run met the contract
+EDGE_STORES = ("int4", "pq")
+PQ_DIM_WIDE = 64           # K5·pq also at pq_len 2
+INT4_MIN_RATIO = 0.95
+PQ_MIN_RATIO = None
+
+
+def only_launched(name: str, allowed) -> None:
+    """The path just run launched no kernel but ``allowed`` and K1."""
+    moved = counts()
+    other = {k: n for k, n in moved.items()
+             if n and k not in allowed and not k.startswith("select_k")}
+    if other:
+        raise AssertionError(f"{name}: launched {other} beside {allowed}")
+
+
+def recipe_recall(cidx, q, bi, engine: str) -> float:
+    """JAX's serving recipe for the low stores: search at k = itopk, then
+    refine the itopk candidates exactly to K."""
+    _, cand = cagra.search(cidx, q, ITOPK, CAGRA_SP, engine=engine)
+    _, ids = refine.refine(cidx.dataset, q, cand, K)
+    return neighborhood_recall(ids, bi)
+
+
+def edge_store_phase(timer, q, cidx, bidx, buf_d, buf_i, hop_parents,
+                     totals) -> list:
+    """CAGRA's int4 and pq edge stores on the path's index (the int8 store
+    dropped first): each built at the path's width (bytes, seconds),
+    searched through the entry point with the counters reset before each
+    engine's run (int4: edge and fused, bit-equal, launching only K5's and
+    K6's int4 forms besides K1; pq: edge, only K5's pq form; an explicit
+    fused search raises), raw recall@K and JAX's recipe (search at
+    k = itopk, refine to K) against the int8 store's, ``tune_search`` at
+    the store; then each new kernel form against its plain version and
+    timed; the phase's own peak device memory. Returns the kernel
+    rows."""
+    torch.cuda.reset_peak_memory_stats()
+    _, bi = brute_force.search(bidx, q, K)
+    base = recipe_recall(cidx, q, bi, "fused")
+    log(f"edge stores: the int8 store's recipe recall@{K} (search at k = "
+        f"{ITOPK}, refine to {K}): {base:.4f}")
+    cidx.edge_store = None
+    torch.cuda.empty_cache()
+    rows = []
+    for store in EDGE_STORES:
+        _, t_build = host_time(lambda: cagra.prepare_traversal(cidx, store))
+        st = cidx.edge_store
+        log(f"edge store {store}: vecs {tuple(st.vecs.shape)} "
+            f"{st.vecs.dtype} {st.vecs.numel() / 1e9:.3f} GB, with aux, "
+            f"graph rows and codebook {st.nbytes / 1e9:.3f} GB; built in "
+            f"{t_build:.2f} s")
+        runs = {}
+        for eng in ("edge", "fused") if store == "int4" else ("edge",):
+            kern = "graph_expand" if eng == "edge" else "cagra_fused"
+
+            def path():
+                _, t_first = host_time(lambda: cagra.search(
+                    cidx, q, K, CAGRA_SP, engine=eng))
+                out, t = host_time(lambda: cagra.search(
+                    cidx, q, K, CAGRA_SP, engine=eng))
+                return out, t_first, t
+
+            (d, i), t_first, t = run_path(
+                f"cagra {store} {eng}", (kern, f"{kern}.{store}", "select_k"),
+                path, totals)
+            only_launched(f"cagra {store} {eng}", (kern, f"{kern}.{store}"))
+            check_knn(f"cagra {store} {eng}", d, i, K)
+            runs[eng] = (d, i)
+            log(f"cagra {store} {eng}: search(itopk={ITOPK}, width=1, "
+                f"k={K}) first {t_first * 1e3:.1f} ms, steady "
+                f"{t * 1e3:.1f} ms, {M / t:.0f} QPS, raw recall@{K} "
+                f"{neighborhood_recall(i, bi):.4f}")
+        if store == "int4":
+            (ed, ei), (fd, fi) = runs["edge"], runs["fused"]
+            if not (torch.equal(ei, fi) and torch.equal(ed, fd)):
+                raise AssertionError("cagra int4: the edge and fused "
+                                     "engines differ")
+            log("cagra int4: edge and fused engines equal in ids and "
+                "distances")
+        else:
+            try:
+                cagra.search(cidx, q[:16], K, CAGRA_SP, engine="fused")
+            except RaftError as e:
+                log(f"cagra pq fused: raises ({e})")
+            else:
+                raise AssertionError("cagra pq: a fused search ran")
+        rr = recipe_recall(cidx, q, bi, "fused" if store == "int4"
+                           else "edge")
+        ratio = rr / base
+        log(f"cagra {store} recipe recall@{K}: {rr:.4f}, {ratio:.4f} of "
+            "the int8 store's")
+        gate = INT4_MIN_RATIO if store == "int4" else PQ_MIN_RATIO
+        if gate is not None and ratio < gate:
+            raise AssertionError(f"cagra {store}: recipe recall {ratio:.4f} "
+                                 f"of int8's, below {gate}")
+        # the race on a copy of the index (a gather win drops its store)
+        tidx = dataclasses.replace(cidx)
+        race = ("graph_expand", "select_k") + (
+            ("cagra_fused",) if store == "int4" else ())
+        (winner, times), t_race = run_path(
+            f"cagra {store} tune_search", race,
+            lambda: host_time(lambda: cagra.tune_search(
+                tidx, q, K, CAGRA_SP, store_dtype=store)), totals)
+        if store == "pq" and "fused" in times:
+            raise AssertionError("cagra pq: the fused engine ran in the race")
+        log(f"cagra {store} tune_search (itopk={ITOPK}, {M} queries, "
+            f"{t_race:.2f} s): {winner} wins (" + ", ".join(
+                f"{e} {v * 1e3:.2f} ms" for e, v in times.items()) + ")")
+        rows.append(k5_store_phase(timer, cidx, q, hop_parents,
+                                   totals[f"graph_expand.{store}"], store))
+        if store == "int4":
+            rows.append(k6_int4_phase(timer, cidx, q, buf_d, buf_i,
+                                      totals["cagra_fused.int4"]))
+        cidx.edge_store = None
+        torch.cuda.empty_cache()
+    log(f"edge stores: peak device memory of the phase "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return rows
+
+
+def int_pq_codebook(pq_dim, book, pq_len, seed, device):
+    """An integer codebook whose every subspace reaches |127|: its int8
+    form has scale 1 and holds it exactly."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    cb = torch.randint(-40, 41, (pq_dim, book, pq_len), generator=g,
+                       device=device, dtype=torch.int32)
+    cb[:, 0, 0] = 127
+    return cb.to(torch.int8)
+
+
+def k5_store_phase(timer, cidx, q, parents, launches, store) -> dict:
+    """K5's int4 or pq form on the path's hop-K5_HOP parents, against its
+    plain version: the path's store; the parents' tiles with a penalty
+    and the ip metric; integer-valued copies of them (int4: the nibbles
+    with unit scales; pq: integer codebooks with per-subspace absmax 127,
+    so the int8 LUT's scale is 1, in both LUT modes) with rounded queries
+    at both metrics; pq also at pq_dim 64 (pq_len 2). Then timed."""
+    st = cidx.edge_store
+    kp = min(cidx.graph_degree, ITOPK)
+    mode = st.kernel_mode
+    path = (parents, q, st.vecs, st.aux, kp, "l2", st.degree, None, mode,
+            st.cb, st.cb_scale)
+    err = check_equal(ge.graph_expand_plain(*path), ge.graph_expand(*path),
+                      f"K5 graph_expand {store} store ({M} parents of hop "
+                      f"{K5_HOP} x {st.degree} edges x {D}) k'={kp}, the "
+                      "path's data")
+    sub, remap = torch.unique(parents.long(), return_inverse=True)
+    rp = remap.int().contiguous()
+    codes = st.vecs[sub].contiguous()
+    ones = torch.ones((len(sub), st.deg_p), device=q.device)
+    pen = torch.where(torch.rand(ones.shape, device=q.device) < 0.25,
+                      float("inf"), 0.0).contiguous()
+    qi = torch.round(q)
+    aux = st.aux[sub].contiguous()
+
+    def int_aux(vecs, cb=None, scale=None):
+        dec = ge.widen_tile(vecs, mode, cb, scale)
+        return torch.stack([ones, dec.square().sum(-1)], dim=1).contiguous()
+
+    cases = [(f"{store} store, penalty", codes, aux, q, "ip", pen, st.cb,
+              st.cb_scale)]
+    if store == "int4":
+        ia = int_aux(codes)
+        cases += [("integer-valued int4", codes, ia, qi, m, pn, None, None)
+                  for m, pn in (("l2", pen), ("ip", None))]
+    else:
+        pq_dim, book, pq_len = st.cb.shape
+        f32 = st.cb.float() * st.cb_scale[:, None, None]
+        cases.append(("pq store, f32 LUT", codes, aux, q, "l2", None, f32,
+                      None))
+        for pd in (pq_dim, PQ_DIM_WIDE):
+            cbi = int_pq_codebook(pd, book, st.dim_p // pd, SEED + pd,
+                                  q.device)
+            unit = torch.ones(pd, device=q.device)
+            cc = codes
+            if pd != pq_dim:
+                g = torch.Generator(device=q.device).manual_seed(SEED + 3)
+                cc = torch.randint(0, book, (len(sub), st.deg_p, pd),
+                                   generator=g, device=q.device,
+                                   dtype=torch.int32).to(torch.uint8)
+                real = torch.randn((pd, book, st.dim_p // pd), generator=g,
+                                   device=q.device) * 0.3
+                cases.append((f"pq_dim {pd}, real f32 LUT", cc,
+                              int_aux(cc, real), q, "l2", pen, real, None))
+            ia = int_aux(cc, cbi, unit)
+            for lut, cb, sc in (("int8", cbi, unit), ("f32", cbi.float(),
+                                                      None)):
+                cases += [(f"integer-valued pq_dim {pd} {lut} LUT", cc, ia,
+                           qi, m, pn, cb, sc)
+                          for m, pn in (("l2", pen), ("ip", None))]
+    for name, vecs, ax, qq, metric, pn, cb, sc in cases:
+        a = (rp, qq, vecs, ax, kp, metric, st.degree, pn, mode, cb, sc)
+        check_equal(ge.graph_expand_plain(*a), ge.graph_expand(*a),
+                    f"K5 graph_expand {name} {metric} ({M} parents)")
+    ms = timer(lambda: ge.graph_expand_kernel(*path))
+    plain = timer(lambda: ge.graph_expand_plain(*path), reps=3, warmup=0)
+    deg_p, dim_p, w = st.deg_p, st.dim_p, st.vecs.shape[2]
+    if store == "pq":
+        info = ge.kernel_info(deg_p, dim_p, "pq", w, st.cb.shape[1], True)
+    else:
+        info = ge.kernel_info(deg_p, dim_p, store)
+    log(f"  K5.{store} at tiles {deg_p} x {w}: {info['registers']} "
+        f"registers, {info['local_bytes']} bytes of local memory (spills) "
+        f"a thread, {info['warps_per_sm']} warps resident an SM")
+    # each distinct parent's tile and aux row once, per pair its query,
+    # parent id and k' outputs; pq also its codebook (and scales) once:
+    # the kernel's copy a block is its own design, served by L2
+    extra, n_bytes = {}, (len(sub) * (deg_p * w + 2 * deg_p * 4)
+                          + M * (dim_p * 4 + 4 + kp * 8))
+    if store == "pq":
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        blocks = min(-(-M // 4), info["warps_per_sm"] // 4 * sms)
+        cb_bytes = st.cb.numel() * st.cb.element_size() + (
+            0 if st.cb_scale is None else st.cb_scale.numel() * 4)
+        n_bytes += cb_bytes
+        extra = dict(blocks=blocks, codebook_bytes=cb_bytes)
+    b, by = bound(n_bytes, 2.0 * M * st.degree * D)
+    log(f"  K5.{store} at hop {K5_HOP}: {ms:.4f} ms, plain {plain:.2f} ms, "
+        f"bound {b:.4f} ms ({by}); launches {launches}")
+    return dict(name=f"graph_expand.{store}", route="cuda",
+                source=f"raft_tpu_torch/csrc/graph_expand_{store}.cu",
+                replaces="raft_tpu/ops/graph_expand.py:261",
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=b, bound_by=by, library_ms=None,
+                distinct_parents=len(sub), **info, **extra,
+                shape=f"{M} (query, parent) pairs of hop {K5_HOP}, {store} "
+                      f"tiles {deg_p} x {w}, k'={kp}")
+
+
+def k6_int4_phase(timer, cidx, q, buf_d, buf_i, launches) -> dict:
+    """K6's int4 form on the path's seeded buffer against its plain
+    version: the path's store (launched twice, bit-equal), with a penalty
+    at the ip metric, and an integer-valued copy (the nibbles with unit
+    scales, rounded queries, a buffer of their exact distances) at both
+    metrics. Then timed, with its bound from the int4 traversal's own
+    parents."""
+    st = cidx.edge_store
+    itopk, width, max_iter = cagra._plan_dims(CAGRA_SP, K)
+    kw = dict(itopk=itopk, width=width, max_iter=max_iter,
+              kprime=min(cidx.graph_degree, itopk), degree=st.degree,
+              metric="l2", mode="int4")
+    path = (q, buf_d, buf_i, st.vecs, st.aux, st.gp, None)
+    kd, ki, hops, parents = cf.fused_traverse_kernel(*path, **kw)
+    err = check_equal(cf.fused_traverse_plain(*path, **kw), (kd, ki),
+                      f"K6 cagra_fused int4 store ({M} queries, {max_iter} "
+                      "hops), the path's data")
+    check_bits((kd, ki, hops, parents),
+               cf.fused_traverse_kernel(*path, **kw),
+               "K6 cagra_fused int4 launched twice")
+    pen = torch.where(torch.rand(st.gp.shape, device=q.device) < 0.25,
+                      float("inf"), 0.0)
+    a = (q, buf_d, buf_i, st.vecs, st.aux, st.gp, pen)
+    check_equal(cf.fused_traverse_plain(*a, **dict(kw, metric="ip")),
+                cf.fused_traverse_kernel(*a, **dict(kw, metric="ip"))[:2],
+                f"K6 cagra_fused int4 store, penalty ip ({M} queries)")
+    del pen, a
+    codes, _ = quant.quantize_int4(cidx.dataset)
+    dec = ge.widen_tile(codes, "int4")
+    int_aux = torch.zeros_like(st.aux)
+    int_aux[:, 0, :st.degree] = 1.0
+    int_aux[:, 1, :st.degree] = dec.square().sum(1)[cidx.graph.long()]
+    qi = torch.round(q)
+    d = (qi[:, None, :] - dec[buf_i.long()]).square().sum(-1)
+    bd, order = torch.sort(d, dim=1, stable=True)
+    bi = torch.gather(buf_i, 1, order)
+    del d, dec, codes
+    for metric in ("l2", "ip"):
+        a = (qi, bd, bi, st.vecs, int_aux, st.gp, None)
+        kwm = dict(kw, metric=metric)
+        check_equal(cf.fused_traverse_plain(*a, **kwm),
+                    cf.fused_traverse_kernel(*a, **kwm)[:2],
+                    f"K6 cagra_fused integer-valued int4 {metric} ({M} "
+                    "queries)")
+    del int_aux
+    ms = timer(lambda: cf.fused_traverse_kernel(*path, **kw))
+    plain = timer(lambda: cf.fused_traverse_plain(*path, **kw), reps=1,
+                  warmup=0)
+    info = cf.kernel_info(itopk, width, kw["kprime"], st.deg_p, st.dim_p,
+                          "int4")
+    log(f"  K6.int4 at the path's shape: {info['registers']} registers, "
+        f"{info['local_bytes']} bytes of local memory (spills) a thread, "
+        f"{info['warps_per_sm']} warps resident an SM")
+    _, n_ok, distinct = walk(cidx, q, buf_d, buf_i)
+    n_par = int(parents.sum())
+    if n_ok != n_par:
+        raise AssertionError(f"K6.int4 expanded {n_par} parents, the plain "
+                             f"hop loop {n_ok}")
+    mean_hops = float(hops.float().mean())
+    deg_p, w = st.deg_p, st.vecs.shape[2]
+    b, by = bound(distinct * (deg_p * w + 2 * deg_p * 4 + deg_p * 4)
+                  + M * st.dim_p * 4 + 2 * M * itopk * 8,
+                  2.0 * n_par * st.degree * D)
+    log(f"  K6.int4: {ms:.3f} ms, plain {plain:.1f} ms, bound {b:.4f} ms "
+        f"({by}); {mean_hops:.2f} hops per query, {n_par} parents, "
+        f"{distinct} distinct; launches {launches}")
+    return dict(name="cagra_fused.int4", route="cuda",
+                source="raft_tpu_torch/csrc/cagra_fused_int4.cu",
+                replaces="raft_tpu/ops/cagra_fused.py:285",
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=b, bound_by=by, library_ms=None,
+                mean_hops=mean_hops, parents=n_par,
+                distinct_parents=distinct, **info,
+                shape=f"{M} queries, itopk {itopk}, width {width}, "
+                      f"{max_iter} hops max, int4 tiles {deg_p} x {w}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; it runs only on an NVIDIA "
@@ -2427,9 +2769,22 @@ def main() -> int:
                             moved["cagra_fused"]),
                  **k6_itopk256(timer, k6_bench)}]
     del k6_bench
+    # the edge-store phase's own peak device memory, beside the rest's
+    peaks = [torch.cuda.max_memory_allocated()]
+    log(f"peak device memory before the edge-store phase "
+        f"{peaks[0] / 2**30:.2f} GiB")
+    kernels += edge_store_phase(timer, q, cidx, bidx, buf_d, buf_i,
+                                hop_parents, moved)
+    peaks.append(torch.cuda.max_memory_allocated())
     del cidx, buf_d, buf_i
+    torch.cuda.reset_peak_memory_stats()
     kernels += [k7_phase(timer, x, sidx, q, moved["merge_step"]),
                 k8_phase(timer, x, sidx, q, moved["ring_topk"])]
+    peaks.append(torch.cuda.max_memory_allocated())
+    log("peak device memory of the whole run "
+        f"{max(peaks) / 2**30:.2f} GiB (before the edge-store phase, the "
+        "phase, after it: " + ", ".join(f"{p / 2**30:.2f}" for p in peaks)
+        + " GiB)")
     for kern in kernels:
         lib = kern["library_ms"]
         log(f"{kern['name']} [{kern['shape']}]: kernel_ms={kern['ms']:.3f} "

@@ -14,7 +14,7 @@ viewed as ``torch.bfloat16`` on the port's side.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -22,6 +22,7 @@ import torch
 from .comms import Mesh
 from .distance.distance_types import DistanceType, canonical_metric
 from .neighbors import brute_force, cagra, ivf_flat, ivf_pq
+from .ops import quant
 from .ops.quant import dequantize_store
 from .parallel import sharded_ann
 from .utils import resolve_device
@@ -123,19 +124,58 @@ def ivf_pq_index_from_numpy(arrays: Mapping, metric=None,
         ivf_pq.CodebookGen(int(getattr(kind, "value", kind))))
 
 
-def cagra_index_from_numpy(arrays: Mapping, metric=None,
-                           device=None) -> cagra.Index:
+def cagra_index_from_numpy(arrays: Mapping, metric=None, device=None,
+                           edge_store: Optional[Mapping] = None
+                           ) -> cagra.Index:
     """``arrays``: ``dataset`` (n, d) float32, ``graph`` (n, degree) and,
     optionally, ``seed_nodes`` (s,) sorted unique rows (absent or None:
     random seeding only); ``metric`` as in :func:`_metric`. The traversal
-    copies and the edge store are built on the port's side
-    (``cagra.prepare_search`` / ``prepare_traversal``)."""
+    copies are built on the port's side (``cagra.prepare_search``), and
+    so is the edge store (``prepare_traversal``) unless ``edge_store``
+    carries JAX's: ``mode`` ("int8", "bfloat16", "int4" or "pq"),
+    ``degree``, ``vecs`` (n, deg_p, W), ``aux`` (n, 2, deg_p), ``gp``
+    (n, deg_p) and, for pq, ``cb_mat`` — JAX's subspace-major decode
+    table (pq_dim·book, dim_p), int8 or float32 — with ``cb_scale``, its
+    (1, dim_p) rescale row, which become the port's compact codebook
+    (``ops.quant.pq_compact_cb``)."""
     dev = resolve_device(device)
     seeds = arrays.get("seed_nodes")
-    return cagra.Index(
+    index = cagra.Index(
         _tensor(arrays["dataset"], torch.float32, dev),
         _tensor(arrays["graph"], torch.int32, dev), _metric(arrays, metric),
         None if seeds is None else _tensor(seeds, torch.int32, dev))
+    if edge_store is not None:
+        index.edge_store = _edge_store(edge_store, dev)
+    return index
+
+
+def _edge_store(es: Mapping, dev) -> cagra.EdgeStore:
+    """JAX's edge store arrays → the port's :class:`cagra.EdgeStore`."""
+    mode = es["mode"]
+    vecs = np.asarray(es["vecs"])
+    cb = cb_scale = None
+    if mode == "pq":
+        vecs_t = torch.tensor(vecs.astype(np.uint8), device=dev)
+        table = np.asarray(es["cb_mat"])
+        pq_dim = vecs.shape[2]
+        dim_p = table.shape[1]
+        if table.dtype == np.int8:
+            cb, cb_scale = quant.pq_compact_cb(
+                torch.tensor(table, device=dev),
+                _tensor(es["cb_scale"], torch.float32, dev), pq_dim)
+        else:
+            cb, _ = quant.pq_compact_cb(
+                _tensor(table, torch.float32, dev), None, pq_dim)
+    elif mode == "int4":
+        vecs_t = torch.tensor(vecs.astype(np.int8), device=dev)
+        dim_p = 2 * vecs.shape[2]
+    else:
+        vecs_t = _rows(vecs, dev)
+        dim_p = vecs.shape[2]
+    return cagra.EdgeStore(
+        mode, int(es["degree"]), vecs.shape[1], dim_p, vecs_t.contiguous(),
+        _tensor(es["aux"], torch.float32, dev).contiguous(),
+        _tensor(es["gp"], torch.int32, dev).contiguous(), cb, cb_scale)
 
 
 def _shard_arrays(arrays: Mapping, r: int, row_fields) -> dict:

@@ -33,9 +33,12 @@ then re-score the returned k exactly in float32. Engines:
 Every selection (the buffer, the parent pick, the merges, the final
 re-rank) goes through ``select_k`` — K1 on CUDA. A filtered search
 equals the JAX package's under ``filter_policy.suspended()``: the
-adaptive widen/crossover is not ported. Not ported either: the guarded
-fallback chains (a kernel failure raises), int4 and PQ edge stores,
-``save``/``load``, ``health``, ``make_searcher`` and the
+adaptive widen/crossover is not ported. The edge store comes at int8,
+bf16, int4 (split-half nibbles) or pq (PQ codes and their codebook): the
+edge engine serves all four, the fused engine all but pq (K6 has no pq
+form, nor has the JAX kernel; an explicit fused search on a pq store
+raises, where JAX rewrites it to its edge engine). Not ported: the
+guarded fallback chains (a kernel failure raises), ``save``/``load``, ``health``, ``make_searcher`` and the
 deadline/``query_chunk`` path. The TPU-only build paths
 (``_parted_brute_graph``'s compile cap, the tail-wrapping batch loop)
 have no counterpart. Every matrix product runs in full float32
@@ -60,6 +63,7 @@ from ..ops import nn_descent as nnd
 from ..ops.cagra_fused import (dup_mask, edge_hop, fused_capable,
                                fused_traverse, merge_candidates,
                                pick_parents)
+from ..ops import quant
 from ..ops.quant import quantize_rows
 from ..utils import resolve_device, round_up_to
 from . import brute_force, ivf_pq, refine
@@ -127,17 +131,35 @@ class SearchParams:
 @dataclasses.dataclass
 class EdgeStore:
     """The edge-resident candidate store of :func:`prepare_traversal`:
-    ``vecs`` (n, deg_p, dim_p) int8 | bf16 — node i's neighbors' stored
-    vectors, ``aux`` (n, 2, deg_p) float32 — [per-edge scales, dequantized
-    norms], ``gp`` (n, deg_p) int32 — the graph rows, zero-padded."""
+    ``vecs`` (n, deg_p, W) — node i's neighbors' coded vectors (int8 or
+    bf16 rows, W = dim_p; int4 split-half nibbles, W = dim_p / 2; pq
+    uint8 codes, W = pq_dim), ``aux`` (n, 2, deg_p) float32 — [per-edge
+    scales, dequantized norms], ``gp`` (n, deg_p) int32 — the graph rows,
+    zero-padded; for pq ``cb`` the compact codebook (pq_dim, book,
+    pq_len), int8 with ``cb_scale`` (pq_dim,) float32 or float32 (no
+    scales). ``dim_p`` is the scored width, dim rounded up to 128."""
 
-    mode: str            # "int8" | "bfloat16"
+    mode: str            # "int8" | "bfloat16" | "int4" | "pq"
     degree: int
     deg_p: int
     dim_p: int
     vecs: torch.Tensor
     aux: torch.Tensor
     gp: torch.Tensor
+    cb: Optional[torch.Tensor] = None
+    cb_scale: Optional[torch.Tensor] = None
+
+    @property
+    def kernel_mode(self) -> str:
+        """The kernels' store mode: "dense" (int8, bf16), "int4", "pq"."""
+        return self.mode if self.mode in ("int4", "pq") else "dense"
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the store: codes, aux, graph rows, codebook."""
+        return sum(t.numel() * t.element_size() for t in
+                   (self.vecs, self.aux, self.gp, self.cb, self.cb_scale)
+                   if t is not None)
 
 
 @dataclasses.dataclass
@@ -490,48 +512,91 @@ def prepare_search(index: Index, candidate_dtype: str = "bfloat16") -> None:
             index.score_i8 = quantize_rows(index.dataset, torch.int8)
 
 
-def prepare_traversal(index: Index, candidate_dtype: str = "int8") -> None:
+_STORE_NAMES = {"int8": "int8", "i8": "int8", "bfloat16": "bfloat16",
+                "bf16": "bfloat16", "int4": "int4", "i4": "int4",
+                "pq": "pq"}
+
+
+def prepare_traversal(index: Index, candidate_dtype: str = "int8",
+                      pq_dim: int = 0, pq_lut: str = "int8") -> None:
     """Build the edge store (:class:`EdgeStore`) and attach it: for every
-    node, its ``degree`` neighbors' stored vectors as one contiguous
-    (deg_p, dim_p) tile, deg_p = degree rounded up to 32 and dim_p = dim
-    rounded up to 128, zero-padded. "int8" (the default: per-row scales,
-    the int8 traversal copy's codes) or "bfloat16"; "int4" and "pq" are
-    not ported yet. A second call with the same geometry does nothing."""
-    expects(candidate_dtype in ("int8", "i8", "bfloat16", "bf16", "int4",
-                                "i4", "pq"),
+    node, its ``degree`` neighbors' coded vectors as one contiguous
+    (deg_p, W) tile, deg_p = degree rounded up to 32 (zero-padded). The
+    stores (W at d = 128):
+
+    * ``"int8"`` (the default) — the int8 traversal copy's codes, per-row
+      scales; W = dim_p = dim rounded up to 128 (zero-padded);
+    * ``"bfloat16"`` — the bf16 rows, W = dim_p;
+    * ``"int4"`` — split-half nibbles (``ops.quant.quantize_int4``, per-row
+      scales amax/7), W = half_p = dim_p / 2;
+    * ``"pq"`` — uint8 PQ codes of whole rows, W = ``pq_dim`` (default
+      ``ops.quant.default_pq_dim``: 16 at d = 128), with the compact
+      codebook in ``pq_lut`` precision: "int8" (per-subspace absmax/127,
+      JAX's int8 decode table) or "f32". The norms are the float32
+      codebook's decoded norms in either case, as JAX's are.
+
+    A second call with the same store and geometry (and, for pq, the same
+    pq_dim and LUT) does nothing."""
+    expects(candidate_dtype in _STORE_NAMES,
             "edge store dtype must be int8/bfloat16/int4/pq, got %r",
             candidate_dtype)
-    expects(candidate_dtype not in ("int4", "i4", "pq"),
-            "edge store dtype %r is not ported yet", candidate_dtype)
-    int8 = candidate_dtype in ("int8", "i8")
-    mode = "int8" if int8 else "bfloat16"
+    expects(pq_lut in ("int8", "f32"),
+            "pq_lut must be 'int8' or 'f32', got %r", pq_lut)
+    mode = _STORE_NAMES[candidate_dtype]
     n, dim = index.size, index.dim
     degree = index.graph_degree
     deg_p, dim_p = round_up_to(degree, 32), round_up_to(dim, 128)
+    pqd = (pq_dim or quant.default_pq_dim(dim)) if mode == "pq" else 0
+    lut_i8 = pq_lut == "int8"
     cur = index.edge_store
     if cur is not None and (cur.mode, cur.degree, cur.deg_p, cur.dim_p) == (
-            mode, degree, deg_p, dim_p):
+            mode, degree, deg_p, dim_p) and (mode != "pq" or (
+                cur.vecs.shape[2] == pqd
+                and (cur.cb.dtype == torch.int8) == lut_i8)):
         return
-    prepare_search(index, mode)
+    index.edge_store = cur = None   # a store is never held beside another
     g = index.graph.long()
-    if int8:
+    cb = cb_scale = None
+    if mode == "int8":
+        prepare_search(index, mode)
         stored, scales = index.score_i8
         norms = (scales * scales) * stored.to(torch.float32).square().sum(1)
         es = scales[g]
-    else:
+    elif mode == "bfloat16":
+        prepare_search(index, mode)
         stored = index.score_bf16
         norms = stored.to(torch.float32).square().sum(1)
         es = torch.ones(g.shape, dtype=torch.float32, device=index.device)
-    if (deg_p, dim_p) == (degree, dim):
+    elif mode == "int4":
+        stored, scales = quant.quantize_int4(index.dataset)
+        low, high = quant.int4_nibbles(stored)
+        norms = (scales * scales) * (low * low + high * high).sum(1)
+        del low, high
+        es = scales[g]
+    else:
+        expects(dim_p % pqd == 0, "pq_dim %d must divide the padded dim %d",
+                pqd, dim_p)
+        books = quant.train_pq_rows(index.dataset, pqd)
+        stored = quant.encode_pq_rows(index.dataset, books)   # (n, pqd) u8
+        norms = quant.pq_decoded_norms(stored, books)
+        es = torch.ones(g.shape, dtype=torch.float32, device=index.device)
+        if lut_i8:
+            cb, cb_scale = quant.pq_int8_books(books)
+        else:
+            cb = books.contiguous()
+    w = dim_p if mode in ("int8", "bfloat16") else stored.shape[1]
+    if (deg_p, w) == (degree, stored.shape[1]):
         vecs = stored[g]
     else:
         # fill in row chunks: stored[g] whole and then a padded copy would
         # hold the store twice
-        vecs = torch.zeros((n, deg_p, dim_p), dtype=stored.dtype,
+        vecs = torch.zeros((n, deg_p, w), dtype=stored.dtype,
                            device=index.device)
-        step = max(1, (256 << 20) // max(degree * dim * stored.itemsize, 1))
+        width = stored.shape[1]
+        step = max(1, (256 << 20) // max(degree * width * stored.itemsize,
+                                         1))
         for r0 in range(0, n, step):
-            vecs[r0:r0 + step, :degree, :dim] = stored[g[r0:r0 + step]]
+            vecs[r0:r0 + step, :degree, :width] = stored[g[r0:r0 + step]]
     aux = torch.zeros((n, 2, deg_p), dtype=torch.float32,
                       device=index.device)
     aux[:, 0, :degree] = es
@@ -539,7 +604,7 @@ def prepare_traversal(index: Index, candidate_dtype: str = "int8") -> None:
     gp = torch.zeros((n, deg_p), dtype=torch.int32, device=index.device)
     gp[:, :degree] = index.graph
     index.edge_store = EdgeStore(mode, degree, deg_p, dim_p,
-                                 vecs.contiguous(), aux, gp)
+                                 vecs.contiguous(), aux, gp, cb, cb_scale)
 
 
 def _plan_dims(p: SearchParams, k: int) -> Tuple[int, int, int]:
@@ -587,10 +652,11 @@ def tune_search(index: Index, queries, k: int,
     class, which ``engine="auto"`` then runs (:func:`resolve_engine`).
     The edge store (``store_dtype``) is attached for the race and dropped
     again when ``"gather"`` wins, the verdict then also recorded under
-    the storeless key. The fused engine sits the race out only where
-    ``ops.cagra_fused.fused_capable`` says K6 cannot serve the shape; a
-    candidate that raises fails the race. Returns (winner, {engine:
-    median seconds})."""
+    the storeless key. The fused engine sits the race out where
+    ``ops.cagra_fused.fused_capable`` says K6 cannot serve the shape or
+    the store (a pq store: K6 has no pq form, and JAX's race leaves it
+    out too); a candidate that raises fails the race. Returns (winner,
+    {engine: median seconds})."""
     p = params or SearchParams()
     q = torch.as_tensor(queries).to(device=index.device,
                                     dtype=torch.float32).contiguous()
@@ -603,7 +669,7 @@ def tune_search(index: Index, queries, k: int,
     cands = {e: (lambda qq, e=e: search(index, qq, k, p, engine=e))
              for e in (engines or ENGINES)
              if e != "fused" or fused_capable(
-                 itopk, width, kprime, st.deg_p, st.dim_p, st.vecs.dtype,
+                 itopk, width, kprime, st.deg_p, st.dim_p, st.mode,
                  max_iter, index.device)}
     winner, timings = autotune.tune_best(key, cands, q, reps=reps,
                                          force=True)
@@ -738,7 +804,8 @@ def search(index: Index, queries, k: int,
     ``filter``: optional sample bitset, cleared bits excluded. ``engine``
     overrides ``SearchParams.engine``: "gather", "edge" (K5 per hop),
     "fused" (K6) or "auto"; "edge" and "fused" build the int8 edge store
-    first when none is attached."""
+    first when none is attached. "fused" on a pq store raises: K6 has no
+    pq form, and ``engine="edge"`` serves the store."""
     p = params or SearchParams()
     dev = index.device
     q = torch.as_tensor(queries).to(device=dev, dtype=torch.float32)
@@ -774,6 +841,9 @@ def search(index: Index, queries, k: int,
     if eng in ("edge", "fused") and index.edge_store is None:
         prepare_traversal(index)
     st = index.edge_store
+    expects(eng != "fused" or st.mode != "pq",
+            "the fused engine (K6) has no pq form, as the JAX kernel has "
+            "none; search a pq edge store with engine='edge'")
     mt = index.metric
     metric_s = "ip" if mt is DistanceType.InnerProduct else "l2"
     degree = index.graph_degree
@@ -791,7 +861,7 @@ def search(index: Index, queries, k: int,
         buf_d, buf_i = fused_traverse(
             q, buf_d, buf_i, st.vecs, st.aux, st.gp, pen, itopk=itopk,
             width=width, max_iter=max_iter, kprime=kprime, degree=degree,
-            metric=metric_s)
+            metric=metric_s, mode=st.kernel_mode)
     else:
         explored = torch.zeros(buf_d.shape, dtype=torch.bool, device=dev)
         for it in range(max_iter):
@@ -804,7 +874,8 @@ def search(index: Index, queries, k: int,
                 buf_d, buf_i, explored = edge_hop(
                     q, buf_d, buf_i, explored, st.vecs, st.aux, st.gp, pen,
                     width=width, kprime=kprime, degree=degree,
-                    metric=metric_s)
+                    metric=metric_s, mode=st.kernel_mode, cb=st.cb,
+                    cb_scale=st.cb_scale)
             else:
                 buf_d, buf_i, explored = _gather_hop(
                     index, score, scales, q, mask, buf_d, buf_i, explored,

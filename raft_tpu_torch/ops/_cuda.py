@@ -26,7 +26,8 @@ SMEM_PER_BLOCK = 232_448   # bytes of shared memory one block may use (sm_90)
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # K2 and K3 are one library a store (csrc/fused_knn*.cu, ivf_flat_scan*.cu),
-# so that their builds run side by side
+# K5 and K6 one a store mode (graph_expand*.cu, cagra_fused*.cu), so that
+# their builds run side by side
 STORE_SOURCES = {
     "fused_knn": {s: "fused_knn" if s == "float32" else f"fused_knn_{s}"
                   for s in ("float32", "bfloat16", "int8", "uint8",
@@ -34,10 +35,14 @@ STORE_SOURCES = {
     "ivf_flat_scan": {s: "ivf_flat_scan" if s == "float32"
                       else f"ivf_flat_scan_{s}"
                       for s in ("float32", "bfloat16", "int8", "uint8")},
+    "graph_expand": {"dense": "graph_expand", "int4": "graph_expand_int4",
+                     "pq": "graph_expand_pq"},
+    "cagra_fused": {"dense": "cagra_fused", "int4": "cagra_fused_int4"},
 }
 SOURCES = (*STORE_SOURCES["fused_knn"].values(),
            *STORE_SOURCES["ivf_flat_scan"].values(), "select_k",
-           "ivf_pq_scan", "graph_expand", "cagra_fused", "ring_topk")
+           "ivf_pq_scan", *STORE_SOURCES["graph_expand"].values(),
+           *STORE_SOURCES["cagra_fused"].values(), "ring_topk")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 
@@ -60,16 +65,21 @@ _SIGNATURES = {
         "raft_ivf_pq_scan_group": ([_P] * 13 + [_I] * 8 + [_P] * 3, _I),
         "raft_ivf_pq_scan_pair": ([_P] * 10 + [_I] * 7 + [_P] * 3, _I),
     },
-    "graph_expand": {
+    **{lib: {
         "raft_graph_expand": ([_P] * 5 + [_I] * 8 + [_P] * 3, _I),
         "raft_graph_expand_info": ([_I] * 3 + [_P], _I),
         "raft_graph_expand_smem": ([_I] * 2, ctypes.c_size_t),
+    } for lib in ("graph_expand", "graph_expand_int4")},
+    "graph_expand_pq": {
+        "raft_graph_expand_pq": ([_P] * 7 + [_I] * 10 + [_P] * 3, _I),
+        "raft_graph_expand_pq_info": ([_I] * 5 + [_P], _I),
+        "raft_graph_expand_pq_smem": ([_I] * 4, ctypes.c_size_t),
     },
-    "cagra_fused": {
+    **{lib: {
         "raft_cagra_fused": ([_P] * 7 + [_I] * 11 + [_P] * 6, _I),
         "raft_cagra_fused_smem": ([_I] * 6, ctypes.c_size_t),
         "raft_cagra_fused_info": ([_I] * 6 + [_P], _I),
-    },
+    } for lib in STORE_SOURCES["cagra_fused"].values()},
     "ring_topk": {
         "raft_merge_step": ([_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
                              _P, _P, _P, _I, _P], _I),

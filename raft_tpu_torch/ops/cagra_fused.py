@@ -18,8 +18,12 @@ buffer: K6 on CUDA (:func:`fused_traverse_kernel`), the plain version
 (:func:`fused_traverse_plain`, ``max_iter`` calls of :func:`edge_hop` on
 the plain K5 and the plain select) on the CPU. A hop whose buffer has no
 finite unexplored entry changes no distance or id, so K6 stops early and
-the results agree. Dense stores (int8, bf16) only: the int4 mode raises;
-K6 takes itopk and deg_p up to 256.
+the results agree. K6 has a dense form (int8, bf16 tiles) and an int4
+form (``csrc/cagra_fused{,_int4}.cu``), which score as K5 does
+(``csrc/edge_score.cuh``); it has no pq form, as the JAX kernel has
+none, so a pq store raises here and serves the edge engine (JAX rewrites
+a fused search on a pq store to its edge engine). K6 takes itopk and
+deg_p up to 256.
 :func:`fused_capable` says whether K6 can serve a shape (the JAX
 package's VMEM cap becomes the card's shared memory a block);
 ``one_dispatch_stats`` (a jaxpr walk) has no counterpart.
@@ -34,13 +38,15 @@ from ..core.errors import expects
 from ..matrix.select_k import select_k, select_k_plain
 from . import _cuda
 from .graph_expand import (MAX_DEG_P, card_info, check_mode, check_tile,
-                           graph_expand, graph_expand_plain, pad_queries)
+                           graph_expand, graph_expand_plain, pad_queries,
+                           score_dim, store_mode)
 
 __all__ = ["fused_traverse", "fused_traverse_plain", "fused_traverse_kernel",
            "edge_hop", "pick_parents", "merge_candidates", "dup_mask",
            "kernel_info", "fused_capable"]
 
-launches = 0   # K6 launches since the last reset
+launches = 0   # K6 launches since the last reset, every mode's
+launches_dense = launches_int4 = 0   # by store mode
 
 _METRIC_CODE = {"l2": 0, "ip": 1}
 _INF = float("inf")
@@ -96,16 +102,18 @@ def merge_candidates(buf_d, buf_i, explored, cand, cd, cand_ok, select):
 
 def edge_hop(queries, buf_d, buf_i, explored, vecs, aux, gph, pen=None, *,
              width: int, kprime: int, degree: int, metric: str = "l2",
-             select: Callable = select_k, expand: Callable = graph_expand):
-    """One hop of the edge engine → (buf_d, buf_i, explored). ``select``
-    and ``expand`` default to the dispatching K1 and K5 wrappers; the
-    plain K6 passes their plain versions (the same values, so the same
+             select: Callable = select_k, expand: Callable = graph_expand,
+             mode: str = "dense", cb=None, cb_scale=None):
+    """One hop of the edge engine → (buf_d, buf_i, explored), over a store
+    of ``mode`` (pq: with ``cb`` and ``cb_scale``). ``select`` and
+    ``expand`` default to the dispatching K1 and K5 wrappers; the plain
+    K6 passes their plain versions (the same values, so the same
     result)."""
     m = buf_d.shape[0]
     psafe, parent_ok, explored = pick_parents(buf_d, buf_i, explored, width,
                                               select)
     pvals, pepos = expand(psafe, queries, vecs, aux, kprime, metric, degree,
-                          pen)
+                          pen, mode, cb, cb_scale)
     nbr = gph[psafe]                                      # (m, w, deg_p)
     cand = torch.gather(nbr, 2, pepos.clamp_min(0).long())
     # an empty slot must not alias a real id: it would mark a later
@@ -123,8 +131,8 @@ def fused_traverse_plain(queries, buf_d, buf_i, vecs, aux, gph, pen=None, *,
                          degree: int, metric: str = "l2",
                          mode: str = "dense"):
     """Plain version of K6: ``max_iter`` hops of :func:`edge_hop` on the
-    plain K5 and the plain select."""
-    check_mode(mode)
+    plain K5 and the plain select (K6's modes: dense and int4)."""
+    _check_fused_mode(mode)
     expects(buf_d.shape[1] == itopk, "buffer must be (m, %d)", itopk)
     explored = torch.zeros(buf_d.shape, dtype=torch.bool,
                            device=buf_d.device)
@@ -132,13 +140,14 @@ def fused_traverse_plain(queries, buf_d, buf_i, vecs, aux, gph, pen=None, *,
         buf_d, buf_i, explored = edge_hop(
             queries, buf_d, buf_i, explored, vecs, aux, gph, pen,
             width=width, kprime=kprime, degree=degree, metric=metric,
-            select=select_k_plain, expand=graph_expand_plain)
+            select=select_k_plain, expand=graph_expand_plain, mode=mode)
     return buf_d, buf_i
 
 
 def fused_traverse_kernel(queries, buf_d, buf_i, vecs, aux, gph, pen=None,
                           *, itopk: int, width: int, max_iter: int,
-                          kprime: int, degree: int, metric: str = "l2"):
+                          kprime: int, degree: int, metric: str = "l2",
+                          mode: str = "dense"):
     """One launch of K6 on CUDA tensors → (buf_d (m, itopk) float32,
     buf_i (m, itopk) int32, hops (m,) int32, parents (m,) int32): the
     hops each query took before its frontier closed, and the parents it
@@ -146,16 +155,20 @@ def fused_traverse_kernel(queries, buf_d, buf_i, vecs, aux, gph, pen=None,
     by (value, position) as it loads it, the order in which the plain
     hop picks and folds."""
     global launches
+    _check_fused_mode(mode)
     expects(vecs.is_cuda, "cagra_fused kernel needs a CUDA tensor, got %s",
             vecs.device)
     expects(metric in _METRIC_CODE, "unknown metric %r", metric)
-    expects(vecs.dim() == 3 and vecs.dtype in (torch.int8, torch.bfloat16)
+    dtypes = (torch.int8, torch.bfloat16) if mode == "dense" \
+        else (torch.int8,)
+    expects(vecs.dim() == 3 and vecs.dtype in dtypes
             and vecs.is_contiguous(),
-            "edge store must be a contiguous (n, deg_p, dim_p) int8 or "
-            "bfloat16 tensor, got %s %s", vecs.dtype, tuple(vecs.shape))
-    n, deg_p, dim_p = vecs.shape
+            "a %s edge store must be a contiguous (n, deg_p, W) tensor of "
+            "%s, got %s %s", mode, dtypes, vecs.dtype, tuple(vecs.shape))
+    n, deg_p, w = vecs.shape
+    dim_p = score_dim(vecs, mode)
     dev = vecs.device
-    check_tile(deg_p, dim_p)
+    check_tile(deg_p, dim_p, mode, w)
     expects(0 < degree <= deg_p and 0 < kprime <= deg_p and width > 0,
             "degree %d / kprime %d / width %d out of range for deg_p %d",
             degree, kprime, width, deg_p)
@@ -173,9 +186,10 @@ def fused_traverse_kernel(queries, buf_d, buf_i, vecs, aux, gph, pen=None,
                             and pen.dtype == torch.float32
                             and pen.is_contiguous() and pen.device == dev),
             "pen must be a contiguous float32 (n, deg_p) tensor")
-    lib = _cuda.library("cagra_fused")
+    lib = _cuda.library(_cuda.STORE_SOURCES["cagra_fused"][mode])
+    code = int(vecs.dtype == torch.bfloat16)
     smem = lib.raft_cagra_fused_smem(itopk, width, kprime, deg_p, dim_p,
-                                     int(vecs.dtype == torch.bfloat16))
+                                     code)
     expects(smem <= _cuda.SMEM_PER_BLOCK, "cagra_fused needs %d bytes of "
             "shared memory a warp (itopk %d, width %d, k' %d, dim_p %d), "
             "above the card's %d a block", smem, itopk, width, kprime, dim_p,
@@ -197,41 +211,53 @@ def fused_traverse_kernel(queries, buf_d, buf_i, vecs, aux, gph, pen=None,
         aux.data_ptr(), gph.data_ptr(),
         None if pen is None else pen.data_ptr(), m, n, itopk, width,
         max_iter, kprime, deg_p, dim_p, degree, _METRIC_CODE[metric],
-        int(vecs.dtype == torch.bfloat16), counter.data_ptr(),
-        out_d.data_ptr(),
+        code, counter.data_ptr(), out_d.data_ptr(),
         out_i.data_ptr(), hops.data_ptr(), parents.data_ptr(),
         _cuda.stream_of(vecs))
     _cuda.check(status, "cagra_fused")
     launches += 1
+    globals()[f"launches_{mode}"] += 1
     return out_d, out_i, hops, parents
 
 
+def _check_fused_mode(mode: str) -> None:
+    """K6's store modes: dense and int4 (no pq form)."""
+    check_mode(mode)
+    expects(mode != "pq", "K6 (the fused engine) has no pq form, as the "
+            "JAX kernel has none; engine='edge' serves a pq store")
+
+
 def fused_capable(itopk: int, width: int, kprime: int, deg_p: int,
-                  dim_p: int, store_dtype, max_iter: int, device) -> bool:
-    """Whether the fused traversal serves this shape on ``device``: at
-    least one hop, itopk and deg_p at most 256 (``check_tile``'s and the
-    buffer's limit) and, on CUDA, K6's shared memory a warp
-    (``raft_cagra_fused_smem``) within the card's limit a block.
-    ``tune_search`` leaves the fused engine out of its race where this
-    is false."""
-    if max_iter < 1 or not (0 < itopk <= MAX_DEG_P and 0 < deg_p <= MAX_DEG_P
-                            and 0 < kprime <= deg_p):
+                  dim_p: int, store: str, max_iter: int, device) -> bool:
+    """Whether the fused traversal serves this shape on ``device``: a
+    store K6 has a form for (``store`` by name, "int8", "bfloat16" or
+    "int4"; never "pq"), at least one hop,
+    itopk and deg_p at most 256 (``check_tile``'s and the buffer's limit)
+    and, on CUDA, K6's shared memory a warp (``raft_cagra_fused_smem`` of
+    the store's library) within the card's limit a block. ``tune_search``
+    leaves the fused engine out of its race where this is false."""
+    mode = store_mode(store)
+    if mode == "pq" or max_iter < 1 or not (
+            0 < itopk <= MAX_DEG_P and 0 < deg_p <= MAX_DEG_P
+            and 0 < kprime <= deg_p):
         return False
     if torch.device(device).type != "cuda":
         return True
-    smem = _cuda.library("cagra_fused").raft_cagra_fused_smem(
-        itopk, width, kprime, deg_p, dim_p,
-        int(store_dtype == torch.bfloat16))
+    smem = _cuda.library(_cuda.STORE_SOURCES["cagra_fused"][mode]) \
+        .raft_cagra_fused_smem(itopk, width, kprime, deg_p, dim_p,
+                               int(store == "bfloat16"))
     return smem <= _cuda.SMEM_PER_BLOCK
 
 
 def kernel_info(itopk: int, width: int, kprime: int, deg_p: int,
-                dim_p: int, dtype=torch.int8) -> dict:
+                dim_p: int, store: str = "int8") -> dict:
     """K6's :func:`~raft_tpu_torch.ops.graph_expand.card_info` at a
-    traversal's shape."""
-    return card_info(_cuda.library("cagra_fused"), "raft_cagra_fused_info",
-                     itopk, width, kprime, deg_p, dim_p,
-                     int(dtype == torch.bfloat16))
+    traversal's shape, the store by name."""
+    mode = store_mode(store)
+    _check_fused_mode(mode)
+    return card_info(_cuda.library(_cuda.STORE_SOURCES["cagra_fused"][mode]),
+                     "raft_cagra_fused_info", itopk, width, kprime, deg_p,
+                     dim_p, int(store == "bfloat16"))
 
 
 def fused_traverse(queries, buf_d, buf_i, vecs, aux, gph, pen=None, *,
@@ -240,10 +266,11 @@ def fused_traverse(queries, buf_d, buf_i, vecs, aux, gph, pen=None, *,
     """The whole traversal from the seeded buffer → the converged
     (buf_d (m, itopk), buf_i (m, itopk)). ``gph`` (n, deg_p) int32 is the
     store's padded graph rows, ``pen`` the optional (n, deg_p) edge
-    penalty. K6 on CUDA, the plain version on the CPU."""
-    check_mode(mode)
+    penalty, ``mode`` the store's ("dense" or "int4"; "pq" raises). K6 on
+    CUDA, the plain version on the CPU."""
+    _check_fused_mode(mode)
     kw = dict(itopk=itopk, width=width, max_iter=max_iter, kprime=kprime,
-              degree=degree, metric=metric)
+              degree=degree, metric=metric, mode=mode)
     if vecs.device.type == "cpu":
         return fused_traverse_plain(queries, buf_d, buf_i, vecs, aux, gph,
                                     pen, **kw)

@@ -10,8 +10,8 @@ under ``filter_policy.suspended()`` (the port has no adaptive policy).
 
 Tolerances. The kNN graph (small-integer data: exact distances, ties to
 the lower row in both) and ``optimize`` (integer detour counts) are equal;
-so are the int8 edge store, its aux and graph rows, and the bf16 rows (the
-bf16 norms are float32 sums in another order: rtol 1e-6). Search on
+so are the int8 and int4 edge stores, their aux and graph rows, and the
+bf16 rows (the bf16 norms are float32 sums in another order: rtol 1e-6). Search on
 integer-valued data and queries: ids and distances equal. On Gaussian
 data: ``assert_knn_close`` (distances to rtol 1e-5, ids on >= 99% of
 rows). The covering seed set draws its k-means from ``torch.Generator``,
@@ -124,7 +124,7 @@ def test_optimize_matches_jax(data, graph_degree):
     np.testing.assert_array_equal(to.numpy(), jo)
 
 
-@pytest.mark.parametrize("store", ["int8", "bfloat16"])
+@pytest.mark.parametrize("store", ["int8", "bfloat16", "int4"])
 def test_prepare_traversal_matches_jax(jax_index, store):
     jidx = jcagra.Index(jax_index.dataset, jax_index.graph, jax_index.metric,
                         jax_index.seed_nodes)
@@ -140,13 +140,13 @@ def test_prepare_traversal_matches_jax(jax_index, store):
     np.testing.assert_array_equal(st.gp.numpy(), np.asarray(jg))
     ja = np.asarray(ja)
     np.testing.assert_array_equal(st.aux[:, 0].numpy(), ja[:, 0])
-    if store == "int8":
-        np.testing.assert_array_equal(st.aux[:, 1].numpy(), ja[:, 1])
-    else:
+    if store == "bfloat16":
         np.testing.assert_allclose(st.aux[:, 1].numpy(), ja[:, 1],
                                    rtol=1e-6)
-    with pytest.raises(RaftError, match="not ported"):
-        cagra.prepare_traversal(tidx, "int4")
+    else:       # int8 and int4 norms: exact integer sums, then the scale
+        np.testing.assert_array_equal(st.aux[:, 1].numpy(), ja[:, 1])
+    with pytest.raises(RaftError, match="edge store dtype"):
+        cagra.prepare_traversal(tidx, "int2")
 
 
 def test_covering_seeds_contract(data, jax_index):

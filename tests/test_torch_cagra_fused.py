@@ -9,7 +9,9 @@ float32 integer, so the buffers are equal, ties included. On Gaussian
 data the scores are float32 sums in another order than XLA's:
 ``assert_knn_close`` (values to rtol 1e-5, ids on >= 99% of rows). The
 port's fused and edge engines compute the same values by construction
-(the same plain K5 on the CPU), so their results are equal.
+(the same plain K5 on the CPU), so their results are equal. The same
+holds over int4 stores (K6's int4 form against JAX's ``fused_traverse(
+mode="int4")`` on JAX's int4 store, exact on integer-valued data).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -32,10 +34,10 @@ torch.set_num_threads(1)
 N, D, DEG, M, ITOPK, KPRIME, HOPS = 700, 16, 24, 16, 16, 16, 3
 
 
-def _case(integer: bool, penalty: bool, seed: int):
-    """A JAX int8 edge store over a random graph, queries, an optional
-    edge penalty, and a seeded buffer: the exact distances of ITOPK
-    distinct random rows, sorted, with a +inf tail."""
+def _case(integer: bool, penalty: bool, seed: int, store: str = "int8"):
+    """A JAX edge store (``store``: int8 or int4) over a random graph,
+    queries, an optional edge penalty, and a seeded buffer: the exact
+    distances of ITOPK distinct random rows, sorted, with a +inf tail."""
     rng = np.random.default_rng(seed)
     gen = ((lambda s: rng.integers(-4, 5, s)) if integer
            else rng.standard_normal)
@@ -44,7 +46,7 @@ def _case(integer: bool, penalty: bool, seed: int):
     graph = rng.integers(0, N, (N, DEG)).astype(np.int32)
     jidx = jcagra.Index(jnp.asarray(x), jnp.asarray(graph),
                         jcagra.DistanceType.L2Expanded)
-    jcagra.prepare_traversal(jidx)
+    jcagra.prepare_traversal(jidx, store)
     _, ev, aux, gp, _ = jidx._edge_store
     pen = None
     if penalty:
@@ -81,6 +83,43 @@ def test_fused_traverse_plain_matches_jax(width, penalty):
                              ti.numpy())
 
 
+@pytest.mark.parametrize("width,penalty,metric", [(1, True, "l2"),
+                                                  (2, False, "ip")])
+def test_fused_traverse_plain_int4_matches_jax(width, penalty, metric):
+    """K6's int4 form (its plain version) against JAX's on JAX's int4
+    store: equal buffers on integer-valued data, ``assert_knn_close`` on
+    Gaussian data."""
+    for integer in (True, False):
+        q, ev, aux, gp, pen, buf_d, buf_i = _case(integer, penalty,
+                                                  width + 10, "int4")
+        assert ev.shape[2] == 64                  # half_p: dim_p 128
+        kw = dict(itopk=ITOPK, width=width, max_iter=HOPS, kprime=KPRIME,
+                  degree=DEG, metric=metric)
+        jd, ji = jax_fused_traverse(
+            jnp.asarray(q), jnp.asarray(buf_d), jnp.asarray(buf_i), ev, aux,
+            gp, None if pen is None else jnp.asarray(pen), mode="int4", **kw)
+        t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+        args = (t(q), t(buf_d), t(buf_i), t(ev), t(aux), t(gp),
+                None if pen is None else t(pen))
+        td, ti = tcf.fused_traverse(*args, mode="int4", **kw)
+        if integer:
+            np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+            np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        else:
+            assert_knn_close(np.asarray(jd), np.asarray(ji), td.numpy(),
+                             ti.numpy())
+        # the plain K6 is max_iter plain edge hops over the same store
+        be = torch.zeros(buf_d.shape, dtype=torch.bool)
+        bd, bi = args[1], args[2]
+        for _ in range(HOPS):
+            bd, bi, be = tcf.edge_hop(
+                args[0], bd, bi, be, *args[3:], width=width, kprime=KPRIME,
+                degree=DEG, metric=metric, select=select_k_plain,
+                expand=tge.graph_expand_plain, mode="int4")
+        assert torch.equal(bd.view(torch.int32), td.view(torch.int32))
+        assert torch.equal(bi, ti)
+
+
 @pytest.fixture(scope="module")
 def port_index():
     rng = np.random.default_rng(5)
@@ -114,13 +153,42 @@ def test_fused_engine_equals_edge_engine(port_index, k, itopk, width,
 
 
 def test_fused_traverse_refuses_int4_store(port_index):
+    """K6 takes an int4 store as int8 bytes of dim_p / 2 a row; other
+    tiles in int4 mode are refused, and so is any pq store (K6 has no pq
+    form)."""
     idx, q, _ = port_index
     st = idx.edge_store
     buf = torch.zeros((q.shape[0], 16))
-    with pytest.raises(RaftError, match="not ported"):
+    kw = dict(itopk=16, width=1, max_iter=1, kprime=16, degree=DEG)
+    with pytest.raises(RaftError, match="tiles"):   # W 96: dim_p 192
+        tcf.fused_traverse(q, buf, buf.int(), st.vecs[:, :, :96].contiguous(),
+                           st.aux, st.gp, mode="int4", **kw)
+    with pytest.raises(RaftError, match="no pq form"):
         tcf.fused_traverse(q, buf, buf.int(), st.vecs, st.aux, st.gp,
-                           itopk=16, width=1, max_iter=1, kprime=16,
-                           degree=DEG, mode="int4")
+                           mode="pq", **kw)
+    assert not tcf.fused_capable(16, 1, 16, 32, 128, "pq", 4, "cpu")
+    assert tcf.fused_capable(16, 1, 16, 32, 128, "int4", 4, "cpu")
+
+
+@pytest.mark.parametrize("width,filtered", [(1, False), (2, True)])
+def test_fused_engine_equals_edge_engine_int4(width, filtered):
+    """Over the port's own int4 store, the fused and edge engines return
+    equal ids and distances (K6's int4 form and K5's share the scoring)."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((700, D)).astype(np.float32)
+    q = torch.from_numpy(rng.standard_normal((24, D)).astype(np.float32))
+    idx = cagra.build(x, cagra.IndexParams(intermediate_graph_degree=32,
+                                           graph_degree=DEG), device="cpu")
+    cagra.prepare_traversal(idx, "int4")
+    assert idx.edge_store.vecs.shape == (700, 32, 64)
+    sp = cagra.SearchParams(itopk_size=16, search_width=width,
+                            max_iterations=6)
+    keep = torch.from_numpy(rng.random(700) < 0.7)
+    filt = Bitset.from_mask(keep) if filtered else None
+    ev, ei = cagra.search(idx, q, 5, sp, filter=filt, engine="edge")
+    fv, fi = cagra.search(idx, q, 5, sp, filter=filt, engine="fused")
+    assert torch.equal(ei, fi) and torch.equal(ev, fv)
+    assert bool((ei >= 0).any())
 
 
 # --- K6's hop (csrc/cagra_fused.cu) as numpy statements, in the order the

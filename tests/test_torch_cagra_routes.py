@@ -271,10 +271,10 @@ def test_tune_search_races_every_engine(small_index):
 
 
 def test_fused_capable_limits():
-    assert fused_capable(64, 1, 64, 64, 128, torch.int8, 80, "cpu")
-    assert not fused_capable(64, 1, 64, 64, 128, torch.int8, 0, "cpu")
-    assert not fused_capable(320, 1, 64, 64, 128, torch.int8, 80, "cpu")
-    assert not fused_capable(64, 1, 64, 288, 128, torch.int8, 80, "cpu")
+    assert fused_capable(64, 1, 64, 64, 128, "int8", 80, "cpu")
+    assert not fused_capable(64, 1, 64, 64, 128, "int8", 0, "cpu")
+    assert not fused_capable(320, 1, 64, 64, 128, "int8", 80, "cpu")
+    assert not fused_capable(64, 1, 64, 288, 128, "int8", 80, "cpu")
 
 
 def test_tune_best_does_not_swallow_a_failure():

@@ -26,7 +26,9 @@ any two float orders, so the K2–K4 tests hold Gaussian inputs at k <= 64
 versions add in the same order (``graph_expand.lane_order_dot``), so they
 are equal on any input: on an edge store of small integers with integer
 scales (``edge_store``), where every score is an exact integer and ties
-abound, and on Gaussian queries with real scales. K7 and K8 move values
+abound, and on Gaussian queries with real scales; so are K5's int4 and pq
+forms and K6's int4 form (``packed_store``: the same rows as nibbles, or
+pq codes over an integer or real codebook). K7 and K8 move values
 and compute none, so they equal their plain versions (and
 ``knn_merge_parts``) on any input.
 """
@@ -233,6 +235,50 @@ def edge_store(dtype, seed: int, integer: bool = True, n=3000, degree=40,
             "buf_d": t(buf_d), "buf_i": t(buf_i)}
 
 
+def pack_int4(rows: np.ndarray) -> np.ndarray:
+    """(..., dim_p) integers in [-8, 7] → (..., dim_p / 2) int8 bytes in
+    the split-half layout: byte j holds value j low, j + dim_p / 2 high."""
+    half = rows.shape[-1] // 2
+    v = rows.astype(np.int32)
+    b = (v[..., :half] & 0xF) | ((v[..., half:] & 0xF) << 4)
+    return b.astype(np.uint8).view(np.int8)
+
+
+def packed_store(mode: str, seed: int, integer: bool = True, lut="int8",
+                 pq_dim: int = 16, book: int = 256, **shape):
+    """``edge_store``'s store in a packed mode (CPU tensors). int4: its
+    rows as nibbles (they lie in [-3, 3]). pq: uint8 codes of pq_dim
+    subspaces over a codebook (pq_dim, book, pq_len) — int8 with scales
+    1 (``integer``) or real scales, or float32 integers or Gaussian
+    values — and the decoded rows' norms in aux (scales kept)."""
+    es = edge_store(torch.int8, seed, integer, **shape)
+    rows = es["vecs"].to(torch.float32).numpy()
+    if mode == "int4":
+        es["vecs"] = torch.from_numpy(pack_int4(rows))
+        es["cb"] = es["cb_scale"] = None
+        return es
+    rng = np.random.default_rng(seed + 1000)
+    n, deg_p, dim_p = rows.shape
+    pq_len = dim_p // pq_dim
+    codes = rng.integers(0, book, (n, deg_p, pq_dim)).astype(np.uint8)
+    if lut == "int8":
+        cb = rng.integers(-127, 128, (pq_dim, book, pq_len)).astype(np.int8)
+        scale = (np.ones(pq_dim, np.float32) if integer
+                 else rng.uniform(0.002, 0.03, pq_dim).astype(np.float32))
+        cb_t, sc_t = torch.from_numpy(cb), torch.from_numpy(scale)
+    else:
+        cb = (rng.integers(-4, 5, (pq_dim, book, pq_len)) if integer
+              else rng.standard_normal((pq_dim, book, pq_len)) * 0.3)
+        cb_t, sc_t = torch.from_numpy(cb.astype(np.float32)), None
+    vecs = torch.from_numpy(codes)
+    dec = tge.widen_tile(vecs, "pq", cb_t, sc_t)
+    scales = es["aux"][:, 0]
+    es["aux"] = torch.stack([scales, scales ** 2 * dec.square().sum(-1)],
+                            dim=1).contiguous()
+    es.update(vecs=vecs, cb=cb_t, cb_scale=sc_t)
+    return es
+
+
 def test_kernel_entries_refuse_cpu_tensors():
     """The kernel-only entries launch or raise; they never run a plain
     version."""
@@ -258,6 +304,18 @@ def test_kernel_entries_refuse_cpu_tensors():
                                   es["vecs"], es["aux"], es["gph"],
                                   itopk=32, width=1, max_iter=2, kprime=8,
                                   degree=40)
+    for mode in ("int4", "pq"):
+        es = packed_store(mode, 0, n=50, m=4)
+        with pytest.raises(RaftError):
+            tge.graph_expand_kernel(es["parents"], es["q"], es["vecs"],
+                                    es["aux"], 4, mode=mode, cb=es["cb"],
+                                    cb_scale=es["cb_scale"])
+    es = packed_store("int4", 0, n=50, m=4)
+    with pytest.raises(RaftError):
+        tcf.fused_traverse_kernel(es["q"], es["buf_d"], es["buf_i"],
+                                  es["vecs"], es["aux"], es["gph"],
+                                  itopk=32, width=1, max_iter=2, kprime=8,
+                                  degree=40, mode="int4")
     ds, gs = ring_parts(4, 6, 5, 0)
     with pytest.raises(RaftError):
         trt.ring_topk_kernel(ds, gs, 5, True, Mesh(["cpu"] * 4))
@@ -768,7 +826,8 @@ def test_cagra_fused_kernel_itopk_256(dtype):
               metric="l2")
     args = (es["q"], es["buf_d"], es["buf_i"], es["vecs"], es["aux"],
             es["gph"], None)
-    if not tcf.fused_capable(256, 1, 32, 32, 128, dtype, 12, "cuda"):
+    store = "bfloat16" if dtype == torch.bfloat16 else "int8"
+    if not tcf.fused_capable(256, 1, 32, 32, 128, store, 12, "cuda"):
         with pytest.raises(RaftError, match="shared memory"):
             tcf.fused_traverse_kernel(*args, **kw)
         return
@@ -905,6 +964,159 @@ def test_cagra_fused_kernel_on_card(dtype, metric, penalty):
         assert bool((parents <= hops * width).all()), what
         if shape.get("closed"):
             assert int(hops[::7].max()) < hops_max, what
+
+
+def card_packed(mode, seed, integer, **kw):
+    return {k: v.cuda() if torch.is_tensor(v) else v
+            for k, v in packed_store(mode, seed, integer, **kw).items()}
+
+
+# the packed forms' card shapes past the first ones: (integer, n, degree,
+# deg_p, dim, m); the EDGE_SHAPES' wide stores, int4 at dim_p 256, 768
+# and 1024 (its two 64-byte segments a chunk from two planes, and at 768
+# a chunk across the planes' boundary)
+PACKED_SHAPES = [EDGE_SHAPES[0], EDGE_SHAPES[1], EDGE_SHAPES[4],
+                 EDGE_SHAPES[5], EDGE_SHAPES[6]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("penalty", [False, True])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_graph_expand_int4_kernel_on_card(metric, penalty):
+    """K5's int4 form against its plain version: equal values and edge
+    positions on integer nibbles with integer scales and on Gaussian
+    queries with real scales, pad edges and penalties, k' below and at
+    deg_p; then at PACKED_SHAPES (18,000 pairs; dim_p up to 1024)."""
+    need_cuda()
+    cases = [(integer, dict(), kout) for integer in (True, False)
+             for kout in (1, 24, 64)]
+    cases += [(integer, dict(n=n, degree=deg, deg_p=deg_p, dim=dim, m=m),
+               deg_p) for integer, n, deg, deg_p, dim, m in PACKED_SHAPES]
+    for integer, shape, kout in cases:
+        es = card_packed("int4", 21, integer, **shape)
+        pen = es["pen"] if penalty else None
+        args = (es["parents"], es["q"], es["vecs"], es["aux"], kout, metric,
+                es["degree"], pen, "int4")
+        kv, ki = tge.graph_expand(*args)
+        pv, pi = tge.graph_expand_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(kv, pv) and torch.equal(ki, pi), (shape, kout)
+
+
+# pq: (dim, pq_dim, book) past dim 100 at pq_dim 16 and 64 (pq_len 8 and
+# 2); dim_p 256 at pq_len 4, 768 at pq_len 12 and 48 (a lane's 4 dims
+# within one subspace, the one-word decode), 384 at pq_len 6 (across a
+# boundary inside a word)
+PQ_CARD = [(100, 16, 256), (100, 64, 256), (200, 64, 128), (768, 64, 48),
+           (768, 16, 40), (384, 64, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("penalty", [False, True])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("lut", ["int8", "f32"])
+def test_graph_expand_pq_kernel_on_card(lut, metric, penalty):
+    """K5's pq form against its plain version, bit for bit: integer
+    codebooks (int8 with scale 1, or float32 integers) with integer
+    queries, and real ones with Gaussian queries; at pq_dim 16 and 64
+    (pq_len 8 and 2), pq_len 4, 6, 12 and 48 (dim_p up to 768), smaller
+    books, k' below and at deg_p, 9,000 queries; a codebook above the
+    card's shared memory a block is refused."""
+    need_cuda()
+    for integer in (True, False):
+        for dim, pq_dim, book in PQ_CARD:
+            for kout, m in ((24, 96), (64, 96), (64, 9000)):
+                if m > 96 and (dim, pq_dim) != (100, 16):
+                    continue
+                es = card_packed("pq", 31, integer, lut=lut, pq_dim=pq_dim,
+                                 book=book, dim=dim, m=m)
+                pen = es["pen"] if penalty else None
+                args = (es["parents"], es["q"], es["vecs"], es["aux"], kout,
+                        metric, es["degree"], pen, "pq", es["cb"],
+                        es["cb_scale"])
+                kv, ki = tge.graph_expand(*args)
+                pv, pi = tge.graph_expand_plain(*args)
+                torch.cuda.synchronize()
+                what = (integer, dim, pq_dim, book, kout, m)
+                assert torch.equal(kv, pv) and torch.equal(ki, pi), what
+    es = card_packed("pq", 32, True, lut="f32", pq_dim=64, book=256,
+                     dim=1000, m=8)
+    with pytest.raises(RaftError, match="shared memory"):
+        tge.graph_expand(es["parents"], es["q"], es["vecs"], es["aux"], 8,
+                         mode="pq", cb=es["cb"], cb_scale=es["cb_scale"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("penalty", [False, True])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cagra_fused_int4_kernel_on_card(metric, penalty):
+    """K6's int4 form against its plain version (max_iter edge hops on
+    the plain int4 K5): equal buffers at width 1-3 and k' 1 and 16, on
+    integer nibbles and Gaussian queries with real scales, from seeds
+    shuffled out of order; then at PACKED_SHAPES with itopk 64 and 128
+    and frontiers closing early. A second launch gives the same bits."""
+    need_cuda()
+    cases = [(integer, dict(), width, kprime, 32, shuffle)
+             for integer, (width, kprime), shuffle in (
+                 (True, (1, 16), False), (True, (3, 16), False),
+                 (True, (2, 1), True), (False, (1, 16), False),
+                 (False, (3, 16), True))]
+    for (integer, n, deg, deg_p, dim, m), (width, itopk) in zip(
+            PACKED_SHAPES, ((1, 64), (2, 128), (2, 64), (1, 64), (3, 64))):
+        cases.append((integer, dict(n=n, degree=deg, deg_p=deg_p, dim=dim,
+                                    m=m, closed=True),
+                      width, min(deg_p, itopk), itopk, False))
+    for integer, shape, width, kprime, itopk, shuffle in cases:
+        es = card_packed("int4", 22, integer, itopk=itopk, **shape)
+        pen = es["pen"] if penalty else None
+        kw = dict(itopk=itopk, width=width, max_iter=10, kprime=kprime,
+                  degree=es["degree"], metric=metric, mode="int4")
+        bd, bi = es["buf_d"], es["buf_i"]
+        if shuffle:
+            g = torch.Generator().manual_seed(23)
+            perm = torch.argsort(torch.rand(bd.shape, generator=g),
+                                 dim=1).cuda()
+            bd, bi = bd.gather(1, perm), bi.gather(1, perm)
+        args = (es["q"], bd, bi, es["vecs"], es["aux"], es["gph"], pen)
+        kd, ki, hops, _ = tcf.fused_traverse_kernel(*args, **kw)
+        kd2, ki2, hops2, _ = tcf.fused_traverse_kernel(*args, **kw)
+        pd, pi = tcf.fused_traverse_plain(*args, **kw)
+        torch.cuda.synchronize()
+        what = (integer, shape, width, kprime, itopk, shuffle)
+        assert torch.equal(kd, pd) and torch.equal(ki, pi), what
+        assert torch.equal(kd.view(torch.int32), kd2.view(torch.int32))
+        assert torch.equal(ki, ki2) and torch.equal(hops, hops2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", ["int4", "pq"])
+def test_cagra_packed_stores_on_card(store):
+    """The engine test's index with an int4 or pq store built on the
+    card: the edge engine launches only that form of K5 (and int4's
+    fused engine only K6's int4 form, equal to the edge engine); a fused
+    search on the pq store raises."""
+    need_cuda()
+    x, q = (torch.from_numpy(a).cuda() for a in engine_test_data())
+    idx = tcagra.build(x, tcagra.IndexParams(**ENGINE_TEST_BUILD))
+    tcagra.prepare_traversal(idx, store)
+    sp = tcagra.SearchParams(**ENGINE_TEST_SEARCH)
+    before = (tge.launches, getattr(tge, f"launches_{store}"),
+              tcf.launches, tcf.launches_int4)
+    ev, ei = tcagra.search(idx, q, 10, sp, engine="edge")
+    torch.cuda.synchronize()
+    mid = (tge.launches, getattr(tge, f"launches_{store}"), tcf.launches,
+           tcf.launches_int4)
+    assert mid[0] - before[0] == mid[1] - before[1] > 0
+    assert mid[2:] == before[2:]
+    assert bool(((ei >= 0) & (ei < 4000)).all())
+    if store == "pq":
+        with pytest.raises(RaftError, match="no pq form"):
+            tcagra.search(idx, q, 10, sp, engine="fused")
+        return
+    fv, fi = tcagra.search(idx, q, 10, sp, engine="fused")
+    torch.cuda.synchronize()
+    assert torch.equal(ei, fi) and torch.equal(ev, fv)
+    assert (tcf.launches, tcf.launches_int4) == (mid[2] + 1, mid[3] + 1)
 
 
 # the CAGRA engine test's data and plans, shared with the CPU test that

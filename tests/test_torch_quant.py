@@ -6,6 +6,16 @@ codes, scales, packed widths, nibble planes, dequantized rows and health
 summaries must be equal bit for bit (``torch.round`` and ``jnp.round``
 both round half to even; the int4 bytes are packed in int32 and
 reinterpreted on both sides).
+
+The PQ row codecs, on JAX's codebooks fed to both sides: the decode
+table, its int8 form and the decoded norms bit for bit (the norms sum in
+XLA's CPU order), the codes equal on integer-valued rows and codebooks
+and, on Gaussian rows, on at least 99.9% of the (row, subspace) cells
+(float32 distances in another order can flip a near tie; 100% at these
+seeds). Training draws its init from ``torch.Generator``, not JAX's
+threefry, so it is held by quality: exact when the book covers the
+corpus (JAX's own contract), and a mean squared quantization error
+within 1.10x of JAX's on the same rows (1.003-1.029x measured).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -124,3 +134,113 @@ def test_int8_scale_report_matches_jax():
     _, js = jq.quantize_rows(jnp.asarray(x), jnp.int8)
     _, ts = tq.quantize_rows(torch.from_numpy(x), "int8")
     assert tq.int8_scale_report(ts) == jq.int8_scale_report(js)
+
+
+# --- the PQ row codecs (CAGRA's pq edge store)
+
+PQ_SHAPES = [(64, 8), (100, 4), (128, 16), (128, 64), (256, 32)]
+
+
+def _jax_books(d: int, pq_dim: int, seed: int = 0):
+    rng = np.random.default_rng(seed + d + pq_dim)
+    x = rng.standard_normal((1500, d)).astype(np.float32) * 3
+    return x, np.asarray(jq.train_pq_rows(x, pq_dim, iters=4))
+
+
+@pytest.mark.parametrize("d,pq_dim", PQ_SHAPES)
+def test_pq_tables_and_norms_match_jax(d, pq_dim):
+    x, books = _jax_books(d, pq_dim)
+    tb = torch.from_numpy(books.copy())
+    jt = np.asarray(jq.pq_decode_table(books))
+    tt = tq.pq_decode_table(tb)
+    np.testing.assert_array_equal(tt.numpy().view(np.int32),
+                                  jt.view(np.int32))
+    j8, js = jq.pq_int8_cb(jnp.asarray(jt), pq_dim, books.shape[1])
+    t8, ts = tq.pq_int8_cb(tt, pq_dim, books.shape[1])
+    np.testing.assert_array_equal(t8.numpy(), np.asarray(j8))
+    np.testing.assert_array_equal(ts.numpy().view(np.int32),
+                                  np.asarray(js).view(np.int32))
+    codes = np.asarray(jq.encode_pq_rows(x, books))
+    jn = np.asarray(jq.pq_decoded_norms(codes, books))
+    tn = tq.pq_decoded_norms(torch.from_numpy(codes.copy()), tb)
+    np.testing.assert_array_equal(tn.numpy().view(np.int32),
+                                  jn.view(np.int32))
+    # the compact form holds the tables' numbers: the codebooks for f32,
+    # the int8 table's non-zero blocks with one scale a subspace
+    cf, none = tq.pq_compact_cb(tt, None, pq_dim)
+    assert none is None and torch.equal(cf, tb)
+    c8, cs = tq.pq_compact_cb(t8, ts, pq_dim)
+    pq_len = jt.shape[1] // pq_dim
+    for s in range(pq_dim):
+        blk = np.asarray(j8)[s * books.shape[1]:(s + 1) * books.shape[1],
+                             s * pq_len:(s + 1) * pq_len]
+        np.testing.assert_array_equal(c8[s].numpy(), blk)
+        assert float(cs[s]) == float(np.asarray(js)[0, s * pq_len])
+
+
+@pytest.mark.parametrize("d,pq_dim", PQ_SHAPES)
+def test_pq_int8_books_is_the_compact_int8_table(d, pq_dim):
+    """The codebooks quantized straight into the compact int8 form give
+    the bits of JAX's int8 decode table cut to its non-zero blocks."""
+    _, books = _jax_books(d, pq_dim)
+    tb = torch.from_numpy(books.copy())
+    c8, cs = tq.pq_compact_cb(*tq.pq_int8_cb(tq.pq_decode_table(tb), pq_dim,
+                                             books.shape[1]), pq_dim)
+    b8, bs = tq.pq_int8_books(tb)
+    assert b8.dtype == torch.int8 and torch.equal(b8, c8)
+    np.testing.assert_array_equal(bs.numpy().view(np.int32),
+                                  cs.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("d,pq_dim", PQ_SHAPES)
+def test_encode_pq_rows_matches_jax(d, pq_dim):
+    x, books = _jax_books(d, pq_dim)
+    jc = np.asarray(jq.encode_pq_rows(x, books))
+    tc = tq.encode_pq_rows(torch.from_numpy(x), torch.from_numpy(books),
+                           chunk=512)
+    assert tc.dtype == torch.uint8 and tc.shape == jc.shape
+    assert (tc.numpy() == jc).mean() >= 0.999
+    # integer-valued rows and codebooks: every distance is exact
+    rng = np.random.default_rng(d)
+    xi = rng.integers(-6, 7, (700, d)).astype(np.float32)
+    bi = rng.integers(-6, 7, books.shape).astype(np.float32)
+    np.testing.assert_array_equal(
+        tq.encode_pq_rows(torch.from_numpy(xi), torch.from_numpy(bi),
+                          chunk=256).numpy(),
+        np.asarray(jq.encode_pq_rows(xi, bi)))
+
+
+def test_default_pq_dim_matches_jax():
+    for d in (8, 24, 64, 100, 128, 200, 512, 960, 2048):
+        assert tq.default_pq_dim(d) == jq.default_pq_dim(d)
+
+
+def test_train_pq_rows_exact_when_book_covers_corpus():
+    """JAX's contract: with more codewords than rows, every row decodes
+    to itself."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((100, 64)).astype(np.float32)
+    books = tq.train_pq_rows(torch.from_numpy(x), 8)
+    assert books.shape == (8, 100, 16)
+    codes = tq.encode_pq_rows(torch.from_numpy(x), books).long()
+    dec = torch.cat([books[s][codes[:, s]] for s in range(8)], dim=1)
+    assert float((dec[:, :64] - torch.from_numpy(x)).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("d,pq_dim", [(64, 8), (128, 16), (128, 64)])
+def test_train_pq_rows_quality_tracks_jax(d, pq_dim):
+    rng = np.random.default_rng(d * pq_dim)
+    x = rng.standard_normal((3000, d)).astype(np.float32) * 3
+
+    def mse(books, codes):
+        dec = np.concatenate([books[s][codes[:, s]]
+                              for s in range(pq_dim)], axis=1)[:, :d]
+        return float(((dec - x) ** 2).sum(1).mean())
+
+    jb = np.asarray(jq.train_pq_rows(x, pq_dim, iters=8, train_rows=2000))
+    tb = tq.train_pq_rows(torch.from_numpy(x), pq_dim, iters=8,
+                          train_rows=2000)
+    assert tb.shape == jb.shape
+    j = mse(jb, np.asarray(jq.encode_pq_rows(x, jb)))
+    t = mse(tb.numpy(), tq.encode_pq_rows(torch.from_numpy(x), tb).numpy())
+    assert t <= 1.10 * j, (t, j)

@@ -46,7 +46,7 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    numpy on a few queries;
    Each path prints its launches per kernel and, for K1, K3 and K4, per
    form (K1: the warp select for k <= 256, the k passes above; K3 and K4:
-   the grouped form for k <= 256, the per-pair form above); the IVF paths
+   the grouped form for k <= 512, the per-pair form above); the IVF paths
    must launch K3 or K4 once a search (a shard), in the grouped form.
 2. determinism: the path's IVF-Flat and IVF-PQ indexes, built once more
    from the same rows in the same process, must be bit-equal to the
@@ -59,8 +59,12 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    beside the exact graph's, its edge recall against the exact
    neighbors of 10,000 sampled rows (>= 0.80), and the fused search's
    recall at itopk 64 beside the exact graph's index; the IVF-PQ graph
-   pass on the first 200,000 rows (K4 at k = 257, the per-pair form,
-   once a batch), its time and edge recall (>= 0.80); ``tune_search``
+   route the same way on all 1,000,000 rows (K4 at k = 257 in its grouped
+   form, once a batch: 31 grouped launches and no per-pair one), its
+   build seconds by stage, the pass's own stages (the IVF-PQ build, K4,
+   K1's merge, refine) timed call by call on the card, edge recall
+   (>= 0.80), the fused search's recall beside the exact graph's and
+   NN-descent's, and the route's own peak device memory; ``tune_search``
    on the path's index (which engine wins, and why not the fused one
    if it does not).
 4. bench: the harness (``raft_tpu_torch.bench``) on blobs-1000000x128
@@ -95,19 +99,23 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    size of batch (full and last) whose K2 plan splits the corpus, the
    IVF-Flat and IVF-PQ probe merges, refine, the edge engine's parent
    pick and buffer merge, the allgather merge at k = 100, NN-descent's
-   merge at k = 64 (the bench's build) and 128 (the graph route), the
-   last two taken from the paths as they ran — each form on
+   merge at k = 64 (the bench's build) and 128 (the graph route) and the
+   IVF-PQ graph pass's merge (32,768 x 64·257) at k = 257, the last
+   three taken from the paths as they ran — each form on
    the path's values and on integer-valued rows, the two forms timed in
    turn, and bit for bit on the path's values with NaN, -NaN, ±inf and
    -0.0 cells mixed in; K2 on integer inputs at k = 10, 129 and 256 and
    on the path's data at k = 10 and at the CAGRA build's k = 129; K3 and
    K4 in both forms (grouped, per-pair), each launched twice and
    bit-equal, both timed, with the grouped form's tiles and the bytes
-   they read (K3's FP32 bound beside its 3xTF32 one); K4 in the bf16,
+   they read (K3's FP32 bound beside its 3xTF32 one); K3 also at k = 257
+   and 512 (both forms, and on integer-valued lists and queries, with
+   the grouped plan the library makes); K4 in the bf16,
    f32 and int8 LUT modes and on an integer-valued copy of the IVF-PQ
    index, and at the IVF-PQ graph pass's first batch (4-bit codes, int8
-   LUT, k = 257, per-pair form: values slot by slot, ids as sets, since
-   near ties reorder ids past 128 slots), K5 and K6 on the path's data,
+   LUT, k = 257, both forms; at k = 512 on its first 8,192 queries;
+   values slot by slot, ids as sets, since near ties reorder ids past
+   128 slots; equal on an integer-valued copy), K5 and K6 on the path's data,
    where they must be equal, and on
    integer-valued copies; K5 also on a bf16 store; K6 launched twice,
    bit-equal, and timed cut to 8, 32 and 80 hops (the cost of a hop),
@@ -242,9 +250,16 @@ FP32_INSTR_PER_S = 33.5e12     # one add, compare or FMA per lane per clock
 TF32_FLOPS_PER_S = 495e12      # H100 SXM, dense TF32 on the tensor cores
 RTOL = 1e-5                    # float32 sums in another order
 K7_KS = (K, RING_K, 300)       # K7's k: the path's, RING_K, past K8's forms
-# the graph routes: NN-descent at the path's parameters, the IVF-PQ pass on
-# the first ROUTE_PQ_ROWS rows; edge recall on EDGE_SAMPLE rows
-ROUTE_PQ_ROWS, EDGE_SAMPLE, EDGE_MIN_RECALL = 200_000, 10_000, 0.80
+# the graph routes: NN-descent and the IVF-PQ pass at the path's
+# parameters on all its rows; edge recall on EDGE_SAMPLE rows
+EDGE_SAMPLE, EDGE_MIN_RECALL = 10_000, 0.80
+# the IVF-PQ pass asks K4 for 2·128 + 1 candidates a row; K3 and K4 are
+# also held there and at their grouped forms' widest k, K4 at 512 on the
+# first WIDE_QUERIES queries of the pass's first batch (and on an
+# integer-valued copy of that batch)
+PASS_K = 2 * CAGRA_D0 + 1
+WIDE_KS = (PASS_K, iscan.GROUP_MAX_K)
+WIDE_QUERIES = 8192
 # the bench phase: the harness's synthetic spec (64 blobs of std 3.0,
 # centers in ±10), 10,000 queries, the CLI's ground-truth depth
 BENCH_SPEC, BENCH_QUERIES, BENCH_GT_K, BENCH_REPS = (
@@ -863,6 +878,38 @@ class captured:
         setattr(self.mod, self.name, self.orig)
 
 
+class call_events:
+    """Bracket every call of ``mod.<name>`` with CUDA events on the current
+    stream for the duration of a ``with`` block (no synchronisation), so a
+    stage's device time can be read call by call after the path:
+    :meth:`ms` synchronises and returns each call's milliseconds."""
+
+    def __init__(self, mod, name: str):
+        self.mod, self.name, self.marks = mod, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.mod, self.name)
+
+        def tap(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.orig(*args, **kwargs)
+            end.record()
+            self.marks.append((start, end))
+            return out
+
+        setattr(self.mod, self.name, tap)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+
+    def ms(self) -> list:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.marks]
+
+
 class engine_runs:
     """Wrap ``cagra.search`` for the duration of a ``with`` block and
     record, for each call that leaves the engine to ``auto`` (the bench's
@@ -916,15 +963,112 @@ def edge_recall(graph, x, k: int, seed: int) -> float:
     return neighborhood_recall(graph[rows], exact_graph_rows(x, rows, k))
 
 
+def ivf_pq_route(x, q, bi, cidx, p, recalls, totals):
+    """CAGRA's IVF-PQ graph pass on all of ``x`` at the path's parameters
+    ``p``, as the NN-descent route: ``cagra.build``'s stages one by one
+    (the pass's own stages — the IVF-PQ build, K4, the K1 merge, refine —
+    timed call by call on the card), the int8 edge store and the fused
+    search, its recall beside ``recalls`` (the exact graph's and
+    NN-descent's), K4's launches (grouped, once a batch) and the route's
+    own peak device memory. → (K1's merge input, K4's input, as the pass
+    handed them; the run's peak device memory before the route, which
+    resets it)."""
+    n = x.shape[0]
+    exact_s = cidx.build_stats["knn_graph_s"]
+    n_lists = max(16, min(1024, int(np.sqrt(n) * 2)))    # build_knn_graph's
+    merge_w = max(16, min(64, n_lists // 8)) * PASS_K
+    batches = -(-n // CAGRA_BATCH)
+    run_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def pq_path():
+        info = {}
+        with call_events(ivf_pq, "build") as ev_build, \
+                call_events(ipq, "ivf_pq_scan_candidates") as ev_k4, \
+                call_events(ipq, "kpass_select_k") as ev_k1, \
+                call_events(refine, "refine") as ev_refine:
+            knn, t_knn = host_time(lambda: cagra.build_knn_graph(
+                x, CAGRA_D0, p.metric, p.seed, algo="ivf_pq", info=info))
+            stages = {"ivf_pq build": ev_build.ms(), "K4": ev_k4.ms(),
+                      "K1 merge": ev_k1.ms(), "refine": ev_refine.ms()}
+        graph, t_opt = host_time(lambda: cagra.optimize(knn, CAGRA_DEG))
+        seeds, t_seeds = host_time(lambda: cagra.build_covering_seeds(x, p))
+        gidx = cagra.Index(x, graph, cidx.metric, seeds)
+        _, t_store = host_time(lambda: cagra.prepare_traversal(gidx))
+        (_, i), t_first = host_time(lambda: cagra.search(
+            gidx, q, K, CAGRA_SP, engine="fused"))
+        (d, i), t = host_time(lambda: cagra.search(gidx, q, K, CAGRA_SP,
+                                                   engine="fused"))
+        return (knn, info, stages, (t_knn, t_opt, t_seeds, t_store, t_first,
+                                    t), d, i)
+
+    with captured(ivf_pq, "ivf_pq_scan",
+                  lambda *a, **kw: a[8] == PASS_K) as k4_cap, \
+            captured(ipq, "kpass_select_k", lambda v, k, *a, **kw: (
+                tuple(v.shape) == (CAGRA_BATCH, merge_w)
+                and k == PASS_K)) as k1_pass_cap:
+        knn, info, stages, ts, pd, pi = run_path(
+            "cagra ivf_pq build + fused search",
+            ("select_k", "ivf_pq_scan", "ivf_pq_scan.group", "cagra_fused"),
+            pq_path, totals)
+    phase_peak = torch.cuda.max_memory_allocated()
+    moved = counts()
+    t_knn, t_opt, t_seeds, t_store, t_first, t = ts
+    check_knn("cagra ivf_pq fused", pd, pi, K)
+    if (moved["ivf_pq_scan.pair"], moved["ivf_pq_scan.group"]) != (
+            0, batches):
+        raise AssertionError(f"ivf_pq graph pass: K4 per-pair / grouped "
+                             f"launches {moved['ivf_pq_scan.pair']} / "
+                             f"{moved['ivf_pq_scan.group']}, expected "
+                             f"0 / {batches}")
+    if info.get("algo") != "ivf_pq" or len(stages["K4"]) != batches:
+        raise AssertionError(f"ivf_pq graph pass: {info}, "
+                             f"{len(stages['K4'])} K4 calls")
+    if k4_cap.call is None or k1_pass_cap.call is None:
+        raise AssertionError(f"ivf_pq graph pass: no K4 call at k={PASS_K} "
+                             f"or no K1 merge at {(CAGRA_BATCH, merge_w)}")
+    rec = edge_recall(knn, x, CAGRA_D0, SEED + 1)
+    recall = neighborhood_recall(pi, bi)
+    per = {name: (statistics.median(v), sum(v)) for name, v in
+           stages.items()}
+    log(f"cagra ivf_pq build on {n} rows ({n_lists} lists, K4 at k={PASS_K} "
+        f"in its grouped form, {batches} batches of {CAGRA_BATCH}): "
+        f"knn_graph {t_knn:.3f} s (the exact graph's {exact_s:.3f} s), "
+        f"optimize {t_opt:.3f} s, seeds {t_seeds:.3f} s, total "
+        f"{t_knn + t_opt + t_seeds:.3f} s; edge store {t_store:.3f} s")
+    log("cagra ivf_pq graph pass, the card's time by stage (median a call, "
+        "sum): " + ", ".join(f"{name} {med:.2f} ms, {tot / 1e3:.3f} s"
+                             for name, (med, tot) in per.items())
+        + f"; a batch's K4 candidate buffer ({CAGRA_BATCH}, {merge_w}) "
+        f"{CAGRA_BATCH * merge_w * 8 / 1e9:.2f} GB")
+    log(f"cagra ivf_pq kNN graph edge recall (k={CAGRA_D0}, {EDGE_SAMPLE} "
+        f"sampled rows vs exact): {rec:.4f}")
+    log(f"cagra ivf_pq fused search(itopk={ITOPK}): first "
+        f"{t_first * 1e3:.1f} ms, steady {t * 1e3:.1f} ms, {M / t:.0f} QPS, "
+        f"recall@{K} {recall:.4f} (the exact graph's index: "
+        f"{recalls[0]:.4f}, NN-descent's: {recalls[1]:.4f})")
+    log(f"cagra ivf_pq route: the phase's own peak device memory "
+        f"{phase_peak / 2**30:.2f} GiB (the run's before it "
+        f"{run_peak / 2**30:.2f} GiB)")
+    if rec < EDGE_MIN_RECALL:
+        raise AssertionError(f"ivf_pq graph pass edge recall {rec:.4f} < "
+                             f"{EDGE_MIN_RECALL}")
+    del knn, pd, pi
+    return k1_pass_cap.call, k4_cap.call, run_peak
+
+
 def graph_route_phase(x, q, bidx, cidx, totals):
     """CAGRA's other graph builders on the path's data. NN-descent at the
     path's parameters (degree 128 → 64): the stages of ``cagra.build``
     one by one (kNN graph, optimize, covering seeds) so the kNN graph's
     edge recall can be read, then the int8 edge store and the fused
-    search at itopk 64 beside the exact graph's index. The IVF-PQ pass on
-    the first ROUTE_PQ_ROWS rows. Then ``tune_search`` on the path's
-    index. Returns K1's NN-descent merge input and K4's graph-pass input,
-    each as the path handed it to the kernel."""
+    search at itopk 64 beside the exact graph's index. The IVF-PQ pass
+    the same way on all the rows (K4 at k = 257 in its grouped form once a
+    batch, its stages timed call by call on the card), with the phase's
+    own peak device memory. Then ``tune_search`` on the path's index.
+    Returns K1's NN-descent and graph-pass merge inputs and K4's
+    graph-pass input, each as the path handed it to the kernel, and the
+    run's peak device memory before the IVF-PQ route (which resets it)."""
     n = x.shape[0]
     _, bi = brute_force.search(bidx, q, K)
     _, ei = cagra.search(cidx, q, K, CAGRA_SP, engine="fused")
@@ -958,7 +1102,7 @@ def graph_route_phase(x, q, bidx, cidx, totals):
     t_knn, t_opt, t_seeds, t_store, t_first, t = ts
     check_knn("cagra nn_descent fused", nd, ni, K)
     rec = edge_recall(knn, x, CAGRA_D0, SEED)
-    recall = neighborhood_recall(ni, bi)
+    recall = nnd_recall = neighborhood_recall(ni, bi)
     log(f"cagra nn_descent build: knn_graph {t_knn:.3f} s "
         f"({info['nnd_rounds']} rounds, last update rate "
         f"{info['nnd_update_rate']:.4f}; the exact graph's {exact_s:.3f} s), "
@@ -977,34 +1121,8 @@ def graph_route_phase(x, q, bidx, cidx, totals):
         raise AssertionError(f"nn_descent: no K1 merge at {merge}")
     del knn, nd, ni
 
-    xs = x[:ROUTE_PQ_ROWS]
-    gpu_k = 2 * CAGRA_D0 + 1
-    with captured(ivf_pq, "ivf_pq_scan",
-                  lambda *a, **kw: a[8] == gpu_k) as k4_cap:
-        def pq_path():
-            info = {}
-            g, t_g = host_time(lambda: cagra.build_knn_graph(
-                xs, CAGRA_D0, "sqeuclidean", SEED, algo="ivf_pq", info=info))
-            return g, t_g
-        pg, t_pg = run_path("cagra ivf_pq graph pass",
-                            ("select_k", "ivf_pq_scan", "ivf_pq_scan.pair"),
-                            pq_path, totals)
-    moved = counts()
-    batches = -(-ROUTE_PQ_ROWS // CAGRA_BATCH)
-    if (moved["ivf_pq_scan.pair"], moved["ivf_pq_scan.group"]) != (
-            batches, 0):
-        raise AssertionError(f"ivf_pq graph pass: K4 per-pair / grouped "
-                             f"launches {moved['ivf_pq_scan.pair']} / "
-                             f"{moved['ivf_pq_scan.group']}, expected "
-                             f"{batches} / 0")
-    rec = edge_recall(pg, xs, CAGRA_D0, SEED + 1)
-    log(f"cagra ivf_pq graph pass on {ROUTE_PQ_ROWS} rows (k={CAGRA_D0}, "
-        f"K4 at k={gpu_k} in its per-pair form, {batches} batches): "
-        f"{t_pg:.3f} s, edge recall {rec:.4f} ({EDGE_SAMPLE} sampled rows)")
-    if rec < EDGE_MIN_RECALL:
-        raise AssertionError(f"ivf_pq graph pass edge recall {rec:.4f} < "
-                             f"{EDGE_MIN_RECALL}")
-    del pg
+    k1_pass, k4_call, run_peak = ivf_pq_route(
+        x, q, bi, cidx, p, (exact_recall, nnd_recall), totals)
 
     # the race on the path's index (a copy of its handle: a gather win
     # drops the copy's store, and the kernel phases read the path's)
@@ -1024,7 +1142,7 @@ def graph_route_phase(x, q, bidx, cidx, totals):
         raise AssertionError("cagra: engine='auto' does not follow the "
                              "race")
     del tidx
-    return k1_cap.call, k4_cap.call
+    return k1_cap.call, k1_pass, k4_call, run_peak
 
 
 def bench_phase(totals, dev):
@@ -1790,10 +1908,11 @@ TILE_ROWS = 128    # the grouped scans' row tile (csrc/tf32_tile.cuh, BN)
 
 
 def group_tiles(probed, sizes, k: int):
-    """The grouped form's tiles at k: (live tiles, rows they read, queries
-    they gather) of ``ivf_scan.pack_pairs``."""
-    glist, _, gcount, _ = iscan.pack_pairs(probed.int(), N_LISTS,
-                                           fk.block_queries(k))
+    """The grouped form's tiles at k over the lists of ``sizes``: (live
+    tiles, rows they read, queries they gather) of
+    ``ivf_scan.pack_pairs``."""
+    glist, _, gcount, _ = iscan.pack_pairs(probed.int(), sizes.shape[0],
+                                           iscan.group_queries(k))
     live = gcount > 0
     return (int(live.sum()), int(sizes.long()[glist[live].long()].sum()),
             int(gcount.sum()))
@@ -1978,40 +2097,162 @@ def check_wide_k(ref_v, ref_i, v, i, what: str) -> float:
     return err
 
 
+def k3_wide(timer, iidx, q) -> dict:
+    """K3 past K2's k = 256 on the path's IVF-Flat index (10,000 queries x
+    20 probes) at :data:`WIDE_KS`, the grouped form's widest and the IVF-PQ
+    pass's k: both forms against the plain version (values slot by slot,
+    ids as sets: :func:`check_wide_k`), each launched twice and
+    bit-equal, and equal to it on an integer-valued copy of the lists and
+    queries; both timed beside the FP32 bound of the (pair, row)
+    products, the grouped form with its plan (queries a group, query-tile
+    layout, ring stages, shared memory) as the card's library makes it."""
+    probed = iscan.coarse_probe(q, iidx.centers, N_PROBES, "l2",
+                                iidx.center_norms)
+    rng = np.random.default_rng(SEED + 5)
+    ints = lambda shape: torch.from_numpy(rng.integers(  # noqa: E731
+        -3, 4, shape).astype(np.float32)).cuda()
+    xi, qi = ints(tuple(iidx.data.shape)), ints((M, D))
+    ni = (xi * xi).sum(1)
+    qn = fk.prepare_norms("l2", q)
+    sizes = iidx.sizes_dev.long()
+    scanned = int(sizes[probed.long()].sum())
+    distinct = int(sizes[torch.unique(probed)].sum())
+    wide = {}
+    for k in WIDE_KS:
+        lists = (probed, iidx.offsets_dev, iidx.sizes_dev)
+        args = (iidx.data, iidx.data_norms, *lists, q, k, "l2")
+        iargs = (xi, ni, *lists, qi, k, "l2")
+        ref, iref = (iscan.ivf_flat_scan_plain(*args),
+                     iscan.ivf_flat_scan_plain(*iargs))
+        row = {}
+        for form in SCAN_FORMS:
+            what = (f"K3 ivf_flat_scan {form} form at k={k} ({M} queries, "
+                    f"n_probes={N_PROBES})")
+            got = iscan.ivf_flat_scan(*args, form=form)
+            row[f"{form}_max_abs_err"] = check_wide_k(*ref, *got, what)
+            check_bits(got, iscan.ivf_flat_scan(*args, form=form),
+                       f"{what}, launched twice")
+            check_equal(iref, iscan.ivf_flat_scan(*iargs, form=form),
+                        f"{what}, integer-valued lists and queries")
+            row[f"{form}_ms"] = timer(
+                lambda: iscan.ivf_flat_scan_candidates(
+                    iidx.data, iidx.data_norms, None, q, qn, probed.int(),
+                    *lists[1:], k, "l2", form))
+        del ref, iref
+        b, by = bound(distinct * (D + 1) * 4 + M * D * 4
+                      + M * N_PROBES * (4 + k * 8), 2.0 * D * scanned)
+        plan = iscan.group_plan_on_card("ivf_flat_scan", k, D)
+        row.update(bound_ms=b, bound_by=by, plan=plan)
+        log(f"  K3 at k={k}: grouped form {row['group_ms']:.3f} ms, per-pair "
+            f"{row['pair_ms']:.3f} ms, bound {b:.4f} ms ({by}); plan "
+            f"(queries a group, query tile, stages, bytes) {plan}")
+        wide[k] = row
+    return dict(wide_k=wide)
+
+
 def k4_graph_pass(timer, call) -> dict:
     """K4 at the IVF-PQ graph pass's shape (the pass's first batch, as the
-    path handed it: 4-bit codes, int8 LUT, k = 2·128 + 1, the per-pair
-    form) against its plain version; both timed."""
+    path handed it: 4-bit codes, int8 LUT, k = 2·128 + 1) in both forms
+    against its plain version (values slot by slot, ids as sets), each
+    launched twice and bit-equal, equal to it on an integer-valued copy
+    (integer codebook with an entry of 127 a subspace, so the int8 LUT's
+    scale is 1; integer centers and queries; the first
+    :data:`WIDE_QUERIES` queries) at both metrics; the same at the
+    grouped form's widest k (512) on those queries; both forms timed
+    beside the bound, the grouped form with its plan."""
     args, kwargs = call
     m, p = args[4].shape
     k = args[8]
-    shape = (f"{m} queries x {p} probes, pq_dim={args[0].shape[1]} x 4 "
-             f"bits, int8 LUT, k={k}, per-pair form")
-    got = ipq.ivf_pq_scan(*args, **kwargs)
+    pq_dim, book, pq_len = args[3].shape
+    shape = (f"{m} queries x {p} probes, pq_dim={pq_dim} x 4 bits, int8 "
+             f"LUT, k={k}")
     ref, plain_s = host_time(lambda: ipq.ivf_pq_scan_plain(*args, **kwargs))
-    err = check_wide_k(*ref, *got, f"K4 ivf_pq_scan at the graph pass "
-                       f"({shape})")
-    cand = (args[0], args[1], args[10], args[3], args[2], args[7], args[4],
-            args[5], args[6], k, args[9], "pair")
-    ms = timer(lambda: ipq.ivf_pq_scan_candidates(*cand), reps=3)
+    errs = {}
+    for form in SCAN_FORMS:
+        what = f"K4 ivf_pq_scan {form} form at the graph pass ({shape})"
+        got = ipq.ivf_pq_scan(*args, **kwargs, form=form)
+        errs[form] = check_wide_k(*ref, *got, what)
+        check_bits(got, ipq.ivf_pq_scan(*args, **kwargs, form=form),
+                   f"{what}, launched twice")
+        del got
+    del ref
+    # the grouped form's widest k on the batch's first WIDE_QUERIES queries
+    sub = list(args)
+    sub[4], sub[7], sub[8] = args[4][:WIDE_QUERIES], args[7][:WIDE_QUERIES], \
+        iscan.GROUP_MAX_K
+    ref = ipq.ivf_pq_scan_plain(*sub, **kwargs)
+    for form in SCAN_FORMS:
+        what = (f"K4 ivf_pq_scan {form} form at k={iscan.GROUP_MAX_K} (the "
+                f"graph pass's first {WIDE_QUERIES} queries)")
+        got = ipq.ivf_pq_scan(*sub, **kwargs, form=form)
+        errs[f"{form}_{iscan.GROUP_MAX_K}"] = check_wide_k(*ref, *got, what)
+        check_bits(got, ipq.ivf_pq_scan(*sub, **kwargs, form=form),
+                   f"{what}, launched twice")
+    del ref, got
+    # an integer-valued copy: every product and sum exact in either order
+    rng = np.random.default_rng(SEED + 6)
+    ints = lambda shape_: torch.from_numpy(rng.integers(  # noqa: E731
+        -3, 4, shape_).astype(np.float32)).cuda()
+    cb = ints((pq_dim, book, pq_len))
+    cb[:, 0, 0] = 127.0
+    centers = ints(tuple(args[2].shape))
+    # each list's rows lie in [its start, the next list's start)
+    dn = ipq.decoded_row_norms(args[0], centers, cb, np.append(
+        args[5].cpu().numpy(), args[0].shape[0]))
+    qi = ints((WIDE_QUERIES, args[7].shape[1]))
+    for kk in WIDE_KS:
+        for metric in ("l2", "ip"):
+            ia = (args[0], dn, centers, ipq.lut_codebook(cb, "int8"),
+                  args[4][:WIDE_QUERIES], args[5], args[6], qi, kk, metric)
+            iref = ipq.ivf_pq_scan_plain(*ia)
+            for form in SCAN_FORMS:
+                check_equal(iref, ipq.ivf_pq_scan(*ia, form=form),
+                            f"K4 ivf_pq_scan {form} form at k={kk}, {metric}"
+                            f", integer codebook/centers/queries (the graph "
+                            f"pass's codes and probes, {WIDE_QUERIES} "
+                            "queries)")
+    del iref, dn, cb, centers, qi
+
+    def cand(form, a=args):
+        return (a[0], a[1], a[10], a[3], a[2], a[7], a[4], a[5], a[6], a[8],
+                a[9], form)
+
+    # the per-pair form (seconds a call at this shape) once, after the
+    # calls above
+    reps = {"group": dict(reps=5), "pair": dict(reps=1, warmup=0)}
+    ms = {form: timer(lambda: ipq.ivf_pq_scan_candidates(*cand(form)),
+                      **reps[form]) for form in SCAN_FORMS}
+    ms_wide = {form: timer(lambda: ipq.ivf_pq_scan_candidates(
+        *cand(form, sub)), **reps[form]) for form in SCAN_FORMS}
     whole = timer(lambda: ipq.ivf_pq_scan(*args, **kwargs), reps=3)
     # the function's least work, as in k4_phase: each probed list's codes
     # and norms read once, one LUT a query, one add a (pair, row,
     # subspace), k (value, row) pairs a query out
     sizes = args[6].long()
     probed = args[4].long()
-    pq_dim, book, pq_len = args[3].shape
     b, by = bound(int(sizes[torch.unique(probed)].sum()) * (pq_dim + 4)
                   + args[7].numel() * 4 + args[2].numel() * 4
                   + args[3].numel() * 4 + probed.numel() * 4 + m * k * 8,
                   m * 2 * pq_dim * book * pq_len,
                   int(sizes[probed].sum()) * pq_dim)
-    log(f"  K4 at the graph pass: per-pair scan {ms:.3f} ms, with the K1 "
-        f"merge {whole:.3f} ms, plain {plain_s * 1e3:.1f} ms, bound "
-        f"{b:.4f} ms ({by})")
-    return dict(graph_pass_ms=ms, graph_pass_merged_ms=whole,
+    plan = iscan.group_plan_on_card("ivf_pq_scan", k, pq_dim * pq_len)
+    tiles, tile_rows, gathered = group_tiles(probed, sizes, k)
+    log(f"  K4 at the graph pass ({shape}): grouped scan {ms['group']:.3f} "
+        f"ms ({tiles} group tiles, plan (queries a group, query tile, "
+        f"stages, bytes) {plan}), per-pair {ms['pair']:.3f} ms, the "
+        f"default form with the K1 merge {whole:.3f} ms, plain "
+        f"{plain_s * 1e3:.1f} ms, bound {b:.4f} ms ({by}); at k="
+        f"{iscan.GROUP_MAX_K} on {WIDE_QUERIES} queries grouped "
+        f"{ms_wide['group']:.3f} ms, per-pair {ms_wide['pair']:.3f} ms")
+    return dict(graph_pass_ms=ms["group"], graph_pass_pair_ms=ms["pair"],
+                graph_pass_merged_ms=whole,
                 graph_pass_plain_ms=plain_s * 1e3, graph_pass_bound_ms=b,
-                graph_pass_max_abs_err=err, graph_pass_shape=shape)
+                graph_pass_bound_by=by, graph_pass_max_abs_err=errs,
+                graph_pass_shape=shape, graph_pass_plan=plan,
+                graph_pass_group_tiles=tiles,
+                wide_k={iscan.GROUP_MAX_K: dict(
+                    group_ms=ms_wide["group"], pair_ms=ms_wide["pair"],
+                    queries=WIDE_QUERIES)})
 
 
 def k6_itopk256(timer, call) -> dict:
@@ -2733,7 +2974,8 @@ def main() -> int:
 
     bidx, iidx, pidx, cidx, sidx, moved = path_phase(x, q)
     determinism_phase(x, iidx, pidx)
-    k1_route, k4_route = graph_route_phase(x, q, bidx, cidx, moved)
+    k1_route, k1_pass, k4_route, route_peak = graph_route_phase(
+        x, q, bidx, cidx, moved)
     k1_bench, k6_bench = bench_phase(moved, torch.device("cuda", 0))
     stores = stores_phase(x, q, moved)
     # the f32 forms' launches: every store's form counts under K2 and K3 too
@@ -2745,15 +2987,18 @@ def main() -> int:
     k1_in = k1_inputs(x, q, bidx, iidx, pidx, cidx, sidx) + [
         (f"NN-descent merge, {what}", call[0][0].contiguous(), call[0][1])
         for what, call in (("the bench CAGRA build", k1_bench),
-                           ("the graph route", k1_route))]
-    del k1_route, k1_bench
+                           ("the graph route", k1_route))] + [
+        ("IVF-PQ graph pass merge", k1_pass[0][0].contiguous(),
+         k1_pass[0][1])]
+    del k1_route, k1_bench, k1_pass
     kernels = [k1_phase(timer, k1_in, moved["select_k"],
                         by_form(moved, "select_k"))]
     del k1_in
     kernels += [k2_phase(timer, bidx, q, f32["fused_knn"],
                          cidx.build_stats["knn_graph_s"]),
-               k3_phase(timer, iidx, q, f32["ivf_flat_scan"],
-                        by_form(moved, "ivf_flat_scan")),
+               {**k3_phase(timer, iidx, q, f32["ivf_flat_scan"],
+                           by_form(moved, "ivf_flat_scan")),
+                **k3_wide(timer, iidx, q)},
                {**k4_phase(timer, pidx, q, moved["ivf_pq_scan"],
                            by_form(moved, "ivf_pq_scan")),
                 **k4_graph_pass(timer, k4_route)}]
@@ -2770,7 +3015,8 @@ def main() -> int:
                  **k6_itopk256(timer, k6_bench)}]
     del k6_bench
     # the edge-store phase's own peak device memory, beside the rest's
-    peaks = [torch.cuda.max_memory_allocated()]
+    # (the IVF-PQ route reset the peak: the run's before it counts too)
+    peaks = [max(route_peak, torch.cuda.max_memory_allocated())]
     log(f"peak device memory before the edge-store phase "
         f"{peaks[0] / 2**30:.2f} GiB")
     kernels += edge_store_phase(timer, q, cidx, bidx, buf_d, buf_i,

@@ -9,26 +9,25 @@
 //
 // Two forms, chosen by k in the wrapper (ops/ivf_scan.py::scan_form).
 //
-// The grouped form (k <= 256, raft_ivf_flat_scan_group) keeps the TPU
-// kernel's grouping. The wrapper packs the pairs by list (pack_pairs: one
-// stable sort of the pairs' list ids; each list's pairs cut into group
-// tiles of BM = 128 queries for k <= 64, 64 above), and one block of 8
-// warps owns one group tile. It gathers the group's query rows into
-// shared memory once (resident, split into TF32 parts where they fit, as
-// in K2), and streams the list's rows through a cp.async ring of 128-row
-// x 32-dimension stages, so a list is read once per group and not once
-// per pair. The group x list product runs on the tensor cores as 3xTF32
-// with K2's split, fresh-accumulator and rounded-add rules, and the
-// selection works from the accumulator fragments into per-query k-lists
-// with K1's warp queue (tf32_tile.cuh, shared with K2 and K4). The
-// epilogue keeps the per-pair form's order: l2 from the norms, cosine, or
-// -dot, then the penalty row where there is one; rows past the list are
-// +inf and never offered. Ties go to the smaller row. Each pair writes its
-// sorted k best to its own k columns of the (m, p*k) buffer (slot pair·k:
-// query pair / p, probe rank pair % p), and the wrapper merges each
-// query's row with K1, exactly as merge_pairs orders the pairs. An empty
-// (or filter-pruned) list writes (+inf, -1). No atomic decides an order
-// between equal keys, so two launches give the same bits.
+// The grouped form (k <= 512, raft_ivf_flat_scan_group) keeps the TPU kernel's
+// grouping. The wrapper packs the pairs by list (pack_pairs: one stable sort of
+// the pairs' list ids; each list's pairs cut into group tiles of BM = 128
+// queries for k <= 64, 64 up to 256, 32 up to 512: plan_for), and one block of
+// 8 warps owns one group tile. It gathers the group's query rows into shared
+// memory once (resident, split into TF32 parts where they fit, as in K2), and
+// streams the list's rows through a cp.async ring of 128-row x 32-dimension
+// stages, so a list is read once per group and not once per pair. The group x
+// list product runs on the tensor cores as 3xTF32 with K2's split,
+// fresh-accumulator and rounded-add rules, and the selection works from the
+// accumulator fragments into per-query k-lists with K1's warp queue
+// (tf32_tile.cuh, shared with K2 and K4). The epilogue keeps the per-pair
+// form's order: l2 from the norms, cosine, or -dot, then the penalty row where
+// there is one; rows past the list are +inf and never offered. Ties go to the
+// smaller row. Each pair writes its sorted k best to its own k columns of the
+// (m, p*k) buffer (slot pair·k: query pair / p, probe rank pair % p), and the
+// wrapper merges each query's row with K1, exactly as merge_pairs orders the
+// pairs. An empty (or filter-pruned) list writes (+inf, -1). No atomic decides
+// an order between equal keys, so two launches give the same bits.
 //
 // The per-pair form (k up to 1024, raft_ivf_flat_scan_pair): one block of
 // 128 threads owns one (query, probe) pair, the role of
@@ -63,7 +62,7 @@
 
 namespace {
 
-template <int MF, int R, int CAP, int S>
+template <int MF, int R, int CAP, int RB, int S>
 __global__ void __launch_bounds__(kThreads, 1)
 ivf_group_kernel(const void* __restrict__ data, const float* __restrict__ dn,
                  const float* __restrict__ pen,
@@ -258,8 +257,9 @@ ivf_group_kernel(const void* __restrict__ data, const float* __restrict__ dn,
         }
       }
     }
-    offer_tile<MF, R, CAP>(acc, qrow, c0 + wn * 32 + 2 * t4, list_v, list_c,
-                           buf_v, buf_c, buf_n, k, lane, warp, wm, g);
+    offer_tile<MF, R, CAP, RB>(acc, qrow, c0 + wn * 32 + 2 * t4, list_v,
+                               list_c, buf_v, buf_c, buf_n, k, lane, warp,
+                               wm, g);
 #pragma unroll
     for (int i = 0; i < MF; ++i)
 #pragma unroll
@@ -273,7 +273,8 @@ ivf_group_kernel(const void* __restrict__ data, const float* __restrict__ dn,
   for (int r = warp; r < BM; r += kThreads / 32) {
     const int nb = buf_n[r];
     if (nb > 0) {
-      fold_row<R, CAP>(list_v, list_c, buf_v, buf_c, buf_n, r, nb, k, lane);
+      fold_row<R, CAP, RB>(list_v, list_c, buf_v, buf_c, buf_n, r, nb, k,
+                           lane);
     }
     __syncwarp();
     if (r >= cnt) continue;
@@ -294,11 +295,11 @@ struct Plan {
   int bm, a_res, ns;
 };
 
-template <int MF, int R, int CAP, int S>
+template <int MF, int R, int CAP, int RB, int S>
 cudaError_t prepare(int k, int d, Plan* p) {
   constexpr int BM = 32 * MF;
   constexpr bool RAW = S != kF32;
-  p->kern = (const void*)ivf_group_kernel<MF, R, CAP, S>;
+  p->kern = (const void*)ivf_group_kernel<MF, R, CAP, RB, S>;
   p->bm = BM;
   p->smem = fit_tiles(BM, d, 3,
                       list_bytes(BM, k, CAP) +
@@ -313,15 +314,21 @@ cudaError_t prepare(int k, int d, Plan* p) {
                               (int)p->smem);
 }
 
-// By k, as K2: 128 queries a group and a buffer of the queue's C keys up
-// to k = 64; 64 queries above, with 128 keys up to k = 128 and 64 up to
-// 256.
+// By k, as K2 up to 256: 128 queries a group and a buffer of the queue's
+// C keys up to k = 64; 64 queries above, with 128 keys up to k = 128 and
+// 64 up to 256. Past 256 (K2 stops there): 32 queries a group, a queue of
+// 512 keys (R = 16) and buffers of 128, sorted in 4 registers a fold
+// (RB), so that the k-lists and buffers, 8·32·(k + 128) bytes, leave room
+// for the ring at k = 512 (164 KB of lists; at k = 257 the first 3 tiles
+// of every list all enter the buffers, 3 folds before a threshold
+// exists). ops/ivf_scan.py::group_plan states these plans in Python.
 template <int S>
 cudaError_t plan_for(int k, int d, Plan* p) {
-  if (k <= 32) return prepare<4, 1, 32, S>(k, d, p);
-  if (k <= 64) return prepare<4, 2, 64, S>(k, d, p);
-  if (k <= 128) return prepare<2, 4, 128, S>(k, d, p);
-  return prepare<2, 8, 64, S>(k, d, p);
+  if (k <= 32) return prepare<4, 1, 32, 1, S>(k, d, p);
+  if (k <= 64) return prepare<4, 2, 64, 2, S>(k, d, p);
+  if (k <= 128) return prepare<2, 4, 128, 4, S>(k, d, p);
+  if (k <= 256) return prepare<2, 8, 64, 8, S>(k, d, p);
+  return prepare<1, 16, 128, 4, S>(k, d, p);
 }
 
 // ---- the per-pair form ----
@@ -425,7 +432,7 @@ ivf_pair_kernel(const typename TileStore<S>::T* __restrict__ data,
 // the m*p pairs by list id; group g of the n_groups (pack_pairs) scans list
 // glist[g] for the gcount[g] pairs order[gstart[g] ...] (none past the
 // live groups); qg, the group's rows, must be the form's for k (128 up to
-// k = 64, 64 above). 1 <= k <= 256.
+// k = 64, 64 up to 256, 32 up to 512). 1 <= k <= 512.
 template <int S>
 int scan_group(const void* data, const void* dn, const void* pen,
                const void* scales, const void* q, const void* qn,
@@ -433,7 +440,7 @@ int scan_group(const void* data, const void* dn, const void* pen,
                const void* gcount, const void* offsets, const void* sizes,
                int n_groups, int qg, int p, int d, int k, int metric,
                void* out_v, void* out_i, void* stream) {
-  if (k < 1 || k > 256 || d < 1 || n_groups < 0 ||
+  if (k < 1 || k > kGroupMaxK || d < 1 || n_groups < 0 ||
       (S == kF32 && scales != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -458,6 +465,22 @@ int scan_group(const void* data, const void* dn, const void* pen,
                          pl.smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The grouped form's plan for (k, d): out[0..4) = the queries a group,
+// the query tile's layout (a_res), the ring's stages and the shared memory
+// of a block.
+template <int S>
+int group_plan(int k, int d, int* out) {
+  if (k < 1 || k > kGroupMaxK || d < 1) return (int)cudaErrorInvalidValue;
+  Plan pl;
+  const cudaError_t err = plan_for<S>(k, d, &pl);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = pl.bm;
+  out[1] = pl.a_res;
+  out[2] = pl.ns;
+  out[3] = (int)pl.smem;
+  return 0;
 }
 
 // The per-pair form: probed is (m, p), order a permutation of the m*p
@@ -493,10 +516,10 @@ int scan_pair(const void* data, const void* dn, const void* pen,
 
 // One store's C entries, raft_ivf_flat_scan_group(data, dn, pen, scales,
 // q, qn, order, glist, gstart, gcount, offsets, sizes, n_groups, qg, p, d,
-// k, metric, out_v, out_i, stream) and raft_ivf_flat_scan_pair(data, dn,
+// k, metric, out_v, out_i, stream), raft_ivf_flat_scan_pair(data, dn,
 // pen, scales, q, qn, probed, order, offsets, sizes, m, p, d, k, metric,
-// out_v, out_i, stream), each library built from one ivf_flat_scan*.cu
-// that names its store.
+// out_v, out_i, stream) and raft_ivf_flat_scan_group_plan(k, d, out), each
+// library built from one ivf_flat_scan*.cu that names its store.
 #define RAFT_IVF_FLAT_SCAN_ENTRIES(S)                                       \
   extern "C" int raft_ivf_flat_scan_group(                                  \
       const void* data, const void* dn, const void* pen,                    \
@@ -518,4 +541,7 @@ int scan_pair(const void* data, const void* dn, const void* pen,
     return scan_pair<S>(data, dn, pen, scales, q, qn, probed, order,        \
                         offsets, sizes, m, p, d, k, metric, out_v, out_i,   \
                         stream);                                            \
+  }                                                                         \
+  extern "C" int raft_ivf_flat_scan_group_plan(int k, int d, int* out) {    \
+    return group_plan<S>(k, d, out);                                        \
   }

@@ -14,12 +14,13 @@
 //
 // Two forms, chosen by k in the wrapper (ops/ivf_scan.py::scan_form).
 //
-// The grouped form (k <= 256, raft_ivf_pq_scan_group) keeps the TPU
+// The grouped form (k <= 512, raft_ivf_pq_scan_group) keeps the TPU
 // kernel's grouping and its decode. One block of 8 warps owns one group
 // tile of the wrapper's pack_pairs (BM = 128 queries of one list for
-// k <= 64, 64 above). It gathers the group's rotated queries into shared
-// memory once (resident, split into TF32 parts where they fit, else
-// streamed beside each stage), and computes q·c_l and ||q||² once per
+// k <= 64, 64 up to 256, 32 up to 512: K3's plans). It gathers the
+// group's rotated queries into shared memory once (resident, split into
+// TF32 parts where they fit, else streamed beside each stage), and
+// computes q·c_l and ||q||² once per
 // (group query, list). No block builds a lookup table: each 32-dimension
 // stage of a 128-row tile is decoded into dense float32 rows in shared
 // memory, dec[r, s·pq_len + l] = cb[s, code[r, s], l], from the codes and
@@ -42,7 +43,9 @@
 // the accumulator fragments, the per-pair output slots (pair·k of the (m,
 // p*k) buffer, merged by the wrapper's K1 exactly as merge_pairs orders
 // the pairs) and the (+inf, -1) of an empty or filter-pruned list are
-// K3's grouped form's.
+// K3's grouped form's. CAGRA's IVF-PQ graph pass (k = 2·128 + 1 = 257,
+// 4-bit codes at pq_len 1, int8 LUT) runs the plan past 256: 32 queries
+// a group, a 512-key queue beside 128-key buffers.
 //
 // The per-pair form (k up to 1024, raft_ivf_pq_scan_pair): one block of
 // 256 threads owns one (query, probe) pair, the role of
@@ -64,7 +67,7 @@
 
 namespace {
 
-template <int MF, int R, int CAP>
+template <int MF, int R, int CAP, int RB>
 __global__ void __launch_bounds__(kThreads, 1)
 ivf_pq_group_kernel(const uint8_t* __restrict__ codes,
                     const float* __restrict__ dn,
@@ -308,8 +311,9 @@ ivf_pq_group_kernel(const uint8_t* __restrict__ codes,
         }
       }
     }
-    offer_tile<MF, R, CAP>(acc, qrow, c0 + wn * 32 + 2 * t4, list_v, list_c,
-                           buf_v, buf_c, buf_n, k, lane, warp, wm, g);
+    offer_tile<MF, R, CAP, RB>(acc, qrow, c0 + wn * 32 + 2 * t4, list_v,
+                               list_c, buf_v, buf_c, buf_n, k, lane, warp,
+                               wm, g);
 #pragma unroll
     for (int i = 0; i < MF; ++i)
 #pragma unroll
@@ -322,7 +326,8 @@ ivf_pq_group_kernel(const uint8_t* __restrict__ codes,
   for (int r = warp; r < BM; r += kThreads / 32) {
     const int nb = buf_n[r];
     if (nb > 0) {
-      fold_row<R, CAP>(list_v, list_c, buf_v, buf_c, buf_n, r, nb, k, lane);
+      fold_row<R, CAP, RB>(list_v, list_c, buf_v, buf_c, buf_n, r, nb, k,
+                           lane);
     }
     __syncwarp();
     if (r >= cnt) continue;
@@ -341,11 +346,11 @@ struct Plan {
   int bm, a_res, ns;
 };
 
-template <int MF, int R, int CAP>
+template <int MF, int R, int CAP, int RB = R>
 cudaError_t prepare(int k, int d, Plan* p) {
   constexpr int BM = 32 * MF;
   const size_t nk = (d + BK - 1) / BK;
-  p->kern = (const void*)ivf_pq_group_kernel<MF, R, CAP>;
+  p->kern = (const void*)ivf_pq_group_kernel<MF, R, CAP, RB>;
   p->bm = BM;
   p->smem = fit_tiles(BM, d, 2,
                       list_bytes(BM, k, CAP) + sizeof(float) * 2 * 2 * BN +
@@ -357,12 +362,14 @@ cudaError_t prepare(int k, int d, Plan* p) {
                               (int)p->smem);
 }
 
-// By k, as K2 and K3.
+// By k, as K3 (ivf_flat_scan.cuh::plan_for, whose comment gives the
+// plans; ops/ivf_scan.py::group_plan states them in Python).
 cudaError_t plan_for(int k, int d, Plan* p) {
   if (k <= 32) return prepare<4, 1, 32>(k, d, p);
   if (k <= 64) return prepare<4, 2, 64>(k, d, p);
   if (k <= 128) return prepare<2, 4, 128>(k, d, p);
-  return prepare<2, 8, 64>(k, d, p);
+  if (k <= 256) return prepare<2, 8, 64>(k, d, p);
+  return prepare<1, 16, 128, 4>(k, d, p);
 }
 
 // ---- the per-pair form ----
@@ -510,7 +517,7 @@ ivf_pq_pair_kernel(const uint8_t* __restrict__ codes,
 // pairs by list id; group g of the n_groups (pack_pairs) scans list
 // glist[g] for the gcount[g] pairs order[gstart[g] ...] (none past the
 // live groups); qg must be the form's rows for k (128 up to k = 64, 64
-// above). 1 <= k <= 256.
+// up to 256, 32 up to 512). 1 <= k <= 512.
 extern "C" int raft_ivf_pq_scan_group(
     const void* codes, const void* dn, const void* pen, const void* cb,
     const void* centers, const void* q, const void* exact,
@@ -519,7 +526,7 @@ extern "C" int raft_ivf_pq_scan_group(
     int qg, int p, int pq_dim, int pq_len, int book, int k, int metric,
     void* out_v, void* out_i, void* stream) {
   const int d = pq_dim * pq_len;
-  if (k < 1 || k > 256 || d < 1 || n_groups < 0) {
+  if (k < 1 || k > kGroupMaxK || d < 1 || n_groups < 0) {
     return (int)cudaErrorInvalidValue;
   }
   Plan pl;
@@ -540,6 +547,21 @@ extern "C" int raft_ivf_pq_scan_group(
                          pl.smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The grouped form's plan for (k, d = pq_dim·pq_len): out[0..4) = the
+// queries a group, the query tile's layout (a_res), the ring's stages and
+// the shared memory of a block.
+extern "C" int raft_ivf_pq_scan_group_plan(int k, int d, int* out) {
+  if (k < 1 || k > kGroupMaxK || d < 1) return (int)cudaErrorInvalidValue;
+  Plan pl;
+  const cudaError_t err = plan_for(k, d, &pl);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = pl.bm;
+  out[1] = pl.a_res;
+  out[2] = pl.ns;
+  out[3] = (int)pl.smem;
+  return 0;
 }
 
 // The per-pair form: probed is (m, p), order a permutation of the m*p

@@ -27,7 +27,11 @@
 // (warp_queue.cuh), and the waiting candidates try again against the new
 // k-th keys. Equal keys compare by column, so the (value, column) order is
 // exact whatever the order in which candidates arrive, and the result is
-// the same bits run to run.
+// the same bits run to run. A queue of 32·R keys holds k-lists up to
+// k = 32·R; a buffer of CAP <= 32·RB keys is sorted in RB registers
+// before it meets the queue's last RB (RB = R but in the wide plans of K3
+// and K4: a queue of 512 keys beside buffers of 128, RB = 4, sorts 128
+// keys a fold instead of 512).
 //
 // Low-precision stores (K2's and K3's store forms): the row tile is staged
 // as its stored bytes (copy_raw: a 32-dimension stage row is 64 B at bf16,
@@ -51,6 +55,8 @@ constexpr int BN = 128;        // rows a tile
 constexpr int BK = 32;         // dimensions a pipeline stage
 constexpr int kThreads = 256;  // 8 warps: 2 along the queries x 4 the rows
 constexpr size_t kSmemLimit = 232448;  // a block's shared memory on sm_90
+// the widest k-list of the grouped K3 and K4 (ops/ivf_scan.py, GROUP_MAX_K)
+constexpr int kGroupMaxK = 512;
 
 // The stores a tile may hold: the element type as stored and its bytes.
 enum StoreKind : int { kF32 = 0, kBF16 = 1, kI8 = 2, kU8 = 3, kI4 = 4 };
@@ -396,8 +402,9 @@ __device__ __forceinline__ void stage_dots(float (&acc)[MF][4][4],
   }
 }
 
-// Fold row r's buffer (its first nb keys) into its k-list, with one warp.
-template <int R, int CAP>
+// Fold row r's buffer (its first nb keys) into its k-list, with one warp
+// (a queue of 32·R keys; the buffer sorted in RB registers, CAP <= 32·RB).
+template <int R, int CAP, int RB = R>
 __device__ __forceinline__ void fold_row(float* list_v, int* list_c,
                                          float* buf_v, int* buf_c,
                                          int* buf_n, int r, int nb, int k,
@@ -414,8 +421,9 @@ __device__ __forceinline__ void fold_row(float* list_v, int* list_c,
       warpq::set_empty(qv[i], qc[i]);
     }
   }
-  warpq::fold_buffer<float, R>(qv, qc, buf_v + r * CAP, buf_c + r * CAP, nb,
-                               lane);
+  static_assert(CAP <= 32 * RB, "a buffer folds in one pass");
+  warpq::fold_buffer<float, R, RB>(qv, qc, buf_v + r * CAP, buf_c + r * CAP,
+                                   nb, lane);
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int e = i * 32 + lane;
@@ -436,7 +444,7 @@ __device__ __forceinline__ void fold_row(float* list_v, int* list_c,
 // the first offer compares values only: a key equal to the k-th is never
 // before it here, and the k-th of a short list is +inf, so no +inf or NaN
 // distance is ever offered. Called by all threads of the block.
-template <int MF, int R, int CAP>
+template <int MF, int R, int CAP, int RB = R>
 __device__ __forceinline__ void offer_tile(
     const float (&dist)[MF][4][4], const int* live, int col0, float* list_v,
     int* list_c, float* buf_v, int* buf_c, int* buf_n, int k, int lane,
@@ -480,8 +488,8 @@ __device__ __forceinline__ void offer_tile(
   while (__syncthreads_or(pend != 0)) {
     for (int r = warp; r < BM; r += kThreads / 32) {
       if (buf_n[r] >= CAP) {
-        fold_row<R, CAP>(list_v, list_c, buf_v, buf_c, buf_n, r, CAP, k,
-                         lane);
+        fold_row<R, CAP, RB>(list_v, list_c, buf_v, buf_c, buf_n, r, CAP,
+                             k, lane);
       }
     }
     __syncthreads();

@@ -115,17 +115,24 @@ __device__ __forceinline__ void kth_key(const T (&qv)[R], const int (&qc)[R],
   tc = __shfl_sync(RAFT_FULL_MASK, c, (k - 1) & 31);
 }
 
-// Fold the buffer's first nb <= C keys (in shared memory) into the
-// ascending queue (qv, qc) → the C smallest keys of both, ascending.
-template <typename T, int R>
+// Fold the buffer's first nb <= 32·RB keys (in shared memory) into the
+// ascending queue (qv, qc) → the C smallest keys of both, ascending. The
+// buffer is sorted descending in RB registers (RB <= R), as if it were
+// the last 32·RB keys of a C-key buffer whose first keys are empty: only
+// the queue's last RB registers meet it, the rest keep their keys, and the
+// elementwise smaller keys still form a bitonic sequence of C keys. A
+// small buffer beside a long queue thus costs a sort of its own width and
+// one merge of C keys, not a sort of C keys.
+template <typename T, int R, int RB = R>
 __device__ __forceinline__ void fold_buffer(T (&qv)[R], int (&qc)[R],
                                             const T* buf_v, const int* buf_c,
                                             int nb, int lane) {
-  T bv[R];
-  int bc[R];
+  static_assert(RB >= 1 && RB <= R, "the buffer's registers: 1 to R");
+  T bv[RB];
+  int bc[RB];
   __syncwarp();  // the buffer's last writes
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
+  for (int r = 0; r < RB; ++r) {
     const int e = r * 32 + lane;
     if (e < nb) {
       bv[r] = buf_v[e];
@@ -135,12 +142,13 @@ __device__ __forceinline__ void fold_buffer(T (&qv)[R], int (&qc)[R],
     }
   }
   __syncwarp();  // read before the buffer is written again
-  bitonic_sort<T, R>(bv, bc, true, lane);
+  bitonic_sort<T, RB>(bv, bc, true, lane);
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (key_less(bv[r], bc[r], qv[r], qc[r])) {
-      qv[r] = bv[r];
-      qc[r] = bc[r];
+  for (int r = 0; r < RB; ++r) {
+    const int rq = R - RB + r;
+    if (key_less(bv[r], bc[r], qv[rq], qc[rq])) {
+      qv[rq] = bv[r];
+      qc[rq] = bc[r];
     }
   }
   bitonic_merge<T, R>(qv, qc, lane);

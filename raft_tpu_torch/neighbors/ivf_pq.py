@@ -400,8 +400,8 @@ def search(index: Index, queries, k: int,
     ``algo``: "auto" / "pallas" — K1 + K4 on CUDA, their plain versions on
     the CPU; "plain" — the plain versions on any device. ``query_chunk``:
     run queries in chunks of this many rows. On CUDA the scan kernel takes
-    k <= 1024: its grouped form (k <= 256) decodes each probed list once
-    for a group of the queries that probe it; its per-pair form (k > 256)
+    k <= 1024: its grouped form (k <= 512) decodes each probed list once
+    for a group of the queries that probe it; its per-pair form (k > 512)
     keeps a LUT of pq_dim x 2^pq_bits float32 entries in shared memory
     (pq_dim = 64 at 8 bits uses 64 KB)."""
     p = params or SearchParams()

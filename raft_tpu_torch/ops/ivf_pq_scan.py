@@ -22,8 +22,9 @@ On a CUDA tensor :func:`ivf_pq_scan` launches K4 once
 into its own k columns of a (m, p*k) buffer in probe-rank order, and
 merges each query's row with K1, the ``merge_pairs`` order: equal values
 go to the lower probe rank, then the lower row. K4 has K3's two forms,
-chosen by k alone (``ivf_scan.scan_form``): the grouped form (k <= 256)
-takes the pairs packed by list (``ivf_scan.pack_pairs``), decodes a
+chosen by k alone (``ivf_scan.scan_form``): the grouped form (k <= 512,
+K3's plans: ``ivf_scan.group_plan``; CAGRA's IVF-PQ graph pass asks for
+k = 257) takes the pairs packed by list (``ivf_scan.pack_pairs``), decodes a
 list's codes into rows once per group tile and multiplies the group's
 queries by them on the tensor cores, as the TPU kernel does, so
 ``Σ_s lut[s, code_is]`` becomes a dot of q with the decoded row over the
@@ -50,8 +51,7 @@ import torch
 from ..core.errors import expects
 from ..matrix.select_k import kpass_select_k, smallest_k_plain
 from . import _cuda
-from .fused_knn import block_queries
-from .ivf_scan import _candidate_rows, check_form, pack_pairs
+from .ivf_scan import _candidate_rows, check_form, group_queries, pack_pairs
 
 __all__ = ["pq_chunk_rows", "decoded_row_norms", "int8_codebook",
            "lut_codebook", "pq_lut", "ivf_pq_scan", "ivf_pq_scan_plain",
@@ -258,7 +258,7 @@ def ivf_pq_scan_candidates(codes: torch.Tensor, dn: torch.Tensor,
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _cuda.library("ivf_pq_scan")
     if form == "group":
-        qg = block_queries(k)
+        qg = group_queries(k)
         glist, gstart, gcount, order = pack_pairs(probed, offsets.shape[0],
                                                   qg)
         # on the card, without a host sync: is every codebook value exact

@@ -12,12 +12,13 @@ probe-rank order, and merges each query's row with K1, the
 ``merge_pairs`` order: equal values go to the lower probe rank, then the
 lower row. K3 has two forms, chosen by k alone (:func:`scan_form`):
 
-- ``"group"`` (k <= :data:`GROUP_MAX_K`): the pairs are packed by list
-  into group tiles (:func:`pack_pairs`, the JAX package's grouping) and
-  one block scans a list once for a whole group of its queries, on the
-  tensor cores;
+- ``"group"`` (k <= :data:`GROUP_MAX_K` = 512): the pairs are packed by
+  list into group tiles (:func:`pack_pairs`, the JAX package's grouping)
+  of :func:`group_queries` queries, and one block scans a list once for a
+  whole group of its queries, on the tensor cores (:func:`group_plan`:
+  the group's size, its k-lists' warp queue and candidate buffers by k);
 - ``"pair"`` (k up to 1024): one block per (query, probe) pair, each
-  reading its whole list.
+  reading its whole list; above :data:`GROUP_MAX_K`, or by name.
 
 The TPU kernel's aligned DMA padding (``pad_for_scan``, ``scan_window``)
 serves VMEM and has no counterpart here: the kernels mask each list's
@@ -39,6 +40,7 @@ these stores, a throughput choice of the TPU).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -48,11 +50,12 @@ from ..matrix.select_k import (SelectAlgo, kpass_select_k, select_k,
                                smallest_k_plain)
 from ..utils import cdiv
 from . import _cuda
-from .fused_knn import MAX_K, block_queries, corpus_norms, prepare_norms
+from .fused_knn import corpus_norms, prepare_norms
 from .quant import store_dtype
 
 __all__ = ["coarse_probe", "pack_pairs", "scan_form", "check_form",
-           "GROUP_MAX_K", "ivf_flat_scan", "ivf_flat_scan_plain",
+           "GROUP_MAX_K", "group_plan", "group_queries", "group_smem",
+           "group_plan_on_card", "ivf_flat_scan", "ivf_flat_scan_plain",
            "ivf_flat_scan_candidates"]
 
 launches = 0         # K3 launches since the last reset, both forms
@@ -61,7 +64,15 @@ pair_launches = 0    # of them, the per-pair form's
 # of them, each low-precision store's form (both forms)
 launches_bfloat16 = launches_int8 = launches_uint8 = 0
 
-GROUP_MAX_K = MAX_K  # a group's k-lists share the block's shared memory
+GROUP_MAX_K = 512  # a group's k-lists share the block's shared memory
+# the grouped forms' plans (csrc/ivf_flat_scan.cuh::plan_for, and K4's):
+# (widest k, queries a group, warp-queue registers R: 32·R keys, candidate
+# buffer keys CAP a query)
+_GROUP_PLANS = ((32, 128, 1, 32), (64, 128, 2, 64), (128, 64, 4, 128),
+                (256, 64, 8, 64), (512, 32, 16, 128))
+# csrc/tf32_tile.cuh: a block's shared memory, a row tile, a stage's width
+_SMEM_LIMIT, _BN, _BK = 232_448, 128, 32
+_STORE_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1, "uint8": 1}
 
 _METRIC_CODE = {"l2": 0, "cos": 1, "ip": 2}
 _INF = float("inf")
@@ -195,10 +206,74 @@ def pack_pairs(probed: torch.Tensor, n_lists: int, qg: int
             gcount.to(torch.int32), order.to(torch.int32))
 
 
+def group_plan(k: int) -> Tuple[int, int, int]:
+    """(queries a group, warp-queue registers R, candidate-buffer keys CAP)
+    of the grouped K3 and K4 at k (their ``plan_for``): 128 queries up to
+    k = 64, 64 up to 256, 32 up to :data:`GROUP_MAX_K`, whose queue of
+    512 keys beside buffers of 128 leaves room for the tile ring."""
+    expects(0 < k <= GROUP_MAX_K, "no grouped IVF scan plan for k=%d "
+            "(max %d)", k, GROUP_MAX_K)
+    return next(plan[1:] for plan in _GROUP_PLANS if k <= plan[0])
+
+
+def group_queries(k: int) -> int:
+    """The queries a group tile of the grouped K3 and K4 holds at k: the
+    ``qg`` of :func:`pack_pairs`, which the kernels check."""
+    return group_plan(k)[0]
+
+
+def group_smem(kernel: str, k: int, d: int, store: str = "float32"
+               ) -> Tuple[int, int, int]:
+    """(bytes, query-tile layout, ring stages) of one grouped block of
+    ``kernel`` ("ivf_flat_scan": K3 over ``store`` lists of width d;
+    "ivf_pq_scan": K4, d = rot_dim), as the kernels' ``prepare`` lays it
+    out (``tf32_tile.cuh::fit_tiles``): the k-lists and buffers and the
+    side arrays, then the first layout that fits in a block's 232,448
+    bytes — the query tile resident and split into its TF32 parts (2),
+    resident (1) or streamed through the ring (0), each with the most
+    stages first. (0, -1, 0) when none fits."""
+    bm, _, cap = group_plan(k)
+    nk = -(-d // _BK)
+    lists = 8 * bm * (k + cap) + 4 * bm
+    if kernel == "ivf_flat_scan":
+        raw = store != "float32"
+        fixed = (lists + 4 * 4 * (3 if raw else 2) * _BN + 4 * 2 * bm
+                 + (4 * _BN * _BK if raw else 0))
+        ns_max, b_stage = 3, _STORE_BYTES[store] * _BK * _BN
+    else:
+        expects(kernel == "ivf_pq_scan" and store == "float32",
+                "unknown grouped scan %r over %r", kernel, store)
+        fixed = lists + 4 * 2 * 2 * _BN + 4 * 4 * bm + 4 * 2 * nk * _BK
+        ns_max, b_stage = 2, 4 * _BK * _BN
+    for a_res in (2, 1, 0):
+        for ns in range(ns_max, 1, -1):
+            total = (4 * _BK * a_res * nk * bm
+                     + ns * (4 * _BK * (0 if a_res else bm) + b_stage)
+                     + fixed)
+            if total <= _SMEM_LIMIT:
+                return total, a_res, ns
+    return 0, -1, 0
+
+
+def group_plan_on_card(kernel: str, k: int, d: int,
+                       store: str = "float32") -> Tuple[int, int, int, int]:
+    """The grouped form's plan as the card's library makes it: (queries a
+    group, query-tile layout, ring stages, bytes), to hold against
+    :func:`group_plan` and :func:`group_smem`."""
+    if kernel == "ivf_flat_scan":
+        lib = _cuda.library(_cuda.STORE_SOURCES[kernel][store])
+        fn = lib.raft_ivf_flat_scan_group_plan
+    else:
+        fn = _cuda.library(kernel).raft_ivf_pq_scan_group_plan
+    out = (ctypes.c_int * 4)()
+    _cuda.check(fn(k, d, ctypes.addressof(out)), f"{kernel} group plan")
+    return tuple(out)
+
+
 def scan_form(k: int) -> str:
     """The form of K3 and K4 for k per pair: ``"group"`` up to
-    :data:`GROUP_MAX_K`, ``"pair"`` above. A rule of shape: a form that
-    fails to build, launch or fit raises."""
+    :data:`GROUP_MAX_K`, ``"pair"`` above (up to 1024). A rule of shape:
+    a form that fails to build, launch or fit raises."""
     return "group" if k <= GROUP_MAX_K else "pair"
 
 
@@ -262,7 +337,7 @@ def ivf_flat_scan_candidates(data: torch.Tensor, dn: Optional[torch.Tensor],
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _cuda.library(_cuda.STORE_SOURCES["ivf_flat_scan"][store])
     if form == "group":
-        qg = block_queries(k)
+        qg = group_queries(k)
         glist, gstart, gcount, order = pack_pairs(probed, offsets.shape[0],
                                                   qg)
         status = lib.raft_ivf_flat_scan_group(

@@ -33,18 +33,19 @@ _KERNELS = {"k6": ("cagra_fused", "raft_cagra_fused"),
             "k5": ("graph_expand", "raft_graph_expand")}
 
 
-def build(dirs):
-    """Each DIR's two kernels built at once → ({dir: {kernel: entry}},
-    the ptxas register and spill lines)."""
+def build(dirs, kernels=_KERNELS):
+    """Each DIR's ``kernels`` ({key: (source, entry)}) built at once →
+    ({dir: {key: library, its entries' C signatures set}}, the ptxas
+    register and spill lines of each kernel template instance)."""
     procs = {}
     for d in dirs:
-        for key, (src, _) in _KERNELS.items():
+        for key, (src, _) in kernels.items():
             cmd = [_cuda._nvcc(), *_cuda._FLAGS, "-Xptxas", "-v", "-o",
                    str(Path(d) / f"{key}.so"), str(Path(d) / f"{src}.cu")]
             procs[d, key] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT,
                                              text=True)
-    entries, notes = {}, []
+    libs, notes = {}, []
     for (d, key), proc in procs.items():
         text, _ = proc.communicate()
         if proc.returncode != 0:
@@ -57,11 +58,13 @@ def build(dirs):
                                 for x in lines[i + 1:i + 4]
                                 if "registers" in x or "spill" in x)
                 notes.append(f"{d} {key} <{m.group(1)}>: {tail}")
-        src, entry = _KERNELS[key]
-        fn = getattr(ctypes.CDLL(str(Path(d) / f"{key}.so")), entry)
-        fn.argtypes, fn.restype = _cuda._SIGNATURES[src][entry]
-        entries.setdefault(d, {})[key] = fn
-    return entries, notes
+        lib = ctypes.CDLL(str(Path(d) / f"{key}.so"))
+        for fn, (argtypes, restype) in _cuda._SIGNATURES[
+                kernels[key][0]].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        libs.setdefault(d, {})[key] = lib
+    return libs, notes
 
 
 def path_data():
@@ -139,9 +142,11 @@ def main(dirs) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi)
-    entries, notes = build(dirs)
+    libs, notes = build(dirs)
     print("\n".join(notes))
     run = calls(path_data())
+    entries = {d: {key: getattr(libs[d][key], entry) for key, (_, entry)
+                   in _KERNELS.items()} for d in dirs}
     for key, reps in (("k6", 10), ("k5", 50)):
         outs = {d: run[key](entries[d][key]) for d in dirs}
         torch.cuda.synchronize()

@@ -103,9 +103,12 @@ def _capture(monkeypatch, mod, index, sp_cls, lut, log):
     monkeypatch.setattr(mod, "SearchParams", search_params)
 
 
-def test_ivf_pq_pass_matches_jax(monkeypatch):
+@pytest.mark.parametrize("k", [12, 128])
+def test_ivf_pq_pass_matches_jax(monkeypatch, k):
+    """The route against JAX's on one carried index, at k = 12 and at the
+    path's intermediate degree 128, where the pass asks the scan for
+    2·128 + 1 = 257 candidates a row."""
     x = clustered(2000, 32, seed=7)
-    k = 12
     n_lists = max(16, min(1024, int(np.sqrt(len(x)) * 2)))
     jidx = jpq.build(jnp.asarray(x), jpq.IndexParams(
         n_lists=n_lists, pq_dim=32, pq_bits=4, seed=5))

@@ -21,10 +21,15 @@ import numpy as np
 import pytest
 import torch
 
+from raft_tpu.neighbors import ivf_pq as jpq
 from raft_tpu.ops.ivf_pq_scan import decoded_row_norms as jax_row_norms
 from raft_tpu.ops.ivf_pq_scan import make_cb_matrix
+from raft_tpu_torch import convert
+from raft_tpu_torch.neighbors import ivf_pq
 from raft_tpu_torch.ops import ivf_pq_scan as tpq
-from test_torch_kernels import assert_knn_close, pq_scan_args, pq_store
+from test_torch_kernels import (assert_knn_close, assert_knn_sets_close,
+                                pq_scan_args, pq_store)
+from test_torch_slice import _clustered
 
 torch.set_num_threads(1)
 
@@ -166,3 +171,48 @@ def test_empty_list_and_k_past_candidates():
     assert np.isinf(v[:4].numpy()).all() and (i[:4].numpy() == -1).all()
     assert (i.numpy() == -1).any(axis=1).all()
 
+
+
+@pytest.fixture(scope="module", params=[4, 8])
+def carried_pq(request):
+    """A JAX-built IVF-PQ index (4,000 rows of 32 dims, 32 lists, pq_dim
+    16 at 4 bits or 8 at 8 bits) and its queries, carried into the port
+    by ``convert``."""
+    pq_bits = request.param
+    x, q = _clustered(4000, 64, 32, 4)
+    jidx = jpq.build(jnp.asarray(x), jpq.IndexParams(
+        n_lists=32, pq_dim=16 if pq_bits == 4 else 8, pq_bits=pq_bits,
+        seed=0))
+    tidx = convert.ivf_pq_index_from_numpy(
+        {"codes": np.asarray(jidx.codes),
+         "source_ids": np.asarray(jidx.source_ids),
+         "centers_rot": np.asarray(jidx.centers_rot),
+         "codebooks": np.asarray(jidx.codebooks),
+         "rotation": np.asarray(jidx.rotation),
+         "list_offsets": jidx.list_offsets,
+         "list_sizes_arr": jidx.list_sizes_arr,
+         "metric": jidx.metric.value, "pq_bits": jidx.pq_bits,
+         "codebook_kind": jidx.codebook_kind}, device="cpu")
+    return jidx, tidx, q
+
+
+@pytest.mark.parametrize("k,n_probes", [(257, 8), (512, 8), (512, 3)])
+def test_plain_scan_wide_k_matches_jax_xla(carried_pq, k, n_probes):
+    """The plain K4 + merge at the grouped form's new widths, through
+    ``ivf_pq.search`` on a JAX-built index, against JAX's exact
+    ``algo="xla"`` engine at the f32 LUT: values to rtol 1e-4 slot by slot
+    (the port's expanded form against JAX's residual form, as in
+    ``test_torch_ivf_pq.py``), ids as sets (near ties reorder ids over
+    this many slots); with 3 probes of ~125 rows, fewer candidates than
+    k: (+inf, -1) past them in both."""
+    jidx, tidx, q = carried_pq
+    jv, ji = jpq.search(jidx, jnp.asarray(q), k,
+                        jpq.SearchParams(n_probes, lut_dtype=jnp.float32),
+                        algo="xla")
+    tv, ti = ivf_pq.search(tidx, torch.from_numpy(q), k,
+                           ivf_pq.SearchParams(n_probes,
+                                               lut_dtype=torch.float32))
+    assert tv.shape == (len(q), k) and ti.dtype == torch.int32
+    assert_knn_sets_close(np.asarray(jv), np.asarray(ji), tv.numpy(),
+                          ti.numpy(), rtol=1e-4)
+    assert (ti.numpy() == -1).any() == (n_probes == 3)

@@ -13,11 +13,16 @@ import numpy as np
 import pytest
 import torch
 
+from raft_tpu.neighbors import ivf_flat as jivf
 from raft_tpu.ops.ivf_scan import coarse_probe as jax_coarse_probe
 from raft_tpu.ops.ivf_scan import ivf_flat_scan as jax_ivf_flat_scan
 from raft_tpu.ops.ivf_scan import pack_pairs as jax_pack_pairs
+from raft_tpu_torch import convert
+from raft_tpu_torch.core.errors import RaftError
+from raft_tpu_torch.neighbors import ivf_flat
 from raft_tpu_torch.ops import ivf_scan as tis
-from test_torch_kernels import assert_knn_close
+from test_torch_kernels import assert_knn_close, assert_knn_sets_close
+from test_torch_slice import _clustered
 
 torch.set_num_threads(1)
 
@@ -161,3 +166,104 @@ def test_pack_pairs_covers_every_pair_once(kind, qg):
     n_tiles = -(-np.bincount(flat, minlength=40) // qg)
     np.testing.assert_array_equal(np.bincount(glist[live], minlength=40),
                                   n_tiles)
+
+
+# ---- the grouped forms past k = 256 ----
+
+@pytest.mark.parametrize("k,form", [(1, "group"), (256, "group"),
+                                    (257, "group"), (512, "group"),
+                                    (513, "pair"), (1024, "pair")])
+def test_scan_form_by_k(k, form):
+    """K3 and K4 take the grouped form up to GROUP_MAX_K = 512 and the
+    per-pair form above; ``check_form`` keeps the per-pair form reachable
+    by name at every k and refuses the grouped form past 512."""
+    assert tis.GROUP_MAX_K == 512
+    assert tis.scan_form(k) == form
+    assert tis.check_form(None, k) == form
+    assert tis.check_form("pair", k) == "pair"
+    if form == "group":
+        assert tis.check_form("group", k) == "group"
+    else:
+        with pytest.raises(RaftError):
+            tis.check_form("group", k)
+    with pytest.raises(RaftError):
+        tis.check_form("rows", k)
+
+
+def test_group_queries_follow_the_plans():
+    """The group size both wrappers hand ``pack_pairs`` (and the kernels
+    check): 128 queries up to k = 64, 64 up to 256, 32 up to 512, with
+    the plans' warp queue (32·R keys) holding k and a buffer that one fold
+    takes (CAP <= 32·R)."""
+    for k in range(1, tis.GROUP_MAX_K + 1):
+        bm, r, cap = tis.group_plan(k)
+        assert tis.group_queries(k) == bm
+        assert bm == (128 if k <= 64 else 64 if k <= 256 else 32)
+        assert k <= 32 * r and cap <= 32 * r and bm % 32 == 0
+    with pytest.raises(RaftError):
+        tis.group_plan(tis.GROUP_MAX_K + 1)
+
+
+@pytest.mark.parametrize("d", [32, 100, 128, 256])
+@pytest.mark.parametrize("kernel,store", [
+    ("ivf_flat_scan", "float32"), ("ivf_flat_scan", "bfloat16"),
+    ("ivf_flat_scan", "int8"), ("ivf_flat_scan", "uint8"),
+    ("ivf_pq_scan", "float32")])
+def test_group_plans_fit_shared_memory(kernel, store, d):
+    """For every k up to GROUP_MAX_K a grouped block's layout (the k-lists
+    and buffers, the side arrays, the query tile and the ring) fits in a
+    block's 232,448 bytes of shared memory; the bytes are stated by hand
+    here for the plan past 256 at k = 512 (32 queries, 128-key buffers,
+    query tile resident where it fits)."""
+    for k in range(1, tis.GROUP_MAX_K + 1):
+        smem, a_res, ns = tis.group_smem(kernel, k, d, store)
+        assert 0 < smem <= 232_448 and a_res in (0, 1, 2) and ns >= 2, k
+    nk = -(-d // 32)
+    smem, a_res, ns = tis.group_smem(kernel, 512, d, store)
+    lists = 8 * 32 * (512 + 128) + 4 * 32
+    if kernel == "ivf_pq_scan":
+        fixed = lists + 2 * 2 * 128 * 4 + 4 * 32 * 4 + 2 * nk * 32 * 4
+        stage = 32 * 128 * 4
+    else:
+        raw = store != "float32"
+        fixed = (lists + 4 * (3 if raw else 2) * 128 * 4 + 2 * 32 * 4
+                 + (128 * 32 * 4 if raw else 0))
+        stage = 32 * 128 * {"float32": 4, "bfloat16": 2}.get(store, 1)
+    assert smem == (a_res * nk * 32 * 32 * 4
+                    + ns * ((0 if a_res else 32 * 32 * 4) + stage) + fixed)
+
+
+@pytest.fixture(scope="module")
+def carried_ivf():
+    """A JAX-built IVF-Flat index (4,000 rows of 32 dims in 32 lists) and
+    its queries, carried into the port by ``convert``."""
+    x, q = _clustered(4000, 64, D, 3)
+    jidx = jivf.build(jnp.asarray(x), jivf.IndexParams(n_lists=32, seed=0))
+    tidx = convert.ivf_flat_index_from_numpy(
+        {"data": np.asarray(jidx.data),
+         "data_norms": np.asarray(jidx.data_norms),
+         "source_ids": np.asarray(jidx.source_ids),
+         "centers": np.asarray(jidx.centers),
+         "center_norms": np.asarray(jidx.center_norms),
+         "list_offsets": jidx.list_offsets,
+         "list_sizes_arr": jidx.list_sizes_arr,
+         "metric": jidx.metric.value}, device="cpu")
+    return jidx, tidx, q
+
+
+@pytest.mark.parametrize("k,n_probes", [(257, 8), (512, 8), (512, 3)])
+def test_plain_scan_wide_k_matches_jax_xla(carried_ivf, k, n_probes):
+    """The plain K3 + merge at the grouped form's new widths, through
+    ``ivf_flat.search`` on a JAX-built index, against JAX's exact
+    ``algo="xla"`` engine: values slot by slot, ids as sets (near ties
+    reorder ids over this many slots); with 3 probes of ~125 rows, fewer
+    candidates than k: (+inf, -1) past them in both."""
+    jidx, tidx, q = carried_ivf
+    jv, ji = jivf.search(jidx, jnp.asarray(q), k,
+                         jivf.SearchParams(n_probes=n_probes), algo="xla")
+    tv, ti = ivf_flat.search(tidx, torch.from_numpy(q), k,
+                             ivf_flat.SearchParams(n_probes=n_probes))
+    assert tv.shape == (len(q), k) and ti.dtype == torch.int32
+    assert_knn_sets_close(np.asarray(jv), np.asarray(ji), tv.numpy(),
+                          ti.numpy())
+    assert (ti.numpy() == -1).any() == (n_probes == 3)

@@ -22,7 +22,9 @@ so its sums stay exact in every LUT mode and either order (LUT entries
 subspace by subspace, or a dot over the decoded row). Over 129 and more
 slots a row, near ties split the ids of more than 1% of the rows between
 any two float orders, so the K2–K4 tests hold Gaussian inputs at k <= 64
-(K2: <= 100) and integer inputs at every k. K5 and K6 and their plain
+(K2: <= 100) slot by slot, K3 and K4 also at k = 257 and 512 with values
+slot by slot and ids as sets (at least 99.9% shared), and integer inputs
+at every k. K5 and K6 and their plain
 versions add in the same order (``graph_expand.lane_order_dot``), so they
 are equal on any input: on an edge store of small integers with integer
 scales (``edge_store``), where every score is an exact integer and ties
@@ -576,18 +578,34 @@ def test_store_kernels_refuse_what_they_cannot_take():
                    tivf.IndexParams(n_lists=4, dtype="int4"), device="cpu")
 
 
-# the IVF scans' k by form; Gaussian inputs take k <= 64 only: over 129
-# and more slots a row, near ties split the ids of more than 1% of the
-# rows between any two float orders (as in K2's test)
-SCAN_KS = {"group": (1, 10, 64, 129, 256), "pair": (1, 10, 64, 129, 256,
-                                                    1000)}
+# the IVF scans' k by form (the grouped forms' plans change at 64, 256
+# and reach 512: tis.group_plan); Gaussian inputs take k <= 64 slot by
+# slot: over 129 and more slots a row, near ties split the ids of more
+# than 1% of the rows between any two float orders (as in K2's test), so
+# past the grouped forms' old limit they are held with ids as sets
+# (:func:`assert_knn_sets_close`)
+WIDE_KS = (257, 300, 384, 512)
+SCAN_KS = {"group": (1, 10, 64, 129, 256) + WIDE_KS,
+           "pair": (1, 10, 64, 129, 256) + WIDE_KS + (1000,)}
 GAUSSIAN_MAX_K = 64
+GAUSSIAN_WIDE_KS = (257, 512)
 
 
 def scan_cases(integer: bool):
     """(form, k) of the IVF scans' card tests."""
     return [(form, k) for form, ks in SCAN_KS.items() for k in ks
-            if integer or k <= GAUSSIAN_MAX_K]
+            if integer or k <= GAUSSIAN_MAX_K or k in GAUSSIAN_WIDE_KS]
+
+
+def assert_knn_sets_close(ref_v, ref_i, v, i, rtol=1e-5, min_shared=0.999):
+    """Wide k on Gaussian inputs: values slot by slot as in
+    :func:`assert_knn_close`, ids as sets — each row's ids shared with the
+    reference row on average over at least ``min_shared`` of the slots
+    (a near tie at a row's k-th slot may swap one id in or out)."""
+    assert_knn_close(ref_v, ref_i, v, i, rtol=rtol, min_rows_equal=0.0)
+    assert neighborhood_recall(torch.tensor(np.asarray(i)),
+                               torch.tensor(np.asarray(ref_i))) >= \
+        min_shared
 
 
 def skewed_probes(m: int, lists: int, p: int, seed: int) -> torch.Tensor:
@@ -629,6 +647,8 @@ def scan_both(kernel, plain, args, k, form, exact: bool,
     assert torch.equal(ki, ki2)
     if exact:
         assert torch.equal(kv, pv) and torch.equal(ki, pi), (form, k)
+    elif k > GAUSSIAN_MAX_K:
+        assert_knn_sets_close(pv.cpu(), pi.cpu(), kv.cpu(), ki.cpu())
     else:
         assert_knn_close(pv.cpu(), pi.cpu(), kv.cpu(), ki.cpu(),
                          min_rows_equal=min_rows_equal)
@@ -639,11 +659,12 @@ def scan_both(kernel, plain, args, k, form, exact: bool,
 def test_ivf_flat_scan_kernel_on_card(metric):
     """K3 + the K1 merge, both forms, against the plain version with and
     without the penalty row, with an empty list (:func:`scan_cases`: k =
-    1, 10, 64, 129 and 256, and 1000 for the per-pair form; Gaussian
-    inputs to k = 64): equal on integer-valued inputs (l2, ip), close on
-    Gaussian ones; two launches bit-equal. On the store's probes and on
-    probes skewed across the group boundaries (:func:`skewed_probes`), over
-    lists of ~250 rows, longer than one 128-row tile."""
+    1, 10, 64, 129, 256, 257, 300, 384 and 512, and 1000 for the per-pair
+    form; Gaussian inputs to k = 64 and at 257 and 512): equal on
+    integer-valued inputs (l2, ip), close on Gaussian ones; two launches
+    bit-equal. On the store's probes and on probes skewed across the group
+    boundaries (:func:`skewed_probes`), over lists of ~250 rows, longer
+    than one 128-row tile and, past k = 256, shorter than k."""
     need_cuda()
     for integer in (True, False):
         c = [t.cuda() for t in _ivf_store(integer, 3, m=300)]
@@ -748,7 +769,7 @@ def test_ivf_pq_scan_kernel_byte_codes_and_padding():
     st["probed"][:5] = 3                          # only the empty list
     args = pq_scan_args(st, "f32", "cuda")
     for form, k in (("group", 5), ("pair", 5), ("group", 256),
-                    ("pair", 1000)):
+                    ("group", 512), ("pair", 1000)):
         kv, ki = tpq.ivf_pq_scan(*args, k, "l2", form=form)
         pv, pi = tpq.ivf_pq_scan_plain(*args, k, "l2")
         torch.cuda.synchronize()
@@ -760,25 +781,48 @@ def test_ivf_pq_scan_kernel_byte_codes_and_padding():
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 def test_ivf_pq_scan_kernel_graph_pass_k(metric):
     """K4 at the CAGRA IVF-PQ graph pass's shape: 4-bit codes at pq_len 1
-    (pq_dim = rot_dim), the int8 LUT, k = 2·128 + 1 = 257, past the
-    grouped form, so the default is the per-pair form: equal to the plain
-    version on small integers (an entry of 127 in each subspace: the int8
-    scale is 1), one per-pair launch a call."""
+    (pq_dim = rot_dim), the int8 LUT, k = 2·128 + 1 = 257, which the
+    grouped form takes (32 queries a group): one grouped launch a call by
+    default, one per-pair launch with ``form="pair"``; both equal to the
+    plain version on small integers (an entry of 127 in each subspace: the
+    int8 scale is 1) and on probes skewed across the group boundaries."""
     need_cuda()
     st = pq_store(True, 17, 4, n=8000, pq_dim=128, pq_len=1, lists=16,
-                  m=120, p=6)
+                  m=300, p=6)
     st["codebooks"][:, 0, 0] = 127.0
     st["row_norms"] = tpq.decoded_row_norms(
         st["codes"], st["centers_rot"], st["codebooks"], st["list_offsets"])
     args = pq_scan_args(st, "int8", "cuda")
-    assert tis.scan_form(257) == "pair"
-    before = (tpq.group_launches, tpq.pair_launches)
-    kv, ki = tpq.ivf_pq_scan(*args, 257, metric)
-    pv, pi = tpq.ivf_pq_scan_plain(*args, 257, metric)
-    torch.cuda.synchronize()
-    assert (tpq.group_launches - before[0],
-            tpq.pair_launches - before[1]) == (0, 1)
-    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    assert tis.scan_form(257) == "group"
+    assert tis.group_queries(257) == 32
+    skewed = skewed_probes(300, 16, 6, 31).cuda()
+    for probed in (args[4], skewed):
+        a = args[:4] + [probed] + args[5:]
+        pv, pi = tpq.ivf_pq_scan_plain(*a, 257, metric)
+        for form, want in ((None, (1, 0)), ("pair", (0, 1))):
+            before = (tpq.group_launches, tpq.pair_launches)
+            kv, ki = tpq.ivf_pq_scan(*a, 257, metric, form=form)
+            torch.cuda.synchronize()
+            assert (tpq.group_launches - before[0],
+                    tpq.pair_launches - before[1]) == want
+            assert torch.equal(kv, pv) and torch.equal(ki, pi), form
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,store", [
+    ("ivf_flat_scan", s) for s in ("float32", "bfloat16", "int8", "uint8")]
+    + [("ivf_pq_scan", "float32")])
+def test_group_plans_match_the_library(kernel, store):
+    """The grouped forms' plans as the card's libraries make them (queries
+    a group, query-tile layout, ring stages, shared memory) equal their
+    Python statement (``ivf_scan.group_plan`` / ``group_smem``) at every
+    k up to ``GROUP_MAX_K`` and several widths."""
+    need_cuda()
+    for d in (18, 32, 100, 128, 256):
+        for k in range(1, tis.GROUP_MAX_K + 1):
+            smem, a_res, ns = tis.group_smem(kernel, k, d, store)
+            assert tis.group_plan_on_card(kernel, k, d, store) == (
+                tis.group_queries(k), a_res, ns, smem), (d, k)
 
 
 # NN-descent's merge at the knob defaults (s = 16, join = 24) for k = 64

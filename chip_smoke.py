@@ -45,7 +45,7 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    printed), the brute-force answer and the refined distances against
    numpy on a few queries;
    Each path prints its launches per kernel and, for K1, K3 and K4, per
-   form (K1: the warp select for k <= 256, the k passes above; K3 and K4:
+   form (K1: the warp select for k <= 512, the k passes above; K3 and K4:
    the grouped form for k <= 512, the per-pair form above); the IVF paths
    must launch K3 or K4 once a search (a shard), in the grouped form.
 2. determinism: the path's IVF-Flat and IVF-PQ indexes, built once more
@@ -62,8 +62,11 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    route the same way on all 1,000,000 rows (K4 at k = 257 in its grouped
    form, once a batch: 31 grouped launches and no per-pair one), its
    build seconds by stage, the pass's own stages (the IVF-PQ build, K4,
-   K1's merge, refine) timed call by call on the card, edge recall
-   (>= 0.80), the fused search's recall beside the exact graph's and
+   K1's merge, refine) timed call by call on the card, K1's 31 merges at
+   k = 257 all in the warp form (no k-pass launch on the route), the
+   pass run again with its merges forced to the k-pass form and its
+   graph bit-equal to the route's, edge
+   recall (>= 0.80), the fused search's recall beside the exact graph's and
    NN-descent's, and the route's own peak device memory; ``tune_search``
    on the path's index (which engine wins, and why not the fused one
    if it does not).
@@ -158,7 +161,8 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    the path's shape beside the bf16 GEMM + ``torch.topk`` (bf16) or
    dequantize + the f32 GEMM + ``torch.topk`` (the others), bound by
    one product at 989 TFLOP/s bf16 (bf16) or two TF32 products (the
-   others); K3's in both forms on the path's store indexes, each
+   others), with each form's registers and spills from the build (a
+   spill fails); K3's in both forms on the path's store indexes, each
    launched twice, bit-equal, equal to the plain version on integer
    stores, bound by two TF32 products a (pair, row).
 
@@ -192,7 +196,9 @@ Prints progress lines, then a ``{"kernels": [...]}`` line, the card's name
 and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is not 0. With no CUDA device it exits non-zero before printing any
-result. Every matrix product runs in full float32 (TF32 off).
+result. Every matrix product runs in full float32 (TF32 off). Before its
+first allocation on the card it waits, a bounded time, until the card has
+room for the run's peak (memory another process holds there would fail it).
 """
 from __future__ import annotations
 
@@ -200,10 +206,12 @@ import dataclasses
 import inspect
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -268,6 +276,12 @@ BENCH_TARGET = 0.95            # the north star: QPS at recall@10 >= 0.95
 BENCH_OUT = "build/bench"      # its Google-Benchmark JSON goes here
 BENCH_STORE = "int8"           # the bench's low-precision run (--dtype)
 
+# the run's peak device memory is 57.60 GiB allocated, 62.68 GiB held by
+# the allocator (NVIDIA H100 80GB HBM3, 700.00 W); before its first
+# allocation it waits up to CARD_WAIT_S for this much to be free
+CARD_NEED = 64 * 2**30
+CARD_WAIT_S = 420
+
 # kernel name -> (wrapper module, its launch counter)
 STORE_NAMES = ("bfloat16", "int8", "uint8", "int4")
 _COUNTERS = {"select_k": (sk, "launches"),
@@ -316,6 +330,56 @@ def smi_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def card_memory() -> str:
+    """The card's free and total memory, what this process's allocator
+    holds, and the compute processes ``nvidia-smi`` lists on the card (in
+    a container it may list none, or only this one)."""
+    free, total = torch.cuda.mem_get_info()
+    apps = subprocess.run(["nvidia-smi",
+                           "--query-compute-apps=pid,used_memory",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60)
+    listed = "; ".join(apps.stdout.strip().splitlines()) or "none listed"
+    return (f"{free / 2**30:.2f} GiB free of {total / 2**30:.2f}, "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB held by this "
+            f"process's allocator; compute processes: {listed}")
+
+
+def await_card(need: int, budget_s: float) -> None:
+    """Wait, up to ``budget_s`` seconds, until ``need`` bytes of the card
+    are free. Memory that another process holds there (one still ending,
+    or another job on the card) would fail the run at its first large
+    allocation. Past the budget the run goes on with what is free."""
+    log(f"card memory at the start: {card_memory()}")
+    t0 = time.perf_counter()
+    last = t0
+    while torch.cuda.mem_get_info()[0] < need:
+        now = time.perf_counter()
+        if now - t0 >= budget_s:
+            log(f"card memory: below {need / 2**30:.0f} GiB free after "
+                f"{now - t0:.0f} s, the run goes on: {card_memory()}")
+            return
+        if now - last >= 30:
+            log(f"card memory: waiting for {need / 2**30:.0f} GiB free "
+                f"({now - t0:.0f} s): {card_memory()}")
+            last = now
+        time.sleep(2)
+    if time.perf_counter() > t0 + 1:
+        log(f"card memory: {need / 2**30:.0f} GiB free after waiting "
+            f"{time.perf_counter() - t0:.1f} s: {card_memory()}")
+
+
+def mark(t0: float, phase: str) -> None:
+    """One line after a phase: the seconds since ``t0``, the peak device
+    memory allocated since the last reset of the peak (the IVF-PQ route and
+    the edge-store phase reset it), what the allocator holds, and the
+    card's free memory."""
+    log(f"memory after the {phase} ({time.perf_counter() - t0:.1f} s): "
+        f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB, reserved peak {torch.cuda.max_memory_reserved() / 2**30:.2f}"
+        f" GiB, card free {torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB")
 
 
 def clustered(rng, n: int, centers: np.ndarray, scales: np.ndarray):
@@ -1027,6 +1091,30 @@ def ivf_pq_route(x, q, bi, cidx, p, recalls, totals):
     if k4_cap.call is None or k1_pass_cap.call is None:
         raise AssertionError(f"ivf_pq graph pass: no K4 call at k={PASS_K} "
                              f"or no K1 merge at {(CAGRA_BATCH, merge_w)}")
+    # K1's merges at k = 257 take the warp form (none the k passes)
+    if len(stages["K1 merge"]) != batches or moved["select_k.kpass"]:
+        raise AssertionError(f"ivf_pq graph pass: {len(stages['K1 merge'])} "
+                             f"K1 merges, {moved['select_k.kpass']} k-pass "
+                             f"launches, expected {batches} and 0")
+    # K1 is exact in both forms: the pass gives the same graph with its
+    # merges in the k-pass form (and so the same edge and search recall)
+    merge = ipq.kpass_select_k
+    ipq.kpass_select_k = lambda v, k, *a, **kw: merge(
+        v, k, *a, **{**kw, "form": "kpass"})
+    try:
+        knn_kp, t_kp = host_time(lambda: cagra.build_knn_graph(
+            x, CAGRA_D0, p.metric, p.seed, algo="ivf_pq"))
+    finally:
+        ipq.kpass_select_k = merge
+    if not torch.equal(knn, knn_kp):
+        raise AssertionError("ivf_pq graph pass: the warp form's graph "
+                             "differs from the k-pass form's")
+    del knn_kp
+    log(f"cagra ivf_pq graph pass: {batches} K1 merges at k={PASS_K}, all "
+        f"in the warp form (select_k.warp {moved['select_k.warp']}, "
+        f"select_k.kpass 0 on the route); the pass again with its merges "
+        f"in the k-pass form: the same graph, bit for bit "
+        f"({t_kp:.3f} s)")
     rec = edge_recall(knn, x, CAGRA_D0, SEED + 1)
     recall = neighborhood_recall(pi, bi)
     per = {name: (statistics.median(v), sum(v)) for name, v in
@@ -2444,7 +2532,16 @@ def stores_phase(x, q, totals):
     return out
 
 
-def k2_store_phase(timer, st, moved) -> list:
+def ptxas_usage(text: str):
+    """(most registers, most spill-store bytes) over the kernels of one
+    library's ``nvcc -Xptxas -v`` output."""
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+    spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores",
+                                         text)]
+    return max(regs, default=0), max(spills, default=0)
+
+
+def k2_store_phase(timer, st, moved, logs) -> list:
     """K2's store forms: equal to the plain version on integer-valued
     stores (k = 10 and 129), close to it on the path's stores (512
     queries; int4 also at d = 100, half_p 64, on 200,000 rows), each timed
@@ -2453,9 +2550,21 @@ def k2_store_phase(timer, st, moved) -> list:
     (bfloat16), dequantize + the f32 GEMM + ``torch.topk`` (the others).
     The bound is the product's least time: one pass at the bf16 rate for
     bf16 (its products exact), two TF32 passes (2xTF32) for the byte and
-    int4 stores, the bytes read once being far less."""
+    int4 stores, the bytes read once being far less. Each form's
+    registers and spills come from this run's build (``logs``, ptxas -v;
+    "cached" when the libraries were built before), and a spill fails
+    the phase."""
     rows = []
     for store in ("bfloat16", "int8", "uint8", "int4"):
+        lib_name = _cuda.STORE_SOURCES["fused_knn"][store]
+        if lib_name in logs:
+            regs, spill = ptxas_usage(logs[lib_name])
+            usage = f"{regs} registers at most, {spill} bytes of spill"
+            if spill:
+                raise AssertionError(f"K2.{store}: {usage}")
+        else:
+            regs = spill = None
+            usage = "registers not read (cached build)"
         idx = st[f"bf.{store}"]
         qq = st["qb"] if store == "uint8" else st["q"]
         xs, sc, dim4, norms = (idx.dataset, idx.scales, idx.logical_dim,
@@ -2531,7 +2640,7 @@ def k2_store_phase(timer, st, moved) -> list:
         log(f"  K2.{store} at ({M}, {N}, {D}) k={K}: {ms:.2f} ms ({splits} "
             f"splits); {kind} bound {t_ops:.2f} ms ({t_ops / ms:.1%} of it), "
             f"bytes {t_bytes:.3f} ms; plain {plain:.1f} ms, library "
-            f"{lib:.2f} ms; launches {launches}")
+            f"{lib:.2f} ms; launches {launches}; {usage}")
         rows.append(dict(
             name=f"fused_knn.{store}", route="cuda",
             source=f"raft_tpu_torch/csrc/fused_knn_{store}.cu",
@@ -2539,6 +2648,7 @@ def k2_store_phase(timer, st, moved) -> list:
             max_abs_err=err, ms=ms, plain_ms=plain,
             bound_ms=max(t_ops, t_bytes), bound_by=by, bound_kind=kind,
             library_ms=lib, bytes_bound_ms=t_bytes, splits=splits,
+            registers=regs, spill_bytes=spill,
             shape=f"({M}, {N}, {D}) k={K} l2, {store} corpus"
                   + (" (byte grid)" if store == "uint8" else ""),
             **extra))
@@ -2954,14 +3064,15 @@ def main() -> int:
     smi = smi_line()
     log(f"device: {smi} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     logs = _cuda.build(verbose=True)
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s "
+    log(f"kernels built in {time.perf_counter() - t_start:.1f} s "
         f"({', '.join(logs) or 'cached'})")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    await_card(CARD_NEED, CARD_WAIT_S)
 
     rng = np.random.default_rng(SEED)
     centers = rng.standard_normal((N_BLOBS, D), dtype=np.float32)
@@ -2973,11 +3084,15 @@ def main() -> int:
         f"made in {t_data:.1f} s")
 
     bidx, iidx, pidx, cidx, sidx, moved = path_phase(x, q)
+    mark(t_start, "path phase")
     determinism_phase(x, iidx, pidx)
     k1_route, k1_pass, k4_route, route_peak = graph_route_phase(
         x, q, bidx, cidx, moved)
+    mark(t_start, "graph-route phase")
     k1_bench, k6_bench = bench_phase(moved, torch.device("cuda", 0))
+    mark(t_start, "bench phase")
     stores = stores_phase(x, q, moved)
+    mark(t_start, "store paths")
     # the f32 forms' launches: every store's form counts under K2 and K3 too
     f32 = {kern: moved[kern] - sum(moved.get(f"{kern}.{st}", 0)
                                    for st in STORE_NAMES)
@@ -2994,6 +3109,7 @@ def main() -> int:
     kernels = [k1_phase(timer, k1_in, moved["select_k"],
                         by_form(moved, "select_k"))]
     del k1_in
+    mark(t_start, "K1 phase")
     kernels += [k2_phase(timer, bidx, q, f32["fused_knn"],
                          cidx.build_stats["knn_graph_s"]),
                {**k3_phase(timer, iidx, q, f32["ivf_flat_scan"],
@@ -3004,9 +3120,11 @@ def main() -> int:
                 **k4_graph_pass(timer, k4_route)}]
     del k4_route
     del iidx, pidx
-    kernels += (k2_store_phase(timer, stores, moved)
+    mark(t_start, "K2, K3 and K4 phases")
+    kernels += (k2_store_phase(timer, stores, moved, logs)
                 + k3_store_phase(timer, stores, moved))
     del stores
+    mark(t_start, "K2 and K3 store phases")
     buf_d, buf_i = seeded_buffer(cidx, q)
     hop_parents, *walked = walk(cidx, q, buf_d, buf_i)
     kernels += [k5_phase(timer, cidx, q, hop_parents, moved["graph_expand"]),
@@ -3014,6 +3132,7 @@ def main() -> int:
                             moved["cagra_fused"]),
                  **k6_itopk256(timer, k6_bench)}]
     del k6_bench
+    mark(t_start, "K5 and K6 phases")
     # the edge-store phase's own peak device memory, beside the rest's
     # (the IVF-PQ route reset the peak: the run's before it counts too)
     peaks = [max(route_peak, torch.cuda.max_memory_allocated())]
@@ -3027,6 +3146,7 @@ def main() -> int:
     kernels += [k7_phase(timer, x, sidx, q, moved["merge_step"]),
                 k8_phase(timer, x, sidx, q, moved["ring_topk"])]
     peaks.append(torch.cuda.max_memory_allocated())
+    mark(t_start, "K7 and K8 phases")
     log("peak device memory of the whole run "
         f"{max(peaks) / 2**30:.2f} GiB (before the edge-store phase, the "
         "phase, after it: " + ", ".join(f"{p / 2**30:.2f}" for p in peaks)
@@ -3047,4 +3167,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except torch.OutOfMemoryError:
+        # the card's state last, where the end of the error output shows it
+        traceback.print_exc()
+        print(f"chip_smoke.py: out of device memory; {card_memory()}",
+              file=sys.stderr, flush=True)
+        sys.exit(1)

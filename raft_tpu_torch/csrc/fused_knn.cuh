@@ -77,19 +77,24 @@
 // parallel) replace the store modes of the same TPU kernel: the corpus is
 // bf16, int8 or uint8 (n, d), or int4 (n, d / 2) split-half nibbles, where
 // d is then the query's padded width 2·half_p. Its tiles are staged as the
-// stored bytes and widened to f32 in shared memory (tf32_tile.cuh), where
-// every value is exact in TF32, so a pair's dot is 2xTF32 (the f32 query's
-// hi and lo parts against the row) and, for bf16, one TF32 product: the
-// wrapper rounds the query to bf16 first, as the TPU kernel does. An int4
-// stage of 32 dimensions reads 32 bytes, the low nibbles of bytes
-// [c, c + 32) for dimensions [c, c + 32) of the low half and the high
-// nibbles for [half_p + c, half_p + c + 32); the query's two halves sit
-// at those dimensions, so one accumulator sums the low half's dims and
-// then the high half's. The per-row scale (int8, int4, and any store
-// given scales) multiplies the finished dot before the distance formula
-// and the selection; it never multiplies a partial sum. The store forms'
-// bound is the same product count: 2 TF32 products (1 for bf16) of
-// 2·m·n·d operations each; the corpus bytes fall with the store.
+// stored bytes (copy_stage) and each warp builds its B fragments from the
+// stage in registers (tf32_tile.cuh, "K2's store forms"): the byte stores
+// widen exactly by a prmt into the mantissa of 2^23 (int8, uint8, int4
+// nibbles: integers exact in TF32), so a pair's dot is 2xTF32 (the f32
+// query's hi and lo parts against the row); the bf16 store runs bf16
+// m16n8k16 products against a bf16 copy of the query tile (the wrapper
+// rounds the query to bf16 first, as the TPU kernel does, so every
+// product is exact). No widened tile, no pass and no barrier of its own:
+// a stage costs two barriers, as the f32 form's. An int4 stage of
+// 32 dimensions reads 32 bytes, the low nibbles of bytes [c, c + 32) for
+// dimensions [c, c + 32) of the low half and the high nibbles for
+// [half_p + c, half_p + c + 32); the query's two halves sit at those
+// dimensions, so one accumulator sums the low half's dims and then the
+// high half's. The per-row scale (int8, int4, and any store given
+// scales) multiplies the finished dot before the distance formula and
+// the selection; it never multiplies a partial sum. The store forms'
+// bound is the product count: 2 TF32 products (1 bf16 product for bf16)
+// of 2·m·n·d operations each; the corpus bytes fall with the store.
 #pragma once
 
 #include "tf32_tile.cuh"
@@ -107,21 +112,23 @@ fused_knn_kernel(const float* __restrict__ q, const float* __restrict__ qn,
                  float* __restrict__ out_v, int* __restrict__ out_i) {
   constexpr int BM = 32 * MF;
   constexpr bool RAW = S != kF32;       // rows staged as stored bytes
+  constexpr bool BF = S == kBF16;       // bf16 products
   constexpr int NSIDE = RAW ? 3 : 2;    // (dn, pen[, scale]) a column
   const int nk = (d + BK - 1) / BK;
   const int dw = S == kI4 ? d / 2 : d;  // a stored row's elements
   // the query tile: resident (nk blocks of BM x 32, loaded once) or a part
   // of every ring stage; then ns ring stages of the corpus tile
   // a_res: 0 the query tile streams through the ring beside the corpus
-  // tile; 1 it stays in shared memory; 2 it stays there split once into
-  // its TF32 hi and lo parts (two arrays)
-  const int a_floats = a_res == 0 ? 0 : a_res * nk * BM * BK;
+  // tile; 1 it stays in shared memory (bf16 store: as bf16); 2 it stays
+  // there split once into its TF32 hi and lo parts (two arrays)
+  const int a_bytes = a_res == 0 ? 0
+                      : BF       ? nk * BM * BK * 2
+                                 : a_res * nk * BM * BK * 4;
   const int stage = (a_res ? 0 : BM * BK * 4) + BN * BK * store_bytes<S>();
   extern __shared__ __align__(16) float smem[];
   float* a_tile = smem;
-  unsigned char* ring = (unsigned char*)(smem + a_floats);
-  float* wide = (float*)(ring + ns * stage);  // a widened row tile (RAW)
-  float* sides = wide + (RAW ? BN * BK : 0);  // 4 x (dn, pen[, scale])
+  unsigned char* ring = (unsigned char*)smem + a_bytes;
+  float* sides = (float*)(ring + ns * stage);  // 4 x (dn, pen[, scale])
   float* list_v = sides + 4 * NSIDE * BN;   // BM x k sorted keys
   int* list_c = (int*)(list_v + BM * k);
   float* buf_v = (float*)(list_c + BM * k);  // BM x CAP candidates
@@ -173,7 +180,7 @@ fused_knn_kernel(const float* __restrict__ q, const float* __restrict__ qn,
       st += BM * BK * 4;
     }
     if constexpr (RAW) {
-      copy_raw<S, BN>(st, data, c0, c_end, k0 % dw, dw, vec >> 1, tid);
+      copy_stage<S, BN>(st, data, c0, c_end, k0 % dw, dw, vec >> 1, tid);
     } else {
       copy_block<BN>((float*)st, (const float*)data, c0, c_end, k0, d,
                      vec & 1, tid);
@@ -200,7 +207,11 @@ fused_knn_kernel(const float* __restrict__ q, const float* __restrict__ qn,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  if (a_res) {
+  if constexpr (BF) {  // read before the loop's first barrier
+    if (a_res) {
+      bf16_tile<BM>((unsigned char*)a_tile, q, q0, m, d, nk, vec & 1, tid);
+    }
+  } else if (a_res) {
     for (int kc = 0; kc < nk; ++kc) {
       copy_block<BM>(a_tile + kc * BM * BK, q, q0, m, kc * BK, d, vec & 1,
                      tid);
@@ -211,7 +222,7 @@ fused_knn_kernel(const float* __restrict__ q, const float* __restrict__ qn,
     if (s < total) load(s);
     cp_async_commit();
   }
-  if (a_res == 2) {  // the query tile landed: split it once
+  if (!BF && a_res == 2) {  // the query tile landed: split it once
     cp_async_wait_stage(ns);
     __syncthreads();
     split_tile(a_tile, nk * BM * BK, tid);
@@ -224,15 +235,20 @@ fused_knn_kernel(const float* __restrict__ q, const float* __restrict__ qn,
     const unsigned char* st = ring + (s % ns) * stage;
     const float* As = a_res ? a_tile + (s % nk) * BM * BK : (const float*)st;
     const unsigned char* Bst = a_res ? st : st + BM * BK * 4;
-    const float* Bs = (const float*)Bst;
-    if constexpr (RAW) {  // widen the stored tile once for all warps
-      widen_stage<S, BN>(wide, Bst, S == kI4 && (s % nk) * BK >= dw, tid);
-      __syncthreads();
-      Bs = wide;
+    if constexpr (!RAW) {
+      stage_dots<MF>(acc, As, a_res == 2 ? As + nk * BM * BK : nullptr,
+                     (const float*)Bst, false, lane, wm, wn);
+    } else if constexpr (BF) {  // the query tile is bf16 when resident
+      stage_dots_bf16<MF>(
+          acc,
+          a_res ? (const unsigned char*)a_tile + (s % nk) * BM * BK * 2
+                : nullptr,
+          (const float*)st, Bst, lane, wm, wn);
+    } else {
+      stage_dots_bytes<MF, S>(acc, As,
+                              a_res == 2 ? As + nk * BM * BK : nullptr, Bst,
+                              S == kI4 && (s % nk) * BK >= dw, lane, wm, wn);
     }
-    stage_dots<MF, S == kBF16>(acc, As,
-                               a_res == 2 ? As + nk * BM * BK : nullptr, Bs,
-                               RAW, lane, wm, wn);
     __syncthreads();  // slot s % ns is read before a load overwrites it
     if (s % nk != nk - 1) continue;
 
@@ -332,12 +348,12 @@ cudaError_t prepare(int k, int d, Plan* p) {
   constexpr bool RAW = S != kF32;
   p->kern = (const void*)fused_knn_kernel<MF, R, CAP, METRIC, S>;
   p->bm = BM;
+  // the bf16 store keeps a bf16 copy of the query tile (a_res 1 or 0)
   p->smem = fit_tiles(BM, d, 3,
                       list_bytes(BM, k, CAP) +
-                          sizeof(float) * 4 * (RAW ? 3 : 2) * BN +
-                          (RAW ? sizeof(float) * BN * BK : 0),
-                      &p->a_res, &p->ns,
-                      (size_t)store_bytes<S>() * BK * BN);
+                          sizeof(float) * 4 * (RAW ? 3 : 2) * BN,
+                      &p->a_res, &p->ns, (size_t)store_bytes<S>() * BK * BN,
+                      S == kBF16 ? 1 : 2, S == kBF16 ? 2 : sizeof(float));
   if (p->smem == 0) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(p->kern,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,

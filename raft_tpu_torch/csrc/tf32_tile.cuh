@@ -40,8 +40,9 @@
 // swizzled block (widen_stage) before its fragments are built. Every
 // stored value is exact in TF32 (bf16's 8-bit significand, integers below
 // 2^11, nibbles), so the row needs no lo part and the f32 query's two
-// parts give the dot as 2xTF32 (B_EXACT); a query that is exact in TF32
-// too (K2's bf16 store rounds it to bf16) needs one product (A_EXACT).
+// parts give the dot as 2xTF32 (B_EXACT). (That is K3's path. K2's store
+// forms build their fragments straight from the stored bytes instead:
+// see "K2's store forms" below.)
 #pragma once
 
 #include <cstdint>
@@ -305,6 +306,273 @@ __device__ __forceinline__ void widen_stage(float* dst, const void* raw,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K2's store forms: fragments built from the stored bytes
+// ---------------------------------------------------------------------------
+// K2 stages a store's row tile as its stored bytes (copy_stage) and each
+// warp builds its fragments from that stage in registers: no widened
+// block, no pass of its own, no barrier for it.
+//
+// * int8 / uint8 / int4 (stage rows of 32 bytes, the two 16-byte chunks
+//   of row r XORed with (r / 4) % 2, so that a warp's 8 rows of 16-byte
+//   reads meet 32 distinct banks): a lane loads the 16 bytes of a row
+//   that hold 16 dimensions and widens its byte t4 of each word (TF32
+//   B fragment: dimensions t4 and t4 + 4 of each 8) exactly: the byte
+//   into the mantissa of 2^23 by one prmt, minus 2^23 (uint8); int8 xors
+//   the byte with 0x80 first and subtracts 2^23 + 128; an int4 nibble
+//   (its byte's low or high one by the stage) is xored with 8 into the
+//   mantissa and 2^23 + 8 subtracted. Each value is an integer below
+//   2^11, exact in TF32, so the products are 2xTF32 (the f32 query's hi
+//   and lo parts) in the order of stage_dots' B_EXACT path, and uint8
+//   gives the f32 form's bits on the same rows.
+// * bf16 (stage rows of 64 bytes, the four 16-byte chunks of row r XORed
+//   with (r / 2) % 4, so that ldmatrix's 8 rows meet 32 distinct banks):
+//   the query is bf16 (the wrapper rounds it), so the dot is a bf16
+//   product: m16n8k16 mma.sync with an f32 accumulator, fragments by
+//   ldmatrix straight from the stage and from a bf16 copy of the query
+//   tile (bf16_tile), half the instructions of the TF32 path and no
+//   conversion. Each 16 dimensions sum in a fresh accumulator and join
+//   the dot by a rounded add, as in stage_dots.
+// The statement of the widening, bit for bit in torch integer ops, is
+// tests/test_torch_widen.py.
+
+// The 16-byte chunk c of stage row r, in 16-byte units from the stage's
+// start (a row has BK elements of S).
+template <int S>
+__device__ __forceinline__ int stage_chunk(int r, int c) {
+  if constexpr (S == kBF16) {
+    return r * 4 + (c ^ ((r >> 1) & 3));
+  } else {
+    return r * 2 + (c ^ ((r >> 2) & 1));
+  }
+}
+
+// Start the copies of stored rows [row0, row0 + ROWS) x elements
+// [e0, e0 + 32) of the row-major (rows, w) store src into the swizzled
+// stage dst (stage_chunk); rows at or past row_end and elements past w
+// read as zeros. vec: 16-byte cp.async copies (w elements a multiple of
+// 16 bytes, src 16-byte aligned), else element by element, stored
+// synchronously (the stage is read only after a later barrier).
+template <int S, int ROWS>
+__device__ __forceinline__ void copy_stage(void* dst, const void* src,
+                                           int row0, int row_end, int e0,
+                                           int w, int vec, int tid) {
+  using T = typename TileStore<S>::T;
+  constexpr int PER = 16 / sizeof(T);   // elements a 16-byte chunk
+  constexpr int CH = BK / PER;          // chunks a stage row
+  uint4* d = (uint4*)dst;
+  const T* s = (const T*)src;
+  if (vec) {
+    for (int e = tid; e < ROWS * CH; e += kThreads) {
+      const int r = e / CH, c = e % CH;
+      const bool ok = row0 + r < row_end && e0 + c * PER < w;
+      cp_async16((float*)(d + stage_chunk<S>(r, c)),
+                 (const float*)(ok ? s + (size_t)(row0 + r) * w + e0 +
+                                         c * PER
+                                   : s),
+                 ok);
+    }
+  } else {
+    for (int e = tid; e < ROWS * BK; e += kThreads) {
+      const int r = e / BK, c = e % BK;
+      const bool ok = row0 + r < row_end && e0 + c < w;
+      ((T*)(d + stage_chunk<S>(r, c / PER)))[c % PER] =
+          ok ? s[(size_t)(row0 + r) * w + e0 + c] : (T)0;
+    }
+  }
+}
+
+// Byte t4 of the stored word w (int4: its low nibble, or its high one
+// when hi) as the bits of an exact f32.
+template <int S>
+__device__ __forceinline__ unsigned widen_lane(unsigned w, int t4,
+                                               bool hi) {
+  if constexpr (S == kI4) {
+    const unsigned m = ((w >> (8 * t4 + (hi ? 4 : 0))) & 0xfu) ^
+                       0x4b000008u;
+    return __float_as_uint(__fsub_rn(__uint_as_float(m), 8388616.f));
+  } else {
+    static_assert(S == kI8 || S == kU8, "a byte store");
+    const unsigned x = S == kI8 ? w ^ 0x80808080u : w;
+    const unsigned m = __byte_perm(x, 0x4b000000u, 0x7540u | t4);
+    return __float_as_uint(
+        __fsub_rn(__uint_as_float(m), S == kI8 ? 8388736.f : 8388608.f));
+  }
+}
+
+// acc += this warp's (16·MF) x 32 piece of one 32-dimension stage of a
+// byte store (int8, uint8, int4; hi: the int4 stage's high nibbles): A as
+// in stage_dots (TF32 hi parts with their lo parts at a_lo, or raw floats
+// split here when a_lo is null), B built from the stored stage Braw.
+template <int MF, int S>
+__device__ __forceinline__ void stage_dots_bytes(float (&acc)[MF][4][4],
+                                                 const float* As,
+                                                 const float* a_lo,
+                                                 const unsigned char* Braw,
+                                                 bool hi, int lane, int wm,
+                                                 int wn) {
+  const int lr = lane & 7, lq = lane >> 3;
+  const int a_row = wm * 16 * MF + lr + 8 * (lq & 1), a_chunk = lq >> 1;
+  const int g = lane >> 2, t4 = lane & 3;
+  const uint4* B = (const uint4*)Braw;
+  // not unrolled: hoisting the second half's fragments spills int4 (255
+  // registers) and buys nothing in the byte stores (measured)
+#pragma unroll 1
+  for (int kk = 0; kk < BK; kk += 16) {
+    // bh[u][j][h]: row wn·32 + 8·j + g, dimension kk + 8·u + 4·h + t4
+    unsigned bh[2][4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint4 w = B[stage_chunk<S>(wn * 32 + 8 * j + g, kk >> 4)];
+      bh[0][j][0] = widen_lane<S>(w.x, t4, hi);
+      bh[0][j][1] = widen_lane<S>(w.y, t4, hi);
+      bh[1][j][0] = widen_lane<S>(w.z, t4, hi);
+      bh[1][j][1] = widen_lane<S>(w.w, t4, hi);
+    }
+#pragma unroll
+    for (int i = 0; i < MF; ++i) {
+      unsigned ah[2][4], al[2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int c4 = ((kk + 8 * u) >> 2) + a_chunk;
+        const int off = (a_row + 16 * i) * BK + ((c4 ^ lr) & 7) * 4;
+        if (a_lo != nullptr) {
+          ldsm_x4(ah[u], As + off);
+          ldsm_x4(al[u], a_lo + off);
+        } else {
+          unsigned raw[4];
+          ldsm_x4(raw, As + off);
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            split_tf32(__uint_as_float(raw[w]), ah[u][w], al[u][w]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // stage_dots' B_EXACT order: the products of the lo parts first
+        float t[4];
+        mma_tf32_first(t, al[0], bh[0][j]);
+        mma_tf32(t, al[1], bh[1][j]);
+        mma_tf32(t, ah[0], bh[0][j]);
+        mma_tf32(t, ah[1], bh[1][j]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += t[e];
+      }
+    }
+  }
+}
+
+// d = a·b on a 16 x 8 x 16 bf16 tile into a fresh f32 accumulator.
+__device__ __forceinline__ void mma_bf16_first(float (&d)[4],
+                                               const unsigned (&a)[4],
+                                               const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+}
+
+// Two f32 values as one word of bf16 (lo in the low half), rounded to
+// nearest (exact for values that are bf16 already).
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// A bf16 copy of rows [row0, row0 + ROWS) x dimensions [0, nk·32) of the
+// row-major (rows, d) f32 matrix src: nk blocks of ROWS stage rows of 32
+// bf16 (stage_chunk<kBF16>'s layout), zeros past row_end and d; read
+// synchronously (vec: 16-byte reads). Called by all threads of the block.
+template <int ROWS>
+__device__ __forceinline__ void bf16_tile(unsigned char* dst,
+                                          const float* src, int row0,
+                                          int row_end, int d, int nk,
+                                          int vec, int tid) {
+  uint4* out = (uint4*)dst;
+  for (int e = tid; e < nk * ROWS * 4; e += kThreads) {
+    const int kc = e / (ROWS * 4), r = (e / 4) % ROWS, c = e % 4;
+    const int k0 = kc * BK + c * 8;
+    const float* p = src + (size_t)(row0 + r) * d + k0;
+    float v[8];
+    if (row0 + r < row_end && vec && k0 + 8 <= d) {
+      const float4 x = *(const float4*)p, y = *(const float4*)(p + 4);
+      v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+      v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
+    } else {
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        v[t] = row0 + r < row_end && k0 + t < d ? p[t] : 0.f;
+      }
+    }
+    out[kc * ROWS * 4 + stage_chunk<kBF16>(r, c)] =
+        make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                   pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  }
+}
+
+// acc += this warp's (16·MF) x 32 piece of one 32-dimension stage of a
+// bf16 store, as bf16 products: A from the query's bf16 block Abf
+// (bf16_tile's layout) or, when Abf is null, from the stage's f32 query
+// block As (swz layout, packed to bf16 here); B by ldmatrix from the
+// stored stage Braw.
+template <int MF>
+__device__ __forceinline__ void stage_dots_bf16(float (&acc)[MF][4][4],
+                                                const unsigned char* Abf,
+                                                const float* As,
+                                                const unsigned char* Braw,
+                                                int lane, int wm, int wn) {
+  const int lr = lane & 7, lq = lane >> 3;
+  const int a_row = wm * 16 * MF + lr + 8 * (lq & 1), a_chunk = lq >> 1;
+  const int b_row = wn * 32 + lr + 8 * (lq >> 1), b_chunk = lq & 1;
+  const int g = lane >> 2, t4 = lane & 3;
+  const uint4* A = (const uint4*)Abf;
+  const uint4* B = (const uint4*)Braw;
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 16) {
+    // b[j]: row wn·32 + 8·j + g, dimensions kk + 2·t4 (+1) and +8 (+9)
+    unsigned b[4][2];
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) {
+      unsigned raw[4];
+      ldsm_x4(raw, (const float*)(B + stage_chunk<kBF16>(
+                                           b_row + 16 * jp,
+                                           (kk >> 3) + b_chunk)));
+      b[2 * jp][0] = raw[0];
+      b[2 * jp][1] = raw[1];
+      b[2 * jp + 1][0] = raw[2];
+      b[2 * jp + 1][1] = raw[3];
+    }
+#pragma unroll
+    for (int i = 0; i < MF; ++i) {
+      unsigned a[4];
+      if (A != nullptr) {
+        ldsm_x4(a, (const float*)(A + stage_chunk<kBF16>(
+                                          a_row + 16 * i,
+                                          (kk >> 3) + a_chunk)));
+      } else {
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {  // rows g (+8), dims 2·t4 (+8)
+          const int r = wm * 16 * MF + 16 * i + g + 8 * (h & 1);
+          const float2 x =
+              *(const float2*)(As + swz(r, kk + 8 * (h >> 1) + 2 * t4));
+          a[h] = pack_bf16(x.x, x.y);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float t[4];
+        mma_bf16_first(t, a, b[j]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += t[e];
+      }
+    }
+  }
+}
+
 // Split a resident tile of n floats in place into its TF32 hi parts and,
 // n floats on, its lo parts.
 __device__ __forceinline__ void split_tile(float* tile, int n, int tid) {
@@ -321,10 +589,8 @@ __device__ __forceinline__ void split_tile(float* tile, int n, int tid) {
 // or raw floats split here when a_lo is null), B the 128 x 32 row block.
 // B_EXACT (runtime, block-uniform): every B value is exact in TF32, so
 // its lo parts are zero and the two products that read them are skipped;
-// they would add exact zeros, so the sums are the same bits. A_EXACT:
-// every A value is exact in TF32 as well (with B_EXACT), so one product
-// of the hi parts is the whole product.
-template <int MF, bool A_EXACT = false>
+// they would add exact zeros, so the sums are the same bits.
+template <int MF>
 __device__ __forceinline__ void stage_dots(float (&acc)[MF][4][4],
                                            const float* As, const float* a_lo,
                                            const float* Bs, bool b_exact,
@@ -382,13 +648,6 @@ __device__ __forceinline__ void stage_dots(float (&acc)[MF][4][4],
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float t[4];
-        if (A_EXACT) {
-          mma_tf32_first(t, ah[0], bh[0][j]);
-          mma_tf32(t, ah[1], bh[1][j]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] += t[e];
-          continue;
-        }
         mma_tf32_first(t, al[0], bh[0][j]);
         if (!b_exact) mma_tf32(t, ah[0], bl[0][j]);
         mma_tf32(t, al[1], bh[1][j]);
@@ -532,14 +791,17 @@ __device__ __forceinline__ void offer_tile(
 // through the ring beside the row tile (0), each with a ring of ns_max
 // stages and then of 2. fixed: the bytes beside the tiles; b_stage: the
 // bytes of a stage's row tile (f32 unless the rows are a low-precision
-// store). Returns the bytes, or 0 when nothing fits.
+// store); a_max, a_elem: the first a_res tried and the bytes of a
+// resident query value (K2's bf16 store: 1 and 2, a bf16 copy). Returns
+// the bytes, or 0 when nothing fits.
 inline size_t fit_tiles(int bm, int d, int ns_max, size_t fixed, int* a_res,
-                        int* ns, size_t b_stage = sizeof(float) * BK * BN) {
+                        int* ns, size_t b_stage = sizeof(float) * BK * BN,
+                        int a_max = 2, size_t a_elem = sizeof(float)) {
   const size_t nk = (d + BK - 1) / BK;
-  for (int a = 2; a >= 0; --a) {
+  for (int a = a_max; a >= 0; --a) {
     for (int s = ns_max; s >= 2; --s) {
       const size_t bytes =
-          sizeof(float) * BK * a * nk * bm +
+          a_elem * BK * a * nk * bm +
           (size_t)s * (sizeof(float) * BK * (a ? 0 : bm) + b_stage) + fixed;
       if (bytes <= kSmemLimit) {
         *a_res = a;

@@ -20,9 +20,10 @@ Two engines:
   ``_kpass_2d``. :func:`kpass_select_k` launches it for a CUDA tensor and
   takes the plain version for a CPU tensor. K1 has two forms, chosen by
   k alone (:func:`select_form`): the warp select (a sorted queue in a
-  warp's registers, one warp per row) for k <= :data:`WARP_MAX_K`, and
-  the k passes of a block-wide arg-min above it. Each form has its own
-  launch counter.
+  warp's registers, one warp per row; past k = 256 a 512-key queue
+  folding 128-key buffers) for k <= :data:`WARP_MAX_K`, and the k passes
+  of a block-wide arg-min above it. Each form has its own launch
+  counter.
 * ``TOPK`` — the plain version, :func:`select_k_plain`: a stable sort and
   a slice (``torch.topk`` is not used: its tie order is unspecified).
 
@@ -43,7 +44,7 @@ __all__ = ["SelectAlgo", "WARP_MAX_K", "order_key", "select_form",
            "select_k", "select_k_plain", "smallest_k_plain",
            "kpass_select_k"]
 
-WARP_MAX_K = 256   # the warp select's queue: at most 256 keys a warp
+WARP_MAX_K = 512   # the warp select's queue: at most 512 keys a warp
 
 launches = 0            # K1 launches since the last reset, both forms
 warp_launches = 0       # of them, the warp select's

@@ -1,0 +1,197 @@
+"""Time builds of K1 and of K2 from several source trees against each
+other in one process, at the shapes of ``chip_smoke.py``'s paths.
+
+    python -m raft_tpu_torch.tools.knn_ab [--stores S,S,...] [--no-k1] \\
+        DIR [DIR ...]
+
+Each DIR holds a copy of ``raft_tpu_torch/csrc`` (this tree's, another
+commit's from ``git archive``, or a copy with one edit, such as a
+diagnostic build that leaves out a part of the kernel). Every version's
+``select_k.cu`` and ``fused_knn*.cu`` (one a store in ``--stores``,
+default all five) is built with ``_cuda``'s flags into DIR
+(``kernel_ab.build``: one nvcc each, all started together) and loaded by
+ctypes; entry points must keep this tree's C signatures.
+
+* K1 on the IVF-PQ graph pass's merge input: the first batch of CAGRA's
+  IVF-PQ pass on ``chip_smoke.py``'s 1M x 128 rows (``scan_ab``'s index
+  and batch), scanned by this tree's K4 at k = 257 into (32,768, 64 x
+  257) candidates. Each version's warp form and k-pass form, checked
+  equal to the plain version (a version that refuses k = 257 in a form
+  says so), timed beside ``torch.topk`` and the plain version.
+* K2 at the brute-force path's shape (10,000 queries, 1M rows, d = 128,
+  k = 10, l2) in each store: the f32 rows, ``brute_force.build``'s bf16,
+  int8 and int4 stores and the bench's uint8 byte grid. Each version
+  launches its library with its own split plan (``fused_knn.split_plan``
+  over its ``raft_fused_knn_slots``); whether its outputs equal the first
+  version's is printed (a diagnostic build's do not).
+
+Prints the card's name and power limit, each instance's registers and
+spills from ptxas, and each version's median event time in four rounds
+(versions in order, reversed, in order, reversed). Run from the root of
+the repository, on one card.
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .. import bench
+from ..matrix import select_k as sk
+from ..neighbors import brute_force
+from ..ops import _cuda
+from ..ops import fused_knn as fk
+from ..ops import ivf_pq_scan as ipq
+from .kernel_ab import build, median_ms
+from .scan_ab import _K, pass_batch
+
+_STORES = ("float32", "bfloat16", "int8", "uint8", "int4")
+
+
+def rounds(dirs, runs, reps):
+    """Each version's times in four rounds: in order, reversed, twice."""
+    times = {d: [] for d in dirs}
+    for order in (dirs, dirs[::-1], dirs, dirs[::-1]):
+        for d in order:
+            times[d].append(median_ms(runs[d], reps))
+    return times
+
+
+def k1_ab(dirs, libs) -> None:
+    b = pass_batch()
+    cand, _ = ipq.ivf_pq_scan_candidates(
+        b["codes"], b["dn"], None, b["cb"], b["centers"], b["q"],
+        b["probed"], b["offsets"], b["sizes"], _K, "l2")
+    del b
+    rows, n = cand.shape
+    ref = sk.select_k_plain(cand, _K)
+    stream = torch.cuda.current_stream().cuda_stream
+    ov = torch.empty((rows, _K), dtype=torch.float32, device="cuda")
+    oi = torch.empty((rows, _K), dtype=torch.int32, device="cuda")
+    print(f"K1 on the graph pass's merge ({rows}, {n}) k={_K}")
+    for form in ("warp", "kpass"):
+        runs = {}
+        for d in dirs:
+            fn = getattr(libs[d]["k1"], f"raft_select_k_{form}")
+
+            def run(fn=fn):
+                return fn(cand.data_ptr(), rows, n, _K, 1, ov.data_ptr(),
+                          oi.data_ptr(), stream)
+
+            if run() != 0:
+                print(f"K1 {form} {d}: refuses k={_K}")
+                continue
+            torch.cuda.synchronize()
+            same = torch.equal(ov, ref[0]) and torch.equal(oi, ref[1])
+            print(f"K1 {form} {d}: equal to the plain version: {same}")
+            runs[d] = run
+        if runs:
+            ds = list(runs)
+            for d, ts in rounds(ds, runs, 3).items():
+                print(f"K1 {form} {d}: ms " + " / ".join(f"{t:.3f}"
+                                                         for t in ts))
+    topk = median_ms(lambda: torch.topk(cand, _K, dim=1, largest=False), 3)
+    plain = median_ms(lambda: sk.select_k_plain(cand, _K), 3)
+    print(f"K1 torch.topk: ms {topk:.3f}; plain: ms {plain:.3f}")
+
+
+def store_data(stores):
+    """chip_smoke.py's rows and queries in each store → {store: (queries
+    as K2 takes them, their norms, rows, row norms, scales)}."""
+    sys.path.insert(0, str(Path.cwd()))
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(cs.SEED)
+    centers = rng.standard_normal((cs.N_BLOBS, cs.D), dtype=np.float32)
+    scales = rng.uniform(1.0, 1.6, cs.N_BLOBS).astype(np.float32)
+    x = torch.from_numpy(cs.clustered(rng, cs.N, centers, scales)).cuda()
+    q = torch.from_numpy(cs.clustered(rng, cs.M, centers, scales)).cuda()
+    out = {}
+    for store in stores:
+        xs, qs = x, q
+        if store == "uint8":
+            xs, qs = bench.byte_grid(x, q, "sqeuclidean",
+                                     ("raft_brute_force", "raft_ivf_flat"))
+        idx = brute_force.build(xs, dtype=store)
+        qk = fk.kernel_queries(qs, store, idx.dataset.shape[1]).contiguous()
+        out[store] = (qk, fk.prepare_norms("l2", qs),
+                      idx.dataset, fk.prepare_norms("l2", None, idx.norms),
+                      idx.scales)
+    return out, cs.K
+
+
+def k2_ab(dirs, libs, stores) -> None:
+    data, k = store_data(stores)
+    stream = torch.cuda.current_stream().cuda_stream
+    for store in stores:
+        qk, qn, xs, dn, sc = data[store]
+        m, d = qk.shape
+        n = xs.shape[0]
+        runs, outs = {}, {}
+        for dr in dirs:
+            lib = libs[dr][store]
+            slots = lib.raft_fused_knn_slots(k, d, 0, 0)
+            if slots < 0:
+                _cuda.check(-slots, f"{dr} fused_knn slots")
+            splits, per = fk.split_plan(m, n, k, slots)
+            ov = torch.empty((m, splits * k), dtype=torch.float32,
+                             device="cuda")
+            oi = torch.empty((m, splits * k), dtype=torch.int32,
+                             device="cuda")
+
+            def run(lib=lib, splits=splits, per=per, ov=ov, oi=oi):
+                _cuda.check(lib.raft_fused_knn(
+                    qk.data_ptr(), qn.data_ptr(), xs.data_ptr(),
+                    dn.data_ptr(), None,
+                    None if sc is None else sc.data_ptr(), m, n, d, k, 0,
+                    splits, per, ov.data_ptr(), oi.data_ptr(), stream),
+                    f"{dr} fused_knn {store}")
+                return ov, oi
+
+            run()
+            torch.cuda.synchronize()
+            runs[dr], outs[dr] = run, (splits, ov, oi)
+            print(f"K2.{store} {dr}: {slots} resident blocks, {splits} "
+                  "splits")
+        first = outs[dirs[0]]
+        for dr in dirs[1:]:
+            got = outs[dr]
+            same = got[0] == first[0] and all(
+                torch.equal(a, c) for a, c in zip(got[1:], first[1:]))
+            print(f"K2.{store} {dr}: outputs equal to {dirs[0]}'s: {same}")
+        for dr, ts in rounds(dirs, runs, 3).items():
+            print(f"K2.{store} {dr}: ms " + " / ".join(f"{t:.3f}"
+                                                       for t in ts))
+        del runs, outs
+        torch.cuda.empty_cache()
+
+
+def main(argv) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--stores", default=",".join(_STORES))
+    ap.add_argument("--no-k1", action="store_true")
+    ap.add_argument("dirs", nargs="+")
+    a = ap.parse_args(argv)
+    stores = [s for s in a.stores.split(",") if s]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi)
+    kernels = {s: (_cuda.STORE_SOURCES["fused_knn"][s], None)
+               for s in stores}
+    if not a.no_k1:
+        kernels["k1"] = ("select_k", None)
+    libs, notes = build(a.dirs, kernels)
+    print("\n".join(notes))
+    if not a.no_k1:
+        k1_ab(a.dirs, libs)
+    k2_ab(a.dirs, libs, stores)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

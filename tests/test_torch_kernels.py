@@ -364,7 +364,8 @@ def test_plain_versions_agree_on_cpu(integer):
         assert_knn_close(bv, bi, sv, si)
 
 
-SELECT_KS = (1, 20, 32, 33, 64, 100, 129, 256, 257)
+SELECT_KS = (1, 20, 32, 33, 64, 100, 129, 256, 257, 300, 384, 511, 512,
+             600)
 
 
 def select_rows(n, select_min, seed, rows=300):
@@ -385,15 +386,17 @@ def select_rows(n, select_min, seed, rows=300):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [20, 140, 200, 1024, 1806, 20000])
+@pytest.mark.parametrize("n", [20, 140, 200, 1024, 1806, 20000, 60000])
 @pytest.mark.parametrize("select_min", [True, False])
 def test_select_k_kernel_on_card(n, select_min):
     """K1, each form, against its plain version: the warp select for
-    k <= 256 and the k passes for every k, rows in shared memory and (n =
-    20000) streamed from device memory, heavy ties, -0.0 against 0.0,
-    rows of ±inf and rows with fewer finite values than k. Each call
-    counts one launch of its form, and the default takes the form the
-    rule gives."""
+    k <= 512 (past 256 a 512-key queue with 128-key buffers; rows read
+    16 bytes a lane where n % 4 == 0, else 4) and the k passes for every
+    k, rows in shared memory up to the card's opt-in limit (n = 20000 at
+    k = 600 too) and (n = 60000) streamed from device memory, heavy
+    ties, -0.0 against 0.0, rows of ±inf and rows with fewer finite
+    values than k. Each call counts one launch of its form, and the
+    default takes the form the rule gives."""
     need_cuda()
     xc = select_rows(n, select_min, n)
     for k in (k for k in SELECT_KS if k <= n):
@@ -435,7 +438,8 @@ def test_select_k_kernel_nan_order(n):
     (the JAX package's select_k order)."""
     need_cuda()
     x = nan_rows(n, n)
-    for k in (k for k in (1, 5, 20, 33, 256, 257) if k <= n):
+    for k in (k for k in (1, 5, 20, 33, 256, 257, 300, 384, 511, 512)
+              if k <= n):
         forms = ("warp", "kpass") if k <= tsk.WARP_MAX_K else ("kpass",)
         for sel in (True, False):
             pv, pi = tsk.select_k_plain(x, k, sel)
@@ -852,6 +856,43 @@ def test_select_k_kernel_nn_descent_merge(rows, n, k):
         pv, pi = tsk.select_k_plain(x, k)
         for form in ("warp", "kpass"):
             kv, ki = tsk.kpass_select_k(x, k, form=form)
+            torch.cuda.synchronize()
+            assert torch.equal(kv, pv) and torch.equal(ki, pi), form
+
+
+def graph_pass_rows(rows, runs=64, k=257, seed=0):
+    """Rows shaped as the IVF-PQ graph pass's merge input (K4's grouped
+    output, a probe's k candidates after another's): ``runs`` sorted runs
+    of k integer-valued keys (ties), some ending in +inf tails (a probe
+    list shorter than k)."""
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.integers(0, 5000, (rows, runs, k)).astype(np.float32),
+                2)
+    short = rng.integers(0, k, (rows, runs))
+    x[np.arange(k)[None, None, :] >= short[:, :, None]
+      + (rng.random((rows, runs, 1)) < 0.8) * k] = np.inf
+    return torch.from_numpy(x.reshape(rows, runs * k)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("select_min", [True, False])
+def test_select_k_kernel_graph_pass_merge(select_min):
+    """K1, both forms, at the IVF-PQ graph pass's merge row shape
+    (2,048 of its 32,768 rows x 64 probes x 257, k = 257): 64 sorted
+    runs with +inf tails, and Gaussian values; equal to the plain
+    version, in both directions (the runs negated for a max
+    selection)."""
+    need_cuda()
+    k = 257
+    runs = graph_pass_rows(2048, 64, k)
+    gauss = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        runs.shape).astype(np.float32)).cuda()
+    assert tsk.select_form(k) == "warp"
+    for x in (runs, gauss):
+        a = x if select_min else -x
+        pv, pi = tsk.select_k_plain(a, k, select_min)
+        for form in ("warp", "kpass"):
+            kv, ki = tsk.kpass_select_k(a, k, select_min, form=form)
             torch.cuda.synchronize()
             assert torch.equal(kv, pv) and torch.equal(ki, pi), form
 

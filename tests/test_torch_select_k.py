@@ -72,7 +72,8 @@ def test_k_out_of_range_raises():
 
 
 @pytest.mark.parametrize("k,form", [(1, "warp"), (20, "warp"), (256, "warp"),
-                                    (257, "kpass"), (1024, "kpass")])
+                                    (257, "warp"), (512, "warp"),
+                                    (513, "kpass"), (1024, "kpass")])
 def test_form_is_chosen_by_k(k, form):
     assert tsk.select_form(k) == form
 
@@ -80,10 +81,12 @@ def test_form_is_chosen_by_k(k, form):
 # --------------------------------------------------------------------------
 # The warp select, stated in numpy (csrc/select_k.cu::warp_select_kernel):
 # a queue of C = 32·R keys, key e in register e // 32 of lane e % 32; a
-# column enters the warp's buffer (C slots, filled in lane order) only if
-# it is before the k-th key; a full buffer is sorted descending by a
-# bitonic network, folded into the queue by an elementwise min and
-# bitonic-merged back.
+# column enters the warp's buffer (CAP slots, filled in lane order) only
+# if it is before the k-th key; a full buffer is sorted descending by a
+# bitonic network in CAP // 32 registers, folded into the queue's last
+# CAP // 32 registers by an elementwise min and the queue bitonic-merged
+# back. CAP = C up to k = 256; past it a 512-key queue folds 128-key
+# buffers (warp_queue.cuh::fold_buffer<T, 16, 4>).
 # --------------------------------------------------------------------------
 
 _IMAX = (1 << 31) - 1
@@ -117,6 +120,8 @@ def _bitonic_step(v, c, s, j, desc):
 def warp_select(row, k, select_min=True):
     n, cap = len(row), max(32, 1 << (k - 1).bit_length())
     rr = cap // 32
+    buf_cap = cap if k <= 256 else 128     # the kernel's CAP
+    rb = buf_cap // 32
     sign = np.float32(1 if select_min else -1)
     qv = np.full((rr, 32), np.inf, np.float32)
     qc = np.full((rr, 32), _IMAX, np.int64)
@@ -124,16 +129,17 @@ def warp_select(row, k, select_min=True):
     tv, tc = np.float32(np.inf), _IMAX
 
     def fold():
-        bv = np.full(cap, np.inf, np.float32)
-        bc = np.full(cap, _IMAX, np.int64)
+        bv = np.full(buf_cap, np.inf, np.float32)
+        bc = np.full(buf_cap, _IMAX, np.int64)
         bv[:len(buf)] = [v for v, _ in buf]
         bc[:len(buf)] = [c for _, c in buf]
-        bv, bc = bv.reshape(rr, 32), bc.reshape(rr, 32)
-        for s in (2 << i for i in range(rr.bit_length() + 4)):
+        bv, bc = bv.reshape(rb, 32), bc.reshape(rb, 32)
+        for s in (2 << i for i in range(rb.bit_length() + 4)):
             for j in (s >> 1 >> i for i in range(s.bit_length() - 1)):
                 _bitonic_step(bv, bc, s, j, True)
-        take = _less(bv, bc, qv, qc)
-        qv[take], qc[take] = bv[take], bc[take]
+        tail_v, tail_c = qv[rr - rb:], qc[rr - rb:]
+        take = _less(bv, bc, tail_v, tail_c)
+        tail_v[take], tail_c[take] = bv[take], bc[take]
         for j in (16 * rr >> i for i in range((16 * rr).bit_length())):
             _bitonic_step(qv, qc, 64 * rr, j, False)
 
@@ -142,9 +148,9 @@ def warp_select(row, k, select_min=True):
         v = sign * row[cols]
         buf += [(x, c) for x, c, ok in zip(v, cols, _less(v, cols, tv, tc))
                 if ok]
-        if len(buf) >= cap:
-            rest = buf[cap:]
-            del buf[cap:]
+        if len(buf) >= buf_cap:
+            rest = buf[buf_cap:]
+            del buf[buf_cap:]
             fold()
             buf = rest
             tv, tc = qv[(k - 1) // 32, (k - 1) % 32], qc[(k - 1) // 32,
@@ -158,18 +164,21 @@ def warp_select(row, k, select_min=True):
 
 
 @pytest.mark.parametrize("k,n", [(1, 64), (20, 1024), (32, 140), (33, 200),
-                                 (64, 128), (100, 400), (129, 520)])
+                                 (64, 128), (100, 400), (129, 520),
+                                 (257, 700), (300, 900), (512, 600)])
 def test_warp_select_statement_matches_pallas_kernel(k, n):
     """The numpy statement of the warp select equals the Pallas k-pass
     (interpret mode) on integer rows with ties, +inf cells, a row of
-    nothing but +inf, and the max selection through negation."""
+    nothing but +inf, and the max selection through negation; past
+    k = 256, with a 128-key buffer folding into a 512-key queue."""
+    rows = 6
     rng = np.random.default_rng(k + n)
-    x = rng.integers(0, 30, (6, n)).astype(np.float32)
-    x[rng.random((6, n)) < 0.1] = np.inf
+    x = rng.integers(0, 30, (rows, n)).astype(np.float32)
+    x[rng.random((rows, n)) < 0.1] = np.inf
     x[2] = np.inf
     jv, ji = _kpass_2d(jnp.asarray(x), k, True)
     jv, ji = np.asarray(jv), np.asarray(ji)
-    for row in range(6):
+    for row in range(rows):
         for sel, xs in ((True, x[row]), (False, -x[row])):
             v, c = warp_select(xs, k, sel)
             np.testing.assert_array_equal(v, jv[row] if sel else -jv[row])

@@ -123,8 +123,9 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    integer-valued copies; K5 also on a bf16 store; K6 launched twice,
    bit-equal, and timed cut to 8, 32 and 80 hops (the cost of a hop),
    and equal to its plain version at itopk 256 on the bench's index;
-   K5's and K6's registers, spills and resident warps an SM (as the card
-   reports them for the path's shape); K7 and K8, which must
+   K5's and K6's registers, spills, resident warps an SM, warps a block
+   and K5's shared memory an SM (as the card reports them for the path's
+   shape); K7 and K8, which must
    be equal, on the path's candidates and on integer-valued lists (K8:
    cross-shard ties and a dead shard; K7: unsorted, ties, NaN, ±inf and
    -0.0, bit for bit), at the path's k = 10 and at k = 100, K7 also at
@@ -146,10 +147,10 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    counts one compare a cell in, K8's reads each shard's input and
    writes its output once and counts a merge's p·k·log2(p) compares a
    row. The sharded merge alone is timed per engine at k = 10 and 100.
-   K1 (each form, at every shape), K7 and K8 also report the card's time
-   alone (``device_ms``: calls queued back to back while the card is
-   still busy with flush writes, so the host work between them is
-   hidden): an event time includes the wrapper's host work wherever
+   K1 (each form, at every shape), K5 (each store), K7 and K8 also report
+   the card's time alone (``device_ms``: calls queued back to back while
+   the card is still busy with flush writes, so the host work between
+   them is hidden): an event time includes the wrapper's host work wherever
    that outlasts the L2 flush, which a loaded host makes happen for
    these short kernels. K1's forms are timed with 9 calls a turn, K8
    with 15. The store forms (rows ``fused_knn.<store>``,
@@ -164,7 +165,8 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    others), with each form's registers and spills from the build (a
    spill fails); K3's in both forms on the path's store indexes, each
    launched twice, bit-equal, equal to the plain version on integer
-   stores, bound by two TF32 products a (pair, row).
+   stores, bound by two TF32 products a (pair, row), timed beside K3's
+   f32 form of the same run.
 
 7. edge stores, after the kernel phases of K5 and K6 and on the path's
    CAGRA index, its int8 store dropped first: the int4 store (split-half
@@ -188,9 +190,10 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    in both LUT modes) at both metrics, K5's pq form also at pq_dim 64
    (pq_len 2) and on a real f32 LUT; K6 launched twice, bit-equal. Each
    is timed beside its plain version and its bound: the bytes of the
-   distinct parents' tiles and aux rows (pq: plus its codebook once a
-   block; K6: the int4 traversal's own parents), with registers, spills
-   and resident warps.
+   distinct parents' tiles and aux rows (pq: plus its codebook once;
+   K6: the int4 traversal's own parents), with registers, spills,
+   resident warps and K5's shared memory an SM, K5's forms also beside
+   the dense form's times of the same run.
 
 Prints progress lines, then a ``{"kernels": [...]}`` line, the card's name
 and power limit as ``nvidia-smi`` gives them, and last
@@ -1646,22 +1649,26 @@ def k5_phase(timer, cidx, q, parents, launches):
         check_equal(ge.graph_expand_plain(*a), ge.graph_expand(*a),
                     f"K5 graph_expand {name} {metric} ({M} parents)")
     ms = timer(lambda: ge.graph_expand_kernel(*path))
+    alone = device_ms(lambda: ge.graph_expand_kernel(*path))
     plain = timer(lambda: ge.graph_expand_plain(*path), reps=3, warmup=0)
     deg_p, dim_p = st.deg_p, st.dim_p
     info = ge.kernel_info(deg_p, dim_p, st.mode)
     log(f"  K5 at tiles {deg_p} x {dim_p}: {info['registers']} registers, "
         f"{info['local_bytes']} bytes of local memory (spills) a thread, "
-        f"{info['warps_per_sm']} warps resident an SM")
+        f"{info['warps_per_sm']} warps resident an SM "
+        f"({info['warps_per_block']} a block), {info['smem_per_sm']} bytes "
+        "of shared memory an SM")
     # each distinct parent's tile and aux row once; per pair its query,
     # parent id and k' outputs
     b, by = bound(len(sub) * (deg_p * dim_p + 2 * deg_p * 4)
                   + M * (dim_p * 4 + 4 + kp * 8), 2.0 * M * st.degree * D)
-    log(f"  K5 at hop {K5_HOP}: {M} pairs over {len(sub)} distinct parents")
+    log(f"  K5 at hop {K5_HOP}: {M} pairs over {len(sub)} distinct "
+        f"parents; {ms:.4f} ms, alone {alone:.4f} ms")
     return dict(name="graph_expand", route="cuda",
                 source="raft_tpu_torch/csrc/graph_expand.cu",
                 replaces="raft_tpu/ops/graph_expand.py:261",
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
-                bound_ms=b, bound_by=by, library_ms=None,
+                bound_ms=b, bound_by=by, library_ms=None, device_ms=alone,
                 distinct_parents=len(sub), **info,
                 shape=f"{M} (query, parent) pairs of hop {K5_HOP}, int8 "
                       f"tiles {deg_p} x {dim_p}, k'={kp}")
@@ -2655,14 +2662,14 @@ def k2_store_phase(timer, st, moved, logs) -> list:
     return rows
 
 
-def k3_store_phase(timer, st, moved) -> list:
+def k3_store_phase(timer, st, moved, f32_ms: float) -> list:
     """K3's store forms in both forms on the path's store indexes
     (uint8 on the byte grid) against the plain version, each launched
     twice, bit-equal; equal to it on integer-valued stores (a 50,000-row
     index of each store, and the uint8 path index with its queries
-    rounded to bytes); both forms timed at the path's shape. The bound is
-    2xTF32 over the (pair, row) products, the bytes read once being
-    less."""
+    rounded to bytes); both forms timed at the path's shape, beside the
+    f32 form's grouped time of this run (``f32_ms``). The bound is 2xTF32
+    over the (pair, row) products, the bytes read once being less."""
     rows = []
     for store in ("bfloat16", "int8", "uint8"):
         idx = st[f"ivf.{store}"]
@@ -2728,10 +2735,11 @@ def k3_store_phase(timer, st, moved) -> list:
                            + M * D * 4 + M * N_PROBES * (4 + K * 8), 0.0)
         by = "operations" if t_ops >= t_bytes else "bytes"
         launches = moved[f"ivf_flat_scan.{store}"]
-        log(f"  K3.{store}: grouped {times['group']:.3f} ms, per-pair "
-            f"{times['pair']:.3f} ms over {scanned} (pair, row) products; "
-            f"2xTF32 bound {t_ops:.4f} ms, bytes {t_bytes:.4f} ms; plain "
-            f"{plain:.1f} ms; launches {launches}")
+        log(f"  K3.{store}: grouped {times['group']:.3f} ms (the f32 "
+            f"form's {f32_ms:.3f} ms), per-pair {times['pair']:.3f} ms over "
+            f"{scanned} (pair, row) products; 2xTF32 bound {t_ops:.4f} ms, "
+            f"bytes {t_bytes:.4f} ms; plain {plain:.1f} ms; launches "
+            f"{launches}")
         rows.append(dict(
             name=f"ivf_flat_scan.{store}", route="cuda",
             source=f"raft_tpu_torch/csrc/ivf_flat_scan_{store}.cu",
@@ -2739,7 +2747,7 @@ def k3_store_phase(timer, st, moved) -> list:
             max_abs_err=errs["group"], ms=times["group"], plain_ms=plain,
             bound_ms=max(t_ops, t_bytes), bound_by=by, bound_kind="2xTF32",
             library_ms=None, form="group", pair_ms=times["pair"],
-            pair_max_abs_err=errs["pair"],
+            pair_max_abs_err=errs["pair"], f32_form_ms=f32_ms,
             shape=f"{M} queries x {N_PROBES} probes, k={K}, {store} lists"
                   + (" (byte grid)" if store == "uint8" else "")))
     return rows
@@ -2773,7 +2781,7 @@ def recipe_recall(cidx, q, bi, engine: str) -> float:
 
 
 def edge_store_phase(timer, q, cidx, bidx, buf_d, buf_i, hop_parents,
-                     totals) -> list:
+                     totals, dense: dict) -> list:
     """CAGRA's int4 and pq edge stores on the path's index (the int8 store
     dropped first): each built at the path's width (bytes, seconds),
     searched through the entry point with the counters reset before each
@@ -2782,8 +2790,8 @@ def edge_store_phase(timer, q, cidx, bidx, buf_d, buf_i, hop_parents,
     fused search raises), raw recall@K and JAX's recipe (search at
     k = itopk, refine to K) against the int8 store's, ``tune_search`` at
     the store; then each new kernel form against its plain version and
-    timed; the phase's own peak device memory. Returns the kernel
-    rows."""
+    timed (K5's beside the dense form's row of this run, ``dense``);
+    the phase's own peak device memory. Returns the kernel rows."""
     torch.cuda.reset_peak_memory_stats()
     _, bi = brute_force.search(bidx, q, K)
     base = recipe_recall(cidx, q, bi, "fused")
@@ -2857,7 +2865,8 @@ def edge_store_phase(timer, q, cidx, bidx, buf_d, buf_i, hop_parents,
             f"{t_race:.2f} s): {winner} wins (" + ", ".join(
                 f"{e} {v * 1e3:.2f} ms" for e, v in times.items()) + ")")
         rows.append(k5_store_phase(timer, cidx, q, hop_parents,
-                                   totals[f"graph_expand.{store}"], store))
+                                   totals[f"graph_expand.{store}"], store,
+                                   dense))
         if store == "int4":
             rows.append(k6_int4_phase(timer, cidx, q, buf_d, buf_i,
                                       totals["cagra_fused.int4"]))
@@ -2878,13 +2887,16 @@ def int_pq_codebook(pq_dim, book, pq_len, seed, device):
     return cb.to(torch.int8)
 
 
-def k5_store_phase(timer, cidx, q, parents, launches, store) -> dict:
+def k5_store_phase(timer, cidx, q, parents, launches, store,
+                   dense: dict) -> dict:
     """K5's int4 or pq form on the path's hop-K5_HOP parents, against its
     plain version: the path's store; the parents' tiles with a penalty
     and the ip metric; integer-valued copies of them (int4: the nibbles
     with unit scales; pq: integer codebooks with per-subspace absmax 127,
     so the int8 LUT's scale is 1, in both LUT modes) with rounded queries
-    at both metrics; pq also at pq_dim 64 (pq_len 2). Then timed."""
+    at both metrics; pq also at pq_dim 64 (pq_len 2). Then timed, also
+    alone (the host's work hidden), beside the dense (int8) form's row of
+    this run (``dense``)."""
     st = cidx.edge_store
     kp = min(cidx.graph_degree, ITOPK)
     mode = st.kernel_mode
@@ -2943,6 +2955,7 @@ def k5_store_phase(timer, cidx, q, parents, launches, store) -> dict:
         check_equal(ge.graph_expand_plain(*a), ge.graph_expand(*a),
                     f"K5 graph_expand {name} {metric} ({M} parents)")
     ms = timer(lambda: ge.graph_expand_kernel(*path))
+    alone = device_ms(lambda: ge.graph_expand_kernel(*path))
     plain = timer(lambda: ge.graph_expand_plain(*path), reps=3, warmup=0)
     deg_p, dim_p, w = st.deg_p, st.dim_p, st.vecs.shape[2]
     if store == "pq":
@@ -2951,7 +2964,9 @@ def k5_store_phase(timer, cidx, q, parents, launches, store) -> dict:
         info = ge.kernel_info(deg_p, dim_p, store)
     log(f"  K5.{store} at tiles {deg_p} x {w}: {info['registers']} "
         f"registers, {info['local_bytes']} bytes of local memory (spills) "
-        f"a thread, {info['warps_per_sm']} warps resident an SM")
+        f"a thread, {info['warps_per_sm']} warps resident an SM "
+        f"({info['warps_per_block']} a block), {info['smem_per_sm']} bytes "
+        "of shared memory an SM")
     # each distinct parent's tile and aux row once, per pair its query,
     # parent id and k' outputs; pq also its codebook (and scales) once:
     # the kernel's copy a block is its own design, served by L2
@@ -2959,19 +2974,24 @@ def k5_store_phase(timer, cidx, q, parents, launches, store) -> dict:
                           + M * (dim_p * 4 + 4 + kp * 8))
     if store == "pq":
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        blocks = min(-(-M // 4), info["warps_per_sm"] // 4 * sms)
+        wpb = info["warps_per_block"]
+        blocks = min(-(-M // wpb), info["warps_per_sm"] // wpb * sms)
         cb_bytes = st.cb.numel() * st.cb.element_size() + (
             0 if st.cb_scale is None else st.cb_scale.numel() * 4)
         n_bytes += cb_bytes
         extra = dict(blocks=blocks, codebook_bytes=cb_bytes)
     b, by = bound(n_bytes, 2.0 * M * st.degree * D)
-    log(f"  K5.{store} at hop {K5_HOP}: {ms:.4f} ms, plain {plain:.2f} ms, "
-        f"bound {b:.4f} ms ({by}); launches {launches}")
+    log(f"  K5.{store} at hop {K5_HOP}: {ms:.4f} ms, alone {alone:.4f} ms "
+        f"(the dense form's {dense['ms']:.4f} ms, alone "
+        f"{dense['device_ms']:.4f}), plain {plain:.2f} ms, bound {b:.4f} ms "
+        f"({by}); launches {launches}")
     return dict(name=f"graph_expand.{store}", route="cuda",
                 source=f"raft_tpu_torch/csrc/graph_expand_{store}.cu",
                 replaces="raft_tpu/ops/graph_expand.py:261",
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
-                bound_ms=b, bound_by=by, library_ms=None,
+                bound_ms=b, bound_by=by, library_ms=None, device_ms=alone,
+                dense_form_ms=dense["ms"],
+                dense_form_device_ms=dense["device_ms"],
                 distinct_parents=len(sub), **info, **extra,
                 shape=f"{M} (query, parent) pairs of hop {K5_HOP}, {store} "
                       f"tiles {deg_p} x {w}, k'={kp}")
@@ -3054,6 +3074,11 @@ def k6_int4_phase(timer, cidx, q, buf_d, buf_i, launches) -> dict:
                       f"{max_iter} hops max, int4 tiles {deg_p} x {w}")
 
 
+def row_of(kernels, name: str) -> dict:
+    """The kernel row named ``name``."""
+    return next(k for k in kernels if k["name"] == name)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; it runs only on an NVIDIA "
@@ -3122,7 +3147,8 @@ def main() -> int:
     del iidx, pidx
     mark(t_start, "K2, K3 and K4 phases")
     kernels += (k2_store_phase(timer, stores, moved, logs)
-                + k3_store_phase(timer, stores, moved))
+                + k3_store_phase(timer, stores, moved,
+                                 row_of(kernels, "ivf_flat_scan")["ms"]))
     del stores
     mark(t_start, "K2 and K3 store phases")
     buf_d, buf_i = seeded_buffer(cidx, q)
@@ -3139,7 +3165,8 @@ def main() -> int:
     log(f"peak device memory before the edge-store phase "
         f"{peaks[0] / 2**30:.2f} GiB")
     kernels += edge_store_phase(timer, q, cidx, bidx, buf_d, buf_i,
-                                hop_parents, moved)
+                                hop_parents, moved,
+                                row_of(kernels, "graph_expand"))
     peaks.append(torch.cuda.max_memory_allocated())
     del cidx, buf_d, buf_i
     torch.cuda.reset_peak_memory_stats()

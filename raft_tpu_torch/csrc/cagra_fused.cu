@@ -15,7 +15,8 @@ extern "C" size_t raft_cagra_fused_smem(int itopk, int width, int kprime,
 }
 
 // For a shape: the kernel's registers a thread, its local memory a thread
-// in bytes (spills), and the warps an SM keeps resident, in info[0..2].
+// in bytes (spills), the warps an SM keeps resident, the warps a block
+// and the shared memory an SM holds, in info[0..4].
 extern "C" int raft_cagra_fused_info(int itopk, int width, int kprime,
                                      int deg_p, int dim_p, int store_bf16,
                                      int* info) {

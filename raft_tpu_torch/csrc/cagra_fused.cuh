@@ -97,7 +97,8 @@ template <typename T>
 inline size_t warp_bytes(int itopk, int width, int kprime, int deg_p,
                          int dim_p) {
   return sizeof(float) * warp_words(32 * cells_per_lane(itopk, deg_p), width,
-                                    kprime, dim_p, edge::stage_words<T>());
+                                    kprime, dim_p,
+                                    edge::stage_words_at<T>(dim_p));
 }
 
 // One step J of the bitonic merge of the warp's NL·32 cells: the lower
@@ -164,7 +165,7 @@ cagra_fused_kernel(const float* __restrict__ q, const float* __restrict__ bd0,
                    int* __restrict__ out_hops, int* __restrict__ out_parents) {
   constexpr int L = NL * 32;
   using Scorer = edge::TileScorer<T, NL, kOneChunk>;
-  constexpr size_t kStage = edge::stage_words<T>();
+  constexpr size_t kStage = edge::stage_words<T, kOneChunk>();
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;

@@ -45,17 +45,24 @@
 //   low and dim dim_p / 2 + j high. The 64 dims of each half of a chunk
 //   lie on one plane, in 64 consecutive bytes; a unit stages the two
 //   64-byte segments of a chunk's halves, so lane l reads word l and
-//   widens the low or the high nibbles (at dim_p 128 both segments are
-//   the row's 64 bytes, staged twice). A nibble + 8 goes into the
-//   mantissa of 2^23 by the same prmt as int8: exact.
+//   widens the low or the high nibbles. At dim_p 128 (the path's width)
+//   both segments are the row's 64 bytes, so a unit stages each row once
+//   (2 KB, rows 16..31 swapped in pairs so that the lanes meet 32 banks)
+//   and lane l reads word l % 16 of it, the low nibbles below lane 16 and
+//   the high ones from it. A nibble + 8 goes into the mantissa of 2^23 by
+//   the same prmt as int8: exact.
 // - pq (PqScorer; the "pq" mode, K5 only): a row is pq_dim uint8 codes;
 //   the compact codebook (pq_dim, book, pq_len), int8 with pq_dim scales
-//   or float32, sits in the block's shared memory, staged once a block.
-//   A unit is 32 rows' codes; lane l decodes its 4 dims of each chunk
-//   from the code of each dim's subspace (one code and one word of the
-//   codebook when pq_len % 4 == 0, else dim by dim: at pq_len 2 a lane's
-//   4 dims span two subspaces), in int8 mode times the subspace's scale
-//   in one __fmul_rn — the JAX kernel's int8 decode, float(t) * scale.
+//   or float32, sits in the block's shared memory, staged once a block
+//   (graph_expand.cuh::PqStore: one block an SM). A unit is 32 rows'
+//   codes; lane l decodes its 4 dims of each chunk from the code of each
+//   dim's subspace (one code and one word of the codebook when pq_len % 4
+//   == 0, else dim by dim: at pq_len 2 a lane's 4 dims span two
+//   subspaces), in int8 mode times the subspace's scale in one __fmul_rn
+//   — the JAX kernel's int8 decode, float(t) * scale. The code loads meet
+//   32 distinct banks: lane l reads byte s of row i ^ l, rows pq_dim
+//   bytes apart, and (row, subspace) over the lanes covers the 32 banks
+//   at pq_dim 16 and 64.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -265,17 +272,28 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // A store's staged bytes of one row and 128-dim chunk (int4: its two
-// 64-byte segments): a unit is 32 such rows, and a warp's stage two units
-// (the same size at any width).
-template <typename T>
+// 64-byte segments, or at a scored width of 128 (kOneChunk) the row's 64
+// bytes, which hold both): a unit is 32 such rows, and a warp's stage two
+// units (the same size at any width).
+template <typename T, bool kOneChunk = false>
 __host__ __device__ constexpr int chunk_row_bytes() {
-  if constexpr (std::is_same<T, Int4>::value) return 128;
+  if constexpr (std::is_same<T, Int4>::value) return kOneChunk ? 64 : 128;
   return kChunk * (int)sizeof(T);
 }
-template <typename T>
+template <typename T, bool kOneChunk = false>
 __host__ __device__ constexpr size_t stage_words() {
-  return (size_t)2 * kUnit * chunk_row_bytes<T>() / 4;
+  return (size_t)2 * kUnit * chunk_row_bytes<T, kOneChunk>() / 4;
 }
+// The same for a scored width of dim_p.
+template <typename T>
+__host__ __device__ constexpr size_t stage_words_at(int dim_p) {
+  return dim_p == kChunk ? stage_words<T, true>() : stage_words<T, false>();
+}
+
+// Where row r of an int4 unit of 64-byte rows is staged: rows 16..31 swap
+// in pairs, so that lanes l and l ^ 16, which read the same word of rows
+// 16 apart, meet different banks (all 32 lanes distinct banks).
+__host__ __device__ constexpr int i4_row(int r) { return r ^ ((r >> 4) & 1); }
 
 // The kernels' value of edge e: cross = dot * scale,
 //   l2: max((||q||² + ||v_e||²) - 2 cross, 0)      ip: -cross
@@ -336,7 +354,7 @@ template <typename T, int NG, bool kOneChunk = false>
 struct TileScorer {
   using S = Store<T>;
   static constexpr bool kI4 = std::is_same<T, Int4>::value;
-  static constexpr int kRowBytes = chunk_row_bytes<T>();
+  static constexpr int kRowBytes = chunk_row_bytes<T, kOneChunk>();
   static constexpr int kUnitBytes = kUnit * kRowBytes;
   static constexpr int kRowWords = kRowBytes / 4;  // a row's chunk
   static constexpr int kSegs = kRowBytes / 16;     // its copies
@@ -359,7 +377,12 @@ struct TileScorer {
   // Copy unit u: the chunk u % chunks of the rows of group u / chunks.
   __device__ __forceinline__ void copy_unit(int u, int lane) const {
     char* to = reinterpret_cast<char*>(stage) + (u & 1) * kUnitBytes;
-    if constexpr (kI4) {  // the two 64-byte segments of a chunk
+    if constexpr (kI4 && kOneChunk) {  // 32 contiguous 64-byte rows, once
+      const char* from = src + (size_t)u * kUnitBytes;
+      for (int off = 16 * lane; off < kUnitBytes; off += 16 * 32) {
+        cp_async16(to + i4_row(off >> 6) * 64 + (off & 63), from + off);
+      }
+    } else if constexpr (kI4) {  // the two 64-byte segments of a chunk
       const int nc = kOneChunk ? 1 : chunks;
       const int g = u / nc, c = u - g * nc;
       const char* from = src + (size_t)g * kUnit * row_bytes;
@@ -429,10 +452,14 @@ struct TileScorer {
                 *reinterpret_cast<const float4*>(qs + c * kChunk + 4 * lane);
             const float q[4] = {q4.x, q4.y, q4.z, q4.w};
             const int plane = 64 * (2 * c + (lane >> 4)) >= half ? 1 : 0;
+            // one copy (kOneChunk): row i ^ l at i4_row, word l % 16
+            const int lw = kOneChunk ? lane & 15 : lane;
+            const int lr = kOneChunk ? i4_row(lane) : lane;
 #pragma unroll
             for (int i = 0; i < kUnit; ++i) {
               float v[4];
-              S::widen(rows[(i ^ lane) * kRowWords + lane], plane, v);
+              const int r = kOneChunk ? i4_row(i) ^ lr : i ^ lr;
+              S::widen(rows[r * kRowWords + lw], plane, v);
 #pragma unroll
               for (int j = 0; j < 4; ++j) {
                 acc[i] = __fadd_rn(acc[i], __fmul_rn(q[j], v[j]));
@@ -680,7 +707,8 @@ inline cudaError_t persistent_shape(const void* kern, int max_warps,
 }
 
 // Host: `kern`'s registers a thread, its local memory a thread in bytes
-// (spills) and the warps an SM keeps resident, into info[0..2].
+// (spills), the warps an SM keeps resident, the warps a block and the
+// shared memory an SM holds in bytes, into info[0..4].
 inline cudaError_t instance_info(const void* kern, int max_warps,
                                  size_t warp_bytes, int* info,
                                  size_t block_bytes = 0) {
@@ -694,6 +722,9 @@ inline cudaError_t instance_info(const void* kern, int max_warps,
   info[0] = attr.numRegs;
   info[1] = (int)attr.localSizeBytes;
   info[2] = s.blocks_per_sm * s.warps;
+  info[3] = s.warps;
+  info[4] =
+      (int)(s.blocks_per_sm * (block_bytes + s.warps * warp_bytes));
   return cudaSuccess;
 }
 

@@ -20,7 +20,8 @@ extern "C" size_t raft_graph_expand_smem(int dim_p, int store_bf16) {
 }
 
 // For a shape: the kernel's registers a thread, its local memory a thread
-// in bytes (spills), and the warps an SM keeps resident, in info[0..2].
+// in bytes (spills), the warps an SM keeps resident, the warps a block
+// and the shared memory an SM holds, in info[0..4].
 extern "C" int raft_graph_expand_info(int deg_p, int dim_p, int store_bf16,
                                       int* info) {
   return store_bf16 ? k5::info<Bf16>(deg_p, dim_p, kNoPq, info)

@@ -14,7 +14,7 @@ using PqF32 = k5::PqStore<false>;
 // Shared memory a block needs at one warp, in bytes: the codebook and one
 // warp's stage and query rows (the wrapper refuses a shape above the
 // card's per-block limit; a launch puts as many warps in a block as that
-// limit holds, at most four).
+// limit holds, at most 16).
 extern "C" size_t raft_graph_expand_pq_smem(int dim_p, int pq_dim, int book,
                                             int lut_i8) {
   const k5::PqArgs a{nullptr, nullptr, pq_dim, book};
@@ -23,7 +23,8 @@ extern "C" size_t raft_graph_expand_pq_smem(int dim_p, int pq_dim, int book,
 }
 
 // For a shape: the kernel's registers a thread, its local memory a thread
-// in bytes (spills), and the warps an SM keeps resident, in info[0..2].
+// in bytes (spills), the warps an SM keeps resident, the warps a block
+// and the shared memory an SM holds, in info[0..4].
 extern "C" int raft_graph_expand_pq_info(int deg_p, int dim_p, int pq_dim,
                                          int book, int lut_i8, int* info) {
   const k5::PqArgs a{nullptr, nullptr, pq_dim, book};

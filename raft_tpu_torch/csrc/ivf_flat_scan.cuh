@@ -48,14 +48,24 @@
 // The store forms (template parameter S; one translation unit a store,
 // ivf_flat_scan{,_bfloat16,_int8,_uint8}.cu) replace the TPU kernel's
 // low-precision list modes: bf16, int8 with per-row scales and uint8
-// lists. The grouped form stages a tile's stored bytes and widens them to
-// f32 in shared memory (tf32_tile.cuh); every stored value is exact in
-// TF32, so the f32 query's hi and lo parts against the row give the dot
-// as 2xTF32 (the TPU's Pallas scan rounds the query to bf16 for every such
-// store; this kernel keeps the f32 query, as the JAX package's XLA engine
-// does). The per-pair form widens each value as it stages it. The row's
-// scale multiplies the finished dot, (q·r)·s, before the distance
-// formula; it never multiplies a partial sum.
+// lists. The grouped form stages a tile's stored bytes (copy_stage) and
+// each warp builds its B fragments from them in registers
+// (tf32_tile.cuh::stage_dots_bytes: a byte by one prmt into the mantissa
+// of 2^23, a bf16 halfword shifted into the top of an f32 word), with no
+// widened block and no barrier of its own: a stage costs two barriers, as
+// the f32 form's. Every stored value is exact in TF32, so the f32 query's
+// hi and lo parts against the row give the dot as 2xTF32, in the order of
+// the f32 form's products less the two that read the row's lo parts
+// (exact zeros), so a store form gives the f32 form's bits on the same
+// rows widened (the TPU's Pallas scan rounds the query to bf16 for every
+// such store; this kernel keeps the f32 query, as the JAX package's XLA
+// engine does). The per-pair form widens each value as it stages it
+// (widen1). The row's scale multiplies the finished dot, (q·r)·s, before
+// the distance formula; it never multiplies a partial sum. Only int8
+// lists carry scales (ops/quant.py), so the grouped instance knows at
+// compile time whether it has them (SC) and the tile's epilogue holds no
+// per-value branch on it: decided at run time there, it cost a fifth of
+// the scan at k = 10 (tools/scan_ab.py on an H100).
 #pragma once
 
 #include "tf32_tile.cuh"
@@ -78,6 +88,7 @@ ivf_group_kernel(const void* __restrict__ data, const float* __restrict__ dn,
   constexpr int BM = 32 * MF;
   constexpr bool RAW = S != kF32;       // rows staged as stored bytes
   constexpr int NSIDE = RAW ? 3 : 2;    // (dn, pen[, scale]) a row
+  constexpr bool SC = S == kI8;         // the rows carry scales
   const int cnt = gcount[blockIdx.x];
   if (cnt <= 0) return;  // past the live groups (block-uniform)
   const int list = glist[blockIdx.x];
@@ -92,8 +103,7 @@ ivf_group_kernel(const void* __restrict__ data, const float* __restrict__ dn,
   extern __shared__ __align__(16) float smem[];
   float* a_tile = smem;
   unsigned char* ring = (unsigned char*)(smem + a_floats);
-  float* wide = (float*)(ring + ns * stage);  // a widened row tile (RAW)
-  float* sides = wide + (RAW ? BN * BK : 0);  // 4 x (dn, pen[, scale])
+  float* sides = (float*)(ring + ns * stage);  // 4 x (dn, pen[, scale])
   float* list_v = sides + 4 * NSIDE * BN;    // BM x k sorted keys
   int* list_c = (int*)(list_v + BM * k);
   float* buf_v = (float*)(list_c + BM * k);  // BM x CAP candidates
@@ -157,7 +167,7 @@ ivf_group_kernel(const void* __restrict__ data, const float* __restrict__ dn,
       st += BM * BK * 4;
     }
     if constexpr (RAW) {
-      copy_raw<S, BN>(st, data, c0, c_end, k0, d, vec >> 1, tid);
+      copy_stage<S, BN>(st, data, c0, c_end, k0, d, vec >> 1, tid);
     } else {
       copy_block<BN>((float*)st, (const float*)data, c0, c_end, k0, d,
                      vec & 1, tid);
@@ -170,7 +180,7 @@ ivf_group_kernel(const void* __restrict__ data, const float* __restrict__ dn,
       if (src != nullptr) {
         cp_async4(side + tid, ok ? src + c0 + c : src, ok);
       }
-      if (RAW && scales != nullptr && tid < BN) {
+      if (SC && tid < BN) {
         cp_async4(side + 2 * BN + tid, ok ? scales + c0 + c : scales, ok);
       }
     }
@@ -208,14 +218,12 @@ ivf_group_kernel(const void* __restrict__ data, const float* __restrict__ dn,
     const unsigned char* st = ring + (s % ns) * stage;
     const float* As = a_res ? a_tile + (s % nk) * BM * BK : (const float*)st;
     const unsigned char* Bst = a_res ? st : st + BM * BK * 4;
-    const float* Bs = (const float*)Bst;
-    if constexpr (RAW) {  // widen the stored tile once for all warps
-      widen_stage<S, BN>(wide, Bst, false, tid);
-      __syncthreads();
-      Bs = wide;
+    const float* a_lo = a_res == 2 ? As + nk * BM * BK : nullptr;
+    if constexpr (RAW) {  // B fragments from the stored bytes
+      stage_dots_bytes<MF, S>(acc, As, a_lo, Bst, false, lane, wm, wn);
+    } else {
+      stage_dots<MF>(acc, As, a_lo, (const float*)Bst, false, lane, wm, wn);
     }
-    stage_dots<MF>(acc, As, a_res == 2 ? As + nk * BM * BK : nullptr, Bs,
-                   RAW, lane, wm, wn);
     __syncthreads();  // slot s % ns is read before a load overwrites it
     if (s % nk != nk - 1) continue;
 
@@ -230,15 +238,14 @@ ivf_group_kernel(const void* __restrict__ data, const float* __restrict__ dn,
         const int lc = wn * 32 + 8 * j + 2 * t4 + e1;
         const bool past = c0 + lc >= c_end;
         const float dnc = metric != 2 ? side[lc] : 0.f;
-        const bool scaled = RAW && scales != nullptr;
-        const float scc = scaled ? side[2 * BN + lc] : 1.f;
+        const float scc = SC ? side[2 * BN + lc] : 1.f;
 #pragma unroll
         for (int i = 0; i < MF; ++i) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             // q·(s·r) = s·(q·r): the scale meets the whole dot
-            const float dot = scaled ? __fmul_rn(acc[i][j][2 * h + e1], scc)
-                                     : acc[i][j][2 * h + e1];
+            const float dot = SC ? __fmul_rn(acc[i][j][2 * h + e1], scc)
+                                 : acc[i][j][2 * h + e1];
             float dist;
             if (metric == 0) {
               dist = fmaxf(__fsub_rn(__fadd_rn(qnr[i][h], dnc),
@@ -304,8 +311,7 @@ cudaError_t prepare(int k, int d, Plan* p) {
   p->smem = fit_tiles(BM, d, 3,
                       list_bytes(BM, k, CAP) +
                           sizeof(float) * 4 * (RAW ? 3 : 2) * BN +
-                          sizeof(int) * 2 * BM +
-                          (RAW ? sizeof(float) * BN * BK : 0),
+                          sizeof(int) * 2 * BM,
                       &p->a_res, &p->ns,
                       (size_t)store_bytes<S>() * BK * BN);
   if (p->smem == 0) return cudaErrorInvalidValue;
@@ -336,6 +342,17 @@ cudaError_t plan_for(int k, int d, Plan* p) {
 constexpr int kRows = 128;     // rows per shared-memory tile = threads
 constexpr int BKD = 32;        // dimensions per step
 constexpr int RS = BKD + 1;    // padded tile row stride
+
+// One stored value widened to f32 (bf16: its bits in the top of the
+// word; the integer stores: the integer), exact.
+template <int S>
+__device__ __forceinline__ float widen1(typename TileStore<S>::T v) {
+  if constexpr (S == kBF16) {
+    return __uint_as_float((unsigned)v << 16);
+  } else {
+    return (float)v;
+  }
+}
 
 template <int S>
 __global__ void __launch_bounds__(kRows)
@@ -426,8 +443,8 @@ ivf_pair_kernel(const typename TileStore<S>::T* __restrict__ data,
 }
 
 // metric: 0 = squared L2 (qn, dn squared norms), 1 = cosine (qn, dn
-// norms), 2 = inner product (-dot). pen, scales (a store form's per-row
-// factors; the f32 form takes none) and, for "ip", qn and dn may be null.
+// norms), 2 = inner product (-dot). scales, the rows' factors, go with
+// int8 lists and no others; pen and, for "ip", qn and dn may be null.
 // data is the (rows, d) store; q (m, d) f32. order is the stable sort of
 // the m*p pairs by list id; group g of the n_groups (pack_pairs) scans list
 // glist[g] for the gcount[g] pairs order[gstart[g] ...] (none past the
@@ -441,7 +458,7 @@ int scan_group(const void* data, const void* dn, const void* pen,
                int n_groups, int qg, int p, int d, int k, int metric,
                void* out_v, void* out_i, void* stream) {
   if (k < 1 || k > kGroupMaxK || d < 1 || n_groups < 0 ||
-      (S == kF32 && scales != nullptr)) {
+      (S == kI8) != (scales != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   Plan pl;
@@ -491,7 +508,7 @@ int scan_pair(const void* data, const void* dn, const void* pen,
               const void* probed, const void* order, const void* offsets,
               const void* sizes, int m, int p, int d, int k, int metric,
               void* out_v, void* out_i, void* stream) {
-  if (S == kF32 && scales != nullptr) return (int)cudaErrorInvalidValue;
+  if ((S == kI8) != (scales != nullptr)) return (int)cudaErrorInvalidValue;
   const int d_pad = (d + BKD - 1) / BKD * BKD;
   const size_t smem = sizeof(float) * (size_t)(d_pad + kRows * RS + kRows) +
                       (sizeof(float) + sizeof(int)) * (size_t)k;

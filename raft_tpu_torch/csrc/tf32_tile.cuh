@@ -34,15 +34,9 @@
 // keys a fold instead of 512).
 //
 // Low-precision stores (K2's and K3's store forms): the row tile is staged
-// as its stored bytes (copy_raw: a 32-dimension stage row is 64 B at bf16,
-// 32 B at int8 / uint8 and, for int4, 32 bytes whose low or high nibbles
-// are the stage's 32 dimensions) and widened to f32 in one pass into a
-// swizzled block (widen_stage) before its fragments are built. Every
-// stored value is exact in TF32 (bf16's 8-bit significand, integers below
-// 2^11, nibbles), so the row needs no lo part and the f32 query's two
-// parts give the dot as 2xTF32 (B_EXACT). (That is K3's path. K2's store
-// forms build their fragments straight from the stored bytes instead:
-// see "K2's store forms" below.)
+// as its stored bytes (copy_stage) and each warp builds its B fragments
+// from that stage in registers (see "The store forms" below): no widened
+// block, no pass and no barrier of its own.
 #pragma once
 
 #include <cstdint>
@@ -227,89 +221,10 @@ __device__ __forceinline__ void copy_gather(float* dst, const float* src,
   }
 }
 
-// One stored value widened to f32 (int4: the low nibble of the byte, or
-// the high one when hi).
-template <int S>
-__device__ __forceinline__ float widen1(typename TileStore<S>::T v,
-                                        bool hi = false) {
-  if constexpr (S == kF32) {
-    return v;
-  } else if constexpr (S == kBF16) {
-    return __uint_as_float((unsigned)v << 16);
-  } else if constexpr (S == kI4) {
-    const unsigned w = (unsigned)(int)v;
-    return (float)((int)(w << (hi ? 24 : 28)) >> 28);
-  } else {
-    return (float)v;
-  }
-}
-
-// Start the copies of stored rows [row0, row0 + ROWS) x elements
-// [e0, e0 + 32) of the row-major (rows, w) store src into the raw stage
-// dst (ROWS rows of 32 elements); rows at or past row_end and elements
-// past w read as zeros. vec: 16-byte cp.async copies (w elements a
-// multiple of 16 bytes, src 16-byte aligned), else element by element,
-// stored synchronously (the stage is read only after a later barrier).
-template <int S, int ROWS>
-__device__ __forceinline__ void copy_raw(void* dst, const void* src,
-                                         int row0, int row_end, int e0,
-                                         int w, int vec, int tid) {
-  using T = typename TileStore<S>::T;
-  constexpr int PER = 16 / sizeof(T);   // elements a 16-byte chunk
-  constexpr int CH = BK / PER;          // chunks a stage row
-  T* d = (T*)dst;
-  const T* s = (const T*)src;
-  if (vec) {
-    for (int e = tid; e < ROWS * CH; e += kThreads) {
-      const int r = e / CH, c = (e % CH) * PER;
-      const bool ok = row0 + r < row_end && e0 + c < w;
-      cp_async16((float*)(d + r * BK + c),
-                 (const float*)(ok ? s + (size_t)(row0 + r) * w + e0 + c
-                                   : s),
-                 ok);
-    }
-  } else {
-    for (int e = tid; e < ROWS * BK; e += kThreads) {
-      const int r = e / BK, c = e % BK;
-      const bool ok = row0 + r < row_end && e0 + c < w;
-      d[r * BK + c] = ok ? s[(size_t)(row0 + r) * w + e0 + c] : (T)0;
-    }
-  }
-}
-
-// Widen a raw stage (ROWS rows of 32 stored elements) into the swizzled
-// f32 block dst, 4 values (one 16-byte chunk) a thread at a time; hi:
-// the int4 stage's high nibbles. Called by all threads of the block.
-template <int S, int ROWS>
-__device__ __forceinline__ void widen_stage(float* dst, const void* raw,
-                                            bool hi, int tid) {
-  using T = typename TileStore<S>::T;
-  const T* s = (const T*)raw;
-  for (int e = tid; e < ROWS * (BK / 4); e += kThreads) {
-    const int r = e >> 3, c = (e & 7) * 4;
-    const T* p = s + r * BK + c;
-    float4 v;
-    if constexpr (S == kBF16) {
-      const uint2 w = *(const uint2*)p;
-      v = make_float4(__uint_as_float(w.x << 16),
-                      __uint_as_float(w.x & 0xffff0000u),
-                      __uint_as_float(w.y << 16),
-                      __uint_as_float(w.y & 0xffff0000u));
-    } else {
-      const unsigned w = *(const unsigned*)p;
-      v = make_float4(widen1<S>((T)(w & 0xff), hi),
-                      widen1<S>((T)((w >> 8) & 0xff), hi),
-                      widen1<S>((T)((w >> 16) & 0xff), hi),
-                      widen1<S>((T)(w >> 24), hi));
-    }
-    *(float4*)(dst + swz(r, c)) = v;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K2's store forms: fragments built from the stored bytes
+// The store forms (K2's and K3's): fragments built from the stored bytes
 // ---------------------------------------------------------------------------
-// K2 stages a store's row tile as its stored bytes (copy_stage) and each
+// A store's row tile is staged as its stored bytes (copy_stage) and each
 // warp builds its fragments from that stage in registers: no widened
 // block, no pass of its own, no barrier for it.
 //
@@ -324,15 +239,24 @@ __device__ __forceinline__ void widen_stage(float* dst, const void* raw,
 //   mantissa and 2^23 + 8 subtracted. Each value is an integer below
 //   2^11, exact in TF32, so the products are 2xTF32 (the f32 query's hi
 //   and lo parts) in the order of stage_dots' B_EXACT path, and uint8
-//   gives the f32 form's bits on the same rows.
-// * bf16 (stage rows of 64 bytes, the four 16-byte chunks of row r XORed
-//   with (r / 2) % 4, so that ldmatrix's 8 rows meet 32 distinct banks):
-//   the query is bf16 (the wrapper rounds it), so the dot is a bf16
-//   product: m16n8k16 mma.sync with an f32 accumulator, fragments by
-//   ldmatrix straight from the stage and from a bf16 copy of the query
-//   tile (bf16_tile), half the instructions of the TF32 path and no
-//   conversion. Each 16 dimensions sum in a fresh accumulator and join
-//   the dot by a rounded add, as in stage_dots.
+//   gives the f32 form's bits on the same rows (stage_dots_bytes).
+// * bf16 against the f32 query (K3, whose contract is the f32 query
+//   against the row widened to f32): the same builder reads the 32 bytes
+//   of a row that hold 16 dimensions (two 16-byte loads; every row of a
+//   warp's 8 lands in its own 16-byte bank group under the stage's
+//   swizzle, its four lanes reading the same bytes) and takes for lane t4
+//   the halfwords of dimensions t4 and t4 + 4 of each 8, shifted into the
+//   top of an f32 word: bf16's 8-bit significand is exact in TF32, so the
+//   products are 2xTF32 as for the bytes and give the f32 form's bits on
+//   the rows widened.
+// * bf16 against a bf16 query (K2: the wrapper rounds the query, so the
+//   dot is a bf16 product; stage rows of 64 bytes, the four 16-byte
+//   chunks of row r XORed with (r / 2) % 4, so that ldmatrix's 8 rows
+//   meet 32 distinct banks): m16n8k16 mma.sync with an f32 accumulator,
+//   fragments by ldmatrix straight from the stage and from a bf16 copy of
+//   the query tile (bf16_tile), half the instructions of the TF32 path and
+//   no conversion. Each 16 dimensions sum in a fresh accumulator and join
+//   the dot by a rounded add, as in stage_dots (stage_dots_bf16).
 // The statement of the widening, bit for bit in torch integer ops, is
 // tests/test_torch_widen.py.
 
@@ -382,6 +306,15 @@ __device__ __forceinline__ void copy_stage(void* dst, const void* src,
   }
 }
 
+// Halfword t4 (0..3) of the stored word pair (a, b) — a's low, a's
+// high, b's low, b's high — as the bits of an exact f32: the bf16 bits
+// in the top of the word, a zero below.
+__device__ __forceinline__ unsigned widen_bf16(unsigned a, unsigned b,
+                                               int t4) {
+  return __byte_perm(a, b, ((2 * t4 + 1) << 12) | ((2 * t4) << 8)) &
+         0xffff0000u;
+}
+
 // Byte t4 of the stored word w (int4: its low nibble, or its high one
 // when hi) as the bits of an exact f32.
 template <int S>
@@ -401,9 +334,10 @@ __device__ __forceinline__ unsigned widen_lane(unsigned w, int t4,
 }
 
 // acc += this warp's (16·MF) x 32 piece of one 32-dimension stage of a
-// byte store (int8, uint8, int4; hi: the int4 stage's high nibbles): A as
-// in stage_dots (TF32 hi parts with their lo parts at a_lo, or raw floats
-// split here when a_lo is null), B built from the stored stage Braw.
+// store whose values are exact in TF32 (int8, uint8, int4, bf16; hi: the
+// int4 stage's high nibbles): A as in stage_dots (TF32 hi parts with
+// their lo parts at a_lo, or raw floats split here when a_lo is null), B
+// built from the stored stage Braw.
 template <int MF, int S>
 __device__ __forceinline__ void stage_dots_bytes(float (&acc)[MF][4][4],
                                                  const float* As,
@@ -423,11 +357,21 @@ __device__ __forceinline__ void stage_dots_bytes(float (&acc)[MF][4][4],
     unsigned bh[2][4][2];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const uint4 w = B[stage_chunk<S>(wn * 32 + 8 * j + g, kk >> 4)];
-      bh[0][j][0] = widen_lane<S>(w.x, t4, hi);
-      bh[0][j][1] = widen_lane<S>(w.y, t4, hi);
-      bh[1][j][0] = widen_lane<S>(w.z, t4, hi);
-      bh[1][j][1] = widen_lane<S>(w.w, t4, hi);
+      const int r = wn * 32 + 8 * j + g;
+      if constexpr (S == kBF16) {  // 8 dimensions a 16-byte chunk
+        const uint4 w0 = B[stage_chunk<S>(r, kk >> 3)];
+        const uint4 w1 = B[stage_chunk<S>(r, (kk >> 3) + 1)];
+        bh[0][j][0] = widen_bf16(w0.x, w0.y, t4);
+        bh[0][j][1] = widen_bf16(w0.z, w0.w, t4);
+        bh[1][j][0] = widen_bf16(w1.x, w1.y, t4);
+        bh[1][j][1] = widen_bf16(w1.z, w1.w, t4);
+      } else {  // 16 dimensions a 16-byte chunk
+        const uint4 w = B[stage_chunk<S>(r, kk >> 4)];
+        bh[0][j][0] = widen_lane<S>(w.x, t4, hi);
+        bh[0][j][1] = widen_lane<S>(w.y, t4, hi);
+        bh[1][j][0] = widen_lane<S>(w.z, t4, hi);
+        bh[1][j][1] = widen_lane<S>(w.w, t4, hi);
+      }
     }
 #pragma unroll
     for (int i = 0; i < MF; ++i) {

@@ -320,11 +320,13 @@ def graph_expand_kernel(parents: torch.Tensor, queries: torch.Tensor,
 
 def card_info(lib, entry: str, *args) -> dict:
     """A kernel's registers a thread, local memory a thread (bytes:
-    spills) and resident warps an SM, as the card reports them."""
-    info = (ctypes.c_int * 3)()
+    spills), resident warps an SM, warps a block and the shared memory an
+    SM holds (bytes), as the card reports them."""
+    info = (ctypes.c_int * 5)()
     _cuda.check(getattr(lib, entry)(*args, ctypes.addressof(info)), entry)
     return dict(registers=info[0], local_bytes=info[1],
-                warps_per_sm=info[2])
+                warps_per_sm=info[2], warps_per_block=info[3],
+                smem_per_sm=info[4])
 
 
 def store_mode(store: str) -> str:

@@ -237,8 +237,7 @@ def group_smem(kernel: str, k: int, d: int, store: str = "float32"
     lists = 8 * bm * (k + cap) + 4 * bm
     if kernel == "ivf_flat_scan":
         raw = store != "float32"
-        fixed = (lists + 4 * 4 * (3 if raw else 2) * _BN + 4 * 2 * bm
-                 + (4 * _BN * _BK if raw else 0))
+        fixed = lists + 4 * 4 * (3 if raw else 2) * _BN + 4 * 2 * bm
         ns_max, b_stage = 3, _STORE_BYTES[store] * _BK * _BN
     else:
         expects(kernel == "ivf_pq_scan" and store == "float32",
@@ -297,8 +296,8 @@ def ivf_flat_scan_candidates(data: torch.Tensor, dn: Optional[torch.Tensor],
     """One launch of the form of K3 for the lists' store → per-pair
     (values, rows) (m, p*k), pairs in probe-rank order within each
     query's row. ``form`` (``"group"`` or ``"pair"``) overrides
-    :func:`scan_form`; ``scales``: a low-precision store's per-row
-    factors."""
+    :func:`scan_form`; ``scales``: int8 lists' per-row factors (no
+    other store takes them)."""
     global launches, group_launches, pair_launches
     expects(q.is_cuda, "ivf_flat_scan kernel needs CUDA tensors")
     store = store_dtype(data.dtype)
@@ -312,8 +311,8 @@ def ivf_flat_scan_candidates(data: torch.Tensor, dn: Optional[torch.Tensor],
     expects(probed.shape[0] == m, "probed must be (%d, p)", m)
     expects(0 < k <= 1024, "k=%d out of range (max 1024)", k)
     expects(metric in _METRIC_CODE, "unknown metric %s", metric)
-    expects(store != "float32" or scales is None,
-            "float32 lists carry no scales")
+    expects(store == "int8" or scales is None,
+            "%s lists carry no scales", store)
     expects(store != "int8" or scales is not None,
             "int8 lists require per-row dequant scales")
     form = check_form(form, k)

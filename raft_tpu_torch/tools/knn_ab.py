@@ -26,9 +26,10 @@ ctypes; entry points must keep this tree's C signatures.
   version's is printed (a diagnostic build's do not).
 
 Prints the card's name and power limit, each instance's registers and
-spills from ptxas, and each version's median event time in four rounds
-(versions in order, reversed, in order, reversed). Run from the root of
-the repository, on one card.
+spills from ptxas, and each version's median time in four rounds
+(versions in order, reversed, in order, reversed;
+``kernel_ab.median_ms``: the card's time of a call, L2 cold). Run from
+the root of the repository, on one card.
 """
 from __future__ import annotations
 

@@ -226,8 +226,7 @@ def test_group_plans_fit_shared_memory(kernel, store, d):
         stage = 32 * 128 * 4
     else:
         raw = store != "float32"
-        fixed = (lists + 4 * (3 if raw else 2) * 128 * 4 + 2 * 32 * 4
-                 + (128 * 32 * 4 if raw else 0))
+        fixed = lists + 4 * (3 if raw else 2) * 128 * 4 + 2 * 32 * 4
         stage = 32 * 128 * {"float32": 4, "bfloat16": 2}.get(store, 1)
     assert smem == (a_res * nk * 32 * 32 * 4
                     + ns * ((0 if a_res else 32 * 32 * 4) + stage) + fixed)

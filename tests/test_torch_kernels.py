@@ -691,10 +691,13 @@ def test_ivf_flat_scan_store_kernel_on_card(store, metric, d):
     version (:func:`scan_cases`), with and without the penalty row, on
     the store's probes and on probes skewed across the group boundaries:
     equal on integer-valued lists (:func:`store_case`; l2, ip), close on
-    Gaussian ones (uint8: :func:`store_rows_equal`, and bit-equal to the
-    f32 form on its lists widened); two launches bit-equal; each launch
-    counted under the store. d = 40 rows are no multiple of 16 bytes at
-    int8 / uint8 (the copies element by element), d = 64 rows are."""
+    Gaussian ones (uint8: :func:`store_rows_equal`); two launches
+    bit-equal; each launch counted under the store. Every store form is
+    also bit-equal to the f32 form on its lists widened (int8 at unit
+    scales): every stored value is exact in TF32, so the f32 form's
+    products that read the rows' lo parts add exact zeros. d = 40 rows
+    are no multiple of 16 bytes at int8 / uint8 (the copies element by
+    element), d = 64 rows are."""
     need_cuda()
     for integer in (True, False):
         c = _ivf_store(integer, 3, d=d, m=300)
@@ -716,15 +719,17 @@ def test_ivf_flat_scan_store_kernel_on_card(store, metric, d):
                               form, integer and metric != "cos",
                               store_rows_equal(store))
                     assert getattr(tis, f"launches_{store}") == before + 2
-                    if store == "uint8":
-                        wide = [c[0].float()] + a[1:]
-                        args = (*a, k, metric, penalty)
-                        fv, fi = tis.ivf_flat_scan(*wide, k, metric,
-                                                   penalty, form=form)
-                        kv, ki = kernel(*args, form=form)
-                        torch.cuda.synchronize()
-                        assert_bits_equal(kv, fv)
-                        assert torch.equal(ki, fi), (form, k)
+                    # the f32 form on the rows widened (int8: the kernel
+                    # at unit scales, so both read the same values)
+                    wide = [c[0].float()] + a[1:]
+                    fv, fi = tis.ivf_flat_scan(*wide, k, metric, penalty,
+                                               form=form)
+                    kv, ki = tis.ivf_flat_scan(
+                        *a, k, metric, penalty, form=form,
+                        scales=None if sc is None else torch.ones_like(sc))
+                    torch.cuda.synchronize()
+                    assert_bits_equal(kv, fv)
+                    assert torch.equal(ki, fi), (store, form, k)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
-"""The in-register widening of K2's store forms (``csrc/tf32_tile.cuh``,
-``widen_lane`` and the bf16 fragments), stated bit for bit in torch
-integer ops and held over every stored value against ``ops/quant.py``'s
-dequantization to f32 at a scale of 1.
+"""The in-register widening of K2's and K3's store forms
+(``csrc/tf32_tile.cuh``, ``widen_lane``, ``widen_bf16`` and the bf16
+fragments), stated bit for bit in torch integer ops and held over every
+stored value against ``ops/quant.py``'s dequantization to f32 at a scale
+of 1.
 
 A lane of the kernel holds a 32-bit word of four stored bytes and widens
 its byte t4 (0..3): ``prmt(x, 0x4b000000, 0x7540 | t4)`` puts that byte
@@ -13,8 +14,12 @@ and one f32 subtraction leaves the value:
   2^23 + 128;
 * int4: the low nibble of the byte (or the high one, for the high half's
   stage) xored into 0x4b000008, minus 2^23 + 8;
-* bf16: the 16 stored bits shifted into the top of an f32 word (the bf16
+* bf16: the 16 stored bits shifted into the top of an f32 word (K2's bf16
   products take the stored bits as they are; this is the same value).
+  K3's TF32 fragments take, for lane t4, the halfwords of dimensions t4
+  and t4 + 4 of each 8 from the two 16-byte chunks of a row's 16
+  dimensions: ``prmt(a, b, (2·t4 + 1) << 12 | 2·t4 << 8) & 0xffff0000``
+  over a word pair (a, b) of a chunk.
 
 Tolerance: none; every step is exact in f32.
 """
@@ -112,3 +117,47 @@ def test_bf16_widening_matches_dequantization():
     ref = quant.dequantize_rows(stored[keep][None, :], None)[0]
     got = as_f32(bits[keep] << 16)
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def byte_perm_words(x: torch.Tensor, y: torch.Tensor, sel: int
+                    ) -> torch.Tensor:
+    """``__byte_perm(x, y, sel)`` over two int64-held 32-bit word
+    tensors."""
+    pool = [(w >> (8 * b)) & 0xFF for w in (x, y) for b in range(4)]
+    out = torch.zeros_like(x)
+    for i in range(4):
+        out |= pool[(sel >> (4 * i)) & 7] << (8 * i)
+    return out
+
+
+def widen_bf16(a: torch.Tensor, b: torch.Tensor, t4: int) -> torch.Tensor:
+    """``widen_bf16(a, b, t4)``: halfword t4 of the word pair (a's low,
+    a's high, b's low, b's high) in the top of an f32 word."""
+    sel = ((2 * t4 + 1) << 12) | ((2 * t4) << 8)
+    return as_f32(byte_perm_words(a, b, sel) & 0xFFFF0000)
+
+
+def test_bf16_fragment_lanes_take_their_dimensions():
+    """K3's bf16 B fragments (``stage_dots_bytes<MF, kBF16>``): a row's 16
+    dimensions are two 16-byte chunks of 4 words (dimensions 2w and 2w + 1
+    in word w's low and high halves); lane t4 widens, for each 8-dimension
+    step u and register h, the pair (word 2h, word 2h + 1) of chunk u into
+    dimension 8u + 4h + t4 — the TF32 fragment's dimensions t4 and t4 + 4
+    of each 8. Over every bf16 bit pattern but NaNs, each such value is
+    ``quant.dequantize_rows``'s f32 of that dimension, bit for bit."""
+    bits = torch.arange(1 << 16, dtype=torch.int64)
+    keep = ~torch.isnan(bits.to(torch.int16).view(torch.bfloat16))
+    bits = bits[keep]
+    bits = torch.cat([bits, bits[:(-len(bits)) % 16]]).reshape(-1, 16)
+    stored = bits.to(torch.int16).view(torch.bfloat16)
+    ref = quant.dequantize_rows(stored, None)              # (rows, 16)
+    words = bits[:, 0::2] | (bits[:, 1::2] << 16)          # (rows, 8)
+    for t4 in range(4):
+        for u in range(2):
+            for h in range(2):
+                a = words[:, 4 * u + 2 * h]
+                b = words[:, 4 * u + 2 * h + 1]
+                got = widen_bf16(a, b, t4)
+                want = ref[:, 8 * u + 4 * h + t4]
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)), (t4, u, h)

@@ -236,6 +236,7 @@ from raft_tpu_torch.ops import quant
 from raft_tpu_torch.ops import ring_topk as rt
 from raft_tpu_torch.parallel import sharded_ann, sharded_knn
 from raft_tpu_torch.stats.metrics import neighborhood_recall
+from raft_tpu_torch.tools import kernel_ab, scan_ab
 
 SEED = 0
 N, D, M, K = 1_000_000, 128, 10_000, 10
@@ -269,6 +270,10 @@ EDGE_SAMPLE, EDGE_MIN_RECALL = 10_000, 0.80
 # first WIDE_QUERIES queries of the pass's first batch (and on an
 # integer-valued copy of that batch)
 PASS_K = 2 * CAGRA_D0 + 1
+SPLIT_DIR = "build/split"      # K4's split builds (tools/scan_ab.py)
+# the IVF-PQ route's kNN graph seconds on an H100 80GB HBM3 (700 W) with
+# K4's streaming selection past k = 256, before its own plan (PERF.md §5)
+ROUTE_KNN_STREAMING_S = 7.80
 WIDE_KS = (PASS_K, iscan.GROUP_MAX_K)
 WIDE_QUERIES = 8192
 # the bench phase: the harness's synthetic spec (64 blobs of std 3.0,
@@ -1124,7 +1129,8 @@ def ivf_pq_route(x, q, bi, cidx, p, recalls, totals):
            stages.items()}
     log(f"cagra ivf_pq build on {n} rows ({n_lists} lists, K4 at k={PASS_K} "
         f"in its grouped form, {batches} batches of {CAGRA_BATCH}): "
-        f"knn_graph {t_knn:.3f} s (the exact graph's {exact_s:.3f} s), "
+        f"knn_graph {t_knn:.3f} s (the exact graph's {exact_s:.3f} s; "
+        f"{ROUTE_KNN_STREAMING_S:.2f} s with K4's streaming selection), "
         f"optimize {t_opt:.3f} s, seeds {t_seeds:.3f} s, total "
         f"{t_knn + t_opt + t_seeds:.3f} s; edge store {t_store:.3f} s")
     log("cagra ivf_pq graph pass, the card's time by stage (median a call, "
@@ -2245,7 +2251,7 @@ def k3_wide(timer, iidx, q) -> dict:
     return dict(wide_k=wide)
 
 
-def k4_graph_pass(timer, call) -> dict:
+def k4_graph_pass(timer, call, split_libs) -> dict:
     """K4 at the IVF-PQ graph pass's shape (the pass's first batch, as the
     path handed it: 4-bit codes, int8 LUT, k = 2·128 + 1) in both forms
     against its plain version (values slot by slot, ids as sets), each
@@ -2253,8 +2259,14 @@ def k4_graph_pass(timer, call) -> dict:
     (integer codebook with an entry of 127 a subspace, so the int8 LUT's
     scale is 1; integer centers and queries; the first
     :data:`WIDE_QUERIES` queries) at both metrics; the same at the
-    grouped form's widest k (512) on those queries; both forms timed
-    beside the bound, the grouped form with its plan."""
+    grouped form's widest k (512) on those queries. The grouped form past
+    256 (its own plan: distances kept, one radix select a pair) against
+    the plan at k = 256, whose streaming selection it replaced: each
+    pair's first 256 slots bit for bit, at k = 257 and 512 on those
+    queries. Both forms timed beside the bound, the grouped form with its
+    plan, its persistent blocks and scratch, and its split (whole, no
+    selection, products alone: ``split_libs``, tools/scan_ab.py's
+    builds)."""
     args, kwargs = call
     m, p = args[4].shape
     k = args[8]
@@ -2312,6 +2324,43 @@ def k4_graph_pass(timer, call) -> dict:
         return (a[0], a[1], a[10], a[3], a[2], a[7], a[4], a[5], a[6], a[8],
                 a[9], form)
 
+    # past 256 against the streaming selection of the plan at 256, on the
+    # same distances: each pair's first 256 slots bit for bit
+    mw, pw = sub[4].shape
+    c = list(cand("group", sub))
+    c[9] = 256
+    sv, si = ipq.ivf_pq_scan_candidates(*c)
+    for kk in WIDE_KS:
+        c[9] = kk
+        wv, wi = ipq.ivf_pq_scan_candidates(*c)
+        check_bits((wv.view(mw, pw, kk)[:, :, :256].contiguous(),
+                    wi.view(mw, pw, kk)[:, :, :256].contiguous()),
+                   (sv.view(mw, pw, 256), si.view(mw, pw, 256)),
+                   f"K4 grouped at k={kk} against the plan at k=256 (each "
+                   f"pair's first 256 slots, {mw} queries of the graph "
+                   "pass)")
+        del wv, wi
+    del sv, si
+    lmax = ipq.largest_list(args[6])
+    scratch, blocks, per_sm = ipq.wide_scratch_on_card(k, pq_dim * pq_len,
+                                                       lmax)
+    # the split at the pass batch: the library whole, without its
+    # selection, its products alone
+    b = dict(codes=args[0], dn=args[1], cb=args[3], centers=args[2],
+             q=args[7], probed=args[4], offsets=args[5],
+             n_lists=args[5].shape[0])
+    runs = {"whole": scan_ab.launcher(_cuda.library("ivf_pq_scan"), b,
+                                      args[6], k)[0]}
+    for mode, name in scan_ab.SPLITS.items():
+        lib = split_libs[f"{SPLIT_DIR}/split{mode}"]["k4"]
+        runs[name] = scan_ab.launcher(lib, b, args[6], k)[0]
+    split = scan_ab.split_times(runs)
+    del runs
+    log(f"  K4 past k=256 at the graph pass: {blocks} persistent blocks "
+        f"({per_sm} an SM), scratch {scratch / 1e6:.1f} MB for lists up "
+        f"to {lmax} rows; split (the card's time alone, L2 cold): "
+        + ", ".join(f"{name} {t:.3f} ms" for name, t in split.items()))
+
     # the per-pair form (seconds a call at this shape) once, after the
     # calls above
     reps = {"group": dict(reps=5), "pair": dict(reps=1, warmup=0)}
@@ -2345,6 +2394,8 @@ def k4_graph_pass(timer, call) -> dict:
                 graph_pass_bound_by=by, graph_pass_max_abs_err=errs,
                 graph_pass_shape=shape, graph_pass_plan=plan,
                 graph_pass_group_tiles=tiles,
+                graph_pass_blocks=blocks, graph_pass_blocks_per_sm=per_sm,
+                graph_pass_scratch_bytes=scratch, graph_pass_split_ms=split,
                 wide_k={iscan.GROUP_MAX_K: dict(
                     group_ms=ms_wide["group"], pair_ms=ms_wide["pair"],
                     queries=WIDE_QUERIES)})
@@ -3045,8 +3096,20 @@ def k6_int4_phase(timer, cidx, q, buf_d, buf_i, launches) -> dict:
     ms = timer(lambda: cf.fused_traverse_kernel(*path, **kw))
     plain = timer(lambda: cf.fused_traverse_plain(*path, **kw), reps=1,
                   warmup=0)
+    # the cost of a hop: cut to 8, 32 and max_iter hops, as K6's
+    by_iter = {}
+    for it in sorted({8, 32, max_iter}):
+        kwi = dict(kw, max_iter=it)
+        h = cf.fused_traverse_kernel(*path, **kwi)[2]
+        by_iter[it] = (timer(lambda: cf.fused_traverse_kernel(*path, **kwi)),
+                       float(h.float().mean()))
+    (t0, h0), (t1, h1) = by_iter[8], by_iter[max_iter]
+    slope = (t1 - t0) / (h1 - h0)
     info = cf.kernel_info(itopk, width, kw["kprime"], st.deg_p, st.dim_p,
                           "int4")
+    log("  K6.int4 by max_iter: " + ", ".join(
+        f"{it}: {t:.3f} ms ({h:.2f} hops)" for it, (t, h) in by_iter.items())
+        + f"; a hop of all {M} queries {slope * 1e3:.1f} us")
     log(f"  K6.int4 at the path's shape: {info['registers']} registers, "
         f"{info['local_bytes']} bytes of local memory (spills) a thread, "
         f"{info['warps_per_sm']} warps resident an SM")
@@ -3069,7 +3132,9 @@ def k6_int4_phase(timer, cidx, q, buf_d, buf_i, launches) -> dict:
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
                 bound_ms=b, bound_by=by, library_ms=None,
                 mean_hops=mean_hops, parents=n_par,
-                distinct_parents=distinct, **info,
+                distinct_parents=distinct,
+                ms_by_max_iter={it: t for it, (t, _) in by_iter.items()},
+                hop_ms=slope, **info,
                 shape=f"{M} queries, itopk {itopk}, width {width}, "
                       f"{max_iter} hops max, int4 tiles {deg_p} x {w}")
 
@@ -3090,9 +3155,14 @@ def main() -> int:
     log(f"device: {smi} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
+    # K4's split builds (scan_ab: no selection, products only) beside them
+    split_src = {"k4": ("ivf_pq_scan", None)}
+    split_builds = kernel_ab.start_build(list(scan_ab.split_dirs(
+        [str(_cuda._CSRC)], SPLIT_DIR).values()), split_src)
     logs = _cuda.build(verbose=True)
+    split_libs, _ = kernel_ab.finish_build(split_builds, split_src)
     log(f"kernels built in {time.perf_counter() - t_start:.1f} s "
-        f"({', '.join(logs) or 'cached'})")
+        f"({', '.join(logs) or 'cached'}; K4's split builds too)")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -3142,7 +3212,7 @@ def main() -> int:
                 **k3_wide(timer, iidx, q)},
                {**k4_phase(timer, pidx, q, moved["ivf_pq_scan"],
                            by_form(moved, "ivf_pq_scan")),
-                **k4_graph_pass(timer, k4_route)}]
+                **k4_graph_pass(timer, k4_route, split_libs)}]
     del k4_route
     del iidx, pidx
     mark(t_start, "K2, K3 and K4 phases")

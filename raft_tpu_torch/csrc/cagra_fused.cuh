@@ -53,11 +53,18 @@
 //   the buffer may come back). Of the hop's last parent only the ranks
 //   below the buffer's last value take part: no other can enter the
 //   buffer, and it could drop only later ranks of its own, which cannot
-//   enter either. That leaves a few ranks a hop on the path's data, each
-//   broadcast to the warp and compared with the buffer's ids and the
-//   earlier ranks' in registers (and the earlier parents' ids in shared
-//   memory): no table to build. A hop whose last parent has no such rank
-//   skips its sort, dedup and fold.
+//   enter either. That leaves a few ranks a hop on the path's data. A hop
+//   whose last parent has no such rank skips its sort, dedup and fold;
+//   one with at most 32 sorts only those keys, one a lane (they are its
+//   first ranks), not all L. Up to L = 64 each lane then tests its own
+//   ranks against the buffer's ids, the earlier ranks' and the earlier
+//   parents', read four at a time from shared memory (a broadcast), so
+//   no rank waits on another's vote; past 64 cells those reads cost more
+//   than the ranks', and each rank is broadcast to the warp and voted on
+//   in turn. No table to build. (On an H100, tools/kernel_ab.py: the two
+//   took K6·int4 at itopk 64 from 2.61 to 2.48 ms, the dense form from
+//   2.52 to 2.43, and at itopk 256 from 75.0 to 48.1; the broadcast reads
+//   at 256 cells took 140.9.)
 // - Fold: each parent's survivors (finite, not dropped) are compacted in
 //   rank order, so they stay sorted; they carry slot L + concat position,
 //   after every buffer slot. The buffer's L best of both lists is
@@ -287,6 +294,12 @@ cagra_fused_kernel(const float* __restrict__ q, const float* __restrict__ bd0,
         // buffer, and it can drop only later ranks, which cannot either
         const bool last = w == n_ok - 1;
         int lim = kprime;
+        uint64_t ck[NL];
+#pragma unroll
+        for (int g = 0; g < NL; ++g) {
+          ck[g] = edge::sort_key(dist[g], g * 32 + lane);
+        }
+        bool sorted = false;
         if (last) {
           uint32_t th = 0u;  // the buffer's last value's order bits
 #pragma unroll
@@ -295,18 +308,39 @@ cagra_fused_kernel(const float* __restrict__ q, const float* __restrict__ bd0,
                                            (uint32_t)(bk[g] >> 32), last_lane);
             if (g == last_reg) th = t;
           }
+          unsigned mk[NL];  // the edges under it
           int under = 0;
 #pragma unroll
           for (int g = 0; g < NL; ++g) {
-            under += __popc(__ballot_sync(
-                RAFT_FULL_MASK,
-                (uint32_t)(edge::sort_key(dist[g], 0) >> 32) < th));
+            mk[g] = __ballot_sync(RAFT_FULL_MASK,
+                                  (uint32_t)(ck[g] >> 32) < th);
+            under += __popc(mk[g]);
           }
           if (under == 0) continue;  // nothing can enter the buffer
           lim = min(lim, under);
+          if (NL > 1 && under <= 32) {
+            // the keys under it are ranks 0 .. under - 1, and no later
+            // rank takes part: sort them alone, one a lane (sk is free
+            // until the compaction below)
+            int at = 0;
+#pragma unroll
+            for (int g = 0; g < NL; ++g) {
+              if ((mk[g] >> lane) & 1u) {
+                sk[at + __popc(mk[g] & below)] = ck[g];
+              }
+              at += __popc(mk[g]);
+            }
+            __syncwarp();
+            uint64_t one[1] = {lane < under ? sk[lane] : ~0ull};
+            __syncwarp();
+            edge::warp_sort<1>(one, lane);
+            ck[0] = one[0];
+#pragma unroll
+            for (int g = 1; g < NL; ++g) ck[g] = ~0ull;  // past: not finite
+            sorted = true;
+          }
         }
-        uint64_t ck[NL];
-        edge::sort_tile<NL>(dist, lane, ck);
+        if (!sorted) edge::warp_sort<NL>(ck, lane);
         int cid[NL];  // rank 32g + lane's id; -1 past the finite values
 #pragma unroll
         for (int g = 0; g < NL; ++g) {
@@ -319,28 +353,72 @@ cagra_fused_kernel(const float* __restrict__ q, const float* __restrict__ bd0,
           }
           cid[g] = edge::key_finite(ck[g]) ? id : -1;
         }
-        // dedup in rank order: rank j is dropped when its id is in the
-        // buffer, at an earlier rank, or among an earlier parent's k'
+        // dedup: rank j is dropped when its id is in the buffer, at an
+        // earlier rank, or among an earlier parent's k'
         bool drop[NL];
 #pragma unroll
         for (int g = 0; g < NL; ++g) drop[g] = false;
-        for (int j = 0; j < lim; ++j) {
-          int src = cid[0];
-#pragma unroll
-          for (int g = 1; g < NL; ++g) {
-            if (g == (j >> 5)) src = cid[g];
-          }
-          const int x = __shfl_sync(RAFT_FULL_MASK, src, j & 31);
-          bool hit = false;
+        if constexpr (NL <= 2) {
+          // each lane tests its own ranks against all of those ids at
+          // once, read four at a time from shared memory (the same word
+          // for every lane); sk holds the buffer's ids and sid the ranks'
+          // until the compaction below
+          int* bs = reinterpret_cast<int*>(sk);
 #pragma unroll
           for (int g = 0; g < NL; ++g) {
-            hit |= hid[g] == x || (cid[g] == x && g * 32 + lane < j);
+            bs[g * 32 + lane] = hid[g];
+            sid[g * 32 + lane] = cid[g];
           }
-          for (int s = lane; s < w * kprime; s += 32) hit |= seen[s] == x;
-          const bool any = __any_sync(RAFT_FULL_MASK, hit);
+          __syncwarp();
 #pragma unroll
-          for (int g = 0; g < NL; ++g) {
-            drop[g] |= any && g == (j >> 5) && lane == (j & 31);
+          for (int t = 0; t < L; t += 4) {
+            const int4 b = *reinterpret_cast<const int4*>(bs + t);
+#pragma unroll
+            for (int g = 0; g < NL; ++g) {
+              if (g * 32 < lim) {  // ranks past lim take no part
+                drop[g] |= cid[g] == b.x || cid[g] == b.y ||
+                           cid[g] == b.z || cid[g] == b.w;
+              }
+            }
+          }
+          for (int t = 0; t + 1 < lim; t += 4) {  // ranks t .. t + 3
+            const int4 c = *reinterpret_cast<const int4*>(sid + t);
+#pragma unroll
+            for (int g = 0; g < NL; ++g) {
+              const int r = g * 32 + lane;
+              drop[g] |= (cid[g] == c.x && t < r) ||
+                         (cid[g] == c.y && t + 1 < r) ||
+                         (cid[g] == c.z && t + 2 < r) ||
+                         (cid[g] == c.w && t + 3 < r);
+            }
+          }
+          for (int s = 0; s < w * kprime; ++s) {
+            const int v = seen[s];
+#pragma unroll
+            for (int g = 0; g < NL; ++g) drop[g] |= cid[g] == v;
+          }
+          __syncwarp();  // every lane has read sk and sid
+        } else {
+          // a rank at a time, broadcast and voted on: past 64 cells the
+          // reads of every buffer id cost more than the few ranks' votes
+          for (int j = 0; j < lim; ++j) {
+            int src = cid[0];
+#pragma unroll
+            for (int g = 1; g < NL; ++g) {
+              if (g == (j >> 5)) src = cid[g];
+            }
+            const int x = __shfl_sync(RAFT_FULL_MASK, src, j & 31);
+            bool hit = false;
+#pragma unroll
+            for (int g = 0; g < NL; ++g) {
+              hit |= hid[g] == x || (cid[g] == x && g * 32 + lane < j);
+            }
+            for (int s = lane; s < w * kprime; s += 32) hit |= seen[s] == x;
+            const bool any = __any_sync(RAFT_FULL_MASK, hit);
+#pragma unroll
+            for (int g = 0; g < NL; ++g) {
+              drop[g] |= any && g == (j >> 5) && lane == (j & 31);
+            }
           }
         }
         if (!last) {

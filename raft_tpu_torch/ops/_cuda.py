@@ -63,9 +63,10 @@ _SIGNATURES = {
         "raft_ivf_flat_scan_group_plan": ([_I, _I, _P], _I),
     } for lib in STORE_SOURCES["ivf_flat_scan"].values()},
     "ivf_pq_scan": {
-        "raft_ivf_pq_scan_group": ([_P] * 13 + [_I] * 8 + [_P] * 3, _I),
+        "raft_ivf_pq_scan_group": ([_P] * 14 + [_I] * 9 + [_P] * 3, _I),
         "raft_ivf_pq_scan_pair": ([_P] * 10 + [_I] * 7 + [_P] * 3, _I),
         "raft_ivf_pq_scan_group_plan": ([_I, _I, _P], _I),
+        "raft_ivf_pq_scan_group_scratch": ([_I, _I, _I, _P], _I),
     },
     **{lib: {
         "raft_graph_expand": ([_P] * 5 + [_I] * 8 + [_P] * 3, _I),

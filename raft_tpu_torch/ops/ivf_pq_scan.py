@@ -28,7 +28,10 @@ k = 257) takes the pairs packed by list (``ivf_scan.pack_pairs``), decodes a
 list's codes into rows once per group tile and multiplies the group's
 queries by them on the tensor cores, as the TPU kernel does, so
 ``Σ_s lut[s, code_is]`` becomes a dot of q with the decoded row over the
-rotated dimensions; the per-pair form (k up to 1024) builds each pair's
+rotated dimensions (past k = 256 its own plan keeps each pair's distances
+in a scratch that the wrapper allocates once a device, sized by the
+longest list, and selects each pair's k once, by a radix select:
+``csrc/list_select.cuh``); the per-pair form (k up to 1024) builds each pair's
 lookup table in shared memory and sums it subspace by subspace. On a CPU
 tensor it takes the plain version, :func:`ivf_pq_scan_plain`, which
 gathers every probed row of each query back to back in probe order, sums
@@ -43,6 +46,8 @@ range themselves.
 """
 from __future__ import annotations
 
+import ctypes
+import weakref
 from typing import Optional, Tuple
 
 import numpy as np
@@ -55,7 +60,7 @@ from .ivf_scan import _candidate_rows, check_form, group_queries, pack_pairs
 
 __all__ = ["pq_chunk_rows", "decoded_row_norms", "int8_codebook",
            "lut_codebook", "pq_lut", "ivf_pq_scan", "ivf_pq_scan_plain",
-           "ivf_pq_scan_candidates"]
+           "ivf_pq_scan_candidates", "largest_list", "wide_scratch_on_card"]
 
 launches = 0         # K4 launches since the last reset, both forms
 group_launches = 0   # of them, the grouped form's
@@ -66,6 +71,10 @@ _LUT_MODES = ("f32", "bf16", "int8")
 _INF = float("inf")
 _THREADS = 256                 # rows per tile = threads of a per-pair block
 _TF32_LOW = 0x1FFF             # the f32 mantissa bits TF32 drops
+WIDE_K = 256                   # past it the grouped K4 keeps a scratch
+_SCRATCH: dict = {}            # device -> the wide plan's scratch
+# the last sizes tensor read: (weak reference, its version, longest list)
+_LMAX = [(lambda: None, -1, 0)]
 
 
 def pq_chunk_rows(pq_dim: int, book: int,
@@ -142,6 +151,40 @@ def pq_lut(q_rot: torch.Tensor, cb_mode: torch.Tensor) -> torch.Tensor:
     for l in range(pq_len):
         lut = lut + qs[:, :, l, None] * cb_mode[None, :, :, l]
     return lut
+
+
+def largest_list(sizes: torch.Tensor) -> int:
+    """The longest list of ``sizes`` (at least 1): read from the card once
+    per tensor and kept while the tensor lives unchanged, so the graph
+    pass's batches over one index synchronise the host once."""
+    ref, version, lmax = _LMAX[0]
+    if ref() is not sizes or version != sizes._version:
+        lmax = max(1, int(sizes.max()))
+        _LMAX[0] = (weakref.ref(sizes), sizes._version, lmax)
+    return lmax
+
+
+def wide_scratch_on_card(k: int, rot_dim: int, lmax: int
+                         ) -> Tuple[int, int, int]:
+    """The grouped K4's scratch past k = 256 on the current card, as its
+    library states it: (bytes: a counter and 32 distance rows of ``lmax``
+    rounded up to 128 floats a persistent block; the persistent blocks;
+    the blocks an SM keeps resident). (0, 0, 0) at k <= 256."""
+    out = (ctypes.c_longlong * 3)()
+    _cuda.check(_cuda.library("ivf_pq_scan").raft_ivf_pq_scan_group_scratch(
+        k, rot_dim, lmax, ctypes.addressof(out)), "ivf_pq_scan scratch")
+    return tuple(out)
+
+
+def _scratch(device: torch.device, nbytes: int) -> torch.Tensor:
+    """The wide plan's scratch on ``device``: allocated once and kept,
+    grown when a call needs more."""
+    buf = _SCRATCH.get(device)
+    if buf is None or buf.numel() < nbytes:
+        _SCRATCH.pop(device, None)
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        _SCRATCH[device] = buf
+    return buf
 
 
 def _scan_smem_bytes(pq_dim: int, book: int, rot_dim: int, k: int) -> int:
@@ -266,13 +309,20 @@ def ivf_pq_scan_candidates(codes: torch.Tensor, dn: torch.Tensor,
         # decoded rows' lo parts, which are zero
         exact = ((cb_mode.view(torch.int32) & _TF32_LOW) == 0).all().to(
             torch.int32)
+        # past k = 256: the blocks' distance rows, as long as the longest
+        # list
+        lmax, scratch = 0, None
+        if k > WIDE_K:
+            lmax = largest_list(sizes)
+            scratch = _scratch(q.device, wide_scratch_on_card(
+                k, rot_dim, lmax)[0])
         status = lib.raft_ivf_pq_scan_group(
             codes.data_ptr(), ptr(dn), ptr(penalty), cb_mode.data_ptr(),
             centers_rot.data_ptr(), q.data_ptr(), exact.data_ptr(),
             order.data_ptr(), glist.data_ptr(), gstart.data_ptr(),
             gcount.data_ptr(), offsets.data_ptr(), sizes.data_ptr(),
-            glist.shape[0], qg, p, pq_dim, pq_len, book, k,
-            _METRIC_CODE[metric], out_v.data_ptr(), out_i.data_ptr(),
+            ptr(scratch), glist.shape[0], qg, p, pq_dim, pq_len, book, k,
+            _METRIC_CODE[metric], lmax, out_v.data_ptr(), out_i.data_ptr(),
             _cuda.stream_of(q))
     else:
         # the pairs in list order, so that blocks that run together read

@@ -65,13 +65,19 @@ pair_launches = 0    # of them, the per-pair form's
 launches_bfloat16 = launches_int8 = launches_uint8 = 0
 
 GROUP_MAX_K = 512  # a group's k-lists share the block's shared memory
-# the grouped forms' plans (csrc/ivf_flat_scan.cuh::plan_for, and K4's):
-# (widest k, queries a group, warp-queue registers R: 32·R keys, candidate
-# buffer keys CAP a query)
+# the grouped forms' plans (csrc/ivf_flat_scan.cuh::plan_for, and K4's up
+# to k = 256; past it K4 keeps no k-list: csrc/ivf_pq_scan.cu's wide plan,
+# 32 queries a group): (widest k, queries a group, warp-queue registers R:
+# 32·R keys, candidate buffer keys CAP a query)
 _GROUP_PLANS = ((32, 128, 1, 32), (64, 128, 2, 64), (128, 64, 4, 128),
                 (256, 64, 8, 64), (512, 32, 16, 128))
 # csrc/tf32_tile.cuh: a block's shared memory, a row tile, a stage's width
 _SMEM_LIMIT, _BN, _BK = 232_448, 128, 32
+# csrc/ivf_pq_scan.cu's wide plan: a block's bytes where two fit an SM,
+# the static bytes beside them, the warps' selection space
+# (csrc/list_select.cuh: 512 64-bit keys and 1,024 bins a warp)
+_TWO_BLOCKS, _STATIC_UNIT, _SELECT_BYTES = 115_712, 128, 8 * (512 * 8
+                                                             + 1024 * 4)
 _STORE_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1, "uint8": 1}
 
 _METRIC_CODE = {"l2": 0, "cos": 1, "ip": 2}
@@ -242,6 +248,8 @@ def group_smem(kernel: str, k: int, d: int, store: str = "float32"
     else:
         expects(kernel == "ivf_pq_scan" and store == "float32",
                 "unknown grouped scan %r over %r", kernel, store)
+        if k > 256:
+            return _pq_wide_smem(bm, nk)
         fixed = lists + 4 * 2 * 2 * _BN + 4 * 4 * bm + 4 * 2 * nk * _BK
         ns_max, b_stage = 2, 4 * _BK * _BN
     for a_res in (2, 1, 0):
@@ -251,6 +259,23 @@ def group_smem(kernel: str, k: int, d: int, store: str = "float32"
                      + fixed)
             if total <= _SMEM_LIMIT:
                 return total, a_res, ns
+    return 0, -1, 0
+
+
+def _pq_wide_smem(bm: int, nk: int) -> Tuple[int, int, int]:
+    """K4's wide plan (``csrc/ivf_pq_scan.cu::prepare_wide``): three side
+    slots, the group's pairs, queries, norms and key ranges, the columns'
+    subspaces; the tiles (query tile split, resident or streamed; a
+    2-stage ring) or the warps' selection space, whichever is larger; the
+    first layout with room for two blocks an SM, else one."""
+    fixed = 4 * 3 * 2 * _BN + 4 * 6 * bm + 4 * 2 * nk * _BK
+    for limit in (_TWO_BLOCKS, _SMEM_LIMIT):
+        for a_res in (2, 1, 0):
+            tiles = max(4 * (a_res * nk * bm * _BK
+                             + 2 * ((0 if a_res else bm * _BK)
+                                    + _BN * _BK)), _SELECT_BYTES)
+            if tiles + fixed + _STATIC_UNIT <= limit:
+                return tiles + fixed, a_res, 2
     return 0, -1, 0
 
 

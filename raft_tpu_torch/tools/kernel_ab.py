@@ -9,7 +9,9 @@ commit's from ``git archive``, or a copy with one edit). Every version's
 library of each kernel form asked for (``--kernels``, default all: k6 and
 k5 over the int8 store, ``graph_expand.cu`` and ``cagra_fused.cu``;
 k5_int4, k5_pq and k6_int4 over the int4 and pq stores,
-``graph_expand_{int4,pq}.cu`` and ``cagra_fused_int4.cu``; edge, the
+``graph_expand_{int4,pq}.cu`` and ``cagra_fused_int4.cu``; k6_256, K6 over
+the int8 store at its widest buffer, itopk 256, seeded as the path's;
+edge, the
 int8 store's whole edge-engine search with the version's
 ``graph_expand.cu`` as K5) is built with
 ``_cuda``'s flags into DIR (one nvcc each, all started together), loaded
@@ -18,7 +20,9 @@ whole traversal), K5 on the parents that the path's hop 32 hands it
 (``chip_smoke.walk`` over the int8 store; every store's K5 takes the
 same), the pq store with its int8 LUT. The entry points must have this
 tree's C signatures. Prints the card's name and power limit, each
-instance's registers and spills from ptxas, whether every version's
+instance's registers and spills from ptxas (and for K6 each version's
+registers, local memory and resident warps an SM at the path's shape,
+as the card reports them), whether every version's
 outputs equal the first's bit for bit, and each version's median time in
 four rounds (versions in order, reversed, in order, reversed; the card's
 time of a call, L2 cold and the host's work hidden: ``median_ms``) and
@@ -42,6 +46,7 @@ import numpy as np
 import torch
 
 from ..ops import _cuda
+from ..ops.graph_expand import card_info
 
 # kernel form: (library source, entry, store, repetitions a timing)
 _KERNELS = {"k6": ("cagra_fused", "raft_cagra_fused", "int8", 10),
@@ -49,6 +54,7 @@ _KERNELS = {"k6": ("cagra_fused", "raft_cagra_fused", "int8", 10),
             "k5_int4": ("graph_expand_int4", "raft_graph_expand", "int4", 50),
             "k5_pq": ("graph_expand_pq", "raft_graph_expand_pq", "pq", 50),
             "k6_int4": ("cagra_fused_int4", "raft_cagra_fused", "int4", 10),
+            "k6_256": ("cagra_fused", "raft_cagra_fused", "int8", 3),
             "edge": ("graph_expand", None, "int8", 20)}
 
 
@@ -56,6 +62,12 @@ def build(dirs, kernels=_KERNELS):
     """Each DIR's ``kernels`` ({key: (source, entry, ...)}) built at once →
     ({dir: {key: library, its entries' C signatures set}}, the ptxas
     register and spill lines of each kernel template instance)."""
+    return finish_build(start_build(dirs, kernels), kernels)
+
+
+def start_build(dirs, kernels):
+    """Start :func:`build`'s compilers (one nvcc each, all at once) and
+    return them, for :func:`finish_build`."""
     procs = {}
     for d in dirs:
         for key, (src, *_) in kernels.items():
@@ -64,6 +76,12 @@ def build(dirs, kernels=_KERNELS):
             procs[d, key] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT,
                                              text=True)
+    return procs
+
+
+def finish_build(procs, kernels):
+    """Wait for :func:`start_build`'s compilers → :func:`build`'s
+    result."""
     libs, notes = {}, []
     for (d, key), proc in procs.items():
         text, _ = proc.communicate()
@@ -71,19 +89,56 @@ def build(dirs, kernels=_KERNELS):
             raise RuntimeError(f"nvcc failed on {d} ({key}):\n{text}")
         lines = text.splitlines()
         for i, line in enumerate(lines):
-            m = re.search(r"_kernelI(.*?)EEv", line)
+            m = re.search(r"\d+([a-z][a-z_]*_kernel)(?:I(.*?)E+v)?", line)
             if m and "Compiling" in line:
                 tail = " ".join(x.split(":")[-1].strip()
                                 for x in lines[i + 1:i + 4]
                                 if "registers" in x or "spill" in x)
-                notes.append(f"{d} {key} <{m.group(1)}>: {tail}")
+                notes.append(f"{d} {key} {m.group(1)}<{m.group(2) or ''}>: "
+                             f"{tail}")
         lib = ctypes.CDLL(str(Path(d) / f"{key}.so"))
         for fn, (argtypes, restype) in _cuda._SIGNATURES[
                 kernels[key][0]].items():
+            if not hasattr(lib, fn):  # an older tree's library
+                continue
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
         libs.setdefault(d, {})[key] = lib
     return libs, notes
+
+
+def sass(path) -> dict:
+    """{kernel function: its SASS} of a built library, by the toolkit's
+    ``cuobjdump`` (beside ``nvcc``); the anonymous namespace's name, which
+    hashes the source file, cut from both, and each line's blanks made
+    one."""
+    tool = Path(_cuda._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(path)], check=True,
+                          capture_output=True, text=True).stdout
+    text = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_[0-9a-f]{8}", "", text)
+    lines = (f.splitlines() for f in text.split("Function : ")[1:])
+    # each line stripped: the columns are as wide as the file's widest
+    return {f[0].strip(): "\n".join(" ".join(x.split()) for x in f[1:]
+                                    if x.strip())
+            for f in lines}
+
+
+def same_sass(dirs, key) -> None:
+    """Print, for each kernel function of the first DIR's ``key`` library,
+    the DIRs whose library compiled it to the same SASS."""
+    first = sass(Path(dirs[0]) / f"{key}.so")
+    rest = {d: sass(Path(d) / f"{key}.so") for d in dirs[1:]}
+    for name, body in first.items():
+        same = [d for d in dirs[1:] if rest[d].get(name) == body]
+        print(f"{key} {name}: SASS of {dirs[0]} equal in "
+              f"{', '.join(same) or 'none'}")
+        for d in dirs[1:]:
+            if d not in same and name in rest[d]:
+                diff = next((a, b) for a, b in zip(
+                    (body + "\n<end>").splitlines(),
+                    (rest[d][name] + "\n<end>").splitlines()) if a != b)
+                print(f"  first difference in {d}: {diff[0].strip()!r} / "
+                      f"{diff[1].strip()!r}")
 
 
 def path_data(stores=("int8",)):
@@ -111,29 +166,36 @@ def path_data(stores=("int8",)):
             cagra.prepare_traversal(cidx, store)
             st[store] = cidx.edge_store
     itopk, width, max_iter = cagra._plan_dims(cs.CAGRA_SP, cs.K)
+    # the widest buffer K6 takes (itopk 256), seeded the same way
+    b256 = cagra._seed_buffer(cidx, cidx.score_bf16, None, q, None, 16,
+                              256, cs.CAGRA_SP.seed)
     return dict(q=q.float().contiguous(), st=st, parents=parents, cidx=cidx,
                 sp=cs.CAGRA_SP, k=cs.K,
                 bd=buf_d.contiguous(), bi=buf_i.int().contiguous(),
                 itopk=itopk, width=width, max_iter=max_iter,
-                kp=min(cidx.graph_degree, itopk))
+                kp=min(cidx.graph_degree, itopk),
+                wide=dict(bd=b256[0].contiguous(),
+                          bi=b256[1].int().contiguous(), itopk=256,
+                          max_iter=256 // width + 16,
+                          kp=min(cidx.graph_degree, 256)))
 
 
 def calls(p):
     """Per kernel form, a function (entry) → its outputs, on the path's
-    data."""
+    data; under "data", that data."""
     q, m = p["q"], p["q"].shape[0]
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     counter = torch.empty(1, dtype=torch.int32, device="cuda")
     pids = p["parents"][:, :1].contiguous()
 
-    def k6(fn, st):
-        od, oi = torch.empty_like(p["bd"]), torch.empty_like(p["bi"])
+    def k6(fn, st, b=p):
+        od, oi = torch.empty_like(b["bd"]), torch.empty_like(b["bi"])
         h = torch.zeros(m, dtype=torch.int32, device="cuda")
         pa = torch.zeros_like(h)
-        _cuda.check(fn(q.data_ptr(), p["bd"].data_ptr(), p["bi"].data_ptr(),
+        _cuda.check(fn(q.data_ptr(), b["bd"].data_ptr(), b["bi"].data_ptr(),
                        st.vecs.data_ptr(), st.aux.data_ptr(),
                        st.gp.data_ptr(), None, m, st.vecs.shape[0],
-                       p["itopk"], p["width"], p["max_iter"], p["kp"],
+                       b["itopk"], p["width"], b["max_iter"], b["kp"],
                        st.deg_p, st.dim_p, st.degree, 0, 0,
                        counter.data_ptr(), od.data_ptr(), oi.data_ptr(),
                        h.data_ptr(), pa.data_ptr(), stream()), "k6")
@@ -165,10 +227,13 @@ def calls(p):
         return cagra.search(p["cidx"], q, p["k"], p["sp"], engine="edge")
 
     form = {"k6": k6, "k5": k5, "edge": edge}
-    return {key: (lambda fn, f=form[key.split("_")[0]],
-                  st=p["st"][store]: f(fn, st))
-            for key, (_, _, store, _) in _KERNELS.items()
-            if store in p["st"]}
+    out = {key: (lambda fn, f=form[key.split("_")[0]],
+                 st=p["st"][store]: f(fn, st))
+           for key, (_, _, store, _) in _KERNELS.items()
+           if store in p["st"]}
+    out["k6_256"] = lambda fn: k6(fn, p["st"]["int8"], p["wide"])
+    out["data"] = p
+    return out
 
 
 def median_ms(fn, reps):
@@ -230,7 +295,18 @@ def main(argv) -> int:
     entries = {d: {key: getattr(libs[d][key], v[1]) if v[1] else
                    libs[d][key] for key, v in kernels.items()}
                for d in dirs}
-    for key, (_, _, _, reps) in kernels.items():
+    data = run["data"]
+    for key, (_, _, store, reps) in kernels.items():
+        if key.startswith("k6"):  # each version's occupancy at the shape
+            st = data["st"][store]
+            b = data["wide"] if key == "k6_256" else data
+            for d in dirs:
+                info = card_info(libs[d][key], "raft_cagra_fused_info",
+                                 b["itopk"], data["width"], b["kp"],
+                                 st.deg_p, st.dim_p, int(store == "bfloat16"))
+                print(f"{key} {d}: {info['registers']} registers, "
+                      f"{info['local_bytes']} bytes of local memory a "
+                      f"thread, {info['warps_per_sm']} warps resident an SM")
         outs = {d: run[key](entries[d][key]) for d in dirs}
         torch.cuda.synchronize()
         for d in dirs:

@@ -296,6 +296,32 @@ def k6_hop(q, bk, bi, vecs, aux, gph, pen, itopk, width, kprime, degree,
     return bk, bi
 
 
+@pytest.mark.parametrize("deg_p,seed", [(64, 0), (64, 1), (128, 2),
+                                        (256, 3)])
+def test_k6_sorts_the_keys_under_the_buffer_alone(deg_p, seed):
+    """K6's last parent when at most 32 of its edges lie under the
+    buffer's last value (cagra_fused.cuh): those keys, gathered in edge
+    order one a lane and sorted alone (32 slots, the rest ~0), are the
+    full sort's first ranks, ties, -0.0, +inf and NaN edges included; at
+    every threshold from none to 32 keys under it."""
+    rng = np.random.default_rng(seed)
+    v = rng.integers(-6, 7, deg_p).astype(np.float32)
+    v[rng.integers(0, deg_p, 8)] = -0.0
+    v[rng.integers(0, deg_p, 8)] = np.inf
+    v[rng.integers(0, deg_p, 2)] = np.nan
+    keys = sort_key(v, np.arange(deg_p))
+    full = np.sort(keys)
+    for th in np.unique(keys >> np.uint64(32)):
+        under = keys[(keys >> np.uint64(32)) < th]  # in edge order
+        if len(under) > 32:
+            break
+        part = np.full(32, np.uint64(0xFFFFFFFFFFFFFFFF))
+        part[:len(under)] = under
+        part = np.sort(part)
+        assert np.array_equal(part[:len(under)], full[:len(under)]), th
+        assert not (part[len(under):] >> np.uint64(32) < 0xff800000).any()
+
+
 @pytest.mark.parametrize("integer,n,width,kprime,closed", [
     (False, 3000, 1, 40, False), (True, 3000, 2, 16, True),
     (True, 120, 3, 24, True), (True, 120, 1, 64, False),

@@ -213,21 +213,28 @@ def test_group_plans_fit_shared_memory(kernel, store, d):
     """For every k up to GROUP_MAX_K a grouped block's layout (the k-lists
     and buffers, the side arrays, the query tile and the ring) fits in a
     block's 232,448 bytes of shared memory; the bytes are stated by hand
-    here for the plan past 256 at k = 512 (32 queries, 128-key buffers,
-    query tile resident where it fits)."""
+    here for the plan past 256 at k = 512: K3's (32 queries, 128-key
+    buffers, query tile resident where it fits) and K4's own (32 queries,
+    no k-lists: three side slots, the pairs' key ranges, the tiles or the
+    warps' 64 KB of selection space, whichever is larger, with room for
+    two blocks an SM at these widths)."""
     for k in range(1, tis.GROUP_MAX_K + 1):
         smem, a_res, ns = tis.group_smem(kernel, k, d, store)
         assert 0 < smem <= 232_448 and a_res in (0, 1, 2) and ns >= 2, k
     nk = -(-d // 32)
     smem, a_res, ns = tis.group_smem(kernel, 512, d, store)
-    lists = 8 * 32 * (512 + 128) + 4 * 32
     if kernel == "ivf_pq_scan":
-        fixed = lists + 2 * 2 * 128 * 4 + 4 * 32 * 4 + 2 * nk * 32 * 4
-        stage = 32 * 128 * 4
-    else:
-        raw = store != "float32"
-        fixed = lists + 4 * (3 if raw else 2) * 128 * 4 + 2 * 32 * 4
-        stage = 32 * 128 * {"float32": 4, "bfloat16": 2}.get(store, 1)
+        fixed = 3 * 2 * 128 * 4 + 6 * 32 * 4 + 2 * nk * 32 * 4
+        tiles = (a_res * nk * 32 * 32 * 4
+                 + ns * ((0 if a_res else 32 * 32 * 4) + 32 * 128 * 4))
+        assert a_res == 2 and ns == 2
+        assert smem == max(tiles, 65_536) + fixed
+        assert smem + 128 <= 115_712
+        return
+    lists = 8 * 32 * (512 + 128) + 4 * 32
+    raw = store != "float32"
+    fixed = lists + 4 * (3 if raw else 2) * 128 * 4 + 2 * 32 * 4
+    stage = 32 * 128 * {"float32": 4, "bfloat16": 2}.get(store, 1)
     assert smem == (a_res * nk * 32 * 32 * 4
                     + ns * ((0 if a_res else 32 * 32 * 4) + stage) + fixed)
 

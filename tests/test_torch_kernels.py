@@ -817,6 +817,93 @@ def test_ivf_pq_scan_kernel_graph_pass_k(metric):
             assert torch.equal(kv, pv) and torch.equal(ki, pi), form
 
 
+def wide_pq_store(k: int, seed: int, integer: bool, pq_dim: int,
+                  pq_len: int, m: int = 100):
+    """A PQ store for the grouped K4 past k = 256 (4-bit codes, the int8
+    LUT, as the graph pass), its lists cut where a histogram select can
+    go wrong: 0, 1, k - 1, k, k + 1 and 2k rows; 3,000 rows (the longest,
+    which sizes the scratch); 800 rows of which 600, scattered, share one
+    code vector, so that they tie at the k-th value of every pair (at most
+    200 others precede them); 700 equal rows; 1,200 rows with a penalty
+    of +inf on 90% of them; a list of 700 rows pruned to size 0. Every
+    query probes every list, in its own order. Integer inputs: a codebook
+    of small integers with an entry of 127 a subspace (the int8 scale is
+    1), integer centers and queries. Returns ``ivf_pq_scan``'s arguments
+    up to ``q_rot`` on the card, and the penalty row."""
+    rng = np.random.default_rng(seed)
+    sizes = np.array([0, 1, k - 1, k, k + 1, 2 * k, 3000, 800, 700, 1200,
+                      700])
+    caps = (sizes + 8 + 7) // 8 * 8
+    offsets = np.concatenate([[0], np.cumsum(caps)])
+    rows = int(offsets[-1])
+    codes = rng.integers(0, 16, (rows, pq_dim)).astype(np.uint8)
+    tie = offsets[7] + rng.permutation(800)[:600]
+    codes[tie] = codes[tie[0]]
+    codes[offsets[8]:offsets[8] + 700] = codes[offsets[8]]
+    pen = np.zeros(rows, np.float32)
+    pen[offsets[9] + rng.permutation(1200)[:1080]] = np.inf
+    sizes[10] = 0
+    rot_dim = pq_dim * pq_len
+    gen = ((lambda sh: rng.integers(-3, 4, sh)) if integer
+           else rng.standard_normal)
+    cb = gen((pq_dim, 16, pq_len)).astype(np.float32)
+    if integer:
+        cb[:, 0, 0] = 127.0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    centers = t(gen((len(sizes), rot_dim)).astype(np.float32))
+    probed = np.stack([rng.permutation(len(sizes)) for _ in range(m)])
+    norms = tpq.decoded_row_norms(t(codes), centers, t(cb), offsets)
+    args = [t(codes), norms, centers, tpq.lut_codebook(t(cb), "int8"),
+            t(probed.astype(np.int32)), t(offsets[:-1].astype(np.int32)),
+            t(sizes.astype(np.int32)),
+            t(gen((m, rot_dim)).astype(np.float32))]
+    return [a.cuda() for a in args], t(pen).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pq_dim,pq_len", [(32, 1), (64, 2)])
+@pytest.mark.parametrize("k", [257, 512])
+def test_ivf_pq_scan_wide_selection_on_card(k, pq_dim, pq_len):
+    """K4's grouped form past k = 256 (the radix select of
+    csrc/list_select.cuh) on :func:`wide_pq_store`'s lists, with and
+    without the penalty row, at both metrics, at rot_dim 32 (one stage a
+    tile) and 128: equal to the plain version on integer inputs; on
+    integer and Gaussian inputs each pair's first 256 slots equal bit for
+    bit those of the plan at k = 256, whose streaming selection
+    (offer_tile) is the plan this form replaced past 256, on the same
+    distances; two launches bit-equal; one grouped launch a call."""
+    need_cuda()
+    for integer in (True, False):
+        args, pen = wide_pq_store(k, 40 + k % 7 + pq_dim, integer, pq_dim,
+                                  pq_len)
+        m, p = args[4].shape
+        for metric in ("l2", "ip"):
+            for penalty in (pen, None):
+                a = (*args, k, metric, penalty)
+                before = tpq.group_launches
+                kv, ki = tpq.ivf_pq_scan(*a)
+                kv2, ki2 = tpq.ivf_pq_scan(*a)
+                torch.cuda.synchronize()
+                assert tpq.group_launches == before + 2
+                assert_bits_equal(kv, kv2)
+                assert torch.equal(ki, ki2)
+                if integer:
+                    pv, pi = tpq.ivf_pq_scan_plain(*a)
+                    assert torch.equal(kv, pv) and torch.equal(ki, pi), (
+                        metric, penalty is None)
+                cand = (args[0], args[1] if metric == "l2" else None,
+                        penalty, args[3], args[2], args[7], args[4],
+                        args[5], args[6])
+                wv, wi = tpq.ivf_pq_scan_candidates(*cand, k, metric)
+                sv, si = tpq.ivf_pq_scan_candidates(*cand, 256, metric)
+                torch.cuda.synchronize()
+                what = (integer, metric, penalty is None)
+                assert_bits_equal(wv.view(m, p, k)[:, :, :256],
+                                  sv.view(m, p, 256))
+                assert torch.equal(wi.view(m, p, k)[:, :, :256],
+                                   si.view(m, p, 256)), what
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,store", [
     ("ivf_flat_scan", s) for s in ("float32", "bfloat16", "int8", "uint8")]
@@ -1144,7 +1231,9 @@ def test_cagra_fused_int4_kernel_on_card(metric, penalty):
     the plain int4 K5): equal buffers at width 1-3 and k' 1 and 16, on
     integer nibbles and Gaussian queries with real scales, from seeds
     shuffled out of order; then at PACKED_SHAPES with itopk 64 and 128
-    and frontiers closing early. A second launch gives the same bits."""
+    and frontiers closing early; then where the dedup's ids repeat (400
+    nodes), at width 1-3, k' 13 and deg_p, itopk 64 to 256. A second
+    launch gives the same bits."""
     need_cuda()
     cases = [(integer, dict(), width, kprime, 32, shuffle)
              for integer, (width, kprime), shuffle in (
@@ -1156,6 +1245,15 @@ def test_cagra_fused_int4_kernel_on_card(metric, penalty):
         cases.append((integer, dict(n=n, degree=deg, deg_p=deg_p, dim=dim,
                                     m=m, closed=True),
                       width, min(deg_p, itopk), itopk, False))
+    # the dedup's cases (n = 400: ids repeated within a row, across rows
+    # and in the buffer): k' not a multiple of 4 beside earlier parents'
+    # ids, k' = deg_p, the widest buffer (itopk 256)
+    for integer, n, deg, deg_p, dim, m in EDGE_SHAPES[3:5]:
+        for width, kprime, itopk in ((3, 13, 128), (2, deg_p, 256),
+                                     (1, deg_p, 64)):
+            cases.append((integer, dict(n=n, degree=deg, deg_p=deg_p,
+                                        dim=dim, m=m),
+                          width, kprime, itopk, integer))
     for integer, shape, width, kprime, itopk, shuffle in cases:
         es = card_packed("int4", 22, integer, itopk=itopk, **shape)
         pen = es["pen"] if penalty else None

@@ -195,6 +195,31 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    resident warps and K5's shared memory an SM, K5's forms also beside
    the dense form's times of the same run.
 
+8. wide k, after the K2–K4 phases and on the path's data and indexes,
+   each path with the counters reset before it: brute force at k = 256,
+   257 and 1,024 (K2's wide form past 256 + K1), its int8 store at 256
+   and 1,024, 4 shards at 1,024 with each merge engine (equal on every
+   shard, and to the single card's ids); IVF-Flat and IVF-PQ (20 probes,
+   bf16 LUT) at k = 512, 1,025 and 2,048 (the grouped forms' wide plans,
+   one grouped launch a search, no per-pair one); each search's first
+   columns bit for bit the search at the smaller k. CAGRA built on
+   ``WIDE_CAGRA_ROWS`` rows at intermediate degree 256 by the exact
+   route (K2 at k = 257) and by the IVF-PQ pass at 256 and 512 (K4 at
+   k = 513 and 1,025, ``cagra.pass_batch``'s batches), graph degree 64:
+   the kNN graph's seconds, its edge recall (the exact route's must be 1)
+   and the fused search's recall@10 at itopk 64. Then the new forms
+   against their plain versions: K2's on integer inputs at k = 257,
+   1,024 and 2,048 (equal) and on the path's data at 1,024 (values slot
+   by slot, ids as sets); K3's and K4's at k = 1,025 on 1,000 queries of
+   the path (the same), on integer-valued copies (equal; at k = 1,024
+   equal to the per-pair form bit for bit), each pair's first 512
+   columns the plan at 512's; K4 at the pass's batches past 256, its
+   grouped form at k = 513 faster than the per-pair form. Each is timed
+   beside its plain version and bound (K2 also beside ``addmm`` +
+   ``torch.topk`` at k = 1,024) in the rows ``fused_knn.wide``,
+   ``ivf_flat_scan.wide`` and ``ivf_pq_scan.wide`` (launches: the
+   phase's paths').
+
 Prints progress lines, then a ``{"kernels": [...]}`` line, the card's name
 and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -205,6 +230,7 @@ room for the run's peak (memory another process holds there would fail it).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import json
@@ -276,6 +302,17 @@ SPLIT_DIR = "build/split"      # K4's split builds (tools/scan_ab.py)
 ROUTE_KNN_STREAMING_S = 7.80
 WIDE_KS = (PASS_K, iscan.GROUP_MAX_K)
 WIDE_QUERIES = 8192
+# the wide-k phase, past the kernels' old limits (K2's k-lists end at 256,
+# the grouped K3/K4 k-lists at 512, the per-pair forms at 1,024): brute
+# force at these k (f32; int8 and 4 shards at the last), IVF-Flat and
+# IVF-PQ at these, CAGRA built at these (intermediate degree, kNN-graph
+# route) on the first WIDE_CAGRA_ROWS rows, the kernels held to their
+# plain versions on WIDE_CHECK_QUERIES queries
+WIDE_BF_KS = (257, 1024)
+WIDE_IVF_KS = (1025, 2048)
+WIDE_CAGRA = ((256, "brute"), (256, "ivf_pq"), (512, "ivf_pq"))
+WIDE_CAGRA_ROWS = N
+WIDE_CHECK_QUERIES = 1000
 # the bench phase: the harness's synthetic spec (64 blobs of std 3.0,
 # centers in ±10), 10,000 queries, the CLI's ground-truth depth
 BENCH_SPEC, BENCH_QUERIES, BENCH_GT_K, BENCH_REPS = (
@@ -284,9 +321,10 @@ BENCH_TARGET = 0.95            # the north star: QPS at recall@10 >= 0.95
 BENCH_OUT = "build/bench"      # its Google-Benchmark JSON goes here
 BENCH_STORE = "int8"           # the bench's low-precision run (--dtype)
 
-# the run's peak device memory is 57.60 GiB allocated, 62.68 GiB held by
-# the allocator (NVIDIA H100 80GB HBM3, 700.00 W); before its first
-# allocation it waits up to CARD_WAIT_S for this much to be free
+# the run's peak device memory is 58.41 GiB allocated (in the wide-k
+# phase; 57.60 before it), 72.44 GiB held by the allocator (NVIDIA H100
+# 80GB HBM3, 700.00 W); before its first allocation it waits up to
+# CARD_WAIT_S for this much to be free
 CARD_NEED = 64 * 2**30
 CARD_WAIT_S = 420
 
@@ -296,16 +334,19 @@ _COUNTERS = {"select_k": (sk, "launches"),
              "select_k.warp": (sk, "warp_launches"),
              "select_k.kpass": (sk, "kpass_launches"),
              "fused_knn": (fk, "launches"),
+             "fused_knn.wide": (fk, "wide_launches"),
              **{f"fused_knn.{s}": (fk, f"launches_{s}")
                 for s in STORE_NAMES},
              "ivf_flat_scan": (iscan, "launches"),
              "ivf_flat_scan.group": (iscan, "group_launches"),
              "ivf_flat_scan.pair": (iscan, "pair_launches"),
+             "ivf_flat_scan.wide": (iscan, "wide_launches"),
              **{f"ivf_flat_scan.{s}": (iscan, f"launches_{s}")
                 for s in STORE_NAMES[:3]},
              "ivf_pq_scan": (ipq, "launches"),
              "ivf_pq_scan.group": (ipq, "group_launches"),
              "ivf_pq_scan.pair": (ipq, "pair_launches"),
+             "ivf_pq_scan.wide": (ipq, "wide_launches"),
              "graph_expand": (ge, "launches"),
              **{f"graph_expand.{m}": (ge, f"launches_{m}")
                 for m in ("dense", "int4", "pq")},
@@ -470,6 +511,31 @@ def bound(n_bytes: float, n_flops: float, n_single: float = 0.0):
     t_ops = (n_flops / FP32_FLOPS_PER_S
              + n_single / FP32_INSTR_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def scan_bound(n_bytes: float, scanned: float, d: int, products: int,
+               lut=None):
+    """(least ms, what bounds it) of an IVF scan of ``scanned`` (pair, row)
+    dot products of ``d`` dimensions: the bytes over the memory rate
+    against the products on the tensor cores, ``products`` TF32 products
+    a multiply (3xTF32 over f32 rows; 2 where the row side is exact in
+    TF32: byte and bf16 rows, a TF32-exact PQ codebook) at the TF32 peak,
+    or for PQ codes the cheaper of that and the LUT route, ``lut`` =
+    (FP32 FLOPs of the LUTs, one lone add a (pair, row, subspace))."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = products * 2.0 * d * scanned / TF32_FLOPS_PER_S * 1e3
+    if lut is not None:
+        t_ops = min(t_ops, (lut[0] / FP32_FLOPS_PER_S
+                            + lut[1] / FP32_INSTR_PER_S) * 1e3)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tf32_products(cb: torch.Tensor) -> int:
+    """TF32 products a multiply by the PQ codebook ``cb`` as K4 makes them:
+    2 where every value is exact in TF32 (it skips the zero lo parts),
+    else 3."""
+    return 2 if bool(((cb.view(torch.int32) & ipq._TF32_LOW) == 0).all()) \
+        else 3
 
 
 def check_close(ref_v, ref_i, v, i, what: str, min_rows: float = 0.99,
@@ -1409,12 +1475,12 @@ def int_lists(p, k, seed):
 
 def k7_lists(x, sidx, q, k):
     """Shard 0's hop-0 fold at k on the path's data: its own list, then
-    shard p−1's block at positions (p−1)·k + j. Up to K2's MAX_K the
+    shard p−1's block at positions (p−1)·k + j. Up to K2's LIST_MAX_K the
     shards' candidate lists; above it each shard's exact distances to its
     first k rows (the path's data, unsorted)."""
     p = sidx.n_shards
     slot = torch.arange(k, dtype=torch.int32, device=q.device).repeat(M, 1)
-    if k <= fk.MAX_K:
+    if k <= fk.LIST_MAX_K:
         ds, gs = sharded_knn.shard_candidates(sidx, q, k)
         d0, g0, d1, g1 = ds[0], gs[0], ds[-1], gs[-1]
     else:
@@ -1923,7 +1989,7 @@ def k2_phase(timer, bidx, q, launches, knn_graph_s):
     xi = torch.from_numpy(rng.integers(-3, 4, (50_000, 32)).astype(
         np.float32)).cuda()
     for metric in ("l2", "ip"):
-        for k in (K, CAGRA_D0 + 1, fk.MAX_K):
+        for k in (K, CAGRA_D0 + 1, fk.LIST_MAX_K):
             check_equal(fk.fused_knn_plain(qi, xi, k, metric),
                         fk.fused_knn(qi, xi, k, metric),
                         f"K2 fused_knn {metric} (256, 50000, 32) k={k}, "
@@ -2022,8 +2088,9 @@ def group_tiles(probed, sizes, k: int):
 def k3_phase(timer, iidx, q, launches, by_form):
     """K3 in both forms against the plain version on the path's data (and
     each launched twice, bit-equal), both timed at the path's shape; the
-    FP32 bound of the (pair, row) products is the row's, printed beside
-    their 3xTF32 bound and the grouped form's tiles and bytes."""
+    row's bound is :func:`scan_bound`'s (the (pair, row) products in
+    3xTF32), printed beside the same products on the FP32 pipe and the
+    grouped form's tiles and bytes."""
     probed = iscan.coarse_probe(q, iidx.centers, N_PROBES, "l2",
                                 iidx.center_norms)
     args = (iidx.data, iidx.data_norms, probed, iidx.offsets_dev,
@@ -2057,15 +2124,18 @@ def k3_phase(timer, iidx, q, launches, by_form):
     scanned = int(sizes[probed.long()].sum())          # (pair, row) count
     lists = torch.unique(probed)
     distinct_rows = int(sizes[lists].sum())
-    b, by = bound(distinct_rows * (D + 1) * 4 + M * D * 4
-                  + M * N_PROBES * (4 + K * 8), 2.0 * D * scanned)
+    n_bytes = (distinct_rows * (D + 1) * 4 + M * D * 4
+               + M * N_PROBES * (4 + K * 8))
+    b, by = scan_bound(n_bytes, scanned, D, 3)
+    fp, _ = bound(n_bytes, 2.0 * D * scanned)
     tf = 3 * 2.0 * D * scanned / TF32_FLOPS_PER_S * 1e3
     tiles, tile_rows, gathered = group_tiles(probed, sizes, K)
     tile_bytes = tile_rows * (D + 1) * 4 + gathered * D * 4
     log(f"  K3 scans {scanned} (pair, row) products over {distinct_rows} "
         f"distinct rows; grouped form {times['group']:.3f} ms, per-pair "
-        f"form {times['pair']:.3f} ms; FP32 bound {b:.4f} ms ({by}), "
-        f"3xTF32 bound {tf:.4f} ms; {tiles} group tiles read "
+        f"form {times['pair']:.3f} ms; bound {b:.4f} ms ({by}; 3xTF32 "
+        f"products {tf:.4f} ms, on the FP32 pipe {fp:.4f} ms); {tiles} "
+        f"group tiles read "
         f"{tile_bytes / 1e9:.3f} GB (rows, norms, gathered queries); with "
         f"every list cut to one tile {one_tile:.3f} ms")
     return dict(name="ivf_flat_scan", route="cuda",
@@ -2075,7 +2145,7 @@ def k3_phase(timer, iidx, q, launches, by_form):
                 plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
                 form="group", pair_ms=times["pair"],
                 pair_max_abs_err=errs["pair"], tf32x3_bound_ms=tf,
-                one_tile_ms=one_tile, group_tiles=tiles,
+                fp32_bound_ms=fp, one_tile_ms=one_tile, group_tiles=tiles,
                 group_bytes=tile_bytes,
                 launches_by_form=by_form,
                 shape=f"{M} queries x {N_PROBES} probes, k={K}")
@@ -2151,12 +2221,13 @@ def k4_phase(timer, pidx, q, launches, by_form):
     distinct_rows = int(sizes[torch.unique(probed)].sum())
     pairs = M * N_PROBES
     book, pq_len = pidx.pq_book_size, pidx.pq_len
-    # the LUT depends on the query alone: its FMAs once per query; then
-    # one add per (pair, row, subspace)
-    b, by = bound(distinct_rows * (PQ_DIM + 4) + q_rot.numel() * 4
-                  + pidx.centers_rot.numel() * 4 + pidx.codebooks.numel() * 4
-                  + pairs * (4 + K0 * 8),
-                  M * 2 * PQ_DIM * book * pq_len, scanned * PQ_DIM)
+    # the cheaper of two routes: the LUT (its FMAs once per query, then
+    # one add per (pair, row, subspace)) or the decoded rows' products
+    b, by = scan_bound(distinct_rows * (PQ_DIM + 4) + q_rot.numel() * 4
+                       + pidx.centers_rot.numel() * 4
+                       + pidx.codebooks.numel() * 4 + pairs * (4 + K0 * 8),
+                       scanned, pidx.rot_dim, tf32_products(path[3]),
+                       (M * 2 * PQ_DIM * book * pq_len, scanned * PQ_DIM))
     tiles, tile_rows, gathered = group_tiles(probed, sizes, K0)
     tile_bytes = tile_rows * (PQ_DIM + 4) + gathered * pidx.rot_dim * 4
     log(f"  K4 scans {scanned} (pair, row) products over {distinct_rows} "
@@ -2240,8 +2311,8 @@ def k3_wide(timer, iidx, q) -> dict:
                     iidx.data, iidx.data_norms, None, q, qn, probed.int(),
                     *lists[1:], k, "l2", form))
         del ref, iref
-        b, by = bound(distinct * (D + 1) * 4 + M * D * 4
-                      + M * N_PROBES * (4 + k * 8), 2.0 * D * scanned)
+        b, by = scan_bound(distinct * (D + 1) * 4 + M * D * 4
+                           + M * N_PROBES * (4 + k * 8), scanned, D, 3)
         plan = iscan.group_plan_on_card("ivf_flat_scan", k, D)
         row.update(bound_ms=b, bound_by=by, plan=plan)
         log(f"  K3 at k={k}: grouped form {row['group_ms']:.3f} ms, per-pair "
@@ -2342,8 +2413,8 @@ def k4_graph_pass(timer, call, split_libs) -> dict:
         del wv, wi
     del sv, si
     lmax = ipq.largest_list(args[6])
-    scratch, blocks, per_sm = ipq.wide_scratch_on_card(k, pq_dim * pq_len,
-                                                       lmax)
+    scratch, blocks, per_sm = iscan.wide_scratch_on_card(
+        "ivf_pq_scan", k, pq_dim * pq_len, lmax)
     # the split at the pass batch: the library whole, without its
     # selection, its products alone
     b = dict(codes=args[0], dn=args[1], cb=args[3], centers=args[2],
@@ -2370,15 +2441,16 @@ def k4_graph_pass(timer, call, split_libs) -> dict:
         *cand(form, sub)), **reps[form]) for form in SCAN_FORMS}
     whole = timer(lambda: ipq.ivf_pq_scan(*args, **kwargs), reps=3)
     # the function's least work, as in k4_phase: each probed list's codes
-    # and norms read once, one LUT a query, one add a (pair, row,
-    # subspace), k (value, row) pairs a query out
+    # and norms read once, the cheaper of the LUT route and the decoded
+    # rows' products, k (value, row) pairs a pair out
     sizes = args[6].long()
     probed = args[4].long()
-    b, by = bound(int(sizes[torch.unique(probed)].sum()) * (pq_dim + 4)
-                  + args[7].numel() * 4 + args[2].numel() * 4
-                  + args[3].numel() * 4 + probed.numel() * 4 + m * k * 8,
-                  m * 2 * pq_dim * book * pq_len,
-                  int(sizes[probed].sum()) * pq_dim)
+    scanned = int(sizes[probed].sum())
+    b, by = scan_bound(int(sizes[torch.unique(probed)].sum()) * (pq_dim + 4)
+                       + args[7].numel() * 4 + args[2].numel() * 4
+                       + args[3].numel() * 4 + probed.numel() * (4 + k * 8),
+                       scanned, pq_dim * pq_len, tf32_products(args[3]),
+                       (m * 2 * pq_dim * book * pq_len, scanned * pq_dim))
     plan = iscan.group_plan_on_card("ivf_pq_scan", k, pq_dim * pq_len)
     tiles, tile_rows, gathered = group_tiles(probed, sizes, k)
     log(f"  K4 at the graph pass ({shape}): grouped scan {ms['group']:.3f} "
@@ -2399,6 +2471,496 @@ def k4_graph_pass(timer, call, split_libs) -> dict:
                 wide_k={iscan.GROUP_MAX_K: dict(
                     group_ms=ms_wide["group"], pair_ms=ms_wide["pair"],
                     queries=WIDE_QUERIES)})
+
+
+def wide_prefix(short, long, what: str) -> None:
+    """The first columns of a search at a larger k are the search at the
+    smaller k, values bit for bit (one order, exact at every k)."""
+    k = short[0].shape[1]
+    check_bits(short, (long[0][:, :k].contiguous(),
+                       long[1][:, :k].contiguous()), what)
+
+
+def wide_paths(x, q, bidx, iidx, pidx, sidx, bi, totals) -> dict:
+    """The paths past the old limits through the entry points, each with
+    the counters reset before it: brute force (K2's wide form + K1) at
+    :data:`WIDE_BF_KS` beside k = 256, and its int8 store and 4 shards at
+    the last; IVF-Flat and IVF-PQ (20 probes, bf16 LUT) at
+    :data:`WIDE_IVF_KS` beside k = 512. Each search's first columns are
+    the search at the smaller k, bit for bit. → each path's steady search
+    ms by k."""
+    ms = {}
+
+    def searches(fn, ks):
+        out = {}
+        for k in ks:
+            fn(k)
+            r, t = host_time(lambda: fn(k))
+            out[k] = (*r, t)
+            log(f"  k={k}: {t * 1e3:.1f} ms ({M / t:.0f} QPS)")
+        return out
+
+    bf_ks = (fk.LIST_MAX_K,) + WIDE_BF_KS
+    res = run_path("brute force past k=256", ("fused_knn", "fused_knn.wide",
+                                              "select_k"),
+                   lambda: searches(lambda k: brute_force.search(bidx, q, k),
+                                    bf_ks), totals)
+    for a, b in zip(bf_ks, bf_ks[1:]):
+        wide_prefix(res[a][:2], res[b][:2], f"brute force k={b}'s first {a} "
+                    f"columns against k={a}")
+    ms["brute_force"] = {k: r[2] * 1e3 for k, r in res.items()}
+    big = WIDE_BF_KS[-1]
+    single = res[big][:2]
+    check_knn(f"brute force k={big}", *single, big)
+    del res
+    i8 = brute_force.build(x, dtype="int8")
+    res = run_path("brute force int8 past k=256",
+                   ("fused_knn", "fused_knn.int8", "fused_knn.wide",
+                    "select_k"),
+                   lambda: searches(lambda k: brute_force.search(i8, q, k),
+                                    (fk.LIST_MAX_K, big)), totals)
+    wide_prefix(res[fk.LIST_MAX_K][:2], res[big][:2],
+                f"brute force int8 k={big}'s first {fk.LIST_MAX_K} columns "
+                f"against k={fk.LIST_MAX_K}")
+    recall = neighborhood_recall(res[big][1][:, :K], bi)
+    log(f"  brute force int8 k={big}: recall@{K} against f32 {recall:.4f}")
+    ms["brute_force_int8"] = {k: r[2] * 1e3 for k, r in res.items()}
+    del res, i8
+
+    shard = {}
+    for eng in rt.ENGINES:
+        def run(eng=eng):
+            r, t = host_time(lambda: merged_copies(
+                lambda: sharded_knn.search(sidx, q, big, merge_engine=eng)))
+            log(f"  sharded brute force ({eng}) k={big}: {t * 1e3:.1f} ms")
+            return r
+        shard[eng] = sharded_run(f"sharded brute force k={big}", eng,
+                                 ("fused_knn", "fused_knn.wide"), run,
+                                 totals, 1)
+    sd, si = check_engines(f"sharded brute force k={big}", shard)
+    del shard
+    rows_eq = float((si == single[1]).all(dim=1).float().mean())
+    recall = neighborhood_recall(si, single[1])
+    log(f"  sharded brute force k={big} against the single card's: ids "
+        f"equal on {rows_eq:.4f} of rows, shared {recall:.6f}, max |d - "
+        f"d_1| {float((sd - single[0]).abs().max()):.3g}")
+    if recall < 0.99:
+        raise AssertionError(f"sharded brute force k={big}: {recall:.4f}")
+    del sd, si, single
+
+    ivf_ks = (iscan.GROUP_MAX_K,) + WIDE_IVF_KS
+    for name, idx, mod, scan, sp in (
+            ("ivf_flat", iidx, ivf_flat, "ivf_flat_scan",
+             ivf_flat.SearchParams(n_probes=N_PROBES)),
+            ("ivf_pq", pidx, ivf_pq, "ivf_pq_scan",
+             ivf_pq.SearchParams(n_probes=N_PROBES))):
+        res = run_path(f"{name} past k=1024", (scan, f"{scan}.group",
+                                               f"{scan}.wide", "select_k"),
+                       lambda: searches(lambda k: mod.search(idx, q, k, sp),
+                                        ivf_ks), totals)
+        if counts()[f"{scan}.pair"]:
+            raise AssertionError(f"{name}: a per-pair launch past k=512")
+        for a, b in zip(ivf_ks, ivf_ks[1:]):
+            wide_prefix(res[a][:2], res[b][:2], f"{name} k={b}'s first {a} "
+                        f"columns against k={a}")
+        for k, (v, i, _) in res.items():
+            if v.shape != (M, k) or not bool(((i >= -1) & (i < N)).all()):
+                raise AssertionError(f"{name} k={k}: bad shape or ids")
+        v, i, _ = res[WIDE_IVF_KS[0]]
+        log(f"  {name} k={WIDE_IVF_KS[0]}: recall@{K} against brute force "
+            f"{neighborhood_recall(i[:, :K], bi):.4f}; empty slots "
+            f"{float((i < 0).float().mean()):.4f}")
+        ms[name] = {k: r[2] * 1e3 for k, r in res.items()}
+        del res, v, i
+    return ms
+
+
+def wide_cagra(x, q, bi, totals) -> dict:
+    """CAGRA built at :data:`WIDE_CAGRA`'s intermediate degrees and routes
+    (graph degree 64) on the first :data:`WIDE_CAGRA_ROWS` rows, each with
+    the counters reset before it: ``cagra.build``'s stages one by one (the
+    kNN graph's own stages timed call by call on the card: K2 and its K1
+    merge; the IVF-PQ build, K4, K1's merge and refine), the kNN graph's
+    edge recall against the exact neighbors (the exact route's must be 1
+    up to ties: its rows are the same brute force), the fused search's
+    recall@10 at itopk 64 against brute force on those rows."""
+    xc = x[:WIDE_CAGRA_ROWS]
+    if WIDE_CAGRA_ROWS < N:
+        _, bi = brute_force.search(brute_force.build(xc), q, K)
+    out = {}
+    for d0, route in WIDE_CAGRA:
+        p = cagra.IndexParams(intermediate_graph_degree=d0,
+                              graph_degree=CAGRA_DEG, knn_graph_algo=route,
+                              seed=SEED)
+        kk = d0 + 1 if route == "brute" else 2 * d0 + 1
+        if route == "brute":
+            taps = {"K2": (fk, "fused_knn_candidates"),
+                    "K1 merge": (fk, "kpass_select_k")}
+        else:
+            taps = {"ivf_pq build": (ivf_pq, "build"),
+                    "K4": (ipq, "ivf_pq_scan_candidates"),
+                    "K1 merge": (ipq, "kpass_select_k"),
+                    "refine": (refine, "refine")}
+        stages = {}
+
+        def build():
+            info = {}
+            with contextlib.ExitStack() as stack:
+                evs = {name: stack.enter_context(call_events(*tap))
+                       for name, tap in taps.items()}
+                knn, t_knn = host_time(lambda: cagra.build_knn_graph(
+                    xc, d0, p.metric, p.seed, algo=route, info=info))
+            stages.update({name: (len(ev.ms()), sum(ev.ms()) / 1e3)
+                           for name, ev in evs.items()})
+            graph, t_opt = host_time(lambda: cagra.optimize(knn, CAGRA_DEG))
+            seeds, t_seeds = host_time(lambda: cagra.build_covering_seeds(
+                xc, p))
+            gidx = cagra.Index(xc, graph, p.metric, seeds)
+            _, t_store = host_time(lambda: cagra.prepare_traversal(gidx))
+            cagra.search(gidx, q, K, CAGRA_SP, engine="fused")
+            (d, i), t = host_time(lambda: cagra.search(gidx, q, K, CAGRA_SP,
+                                                       engine="fused"))
+            return knn, info, (t_knn, t_opt, t_seeds, t_store, t), i
+
+        if route == "brute":
+            kernels = ("fused_knn", "select_k") + (
+                ("fused_knn.wide",) if kk > fk.LIST_MAX_K else ())
+        else:
+            kernels = ("ivf_pq_scan", "ivf_pq_scan.group", "select_k") + (
+                ("ivf_pq_scan.wide",) if kk > iscan.GROUP_MAX_K else ())
+        knn, info, ts, i = run_path(
+            f"cagra {route} build at intermediate degree {d0} (k={kk})",
+            kernels + ("cagra_fused",), build, totals)
+        moved = counts()
+        if info.get("algo") != route or moved["ivf_pq_scan.pair"]:
+            raise AssertionError(f"cagra {route} at {d0}: {info}, "
+                                 f"{moved['ivf_pq_scan.pair']} per-pair")
+        rec = edge_recall(knn, xc, d0, SEED + 2)
+        recall = neighborhood_recall(i, bi)
+        t_knn, t_opt, t_seeds, t_store, t = ts
+        log(f"cagra {route} at intermediate degree {d0} on "
+            f"{WIDE_CAGRA_ROWS} rows: knn_graph {t_knn:.3f} s, optimize "
+            f"{t_opt:.3f} s, seeds {t_seeds:.3f} s, edge store "
+            f"{t_store:.3f} s; kNN graph edge recall {rec:.6f}; fused "
+            f"search(itopk={ITOPK}) {t * 1e3:.1f} ms, recall@{K} "
+            f"{recall:.4f}; the kNN graph's stages on the card (calls, "
+            "seconds): " + ", ".join(f"{name} {n}, {sec:.3f} s" for name,
+                                     (n, sec) in stages.items()))
+        if route == "brute" and rec < 0.9999:
+            raise AssertionError(f"exact graph at {d0}: edge recall {rec}")
+        if rec < EDGE_MIN_RECALL:
+            raise AssertionError(f"{route} graph at {d0}: edge recall "
+                                 f"{rec:.4f} < {EDGE_MIN_RECALL}")
+        out[f"{route}_{d0}"] = dict(knn_graph_s=t_knn, optimize_s=t_opt,
+                                    edge_recall=rec, fused_recall=recall,
+                                    stages_s={name: sec for name, (_, sec)
+                                              in stages.items()})
+        del knn, i
+        torch.cuda.empty_cache()
+    return out
+
+
+def k2_wide(timer, bidx, q, launches) -> dict:
+    """K2's wide form (k > 256): equal to its plain version on integer
+    inputs at k = 257, 1,024 and 2,048 (l2, ip), close to it on the
+    path's data (values slot by slot, ids as sets) at k = 1,024 on
+    :data:`WIDE_CHECK_QUERIES` queries; timed at the brute-force path's
+    shape at each of :data:`WIDE_BF_KS` beside the plain version,
+    ``addmm`` + ``torch.topk`` at the same k and the 3xTF32 bound."""
+    x, norms = bidx.dataset, bidx.norms
+    rng = np.random.default_rng(SEED + 7)
+    qi = torch.from_numpy(rng.integers(-3, 4, (256, 32)).astype(
+        np.float32)).cuda()
+    xi = torch.from_numpy(rng.integers(-3, 4, (50_000, 32)).astype(
+        np.float32)).cuda()
+    for metric in ("l2", "ip"):
+        for k in (257, 1024, 2048):
+            check_equal(fk.fused_knn_plain(qi, xi, k, metric),
+                        fk.fused_knn(qi, xi, k, metric),
+                        f"K2 wide {metric} (256, 50000, 32) k={k}, integer "
+                        "inputs")
+    big = WIDE_BF_KS[-1]
+    sub = q[:WIDE_CHECK_QUERIES]
+    err = check_wide_k(*fk.fused_knn_plain(sub, x, big, "l2", norms),
+                       *fk.fused_knn(sub, x, big, "l2", norms),
+                       f"K2 wide l2 ({WIDE_CHECK_QUERIES} of {M} queries, "
+                       f"{N}, {D}) k={big}")
+    qn = fk.prepare_norms("l2", q)
+    dn = fk.prepare_norms("l2", x, norms)
+    times = {k: timer(lambda: fk.fused_knn_candidates(q, qn, x, dn, None, k,
+                                                      "l2"), reps=3)
+             for k in WIDE_BF_KS}
+    plain = timer(lambda: fk.fused_knn_plain(q, x, big, "l2", norms),
+                  reps=1, warmup=0)
+
+    def library():
+        for s0 in range(0, M, 1000):
+            dist = torch.addmm(norms[None, :], q[s0:s0 + 1000], x.T,
+                               alpha=-2.0)
+            torch.topk(dist, big, dim=1, largest=False)
+
+    lib = timer(library, reps=3)
+    splits = {k: fk._split_plan(M, N, k, D, "l2", x.device)[0]
+              for k in WIDE_BF_KS}
+    tf = 3 * 2.0 * M * N * D / TF32_FLOPS_PER_S * 1e3
+    # its least bytes: queries, rows and norms read once, each (query,
+    # split)'s k candidates written
+    t_bytes, _ = bound(M * D * 4 + N * (D + 1) * 4
+                       + M * splits[big] * big * 8, 0.0)
+    b, by = (t_bytes, "bytes") if t_bytes >= tf else (tf, "operations")
+    log(f"  K2 wide at ({M}, {N}, {D}): " + ", ".join(
+        f"k={k} {t:.2f} ms ({splits[k]} splits, buffers "
+        f"{fk.wide_scratch_bytes(M, splits[k], k) / 1e9:.2f} GB)"
+        for k, t in times.items())
+        + f"; bound {b:.2f} ms ({by}; 3xTF32 products {tf:.2f}, bytes "
+        f"{t_bytes:.2f}); plain {plain:.1f} ms; addmm + "
+        f"topk(k={big}) {lib:.1f} ms")
+    return dict(name="fused_knn.wide", route="cuda",
+                source="raft_tpu_torch/csrc/fused_knn.cuh",
+                replaces="raft_tpu/ops/fused_knn.py:336", launches=launches,
+                max_abs_err=err, ms=times[big], plain_ms=plain, bound_ms=b,
+                bound_by=by, bound_kind="3xTF32", library_ms=lib,
+                ms_by_k=times, splits_by_k=splits,
+                shape=f"({M}, {N}, {D}) k={big} l2, {splits[big]} corpus "
+                f"splits")
+
+
+def int_tensor(shape, seed):
+    """Integers in [-3, 3] of ``shape`` from ``seed``, float32 on the
+    card."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-3, 4, shape).astype(
+        np.float32)).cuda()
+
+
+def k3_wide_form(timer, iidx, q, launches) -> dict:
+    """The grouped K3 past k = 512 (its wide plan) on the path's IVF-Flat
+    index: against the plain version on :data:`WIDE_CHECK_QUERIES` queries
+    (values slot by slot, ids as sets) and, on an integer-valued copy of
+    the lists and queries, equal to it and, at k = 1,024, to the per-pair
+    form bit for bit; each pair's first 512 columns those of the plan at
+    512 on the path's data; timed at :data:`WIDE_IVF_KS` on all queries
+    beside the plain version and the bound (:func:`scan_bound`, 3xTF32)."""
+    probed = iscan.coarse_probe(q, iidx.centers, N_PROBES, "l2",
+                                iidx.center_norms).int()
+    lists = (iidx.offsets_dev, iidx.sizes_dev)
+    mq = WIDE_CHECK_QUERIES
+    qn = fk.prepare_norms("l2", q)
+    k = WIDE_IVF_KS[0]
+    args = (iidx.data, iidx.data_norms, probed[:mq], *lists, q[:mq], k, "l2")
+    err = check_wide_k(*iscan.ivf_flat_scan_plain(*args),
+                       *iscan.ivf_flat_scan(*args),
+                       f"K3 wide at k={k} ({mq} queries, n_probes="
+                       f"{N_PROBES})")
+    xi, qi = int_tensor(tuple(iidx.data.shape), SEED + 8), int_tensor(
+        (mq, D), SEED + 9)
+    ni = (xi * xi).sum(1)
+    iargs = (xi, ni, probed[:mq], *lists, qi)
+    check_equal(iscan.ivf_flat_scan_plain(*iargs, k, "l2"),
+                iscan.ivf_flat_scan(*iargs, k, "l2"),
+                f"K3 wide at k={k}, integer-valued lists and queries")
+
+    def cand(kk, form=None, a=(iidx.data, iidx.data_norms, q[:mq],
+                               qn[:mq])):
+        return iscan.ivf_flat_scan_candidates(
+            a[0], a[1], None, a[2], a[3], probed[:mq], *lists, kk, "l2",
+            form)
+
+    pk = iscan.PAIR_MAX_K
+    ia = (xi, ni, qi, fk.prepare_norms("l2", qi))
+    check_bits(cand(pk, "pair", ia), cand(pk, None, ia),
+               f"K3 wide at k={pk} against the per-pair form, integer-valued "
+               "lists (each pair's k columns)")
+    del xi, ni, qi, ia
+    wv, wi = cand(k)
+    sv, si = cand(iscan.GROUP_MAX_K)
+    p = probed.shape[1]
+    g = iscan.GROUP_MAX_K
+    check_bits((wv.view(mq, p, k)[:, :, :g].contiguous(),
+                wi.view(mq, p, k)[:, :, :g].contiguous()),
+               (sv.view(mq, p, g), si.view(mq, p, g)),
+               f"K3 wide at k={k}: each pair's first {g} columns against "
+               f"the plan at {g} ({mq} queries)")
+    del wv, wi, sv, si
+    times = {kk: timer(lambda: iscan.ivf_flat_scan_candidates(
+        iidx.data, iidx.data_norms, None, q, qn, probed, *lists, kk, "l2"),
+        reps=3) for kk in WIDE_IVF_KS}
+    plain = timer(lambda: iscan.ivf_flat_scan_plain(
+        iidx.data, iidx.data_norms, probed, *lists, q, k, "l2"), reps=1,
+        warmup=0)
+    sizes = iidx.sizes_dev.long()
+    scanned = int(sizes[probed.long()].sum())
+    distinct = int(sizes[torch.unique(probed)].sum())
+    b, by = scan_bound(distinct * (D + 1) * 4 + M * D * 4
+                       + M * N_PROBES * (4 + k * 8), scanned, D, 3)
+    # the library's plan and scratch against their Python statement
+    plan = iscan.group_plan_on_card("ivf_flat_scan", k, D)
+    lmax = iscan.largest_list(iidx.sizes_dev)
+    scratch = iscan.wide_scratch_on_card("ivf_flat_scan", k, D, lmax)
+    smem, a_res, ns = iscan.group_smem("ivf_flat_scan", k, D)
+    if (plan != (iscan.group_queries(k), a_res, ns, smem)
+            or scratch[0] != iscan.wide_scratch_bytes(scratch[1], lmax)):
+        raise AssertionError(f"K3 wide: the library's plan {plan} / "
+                             f"scratch {scratch} differ from group_smem's "
+                             "and wide_scratch_bytes'")
+    log(f"  K3 wide ({M} queries x {N_PROBES} probes): " + ", ".join(
+        f"k={kk} {t:.3f} ms" for kk, t in times.items())
+        + f"; plain at k={k} {plain:.1f} ms; bound {b:.4f} ms ({by}); plan "
+        f"(queries a group, query tile, stages, bytes) {plan}; scratch "
+        f"{scratch[0] / 1e6:.1f} MB, {scratch[1]} persistent blocks "
+        f"({scratch[2]} an SM)")
+    return dict(name="ivf_flat_scan.wide", route="cuda",
+                source="raft_tpu_torch/csrc/ivf_flat_scan.cuh",
+                replaces="raft_tpu/ops/ivf_scan.py:284", launches=launches,
+                max_abs_err=err, ms=times[k], plain_ms=plain, bound_ms=b,
+                bound_by=by, library_ms=None, ms_by_k=times, plan=plan,
+                scratch=scratch,
+                shape=f"{M} queries x {N_PROBES} probes, k={k}")
+
+
+def k4_wide_form(timer, pidx, q, pass_call, launches) -> dict:
+    """The grouped K4 past k = 512 (its wide plan selecting in rounds): on
+    the path's index (bf16 LUT) against the plain version on
+    :data:`WIDE_CHECK_QUERIES` queries and, each pair's first 512 columns,
+    the plan at 512; on an integer-valued copy of the graph pass's batch
+    equal to the plain version at k = 1,025 and to the per-pair form at
+    1,024; at the pass batches of intermediate degree 256 (k = 513,
+    ``cagra.pass_batch``'s rows) and 512 (k = 1,025) timed, the first in
+    both forms (the grouped must be faster); at the path's shape timed at
+    :data:`WIDE_IVF_KS` beside the plain version and the bound."""
+    q_rot = (q @ pidx.rotation.T).contiguous()
+    probed = iscan.coarse_probe(q_rot, pidx.centers_rot, N_PROBES, "l2",
+                                pidx.center_norms).int()
+    cb = ipq.lut_codebook(pidx.codebooks, "bf16").contiguous()
+    mq = WIDE_CHECK_QUERIES
+    k = WIDE_IVF_KS[0]
+
+    def args(m):
+        return (pidx.codes, pidx.row_norms, pidx.centers_rot, cb,
+                probed[:m], pidx.offsets_dev, pidx.sizes_dev, q_rot[:m])
+
+    err = check_wide_k(*ipq.ivf_pq_scan_plain(*args(mq), k),
+                       *ipq.ivf_pq_scan(*args(mq), k),
+                       f"K4 wide at k={k} ({mq} queries, bf16 LUT)")
+
+    def cand(a, kk, form=None, metric="l2"):
+        return ipq.ivf_pq_scan_candidates(
+            a[0], a[1].float().contiguous() if metric == "l2" else None,
+            None, a[3], a[2].float().contiguous(), a[7], a[4], a[5], a[6],
+            kk, metric, form)
+
+    g = iscan.GROUP_MAX_K
+    wv, wi = cand(args(mq), k)
+    sv, si = cand(args(mq), g)
+    check_bits((wv.view(mq, N_PROBES, k)[:, :, :g].contiguous(),
+                wi.view(mq, N_PROBES, k)[:, :, :g].contiguous()),
+               (sv.view(mq, N_PROBES, g), si.view(mq, N_PROBES, g)),
+               f"K4 wide at k={k}: each pair's first {g} columns against "
+               f"the plan at {g} ({mq} queries)")
+    del wv, wi, sv, si
+    # an integer-valued copy of the graph pass's batch (its codes, lists
+    # and probes; integer codebook with an entry of 127 a subspace, so the
+    # int8 LUT's scale is 1; integer centers and queries)
+    pa, _ = pass_call
+    pq_dim, book, pq_len = pa[3].shape
+    icb = int_tensor((pq_dim, book, pq_len), SEED + 10)
+    icb[:, 0, 0] = 127.0
+    centers = int_tensor(tuple(pa[2].shape), SEED + 11)
+    dn = ipq.decoded_row_norms(pa[0], centers, icb, np.append(
+        pa[5].cpu().numpy(), pa[0].shape[0]))
+    qi = int_tensor((mq, pa[7].shape[1]), SEED + 12)
+    ia = (pa[0], dn, centers, ipq.lut_codebook(icb, "int8"), pa[4][:mq],
+          pa[5], pa[6], qi)
+    for metric in ("l2", "ip"):
+        check_equal(ipq.ivf_pq_scan_plain(*ia, k, metric),
+                    ipq.ivf_pq_scan(*ia, k, metric),
+                    f"K4 wide at k={k}, {metric}, integer codebook/centers/"
+                    f"queries (the graph pass's codes and probes, {mq} "
+                    "queries)")
+        pk = iscan.PAIR_MAX_K
+        check_bits(cand(ia, pk, "pair", metric), cand(ia, pk, None, metric),
+                   f"K4 wide at k={pk} against the per-pair form, {metric}, "
+                   "integer copy (each pair's k columns)")
+    del dn, icb, centers, qi, ia
+    # the graph pass's batches past 256: its rows at degree 256 and 512
+    n_probes = pa[4].shape[1]
+    rows = {kk: cagra.pass_batch(CAGRA_BATCH, n_probes, kk)
+            for kk in (2 * 256 + 1, 2 * 512 + 1)}
+    pass_ms = {}
+    for kk, m in rows.items():
+        sub = list(pa)
+        sub[4], sub[7] = pa[4][:m], pa[7][:m]
+        pass_ms[kk] = timer(lambda: cand(sub, kk), reps=3)
+    kk, m = next(iter(rows.items()))
+    sub = list(pa)
+    sub[4], sub[7] = pa[4][:m], pa[7][:m]
+    pass_pair = timer(lambda: cand(sub, kk, "pair"), reps=1, warmup=1)
+    log(f"  K4 at the graph pass's batches past k=256: " + ", ".join(
+        f"k={kk} on {m} rows grouped {pass_ms[kk]:.3f} ms" for kk, m in
+        rows.items()) + f"; per-pair at k={kk} on {m} rows {pass_pair:.3f} "
+        "ms")
+    if pass_ms[kk] >= pass_pair:
+        raise AssertionError(f"K4 at the pass's k={kk}: grouped "
+                             f"{pass_ms[kk]:.3f} ms not below per-pair "
+                             f"{pass_pair:.3f} ms")
+    times = {kk: timer(lambda: cand(args(M), kk), reps=3)
+             for kk in WIDE_IVF_KS}
+    plain = timer(lambda: ipq.ivf_pq_scan_plain(*args(M), k), reps=1,
+                  warmup=0)
+    # the library's scratch at the path against its Python statement
+    lmax = iscan.largest_list(pidx.sizes_dev)
+    scratch = iscan.wide_scratch_on_card("ivf_pq_scan", k, q_rot.shape[1],
+                                         lmax)
+    if scratch[0] != iscan.wide_scratch_bytes(scratch[1], lmax):
+        raise AssertionError(f"K4 wide: the library's scratch {scratch} "
+                             "differs from wide_scratch_bytes'")
+    sizes = pidx.sizes_dev.long()
+    pl = probed.long()
+    pq_d, bk, pq_l = cb.shape
+    scanned = int(sizes[pl].sum())
+    b, by = scan_bound(int(sizes[torch.unique(pl)].sum()) * (pq_d + 4)
+                       + q_rot.numel() * 4 + pidx.centers_rot.numel() * 4
+                       + cb.numel() * 4 + pl.numel() * (4 + k * 8),
+                       scanned, pq_d * pq_l, tf32_products(cb),
+                       (M * 2 * pq_d * bk * pq_l, scanned * pq_d))
+    log(f"  K4 wide ({M} queries x {N_PROBES} probes, bf16 LUT): "
+        + ", ".join(f"k={kk} {t:.3f} ms" for kk, t in times.items())
+        + f"; plain at k={k} {plain:.1f} ms; bound {b:.4f} ms ({by}); "
+        f"scratch {scratch[0] / 1e6:.1f} MB, {scratch[1]} persistent "
+        f"blocks ({scratch[2]} an SM)")
+    return dict(name="ivf_pq_scan.wide", route="cuda",
+                source="raft_tpu_torch/csrc/ivf_pq_scan.cu",
+                replaces="raft_tpu/ops/ivf_pq_scan.py:290",
+                launches=launches, max_abs_err=err, ms=times[k],
+                plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
+                ms_by_k=times, pass_ms=pass_ms, pass_rows=rows,
+                pass_pair_ms=pass_pair,
+                shape=f"{M} queries x {N_PROBES} probes, pq_dim={PQ_DIM}, "
+                f"bf16 LUT, k={k}")
+
+
+def wide_k_phase(timer, x, q, bidx, iidx, pidx, sidx, pass_call, totals):
+    """The paths past the kernels' old limits (:func:`wide_paths`,
+    :func:`wide_cagra`), then the new forms against their plain versions
+    and timed (:func:`k2_wide`, :func:`k3_wide_form`,
+    :func:`k4_wide_form`) → their kernel rows, launches from the paths."""
+    _, bi = brute_force.search(bidx, q, K)
+    before = {kern: totals[kern] for kern in ("fused_knn.wide",
+                                              "ivf_flat_scan.wide",
+                                              "ivf_pq_scan.wide")}
+    paths = wide_paths(x, q, bidx, iidx, pidx, sidx, bi, totals)
+    routes = wide_cagra(x, q, bi, totals)
+    launches = {kern: totals[kern] - n for kern, n in before.items()}
+    rows = [k2_wide(timer, bidx, q, launches["fused_knn.wide"]),
+            k3_wide_form(timer, iidx, q, launches["ivf_flat_scan.wide"]),
+            k4_wide_form(timer, pidx, q, pass_call,
+                         launches["ivf_pq_scan.wide"])]
+    rows[0].update(search_ms=paths["brute_force"],
+                   int8_search_ms=paths["brute_force_int8"],
+                   cagra_routes=routes)
+    rows[1].update(search_ms=paths["ivf_flat"])
+    rows[2].update(search_ms=paths["ivf_pq"])
+    return rows
 
 
 def k6_itopk256(timer, call) -> dict:
@@ -3213,9 +3775,12 @@ def main() -> int:
                {**k4_phase(timer, pidx, q, moved["ivf_pq_scan"],
                            by_form(moved, "ivf_pq_scan")),
                 **k4_graph_pass(timer, k4_route, split_libs)}]
+    mark(t_start, "K2, K3 and K4 phases")
+    kernels += wide_k_phase(timer, x, q, bidx, iidx, pidx, sidx, k4_route,
+                            moved)
     del k4_route
     del iidx, pidx
-    mark(t_start, "K2, K3 and K4 phases")
+    mark(t_start, "wide-k phase")
     kernels += (k2_store_phase(timer, stores, moved, logs)
                 + k3_store_phase(timer, stores, moved,
                                  row_of(kernels, "ivf_flat_scan")["ms"]))

@@ -12,12 +12,13 @@
 // penalty row; rows outside the list masked; a per-pair top-k with ties
 // to the lower row.
 //
-// Two forms, chosen by k in the wrapper (ops/ivf_scan.py::scan_form).
+// Two forms: the wrapper takes the grouped one at every k
+// (ops/ivf_scan.py::scan_form) and the per-pair one by name.
 //
-// The grouped form (k <= 512, raft_ivf_pq_scan_group) keeps the TPU
+// The grouped form (every k, raft_ivf_pq_scan_group) keeps the TPU
 // kernel's grouping and its decode. One block of 8 warps owns one group
 // tile of the wrapper's pack_pairs (BM = 128 queries of one list for
-// k <= 64, 64 up to 256, 32 up to 512: K3's plans). It gathers the
+// k <= 64, 64 up to 256, 32 above: K3's plans). It gathers the
 // group's rotated queries into shared memory once (resident, split into
 // TF32 parts where they fit, else streamed beside each stage), and
 // computes q·c_l and ||q||² once per
@@ -58,8 +59,15 @@
 // warp a pair selects its k best at once (list_select.cuh: a radix select
 // on the keys' histogram, then one sort of at most 512 keys), in the
 // order of the streaming selection, so both plans give the same bits.
+// Past k = 512 the same plan selects in rounds of 512 keys
+// (list_select.cuh::select_rounds, its own instance of the kernel, so the
+// instance up to 512 compiles as before): the scratch does not grow with
+// k, and a pair's k columns of the output are all the selection writes.
+// So the grouped form takes every k (the JAX kernel pads each pair's list
+// to a multiple of 128 at any k); a pair with fewer taken rows than k
+// ends in (+inf, -1).
 //
-// The per-pair form (k up to 1024, raft_ivf_pq_scan_pair): one block of
+// The per-pair form (k up to 1024, by name, raft_ivf_pq_scan_pair): one block of
 // 256 threads owns one (query, probe) pair, the role of
 // ivf_pq_compute_similarity-inl.cuh:271 in the CUDA reference; it builds
 // the pair's lookup table lut[s][b] = Σ_l q[s·pq_len + l]·cb[s][b][l] in
@@ -77,6 +85,7 @@
 // cores) to read and decode each list once per group.
 #include "list_select.cuh"
 #include "tf32_tile.cuh"
+#include "wide_plan.cuh"
 
 // A diagnostic build switch of tools/scan_ab.py's split, 0 in every
 // library the port builds: 1 keeps the products and the epilogue's
@@ -368,11 +377,14 @@ ivf_pq_group_kernel(const uint8_t* __restrict__ codes,
 // stage_dots, epilogue) it repeats: one template over both changed the
 // narrow plans' register allocation and cost K4 at the path's k = 20
 // 2.4% on an H100 (tools/scan_ab.py), and kept apart the narrow plans
-// compile to the same SASS as before the wide plan existed.
+// compile to the same SASS as before the wide plan existed. ROUNDS: the
+// instance past k = 512, which selects in rounds. Its scratch, grid,
+// group loop and selection in rounds are wide_plan.cuh's, shared with
+// K3's wide plan.
 
-// The wide kernel's arguments: the grouped entry's, the next group's
-// counter and the blocks' distance rows (32 a block, stride floats apart).
-struct WideArgs {
+// The wide kernel's arguments: the frame (wide_plan.cuh), then the
+// grouped entry's.
+struct WideArgs : wide::Frame {
   const uint8_t* codes;
   const float* dn;
   const float* pen;
@@ -386,15 +398,9 @@ struct WideArgs {
   const int* gcount;
   const int* offsets;
   const int* sizes;
-  int n_groups, p, pq_dim, pq_len, book, k, metric, vec, a_res;
-  float* out_v;
-  int* out_i;
-  int* counter;
-  float* rows;
-  int stride;
+  int p, pq_dim, pq_len, book, k, metric, vec, a_res;
 };
 
-constexpr int kWideBM = 32;  // queries a group
 constexpr int kSides = 3;    // side buffer slots (see scan_wide)
 
 // The wide plan's shared memory beside its tiles at rot_dim d: the side
@@ -403,7 +409,7 @@ constexpr int kSides = 3;    // side buffer slots (see scan_wide)
 // range.
 inline size_t wide_side_bytes(int d) {
   const size_t nk = (d + BK - 1) / BK;
-  return sizeof(float) * kSides * 2 * BN + sizeof(int) * 6 * kWideBM +
+  return sizeof(float) * kSides * 2 * BN + sizeof(int) * 6 * wide::kBM +
          sizeof(int) * 2 * nk * BK;
 }
 
@@ -411,9 +417,10 @@ inline size_t wide_side_bytes(int d) {
 // tile loop as ivf_pq_group_kernel's, each finished tile's distances
 // written to the pairs' rows of the block's scratch with their key range;
 // then one warp a pair selects its k best (list_select.cuh).
+template <bool ROUNDS>
 __device__ __forceinline__ void scan_wide(const WideArgs& a, int gi, int cnt,
                                           float* smem) {
-  constexpr int BM = kWideBM;
+  constexpr int BM = wide::kBM;
   const int p = a.p, pq_dim = a.pq_dim, pq_len = a.pq_len, k = a.k;
   const int a_res = a.a_res;
   const int list = a.glist[gi];
@@ -651,7 +658,7 @@ __device__ __forceinline__ void scan_wide(const WideArgs& a, int gi, int cnt,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = wm * 16 + g + 8 * h;
-      float* dst = a.rows + ((size_t)blockIdx.x * BM + r) * a.stride +
+      float* dst = wide::block_row(a, r) +
                    tile * BN + wn * 32 + 2 * t4;
       unsigned lo = lsel::kNone, hi = 0u;
 #pragma unroll
@@ -688,28 +695,25 @@ __device__ __forceinline__ void scan_wide(const WideArgs& a, int gi, int cnt,
   const int n = c_end - c_begin;
   for (int r = warp; r < cnt; r += kThreads / 32) {
     const size_t o = (size_t)pairs[r] * k;
-    lsel::select_row(a.rows + ((size_t)blockIdx.x * BM + r) * a.stride, n,
-                     key_lo[r], key_hi[r], k, ws, a.out_v + o, a.out_i + o,
-                     c_begin, lane);
+    const float* row = wide::block_row(a, r);
+    if constexpr (ROUNDS) {
+      wide::select_pair(a, row, n, k, o, c_begin, ws, lane);
+    } else {
+      lsel::select_row(row, n, key_lo[r], key_hi[r], k, ws, a.out_v + o,
+                       a.out_i + o, c_begin, lane);
+    }
   }
 #endif
 }
 
-// Persistent blocks, two an SM, each with its 32 distance rows; a block
-// takes groups blockIdx.x, then the counter's.
+// Persistent blocks, two an SM, each with its 32 distance rows.
+template <bool ROUNDS>
 __global__ void __launch_bounds__(kThreads, 2)
 ivf_pq_wide_kernel(const WideArgs a) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ int next;
-  int gi = blockIdx.x;
-  while (gi < a.n_groups) {
-    const int cnt = a.gcount[gi];
-    if (cnt <= 0) break;  // past the live groups, which come first
-    scan_wide(a, gi, cnt, smem);
-    if (threadIdx.x == 0) next = atomicAdd(a.counter, 1) + gridDim.x;
-    __syncthreads();
-    gi = next;
-  }
+  wide::for_each_group(a, a.gcount, [&](int gi, int cnt) {
+    scan_wide<ROUNDS>(a, gi, cnt, smem);
+  });
 }
 
 struct Plan {
@@ -739,14 +743,15 @@ cudaError_t prepare(int k, int d, Plan* p) {
 // The wide plan: 32 queries a group; the tiles (the first layout of
 // fit_tiles that leaves room for two blocks an SM, else one) share their
 // space with the warps' selection space, whichever is larger; beside the
-// dynamic bytes, one 128-byte unit of static ones (the next group).
-constexpr size_t kTwoBlocks = 115712;  // (233,472 - 2 x 1 KB reserved) / 2
-constexpr size_t kStaticUnit = 128;
-cudaError_t prepare_wide(int d, Plan* p) {
-  constexpr int BM = kWideBM;
+// dynamic bytes, one 128-byte unit of static ones (the next group;
+// tf32_tile.cuh::kTwoBlocks). The instance past k = 512 selects in
+// rounds; the layout is the same.
+cudaError_t prepare_wide(int k, int d, Plan* p) {
+  constexpr int BM = wide::kBM;
   constexpr size_t kSel = (kThreads / 32) * lsel::kWarpBytes;
   const size_t nk = (d + BK - 1) / BK;
-  p->kern = (const void*)ivf_pq_wide_kernel;
+  p->kern = k > lsel::kCap ? (const void*)ivf_pq_wide_kernel<true>
+                           : (const void*)ivf_pq_wide_kernel<false>;
   p->bm = BM;
   p->wide = true;
   p->smem = 0;
@@ -773,37 +778,14 @@ cudaError_t prepare_wide(int d, Plan* p) {
 
 // By k, as K3 (ivf_flat_scan.cuh::plan_for, whose comment gives the
 // plans; ops/ivf_scan.py::group_plan and group_smem state them in
-// Python); past 256 K4's own plan.
+// Python); past 256 K4's own plan, at every k.
 cudaError_t plan_for(int k, int d, Plan* p) {
   if (k <= 32) return prepare<4, 1, 32>(k, d, p);
   if (k <= 64) return prepare<4, 2, 64>(k, d, p);
   if (k <= 128) return prepare<2, 4, 128>(k, d, p);
   if (k <= 256) return prepare<2, 8, 64>(k, d, p);
-  return prepare_wide(d, p);
+  return prepare_wide(k, d, p);
 }
-
-// The wide plan's persistent grid on the current card: blocks an SM and
-// in all.
-cudaError_t wide_blocks(const Plan& pl, int* per_sm, int* blocks) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, pl.kern,
-                                                      kThreads, pl.smem);
-  if (err != cudaSuccess) return err;
-  if (*per_sm < 1) return cudaErrorInvalidConfiguration;
-  *blocks = *per_sm * sms;
-  return cudaSuccess;
-}
-
-// Bytes of the wide plan's scratch: the counter, then 32 rows of
-// `stride` floats a block.
-inline size_t wide_scratch(int blocks, int stride) {
-  return 256 + sizeof(float) * (size_t)blocks * 32 * stride;
-}
-inline int row_stride(int lmax) { return (lmax + BN - 1) / BN * BN; }
 
 // ---- the per-pair form ----
 
@@ -950,7 +932,7 @@ ivf_pq_pair_kernel(const uint8_t* __restrict__ codes,
 // pairs by list id; group g of the n_groups (pack_pairs) scans list
 // glist[g] for the gcount[g] pairs order[gstart[g] ...] (none past the
 // live groups); qg must be the form's rows for k (128 up to k = 64, 64
-// up to 256, 32 up to 512). 1 <= k <= 512. Past k = 256 scratch holds
+// up to 256, 32 above). k >= 1. Past k = 256 scratch holds
 // raft_ivf_pq_scan_group_scratch(k, d, lmax) bytes of device memory and
 // no list is longer than lmax rows (below, scratch may be null).
 extern "C" int raft_ivf_pq_scan_group(
@@ -962,9 +944,7 @@ extern "C" int raft_ivf_pq_scan_group(
     int book, int k, int metric, int lmax, void* out_v, void* out_i,
     void* stream) {
   const int d = pq_dim * pq_len;
-  if (k < 1 || k > kGroupMaxK || d < 1 || n_groups < 0) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (k < 1 || d < 1 || n_groups < 0) return (int)cudaErrorInvalidValue;
   Plan pl;
   cudaError_t err = plan_for(k, d, &pl);
   if (err != cudaSuccess) return (int)err;
@@ -976,23 +956,16 @@ extern "C" int raft_ivf_pq_scan_group(
   cudaStream_t s = (cudaStream_t)stream;
   const int vec = d % 4 == 0 && (uintptr_t)q % 16 == 0;
   if (pl.wide) {
-    int per_sm = 0, blocks = 0;
-    err = wide_blocks(pl, &per_sm, &blocks);
-    if (err != cudaSuccess) return (int)err;
-    WideArgs a{(const uint8_t*)codes, (const float*)dn, (const float*)pen,
-               (const float*)cb, (const float*)centers, (const float*)q,
-               (const int*)exact, (const int*)order, (const int*)glist,
-               (const int*)gstart, (const int*)gcount, (const int*)offsets,
-               (const int*)sizes, n_groups, p, pq_dim, pq_len, book, k,
-               metric, vec, pl.a_res, (float*)out_v, (int*)out_i,
-               (int*)scratch, (float*)((char*)scratch + 256),
-               row_stride(lmax)};
-    void* args[] = {(void*)&a};
-    err = cudaMemsetAsync(scratch, 0, sizeof(int), s);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaLaunchKernel(pl.kern, dim3(n_groups < blocks ? n_groups
-                                                           : blocks),
-                           dim3(kThreads), args, pl.smem, s);
+    const WideArgs a{wide::frame(n_groups, out_v, out_i, scratch, lmax),
+                     (const uint8_t*)codes, (const float*)dn,
+                     (const float*)pen, (const float*)cb,
+                     (const float*)centers, (const float*)q,
+                     (const int*)exact, (const int*)order,
+                     (const int*)glist, (const int*)gstart,
+                     (const int*)gcount, (const int*)offsets,
+                     (const int*)sizes, p, pq_dim, pq_len, book, k, metric,
+                     vec, pl.a_res};
+    err = wide::launch(pl.kern, pl.smem, a, s);
   } else {
     void* args[] = {(void*)&codes,  (void*)&dn,     (void*)&pen,
                     (void*)&cb,     (void*)&centers, (void*)&q,
@@ -1013,7 +986,7 @@ extern "C" int raft_ivf_pq_scan_group(
 // queries a group, the query tile's layout (a_res), the ring's stages and
 // the shared memory of a block.
 extern "C" int raft_ivf_pq_scan_group_plan(int k, int d, int* out) {
-  if (k < 1 || k > kGroupMaxK || d < 1) return (int)cudaErrorInvalidValue;
+  if (k < 1 || d < 1) return (int)cudaErrorInvalidValue;
   Plan pl;
   const cudaError_t err = plan_for(k, d, &pl);
   if (err != cudaSuccess) return (int)err;
@@ -1029,25 +1002,18 @@ extern "C" int raft_ivf_pq_scan_group_plan(int k, int d, int* out) {
 // out[2] = the blocks an SM keeps resident (0 and 0 below k = 257).
 extern "C" int raft_ivf_pq_scan_group_scratch(int k, int d, int lmax,
                                               long long* out) {
-  if (k < 1 || k > kGroupMaxK || d < 1 || lmax < 0) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (k < 1 || d < 1 || lmax < 0) return (int)cudaErrorInvalidValue;
   Plan pl;
   cudaError_t err = plan_for(k, d, &pl);
   if (err != cudaSuccess) return (int)err;
   out[0] = out[1] = out[2] = 0;
   if (!pl.wide) return 0;
-  int per_sm = 0, blocks = 0;
-  err = wide_blocks(pl, &per_sm, &blocks);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = (long long)wide_scratch(blocks, row_stride(lmax > 0 ? lmax : 1));
-  out[1] = blocks;
-  out[2] = per_sm;
-  return 0;
+  return (int)wide::scratch_info(pl.kern, pl.smem, lmax, out);
 }
 
 // The per-pair form: probed is (m, p), order a permutation of the m*p
-// pairs (the launch order); k up to 1024.
+// pairs (the launch order); k up to 1024 (its k-list in shared memory
+// beside the LUT; the wrapper checks).
 extern "C" int raft_ivf_pq_scan_pair(const void* codes, const void* dn,
                                      const void* pen, const void* cb,
                                      const void* centers, const void* q,

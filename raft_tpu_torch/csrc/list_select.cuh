@@ -29,6 +29,21 @@
 // the lower row, -0.0 ties with 0.0 (so the order key of -0.0 is 0.0's,
 // and the value written is the one the scan computed), and short or empty
 // lists end in (+inf, -1). So the two give the same bits.
+//
+// Past kCap (select_rounds; K3 and K4 past k = 512, K2's candidate
+// buffers past k = 256): the same order over 64-bit keys, a distance's
+// order bits over 32 bits that are unique within the list and order its
+// ties (K3/K4: the row; K2: the column and a -0.0 flag), so no two keys
+// are equal. The k best come in rounds of at most kCap keys: a round
+// finds the range of the keys after the last one written (its floor),
+// the bucket of its c-th key (c <= kCap) by the same 10-bit histogram
+// passes (until the bucket and the keys below it fit kCap, or the bucket
+// is one key), gathers them, sorts them in registers and writes the
+// first c. Nothing leaves the warp's shared memory but what the output
+// slots take, so the selection needs no buffer of its own at any k; a
+// round costs a few reads of the list, so k keys cost about k / 512
+// times the reads of one round. K2 also keeps its candidate buffers to a
+// bound with the same passes (shrink_buffer).
 #pragma once
 
 #include "topk_common.cuh"
@@ -303,6 +318,264 @@ __device__ __forceinline__ void select_row(const float* d, int n,
     out_i[e] = real ? c_begin + (int)pos : -1;
   }
   __syncwarp();  // every lane is done with ws before the next pair
+}
+
+// ---- past kCap: rounds over 64-bit keys ----
+
+typedef unsigned long long Key64;
+constexpr Key64 kNone64 = ~0ull;  // no key: never taken
+
+// The bits of key above bit sh (sh <= 64).
+__device__ __forceinline__ Key64 above64(Key64 key, int sh) {
+  return sh >= 64 ? 0ull : key >> sh;
+}
+
+// A pair's distance row as keys: (order bits, row), kNone64 for +inf and
+// NaN.
+struct RowKeys {
+  const float* d;
+  __device__ __forceinline__ Key64 operator()(int i) const {
+    const unsigned key = order_key(d[i]);
+    return key == kNone ? kNone64 : ((Key64)key << 32) | (unsigned)i;
+  }
+};
+
+// A candidate buffer of (value, column) pairs as keys: (order bits,
+// column, -0.0 flag); every value in it is taken.
+struct BufferKeys {
+  const float* v;
+  const int* c;
+  __device__ __forceinline__ Key64 operator()(int i) const {
+    const float x = v[i];
+    return ((Key64)order_key(x) << 32) | ((unsigned)c[i] << 1) |
+           (__float_as_uint(x) == 0x80000000u ? 1u : 0u);
+  }
+};
+
+// The value and column of a BufferKeys key, bit for bit.
+__device__ __forceinline__ float buffer_value(Key64 key) {
+  if (key & 1ull) return -0.f;
+  const unsigned ok = (unsigned)(key >> 32);
+  return __uint_as_float((ok & 0x80000000u) ? (ok & 0x7fffffffu) : ~ok);
+}
+__device__ __forceinline__ int buffer_column(Key64 key) {
+  return (int)((unsigned)key >> 1);
+}
+
+__device__ __forceinline__ Key64 warp_min64(Key64 x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    x = min(x, __shfl_xor_sync(RAFT_FULL_MASK, x, off));
+  }
+  return x;
+}
+__device__ __forceinline__ Key64 warp_max64(Key64 x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    x = max(x, __shfl_xor_sync(RAFT_FULL_MASK, x, off));
+  }
+  return x;
+}
+
+// One read of keys [0, n): how many come after floor, the least and the
+// greatest of them.
+template <class Keys>
+__device__ __forceinline__ void key_range(const Keys& keys, int n,
+                                          Key64 floor, int lane, int& count,
+                                          Key64& lo, Key64& hi) {
+  int c = 0;
+  Key64 l = kNone64, h = 0ull;
+  for (int i = lane; i < n; i += 32) {
+    const Key64 key = keys(i);
+    if (key != kNone64 && key > floor) {
+      ++c;
+      l = min(l, key);
+      h = max(h, key);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    c += __shfl_xor_sync(RAFT_FULL_MASK, c, off);
+  }
+  count = c;
+  lo = warp_min64(l);
+  hi = warp_max64(h);
+}
+
+// The bucket (the keys whose bits above sh are pre) that holds the c-th
+// key after floor (1 <= c <= their count, [lo, hi] their range): less of
+// them lie below it and count in it, less + count <= fit unless the
+// bucket is one key (sh = 0). hist: kBins words of shared memory.
+struct Bucket {
+  Key64 pre;
+  int sh, less, count;
+};
+template <class Keys>
+__device__ __forceinline__ Bucket find_bucket(const Keys& keys, int n,
+                                              Key64 floor, Key64 lo, Key64 hi,
+                                              int c, int fit, unsigned* hist,
+                                              int lane) {
+  Bucket b{0ull, 0, 0, 1};
+  if (lo == hi) {  // one key: keys are unique
+    b.pre = lo;
+    return b;
+  }
+  int sh = 64 - __clzll(lo ^ hi);
+  Key64 pre = above64(lo, sh);
+  int less = 0, krem = c, bucket = 0;
+  for (;;) {
+    const int nb = sh < kDigit ? sh : kDigit;
+    const int sh2 = sh - nb;
+    for (int i = lane; i < kBins / 4; i += 32) {
+      reinterpret_cast<uint4*>(hist)[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    __syncwarp();
+    for (int i = lane; i < n; i += 32) {
+      const Key64 key = keys(i);
+      if (key != kNone64 && key > floor && above64(key, sh) == pre) {
+        atomicAdd(&hist[(unsigned)(key >> sh2) & ((1u << nb) - 1u)], 1u);
+      }
+    }
+    __syncwarp();
+    // lane l sums bins [32l, 32l + 32)
+    int own = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint4 h = reinterpret_cast<const uint4*>(hist)[lane * 8 + j];
+      own += (int)(h.x + h.y + h.z + h.w);
+    }
+    const int incl = warp_incl(own, lane);
+    const int hit = __ffs(__ballot_sync(RAFT_FULL_MASK, incl >= krem)) - 1;
+    int dig = 0, before = 0, cnt = 0;
+    if (lane == hit) {
+      int acc = incl - own;
+      for (int j = 0; j < 32; ++j) {
+        const int h = (int)hist[32 * hit + j];
+        if (acc + h >= krem) {
+          dig = 32 * hit + j;
+          before = acc;
+          cnt = h;
+          break;
+        }
+        acc += h;
+      }
+    }
+    dig = __shfl_sync(RAFT_FULL_MASK, dig, hit);
+    before = __shfl_sync(RAFT_FULL_MASK, before, hit);
+    bucket = __shfl_sync(RAFT_FULL_MASK, cnt, hit);
+    less += before;
+    krem -= before;
+    pre = (pre << nb) | (Key64)dig;
+    sh = sh2;
+    __syncwarp();  // the bins are read before the next pass zeroes them
+    if (sh == 0 || less + bucket <= fit) break;
+  }
+  b.pre = pre;
+  b.sh = sh;
+  b.less = less;
+  b.count = bucket;
+  return b;
+}
+
+// The keys after floor whose bits above sh are at most pre, to cand in
+// the warp's read order; returns how many.
+template <class Keys>
+__device__ __forceinline__ int gather_keys(const Keys& keys, int n,
+                                           Key64 floor, Key64 pre, int sh,
+                                           Key64* cand, int lane) {
+  int total = 0;
+  for (int base = 0; base < n; base += 32) {
+    const int i = base + lane;
+    const Key64 key = i < n ? keys(i) : kNone64;
+    const bool take = key != kNone64 && key > floor && above64(key, sh) <= pre;
+    const unsigned ball = __ballot_sync(RAFT_FULL_MASK, take);
+    if (take) cand[total + __popc(ball & ((1u << lane) - 1u))] = key;
+    total += __popc(ball);
+  }
+  return total;
+}
+
+// The k best of keys [0, n), sorted, by one warp in rounds of at most
+// kCap (the header's rule past kCap): emit(slot, key) for each slot a key
+// fills, none(slot) for the slots past the keys. ws: the warp's
+// kWarpBytes of shared memory.
+template <class Keys, class Emit, class None>
+__device__ __forceinline__ void select_rounds(const Keys& keys, int n, int k,
+                                              unsigned char* ws,
+                                              const Emit& emit,
+                                              const None& none, int lane) {
+  Key64* cand = reinterpret_cast<Key64*>(ws);
+  unsigned* hist = reinterpret_cast<unsigned*>(ws + kCap * 8);
+  Key64 floor = 0ull;  // below every key
+  int done = 0;
+  while (done < k) {
+    int count;
+    Key64 lo, hi;
+    key_range(keys, n, floor, lane, count, lo, hi);
+    if (count == 0) break;
+    const int c = min(kCap, k - done);
+    Key64 pre = 0ull;
+    int sh = 64;  // count <= kCap: every key after floor
+    if (count > kCap) {
+      const Bucket b = find_bucket(keys, n, floor, lo, hi, c, kCap, hist,
+                                   lane);
+      pre = b.pre;
+      sh = b.sh;
+    }
+    const int got = gather_keys(keys, n, floor, pre, sh, cand, lane);
+    __syncwarp();
+    sort_keys(cand, got, lane);
+    __syncwarp();
+    const int t = min(c, got);
+    for (int e = lane; e < t; e += 32) emit(done + e, cand[e]);
+    floor = cand[t - 1];
+    __syncwarp();  // cand is read before the next round writes it
+    done += t;
+    if (count <= c) break;  // every key is written
+  }
+  for (int e = done + lane; e < k; e += 32) none(e);
+  __syncwarp();
+}
+
+// Keep the k best keys of a candidate buffer (v, c)[0, n) (k < n) and
+// those of their bucket, at most fit in all (the k-th key's bucket as
+// find_bucket leaves it): the buffer compacted in place, in order.
+// Returns the count kept; thr becomes the bucket's end, below which every
+// kept key lies and no other key of the buffer (a later candidate at or
+// past it cannot be among the k best).
+__device__ __forceinline__ int shrink_buffer(float* v, int* c, int n, int k,
+                                             int fit, unsigned* hist,
+                                             Key64& thr, int lane) {
+  const BufferKeys keys{v, c};
+  int count;
+  Key64 lo, hi;
+  key_range(keys, n, 0ull, lane, count, lo, hi);
+  const Bucket b = find_bucket(keys, n, 0ull, lo, hi, k, fit, hist, lane);
+  // the end of the bucket: (pre + 1) << sh, or no bound if that wraps
+  const Key64 end = b.sh >= 64 ? 0ull : (b.pre + 1ull) << b.sh;
+  thr = end == 0ull ? kNone64 : end;
+  int kept = 0;
+  for (int base = 0; base < n; base += 32) {
+    const int i = base + lane;
+    float x = 0.f;
+    int col = 0;
+    bool take = false;
+    if (i < n) {
+      x = v[i];
+      col = c[i];
+      take = keys(i) < thr;
+    }
+    const unsigned ball = __ballot_sync(RAFT_FULL_MASK, take);
+    __syncwarp();  // this chunk is read before it is written over
+    if (take) {
+      const int o = kept + __popc(ball & ((1u << lane) - 1u));
+      v[o] = x;
+      c[o] = col;
+    }
+    kept += __popc(ball);
+  }
+  __syncwarp();
+  return kept;
 }
 
 }  // namespace lsel

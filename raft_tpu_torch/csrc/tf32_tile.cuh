@@ -52,6 +52,11 @@ constexpr int kThreads = 256;  // 8 warps: 2 along the queries x 4 the rows
 constexpr size_t kSmemLimit = 232448;  // a block's shared memory on sm_90
 // the widest k-list of the grouped K3 and K4 (ops/ivf_scan.py, GROUP_MAX_K)
 constexpr int kGroupMaxK = 512;
+// the wide plans (K4 past k = 256, K3 past 512, K2 past 256): a block's
+// bytes where two fit an SM, (233,472 - 2 x 1 KB reserved) / 2, and the
+// 128-byte unit the static bytes beside the dynamic ones take
+constexpr size_t kTwoBlocks = 115712;
+constexpr size_t kStaticUnit = 128;
 
 // The stores a tile may hold: the element type as stored and its bytes.
 enum StoreKind : int { kF32 = 0, kBF16 = 1, kI8 = 2, kU8 = 3, kI4 = 4 };

@@ -164,8 +164,8 @@ def search(index: Index, queries, k: int,
     ``algo``: "auto" or "pallas" — K2 + the K1 merge on CUDA, their
     plain versions on the CPU; "matmul" — the plain engine (GEMM + norms
     + stable sort) on any device. ``query_chunk``: run queries in chunks
-    of this many rows. On CUDA the kernel takes k <= 256
-    (``fused_knn.MAX_K``: its per-query lists live in shared memory)."""
+    of this many rows. On CUDA the kernel takes every k <= the index's
+    size (past ``fused_knn.LIST_MAX_K`` its wide form)."""
     q = torch.as_tensor(queries).to(device=index.device,
                                     dtype=torch.float32)
     expects(q.dim() == 2 and q.shape[1] == index.dim,

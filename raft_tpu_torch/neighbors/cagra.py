@@ -70,7 +70,8 @@ from . import brute_force, ivf_pq, refine
 from .ivf_pq import _kmeans_fixed
 
 __all__ = ["BuildAlgo", "IndexParams", "SearchParams", "Index", "EdgeStore",
-           "ENGINES", "BRUTE_N", "build", "build_knn_graph", "optimize",
+           "ENGINES", "BRUTE_N", "PASS_BUDGET", "pass_batch", "build",
+           "build_knn_graph", "optimize",
            "build_covering_seeds", "prepare_search", "prepare_traversal",
            "search", "tune_search", "resolve_engine"]
 
@@ -78,6 +79,10 @@ ENGINES = ("gather", "edge", "fused")
 # knn_graph_algo="auto": the exact graph up to this many rows, NN-descent
 # above (the JAX package's default crossover)
 BRUTE_N = 200_000
+# the IVF-PQ graph pass's per-pair candidates (batch x probes x (2k + 1)
+# values and rows, 8 bytes a key) stay within this many bytes: its batch
+# shrinks as k grows (32,768 rows at the defaults' k = 2·128 + 1)
+PASS_BUDGET = 9 << 29
 _METRICS = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
             DistanceType.InnerProduct)
 _INF = float("inf")
@@ -247,6 +252,16 @@ def _resolve_graph_algo(n: int, dim: int, k: int, algo: str,
     return "nn_descent" if nnd.supports(mt) else "ivf_pq"
 
 
+def pass_batch(batch: int, n_probes: int, gpu_k: int) -> int:
+    """The IVF-PQ graph pass's rows a batch: ``batch``, or fewer (a
+    multiple of 1,024, at least 1,024) so that the scan's per-pair
+    candidates, ``batch x n_probes x gpu_k`` values and rows of 8 bytes,
+    stay within :data:`PASS_BUDGET`. Batching does not change the
+    graph."""
+    fit = PASS_BUDGET // (8 * n_probes * gpu_k)
+    return min(batch, max(1024, fit // 1024 * 1024))
+
+
 def build_knn_graph(dataset, k: int, metric=DistanceType.L2Expanded,
                     seed: int = 0, batch: int = 32768, algo: str = "auto",
                     nnd_rounds: int = nnd.ROUNDS, init_graph=None,
@@ -267,7 +282,9 @@ def build_knn_graph(dataset, k: int, metric=DistanceType.L2Expanded,
     * ``"ivf_pq"`` — the reference's pass: an IVF-PQ index (4-bit codes,
       pq_dim = min(dim, 4 x the default), 2·√n lists in [16, 1024])
       searched for 2k + 1 candidates a row (int8 LUT), refined exactly
-      to k + 1 on a bf16 copy of the rows;
+      to k + 1 on a bf16 copy of the rows; ``batch`` shrinks (by 1,024
+      rows) so that the scan's per-pair candidates stay within
+      :data:`PASS_BUDGET`;
     * ``"auto"`` — see :func:`_resolve_graph_algo`.
 
     ``info``: a dict to which the builder that ran is written
@@ -308,6 +325,7 @@ def build_knn_graph(dataset, k: int, metric=DistanceType.L2Expanded,
                                  lut_dtype="int8")
         gpu_k = min(n, 2 * k + 1)   # refine rate 2, room for the self match
         x_bf16 = x.to(torch.bfloat16)
+        batch = pass_batch(batch, sp.n_probes, gpu_k)
 
         def step(rows):
             qb = x[rows]

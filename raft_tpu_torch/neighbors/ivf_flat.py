@@ -210,7 +210,8 @@ def search(index: Index, queries, k: int,
     exact top-k over their members → (distances (m, k), int32 source ids
     (m, k)); slots past the candidates hold (+inf, -1) (-inf for inner
     product). ``query_chunk``: run queries in chunks of this many rows.
-    On CUDA the scan kernel takes k <= 1024."""
+    On CUDA the scan kernel's grouped form takes every k (past 512 its
+    wide plan)."""
     p = params or SearchParams()
     q = torch.as_tensor(queries).to(device=index.device, dtype=torch.float32)
     expects(q.dim() == 2 and q.shape[1] == index.dim,

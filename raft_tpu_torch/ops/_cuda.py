@@ -55,12 +55,15 @@ _SIGNATURES = {
     },
     **{lib: {
         "raft_fused_knn": ([_P] * 6 + [_I] * 7 + [_P] * 3, _I),
+        "raft_fused_knn_wide": ([_P] * 6 + [_I] * 8 + [_P] * 4, _I),
         "raft_fused_knn_slots": ([_I, _I, _I, _I], _I),
     } for lib in STORE_SOURCES["fused_knn"].values()},
     **{lib: {
         "raft_ivf_flat_scan_group": ([_P] * 12 + [_I] * 6 + [_P] * 3, _I),
         "raft_ivf_flat_scan_pair": ([_P] * 10 + [_I] * 5 + [_P] * 3, _I),
         "raft_ivf_flat_scan_group_plan": ([_I, _I, _P], _I),
+        "raft_ivf_flat_scan_wide": ([_P] * 13 + [_I] * 7 + [_P] * 3, _I),
+        "raft_ivf_flat_scan_wide_scratch": ([_I, _I, _I, _P], _I),
     } for lib in STORE_SOURCES["ivf_flat_scan"].values()},
     "ivf_pq_scan": {
         "raft_ivf_pq_scan_group": ([_P] * 14 + [_I] * 9 + [_P] * 3, _I),

@@ -8,7 +8,12 @@ row). The order is (value, smallest column); empty slots are (+inf, -1).
 
 On a CUDA tensor it launches K2 over query tiles x corpus splits
 (:func:`fused_knn_candidates`) and, when the corpus was split, merges the
-splits' candidates with K1. K2 forms the distance block on the tensor
+splits' candidates with K1. It takes every k <= n, as the JAX kernel
+does: up to :data:`LIST_MAX_K` = 256 each block keeps its queries'
+k-lists in shared memory; past it the wide form keeps each query's
+candidates in a buffer of :func:`wide_cap` keys a split in device memory
+(a scratch from ``torch.empty`` a call) behind a bound in shared memory,
+and selects each split's k once at its end. K2 forms the distance block on the tensor
 cores as 3xTF32 (each f32 operand split into two TF32 parts, three
 products summed in f32), the counterpart of the JAX package's
 ``precision="highest"``. On a CPU tensor it takes the plain version,
@@ -40,13 +45,19 @@ from .quant import STORES, int4_nibbles, store_dtype
 
 __all__ = ["fused_knn", "fused_knn_plain", "fused_knn_candidates",
            "prepare_norms", "corpus_norms", "store_sq_norms", "store_of",
-           "kernel_queries", "block_queries", "split_plan", "MAX_K"]
+           "kernel_queries", "block_queries", "split_plan", "wide_cap",
+           "wide_scratch_bytes", "LIST_MAX_K", "WIDE_BUDGET"]
 
 launches = 0   # K2 launches since the last reset, every store's form
+wide_launches = 0   # of them, the wide form's (k > LIST_MAX_K)
 # of them, each low-precision store's form
 launches_bfloat16 = launches_int8 = launches_uint8 = launches_int4 = 0
 
-MAX_K = 256    # a K2 block keeps its queries' k-lists in shared memory
+LIST_MAX_K = 256  # up to it a K2 block keeps its queries' k-lists in
+                  # shared memory; past it the wide form
+# the wide form's candidates (m x splits·k) and buffers (m x splits·cap,
+# cap about 2k) at most this many bytes: splits shrink as k grows
+WIDE_BUDGET = 2 << 30
 _TN = 128      # K2's corpus tile
 _METRIC_CODE = {"l2": 0, "cos": 1, "ip": 2}
 
@@ -190,13 +201,32 @@ def block_queries(k: int) -> int:
     return 128 if k <= 64 else 64
 
 
+def wide_cap(k: int) -> int:
+    """Keys of a wide K2 candidate buffer (one a query and split): 2k
+    rounded up to the 128-row tile, so a buffer shrunk to its k best has
+    room for another tile's 128 keys (``csrc/fused_knn.cuh``)."""
+    return round_up_to(2 * k, _TN)
+
+
+def wide_scratch_bytes(m: int, splits: int, k: int) -> int:
+    """The wide form's candidate buffers for one launch: a value and a
+    column, 8 bytes, for each of :func:`wide_cap` keys a (query, split)."""
+    return 8 * m * splits * wide_cap(k)
+
+
 def split_plan(m: int, n: int, k: int, slots: int) -> Tuple[int, int]:
     """(splits, rows per split) of K2's grid on a card that keeps ``slots``
     of its blocks resident: about 4 waves of blocks, the split count taken
     in [half, twice] that aim where the last wave is fullest (the fewest
-    splits among equals), at least 4 tiles a split."""
+    splits among equals), at least 4 tiles a split. Past
+    :data:`LIST_MAX_K` also at least 2k rows a split, and the wide form's
+    candidates and buffers (``m·splits·(k + wide_cap(k))`` keys of 8
+    bytes) within :data:`WIDE_BUDGET`."""
     tiles = cdiv(m, block_queries(k))
     most = max(1, cdiv(n, 4 * _TN))
+    if k > LIST_MAX_K:
+        most = max(1, min(most, n // (2 * k),
+                          WIDE_BUDGET // max(1, 8 * m * (k + wide_cap(k)))))
     aim = max(1, min(most, cdiv(4 * slots, tiles)))
     best, fill = (1, round_up_to(n, _TN)), -1.0
     for s in range(max(1, aim // 2), min(most, 2 * aim) + 1):
@@ -238,7 +268,7 @@ def fused_knn_candidates(q: torch.Tensor, qn: Optional[torch.Tensor],
     given; ``"int4"`` must be named, and ``q`` is then (m, 2·half_p), see
     :func:`kernel_queries`); ``scales``: a low-precision store's per-row
     factors."""
-    global launches
+    global launches, wide_launches
     expects(q.is_cuda and data.device == q.device,
             "fused_knn kernel needs queries and corpus on one CUDA device")
     store = store_dtype(data.dtype) if store is None else store
@@ -254,8 +284,7 @@ def fused_knn_candidates(q: torch.Tensor, qn: Optional[torch.Tensor],
     expects(store != "int4" or dim % 128 == 0,
             "int4 queries must be (m, 2·half_p), half_p a multiple of 64, "
             "got %d", dim)
-    expects(0 < k <= min(n, MAX_K), "k=%d out of range (n=%d, max %d)", k,
-            n, MAX_K)
+    expects(0 < k <= n, "k=%d out of range for %d rows", k, n)
     expects(metric in _METRIC_CODE, "unknown metric %s", metric)
     expects(scales is not None or store not in ("int8", "int4"),
             "int8/int4 corpora require per-row dequant scales")
@@ -279,13 +308,25 @@ def fused_knn_candidates(q: torch.Tensor, qn: Optional[torch.Tensor],
         return out_v, out_i, splits
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _cuda.library(_cuda.STORE_SOURCES["fused_knn"][store])
-    status = lib.raft_fused_knn(q.data_ptr(), ptr(qn), data.data_ptr(),
-                                ptr(dn), ptr(penalty), ptr(scales), m, n,
-                                dim, k, _METRIC_CODE[metric], splits,
-                                per_split, out_v.data_ptr(),
-                                out_i.data_ptr(), _cuda.stream_of(q))
+    if k <= LIST_MAX_K:
+        status = lib.raft_fused_knn(q.data_ptr(), ptr(qn), data.data_ptr(),
+                                    ptr(dn), ptr(penalty), ptr(scales), m,
+                                    n, dim, k, _METRIC_CODE[metric], splits,
+                                    per_split, out_v.data_ptr(),
+                                    out_i.data_ptr(), _cuda.stream_of(q))
+    else:
+        # each (query, split)'s buffer of values, then of columns
+        cap = wide_cap(k)
+        scratch = torch.empty(wide_scratch_bytes(m, splits, k),
+                              dtype=torch.uint8, device=q.device)
+        status = lib.raft_fused_knn_wide(
+            q.data_ptr(), ptr(qn), data.data_ptr(), ptr(dn), ptr(penalty),
+            ptr(scales), m, n, dim, k, _METRIC_CODE[metric], splits,
+            per_split, cap, scratch.data_ptr(), out_v.data_ptr(),
+            out_i.data_ptr(), _cuda.stream_of(q))
     _cuda.check(status, f"fused_knn ({store})")
     launches += 1
+    wide_launches += k > LIST_MAX_K
     if store != "float32":
         globals()[f"launches_{store}"] += 1
     return out_v, out_i, splits

@@ -21,17 +21,19 @@ On a CUDA tensor :func:`ivf_pq_scan` launches K4 once
 (:func:`ivf_pq_scan_candidates`), each pair writing its sorted k best
 into its own k columns of a (m, p*k) buffer in probe-rank order, and
 merges each query's row with K1, the ``merge_pairs`` order: equal values
-go to the lower probe rank, then the lower row. K4 has K3's two forms,
-chosen by k alone (``ivf_scan.scan_form``): the grouped form (k <= 512,
-K3's plans: ``ivf_scan.group_plan``; CAGRA's IVF-PQ graph pass asks for
+go to the lower probe rank, then the lower row. K4 has K3's two forms
+(``ivf_scan.scan_form`` takes the grouped one at every k): the grouped
+form (K3's plans: ``ivf_scan.group_plan``; CAGRA's IVF-PQ graph pass asks for
 k = 257) takes the pairs packed by list (``ivf_scan.pack_pairs``), decodes a
 list's codes into rows once per group tile and multiplies the group's
 queries by them on the tensor cores, as the TPU kernel does, so
 ``Σ_s lut[s, code_is]`` becomes a dot of q with the decoded row over the
 rotated dimensions (past k = 256 its own plan keeps each pair's distances
-in a scratch that the wrapper allocates once a device, sized by the
-longest list, and selects each pair's k once, by a radix select:
-``csrc/list_select.cuh``); the per-pair form (k up to 1024) builds each pair's
+in a scratch that the wrapper takes from ``torch.empty`` a call, sized by
+the longest list and not by k, and selects each pair's k once, by a
+radix select, in rounds of 512 keys past k = 512:
+``csrc/list_select.cuh``; so the grouped form takes every k); the
+per-pair form (k up to 1024, by name) builds each pair's
 lookup table in shared memory and sums it subspace by subspace. On a CPU
 tensor it takes the plain version, :func:`ivf_pq_scan_plain`, which
 gathers every probed row of each query back to back in probe order, sums
@@ -46,8 +48,6 @@ range themselves.
 """
 from __future__ import annotations
 
-import ctypes
-import weakref
 from typing import Optional, Tuple
 
 import numpy as np
@@ -56,15 +56,18 @@ import torch
 from ..core.errors import expects
 from ..matrix.select_k import kpass_select_k, smallest_k_plain
 from . import _cuda
-from .ivf_scan import _candidate_rows, check_form, group_queries, pack_pairs
+from .ivf_scan import (GROUP_MAX_K, _candidate_rows, check_form,
+                       group_queries, largest_list, pack_pairs,
+                       wide_scratch_on_card)
 
 __all__ = ["pq_chunk_rows", "decoded_row_norms", "int8_codebook",
            "lut_codebook", "pq_lut", "ivf_pq_scan", "ivf_pq_scan_plain",
-           "ivf_pq_scan_candidates", "largest_list", "wide_scratch_on_card"]
+           "ivf_pq_scan_candidates", "largest_list"]
 
 launches = 0         # K4 launches since the last reset, both forms
 group_launches = 0   # of them, the grouped form's
 pair_launches = 0    # of them, the per-pair form's
+wide_launches = 0    # of the grouped ones, past k = 512 (in rounds)
 
 _METRIC_CODE = {"l2": 0, "ip": 1}
 _LUT_MODES = ("f32", "bf16", "int8")
@@ -72,9 +75,6 @@ _INF = float("inf")
 _THREADS = 256                 # rows per tile = threads of a per-pair block
 _TF32_LOW = 0x1FFF             # the f32 mantissa bits TF32 drops
 WIDE_K = 256                   # past it the grouped K4 keeps a scratch
-_SCRATCH: dict = {}            # device -> the wide plan's scratch
-# the last sizes tensor read: (weak reference, its version, longest list)
-_LMAX = [(lambda: None, -1, 0)]
 
 
 def pq_chunk_rows(pq_dim: int, book: int,
@@ -153,40 +153,6 @@ def pq_lut(q_rot: torch.Tensor, cb_mode: torch.Tensor) -> torch.Tensor:
     return lut
 
 
-def largest_list(sizes: torch.Tensor) -> int:
-    """The longest list of ``sizes`` (at least 1): read from the card once
-    per tensor and kept while the tensor lives unchanged, so the graph
-    pass's batches over one index synchronise the host once."""
-    ref, version, lmax = _LMAX[0]
-    if ref() is not sizes or version != sizes._version:
-        lmax = max(1, int(sizes.max()))
-        _LMAX[0] = (weakref.ref(sizes), sizes._version, lmax)
-    return lmax
-
-
-def wide_scratch_on_card(k: int, rot_dim: int, lmax: int
-                         ) -> Tuple[int, int, int]:
-    """The grouped K4's scratch past k = 256 on the current card, as its
-    library states it: (bytes: a counter and 32 distance rows of ``lmax``
-    rounded up to 128 floats a persistent block; the persistent blocks;
-    the blocks an SM keeps resident). (0, 0, 0) at k <= 256."""
-    out = (ctypes.c_longlong * 3)()
-    _cuda.check(_cuda.library("ivf_pq_scan").raft_ivf_pq_scan_group_scratch(
-        k, rot_dim, lmax, ctypes.addressof(out)), "ivf_pq_scan scratch")
-    return tuple(out)
-
-
-def _scratch(device: torch.device, nbytes: int) -> torch.Tensor:
-    """The wide plan's scratch on ``device``: allocated once and kept,
-    grown when a call needs more."""
-    buf = _SCRATCH.get(device)
-    if buf is None or buf.numel() < nbytes:
-        _SCRATCH.pop(device, None)
-        buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
-        _SCRATCH[device] = buf
-    return buf
-
-
 def _scan_smem_bytes(pq_dim: int, book: int, rot_dim: int, k: int) -> int:
     """Dynamic shared memory of one per-pair K4 block: the float32 LUT,
     the query, one tile of candidate distances and the pair's k-best
@@ -256,7 +222,7 @@ def ivf_pq_scan_candidates(codes: torch.Tensor, dn: torch.Tensor,
     """One launch of K4 → per-pair (values, rows) (m, p*k), pairs in
     probe-rank order within each query's row. ``form`` (``"group"`` or
     ``"pair"``) overrides ``ivf_scan.scan_form``."""
-    global launches, group_launches, pair_launches
+    global launches, group_launches, pair_launches, wide_launches
     expects(q.is_cuda, "ivf_pq_scan kernel needs CUDA tensors")
     m, rot_dim = q.shape
     p = probed.shape[1]
@@ -273,7 +239,6 @@ def ivf_pq_scan_candidates(codes: torch.Tensor, dn: torch.Tensor,
             q.device)
     expects(1 <= book <= 256, "book size %d out of range (max 256)", book)
     expects(probed.shape[0] == m, "probed must be (%d, p)", m)
-    expects(0 < k <= 1024, "k=%d out of range (max 1024)", k)
     expects(metric in _METRIC_CODE, "unknown metric %s", metric)
     form = check_form(form, k)
     if form == "pair":
@@ -310,12 +275,12 @@ def ivf_pq_scan_candidates(codes: torch.Tensor, dn: torch.Tensor,
         exact = ((cb_mode.view(torch.int32) & _TF32_LOW) == 0).all().to(
             torch.int32)
         # past k = 256: the blocks' distance rows, as long as the longest
-        # list
+        # list, from PyTorch's caching allocator (stream-ordered)
         lmax, scratch = 0, None
         if k > WIDE_K:
             lmax = largest_list(sizes)
-            scratch = _scratch(q.device, wide_scratch_on_card(
-                k, rot_dim, lmax)[0])
+            nbytes = wide_scratch_on_card("ivf_pq_scan", k, rot_dim, lmax)[0]
+            scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
         status = lib.raft_ivf_pq_scan_group(
             codes.data_ptr(), ptr(dn), ptr(penalty), cb_mode.data_ptr(),
             centers_rot.data_ptr(), q.data_ptr(), exact.data_ptr(),
@@ -339,6 +304,7 @@ def ivf_pq_scan_candidates(codes: torch.Tensor, dn: torch.Tensor,
     launches += 1
     if form == "group":
         group_launches += 1
+        wide_launches += k > GROUP_MAX_K
     else:
         pair_launches += 1
     return out_v, out_i

@@ -10,15 +10,20 @@ it launches K3 once (:func:`ivf_flat_scan_candidates`), each pair writing
 its sorted k best into its own k columns of a (m, p*k) buffer in
 probe-rank order, and merges each query's row with K1, the
 ``merge_pairs`` order: equal values go to the lower probe rank, then the
-lower row. K3 has two forms, chosen by k alone (:func:`scan_form`):
+lower row. K3 has two forms; :func:`scan_form` takes the grouped one at
+every k, as the JAX kernel takes any k:
 
-- ``"group"`` (k <= :data:`GROUP_MAX_K` = 512): the pairs are packed by
-  list into group tiles (:func:`pack_pairs`, the JAX package's grouping)
-  of :func:`group_queries` queries, and one block scans a list once for a
+- ``"group"``: the pairs are packed by list into group tiles
+  (:func:`pack_pairs`, the JAX package's grouping) of
+  :func:`group_queries` queries, and one block scans a list once for a
   whole group of its queries, on the tensor cores (:func:`group_plan`:
-  the group's size, its k-lists' warp queue and candidate buffers by k);
-- ``"pair"`` (k up to 1024): one block per (query, probe) pair, each
-  reading its whole list; above :data:`GROUP_MAX_K`, or by name.
+  the group's size, its k-lists' warp queue and candidate buffers by k,
+  up to :data:`GROUP_MAX_K` = 512; past it the wide plan, no k-list:
+  each pair's distances to a scratch of the wrapper's from
+  ``torch.empty`` a call, sized by the longest list, and one selection a
+  pair, :func:`wide_scratch_on_card`);
+- ``"pair"`` (k up to :data:`PAIR_MAX_K` = 1024, by name): one block
+  per (query, probe) pair, each reading its whole list.
 
 The TPU kernel's aligned DMA padding (``pad_for_scan``, ``scan_window``)
 serves VMEM and has no counterpart here: the kernels mask each list's
@@ -41,6 +46,7 @@ these stores, a throughput choice of the TPU).
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Optional, Tuple
 
 import torch
@@ -48,33 +54,40 @@ import torch
 from ..core.errors import expects
 from ..matrix.select_k import (SelectAlgo, kpass_select_k, select_k,
                                smallest_k_plain)
-from ..utils import cdiv
+from ..utils import cdiv, round_up_to
 from . import _cuda
 from .fused_knn import corpus_norms, prepare_norms
 from .quant import store_dtype
 
 __all__ = ["coarse_probe", "pack_pairs", "scan_form", "check_form",
-           "GROUP_MAX_K", "group_plan", "group_queries", "group_smem",
-           "group_plan_on_card", "ivf_flat_scan", "ivf_flat_scan_plain",
+           "GROUP_MAX_K", "PAIR_MAX_K", "group_plan", "group_queries",
+           "group_smem", "group_plan_on_card", "largest_list",
+           "wide_scratch_bytes", "wide_scratch_on_card", "ivf_flat_scan",
+           "ivf_flat_scan_plain",
            "ivf_flat_scan_candidates"]
 
 launches = 0         # K3 launches since the last reset, both forms
 group_launches = 0   # of them, the grouped form's
 pair_launches = 0    # of them, the per-pair form's
+wide_launches = 0    # of the grouped ones, the wide plan's (k > 512)
 # of them, each low-precision store's form (both forms)
 launches_bfloat16 = launches_int8 = launches_uint8 = 0
 
-GROUP_MAX_K = 512  # a group's k-lists share the block's shared memory
+GROUP_MAX_K = 512  # up to it a group's k-lists share the block's shared
+                   # memory; past it the wide plan
+PAIR_MAX_K = 1024  # the per-pair forms' k-list in shared memory
 # the grouped forms' plans (csrc/ivf_flat_scan.cuh::plan_for, and K4's up
 # to k = 256; past it K4 keeps no k-list: csrc/ivf_pq_scan.cu's wide plan,
 # 32 queries a group): (widest k, queries a group, warp-queue registers R:
-# 32·R keys, candidate buffer keys CAP a query)
+# 32·R keys, candidate buffer keys CAP a query); past GROUP_MAX_K both
+# kernels' wide plan, 32 queries a group and no k-list
 _GROUP_PLANS = ((32, 128, 1, 32), (64, 128, 2, 64), (128, 64, 4, 128),
                 (256, 64, 8, 64), (512, 32, 16, 128))
+_WIDE_PLAN = (32, 0, 0)
 # csrc/tf32_tile.cuh: a block's shared memory, a row tile, a stage's width
 _SMEM_LIMIT, _BN, _BK = 232_448, 128, 32
-# csrc/ivf_pq_scan.cu's wide plan: a block's bytes where two fit an SM,
-# the static bytes beside them, the warps' selection space
+# the wide plans (csrc/tf32_tile.cuh): a block's bytes where two fit an
+# SM, the static bytes beside them, the warps' selection space
 # (csrc/list_select.cuh: 512 64-bit keys and 1,024 bins a warp)
 _TWO_BLOCKS, _STATIC_UNIT, _SELECT_BYTES = 115_712, 128, 8 * (512 * 8
                                                              + 1024 * 4)
@@ -216,9 +229,11 @@ def group_plan(k: int) -> Tuple[int, int, int]:
     """(queries a group, warp-queue registers R, candidate-buffer keys CAP)
     of the grouped K3 and K4 at k (their ``plan_for``): 128 queries up to
     k = 64, 64 up to 256, 32 up to :data:`GROUP_MAX_K`, whose queue of
-    512 keys beside buffers of 128 leaves room for the tile ring."""
-    expects(0 < k <= GROUP_MAX_K, "no grouped IVF scan plan for k=%d "
-            "(max %d)", k, GROUP_MAX_K)
+    512 keys beside buffers of 128 leaves room for the tile ring; past it
+    the wide plan, 32 queries and no k-list (R = CAP = 0)."""
+    expects(k > 0, "no grouped IVF scan plan for k=%d", k)
+    if k > GROUP_MAX_K:
+        return _WIDE_PLAN
     return next(plan[1:] for plan in _GROUP_PLANS if k <= plan[0])
 
 
@@ -237,19 +252,25 @@ def group_smem(kernel: str, k: int, d: int, store: str = "float32"
     side arrays, then the first layout that fits in a block's 232,448
     bytes — the query tile resident and split into its TF32 parts (2),
     resident (1) or streamed through the ring (0), each with the most
-    stages first. (0, -1, 0) when none fits."""
+    stages first (the wide plans: :func:`_wide_smem`). (0, -1, 0) when
+    none fits."""
     bm, _, cap = group_plan(k)
     nk = -(-d // _BK)
     lists = 8 * bm * (k + cap) + 4 * bm
     if kernel == "ivf_flat_scan":
         raw = store != "float32"
+        if k > GROUP_MAX_K:
+            return _wide_smem(bm, nk, 4 * 4 * (3 if raw else 2) * _BN
+                              + 4 * 2 * bm, _STORE_BYTES[store] * _BK * _BN,
+                              (3, 2))
         fixed = lists + 4 * 4 * (3 if raw else 2) * _BN + 4 * 2 * bm
         ns_max, b_stage = 3, _STORE_BYTES[store] * _BK * _BN
     else:
         expects(kernel == "ivf_pq_scan" and store == "float32",
                 "unknown grouped scan %r over %r", kernel, store)
         if k > 256:
-            return _pq_wide_smem(bm, nk)
+            return _wide_smem(bm, nk, 4 * 3 * 2 * _BN + 4 * 6 * bm
+                              + 4 * 2 * nk * _BK, 4 * _BK * _BN, (2,))
         fixed = lists + 4 * 2 * 2 * _BN + 4 * 4 * bm + 4 * 2 * nk * _BK
         ns_max, b_stage = 2, 4 * _BK * _BN
     for a_res in (2, 1, 0):
@@ -262,20 +283,25 @@ def group_smem(kernel: str, k: int, d: int, store: str = "float32"
     return 0, -1, 0
 
 
-def _pq_wide_smem(bm: int, nk: int) -> Tuple[int, int, int]:
-    """K4's wide plan (``csrc/ivf_pq_scan.cu::prepare_wide``): three side
-    slots, the group's pairs, queries, norms and key ranges, the columns'
-    subspaces; the tiles (query tile split, resident or streamed; a
-    2-stage ring) or the warps' selection space, whichever is larger; the
-    first layout with room for two blocks an SM, else one."""
-    fixed = 4 * 3 * 2 * _BN + 4 * 6 * bm + 4 * 2 * nk * _BK
+def _wide_smem(bm: int, nk: int, fixed: int, b_stage: int,
+               stages) -> Tuple[int, int, int]:
+    """The wide plans' layout (``prepare_wide`` of
+    ``csrc/ivf_pq_scan.cu``, K4 past k = 256, and of
+    ``csrc/ivf_flat_scan.cuh``, K3 past 512): the tiles (query tile split,
+    resident or streamed, then each ring of ``stages``) or the warps'
+    selection space, whichever is larger, beside ``fixed`` bytes (K4: three
+    side slots, the group's pairs, queries, norms and key ranges, the
+    columns' subspaces; K3: four side slots, the group's pairs and
+    queries); the first layout with room for two blocks an SM, else
+    one."""
     for limit in (_TWO_BLOCKS, _SMEM_LIMIT):
         for a_res in (2, 1, 0):
-            tiles = max(4 * (a_res * nk * bm * _BK
-                             + 2 * ((0 if a_res else bm * _BK)
-                                    + _BN * _BK)), _SELECT_BYTES)
-            if tiles + fixed + _STATIC_UNIT <= limit:
-                return tiles + fixed, a_res, 2
+            for ns in stages:
+                tiles = max(4 * a_res * nk * bm * _BK
+                            + ns * (4 * (0 if a_res else bm * _BK)
+                                    + b_stage), _SELECT_BYTES)
+                if tiles + fixed + _STATIC_UNIT <= limit:
+                    return tiles + fixed, a_res, ns
     return 0, -1, 0
 
 
@@ -295,19 +321,62 @@ def group_plan_on_card(kernel: str, k: int, d: int,
 
 
 def scan_form(k: int) -> str:
-    """The form of K3 and K4 for k per pair: ``"group"`` up to
-    :data:`GROUP_MAX_K`, ``"pair"`` above (up to 1024). A rule of shape:
-    a form that fails to build, launch or fit raises."""
-    return "group" if k <= GROUP_MAX_K else "pair"
+    """The form of K3 and K4 for k per pair: ``"group"`` at every k (past
+    :data:`GROUP_MAX_K` its wide plan). A rule of shape: a form that fails
+    to build, launch or fit raises."""
+    expects(k > 0, "k=%d out of range", k)
+    return "group"
 
 
 def check_form(form: Optional[str], k: int) -> str:
-    """``form`` (None: :func:`scan_form`), checked against k."""
+    """``form`` (None: :func:`scan_form`), checked against k: the
+    per-pair form, by name, takes k up to :data:`PAIR_MAX_K`."""
     form = scan_form(k) if form is None else form
-    expects(form in ("group", "pair") and (form == "pair"
-                                           or k <= GROUP_MAX_K),
+    expects(k > 0 and form in ("group", "pair")
+            and (form == "group" or k <= PAIR_MAX_K),
             "IVF scan kernel: no form %r for k=%d", form, k)
     return form
+
+
+_LMAX = [(lambda: None, -1, 0)]  # the last sizes tensor read: (weak
+                                 # reference, its version, longest list)
+
+
+def largest_list(sizes: torch.Tensor) -> int:
+    """The longest list of ``sizes`` (at least 1): read from the card once
+    per tensor and kept while the tensor lives unchanged, so the graph
+    pass's batches over one index synchronise the host once."""
+    ref, version, lmax = _LMAX[0]
+    if ref() is not sizes or version != sizes._version:
+        lmax = max(1, int(sizes.max()))
+        _LMAX[0] = (weakref.ref(sizes), sizes._version, lmax)
+    return lmax
+
+
+def wide_scratch_bytes(blocks: int, lmax: int) -> int:
+    """The wide plans' scratch (K4 past k = 256, K3 past 512) for
+    ``blocks`` persistent blocks over lists of at most ``lmax`` rows: a
+    256-byte unit for the groups' counter, then 32 distance rows a block,
+    each ``lmax`` rounded up to the 128-row tile; not a function of k."""
+    return 256 + 4 * blocks * 32 * round_up_to(max(lmax, 1), _BN)
+
+
+def wide_scratch_on_card(kernel: str, k: int, d: int, lmax: int,
+                         store: str = "float32") -> Tuple[int, int, int]:
+    """The wide plan's scratch of ``kernel`` (``"ivf_flat_scan"`` over
+    ``store`` lists past k = 512, ``"ivf_pq_scan"`` past k = 256, ``d``
+    its rotated dimension) on the current card, as its library states it
+    (``csrc/wide_plan.cuh``): (bytes, :func:`wide_scratch_bytes`'s; the
+    persistent blocks; the blocks an SM keeps resident). (0, 0, 0) where
+    the plan for k keeps none."""
+    out = (ctypes.c_longlong * 3)()
+    if kernel == "ivf_flat_scan":
+        lib = _cuda.library(_cuda.STORE_SOURCES[kernel][store])
+        fn = lib.raft_ivf_flat_scan_wide_scratch
+    else:
+        fn = _cuda.library(kernel).raft_ivf_pq_scan_group_scratch
+    _cuda.check(fn(k, d, lmax, ctypes.addressof(out)), f"{kernel} scratch")
+    return tuple(out)
 
 
 def ivf_flat_scan_candidates(data: torch.Tensor, dn: Optional[torch.Tensor],
@@ -323,7 +392,7 @@ def ivf_flat_scan_candidates(data: torch.Tensor, dn: Optional[torch.Tensor],
     query's row. ``form`` (``"group"`` or ``"pair"``) overrides
     :func:`scan_form`; ``scales``: int8 lists' per-row factors (no
     other store takes them)."""
-    global launches, group_launches, pair_launches
+    global launches, group_launches, pair_launches, wide_launches
     expects(q.is_cuda, "ivf_flat_scan kernel needs CUDA tensors")
     store = store_dtype(data.dtype)
     expects(store != "int4", "IVF-Flat has no int4 store")
@@ -334,7 +403,6 @@ def ivf_flat_scan_candidates(data: torch.Tensor, dn: Optional[torch.Tensor],
             "data must be contiguous (rows, %d) on %s, got %s", dim,
             q.device, tuple(data.shape))
     expects(probed.shape[0] == m, "probed must be (%d, p)", m)
-    expects(0 < k <= 1024, "k=%d out of range (max 1024)", k)
     expects(metric in _METRIC_CODE, "unknown metric %s", metric)
     expects(store == "int8" or scales is None,
             "%s lists carry no scales", store)
@@ -360,7 +428,24 @@ def ivf_flat_scan_candidates(data: torch.Tensor, dn: Optional[torch.Tensor],
         return out_v, out_i
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _cuda.library(_cuda.STORE_SOURCES["ivf_flat_scan"][store])
-    if form == "group":
+    if form == "group" and k > GROUP_MAX_K:
+        qg = group_queries(k)
+        glist, gstart, gcount, order = pack_pairs(probed, offsets.shape[0],
+                                                  qg)
+        # the blocks' distance rows, as long as the longest list, from
+        # PyTorch's caching allocator (stream-ordered)
+        lmax = largest_list(sizes)
+        nbytes = wide_scratch_on_card("ivf_flat_scan", k, dim, lmax, store)[0]
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+        status = lib.raft_ivf_flat_scan_wide(
+            data.data_ptr(), ptr(dn), ptr(penalty), ptr(scales),
+            q.data_ptr(), ptr(qn),
+            order.data_ptr(), glist.data_ptr(), gstart.data_ptr(),
+            gcount.data_ptr(), offsets.data_ptr(), sizes.data_ptr(),
+            scratch.data_ptr(), glist.shape[0], qg, p, dim, k,
+            _METRIC_CODE[metric], lmax, out_v.data_ptr(), out_i.data_ptr(),
+            _cuda.stream_of(q))
+    elif form == "group":
         qg = group_queries(k)
         glist, gstart, gcount, order = pack_pairs(probed, offsets.shape[0],
                                                   qg)
@@ -388,6 +473,7 @@ def ivf_flat_scan_candidates(data: torch.Tensor, dn: Optional[torch.Tensor],
         globals()[f"launches_{store}"] += 1
     if form == "group":
         group_launches += 1
+        wide_launches += k > GROUP_MAX_K
     else:
         pair_launches += 1
     return out_v, out_i

@@ -1,8 +1,8 @@
 """Time builds of K1 and of K2 from several source trees against each
 other in one process, at the shapes of ``chip_smoke.py``'s paths.
 
-    python -m raft_tpu_torch.tools.knn_ab [--stores S,S,...] [--no-k1] \\
-        DIR [DIR ...]
+    python -m raft_tpu_torch.tools.knn_ab [--stores S,S,...] [--ks K,K,...] \\
+        [--no-k1] DIR [DIR ...]
 
 Each DIR holds a copy of ``raft_tpu_torch/csrc`` (this tree's, another
 commit's from ``git archive``, or a copy with one edit, such as a
@@ -19,10 +19,13 @@ ctypes; entry points must keep this tree's C signatures.
   equal to the plain version (a version that refuses k = 257 in a form
   says so), timed beside ``torch.topk`` and the plain version.
 * K2 at the brute-force path's shape (10,000 queries, 1M rows, d = 128,
-  k = 10, l2) in each store: the f32 rows, ``brute_force.build``'s bf16,
-  int8 and int4 stores and the bench's uint8 byte grid. Each version
-  launches its library with its own split plan (``fused_knn.split_plan``
-  over its ``raft_fused_knn_slots``); whether its outputs equal the first
+  l2) in each store: the f32 rows, ``brute_force.build``'s bf16, int8 and
+  int4 stores and the bench's uint8 byte grid; at each k of ``--ks``
+  (default 10, the path's, and 257 and 1,024, past the k-lists: the wide
+  form, ``raft_fused_knn_wide``, with its candidate buffers; a version
+  without that entry says so). Each version launches its library with
+  its own split plan (``fused_knn.split_plan`` over its
+  ``raft_fused_knn_slots``); whether its outputs equal the first
   version's is printed (a diagnostic build's do not).
 
 Prints the card's name and power limit, each instance's registers and
@@ -122,58 +125,81 @@ def store_data(stores):
         out[store] = (qk, fk.prepare_norms("l2", qs),
                       idx.dataset, fk.prepare_norms("l2", None, idx.norms),
                       idx.scales)
-    return out, cs.K
+    return out
 
 
-def k2_ab(dirs, libs, stores) -> None:
-    data, k = store_data(stores)
-    stream = torch.cuda.current_stream().cuda_stream
+def k2_launcher(lib, store_rows, k, what):
+    """A function → this library's K2 over a store's rows at k with its
+    own split plan (past k = 256 its wide entry and candidate buffers),
+    and the plan; None where the library has no form for k."""
+    qk, qn, xs, dn, sc = store_rows
+    m, d = qk.shape
+    n = xs.shape[0]
+    wide = k > fk.LIST_MAX_K
+    if wide and not hasattr(lib, "raft_fused_knn_wide"):
+        return None, None
+    slots = lib.raft_fused_knn_slots(k, d, 0, 0)
+    if slots < 0:
+        _cuda.check(-slots, f"{what} fused_knn slots")
+    splits, per = fk.split_plan(m, n, k, slots)
+    ov = torch.empty((m, splits * k), dtype=torch.float32, device="cuda")
+    oi = torch.empty((m, splits * k), dtype=torch.int32, device="cuda")
+    scratch = torch.empty(fk.wide_scratch_bytes(m, splits, k) if wide else 1,
+                          dtype=torch.uint8, device="cuda")
+    head = (qk.data_ptr(), qn.data_ptr(), xs.data_ptr(), dn.data_ptr(), None,
+            None if sc is None else sc.data_ptr(), m, n, d, k, 0, splits, per)
+
+    def run():
+        stream = torch.cuda.current_stream().cuda_stream
+        if wide:
+            status = lib.raft_fused_knn_wide(
+                *head, fk.wide_cap(k), scratch.data_ptr(), ov.data_ptr(),
+                oi.data_ptr(), stream)
+        else:
+            status = lib.raft_fused_knn(*head, ov.data_ptr(), oi.data_ptr(),
+                                        stream)
+        _cuda.check(status, what)
+        return ov, oi
+
+    return run, (slots, splits)
+
+
+def k2_ab(dirs, libs, stores, ks) -> None:
+    data = store_data(stores)
     for store in stores:
-        qk, qn, xs, dn, sc = data[store]
-        m, d = qk.shape
-        n = xs.shape[0]
-        runs, outs = {}, {}
-        for dr in dirs:
-            lib = libs[dr][store]
-            slots = lib.raft_fused_knn_slots(k, d, 0, 0)
-            if slots < 0:
-                _cuda.check(-slots, f"{dr} fused_knn slots")
-            splits, per = fk.split_plan(m, n, k, slots)
-            ov = torch.empty((m, splits * k), dtype=torch.float32,
-                             device="cuda")
-            oi = torch.empty((m, splits * k), dtype=torch.int32,
-                             device="cuda")
-
-            def run(lib=lib, splits=splits, per=per, ov=ov, oi=oi):
-                _cuda.check(lib.raft_fused_knn(
-                    qk.data_ptr(), qn.data_ptr(), xs.data_ptr(),
-                    dn.data_ptr(), None,
-                    None if sc is None else sc.data_ptr(), m, n, d, k, 0,
-                    splits, per, ov.data_ptr(), oi.data_ptr(), stream),
-                    f"{dr} fused_knn {store}")
-                return ov, oi
-
-            run()
-            torch.cuda.synchronize()
-            runs[dr], outs[dr] = run, (splits, ov, oi)
-            print(f"K2.{store} {dr}: {slots} resident blocks, {splits} "
-                  "splits")
-        first = outs[dirs[0]]
-        for dr in dirs[1:]:
-            got = outs[dr]
-            same = got[0] == first[0] and all(
-                torch.equal(a, c) for a, c in zip(got[1:], first[1:]))
-            print(f"K2.{store} {dr}: outputs equal to {dirs[0]}'s: {same}")
-        for dr, ts in rounds(dirs, runs, 3).items():
-            print(f"K2.{store} {dr}: ms " + " / ".join(f"{t:.3f}"
-                                                       for t in ts))
-        del runs, outs
-        torch.cuda.empty_cache()
+        for k in ks:
+            what = f"K2.{store} k={k}"
+            runs, outs = {}, {}
+            for dr in dirs:
+                run, plan = k2_launcher(libs[dr][store], data[store], k,
+                                        f"{dr} {what}")
+                if run is None:
+                    print(f"{what} {dr}: no form for this k")
+                    continue
+                out = run()
+                torch.cuda.synchronize()
+                runs[dr], outs[dr] = run, (plan[1], *out)
+                print(f"{what} {dr}: {plan[0]} resident blocks, {plan[1]} "
+                      "splits")
+            timed = [dr for dr in dirs if dr in runs]
+            first = outs[timed[0]]
+            for dr in timed[1:]:
+                got = outs[dr]
+                same = got[0] == first[0] and all(
+                    torch.equal(a, c) for a, c in zip(got[1:], first[1:]))
+                print(f"{what} {dr}: outputs equal to {timed[0]}'s: {same}")
+            for dr, ts in rounds(timed, runs, 3).items():
+                print(f"{what} {dr}: ms " + " / ".join(f"{t:.3f}"
+                                                       for t in ts)
+                      + f"; median {float(np.median(ts)):.3f}")
+            del runs, outs
+            torch.cuda.empty_cache()
 
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--stores", default=",".join(_STORES))
+    ap.add_argument("--ks", default="10,257,1024")
     ap.add_argument("--no-k1", action="store_true")
     ap.add_argument("dirs", nargs="+")
     a = ap.parse_args(argv)
@@ -190,7 +216,7 @@ def main(argv) -> int:
     print("\n".join(notes))
     if not a.no_k1:
         k1_ab(a.dirs, libs)
-    k2_ab(a.dirs, libs, stores)
+    k2_ab(a.dirs, libs, stores, [int(k) for k in a.ks.split(",") if k])
     return 0
 
 

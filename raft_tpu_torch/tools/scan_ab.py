@@ -23,15 +23,22 @@ card.
 - K3 (``ivf_flat_scan{,_bfloat16,_int8,_uint8}.cu``): ``chip_smoke.py``'s
   IVF-Flat indexes (1,024 lists of its 1M x 128 rows, 20 probes a query;
   float32, bf16 and int8 on the path's data, uint8 on the bench's byte
-  grid of it) at k = 10 (the 10,000 queries) and at k = 257 and 512 (the
-  first 8,192, as ``chip_smoke.py``'s wide phase).
+  grid of it) at k = 10 (the 10,000 queries), at k = 257 and 512 (the
+  first 8,192, as ``chip_smoke.py``'s wide phase) and past 512 at
+  k = 1,025 and 2,048 (the first 8,192: the wide plan,
+  ``raft_ivf_flat_scan_wide``, with its scratch; a version without it
+  says so), each shape with its bound (:func:`k3_bound`).
 - K4 (``ivf_pq_scan.cu``): the batch that CAGRA's IVF-PQ graph pass hands
   it in ``chip_smoke.py``'s graph route (k = 2·128 + 1 = 257; first the
   path's IVF-PQ search at k = 20, its 10,000 queries, bf16 LUT): the pass's
   index (``cagra.build_knn_graph(algo="ivf_pq")``: 1,024 lists, pq_dim
   128 at 4 bits, the int8 LUT, 64 probes) and its first 32,768 rows; on
   the batch's lists, with every list cut to one 128-row tile (the cost a
-  group beside its tiles), and at k = 512 on its first 8,192 rows. Then
+  group beside its tiles), at k = 512 on its first 8,192 rows, and past
+  512 at the batches of the pass at intermediate degree 256 (k = 513, its
+  first 17,408 rows, ``cagra.pass_batch``'s) and 512 (k = 1,025, 8,192
+  rows), with the per-pair form beside the grouped one at k = 513 (a
+  version that refuses a k says so). Then
   each tree's split at the batch, timed in turns: the kernel whole,
   without its selection (its distances computed, nothing selected or
   written) and its products alone, each a copy of the tree's sources in
@@ -60,7 +67,9 @@ from ..ops import ivf_scan as iscan
 from .kernel_ab import build, median_ms, same_sass
 
 _K, _BATCH, _TILE = 257, 32768, 128
-_K3_KS, _K3_WIDE_QUERIES = (10, 257, 512), 8192
+_K3_KS, _K3_WIDE_QUERIES = (10, 257, 512, 1025, 2048), 8192
+# the IVF-PQ pass's k and batch rows at intermediate degree 256 and 512
+_PASS_WIDE = ((513, 17408), (1025, 8192))
 _K3_STORES = ("float32", "bfloat16", "int8", "uint8")
 
 
@@ -101,8 +110,11 @@ def store_indexes():
 
 def k3_launcher(lib, s, k):
     """A function → this library's grouped scan of a store's index at k
-    (the first 8,192 queries past k = 256), packed by its own plan; and
-    the plan."""
+    (the first 8,192 queries past k = 256; past 512 its wide entry with
+    the scratch it asks for), packed by its own plan; and the plan. None
+    where the library has no grouped form for k."""
+    if k > iscan.GROUP_MAX_K and not hasattr(lib, "raft_ivf_flat_scan_wide"):
+        return None, None
     idx = s["idx"]
     m = s["q"].shape[0] if k <= 256 else _K3_WIDE_QUERIES
     q, qn, probed = s["q"][:m], s["qn"][:m], s["probed"][:m]
@@ -117,24 +129,65 @@ def k3_launcher(lib, s, k):
     out_v = torch.empty((m, p * k), dtype=torch.float32, device="cuda")
     out_i = torch.empty((m, p * k), dtype=torch.int32, device="cuda")
     sc = idx.scales
+    lists = (idx.data.data_ptr(), idx.data_norms.data_ptr(), None,
+             None if sc is None else sc.data_ptr(), q.data_ptr(),
+             qn.data_ptr(), order.data_ptr(), glist.data_ptr(),
+             gstart.data_ptr(), gcount.data_ptr(), idx.offsets_dev.data_ptr(),
+             idx.sizes_dev.data_ptr())
+    scratch, lmax = None, 0
+    if k > iscan.GROUP_MAX_K:
+        lmax = int(idx.sizes_dev.max())
+        need = (ctypes.c_longlong * 3)()
+        _cuda.check(lib.raft_ivf_flat_scan_wide_scratch(
+            k, d, lmax, ctypes.addressof(need)), "scratch")
+        scratch = torch.empty(need[0], dtype=torch.uint8, device="cuda")
+    # the tensors behind the pointers live as long as the launcher
+    keep = (q, qn, probed, order, glist, gstart, gcount, scratch)
 
     def run():
-        _cuda.check(lib.raft_ivf_flat_scan_group(
-            idx.data.data_ptr(), idx.data_norms.data_ptr(), None,
-            None if sc is None else sc.data_ptr(), q.data_ptr(),
-            qn.data_ptr(), order.data_ptr(), glist.data_ptr(),
-            gstart.data_ptr(), gcount.data_ptr(), idx.offsets_dev.data_ptr(),
-            idx.sizes_dev.data_ptr(), glist.shape[0], qg, p, d, k, 0,
-            out_v.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream().cuda_stream), "k3 group")
+        assert keep
+        stream = torch.cuda.current_stream().cuda_stream
+        if scratch is None:
+            status = lib.raft_ivf_flat_scan_group(
+                *lists, glist.shape[0], qg, p, d, k, 0, out_v.data_ptr(),
+                out_i.data_ptr(), stream)
+        else:
+            status = lib.raft_ivf_flat_scan_wide(
+                *lists, scratch.data_ptr(), glist.shape[0], qg, p, d, k, 0,
+                lmax, out_v.data_ptr(), out_i.data_ptr(), stream)
+        _cuda.check(status, "k3 group")
         return out_v, out_i
 
     return run, tuple(plan)
 
 
+def k3_bound(s, k, store):
+    """The least time of K3 over a store's index at k on the queries
+    :func:`k3_launcher` scans (``chip_smoke.scan_bound``): each probed
+    list's rows as stored, their norms (and int8's scales) and the queries
+    read once, each pair's k (value, row) written, against the products:
+    3xTF32 over f32 rows, 2xTF32 over rows exact in TF32 (the others)."""
+    import chip_smoke as cs
+
+    idx = s["idx"]
+    m = s["q"].shape[0] if k <= 256 else _K3_WIDE_QUERIES
+    probed = s["probed"][:m].long()
+    sizes = idx.sizes_dev.long()
+    distinct = int(sizes[torch.unique(probed)].sum())
+    row_bytes = idx.data.shape[1] * idx.data.element_size() + 4 + (
+        4 if idx.scales is not None else 0)
+    d = s["q"].shape[1]
+    return cs.scan_bound(distinct * row_bytes + m * d * 4
+                         + probed.numel() * (4 + k * 8),
+                         int(sizes[probed].sum()), d,
+                         3 if store == "float32" else 2)
+
+
 def compare(what, runs, dirs, reps):
     """Outputs of each version against the first's, then four rounds of
-    times (versions in order, reversed, in order, reversed)."""
+    times (versions in order, reversed, in order, reversed); the versions
+    without a run (no form for the shape) left out."""
+    dirs = [d for d in dirs if runs.get(d) is not None]
     outs = {d: [t.clone() for t in runs[d]()] for d in dirs}
     for d in dirs:
         same = all(torch.equal(a, c) for a, c in zip(outs[d],
@@ -163,7 +216,9 @@ def k3_main(dirs) -> None:
             for d in dirs:
                 runs[d], plan = k3_launcher(libs[d][store], idxs[store], k)
                 print(f"{what} {d}: plan (queries a group, query tile, "
-                      f"stages, bytes) {plan}")
+                      f"stages, bytes) {plan or 'none: no form for this k'}")
+            b, by = k3_bound(idxs[store], k, store)
+            print(f"{what}: bound {b:.4f} ms ({by})")
             compare(what, runs, dirs, 3)
             del runs
             torch.cuda.empty_cache()
@@ -213,11 +268,13 @@ _OLD_GROUP_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + \
 def launcher(lib, b, sizes, k=_K, m=None):
     """A function → this library's grouped scan of the batch's first ``m``
     queries over ``sizes`` at k, packed by its own plan (with its scratch,
-    where its entry takes one)."""
+    where its entry takes one); None where the library has no plan for
+    k."""
     pq_dim, book, pq_len = b["cb"].shape
     plan = (ctypes.c_int * 4)()
-    _cuda.check(lib.raft_ivf_pq_scan_group_plan(
-        k, pq_dim * pq_len, ctypes.addressof(plan)), "plan")
+    if lib.raft_ivf_pq_scan_group_plan(k, pq_dim * pq_len,
+                                       ctypes.addressof(plan)) != 0:
+        return None, None
     qg = plan[0]
     probed, q = b["probed"][:m], b["q"][:m]
     glist, gstart, gcount, order = iscan.pack_pairs(probed, b["n_lists"],
@@ -258,6 +315,29 @@ def launcher(lib, b, sizes, k=_K, m=None):
         return out_v, out_i
 
     return run, tuple(plan)
+
+
+def pair_launcher(lib, b, k, m):
+    """A function → this library's per-pair K4 over the batch's first
+    ``m`` queries at k, the pairs in list order (as the wrapper)."""
+    pq_dim, book, pq_len = b["cb"].shape
+    probed, q = b["probed"][:m], b["q"][:m]
+    p = probed.shape[1]
+    order = torch.argsort(probed.reshape(-1), stable=True).to(torch.int32)
+    out_v = torch.empty((m, p * k), dtype=torch.float32, device="cuda")
+    out_i = torch.empty((m, p * k), dtype=torch.int32, device="cuda")
+
+    def run():
+        _cuda.check(lib.raft_ivf_pq_scan_pair(
+            b["codes"].data_ptr(), b["dn"].data_ptr(), None,
+            b["cb"].data_ptr(), b["centers"].data_ptr(), q.data_ptr(),
+            probed.data_ptr(), order.data_ptr(), b["offsets"].data_ptr(),
+            b["sizes"].data_ptr(), m, p, pq_dim, pq_len, book, k, 0,
+            out_v.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "k4 pair")
+        return out_v, out_i
+
+    return run
 
 
 def main(argv) -> int:
@@ -342,15 +422,23 @@ def k4_main(dirs) -> None:
             ("lists", b["sizes"], _K, None),
             ("one tile", cut, _K, None),
             (f"k={iscan.GROUP_MAX_K}, {_K3_WIDE_QUERIES} queries",
-             b["sizes"], iscan.GROUP_MAX_K, _K3_WIDE_QUERIES)):
+             b["sizes"], iscan.GROUP_MAX_K, _K3_WIDE_QUERIES),
+            *((f"the pass at k={k}, {m} queries", b["sizes"], k, m)
+              for k, m in _PASS_WIDE)):
         runs = {}
         for d in dirs:
             runs[d], plan = launcher(libs[d]["k4"], b, sizes, k, m)
             print(f"{what} {d}: plan (queries a group, query tile, stages, "
-                  f"bytes) {plan}")
+                  f"bytes) {plan or 'none: no form for this k'}")
         compare(what, runs, dirs, 3)
         del runs
         torch.cuda.empty_cache()
+    # the per-pair form at the pass's k = 513, beside the grouped form
+    k, m = _PASS_WIDE[0]
+    runs = {d: pair_launcher(libs[d]["k4"], b, k, m) for d in dirs}
+    compare(f"the pass at k={k}, {m} queries, per-pair form", runs, dirs, 1)
+    del runs
+    torch.cuda.empty_cache()
     # the split at the pass batch: each tree whole, without its selection,
     # and its products alone, in turns
     for d in dirs:

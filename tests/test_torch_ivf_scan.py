@@ -172,20 +172,21 @@ def test_pack_pairs_covers_every_pair_once(kind, qg):
 
 @pytest.mark.parametrize("k,form", [(1, "group"), (256, "group"),
                                     (257, "group"), (512, "group"),
-                                    (513, "pair"), (1024, "pair")])
+                                    (513, "group"), (1024, "group")])
 def test_scan_form_by_k(k, form):
-    """K3 and K4 take the grouped form up to GROUP_MAX_K = 512 and the
-    per-pair form above; ``check_form`` keeps the per-pair form reachable
-    by name at every k and refuses the grouped form past 512."""
-    assert tis.GROUP_MAX_K == 512
+    """K3 and K4 take the grouped form at every k (its k-list plans up to
+    GROUP_MAX_K = 512, its wide plan past it, as the JAX kernels take any
+    k); ``check_form`` keeps the per-pair form reachable by name up to
+    PAIR_MAX_K = 1024 and refuses it past that, and the grouped form is
+    taken by name at every k."""
+    assert tis.GROUP_MAX_K == 512 and tis.PAIR_MAX_K == 1024
     assert tis.scan_form(k) == form
     assert tis.check_form(None, k) == form
     assert tis.check_form("pair", k) == "pair"
-    if form == "group":
-        assert tis.check_form("group", k) == "group"
-    else:
-        with pytest.raises(RaftError):
-            tis.check_form("group", k)
+    assert tis.check_form("group", k) == "group"
+    assert tis.check_form("group", 16 * k) == "group"
+    with pytest.raises(RaftError):
+        tis.check_form("pair", tis.PAIR_MAX_K + k)
     with pytest.raises(RaftError):
         tis.check_form("rows", k)
 
@@ -194,14 +195,18 @@ def test_group_queries_follow_the_plans():
     """The group size both wrappers hand ``pack_pairs`` (and the kernels
     check): 128 queries up to k = 64, 64 up to 256, 32 up to 512, with
     the plans' warp queue (32·R keys) holding k and a buffer that one fold
-    takes (CAP <= 32·R)."""
+    takes (CAP <= 32·R); past 512 the wide plan, 32 queries and no
+    k-list, at every k; no plan at k <= 0."""
     for k in range(1, tis.GROUP_MAX_K + 1):
         bm, r, cap = tis.group_plan(k)
         assert tis.group_queries(k) == bm
         assert bm == (128 if k <= 64 else 64 if k <= 256 else 32)
         assert k <= 32 * r and cap <= 32 * r and bm % 32 == 0
+    for k in (tis.GROUP_MAX_K + 1, 1024, 1025, 2048, 16_500, 10**6):
+        assert tis.group_plan(k) == (32, 0, 0)
+        assert tis.group_queries(k) == 32
     with pytest.raises(RaftError):
-        tis.group_plan(tis.GROUP_MAX_K + 1)
+        tis.group_plan(0)
 
 
 @pytest.mark.parametrize("d", [32, 100, 128, 256])
@@ -237,6 +242,47 @@ def test_group_plans_fit_shared_memory(kernel, store, d):
     stage = 32 * 128 * {"float32": 4, "bfloat16": 2}.get(store, 1)
     assert smem == (a_res * nk * 32 * 32 * 4
                     + ns * ((0 if a_res else 32 * 32 * 4) + stage) + fixed)
+
+
+@pytest.mark.parametrize("d", [32, 100, 128, 256, 1024])
+@pytest.mark.parametrize("kernel,store", [
+    ("ivf_flat_scan", "float32"), ("ivf_flat_scan", "bfloat16"),
+    ("ivf_flat_scan", "int8"), ("ivf_flat_scan", "uint8"),
+    ("ivf_pq_scan", "float32")])
+def test_wide_plans_fit_shared_memory(kernel, store, d):
+    """Past GROUP_MAX_K (K4: past 256) the wide plan's layout does not
+    depend on k: the same bytes at 513, 1024 and 16,500. Stated by hand
+    here: the tiles (query tile split into its TF32 parts, resident or
+    streamed; K3 a ring of 3 stages then 2, K4 of 2) or the warps' 64 KB
+    of selection space, whichever is larger, beside K3's four side slots
+    and the group's pairs and queries (K4's three side slots, pairs,
+    queries, norms, key ranges and the columns' subspaces); the first
+    layout with room for two blocks an SM (115,712 bytes with the 128
+    static ones), else one."""
+    nk = -(-d // 32)
+    raw = store != "float32"
+    stage_b = 32 * 128 * {"float32": 4, "bfloat16": 2}.get(store, 1)
+    if kernel == "ivf_pq_scan":
+        fixed = 3 * 2 * 128 * 4 + 6 * 32 * 4 + 2 * nk * 32 * 4
+        stages = (2,)
+    else:
+        fixed = 4 * (3 if raw else 2) * 128 * 4 + 2 * 32 * 4
+        stages = (3, 2)
+    want = None
+    for limit in (115_712, 232_448):
+        for a_res in (2, 1, 0):
+            for ns in stages:
+                tiles = max(a_res * nk * 32 * 32 * 4
+                            + ns * ((0 if a_res else 32 * 32 * 4)
+                                    + stage_b), 65_536)
+                if want is None and tiles + fixed + 128 <= limit:
+                    want = (tiles + fixed, a_res, ns)
+    assert want is not None
+    first = tis.GROUP_MAX_K + 1 if kernel == "ivf_flat_scan" else 257
+    for k in (first, 1024, 16_500):
+        assert tis.group_smem(kernel, k, d, store) == want, k
+    if d <= 256:
+        assert want[0] + 128 <= 115_712   # two blocks an SM
 
 
 @pytest.fixture(scope="module")

@@ -476,7 +476,7 @@ def exact_knn(q, x, k, metric, pen):
 def test_fused_knn_kernel_on_card(metric, m, d):
     """K2 with the corpus split over blocks and merged by K1: equal to its
     plain version on integer-valued inputs (3xTF32 holds them exactly; the
-    cosine's quotients close) at k up to MAX_K across the kernel's query
+    cosine's quotients close) at k up to LIST_MAX_K across the kernel's query
     tiles (128 queries to k = 64, 64 above); on Gaussian inputs at
     k <= 100 close to both the plain version and the float64 evaluation
     of the same formulas. Gaussian inputs stop at k = 100: with 129 or
@@ -515,7 +515,7 @@ def test_fused_knn_kernel_on_card(metric, m, d):
 def test_fused_knn_store_kernel_on_card(store, metric, d):
     """K2's store forms (:func:`store_case`), the corpus split over blocks
     and merged by K1, against the plain version: equal on integer-valued
-    stores (l2, ip) at k up to MAX_K, close on Gaussian ones at k <= 100
+    stores (l2, ip) at k up to LIST_MAX_K, close on Gaussian ones at k <= 100
     (:func:`assert_knn_close`, as K2's f32 test); n = 40,000 and m = 200
     not multiples of the tiles, a penalty row dropping a fifth of the
     rows, d = 100 rows that are no multiple of 16 bytes in any store but
@@ -912,13 +912,409 @@ def test_group_plans_match_the_library(kernel, store):
     """The grouped forms' plans as the card's libraries make them (queries
     a group, query-tile layout, ring stages, shared memory) equal their
     Python statement (``ivf_scan.group_plan`` / ``group_smem``) at every
-    k up to ``GROUP_MAX_K`` and several widths."""
+    k up to ``GROUP_MAX_K``, at the wide plan's k past it, and at several
+    widths."""
     need_cuda()
     for d in (18, 32, 100, 128, 256):
-        for k in range(1, tis.GROUP_MAX_K + 1):
+        for k in list(range(1, tis.GROUP_MAX_K + 1)) + list(WIDE_SCAN_KS):
             smem, a_res, ns = tis.group_smem(kernel, k, d, store)
             assert tis.group_plan_on_card(kernel, k, d, store) == (
                 tis.group_queries(k), a_res, ns, smem), (d, k)
+
+
+# ---- past the old limits: K2 past 256, K3 and K4 past 512 ----
+
+# the k of the new forms' card tests: around the grouped plans' 512 and
+# the per-pair forms' 1024, and FAR_K (past any one sort of a warp's
+# shared memory; on FAR_QUERIES queries)
+WIDE_SCAN_KS = (513, 1024, 1025, 2048)
+WIDE_K2_KS = (257, 511, 512, 513, 1024, 1025, 2048)
+FAR_K, FAR_QUERIES = 16_500, 8
+
+
+def zero_penalty(rng, n: int, inf_share: float) -> np.ndarray:
+    """A penalty row of +inf on ``inf_share`` of the rows, and 0.0 or -0.0
+    (half each) on the rest: under the ip metric a zero query's distance
+    is -0.0, so its distances are -0.0 and 0.0 side by side."""
+    pen = np.where(rng.random(n) < 0.5, -0.0, 0.0).astype(np.float32)
+    pen[rng.random(n) < inf_share] = np.inf
+    return pen
+
+
+def wide_knn_case(store: str, seed: int, n: int = 20_000, d: int = 64,
+                  m: int = 100):
+    """Integer-valued rows and queries for K2 past 256 in ``store`` (as
+    :func:`store_case`: held exactly at a scale of 1, so every distance is
+    exact and ties come by the hundred at every value), 600 copies of one
+    row scattered, query 0 all zeros (-0.0 under ip), and three penalty
+    rows: +inf on 30% and on 95% of the rows (fewer finite rows than k
+    past 1,000) and 0.0 elsewhere, for the merged results (K1's order
+    puts -0.0 before 0.0, the plain version's float compare does not),
+    and :func:`zero_penalty`'s with 10% +inf, -0.0 and 0.0, for each
+    split's candidates. On the card: (stored, scales, int4_dim, queries,
+    penalties)."""
+    rng = np.random.default_rng(seed)
+    if store == "uint8":
+        x = rng.integers(0, 4, (n, d)).astype(np.float32)
+        q = rng.integers(0, 4, (m, d)).astype(np.float32)
+    else:
+        x = rng.integers(-2, 3, (n, d)).astype(np.float32)
+        if store in ("int8", "int4"):
+            lim = 127 if store == "int8" else 7
+            x[:, 0] = np.where(rng.random(n) < 0.5, -lim, lim)
+        q = rng.integers(-2, 3, (m, d)).astype(np.float32)
+    dup = rng.permutation(n)[:600]
+    x[dup] = x[dup[0]]
+    q[0] = 0.0
+    stored, scales = tq.quantize_rows(torch.from_numpy(x), store)
+    pens = [torch.from_numpy(zero_penalty(rng, n, share)).cuda()
+            for share in (0.3, 0.95, 0.1)]
+    pens[0], pens[1] = pens[0] + 0.0, pens[1] + 0.0   # -0.0 -> 0.0
+    return (stored.cuda(), None if scales is None else scales.cuda(),
+            d if store == "int4" else None, torch.from_numpy(q).cuda(), pens)
+
+
+def knn_split_plain(q, x, k, metric, pen, sc, dim4, store):
+    """K2's wide form held split by split: its candidates (m, splits·k)
+    against the plain version over each split's rows alone (ids shifted to
+    the corpus, (+inf, -1) past a short split), values bit for bit."""
+    m, n = q.shape[0], x.shape[0]
+    qf = q.float()
+    qn = tfk.prepare_norms(metric, qf)
+    dn = tfk.corpus_norms(metric, x, None, sc, dim4)
+    qk = tfk.kernel_queries(qf, store, x.shape[1]).contiguous()
+    cv, ci, splits = tfk.fused_knn_candidates(
+        qk, qn, x, None if dn is None else dn.contiguous(), pen, k, metric,
+        sc, store)
+    per = -(-n // splits)
+    per = -(-per // 128) * 128
+    for s in range(splits):
+        lo, hi = s * per, min(n, (s + 1) * per)
+        kk = min(k, hi - lo)
+        pv, pi = tfk.fused_knn_plain(
+            q, x[lo:hi], kk, metric, None, pen[lo:hi],
+            None if sc is None else sc[lo:hi], dim4)
+        got_v, got_i = cv[:, s * k:(s + 1) * k], ci[:, s * k:(s + 1) * k]
+        assert_bits_equal(got_v[:, :kk].contiguous(), pv)
+        assert torch.equal(got_i[:, :kk], torch.where(pi >= 0, pi + lo, -1))
+        assert bool(torch.isinf(got_v[:, kk:]).all())
+        assert bool((got_i[:, kk:] == -1).all())
+    return splits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "cos", "ip"])
+@pytest.mark.parametrize("store", ("float32",) + STORE_NAMES)
+def test_fused_knn_wide_kernel_on_card(store, metric):
+    """K2's wide form (k > 256) + the K1 merge on :func:`wide_knn_case`'s
+    integer rows at k = 257, 511, 512, 513, 1024, 1025, 2048, at FAR_K on
+    8 queries and at k = n on 8: equal to the plain version, values bit
+    for bit (l2, ip; cosine's quotients close), with +inf penalties on
+    30% and 95% of the rows (then fewer finite rows than k: (+inf, -1)
+    slots); launched twice, bit-equal (the buffers' slots come from
+    atomics); each split's candidates bit for bit against the plain
+    version over the split's rows, -0.0 beside 0.0 included (query 0
+    under ip). On Gaussian rows the first 256 columns at k = 1024 are
+    those of the k-list plan at k = 256, bit for bit."""
+    need_cuda()
+    x, sc, dim4, q, pens = wide_knn_case(store, 61)
+    n = x.shape[0]
+    for k, rows in ([(k, q.shape[0]) for k in WIDE_K2_KS]
+                    + [(FAR_K, FAR_QUERIES), (n, FAR_QUERIES)]):
+        for pen in pens[:2]:
+            a = (q[:rows], x, k, metric)
+            kw = dict(penalty=pen, scales=sc, int4_dim=dim4)
+            before = tfk.launches
+            kv, ki = tfk.fused_knn(*a, **kw)
+            kv2, ki2 = tfk.fused_knn(*a, **kw)
+            pv, pi = tfk.fused_knn_plain(*a, **kw)
+            torch.cuda.synchronize()
+            assert tfk.launches == before + 2
+            assert_bits_equal(kv, kv2)
+            assert torch.equal(ki, ki2)
+            if metric != "cos":
+                assert_bits_equal(kv, pv)
+                assert torch.equal(ki, pi), (k, rows)
+            else:
+                assert_knn_sets_close(pv.cpu(), pi.cpu(), kv.cpu(),
+                                      ki.cpu(), min_shared=0.99)
+        if metric != "cos" and k in (257, 1025, FAR_K):
+            knn_split_plain(q[:rows], x, k, metric, pens[2], sc, dim4,
+                            store)
+    xg, scg, d4g, qg = store_case(store, False, 20_000, 64, 100, 17)
+    xg, qg = xg.cuda(), qg.cuda()
+    scg = None if scg is None else scg.cuda()
+    v256, i256 = tfk.fused_knn(qg, xg, 256, metric, scales=scg,
+                               int4_dim=d4g)
+    v1k, i1k = tfk.fused_knn(qg, xg, 1024, metric, scales=scg, int4_dim=d4g)
+    torch.cuda.synchronize()
+    assert_bits_equal(v1k[:, :256].contiguous(), v256)
+    assert torch.equal(i1k[:, :256], i256)
+
+
+@pytest.mark.cuda
+def test_fused_knn_wide_kernel_all_rows_equal():
+    """K2's wide form where every row is the same: every distance ties, so
+    each query's k are the first k columns in order, at k = 257, 1024 and
+    k = n (n = 3,000, one split) and at 257 and 1024 over 60,000 rows
+    (split)."""
+    need_cuda()
+    for n, ks in ((3000, (257, 1024, 3000)), (60_000, (257, 1024))):
+        x = torch.full((n, 40), 1.0, device="cuda")
+        q = torch.from_numpy(np.random.default_rng(n).integers(
+            -2, 3, (70, 40)).astype(np.float32)).cuda()
+        for k in ks:
+            for metric in ("l2", "ip"):
+                kv, ki = tfk.fused_knn(q, x, k, metric)
+                pv, pi = tfk.fused_knn_plain(q, x, k, metric)
+                torch.cuda.synchronize()
+                assert_bits_equal(kv, pv)
+                assert torch.equal(ki, pi)
+                assert torch.equal(ki[0], torch.arange(
+                    k, dtype=torch.int32, device="cuda"))
+
+
+def wide_flat_store(k: int, seed: int, store: str, d: int = 40,
+                    m: int = 100):
+    """IVF-Flat lists for the grouped K3 past k = 512, in ``store``, cut as
+    :func:`wide_pq_store` cuts its lists: 0, 1, k - 1, k, k + 1 and 2k
+    rows, 3,000 rows, 800 of which 600 scattered rows are one row (ties at
+    the k-th value), 700 equal rows, 1,200 rows with +inf on 90% of the
+    penalty, 700 rows pruned to size 0; every query probes every list, in
+    its own order; integer-valued rows (held exactly by the store at a
+    scale of 1) and queries, query 0 all zeros (-0.0 under ip). →
+    ``ivf_flat_scan``'s arguments up to the queries and the scales, and
+    two penalty rows: :func:`zero_penalty`'s with 10% +inf, and the same
+    with -0.0 turned to 0.0 (for the merged results: K1's order puts -0.0
+    before 0.0)."""
+    rng = np.random.default_rng(seed)
+    sizes = np.array([0, 1, k - 1, k, k + 1, 2 * k, 3000, 800, 700, 1200,
+                      700])
+    caps = (sizes + 8 + 7) // 8 * 8
+    offsets = np.concatenate([[0], np.cumsum(caps)])
+    rows = int(offsets[-1])
+    if store == "uint8":
+        x = rng.integers(0, 4, (rows, d)).astype(np.float32)
+        q = rng.integers(0, 4, (m, d)).astype(np.float32)
+    else:
+        x = rng.integers(-3, 4, (rows, d)).astype(np.float32)
+        if store == "int8":
+            x[:, 0] = np.where(rng.random(rows) < 0.5, -127, 127)
+        q = rng.integers(-3, 4, (m, d)).astype(np.float32)
+    q[0] = 0.0
+    tie = offsets[7] + rng.permutation(800)[:600]
+    x[tie] = x[tie[0]]
+    x[offsets[8]:offsets[8] + 700] = x[offsets[8]]
+    pen = zero_penalty(rng, rows, 0.1)
+    pen[offsets[9] + rng.permutation(1200)[:1080]] = np.inf
+    sizes[10] = 0
+    stored, scales = tq.quantize_rows(torch.from_numpy(x), store)
+    deq = tq.dequantize_rows(stored, scales)
+    norms = (deq * deq).sum(1)
+    probed = np.stack([rng.permutation(len(sizes)) for _ in range(m)])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    args = [stored.cuda(), norms.cuda(), t(probed.astype(np.int32)),
+            t(offsets[:-1].astype(np.int32)), t(sizes.astype(np.int32)),
+            t(q)]
+    pen_t = t(pen)
+    return (args, None if scales is None else scales.cuda(),
+            (pen_t, pen_t + 0.0))
+
+
+def pairs_plain(plain, args, probed_at: int, k: int, metric, penalty,
+                **kw):
+    """The plain version of one scan pair a query: each probe column
+    alone, (m, p, k)."""
+    probed = args[probed_at]
+    outs_v, outs_i = [], []
+    for j in range(probed.shape[1]):
+        a = list(args)
+        a[probed_at] = probed[:, j:j + 1].contiguous()
+        v, i = plain(*a, k, metric, penalty, **kw)
+        outs_v.append(v)
+        outs_i.append(i)
+    return torch.stack(outs_v, 1), torch.stack(outs_i, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "cos", "ip"])
+@pytest.mark.parametrize("store", ("float32", "bfloat16", "int8", "uint8"))
+def test_ivf_flat_scan_wide_on_card(store, metric):
+    """The grouped K3 past k = 512 (one grouped launch a call; 32 queries
+    a group, the wide plan) on :func:`wide_flat_store`'s lists at k = 513,
+    1024, 1025, 2048 and at FAR_K on 8 queries: merged with K1, equal to
+    the plain version (l2, ip; cosine close), with and without the penalty
+    row; launched twice, bit-equal; each pair's k columns bit for bit
+    against the plain version of that pair alone, -0.0 beside 0.0
+    included; at 513 <= k <= 1024 equal to the per-pair form, bit for
+    bit; each pair's first 512 columns those of the plan at k = 512 (on
+    integer and Gaussian rows)."""
+    need_cuda()
+    for k in WIDE_SCAN_KS + (FAR_K,):
+        args, sc, (pen0, pen) = wide_flat_store(k, 70 + k % 13, store)
+        if k == FAR_K:
+            args[2], args[5] = args[2][:FAR_QUERIES], args[5][:FAR_QUERIES]
+        m, p = args[2].shape
+        kern = functools.partial(tis.ivf_flat_scan, scales=sc)
+        plain = functools.partial(tis.ivf_flat_scan_plain, scales=sc)
+        for penalty in (pen, None):
+            before = tis.group_launches
+            kv, ki = kern(*args, k, metric, penalty)
+            kv2, ki2 = kern(*args, k, metric, penalty)
+            pv, pi = plain(*args, k, metric, penalty)
+            torch.cuda.synchronize()
+            assert tis.group_launches == before + 2
+            assert_bits_equal(kv, kv2)
+            assert torch.equal(ki, ki2)
+            if metric != "cos":
+                assert_bits_equal(kv, pv)
+                assert torch.equal(ki, pi), (k, penalty is None)
+            else:
+                assert_knn_sets_close(pv.cpu(), pi.cpu(), kv.cpu(),
+                                      ki.cpu(), min_shared=0.99)
+        if metric == "cos":
+            continue
+        q = args[5]
+        qn = tfk.prepare_norms(metric, q)
+        dn = tfk.corpus_norms(metric, args[0], args[1], sc, None)
+        cand = lambda kk, form=None: tis.ivf_flat_scan_candidates(  # noqa: E731
+            args[0], dn, pen0, q, qn, args[2], args[3], args[4], kk, metric,
+            form, sc)
+        wv, wi = cand(k)
+        ppv, ppi = pairs_plain(tis.ivf_flat_scan_plain, args, 2, k, metric,
+                               pen0, scales=sc)
+        torch.cuda.synchronize()
+        assert_bits_equal(wv.view(m, p, k), ppv)
+        assert torch.equal(wi.view(m, p, k), ppi), k
+        sv, si = cand(512)
+        torch.cuda.synchronize()
+        assert_bits_equal(wv.view(m, p, k)[:, :, :512].contiguous(),
+                          sv.view(m, p, 512))
+        assert torch.equal(wi.view(m, p, k)[:, :, :512], si.view(m, p, 512))
+        if k <= tis.PAIR_MAX_K:
+            rv, ri = cand(k, "pair")
+            torch.cuda.synchronize()
+            assert_bits_equal(wv, rv)
+            assert torch.equal(wi, ri), k
+    # Gaussian lists: the first 512 columns a pair as the plan at 512
+    c = _ivf_store(False, 9, n=20_000, lists=8, m=100, p=4)
+    if store == "uint8":   # bytes, queries in [0, 255]
+        c[0] = torch.clamp(torch.round(c[0] * 20 + 128), 0, 255)
+        c[5] = c[5] * 20 + 128
+    stored, scales = tq.quantize_rows(c[0], store)
+    deq = tq.dequantize_rows(stored, scales)
+    c[0], c[1] = stored, (deq * deq).sum(1)
+    c = [t.cuda() for t in c]
+    sc = None if scales is None else scales.cuda()
+    qn = tfk.prepare_norms(metric, c[5])
+    dn = tfk.corpus_norms(metric, c[0], c[1], sc, None)
+    m, p = c[2].shape
+    wv, wi = tis.ivf_flat_scan_candidates(c[0], dn, c[6], c[5], qn, c[2],
+                                          c[3], c[4], 1025, metric, None, sc)
+    sv, si = tis.ivf_flat_scan_candidates(c[0], dn, c[6], c[5], qn, c[2],
+                                          c[3], c[4], 512, metric, None, sc)
+    torch.cuda.synchronize()
+    assert_bits_equal(wv.view(m, p, 1025)[:, :, :512].contiguous(),
+                      sv.view(m, p, 512))
+    assert torch.equal(wi.view(m, p, 1025)[:, :, :512], si.view(m, p, 512))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pq_dim,pq_len", [(32, 1), (64, 2)])
+@pytest.mark.parametrize("k", WIDE_SCAN_KS + (FAR_K,))
+def test_ivf_pq_scan_past_512_on_card(k, pq_dim, pq_len):
+    """K4's grouped form past k = 512 (the wide plan selecting in rounds)
+    on :func:`wide_pq_store`'s lists (FAR_K: on 8 queries), query 0 all
+    zeros and a penalty row of -0.0, 0.0 and +inf (:func:`zero_penalty`):
+    merged, equal to the plain version with and without a penalty row of
+    0.0 and +inf (integer inputs; both metrics); launched twice,
+    bit-equal; each pair's k columns bit for bit against the plain version
+    of that pair alone (-0.0 beside 0.0 under ip); each pair's first 512
+    columns those of the plan at k = 512 (integer and Gaussian inputs);
+    at 513 <= k <= 1024 equal to the per-pair form, bit for bit."""
+    need_cuda()
+    for integer in (True, False):
+        args, pen = wide_pq_store(k, 50 + k % 11 + pq_dim, integer, pq_dim,
+                                  pq_len)
+        if k == FAR_K:
+            args[4], args[7] = args[4][:FAR_QUERIES], args[7][:FAR_QUERIES]
+        args[7][0] = 0.0
+        m, p = args[4].shape
+        rng = np.random.default_rng(k)
+        zpen = torch.from_numpy(zero_penalty(rng, pen.shape[0], 0.2)).cuda()
+        for metric in ("l2", "ip"):
+            if integer:
+                for penalty in (zpen + 0.0, None):
+                    a = (*args, k, metric, penalty)
+                    kv, ki = tpq.ivf_pq_scan(*a)
+                    kv2, ki2 = tpq.ivf_pq_scan(*a)
+                    pv, pi = tpq.ivf_pq_scan_plain(*a)
+                    torch.cuda.synchronize()
+                    assert_bits_equal(kv, kv2)
+                    assert torch.equal(ki, ki2)
+                    assert_bits_equal(kv, pv)
+                    assert torch.equal(ki, pi), (metric, penalty is None)
+            cand = (args[0], args[1] if metric == "l2" else None, zpen,
+                    args[3], args[2], args[7], args[4], args[5], args[6])
+            wv, wi = tpq.ivf_pq_scan_candidates(*cand, k, metric)
+            sv, si = tpq.ivf_pq_scan_candidates(*cand, 512, metric)
+            torch.cuda.synchronize()
+            assert_bits_equal(wv.view(m, p, k)[:, :, :512].contiguous(),
+                              sv.view(m, p, 512))
+            assert torch.equal(wi.view(m, p, k)[:, :, :512],
+                               si.view(m, p, 512))
+            if not integer:
+                continue
+            ppv, ppi = pairs_plain(tpq.ivf_pq_scan_plain, args, 4, k,
+                                   metric, zpen)
+            torch.cuda.synchronize()
+            assert_bits_equal(wv.view(m, p, k), ppv)
+            assert torch.equal(wi.view(m, p, k), ppi), (metric, k)
+            if k <= tis.PAIR_MAX_K:
+                rv, ri = tpq.ivf_pq_scan_candidates(*cand, k, metric,
+                                                    form="pair")
+                torch.cuda.synchronize()
+                assert_bits_equal(wv, rv)
+                assert torch.equal(wi, ri), (metric, k)
+
+
+@pytest.mark.cuda
+def test_wide_scans_on_two_streams_at_once():
+    """The wide plans' scratch comes from ``torch.empty`` a call, which
+    PyTorch's caching allocator orders by stream: K4's and K3's wide
+    launches and K2's wide form, two at a time on two streams, each over
+    its own inputs and k, give what each gives alone on the default
+    stream (a scratch kept and shared by the two launches would let one
+    overwrite the other's distance rows)."""
+    need_cuda()
+    pa, _ = wide_pq_store(300, 1, True, 32, 1)
+    pb, _ = wide_pq_store(700, 2, True, 64, 2)
+    fa, fsc, _ = wide_flat_store(600, 3, "float32")
+    x, sc, dim4, q, _ = wide_knn_case("float32", 4, n=8000)
+    calls = [
+        lambda: tpq.ivf_pq_scan_candidates(
+            pa[0], pa[1], None, pa[3], pa[2], pa[7], pa[4], pa[5], pa[6],
+            300, "l2"),
+        lambda: tpq.ivf_pq_scan_candidates(
+            pb[0], pb[1], None, pb[3], pb[2], pb[7], pb[4], pb[5], pb[6],
+            700, "l2"),
+        lambda: tis.ivf_flat_scan(*fa, 600, "l2"),
+        lambda: tfk.fused_knn(q, x, 1000, "l2"),
+    ]
+    alone = [fn() for fn in calls]
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for rnd in range(3):
+        for i in range(len(calls)):
+            j = (i + 1 + rnd) % len(calls)
+            with torch.cuda.stream(streams[0]):
+                got_i = calls[i]()
+            with torch.cuda.stream(streams[1]):
+                got_j = calls[j]()
+            torch.cuda.synchronize()
+            for got, ref in ((got_i, alone[i]), (got_j, alone[j])):
+                assert_bits_equal(got[0], ref[0])
+                assert torch.equal(got[1], ref[1]), (rnd, i, j)
 
 
 # NN-descent's merge at the knob defaults (s = 16, join = 24) for k = 64

@@ -74,11 +74,18 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    (64 blobs of std 3.0, centers in ±10) with 10,000 queries and ground
    truth from the port's brute force (k = 100): the four families at
    the JAX harness's default sweeps (IVF n_probes 1-100 at 2,000 lists,
-   IVF-PQ pq_dim 64, CAGRA degree 32 from NN-descent with the engines
-   raced at each itopk 32-256), the Google-Benchmark JSON written to
-   ``build/bench/``; each point's QPS, recall@10 and build seconds
-   (CAGRA: the engine chosen and the race's times), each family's best
-   QPS at recall@10 >= 0.95 (or the highest recall reached). Checks:
+   IVF-PQ pq_dim 64, CAGRA degree 32 on the graph of the kNN-graph
+   builders' race, with the engines raced at each itopk 32-256), the
+   Google-Benchmark JSON written to ``build/bench/``; each point's QPS,
+   recall@10 and build seconds (CAGRA: the engine chosen and the race's
+   times), each family's best QPS at recall@10 >= 0.95 (or the highest
+   recall reached). The CAGRA case first races the exact, IVF-PQ and
+   NN-descent builders at its own shape (1M rows, intermediate degree
+   64; ``bench.race_graph_build``, untimed in the build's seconds): each
+   builder's seconds and edge recall over all rows and the verdict are
+   printed, the verdict must be the rule's (the fastest builder at edge
+   recall >= 0.9, the exact graph always eligible) and the cell's build
+   must run it (``knn_graph_algo="auto"``). Checks:
    brute-force recall 1.0, IVF-Flat and IVF-PQ recall non-decreasing in
    n_probes (within 0.005), each CAGRA point's engine the fastest of
    its own race, and its timed searches launching the kernel of that
@@ -86,6 +93,20 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    Then brute force and IVF-Flat again with ``--dtype int8`` on the same
    data (``build/bench/blobs-1000000x128.int8.bench.json``), launching
    only K2's and K3's int8 forms.
+   Then the entry points that share the chunk loop, on the path's
+   indexes: ``cagra.health`` (its unreachable nodes equal to a count on
+   the graph); a CAGRA search at ``query_chunk`` = 1,024 (recall@10
+   within 0.01 of the unchunked search's, one K6 launch a chunk); brute
+   force and IVF-Flat at ``query_chunk`` = 2,500 under a ``Deadline``
+   whose injected clock expires after two chunks (``DeadlineExceeded``,
+   its partial results the unchunked search's first 5,000 rows bit for
+   bit, two launches); an expired deadline on each family raising with
+   no partial result and no launch; each family's ``make_searcher``
+   equal to ``search`` bit for bit; and a child ``python -c`` process
+   that reads the run's verdict file (``build/autotune.json``, deleted
+   at the start of the run, so no earlier run's verdict steers this one)
+   and finds and follows the bench cell's graph verdict and engine
+   verdicts.
 5. stores: the low-precision stores through the entry points, each path
    with the counters reset before it, no plain version of K2 or K3
    allowed to run, and every K2 or K3 launch the store's form: brute
@@ -218,7 +239,12 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    beside its plain version and bound (K2 also beside ``addmm`` +
    ``torch.topk`` at k = 1,024) in the rows ``fused_knn.wide``,
    ``ivf_flat_scan.wide`` and ``ivf_pq_scan.wide`` (launches: the
-   phase's paths').
+   phase's paths'). K1's k-pass form at the merges these paths hand it
+   past k = 512 (the IVF-Flat search at k = 2,048, the degree-512 IVF-PQ
+   pass's merge at k = 1,025), as captured: its time alone, its
+   launches on the paths, its bytes bound and ``torch.topk``'s time on
+   the same input, whose values it must equal (the K1 row's
+   ``kpass_wide``).
 
 Prints progress lines, then a ``{"kernels": [...]}`` line, the card's name
 and power limit as ``nvidia-smi`` gives them, and last
@@ -320,6 +346,9 @@ BENCH_SPEC, BENCH_QUERIES, BENCH_GT_K, BENCH_REPS = (
 BENCH_TARGET = 0.95            # the north star: QPS at recall@10 >= 0.95
 BENCH_OUT = "build/bench"      # its Google-Benchmark JSON goes here
 BENCH_STORE = "int8"           # the bench's low-precision run (--dtype)
+# the run's autotune verdict file (RAFT_TPU_TORCH_AUTOTUNE_CACHE), deleted
+# at the start
+VERDICT_FILE = "build/autotune.json"
 
 # the run's peak device memory is 58.41 GiB allocated (in the wide-k
 # phase; 57.60 before it), 72.44 GiB held by the allocator (NVIDIA H100
@@ -577,7 +606,7 @@ def check_bits(ref, got, what: str) -> None:
     payloads and -0.0 included) and the other tensors are equal."""
     if not (torch.equal(ref[0].view(torch.int32), got[0].view(torch.int32))
             and all(torch.equal(a, b) for a, b in zip(ref[1:], got[1:]))):
-        raise AssertionError(f"{what}: kernel and plain version differ")
+        raise AssertionError(f"{what}: not equal bit for bit")
     log(f"  {what}: equal bit for bit")
 
 
@@ -996,17 +1025,21 @@ class captured:
     """Wrap ``mod.<name>`` for the duration of a ``with`` block: every call
     passes through, and the first whose (args, kwargs) satisfy ``keep`` is
     recorded in ``self.call`` (how a kernel's inputs at a path's own
-    shape are taken from the path itself)."""
+    shape are taken from the path itself); ``self.n`` counts the calls
+    that satisfy it."""
 
     def __init__(self, mod, name: str, keep):
         self.mod, self.name, self.keep, self.call = mod, name, keep, None
+        self.n = 0
 
     def __enter__(self):
         self.orig = getattr(self.mod, self.name)
 
         def tap(*args, **kwargs):
-            if self.call is None and self.keep(*args, **kwargs):
-                self.call = (args, kwargs)
+            if self.keep(*args, **kwargs):
+                self.n += 1
+                if self.call is None:
+                    self.call = (args, kwargs)
             return self.orig(*args, **kwargs)
 
         setattr(self.mod, self.name, tap)
@@ -1046,6 +1079,29 @@ class call_events:
     def ms(self) -> list:
         torch.cuda.synchronize()
         return [a.elapsed_time(b) for a, b in self.marks]
+
+
+class outputs:
+    """Wrap ``mod.<name>`` for the duration of a ``with`` block and keep
+    ``keep(out)`` of each call's output in ``self.kept`` (a digest, so
+    that no large output outlives the call)."""
+
+    def __init__(self, mod, name: str, keep):
+        self.mod, self.name, self.keep, self.kept = mod, name, keep, []
+
+    def __enter__(self):
+        self.orig = getattr(self.mod, self.name)
+
+        def tap(*args, **kwargs):
+            out = self.orig(*args, **kwargs)
+            self.kept.append(self.keep(out))
+            return out
+
+        setattr(self.mod, self.name, tap)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
 
 
 class engine_runs:
@@ -1314,9 +1370,15 @@ def bench_phase(totals, dev):
     ``bench.run_benchmarks`` over the four families at the JAX harness's
     default sweeps, its Google-Benchmark JSON written under
     ``BENCH_OUT``. Prints each point and each family's best QPS at
-    recall@10 >= BENCH_TARGET. Returns K1's NN-descent merge input (the
-    CAGRA case's build) and K6's input at itopk 256, as the path handed
-    them to the kernels."""
+    recall@10 >= BENCH_TARGET. The CAGRA case races the kNN-graph
+    builders first (``race_graph_build``, all three at the build's own
+    shape; K1's NN-descent merge is taken from the race's NN-descent
+    build) and builds on the verdict: each builder's seconds and edge
+    recall, the verdict and the cell's build are printed, the verdict
+    held to the race's rule and the build to the verdict. Returns K1's
+    NN-descent merge input and K6's input at itopk 256, as the path
+    handed them to the kernels, and the CAGRA cell's shape and verdicts
+    (for :func:`entry_phase`'s child process)."""
     (base, queries, _, metric), t_data = host_time(
         lambda: bench.load_dataset(BENCH_SPEC, n_queries=BENCH_QUERIES,
                                    device=dev))
@@ -1331,6 +1393,8 @@ def bench_phase(totals, dev):
             tuple(v.shape) == merge and k == 2 * deg)) as k1_cap, \
             captured(cagra, "fused_traverse",
                      lambda *a, **kw: kw["itopk"] == 256) as k6_cap, \
+            outputs(cagra, "build",
+                    lambda idx: dict(idx.build_stats)) as built, \
             engine_runs() as timed:
         results = run_path(
             "bench", ("select_k", "fused_knn", "ivf_flat_scan",
@@ -1351,7 +1415,8 @@ def bench_phase(totals, dev):
     for r in results:
         by_algo.setdefault(r.algo, []).append(r)
         race = "".join(f", race {e[5:-3]} {v:.2f} ms"
-                       for e, v in r.extra.items() if e.startswith("race_"))
+                       for e, v in r.extra.items()
+                       if e.startswith("race_") and e.endswith("_ms"))
         eng = f", engine {r.extra['engine']}" if "engine" in r.extra else ""
         log(f"bench {r.name}: {r.qps:.0f} QPS, recall@{K} {r.recall:.4f}, "
             f"build {r.build_time:.2f} s{eng}{race}")
@@ -1379,9 +1444,10 @@ def bench_phase(totals, dev):
                                      f"{a.name} to {b.name}")
     want = {"fused": (True, False), "edge": (False, True),
             "gather": (False, False)}
+    cell = graph_race_check(by_algo["raft_cagra"], built.kept)
     for r in by_algo["raft_cagra"]:
         race = {e[5:-3]: v for e, v in r.extra.items()
-                if e.startswith("race_")}
+                if e.startswith("race_") and e.endswith("_ms")}
         if r.extra["engine"] != min(race, key=race.get):
             raise AssertionError(f"bench {r.name}: engine "
                                  f"{r.extra['engine']} is not the race's "
@@ -1399,7 +1465,46 @@ def bench_phase(totals, dev):
                              "itopk 256 was not reached")
     log(f"bench: wrote {out}")
     bench_store_run(base, queries, gt, metric, totals, dev)
-    return k1_cap.call, k6_cap.call
+    cell.update(n=base.shape[0], d=base.shape[1], metric=metric, k=K,
+                m=queries.shape[0], degree=deg, k0=2 * deg)
+    return k1_cap.call, k6_cap.call, cell
+
+
+def graph_race_check(results, builds) -> dict:
+    """The bench CAGRA cell's graph race, from its entries: each builder's
+    seconds and edge recall and the verdict, printed; the verdict must be
+    the race's rule applied to the race's own readings, and the cell's
+    build (``builds``: its ``build_stats``) must have run the verdict's
+    builder. Then the cell's build seconds without the race and its best
+    QPS at recall@10 >= BENCH_TARGET (or its highest recall). → the
+    verdict and each itopk point's engine."""
+    extra = results[0].extra
+    secs = {e[5:-2]: v for e, v in extra.items()
+            if e.startswith("race_") and e.endswith("_s")}
+    recalls = {b: extra[f"edge_recall_{b}"] for b in secs}
+    verdict = extra["graph_algo"]
+    log("bench raft_cagra graph race: " + ", ".join(
+            f"{b} {t:.3f} s, edge recall {recalls[b]:.4f}"
+            for b, t in secs.items()) + f" -> {verdict}")
+    rule = bench.graph_race_winner(secs, recalls)
+    if verdict != rule or set(secs) != {"brute", "ivf_pq", "nn_descent"}:
+        raise AssertionError(f"bench graph race: verdict {verdict}, the "
+                             f"rule gives {rule} ({secs}, {recalls})")
+    if len(builds) != 1 or builds[0]["knn_algo"] != verdict:
+        raise AssertionError(f"bench raft_cagra: the cell's builds ran "
+                             f"{builds}, the race chose {verdict}")
+    hit = [r for r in results if r.recall >= BENCH_TARGET]
+    best = (f"best QPS at recall@{K} >= {BENCH_TARGET}: "
+            f"{max(hit, key=lambda r: r.qps).qps:.0f}" if hit else
+            f"no point at recall@{K} {BENCH_TARGET}, highest "
+            f"{max(r.recall for r in results):.4f}")
+    log(f"bench raft_cagra on the {verdict} graph: build "
+        f"{results[0].build_time:.2f} s without the race (kNN graph "
+        f"{builds[0]['knn_graph_s']:.2f} s, optimize "
+        f"{builds[0]['optimize_s']:.2f} s, seeds "
+        f"{builds[0]['seeds_s']:.2f} s); {best}")
+    return dict(graph_algo=verdict, engines={
+        r.search_params["itopk"]: r.extra["engine"] for r in results})
 
 
 def bench_store_run(base, queries, gt, metric, totals, dev) -> None:
@@ -1458,6 +1563,189 @@ def bench_store_run(base, queries, gt, metric, totals, dev) -> None:
             raise AssertionError(f"bench: recall falls from {a.name} to "
                                  f"{b.name}")
     log(f"bench: wrote {out}")
+
+
+# the entry-point phase: chunked and deadline searches, health,
+# make_searcher, and the verdict file read by a fresh process
+CAGRA_CHUNK = 1024           # CAGRA's deadline chunk (cagra.DEADLINE_CHUNK)
+DEADLINE_CHUNK_ROWS = 2500   # brute force and IVF-Flat under a deadline
+DEADLINE_CHUNKS_DONE = 2     # the deadline expires after this many chunks
+CHUNK_RECALL_GAP = 0.01
+
+
+class StepClock:
+    """A clock for ``Deadline``: it reads 0 for its first ``reads`` reads
+    and 1e9 after them. A Deadline reads it once when it is made and once
+    a checkpoint, so ``reads`` = chunks + 1 expires it at the checkpoint
+    before chunk ``chunks``."""
+
+    def __init__(self, reads: int):
+        self.left = reads
+
+    def __call__(self) -> float:
+        self.left -= 1
+        return 0.0 if self.left >= 0 else 1e9
+
+
+# the child process: the verdict file read afresh, the race's graph
+# verdict and the bench cell's engine verdicts found in it and followed
+VERDICT_CHILD = r"""
+import json, sys
+import torch
+from raft_tpu_torch.distance.distance_types import canonical_metric
+from raft_tpu_torch.neighbors import cagra
+from raft_tpu_torch.ops import autotune
+want = json.loads(sys.argv[1])
+with open(autotune.cache_path()) as f:
+    disk = json.load(f)
+dev = torch.device("cuda", 0)
+mt = canonical_metric(want["metric"])
+n, d, deg = want["n"], want["d"], want["degree"]
+gkey = cagra._graph_algo_key(n, d, want["k0"], mt, dev)
+auto = cagra._resolve_graph_algo(n, d, want["k0"], "auto", mt, dev)
+assert disk.get(gkey) == auto == want["graph_algo"], (gkey, disk.get(gkey),
+                                                      auto)
+# an index of the cell's shape (rows expanded from one: no memory) with an
+# int8 edge store attached, as the cell's searches had
+row = torch.zeros((1, d), device=dev)
+idx = cagra.Index(row.expand(n, d), torch.zeros(
+    (1, deg), dtype=torch.int32, device=dev).expand(n, deg), mt)
+one = torch.zeros((1, 1, 1), device=dev)
+idx.edge_store = cagra.EdgeStore("int8", deg, deg, d, one.to(torch.int8),
+                                 one, one.to(torch.int32))
+got = {}
+for itopk, eng in want["engines"].items():
+    sp = cagra.SearchParams(itopk_size=int(itopk))
+    key = cagra._tune_key(idx, want["m"], want["k"], sp, idx.edge_store)
+    got[itopk] = cagra.resolve_engine(idx, want["m"], want["k"], sp)
+    assert disk.get(key) == got[itopk] == eng, (key, disk.get(key), eng)
+print(json.dumps({"verdicts": len(disk), "graph_algo": auto,
+                  "engines": got}))
+"""
+
+
+def entry_phase(x, q, bidx, iidx, pidx, cidx, cell, totals):
+    """The entry points that share the chunk loop, on the path's indexes:
+    ``cagra.health`` (its unreachable nodes against a count taken on the
+    graph); a CAGRA search at ``query_chunk`` = :data:`CAGRA_CHUNK`
+    (recall within :data:`CHUNK_RECALL_GAP` of the unchunked search);
+    brute force and IVF-Flat at ``query_chunk`` =
+    :data:`DEADLINE_CHUNK_ROWS` under a Deadline whose clock expires after
+    :data:`DEADLINE_CHUNKS_DONE` chunks (``DeadlineExceeded``, its partial
+    results the unchunked search's rows bit for bit); an expired deadline
+    on each family (no partial result, no kernel launched);
+    ``make_searcher`` of each family equal to ``search`` bit for bit; and
+    a child process that reads the verdict file afresh and follows the
+    bench cell's graph race and engine races (``cell``)."""
+    from raft_tpu_torch.core.deadline import Deadline, DeadlineExceeded
+
+    # health: connectivity against a count taken on the graph itself
+    rep, t = host_time(lambda: cagra.health(cidx))
+    indeg = torch.bincount(cidx.graph.reshape(-1).long(), minlength=N)
+    direct = int((indeg == 0).sum())
+    log(f"cagra health ({t:.3f} s): {json.dumps(rep)}")
+    if rep["unreachable_nodes"] != direct or rep["n"] != N:
+        raise AssertionError(f"cagra health: unreachable "
+                             f"{rep['unreachable_nodes']}, the graph's "
+                             f"in-degrees give {direct}")
+    del indeg
+
+    # CAGRA in chunks: its own seed rows a chunk, recall as one batch's
+    _, bi = brute_force.search(bidx, q, K)
+    (_, ui), t_one = host_time(lambda: cagra.search(
+        cidx, q, K, CAGRA_SP, engine="fused"))
+    (_, ci), t_chunk = run_path(
+        f"cagra fused search, query_chunk={CAGRA_CHUNK}",
+        ("cagra_fused", "select_k"), lambda: host_time(lambda: cagra.search(
+            cidx, q, K, CAGRA_SP, engine="fused", query_chunk=CAGRA_CHUNK)),
+        totals)
+    chunks = -(-M // CAGRA_CHUNK)
+    r_one, r_chunk = (neighborhood_recall(ui, bi),
+                      neighborhood_recall(ci, bi))
+    log(f"cagra fused search in {chunks} chunks of {CAGRA_CHUNK}: "
+        f"{t_chunk * 1e3:.1f} ms, recall@{K} {r_chunk:.4f} (one batch "
+        f"{t_one * 1e3:.1f} ms, {r_one:.4f}); K6 launches "
+        f"{counts()['cagra_fused']}")
+    if abs(r_chunk - r_one) > CHUNK_RECALL_GAP or \
+            counts()["cagra_fused"] != chunks:
+        raise AssertionError(f"cagra chunked: recall {r_chunk:.4f} against "
+                             f"{r_one:.4f}, {counts()['cagra_fused']} K6 "
+                             f"launches for {chunks} chunks")
+    del ui, ci
+
+    # deadlines that expire after two chunks: the partial results are the
+    # unchunked search's rows of those chunks, bit for bit
+    sp_flat = ivf_flat.SearchParams(n_probes=N_PROBES)
+    done = DEADLINE_CHUNKS_DONE * DEADLINE_CHUNK_ROWS
+    for name, kern, search in (
+            ("brute force", "fused_knn",
+             lambda **kw: brute_force.search(bidx, q, K, **kw)),
+            ("ivf_flat", "ivf_flat_scan",
+             lambda **kw: ivf_flat.search(iidx, q, K, sp_flat, **kw))):
+        whole = search()
+        dl = Deadline(1.0, clock=StepClock(DEADLINE_CHUNKS_DONE + 1))
+
+        def timed():
+            try:
+                search(query_chunk=DEADLINE_CHUNK_ROWS, res=dl)
+            except DeadlineExceeded as e:
+                return e
+            raise AssertionError(f"{name}: the deadline did not fire")
+
+        err = run_path(f"{name} under a deadline", (kern,), timed, totals)
+        launched = counts()[kern]
+        log(f"{name} under a deadline (chunks of {DEADLINE_CHUNK_ROWS}, "
+            f"expired after {DEADLINE_CHUNKS_DONE}): {err}; {kern} "
+            f"launches {launched}")
+        if err.partial is None or launched != DEADLINE_CHUNKS_DONE:
+            raise AssertionError(f"{name}: partial {err.partial}, "
+                                 f"{launched} launches")
+        check_bits((whole[0][:done], whole[1][:done]), err.partial,
+                   f"{name}: the partial results against the unchunked "
+                   f"search's first {done} rows")
+        del whole, err
+
+    # an expired deadline: nothing launched, nothing attached
+    sp_pq = ivf_pq.SearchParams(n_probes=N_PROBES)
+    searches = {
+        "brute_force": (lambda **kw: brute_force.search(bidx, q, K, **kw),
+                        brute_force.make_searcher(bidx)),
+        "ivf_flat": (lambda **kw: ivf_flat.search(iidx, q, K, sp_flat, **kw),
+                     ivf_flat.make_searcher(iidx, sp_flat)),
+        "ivf_pq": (lambda **kw: ivf_pq.search(pidx, q, K, sp_pq, **kw),
+                   ivf_pq.make_searcher(pidx, sp_pq)),
+        "cagra": (lambda **kw: cagra.search(cidx, q, K, CAGRA_SP,
+                                            engine="fused", **kw),
+                  cagra.make_searcher(cidx, CAGRA_SP, engine="fused"))}
+    for name, (search, _) in searches.items():
+        reset_counts()
+        try:
+            search(res=Deadline(0.0))
+            raise AssertionError(f"{name}: an expired deadline did not "
+                                 "raise")
+        except DeadlineExceeded as e:
+            moved = {kk: v for kk, v in counts().items() if v}
+            if e.partial is not None or moved:
+                raise AssertionError(f"{name}: an expired deadline gave "
+                                     f"{e.partial}, launches {moved}")
+    log("expired deadlines: brute force, IVF-Flat, IVF-PQ and CAGRA raise "
+        "before any launch, no partial result")
+
+    # make_searcher: its fn is search with the options frozen
+    for name, (search, fn) in searches.items():
+        check_bits(search(), fn(q, K), f"{name} make_searcher's fn "
+                   "against search")
+
+    # a fresh process follows the verdicts this run recorded
+    child = subprocess.run(
+        [sys.executable, "-c", VERDICT_CHILD, json.dumps(cell)],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if child.returncode != 0:
+        raise AssertionError(f"verdict child process failed: "
+                             f"{child.stderr[-4000:]}")
+    log(f"verdict file {os.environ['RAFT_TPU_TORCH_AUTOTUNE_CACHE']} read "
+        f"by a fresh process: {child.stdout.strip()}")
 
 
 def int_lists(p, k, seed):
@@ -2943,13 +3231,29 @@ def wide_k_phase(timer, x, q, bidx, iidx, pidx, sidx, pass_call, totals):
     """The paths past the kernels' old limits (:func:`wide_paths`,
     :func:`wide_cagra`), then the new forms against their plain versions
     and timed (:func:`k2_wide`, :func:`k3_wide_form`,
-    :func:`k4_wide_form`) → their kernel rows, launches from the paths."""
+    :func:`k4_wide_form`) → their kernel rows, launches from the paths,
+    and K1's k-pass form past k = 512 at the paths' merges
+    (:func:`k1_kpass_wide`)."""
     _, bi = brute_force.search(bidx, q, K)
     before = {kern: totals[kern] for kern in ("fused_knn.wide",
                                               "ivf_flat_scan.wide",
                                               "ivf_pq_scan.wide")}
-    paths = wide_paths(x, q, bidx, iidx, pidx, sidx, bi, totals)
-    routes = wide_cagra(x, q, bi, totals)
+    # K1's k-pass form past k = 512 at the shapes these paths hand it: the
+    # IVF-Flat search's merge at the widest k, the widest IVF-PQ pass's
+    big_ivf, big_pass = WIDE_IVF_KS[-1], 2 * WIDE_CAGRA[-1][0] + 1
+    with captured(iscan, "kpass_select_k",
+                  lambda v, k, *a, **kw: k == big_ivf) as cap:
+        paths = wide_paths(x, q, bidx, iidx, pidx, sidx, bi, totals)
+    k1_rows = [k1_kpass_wide(timer, f"IVF-Flat search merge, k={big_ivf}",
+                             cap)]
+    del cap
+    with captured(ipq, "kpass_select_k",
+                  lambda v, k, *a, **kw: k == big_pass) as cap:
+        routes = wide_cagra(x, q, bi, totals)
+    k1_rows.append(k1_kpass_wide(
+        timer, f"IVF-PQ pass merge at intermediate degree "
+        f"{WIDE_CAGRA[-1][0]}, k={big_pass}", cap))
+    del cap
     launches = {kern: totals[kern] - n for kern, n in before.items()}
     rows = [k2_wide(timer, bidx, q, launches["fused_knn.wide"]),
             k3_wide_form(timer, iidx, q, launches["ivf_flat_scan.wide"]),
@@ -2960,7 +3264,33 @@ def wide_k_phase(timer, x, q, bidx, iidx, pidx, sidx, pass_call, totals):
                    cagra_routes=routes)
     rows[1].update(search_ms=paths["ivf_flat"])
     rows[2].update(search_ms=paths["ivf_pq"])
-    return rows
+    return rows, k1_rows
+
+
+def k1_kpass_wide(timer, what: str, cap) -> dict:
+    """K1's k-pass form on a merge input past k = 512 as the path handed
+    it (``cap``, the calls that matched): the card's time alone
+    (``device_ms``), beside ``torch.topk``'s event time on the same
+    input, whose values it must equal, and the bytes bound (the input
+    read once, k (value, column) pairs a row written); launches: the
+    matching calls of the paths."""
+    if cap.call is None:
+        raise AssertionError(f"K1 {what}: the path made no such merge")
+    v, k = cap.call[0][0], cap.call[0][1]
+    rows, n = v.shape
+    kv, _ = sk.kpass_select_k(v, k, form="kpass")
+    tv, _ = torch.topk(v, k, dim=1, largest=False)
+    if not torch.equal(kv, tv):
+        raise AssertionError(f"K1 {what}: values differ from torch.topk's")
+    ms = device_ms(lambda: sk.kpass_select_k(v, k, form="kpass"), reps=3)
+    lib = timer(lambda: torch.topk(v, k, dim=1, largest=False), reps=3)
+    b, by = bound(rows * n * 4 + rows * k * 8, 0.0, float(rows) * n)
+    log(f"  K1 k-pass {what} ({rows}, {n}): alone {ms:.3f} ms, torch.topk "
+        f"{lib:.3f} ms, bound {b:.4f} ms by {by}; {cap.n} launches on the "
+        "path; values equal to torch.topk's")
+    return dict(what=what, shape=f"({rows}, {n}) k={k}", form="kpass",
+                launches=cap.n, kpass_device_ms=ms, library_ms=lib,
+                bound_ms=b, bound_by=by)
 
 
 def k6_itopk256(timer, call) -> dict:
@@ -3713,6 +4043,12 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    # the run's own verdict file: no verdict of an earlier run steers it
+    verdicts = os.path.abspath(VERDICT_FILE)
+    os.makedirs(os.path.dirname(verdicts), exist_ok=True)
+    if os.path.exists(verdicts):
+        os.remove(verdicts)
+    os.environ["RAFT_TPU_TORCH_AUTOTUNE_CACHE"] = verdicts
     smi = smi_line()
     log(f"device: {smi} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
@@ -3746,8 +4082,10 @@ def main() -> int:
     k1_route, k1_pass, k4_route, route_peak = graph_route_phase(
         x, q, bidx, cidx, moved)
     mark(t_start, "graph-route phase")
-    k1_bench, k6_bench = bench_phase(moved, torch.device("cuda", 0))
+    k1_bench, k6_bench, cell = bench_phase(moved, torch.device("cuda", 0))
     mark(t_start, "bench phase")
+    entry_phase(x, q, bidx, iidx, pidx, cidx, cell, moved)
+    mark(t_start, "entry-point phase")
     stores = stores_phase(x, q, moved)
     mark(t_start, "store paths")
     # the f32 forms' launches: every store's form counts under K2 and K3 too
@@ -3758,7 +4096,7 @@ def main() -> int:
     timer = Timer()
     k1_in = k1_inputs(x, q, bidx, iidx, pidx, cidx, sidx) + [
         (f"NN-descent merge, {what}", call[0][0].contiguous(), call[0][1])
-        for what, call in (("the bench CAGRA build", k1_bench),
+        for what, call in (("the bench CAGRA graph race", k1_bench),
                            ("the graph route", k1_route))] + [
         ("IVF-PQ graph pass merge", k1_pass[0][0].contiguous(),
          k1_pass[0][1])]
@@ -3776,8 +4114,10 @@ def main() -> int:
                            by_form(moved, "ivf_pq_scan")),
                 **k4_graph_pass(timer, k4_route, split_libs)}]
     mark(t_start, "K2, K3 and K4 phases")
-    kernels += wide_k_phase(timer, x, q, bidx, iidx, pidx, sidx, k4_route,
-                            moved)
+    wide_rows, k1_wide = wide_k_phase(timer, x, q, bidx, iidx, pidx, sidx,
+                                      k4_route, moved)
+    kernels += wide_rows
+    row_of(kernels, "select_k")["kpass_wide"] = k1_wide
     del k4_route
     del iidx, pidx
     mark(t_start, "wide-k phase")

@@ -7,7 +7,9 @@ build and search (squared L2, L2, cosine and inner product; CAGRA L2 and
 inner product), ``refine``, sharded brute-force / IVF-Flat / IVF-PQ
 search over a mesh of shards, and the primitives they call:
 
-- ``core``      errors, the sample-filter bitset
+- ``core``      errors, the sample-filter bitset, deadlines and
+                cancellation between query chunks, the chunks'
+                workspace budget
 - ``distance``  metric types, fused L2 + argmin
 - ``matrix``    select_k (kernel K1)
 - ``ops``       the hand-written CUDA kernels' wrappers: fused_knn (K2),
@@ -15,7 +17,7 @@ search over a mesh of shards, and the primitives they call:
                 cagra_fused (K6), ring_topk (the cross-shard merge: K7
                 and K8); the row codecs (``quant``); NN-descent's
                 batched builder (plain PyTorch around K1); the verdict
-                cache and timer of measured engine races
+                file and timer of measured engine races
                 (``autotune``); and the kernels' build/load helper
                 ``_cuda``
 - ``comms``     the mesh of shards and the collectives between them
@@ -29,7 +31,8 @@ search over a mesh of shards, and the primitives they call:
                 distributions, make_blobs / make_regression / rmat
 - ``bench``     the ANN benchmark harness (``python -m
                 raft_tpu_torch.bench``): datasets, ground truth, the
-                QPS-at-recall sweeps in Google-Benchmark JSON
+                QPS-at-recall sweeps in Google-Benchmark JSON, CAGRA's
+                kNN-graph builder race
 - ``stats``     neighborhood recall
 - ``convert``   indexes carried over from the JAX package as numpy arrays
 

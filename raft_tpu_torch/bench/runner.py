@@ -9,11 +9,15 @@ tooling applies. ``dtype`` stores brute force and IVF-Flat in a
 low-precision rung (bfloat16, int8, uint8; int4 for brute force only) and
 tags their results' names with it; uint8 on a float corpus maps base and
 queries onto the byte grid first (:func:`byte_grid`), as the JAX harness
-does. A CAGRA case races the traversal engines
-(``cagra.tune_search``) on the benchmark's queries at each itopk point
-before it is timed, so ``engine="auto"`` runs the measured winner; the
-case's entry adds the engine that ran (``engine``) and the race's median
-times (``race_<engine>_ms``).
+does. A CAGRA case first races the kNN-graph builders on the corpus
+(:func:`race_graph_build`, untimed, as the engine race is) and builds
+with ``knn_graph_algo="auto"``, which follows the race's verdict; then it
+races the traversal engines (``cagra.tune_search``) on the benchmark's
+queries at each itopk point before it is timed, so ``engine="auto"``
+runs the measured winner. The case's entry adds the builder
+(``graph_algo``), each builder's seconds and edge recall
+(``race_<builder>_s``, ``edge_recall_<builder>``), the engine that ran
+(``engine``) and the engine race's median times (``race_<engine>_ms``).
 """
 from __future__ import annotations
 
@@ -29,11 +33,14 @@ from ..core.errors import expects
 from ..utils import resolve_device
 
 __all__ = ["BenchResult", "DTYPES", "default_configs", "byte_grid",
-           "run_benchmarks", "to_gbench_json"]
+           "race_graph_build", "graph_race_winner", "run_benchmarks",
+           "to_gbench_json"]
 
 # the stores --dtype takes; int4 for brute force only (IVF-Flat has none)
 DTYPES = ("float32", "bfloat16", "int8", "uint8", "int4")
 _DTYPE_ALGOS = ("raft_brute_force", "raft_ivf_flat")
+# the graph race's untimed first run of each builder, on this many rows
+RACE_WARM_ROWS = 2048
 
 
 @dataclasses.dataclass
@@ -83,7 +90,7 @@ def _bf_case(base, metric, dev, dtype="float32"):
     def make_search(index, q, k):
         return (lambda qq: brute_force.search(index, qq, k)), {}
 
-    return build, make_search, [{}]
+    return build, make_search, [{}], None
 
 
 def _ivf_flat_case(base, metric, n_lists, probe_sweep, dev,
@@ -98,7 +105,7 @@ def _ivf_flat_case(base, metric, n_lists, probe_sweep, dev,
         sp = ivf_flat.SearchParams(n_probes=n_probes)
         return (lambda qq: ivf_flat.search(index, qq, k, sp)), {}
 
-    return build, make_search, [{"n_probes": p} for p in probe_sweep]
+    return build, make_search, [{"n_probes": p} for p in probe_sweep], None
 
 
 def _ivf_pq_case(base, metric, n_lists, pq_dim, probe_sweep, dev):
@@ -112,17 +119,107 @@ def _ivf_pq_case(base, metric, n_lists, pq_dim, probe_sweep, dev):
         sp = ivf_pq.SearchParams(n_probes=n_probes)
         return (lambda qq: ivf_pq.search(index, qq, k, sp)), {}
 
-    return build, make_search, [{"n_probes": p} for p in probe_sweep]
+    return build, make_search, [{"n_probes": p} for p in probe_sweep], None
+
+
+def graph_race_winner(seconds: Dict[str, float],
+                      recalls: Dict[str, float],
+                      min_edge_recall: float = 0.9) -> str:
+    """The graph-builder race's verdict: the fastest builder whose edge
+    recall is at least ``min_edge_recall``; the exact graph
+    (``"brute"``) always qualifies. Below the bar ``optimize`` and the
+    exact re-rank no longer absorb a builder's missed edges (the JAX
+    bench's graph lane's rule, ``bench.py:2072-2081``)."""
+    ok = {b: t for b, t in seconds.items()
+          if b == "brute" or recalls[b] >= min_edge_recall}
+    expects(len(ok) > 0, "graph race: no builder qualifies (%s)", recalls)
+    return min(ok, key=ok.get)
+
+
+def _edge_recall(graph: torch.Tensor, exact: torch.Tensor,
+                 rows: int = 1 << 16) -> float:
+    """Share of the exact graph's edges that ``graph`` holds, over all
+    rows (in chunks of ``rows``: the comparison is rows x k x k)."""
+    hits = 0
+    for r0 in range(0, exact.shape[0], rows):
+        g, e = graph[r0:r0 + rows], exact[r0:r0 + rows]
+        hits += int((g[:, :, None] == e[:, None, :]).any(dim=2).sum())
+    return hits / exact.numel()
+
+
+def race_graph_build(base, k: int, metric="sqeuclidean", device=None,
+                     min_edge_recall: float = 0.9):
+    """Race CAGRA's kNN-graph builders on ``base`` at degree ``k`` and
+    record the verdict that ``knn_graph_algo="auto"`` follows for this
+    shape class (``cagra._graph_algo_key`` of the build's own n, dim, k
+    and metric). Each builder that serves the metric (``"brute"``,
+    ``"ivf_pq"``, and ``"nn_descent"`` where ``ops.nn_descent.supports``
+    it) builds the whole graph once through ``cagra.build_knn_graph``,
+    the card synchronised around it; each approximate graph's edge
+    recall is taken against the race's own exact graph over all rows.
+    The winner is :func:`graph_race_winner`'s. First every builder runs
+    once, untimed, on the first :data:`RACE_WARM_ROWS` rows, so that no
+    timed build pays the kernels' lazy compile. → (winner, {builder: seconds},
+    {builder: edge recall})."""
+    from ..distance.distance_types import canonical_metric
+    from ..neighbors import cagra
+    from ..ops import autotune
+    from ..ops import nn_descent as nnd
+
+    dev = resolve_device(device)
+    x = torch.as_tensor(base).to(device=dev, dtype=torch.float32)
+    x = x.contiguous()
+    n, dim = x.shape
+    mt = canonical_metric(metric)
+    expects(0 < k < n, "graph race: k=%d needs 0 < k < n=%d", k, n)
+    builders = ["brute", "ivf_pq"] + (["nn_descent"] if nnd.supports(mt)
+                                      else [])
+    warm = x[:min(n, RACE_WARM_ROWS)]
+    for b in builders:
+        cagra.build_knn_graph(warm, min(k, warm.shape[0] - 1), mt, algo=b,
+                              device=dev)
+    seconds, graphs = {}, {}
+    for b in builders:
+        _sync(dev)
+        t0 = time.perf_counter()
+        graphs[b] = cagra.build_knn_graph(x, k, mt, algo=b, device=dev)
+        _sync(dev)
+        seconds[b] = time.perf_counter() - t0
+    exact = graphs.pop("brute")
+    recalls = {"brute": 1.0, **{b: _edge_recall(g, exact)
+                                for b, g in graphs.items()}}
+    winner = graph_race_winner(seconds, recalls, min_edge_recall)
+    autotune.record(cagra._graph_algo_key(n, dim, k, mt, dev), winner)
+    return winner, seconds, recalls
 
 
 def _cagra_case(base, metric, graph_degree, itopk_sweep, dev):
     from ..neighbors import cagra
 
+    d0 = min(graph_degree * 2, len(base) - 1)
+    race = {}
+
+    def prepare():
+        from ..ops import autotune
+
+        winner, secs, recalls = race_graph_build(base, d0, metric, dev)
+        race.update(graph_algo=winner,
+                    **{f"race_{b}_s": t for b, t in secs.items()},
+                    **{f"edge_recall_{b}": r for b, r in recalls.items()})
+        readings = ", ".join(f"{b} {t:.2f} s (edge recall {recalls[b]:.4f})"
+                             for b, t in secs.items())
+        return (f"graph race: {readings} -> {winner} (verdict recorded in "
+                f"{autotune.cache_path() or 'this process only'})")
+
     def build():
-        return cagra.build(base, cagra.IndexParams(
+        index = cagra.build(base, cagra.IndexParams(
             graph_degree=graph_degree,
             intermediate_graph_degree=graph_degree * 2, metric=metric),
             device=dev)
+        expects(index.build_stats["knn_algo"] == race["graph_algo"],
+                "cagra: the build ran %s, the graph race chose %s",
+                index.build_stats["knn_algo"], race["graph_algo"])
+        return index
 
     def make_search(index, q, k, itopk=64):
         sp = cagra.SearchParams(itopk_size=itopk)
@@ -130,11 +227,12 @@ def _cagra_case(base, metric, graph_degree, itopk_sweep, dev):
         engine = cagra.resolve_engine(index, q.shape[0], k, sp)
         expects(engine == winner, "cagra: auto resolves to %s, the race "
                 "chose %s", engine, winner)
-        extra = {"engine": engine,
+        extra = {**race, "engine": engine,
                  **{f"race_{e}_ms": t * 1e3 for e, t in times.items()}}
         return (lambda qq: cagra.search(index, qq, k, sp)), extra
 
-    return build, make_search, [{"itopk": t} for t in itopk_sweep]
+    return (build, make_search, [{"itopk": t} for t in itopk_sweep],
+            prepare)
 
 
 def default_configs(base, metric, algos: Sequence[str],
@@ -150,7 +248,9 @@ def default_configs(base, metric, algos: Sequence[str],
     multiple of 8, probes 1-100, CAGRA graph degree 32 (intermediate 64)
     and itopk 32-256; each one overridable. ``dtype``: the store of brute
     force and IVF-Flat (the other families ignore it), in their results'
-    tags. → {algo: ((build, make_search, sweep), tag)}."""
+    tags. → {algo: ((build, make_search, sweep, prepare), tag)};
+    ``prepare`` (None, or CAGRA's graph race) runs before the timed
+    build and returns a line for the log."""
     dev = resolve_device(device)
     expects(dtype in DTYPES, "bench dtype must be one of %s, got %r",
             DTYPES, dtype)
@@ -253,8 +353,13 @@ def run_benchmarks(
     expects(len(gt) == len(queries), "gt/queries length mismatch")
 
     results: List[BenchResult] = []
-    for algo, ((build, make_search, sweep), tag) in default_configs(
-            base, metric, algos, dtype=dtype, device=dev).items():
+    for algo, ((build, make_search, sweep, prepare), tag) in \
+            default_configs(base, metric, algos, dtype=dtype,
+                            device=dev).items():
+        if prepare is not None:
+            note = prepare()
+            if verbose:
+                print(f"# {algo}: {note}", flush=True)
         _sync(dev)
         t0 = time.perf_counter()
         index = build()

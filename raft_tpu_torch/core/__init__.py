@@ -1,1 +1,3 @@
-"""Core types of the PyTorch port: errors and the sample-filter bitset."""
+"""Core types of the PyTorch port: errors, the sample-filter bitset,
+deadlines and cancellation between query chunks (``deadline``,
+``interruptible``) and the chunks' workspace budget (``resources``)."""

@@ -1,6 +1,7 @@
 """Exact brute-force kNN: counterpart of
 ``raft_tpu/neighbors/brute_force.py`` (``Index``, ``build``, ``search``,
-``knn``, ``knn_merge_parts``).
+``knn``, ``knn_merge_parts``, ``health``, ``quantization_error``,
+``make_searcher``).
 
 Engines (``algo``):
 
@@ -34,10 +35,14 @@ from ..matrix.select_k import select_k
 from ..ops.fused_knn import fused_knn, fused_knn_plain
 from ..ops.quant import (dequantize_store, int8_scale_report, quantize_rows,
                          store_dtype)
-from ..utils import resolve_device, run_query_chunks
+from ..utils import query_chunks, resolve_device, run_query_chunks
 
 __all__ = ["Index", "build", "search", "knn", "knn_merge_parts", "health",
-           "health_sample_rows"]
+           "health_sample_rows", "quantization_error", "make_searcher"]
+
+# a search under a deadline with no query_chunk runs this many queries a
+# chunk (the JAX package's)
+DEADLINE_CHUNK = 4096
 
 # metric → the kernels' metric code (shared with ivf_flat)
 _KERNEL_METRICS = {
@@ -113,6 +118,19 @@ def health_sample_rows(n: int, sample: int) -> np.ndarray:
     return np.unique(np.linspace(0, n - 1, take).astype(np.int64))
 
 
+def quantization_error(original, dequantized) -> dict:
+    """The measured error of a quantized copy against its float32
+    original on sampled rows, as the JAX package reports it: the relative
+    RMS error and the largest absolute error of a component, each rounded
+    to 6 decimals. Either argument may be a tensor or an array."""
+    o, dq = (torch.as_tensor(a).detach().to("cpu", torch.float32).numpy()
+             for a in (original, dequantized))
+    err = o - dq
+    denom = max(float(np.sqrt((o * o).mean())), 1e-30)
+    return {"rel_rmse": round(float(np.sqrt((err * err).mean())) / denom, 6),
+            "max_abs_err": round(float(np.abs(err).max()), 6)}
+
+
 def health(index: Index, sample: int = 256) -> dict:
     """Index health report: geometry, the store and, for int8 / int4
     stores, the sampled per-row scale stats
@@ -155,7 +173,7 @@ def _postprocess(mt: DistanceType, vals: torch.Tensor) -> torch.Tensor:
 
 def search(index: Index, queries, k: int,
            filter: Optional[Bitset] = None,  # noqa: A002 - reference name
-           algo: str = "auto", query_chunk: int = 0
+           algo: str = "auto", query_chunk: int = 0, res=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest neighbors of each query → (distances (m, k), int32
     indices (m, k)), on the index's device.
@@ -164,7 +182,12 @@ def search(index: Index, queries, k: int,
     ``algo``: "auto" or "pallas" — K2 + the K1 merge on CUDA, their
     plain versions on the CPU; "matmul" — the plain engine (GEMM + norms
     + stable sort) on any device. ``query_chunk``: run queries in chunks
-    of this many rows. On CUDA the kernel takes every k <= the index's
+    of this many rows. ``res``: a ``core.deadline.Deadline`` (or an
+    object carrying one as ``deadline``): the queries run in chunks
+    (``query_chunk``, else :data:`DEADLINE_CHUNK`) with a checkpoint
+    before each, which raises ``DeadlineExceeded`` with the finished
+    chunks' results once the budget is spent. A chunked search equals
+    the unchunked one. On CUDA the kernel takes every k <= the index's
     size (past ``fused_knn.LIST_MAX_K`` its wide form)."""
     q = torch.as_tensor(queries).to(device=index.device,
                                     dtype=torch.float32)
@@ -172,10 +195,11 @@ def search(index: Index, queries, k: int,
             "queries must be (m, %d), got %s", index.dim, tuple(q.shape))
     expects(0 < k <= index.size, "k=%d out of range for index of size %d",
             k, index.size)
-    if 0 < query_chunk < q.shape[0]:
+    chunk = query_chunks(q.shape[0], query_chunk, res, DEADLINE_CHUNK)
+    if chunk:
         return run_query_chunks(
-            lambda qc, _s0: search(index, qc, k, filter, algo), q,
-            query_chunk)
+            lambda qc, _s0: search(index, qc, k, filter, algo), q, chunk,
+            res)
     expects(algo in ("auto", "pallas", "matmul"),
             "unknown brute-force algo %r", algo)
     engine = fused_knn_plain if algo == "matmul" else fused_knn
@@ -184,6 +208,20 @@ def search(index: Index, queries, k: int,
                         index.norms, _penalty_row(index, filter),
                         index.scales, index.logical_dim)
     return _postprocess(mt, vals), idxs
+
+
+def make_searcher(index: Index, params=None, **opts):
+    """``fn(queries, k, res=None) -> (distances, indices)`` with the
+    search options ``opts`` (``algo``, ``filter``, ``query_chunk``)
+    frozen: the serving signature the four families share. Brute force
+    has no search parameters, so ``params`` must be None."""
+    expects(params is None, "brute_force has no SearchParams; pass engine "
+            "options as keywords")
+
+    def _fn(queries, k, res=None):
+        return search(index, queries, k, res=res, **opts)
+
+    return _fn
 
 
 def knn(dataset, queries, k, metric="sqeuclidean", device=None):

@@ -1,7 +1,8 @@
 """CAGRA graph-based ANN: counterpart of ``raft_tpu/neighbors/cagra.py``
 (``BuildAlgo``, ``IndexParams``, ``SearchParams``, ``Index``, ``ENGINES``,
 ``build_knn_graph``, ``optimize``, ``build``, ``build_covering_seeds``,
-``prepare_search``, ``prepare_traversal``, ``search``).
+``prepare_search``, ``prepare_traversal``, ``search``, ``health``,
+``make_searcher``).
 
 Build: the all-points kNN graph (:func:`build_knn_graph`: the exact
 graph by brute-force search through K2 + the K1 merge, batched
@@ -9,10 +10,11 @@ NN-descent, or the reference's IVF-PQ candidate pass + refine), the
 detour-count prune plus reverse-edge merge of ``optimize`` (plain
 PyTorch, bit-equal to the JAX package's), and the covering seed set
 (nearest rows to fixed-iteration k-means centers). ``"auto"`` follows a
-recorded verdict, else takes the exact graph up to :data:`BRUTE_N` rows
-and NN-descent above. ``BuildAlgo.NN_DESCENT`` runs NN-descent whatever
-``knn_graph_algo`` says. A builder's failure raises: there is no guarded
-fallback to another builder.
+recorded verdict (``bench.runner.race_graph_build`` races the builders
+at a shape and records one), else takes the exact graph up to
+:data:`BRUTE_N` rows and NN-descent above. ``BuildAlgo.NN_DESCENT``
+runs NN-descent whatever ``knn_graph_algo`` says. A builder's failure
+raises: there is no guarded fallback to another builder.
 
 Search: seed the itopk buffer (per-query random rows drawn by
 :func:`_draw_seeds`, plus the shared covering set), run the hop loop,
@@ -37,11 +39,14 @@ adaptive widen/crossover is not ported. The edge store comes at int8,
 bf16, int4 (split-half nibbles) or pq (PQ codes and their codebook): the
 edge engine serves all four, the fused engine all but pq (K6 has no pq
 form, nor has the JAX kernel; an explicit fused search on a pq store
-raises, where JAX rewrites it to its edge engine). Not ported: the
-guarded fallback chains (a kernel failure raises), ``save``/``load``, ``health``, ``make_searcher`` and the
-deadline/``query_chunk`` path. The TPU-only build paths
-(``_parted_brute_graph``'s compile cap, the tail-wrapping batch loop)
-have no counterpart. Every matrix product runs in full float32
+raises, where JAX rewrites it to its edge engine). ``query_chunk`` and a
+deadline (``res``) traverse the queries in chunks, each with its own
+random seed rows; :func:`health` reports connectivity and quantization
+error; :func:`make_searcher` freezes a search's options. Not ported: the
+guarded fallback chains (a kernel failure raises), ``save``/``load``,
+``make_searcher``'s ``degrade`` and ``donate=True``. The TPU-only build
+paths (``_parted_brute_graph``'s compile cap, the tail-wrapping batch
+loop) have no counterpart. Every matrix product runs in full float32
 (``torch.backends.cuda.matmul.allow_tf32`` False).
 """
 from __future__ import annotations
@@ -55,7 +60,7 @@ import numpy as np
 import torch
 
 from ..core.bitset import Bitset
-from ..core.errors import expects
+from ..core.errors import RaftError, expects
 from ..distance.distance_types import DistanceType, canonical_metric
 from ..matrix.select_k import select_k
 from ..ops import autotune
@@ -65,15 +70,17 @@ from ..ops.cagra_fused import (dup_mask, edge_hop, fused_capable,
                                pick_parents)
 from ..ops import quant
 from ..ops.quant import quantize_rows
-from ..utils import resolve_device, round_up_to
+from ..utils import (query_chunks, resolve_device, round_up_to,
+                     run_query_chunks)
 from . import brute_force, ivf_pq, refine
 from .ivf_pq import _kmeans_fixed
 
 __all__ = ["BuildAlgo", "IndexParams", "SearchParams", "Index", "EdgeStore",
-           "ENGINES", "BRUTE_N", "PASS_BUDGET", "pass_batch", "build",
-           "build_knn_graph", "optimize",
+           "ENGINES", "BRUTE_N", "PASS_BUDGET", "DEADLINE_CHUNK",
+           "pass_batch", "build", "build_knn_graph", "optimize",
            "build_covering_seeds", "prepare_search", "prepare_traversal",
-           "search", "tune_search", "resolve_engine"]
+           "search", "tune_search", "resolve_engine", "health",
+           "make_searcher"]
 
 ENGINES = ("gather", "edge", "fused")
 # knn_graph_algo="auto": the exact graph up to this many rows, NN-descent
@@ -83,6 +90,9 @@ BRUTE_N = 200_000
 # values and rows, 8 bytes a key) stay within this many bytes: its batch
 # shrinks as k grows (32,768 rows at the defaults' k = 2·128 + 1)
 PASS_BUDGET = 9 << 29
+# a search under a deadline with no query_chunk traverses this many
+# queries a chunk (the JAX package's)
+DEADLINE_CHUNK = 1024
 _METRICS = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
             DistanceType.InnerProduct)
 _INF = float("inf")
@@ -185,6 +195,10 @@ class Index:
     edge_store: Optional[EdgeStore] = dataclasses.field(default=None,
                                                         repr=False)
     build_stats: dict = dataclasses.field(default_factory=dict, repr=False)
+    # health()'s connectivity report, kept with the (graph, seed_nodes)
+    # identities it was computed for
+    health_conn: Optional[tuple] = dataclasses.field(default=None,
+                                                     repr=False)
 
     @property
     def size(self) -> int:
@@ -810,10 +824,17 @@ def _gather_hop(index, score, scales, q, mask, buf_d, buf_i, explored,
                             select_k)
 
 
+def _chunk_seed(seed: int, s0: int) -> int:
+    """The random seed rows' generator seed of the query chunk that starts
+    at row ``s0``: each chunk draws its own rows (the JAX package folds
+    the chunk's start into its key), so chunks do not share seeds."""
+    return int(np.random.SeedSequence([seed, s0]).generate_state(1)[0])
+
+
 def search(index: Index, queries, k: int,
            params: SearchParams | None = None,
            filter: Optional[Bitset] = None,  # noqa: A002 - reference name
-           engine: Optional[str] = None
+           engine: Optional[str] = None, res=None, query_chunk: int = 0
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched-frontier graph traversal (search_single_cta) → (distances
     (m, k), int32 ids (m, k)) on the index's device; -1 ids (+inf, or
@@ -823,7 +844,16 @@ def search(index: Index, queries, k: int,
     overrides ``SearchParams.engine``: "gather", "edge" (K5 per hop),
     "fused" (K6) or "auto"; "edge" and "fused" build the int8 edge store
     first when none is attached. "fused" on a pq store raises: K6 has no
-    pq form, and ``engine="edge"`` serves the store."""
+    pq form, and ``engine="edge"`` serves the store. ``query_chunk``:
+    traverse the queries in chunks of this many rows; ``res``: a
+    ``core.deadline.Deadline`` (or an object carrying one): chunks of
+    ``query_chunk``, else :data:`DEADLINE_CHUNK` rows, with a checkpoint
+    before each, which raises ``DeadlineExceeded`` with the finished
+    chunks' results once the budget is spent. The engine is resolved
+    once, for the whole batch. Each chunk draws its own random seed rows
+    (:func:`_chunk_seed`), so a chunked search equals the unchunked one
+    only when it runs unchunked (a chunk of the whole batch and no
+    deadline)."""
     p = params or SearchParams()
     dev = index.device
     q = torch.as_tensor(queries).to(device=dev, dtype=torch.float32)
@@ -866,49 +896,160 @@ def search(index: Index, queries, k: int,
     metric_s = "ip" if mt is DistanceType.InnerProduct else "l2"
     degree = index.graph_degree
     kprime = min(degree, itopk)
-
-    buf_d, buf_i = _seed_buffer(index, score, scales, q, mask, n_seeds,
-                                itopk, p.seed)
     pen = None
     if eng in ("edge", "fused") and mask is not None:
         # the filter as an edge-major penalty: +inf on filtered edges
         pen = torch.zeros((index.size, st.deg_p), dtype=torch.float32,
                           device=dev)
         pen[:, :degree] = torch.where(mask, 0.0, _INF)[index.graph.long()]
-    if eng == "fused":
-        buf_d, buf_i = fused_traverse(
-            q, buf_d, buf_i, st.vecs, st.aux, st.gp, pen, itopk=itopk,
-            width=width, max_iter=max_iter, kprime=kprime, degree=degree,
-            metric=metric_s, mode=st.kernel_mode)
-    else:
-        explored = torch.zeros(buf_d.shape, dtype=torch.bool, device=dev)
-        for it in range(max_iter):
-            # one host read per hop: stop once no finite entry is left
-            # unexplored (min_iterations hops at least)
-            if it >= p.min_iterations and not bool(
-                    (~explored & torch.isfinite(buf_d)).any()):
-                break
-            if eng == "edge":
-                buf_d, buf_i, explored = edge_hop(
-                    q, buf_d, buf_i, explored, st.vecs, st.aux, st.gp, pen,
-                    width=width, kprime=kprime, degree=degree,
-                    metric=metric_s, mode=st.kernel_mode, cb=st.cb,
-                    cb_scale=st.cb_scale)
-            else:
-                buf_d, buf_i, explored = _gather_hop(
-                    index, score, scales, q, mask, buf_d, buf_i, explored,
-                    width)
 
-    # exact float32 re-score and re-rank of the returned k
-    out_i = buf_i[:, :k]
-    exact = _query_dists(q, index.dataset[out_i.clamp_min(0).long()], mt)
-    exact = torch.where(torch.isfinite(buf_d[:, :k]), exact, _INF)
-    out_d, order = select_k(exact.contiguous(), k)
-    out_i = torch.gather(out_i, 1, order.long())
-    if mt is DistanceType.L2SqrtExpanded:
-        out_d = torch.sqrt(torch.clamp_min(out_d, 0.0))
-    elif mt is DistanceType.InnerProduct:
-        out_d = torch.where(torch.isfinite(out_d), -out_d, -_INF)
-    found = (out_d > -_INF if mt is DistanceType.InnerProduct
-             else torch.isfinite(out_d))
-    return out_d, torch.where(found, out_i, -1)
+    def run(qc: torch.Tensor, seed: int):
+        buf_d, buf_i = _seed_buffer(index, score, scales, qc, mask, n_seeds,
+                                    itopk, seed)
+        if eng == "fused":
+            buf_d, buf_i = fused_traverse(
+                qc, buf_d, buf_i, st.vecs, st.aux, st.gp, pen, itopk=itopk,
+                width=width, max_iter=max_iter, kprime=kprime,
+                degree=degree, metric=metric_s, mode=st.kernel_mode)
+        else:
+            explored = torch.zeros(buf_d.shape, dtype=torch.bool,
+                                   device=dev)
+            for it in range(max_iter):
+                # one host read per hop: stop once no finite entry is left
+                # unexplored (min_iterations hops at least)
+                if it >= p.min_iterations and not bool(
+                        (~explored & torch.isfinite(buf_d)).any()):
+                    break
+                if eng == "edge":
+                    buf_d, buf_i, explored = edge_hop(
+                        qc, buf_d, buf_i, explored, st.vecs, st.aux, st.gp,
+                        pen, width=width, kprime=kprime, degree=degree,
+                        metric=metric_s, mode=st.kernel_mode, cb=st.cb,
+                        cb_scale=st.cb_scale)
+                else:
+                    buf_d, buf_i, explored = _gather_hop(
+                        index, score, scales, qc, mask, buf_d, buf_i,
+                        explored, width)
+
+        # exact float32 re-score and re-rank of the returned k
+        out_i = buf_i[:, :k]
+        exact = _query_dists(qc, index.dataset[out_i.clamp_min(0).long()],
+                             mt)
+        exact = torch.where(torch.isfinite(buf_d[:, :k]), exact, _INF)
+        out_d, order = select_k(exact.contiguous(), k)
+        out_i = torch.gather(out_i, 1, order.long())
+        if mt is DistanceType.L2SqrtExpanded:
+            out_d = torch.sqrt(torch.clamp_min(out_d, 0.0))
+        elif mt is DistanceType.InnerProduct:
+            out_d = torch.where(torch.isfinite(out_d), -out_d, -_INF)
+        found = (out_d > -_INF if mt is DistanceType.InnerProduct
+                 else torch.isfinite(out_d))
+        return out_d, torch.where(found, out_i, -1)
+
+    chunk = query_chunks(q.shape[0], query_chunk, res, DEADLINE_CHUNK)
+    if chunk:
+        return run_query_chunks(
+            lambda qc, s0: run(qc, _chunk_seed(p.seed, s0)), q, chunk, res)
+    return run(q, p.seed)
+
+
+def health(index: Index, sample: int = 256) -> dict:
+    """Index health report, as the JAX package's: the graph's
+    connectivity and the measured quantization error of each traversal
+    copy the index holds.
+
+    Connectivity: the in-degree statistics (min, mean, p99, max), the
+    nodes no edge points at (``unreachable_nodes``: only seeding can
+    reach them) and those of them outside the covering seed set
+    (``unseeded_unreachable``: only random seeding can), computed once
+    and kept on the index for its graph and seed set. Quantization: the
+    sampled error (``brute_force.quantization_error``) of the int8 and
+    bf16 copies, and the edge store's mode, shape and bytes of codes. An
+    empty index reports zeros."""
+    key = (id(index.graph), id(index.seed_nodes))
+    cached = index.health_conn
+    if cached is not None and cached[0] == key:
+        conn = cached[1]
+    elif index.size == 0:
+        conn = {"graph_degree": int(index.graph.shape[1]),
+                "in_degree": {"min": 0, "mean": 0.0, "p99": 0, "max": 0},
+                "unreachable_nodes": 0, "unreachable_frac": 0.0,
+                "unseeded_unreachable": 0, "seed_nodes": 0}
+    else:
+        n = index.size
+        flat = index.graph.reshape(-1).long()
+        indeg_t = torch.bincount(flat[(flat >= 0) & (flat < n)],
+                                 minlength=n)
+        unreachable_t = indeg_t == 0
+        unseeded_t = unreachable_t.clone()
+        seeds = index.seed_nodes
+        if seeds is not None and seeds.numel():
+            sl = seeds.long()
+            unseeded_t[sl[(sl >= 0) & (sl < n)]] = False
+        indeg = indeg_t.cpu().numpy()
+        unreachable = int(unreachable_t.sum())
+        conn = {
+            "graph_degree": int(index.graph_degree),
+            "in_degree": {
+                "min": int(indeg.min()),
+                "mean": round(float(indeg.mean()), 2),
+                "p99": int(np.percentile(indeg, 99)),
+                "max": int(indeg.max())},
+            "unreachable_nodes": unreachable,
+            "unreachable_frac": round(unreachable / n, 5),
+            "unseeded_unreachable": int(unseeded_t.sum()),
+            "seed_nodes": 0 if seeds is None else int(seeds.shape[0]),
+        }
+    index.health_conn = (key, conn)
+    report = {"family": "cagra", "n": int(index.size),
+              "dim": int(index.dim), "metric": index.metric.name, **conn}
+    rows = torch.as_tensor(brute_force.health_sample_rows(index.size,
+                                                          sample),
+                           device=index.device)
+    quant_err = {}
+    if rows.numel():
+        orig = index.dataset[rows]
+        if index.score_i8 is not None:
+            q8, sc = index.score_i8
+            quant_err["int8"] = brute_force.quantization_error(
+                orig, q8[rows].to(torch.float32) * sc[rows][:, None])
+        if index.score_bf16 is not None:
+            quant_err["bfloat16"] = brute_force.quantization_error(
+                orig, index.score_bf16[rows])
+    st = index.edge_store
+    if st is not None:
+        quant_err["edge_store"] = {
+            "dtype": st.mode, "shape": tuple(int(d) for d in st.vecs.shape),
+            "bytes": st.vecs.numel() * st.vecs.element_size()}
+    if quant_err:
+        report["quant"] = quant_err
+    return report
+
+
+def make_searcher(index: Index, params: SearchParams | None = None, *,
+                  degrade=None, donate=False, **opts):
+    """``fn(queries, k, res=None) -> (distances, indices)`` with the
+    search parameters and ``opts`` (``filter``, ``query_chunk``,
+    ``engine``) frozen: the serving signature the four families share.
+    Pinning ``engine="edge"`` or ``"fused"`` (in ``opts`` or
+    ``params.engine``) builds the int8 edge store now, not on the first
+    request. ``degrade`` (JAX's brownout controller) waits for the
+    serving layer and raises; so does ``donate=True``, JAX's buffer
+    donation to ``jax.jit``, which an eager search has nothing to match
+    (``False`` and ``"auto"``, which donates only on a TPU, donate
+    nothing)."""
+    if degrade is not None:
+        raise RaftError("make_searcher(degrade=...) is not ported yet: it "
+                        "comes with the serving layer")
+    if donate not in (False, "auto"):
+        raise RaftError("make_searcher(donate=True) is not ported: it is "
+                        "jax.jit buffer donation, which an eager search "
+                        "has no counterpart of")
+    base = params or SearchParams()
+    if (opts.get("engine") or base.engine) in ("edge", "fused"):
+        prepare_traversal(index)
+
+    def _fn(queries, k, res=None):
+        return search(index, queries, k, base, res=res, **opts)
+
+    return _fn

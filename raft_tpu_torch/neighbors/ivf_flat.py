@@ -1,6 +1,6 @@
 """IVF-Flat index: counterpart of ``raft_tpu/neighbors/ivf_flat.py``
 (``IndexParams``, ``SearchParams``, ``Index``, ``build``, ``extend``,
-``search``, ``reconstruct``, ``health``).
+``search``, ``reconstruct``, ``health``, ``make_searcher``).
 
 Lists are contiguous row ranges of one cluster-sorted array
 (``_list_layout``), stored float32, bfloat16, int8 with per-row scales or
@@ -34,18 +34,20 @@ import torch
 
 from ..cluster import kmeans_balanced
 from ..core.bitset import Bitset
-from ..core.errors import expects
+from ..core.errors import RaftError, expects
+from ..core.resources import workspace_chunk_bytes
 from ..distance.distance_types import DistanceType, canonical_metric
 from ..matrix.select_k import SelectAlgo
 from ..ops.ivf_scan import coarse_probe, ivf_flat_scan, ivf_flat_scan_plain
 from ..ops.quant import (STORES, dequantize_rows, int8_scale_report,
                          quantize_rows, store_dtype)
-from ..utils import resolve_device, run_query_chunks
+from ..utils import (query_chunks, resolve_device, round_up_to,
+                     run_query_chunks)
 from ._list_layout import list_skew, scatter_build
 from .brute_force import _KERNEL_METRICS, _postprocess, health_sample_rows
 
 __all__ = ["IndexParams", "SearchParams", "Index", "build", "extend",
-           "search", "reconstruct", "health"]
+           "search", "reconstruct", "health", "make_searcher"]
 
 @dataclasses.dataclass
 class IndexParams:
@@ -204,12 +206,18 @@ def _filter_rows(index: Index, filter: Bitset):
 def search(index: Index, queries, k: int,
            params: SearchParams | None = None,
            filter: Optional[Bitset] = None,  # noqa: A002 - reference name
-           query_chunk: int = 0, algo: str = "auto"
+           query_chunk: int = 0, algo: str = "auto", res=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Probe the ``n_probes`` nearest lists of each query and return the
     exact top-k over their members → (distances (m, k), int32 source ids
     (m, k)); slots past the candidates hold (+inf, -1) (-inf for inner
     product). ``query_chunk``: run queries in chunks of this many rows.
+    ``res``: a ``core.deadline.Deadline`` (or an object carrying one):
+    the queries run in chunks (``query_chunk``, else as many as
+    ``core.resources.workspace_chunk_bytes(res)`` holds at n_probes x
+    dim rounded up to 128 floats a query) with a checkpoint before each,
+    which raises ``DeadlineExceeded`` with the finished chunks' results
+    once the budget is spent. A chunked search equals the unchunked one.
     On CUDA the scan kernel's grouped form takes every k (past 512 its
     wide plan)."""
     p = params or SearchParams()
@@ -219,11 +227,14 @@ def search(index: Index, queries, k: int,
     expects(index.size > 0, "index is empty")
     expects(algo in ("auto", "pallas", "plain"),
             "unknown ivf_flat algo %r", algo)
-    if 0 < query_chunk < q.shape[0]:
+    n_probes = min(p.n_probes, index.n_lists)
+    per_q = n_probes * round_up_to(index.dim, 128) * 4
+    chunk = query_chunks(q.shape[0], query_chunk, res,
+                         workspace_chunk_bytes(res) // per_q)
+    if chunk:
         return run_query_chunks(
             lambda qc, _s0: search(index, qc, k, p, filter, 0, algo),
-            q, query_chunk)
-    n_probes = min(p.n_probes, index.n_lists)
+            q, chunk, res)
     mt = index.metric
     metric = _KERNEL_METRICS[mt]
     pen = survivors = None
@@ -283,3 +294,21 @@ def health(index: Index, sample: int = 256) -> dict:
     elif store == "uint8":
         report["quant"] = {"uint8": {"exact": True}}
     return report
+
+
+def make_searcher(index: Index, params: SearchParams | None = None, *,
+                  degrade=None, **opts):
+    """``fn(queries, k, res=None) -> (distances, indices)`` with the
+    search parameters and ``opts`` (``filter``, ``query_chunk``,
+    ``algo``) frozen: the serving signature the four families share.
+    ``degrade`` (JAX's brownout controller) waits for the serving layer
+    and raises."""
+    if degrade is not None:
+        raise RaftError("make_searcher(degrade=...) is not ported yet: it "
+                        "comes with the serving layer")
+    base = params or SearchParams()
+
+    def _fn(queries, k, res=None):
+        return search(index, queries, k, base, res=res, **opts)
+
+    return _fn

@@ -1,6 +1,7 @@
 """IVF-PQ index: counterpart of ``raft_tpu/neighbors/ivf_pq.py``
 (``CodebookGen``, ``IndexParams``, ``SearchParams``, ``Index``,
-``make_rotation_matrix``, ``build``, ``extend``, ``search``).
+``make_rotation_matrix``, ``build``, ``extend``, ``search``, ``health``,
+``make_searcher``).
 
 Everything lives in rotated space, as in the JAX package: the dataset is
 rotated once at build and the queries once at search (an orthogonal
@@ -48,7 +49,8 @@ import torch
 from ..cluster import kmeans_balanced
 from ..cluster.kmeans import segment_sum
 from ..core.bitset import Bitset
-from ..core.errors import expects
+from ..core.errors import RaftError, expects
+from ..core.resources import workspace_chunk_bytes
 from ..distance.distance_types import DistanceType, canonical_metric
 from ..distance.fused_l2_nn import fused_l2_nn_argmin
 from ..matrix.select_k import SelectAlgo
@@ -56,13 +58,14 @@ from ..ops.ivf_pq_scan import (decoded_row_norms, ivf_pq_scan,
                                ivf_pq_scan_plain, lut_codebook,
                                pq_chunk_rows)
 from ..ops.ivf_scan import coarse_probe
-from ..utils import cdiv, resolve_device, run_query_chunks
-from ._list_layout import scatter_build
-from .brute_force import _postprocess
+from ..utils import cdiv, query_chunks, resolve_device, run_query_chunks
+from ._list_layout import list_skew, scatter_build
+from .brute_force import _postprocess, health_sample_rows
 from .ivf_flat import _filter_rows
 
 __all__ = ["CodebookGen", "IndexParams", "SearchParams", "Index",
-           "make_rotation_matrix", "build", "extend", "search"]
+           "make_rotation_matrix", "build", "extend", "search", "health",
+           "make_searcher"]
 
 _METRICS = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
             DistanceType.InnerProduct)
@@ -391,7 +394,7 @@ def extend(index: Index, new_vectors, new_ids=None) -> Index:
 def search(index: Index, queries, k: int,
            params: SearchParams | None = None,
            filter: Optional[Bitset] = None,  # noqa: A002 - reference name
-           query_chunk: int = 0, algo: str = "auto"
+           query_chunk: int = 0, algo: str = "auto", res=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """LUT-based approximate top-k (detail/ivf_pq_search.cuh:731) →
     (distances (m, k), int32 source ids (m, k)); slots past the
@@ -399,12 +402,19 @@ def search(index: Index, queries, k: int,
 
     ``algo``: "auto" / "pallas" — K1 + K4 on CUDA, their plain versions on
     the CPU; "plain" — the plain versions on any device. ``query_chunk``:
-    run queries in chunks of this many rows. On CUDA the scan kernel's
-    grouped form takes every k: it decodes each probed list once for a
-    group of the queries that probe it (past k = 256 each pair's
-    distances go to a scratch and are selected once); its per-pair form,
-    by name up to k = 1024, keeps a LUT of pq_dim x 2^pq_bits float32
-    entries in shared memory (pq_dim = 64 at 8 bits uses 64 KB)."""
+    run queries in chunks of this many rows. ``res``: a
+    ``core.deadline.Deadline`` (or an object carrying one): the queries
+    run in chunks (``query_chunk``, else as many as
+    ``core.resources.workspace_chunk_bytes(res)`` holds at n_probes x
+    rot_dim x 8 bytes a query) with a checkpoint before each, which
+    raises ``DeadlineExceeded`` with the finished chunks' results once
+    the budget is spent. A chunked search equals the unchunked one. On
+    CUDA the scan kernel's grouped form takes every k: it decodes each
+    probed list once for a group of the queries that probe it (past k =
+    256 each pair's distances go to a scratch and are selected once); its
+    per-pair form, by name up to k = 1024, keeps a LUT of pq_dim x
+    2^pq_bits float32 entries in shared memory (pq_dim = 64 at 8 bits
+    uses 64 KB)."""
     p = params or SearchParams()
     q = torch.as_tensor(queries).to(device=index.device, dtype=torch.float32)
     expects(q.dim() == 2 and q.shape[1] == index.dim,
@@ -413,11 +423,14 @@ def search(index: Index, queries, k: int,
     expects(algo in ("auto", "pallas", "plain"),
             "unknown ivf_pq algo %r", algo)
     mode = _lut_mode(p.lut_dtype)
-    if 0 < query_chunk < q.shape[0]:
+    n_probes = min(p.n_probes, index.n_lists)
+    chunk = query_chunks(q.shape[0], query_chunk, res,
+                         workspace_chunk_bytes(res)
+                         // (n_probes * index.rot_dim * 8))
+    if chunk:
         return run_query_chunks(
             lambda qc, _s0: search(index, qc, k, p, filter, 0, algo),
-            q, query_chunk)
-    n_probes = min(p.n_probes, index.n_lists)
+            q, chunk, res)
     mt = index.metric
     metric = "ip" if mt is DistanceType.InnerProduct else "l2"
     pen = survivors = None
@@ -437,3 +450,57 @@ def search(index: Index, queries, k: int,
     ids = torch.where(rows >= 0, index.source_ids[rows.clamp_min(0).long()],
                       -1)
     return _postprocess(mt, vals), ids
+
+
+def health(index: Index, sample: int = 256) -> dict:
+    """Index health report, as the JAX package's: list-size skew, the PQ
+    geometry and the sampled codeword utilization (the share of a
+    subspace's 2^pq_bits codewords that the sampled real rows use: a
+    small share means a collapsed codebook, which caps every list scan's
+    resolution)."""
+    report = {
+        "family": "ivf_pq", "n": int(index.size), "dim": int(index.dim),
+        "metric": index.metric.name,
+        "lists": list_skew(index.list_sizes),
+        "pq": {"pq_dim": int(index.pq_dim), "pq_bits": int(index.pq_bits),
+               "book_size": int(index.pq_book_size),
+               "rot_dim": int(index.rot_dim),
+               "codebook_kind": index.codebook_kind.name,
+               "compression": round(
+                   index.dim * 4.0 / max(index.pq_dim, 1), 1)},
+    }
+    cap = int(index.codes.shape[0])
+    if cap:
+        rows = torch.as_tensor(health_sample_rows(cap, sample),
+                               device=index.device)
+        codes = index.codes[rows][index.source_ids[rows] >= 0]
+        if codes.numel():
+            codes = codes.cpu().numpy()
+            used = np.array([np.unique(codes[:, s]).size
+                             for s in range(codes.shape[1])], np.float64)
+            # utilization saturates at the sample size on tiny samples:
+            # the bound keeps the number readable
+            denom = min(index.pq_book_size, codes.shape[0])
+            report["pq"]["codeword_utilization"] = {
+                "mean": round(float(used.mean() / denom), 4),
+                "min": round(float(used.min() / denom), 4),
+                "sampled_rows": int(codes.shape[0])}
+    return report
+
+
+def make_searcher(index: Index, params: SearchParams | None = None, *,
+                  degrade=None, **opts):
+    """``fn(queries, k, res=None) -> (distances, indices)`` with the
+    search parameters and ``opts`` (``filter``, ``query_chunk``,
+    ``algo``) frozen: the serving signature the four families share.
+    ``degrade`` (JAX's brownout controller) waits for the serving layer
+    and raises."""
+    if degrade is not None:
+        raise RaftError("make_searcher(degrade=...) is not ported yet: it "
+                        "comes with the serving layer")
+    base = params or SearchParams()
+
+    def _fn(queries, k, res=None):
+        return search(index, queries, k, base, res=res, **opts)
+
+    return _fn

@@ -1,10 +1,13 @@
 """Measured engine selection: counterpart of ``raft_tpu/ops/autotune.py``
-(``shape_bucket``, ``lookup``, ``record``, ``measure``, ``tune_best``).
+(``shape_bucket``, ``lookup``, ``record``, ``forget``, ``entries``,
+``measure``, ``tune_best``, ``cache_path``, ``load_cache``,
+``save_cache``).
 
 A verdict is the winner of a race between candidate engines on the
-device in use, cached in this process under a key that names the card
+device in use, cached under a key that names the card
 (``torch.cuda.get_device_name``), the family and the log2-bucketed
-shape. Callers consult :func:`lookup` (never measures) and race through
+shape, in this process and in a file that later processes read. Callers
+consult :func:`lookup` (never measures) and race through
 :func:`tune_best`.
 
 Where the port differs from the JAX package:
@@ -17,22 +20,94 @@ Where the port differs from the JAX package:
   guards against a remote backend that replays results (input
   perturbation, the plausibility floor and its re-measure through a
   fresh executable) have no counterpart on a local card.
-* The cache is in-process only; JAX's on-disk persistence
-  (``RAFT_TPU_AUTOTUNE_CACHE``) is not ported.
+* The on-disk cache is the port's own: ``RAFT_TPU_TORCH_AUTOTUNE_CACHE``
+  names its JSON file (default ``$XDG_CACHE_HOME/raft_tpu_torch/
+  autotune.json``, ``~/.cache`` without XDG; ``""`` keeps verdicts in
+  the process). Sharing JAX's file would let each package's
+  :func:`save_cache` rewrite it from its own memory; the keys name the
+  card in any case.
+* ``record`` has no ``persist=False``: JAX keeps guard demotions off the
+  disk with it, and the port has no guards (no fallback may hide a
+  kernel), so every verdict persists.
+
+The file is read once per path (the first :func:`lookup`, :func:`record`
+or :func:`entries` after the variable names it) and rewritten whole on
+every :func:`record` and :func:`forget`, through a temporary file and
+``os.replace``, so a reader never sees half a file. A file that cannot be
+read or written gives a warning and the cache carries on in memory.
 """
 from __future__ import annotations
 
+import json
+import os
 import statistics
 import time
+import warnings
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
 from ..core.errors import expects
 
-__all__ = ["shape_bucket", "lookup", "record", "measure", "tune_best"]
+__all__ = ["shape_bucket", "lookup", "record", "forget", "entries",
+           "measure", "tune_best", "cache_path", "load_cache",
+           "save_cache"]
 
 _MEM_CACHE: Dict[str, str] = {}
+# the file whose verdicts _MEM_CACHE holds (None: none read yet)
+_LOADED_FROM: Optional[str] = None
+
+
+def cache_path() -> Optional[str]:
+    """The verdict file: ``RAFT_TPU_TORCH_AUTOTUNE_CACHE``, else
+    ``$XDG_CACHE_HOME/raft_tpu_torch/autotune.json``; None when the
+    variable is set to ``""`` (no persistence)."""
+    p = os.environ.get("RAFT_TPU_TORCH_AUTOTUNE_CACHE")
+    if p == "":
+        return None
+    if p:
+        return p
+    base = os.environ.get("XDG_CACHE_HOME",
+                          os.path.join(os.path.expanduser("~"), ".cache"))
+    return os.path.join(base, "raft_tpu_torch", "autotune.json")
+
+
+def load_cache() -> None:
+    """Merge the verdict file into the in-process cache, once per path
+    (a verdict already in memory wins). An unreadable file warns."""
+    global _LOADED_FROM
+    p = cache_path()
+    if p is None or p == _LOADED_FROM:
+        return
+    _LOADED_FROM = p
+    if not os.path.exists(p):
+        return
+    try:
+        with open(p) as f:
+            disk = json.load(f)
+        if not isinstance(disk, dict):
+            raise ValueError("not a JSON object")
+    except (OSError, ValueError) as e:
+        warnings.warn(f"autotune cache {p} unreadable: {e}", stacklevel=2)
+        return
+    for k, v in disk.items():
+        _MEM_CACHE.setdefault(str(k), str(v))
+
+
+def save_cache() -> None:
+    """Write every verdict in memory to the verdict file (a temporary
+    file, then ``os.replace``). An unwritable path warns."""
+    p = cache_path()
+    if p is None:
+        return
+    tmp = f"{p}.tmp{os.getpid()}"
+    try:
+        os.makedirs(os.path.dirname(p) or ".", exist_ok=True)
+        with open(tmp, "w") as f:
+            json.dump(_MEM_CACHE, f, indent=1, sort_keys=True)
+        os.replace(tmp, p)
+    except OSError as e:
+        warnings.warn(f"autotune cache {p} unwritable: {e}", stacklevel=2)
 
 
 def _log2_bucket(x: int) -> int:
@@ -54,12 +129,29 @@ def shape_bucket(family: str, device, **dims) -> str:
 
 def lookup(key: str) -> Optional[str]:
     """The recorded verdict for ``key``, or None. Never measures."""
+    load_cache()
     return _MEM_CACHE.get(key)
 
 
 def record(key: str, choice: str) -> None:
-    """Record ``choice`` as the verdict for ``key``."""
+    """Record ``choice`` as the verdict for ``key``, in memory and in the
+    verdict file."""
+    load_cache()
     _MEM_CACHE[key] = choice
+    save_cache()
+
+
+def entries() -> Dict[str, str]:
+    """A copy of every verdict, the file's included."""
+    load_cache()
+    return dict(_MEM_CACHE)
+
+
+def forget(key: str) -> None:
+    """Drop the verdict for ``key``, from memory and from the file."""
+    load_cache()
+    if _MEM_CACHE.pop(key, None) is not None:
+        save_cache()
 
 
 def _sync(args) -> None:

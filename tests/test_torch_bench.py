@@ -2,8 +2,9 @@
 the JAX package's (``raft_tpu.bench``), mirroring ``tests/test_bench.py``:
 fbin/ibin files each package writes read by the other, the synthetic
 specs, the big-ann directory and the lane resolution, ground truth, the
-sweep runner's case names and Google-Benchmark keys, the CSV export and
-its Pareto flags, and the CLI end to end with ``--device cpu``.
+sweep runner's case names and Google-Benchmark keys (CAGRA's case with
+its kNN-graph builder race and engine race), the CSV export and its
+Pareto flags, and the CLI end to end with ``--device cpu``.
 
 Tolerances. Ground-truth ids on integer-valued data: equal (exact
 distances; both packages break ties to the lower row). Runner recall:
@@ -25,8 +26,24 @@ from raft_tpu_torch import bench
 from raft_tpu_torch.bench.__main__ import main
 from raft_tpu_torch.bench.datasets import resolve_lane_dataset
 from raft_tpu_torch.core.errors import RaftError
+from raft_tpu_torch.ops import autotune
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _verdicts_in_memory():
+    """No autotune verdict file: this module's verdicts stay in memory, and
+    none is read from the user's cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RAFT_TPU_TORCH_AUTOTUNE_CACHE", "")
+        mp.setattr(autotune, "_MEM_CACHE", {})
+        mp.setattr(autotune, "_LOADED_FROM", None)
+        yield
+
+
+def test_verdicts_stay_in_memory():
+    assert autotune.cache_path() is None
 
 
 class TestIO:
@@ -182,6 +199,19 @@ def tiny():
     return base.numpy(), q.numpy(), gt.numpy(), metric
 
 
+@pytest.fixture(scope="module")
+def cagra_run(tiny):
+    """The CAGRA case on 1,000 rows and 32 queries, from no verdict: its
+    results and the verdicts it recorded."""
+    base, q, gt, metric = tiny
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(autotune, "_MEM_CACHE", {})
+        got = bench.run_benchmarks(base[:1000], q[:32], naive_knn(
+            base[:1000], q[:32], 10)[1], k=10, metric=metric,
+            algos=("raft_cagra",), reps=1, verbose=False, device="cpu")
+        yield got, autotune.entries()
+
+
 class TestRunner:
     def test_runner_matches_jax(self, tiny):
         base, q, gt, metric = tiny
@@ -203,23 +233,42 @@ class TestRunner:
         ivf = [r.recall for r in got if r.algo == "raft_ivf_flat"]
         assert all(b >= a - 0.005 for a, b in zip(ivf, ivf[1:]))
 
-    def test_cagra_case_records_the_race(self, tiny, monkeypatch):
-        from raft_tpu_torch.ops import autotune
-
-        monkeypatch.setattr(autotune, "_MEM_CACHE", {})
-        base, q, gt, metric = tiny
-        got = bench.run_benchmarks(base[:1000], q[:32], naive_knn(
-            base[:1000], q[:32], 10)[1], k=10, metric=metric,
-            algos=("raft_cagra",), reps=1, verbose=False, device="cpu")
+    def test_cagra_case_records_the_race(self, cagra_run):
+        got, _ = cagra_run
         assert [r.name for r in got] == [
             f"raft_cagra.degree32.itopk{t}" for t in (32, 64, 128, 256)]
         for r in got:
             g = r.to_gbench()
             race = {k[5:-3]: v for k, v in g.items()
-                    if k.startswith("race_")}
+                    if k.startswith("race_") and k.endswith("_ms")}
             assert set(race) == {"gather", "edge", "fused"}
             assert g["engine"] == min(race, key=race.get)
             assert r.recall >= 0.9
+
+    def test_cagra_case_builds_on_the_graph_race(self, cagra_run):
+        """The case races the kNN-graph builders first, records the
+        verdict under the build's own key, builds on it, and stamps the
+        race into every entry."""
+        from raft_tpu_torch.distance.distance_types import canonical_metric
+        from raft_tpu_torch.neighbors import cagra
+
+        got, verdicts = cagra_run
+        extra = got[0].extra
+        builders = ("brute", "ivf_pq", "nn_descent")
+        secs = {b: extra[f"race_{b}_s"] for b in builders}
+        recalls = {b: extra[f"edge_recall_{b}"] for b in builders}
+        assert recalls["brute"] == 1.0
+        assert extra["graph_algo"] == bench.graph_race_winner(secs, recalls)
+        key = cagra._graph_algo_key(1000, 16, 64,
+                                    canonical_metric("sqeuclidean"), "cpu")
+        assert verdicts[key] == extra["graph_algo"]
+        for r in got:
+            g = r.to_gbench()
+            assert g["graph_algo"] == extra["graph_algo"]
+            assert {k: g[k] for k in extra if k.startswith(
+                ("race_", "edge_recall_")) and not k.endswith("_ms")} == {
+                k: v for k, v in extra.items() if k.startswith(
+                    ("race_", "edge_recall_")) and not k.endswith("_ms")}
 
     def test_dtypes_not_ported(self, tiny):
         """Every store is ported: the tags of the JAX harness, and what
@@ -281,6 +330,32 @@ class TestCli:
         assert pareto == {"algoA.p1/search": "1", "algoA.p2/search": "1",
                           "algoA.p3/search": "0", "algoB.p1/search": "0",
                           "algoB.p2/search": "1"}
+
+    def test_cli_prints_the_graph_race(self, tmp_path, monkeypatch, capsys):
+        """``run`` with CAGRA prints the graph race's line and the verdict
+        file it recorded in, and the file holds the race's verdict (the
+        itopk sweep cut to one point to keep the run short)."""
+        from functools import partial
+
+        from raft_tpu_torch.bench import runner
+
+        path = tmp_path / "verdicts.json"
+        monkeypatch.setenv("RAFT_TPU_TORCH_AUTOTUNE_CACHE", str(path))
+        monkeypatch.setattr(autotune, "_MEM_CACHE", {})
+        monkeypatch.setattr(autotune, "_LOADED_FROM", None)
+        monkeypatch.setattr(runner, "default_configs", partial(
+            runner.default_configs, itopk_sweep=[32]))
+        out = tmp_path / "run.json"
+        main(["run", "--dataset", "blobs-800x8", "--algorithms",
+              "raft_cagra", "-k", "10", "--reps", "1", "--batch-size",
+              "20", "--device", "cpu", "--output", str(out)])
+        said = capsys.readouterr().out
+        entry = json.loads(out.read_text())["benchmarks"][0]
+        line = next(ln for ln in said.splitlines() if "graph race" in ln)
+        assert f"-> {entry['graph_algo']}" in line and str(path) in line
+        disk = json.loads(path.read_text())
+        assert entry["graph_algo"] in disk.values()
+        assert any(":cagra_knn_graph:" in k for k in disk)
 
     def test_cli_end_to_end(self, tmp_path, monkeypatch):
         monkeypatch.chdir(tmp_path)

@@ -17,7 +17,14 @@ data: ``assert_knn_close`` (distances to rtol 1e-5, ids on >= 99% of
 rows). The covering seed set draws its k-means from ``torch.Generator``,
 so it is checked by its contract (sorted, unique, in range, the JAX size
 rule) and the port's own build by recall: at least JAX's minus 0.02.
+``health`` on a carried JAX index: the connectivity fields equal, the
+int8 and bf16 copies' errors within 1e-6 (the codecs are bit-equal). A
+search in chunks draws its own seed rows a chunk (``_chunk_seed``, as
+JAX folds the chunk's start into its key), so it is held to searches of
+each chunk alone, and by recall (within 0.05) to one batch's.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,12 +39,28 @@ from raft_tpu_torch import convert
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.errors import RaftError
 from raft_tpu_torch.neighbors import cagra
+from raft_tpu_torch.ops import autotune
 from raft_tpu_torch.stats.metrics import neighborhood_recall
 from test_torch_kernels import (ENGINE_TEST_BUILD, ENGINE_TEST_FLOOR,
                                 ENGINE_TEST_SEARCH, assert_knn_close,
                                 engine_test_data)
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _verdicts_in_memory():
+    """No autotune verdict file: this module's verdicts stay in memory, and
+    none is read from the user's cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RAFT_TPU_TORCH_AUTOTUNE_CACHE", "")
+        mp.setattr(autotune, "_MEM_CACHE", {})
+        mp.setattr(autotune, "_LOADED_FROM", None)
+        yield
+
+
+def test_verdicts_stay_in_memory():
+    assert autotune.cache_path() is None
 
 N, D, M, K, D0, DEG = 1000, 16, 48, 5, 24, 16
 # one plan for every search, so each JAX engine compiles once per index
@@ -240,3 +263,146 @@ def test_engine_test_data_recall(metric):
           f"JAX gather {jrec:.4f}")
     assert jrec >= ENGINE_TEST_FLOOR + 0.02
     assert trec >= max(ENGINE_TEST_FLOOR + 0.02, jrec - 0.02)
+
+
+# ------------------------------------------------ health, chunks, searchers
+
+
+def _jax_copy(jidx):
+    """A fresh JAX index on the same arrays (no caches attached)."""
+    return jcagra.Index(jidx.dataset, jidx.graph, jidx.metric,
+                        jidx.seed_nodes)
+
+
+@pytest.mark.parametrize("copies", [(), ("int8",), ("int8", "bfloat16"),
+                                    ("int8", "bfloat16", "edge")])
+def test_health_matches_jax(jax_index, copies):
+    """On a carried JAX index: the connectivity fields equal, the int8 and
+    bf16 copies' sampled errors within 1e-6 (the codecs are bit-equal),
+    the edge store's dtype, shape and bytes equal."""
+    jidx, tidx = _jax_copy(jax_index), _carry(jax_index)
+    for c in copies:
+        if c == "edge":
+            jcagra.prepare_traversal(jidx)
+            cagra.prepare_traversal(tidx)
+        else:
+            jcagra.prepare_search(jidx, c)
+            cagra.prepare_search(tidx, c)
+    want, got = jcagra.health(jidx), cagra.health(tidx)
+    wq, gq = want.pop("quant", {}), got.pop("quant", {})
+    assert got == want
+    assert set(gq) == set(wq)
+    for name in ("int8", "bfloat16"):
+        if name in wq:
+            for field in ("rel_rmse", "max_abs_err"):
+                assert abs(gq[name][field] - wq[name][field]) <= 1e-6
+    if "edge_store" in wq:
+        assert gq["edge_store"]["dtype"] == wq["edge_store"]["dtype"]
+        assert gq["edge_store"]["shape"] == wq["edge_store"]["shape"]
+        assert gq["edge_store"]["bytes"] == wq["edge_store"]["bytes"]
+
+
+def test_health_connectivity_and_cache():
+    """The JAX package's own case: node 63 has no incoming edge; the report
+    is kept on the index and made anew for a new seed set; an empty index
+    reports zeros, as JAX's does."""
+    n, deg = 64, 4
+    data = np.random.default_rng(0).standard_normal((n, 8)).astype(
+        np.float32)
+    g = ((np.arange(n)[:, None] + np.arange(1, deg + 1)[None, :])
+         % (n - 1)).astype(np.int32)
+    arrays = {"dataset": data, "graph": g, "metric": "l2_expanded"}
+    tidx = convert.cagra_index_from_numpy(arrays, device="cpu")
+    h = cagra.health(tidx)
+    assert (h["unreachable_nodes"], h["unseeded_unreachable"]) == (1, 1)
+    assert h["in_degree"]["min"] == 0 and tidx.health_conn is not None
+    jidx = jcagra.Index(jnp.asarray(data), jnp.asarray(g),
+                        jcagra.DistanceType.L2Expanded)
+    assert h == jcagra.health(jidx)
+    tidx.seed_nodes = torch.tensor([63], dtype=torch.int32)
+    jidx.seed_nodes = jnp.asarray([63], jnp.int32)
+    h2 = cagra.health(tidx)
+    assert (h2["unreachable_nodes"], h2["unseeded_unreachable"]) == (1, 0)
+    assert h2 == jcagra.health(jidx)
+    empty = convert.cagra_index_from_numpy(
+        {"dataset": data[:0], "graph": g[:0], "metric": "l2_expanded"},
+        device="cpu")
+    jempty = jcagra.Index(jnp.asarray(data[:0]), jnp.asarray(g[:0]),
+                          jcagra.DistanceType.L2Expanded)
+    assert cagra.health(empty) == jcagra.health(jempty)
+
+
+@pytest.mark.parametrize("engine", ["gather", "fused"])
+def test_chunked_search(data, jax_index, engine):
+    """A chunk of the whole batch (no deadline) is the unchunked search;
+    each smaller chunk is a search of its own queries with the chunk's
+    seed (``_chunk_seed``); recall stays within 0.05 of one batch's."""
+    tidx = _carry(jax_index)
+    q = torch.from_numpy(data[1])
+    sp = cagra.SearchParams(**JSP)
+    wd, wi = cagra.search(tidx, q, K, sp, engine=engine)
+    d, i = cagra.search(tidx, q, K, sp, engine=engine, query_chunk=M)
+    assert torch.equal(d, wd) and torch.equal(i, wi)
+    d, i = cagra.search(tidx, q, K, sp, engine=engine, query_chunk=20)
+    for s0 in range(0, M, 20):
+        own = dataclasses.replace(sp, seed=cagra._chunk_seed(sp.seed, s0))
+        cd, ci = cagra.search(tidx, q[s0:s0 + 20], K, own, engine=engine)
+        assert torch.equal(d[s0:s0 + 20], cd)
+        assert torch.equal(i[s0:s0 + 20], ci)
+    _, ref = naive_knn(data[0], data[1], K)
+    ref = torch.from_numpy(ref)
+    assert abs(neighborhood_recall(i, ref)
+               - neighborhood_recall(wi, ref)) <= 0.05
+    seeds = {cagra._chunk_seed(sp.seed, s0) for s0 in range(0, 1 << 14, 20)}
+    assert len(seeds) == len(range(0, 1 << 14, 20))
+
+
+def test_deadline_search(data, jax_index, monkeypatch):
+    """A deadline that expires before the third chunk: the partial results
+    are the chunked search's first two chunks; an expired one raises
+    before any seeding, with no partial; one chunk under a deadline runs
+    its checkpoint first."""
+    from raft_tpu_torch.core.deadline import Deadline, DeadlineExceeded
+
+    tidx = _carry(jax_index)
+    q = torch.from_numpy(data[1])
+    sp = cagra.SearchParams(**JSP)
+    cd, ci = cagra.search(tidx, q, K, sp, query_chunk=16)
+    ticks = iter([0.0, 0.0, 0.0, 5.0, 5.0])
+    dl = Deadline(1.0, clock=lambda: next(ticks))
+    with pytest.raises(DeadlineExceeded) as ei:
+        cagra.search(tidx, q, K, sp, query_chunk=16, res=dl)
+    pd, pi = ei.value.partial
+    assert torch.equal(pd, cd[:32]) and torch.equal(pi, ci[:32])
+    d, i = cagra.search(tidx, q, K, sp, res=Deadline(1e9))
+    assert d.shape == (M, K) and cagra.DEADLINE_CHUNK >= M
+
+    def no_seeding(*a, **kw):
+        raise AssertionError("seeded under an expired deadline")
+
+    monkeypatch.setattr(cagra, "_seed_buffer", no_seeding)
+    for chunk in (0, 16):
+        with pytest.raises(DeadlineExceeded) as ei:
+            cagra.search(tidx, q, K, sp, query_chunk=chunk,
+                         res=Deadline(0.0))
+        assert ei.value.partial is None
+
+
+@pytest.mark.parametrize("engine", ["gather", "edge", "fused"])
+def test_make_searcher(data, jax_index, engine):
+    """``fn`` is ``search`` with the options frozen; pinning the edge or
+    fused engine builds the store when the closure is made; ``degrade``
+    and ``donate=True`` raise."""
+    tidx = _carry(jax_index)
+    q = torch.from_numpy(data[1])
+    sp = cagra.SearchParams(**JSP)
+    fn = cagra.make_searcher(tidx, sp, engine=engine, query_chunk=20)
+    assert (tidx.edge_store is not None) == (engine != "gather")
+    wd, wi = cagra.search(tidx, q, K, sp, engine=engine, query_chunk=20)
+    d, i = fn(q, K)
+    assert torch.equal(d, wd) and torch.equal(i, wi)
+    assert cagra.make_searcher(tidx, donate="auto") is not None
+    with pytest.raises(RaftError, match="not ported yet"):
+        cagra.make_searcher(tidx, sp, degrade=object())
+    with pytest.raises(RaftError, match="donate"):
+        cagra.make_searcher(tidx, sp, donate=True)

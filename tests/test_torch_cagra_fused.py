@@ -24,12 +24,28 @@ from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.errors import RaftError
 from raft_tpu_torch.matrix.select_k import select_k_plain
 from raft_tpu_torch.neighbors import cagra
+from raft_tpu_torch.ops import autotune
 from raft_tpu_torch.ops import cagra_fused as tcf
 from raft_tpu_torch.ops import graph_expand as tge
 from test_torch_graph_expand import key_value, sort_key
 from test_torch_kernels import assert_knn_close, edge_store
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _verdicts_in_memory():
+    """No autotune verdict file: this module's verdicts stay in memory, and
+    none is read from the user's cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RAFT_TPU_TORCH_AUTOTUNE_CACHE", "")
+        mp.setattr(autotune, "_MEM_CACHE", {})
+        mp.setattr(autotune, "_LOADED_FROM", None)
+        yield
+
+
+def test_verdicts_stay_in_memory():
+    assert autotune.cache_path() is None
 
 N, D, DEG, M, ITOPK, KPRIME, HOPS = 700, 16, 24, 16, 16, 16, 3
 

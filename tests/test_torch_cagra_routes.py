@@ -40,6 +40,21 @@ from test_graph_build import clustered, exact_graph_oracle
 torch.set_num_threads(1)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _verdicts_in_memory():
+    """No autotune verdict file: this module's verdicts stay in memory, and
+    none is read from the user's cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RAFT_TPU_TORCH_AUTOTUNE_CACHE", "")
+        mp.setattr(autotune, "_MEM_CACHE", {})
+        mp.setattr(autotune, "_LOADED_FROM", None)
+        yield
+
+
+def test_verdicts_stay_in_memory():
+    assert autotune.cache_path() is None
+
+
 @pytest.fixture(autouse=True)
 def fresh_verdicts(monkeypatch):
     """Each test starts with no recorded verdict."""

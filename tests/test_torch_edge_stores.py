@@ -37,6 +37,21 @@ from test_torch_kernels import assert_knn_close
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _verdicts_in_memory():
+    """No autotune verdict file: this module's verdicts stay in memory, and
+    none is read from the user's cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RAFT_TPU_TORCH_AUTOTUNE_CACHE", "")
+        mp.setattr(autotune, "_MEM_CACHE", {})
+        mp.setattr(autotune, "_LOADED_FROM", None)
+        yield
+
+
+def test_verdicts_stay_in_memory():
+    assert autotune.cache_path() is None
+
 K = 8
 # one plan for the parity searches, so each JAX store compiles once
 JSP = dict(itopk_size=16, search_width=1, max_iterations=5)

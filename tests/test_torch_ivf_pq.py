@@ -1,7 +1,8 @@
 """The port's IVF-PQ and refine against the JAX package: IVF-PQ indexes
 built by ``raft_tpu`` and carried over with ``raft_tpu_torch.convert``,
 searched by both packages; the port's encode and refine on the same
-inputs; and the port's own IVF-PQ build judged by recall.
+inputs; the port's own IVF-PQ build judged by recall; and ``health`` on
+a carried index, equal to JAX's report.
 
 The JAX side runs its exact gather engine, ``ivf_pq.search(...,
 algo="xla")`` with ``lut_dtype=float32`` (its Pallas scan is scrambled in
@@ -205,3 +206,14 @@ def test_unported_options_raise(data):
         ivf_pq.extend(idx, x[:10])
     with pytest.raises(Exception, match="unknown lut_dtype"):
         ivf_pq.search(idx, x[:2], 3, ivf_pq.SearchParams(lut_dtype="f64"))
+
+
+@pytest.mark.parametrize("build", ["pq8", "pq4", "dim30"])
+def test_health_matches_jax(jax_builds, build):
+    """``health`` on a carried JAX index equals JAX's report: the list
+    skew, the PQ geometry and the sampled codeword utilization (integer
+    counts over the same sampled rows)."""
+    jidx = jax_builds(build)
+    assert ivf_pq.health(_carry(jidx)) == jpq.health(jidx)
+    assert ivf_pq.health(_carry(jidx), sample=7) == jpq.health(jidx,
+                                                               sample=7)

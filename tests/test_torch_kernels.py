@@ -47,6 +47,7 @@ from raft_tpu_torch.neighbors import brute_force
 from raft_tpu_torch.neighbors import cagra as tcagra
 from raft_tpu_torch.neighbors import ivf_flat as tivf
 from raft_tpu_torch.neighbors import ivf_pq as tivfpq
+from raft_tpu_torch.ops import autotune
 from raft_tpu_torch.ops import cagra_fused as tcf
 from raft_tpu_torch.ops import fused_knn as tfk
 from raft_tpu_torch.ops import graph_expand as tge
@@ -57,6 +58,21 @@ from raft_tpu_torch.ops import ring_topk as trt
 from raft_tpu_torch.stats.metrics import neighborhood_recall
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _verdicts_in_memory():
+    """No autotune verdict file: the CAGRA builds and races of this module
+    keep their verdicts in memory, and read none from the user's cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RAFT_TPU_TORCH_AUTOTUNE_CACHE", "")
+        mp.setattr(autotune, "_MEM_CACHE", {})
+        mp.setattr(autotune, "_LOADED_FROM", None)
+        yield
+
+
+def test_verdicts_stay_in_memory():
+    assert autotune.cache_path() is None
 
 
 def assert_knn_close(ref_v, ref_i, v, i, rtol=1e-5, min_rows_equal=0.99):
@@ -1976,3 +1992,60 @@ def test_ring_topk_kernel_across_cards(per_card, k, select_min):
         assert torch.equal(d.cpu(), want[0][r]) and torch.equal(
             g.cpu(), want[1][r])
         assert torch.equal(d.cpu(), ref_d) and torch.equal(g.cpu(), ref_i)
+
+
+def race_data(n: int, m: int, d: int = 32, seed: int = 21):
+    """Rows and queries in 40 Gaussian clusters (the race and the chunked
+    searches need neighbours that an approximate graph can find)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((40, d)).astype(np.float32) * 3
+    x = centers[rng.integers(0, 40, n)] + rng.standard_normal(
+        (n, d)).astype(np.float32)
+    q = centers[rng.integers(0, 40, m)] + rng.standard_normal(
+        (m, d)).astype(np.float32)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(q).cuda()
+
+
+@pytest.mark.cuda
+def test_cagra_search_in_chunks_on_card():
+    """A CAGRA search in chunks of 1,024 queries on the card (each chunk
+    its own random seed rows, one K6 launch a chunk): recall@10 within
+    0.01 of the unchunked search's; a chunk of the whole batch is the
+    unchunked search, bit for bit."""
+    need_cuda()
+    x, q = race_data(20_000, 3000)
+    idx = tcagra.build(x, tcagra.IndexParams(intermediate_graph_degree=64,
+                                              graph_degree=32,
+                                              knn_graph_algo="brute"))
+    sp = tcagra.SearchParams(itopk_size=64)
+    _, ref = brute_force.search(brute_force.build(x), q, 10)
+    wd, wi = tcagra.search(idx, q, 10, sp, engine="fused")
+    before = tcf.launches
+    _, ci = tcagra.search(idx, q, 10, sp, engine="fused", query_chunk=1024)
+    assert tcf.launches - before == 3
+    assert abs(neighborhood_recall(ci, ref)
+               - neighborhood_recall(wi, ref)) <= 0.01
+    d, i = tcagra.search(idx, q, 10, sp, engine="fused", query_chunk=3000)
+    torch.cuda.synchronize()
+    assert torch.equal(d, wd) and torch.equal(i, wi)
+
+
+@pytest.mark.cuda
+def test_graph_race_on_card():
+    """The kNN-graph builders' race on 20,000 rows on the card: every
+    builder runs, the verdict is the rule's on the race's own readings,
+    recorded under the build's own key, and an ``auto`` build runs it."""
+    from raft_tpu_torch.bench import graph_race_winner, race_graph_build
+    from raft_tpu_torch.distance.distance_types import canonical_metric
+
+    need_cuda()
+    x, _ = race_data(20_000, 1)
+    winner, secs, recs = race_graph_build(x, 32, "sqeuclidean")
+    assert set(secs) == {"brute", "ivf_pq", "nn_descent"}
+    assert recs["brute"] == 1.0 and winner == graph_race_winner(secs, recs)
+    key = tcagra._graph_algo_key(20_000, 32, 32,
+                                 canonical_metric("sqeuclidean"), x.device)
+    assert autotune.lookup(key) == winner
+    idx = tcagra.build(x, tcagra.IndexParams(intermediate_graph_degree=32,
+                                              graph_degree=16))
+    assert idx.build_stats["knn_algo"] == winner

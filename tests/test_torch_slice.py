@@ -35,11 +35,27 @@ from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.errors import RaftError
 from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
                                       refine)
+from raft_tpu_torch.ops import autotune
 from raft_tpu_torch.parallel import sharded_ann, sharded_knn
 from raft_tpu_torch.stats.metrics import neighborhood_recall
 from test_torch_kernels import assert_knn_close
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _verdicts_in_memory():
+    """No autotune verdict file: this module's verdicts stay in memory, and
+    none is read from the user's cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RAFT_TPU_TORCH_AUTOTUNE_CACHE", "")
+        mp.setattr(autotune, "_MEM_CACHE", {})
+        mp.setattr(autotune, "_LOADED_FROM", None)
+        yield
+
+
+def test_verdicts_stay_in_memory():
+    assert autotune.cache_path() is None
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, D, M, K, N_LISTS, N_PROBES = 4000, 32, 64, 10, 32, 8

@@ -33,11 +33,27 @@ from raft_tpu_torch import bench, convert
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.errors import RaftError
 from raft_tpu_torch.neighbors import brute_force, ivf_flat
+from raft_tpu_torch.ops import autotune
 from raft_tpu_torch.ops import fused_knn as tfk
 from raft_tpu_torch.ops import quant as tq
 from test_torch_kernels import assert_knn_close, store_case
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _verdicts_in_memory():
+    """No autotune verdict file: this module's verdicts stay in memory, and
+    none is read from the user's cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RAFT_TPU_TORCH_AUTOTUNE_CACHE", "")
+        mp.setattr(autotune, "_MEM_CACHE", {})
+        mp.setattr(autotune, "_LOADED_FROM", None)
+        yield
+
+
+def test_verdicts_stay_in_memory():
+    assert autotune.cache_path() is None
 
 STORES = ("bfloat16", "int8", "uint8", "int4")
 IVF_STORES = ("bfloat16", "int8", "uint8")

@@ -29,6 +29,7 @@ from raft_tpu.neighbors import ivf_flat as jivf
 from raft_tpu.neighbors import ivf_pq as jpq
 from raft_tpu_torch.core.errors import RaftError
 from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
+from raft_tpu_torch.ops import autotune
 from raft_tpu_torch.ops import fused_knn as tfk
 from raft_tpu_torch.ops import ivf_scan as tis
 from test_torch_ivf_pq import _carry as _carry_pq
@@ -37,6 +38,21 @@ from test_torch_slice import _clustered
 from test_torch_stores import _carry_bf, _carry_ivf, _source_rows
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _verdicts_in_memory():
+    """No autotune verdict file: this module's verdicts stay in memory, and
+    none is read from the user's cache."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RAFT_TPU_TORCH_AUTOTUNE_CACHE", "")
+        mp.setattr(autotune, "_MEM_CACHE", {})
+        mp.setattr(autotune, "_LOADED_FROM", None)
+        yield
+
+
+def test_verdicts_stay_in_memory():
+    assert autotune.cache_path() is None
 
 M, N, D = 24, 2000, 32
 IVF_K = 1100

@@ -45,7 +45,7 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    printed), the brute-force answer and the refined distances against
    numpy on a few queries;
    Each path prints its launches per kernel and, for K1, K3 and K4, per
-   form (K1: the warp select for k <= 512, the k passes above; K3 and K4:
+   form (K1: the warp select for k <= 512, the radix select above; K3 and K4:
    the grouped form for k <= 512, the per-pair form above); the IVF paths
    must launch K3 or K4 once a search (a shard), in the grouped form.
 2. determinism: the path's IVF-Flat and IVF-PQ indexes, built once more
@@ -63,8 +63,8 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    form, once a batch: 31 grouped launches and no per-pair one), its
    build seconds by stage, the pass's own stages (the IVF-PQ build, K4,
    K1's merge, refine) timed call by call on the card, K1's 31 merges at
-   k = 257 all in the warp form (no k-pass launch on the route), the
-   pass run again with its merges forced to the k-pass form and its
+   k = 257 all in the warp form (no radix launch on the route), the
+   pass run again with its merges forced to the radix form and its
    graph bit-equal to the route's, edge
    recall (>= 0.80), the fused search's recall beside the exact graph's and
    NN-descent's, and the route's own peak device memory; ``tune_search``
@@ -239,12 +239,13 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    beside its plain version and bound (K2 also beside ``addmm`` +
    ``torch.topk`` at k = 1,024) in the rows ``fused_knn.wide``,
    ``ivf_flat_scan.wide`` and ``ivf_pq_scan.wide`` (launches: the
-   phase's paths'). K1's k-pass form at the merges these paths hand it
-   past k = 512 (the IVF-Flat search at k = 2,048, the degree-512 IVF-PQ
-   pass's merge at k = 1,025), as captured: its time alone, its
-   launches on the paths, its bytes bound and ``torch.topk``'s time on
-   the same input, whose values it must equal (the K1 row's
-   ``kpass_wide``).
+   phase's paths'). K1's radix select at the merges these paths hand it
+   past k = 512 (the IVF-Flat search at k = 2,048, brute force's split
+   merge at k = 1,024, the IVF-PQ pass's at intermediate degree 256 and
+   512: k = 513 and 1,025), as captured: bit for bit against its plain
+   version, its time alone, its launches on the paths, its bytes bound
+   and ``torch.topk``'s time on the same input, whose values it must
+   equal (the K1 row's ``radix_wide``).
 
 Prints progress lines, then a ``{"kernels": [...]}`` line, the card's name
 and power limit as ``nvidia-smi`` gives them, and last
@@ -361,7 +362,7 @@ CARD_WAIT_S = 420
 STORE_NAMES = ("bfloat16", "int8", "uint8", "int4")
 _COUNTERS = {"select_k": (sk, "launches"),
              "select_k.warp": (sk, "warp_launches"),
-             "select_k.kpass": (sk, "kpass_launches"),
+             "select_k.radix": (sk, "radix_launches"),
              "fused_knn": (fk, "launches"),
              "fused_knn.wide": (fk, "wide_launches"),
              **{f"fused_knn.{s}": (fk, f"launches_{s}")
@@ -1025,12 +1026,16 @@ class captured:
     """Wrap ``mod.<name>`` for the duration of a ``with`` block: every call
     passes through, and the first whose (args, kwargs) satisfy ``keep`` is
     recorded in ``self.call`` (how a kernel's inputs at a path's own
-    shape are taken from the path itself); ``self.n`` counts the calls
-    that satisfy it."""
+    shape are taken from the path itself; ``to_host``: its tensors copied
+    to the host, so that the path's peak holds none of them); ``self.n``
+    counts the calls that satisfy it, and ``self.launches`` the growth of
+    the launch counter ``counter`` (a key of ``_COUNTERS``) across them."""
 
-    def __init__(self, mod, name: str, keep):
+    def __init__(self, mod, name: str, keep, to_host: bool = False,
+                 counter: str | None = None):
         self.mod, self.name, self.keep, self.call = mod, name, keep, None
-        self.n = 0
+        self.n, self.to_host, self.counter = 0, to_host, counter
+        self.launches = 0
 
     def __enter__(self):
         self.orig = getattr(self.mod, self.name)
@@ -1039,7 +1044,13 @@ class captured:
             if self.keep(*args, **kwargs):
                 self.n += 1
                 if self.call is None:
-                    self.call = (args, kwargs)
+                    self.call = (tuple(a.cpu() if self.to_host and
+                                       isinstance(a, torch.Tensor) else a
+                                       for a in args), kwargs)
+                before = counts().get(self.counter, 0)
+                out = self.orig(*args, **kwargs)
+                self.launches += counts().get(self.counter, 0) - before
+                return out
             return self.orig(*args, **kwargs)
 
         setattr(self.mod, self.name, tap)
@@ -1221,30 +1232,30 @@ def ivf_pq_route(x, q, bi, cidx, p, recalls, totals):
     if k4_cap.call is None or k1_pass_cap.call is None:
         raise AssertionError(f"ivf_pq graph pass: no K4 call at k={PASS_K} "
                              f"or no K1 merge at {(CAGRA_BATCH, merge_w)}")
-    # K1's merges at k = 257 take the warp form (none the k passes)
-    if len(stages["K1 merge"]) != batches or moved["select_k.kpass"]:
+    # K1's merges at k = 257 take the warp form (none the radix select)
+    if len(stages["K1 merge"]) != batches or moved["select_k.radix"]:
         raise AssertionError(f"ivf_pq graph pass: {len(stages['K1 merge'])} "
-                             f"K1 merges, {moved['select_k.kpass']} k-pass "
+                             f"K1 merges, {moved['select_k.radix']} radix "
                              f"launches, expected {batches} and 0")
     # K1 is exact in both forms: the pass gives the same graph with its
-    # merges in the k-pass form (and so the same edge and search recall)
+    # merges in the radix form (and so the same edge and search recall)
     merge = ipq.kpass_select_k
     ipq.kpass_select_k = lambda v, k, *a, **kw: merge(
-        v, k, *a, **{**kw, "form": "kpass"})
+        v, k, *a, **{**kw, "form": "radix"})
     try:
-        knn_kp, t_kp = host_time(lambda: cagra.build_knn_graph(
+        knn_rx, t_rx = host_time(lambda: cagra.build_knn_graph(
             x, CAGRA_D0, p.metric, p.seed, algo="ivf_pq"))
     finally:
         ipq.kpass_select_k = merge
-    if not torch.equal(knn, knn_kp):
+    if not torch.equal(knn, knn_rx):
         raise AssertionError("ivf_pq graph pass: the warp form's graph "
-                             "differs from the k-pass form's")
-    del knn_kp
+                             "differs from the radix form's")
+    del knn_rx
     log(f"cagra ivf_pq graph pass: {batches} K1 merges at k={PASS_K}, all "
         f"in the warp form (select_k.warp {moved['select_k.warp']}, "
-        f"select_k.kpass 0 on the route); the pass again with its merges "
-        f"in the k-pass form: the same graph, bit for bit "
-        f"({t_kp:.3f} s)")
+        f"select_k.radix 0 on the route); the pass again with its merges "
+        f"in the radix form: the same graph, bit for bit "
+        f"({t_rx:.3f} s)")
     rec = edge_recall(knn, x, CAGRA_D0, SEED + 1)
     recall = neighborhood_recall(pi, bi)
     per = {name: (statistics.median(v), sum(v)) for name, v in
@@ -2207,7 +2218,7 @@ def k1_phase(timer, inputs, launches, by_form):
         ints[rng.random((rows, n)) < 0.02] = np.inf
         vi = torch.from_numpy(ints).cuda()
         odd = odd_cells(v, SEED + rows + n)
-        forms = ("warp", "kpass") if k <= sk.WARP_MAX_K else ("kpass",)
+        forms = ("warp", "radix") if k <= sk.WARP_MAX_K else ("radix",)
         for form in forms:
             e = check_equal(sk.select_k_plain(v, k),
                             sk.kpass_select_k(v, k, form=form),
@@ -2226,7 +2237,7 @@ def k1_phase(timer, inputs, launches, by_form):
                            f"path's values with NaN, ±inf and -0.0, "
                            f"select_min={sel}")
         del vi, odd
-        # forms in turn: warp, k-pass, k-pass, warp; the median of each.
+        # forms in turn: warp, radix, radix, warp; the median of each.
         # A wrapper call's event time includes its host work where that
         # outlasts the L2 flush, so each form's kernel is also timed alone
         ms = {f: [] for f in forms}
@@ -3232,28 +3243,40 @@ def wide_k_phase(timer, x, q, bidx, iidx, pidx, sidx, pass_call, totals):
     :func:`wide_cagra`), then the new forms against their plain versions
     and timed (:func:`k2_wide`, :func:`k3_wide_form`,
     :func:`k4_wide_form`) → their kernel rows, launches from the paths,
-    and K1's k-pass form past k = 512 at the paths' merges
-    (:func:`k1_kpass_wide`)."""
+    and K1's radix select past k = 512 at the paths' merges
+    (:func:`k1_radix_wide`)."""
     _, bi = brute_force.search(bidx, q, K)
     before = {kern: totals[kern] for kern in ("fused_knn.wide",
                                               "ivf_flat_scan.wide",
                                               "ivf_pq_scan.wide")}
-    # K1's k-pass form past k = 512 at the shapes these paths hand it: the
-    # IVF-Flat search's merge at the widest k, the widest IVF-PQ pass's
-    big_ivf, big_pass = WIDE_IVF_KS[-1], 2 * WIDE_CAGRA[-1][0] + 1
+    # K1's radix select past k = 512 at the merges these paths hand it: the
+    # IVF-Flat search's at the widest k, brute force's split merge at its
+    # widest k, the IVF-PQ pass's at intermediate degrees 256 and 512
+    big_ivf, big_bf = WIDE_IVF_KS[-1], WIDE_BF_KS[-1]
+    pass_ks = [2 * d0 + 1 for d0, route in WIDE_CAGRA if route == "ivf_pq"]
     with captured(iscan, "kpass_select_k",
-                  lambda v, k, *a, **kw: k == big_ivf) as cap:
+                  lambda v, k, *a, **kw: k == big_ivf,
+                  counter="select_k.radix") as cap_ivf, \
+            captured(fk, "kpass_select_k",
+                     lambda v, k, *a, **kw: k == big_bf,
+                     counter="select_k.radix") as cap_bf:
         paths = wide_paths(x, q, bidx, iidx, pidx, sidx, bi, totals)
-    k1_rows = [k1_kpass_wide(timer, f"IVF-Flat search merge, k={big_ivf}",
-                             cap)]
-    del cap
-    with captured(ipq, "kpass_select_k",
-                  lambda v, k, *a, **kw: k == big_pass) as cap:
+    k1_rows = [k1_radix_wide(timer, f"IVF-Flat search merge, k={big_ivf}",
+                             cap_ivf),
+               k1_radix_wide(timer, f"brute-force split merge, k={big_bf}",
+                             cap_bf)]
+    del cap_ivf, cap_bf
+    with contextlib.ExitStack() as stack:
+        caps = [stack.enter_context(captured(
+            ipq, "kpass_select_k", lambda v, k, *a, kk=kk, **kw: k == kk,
+            to_host=True, counter="select_k.radix")) for kk in pass_ks]
         routes = wide_cagra(x, q, bi, totals)
-    k1_rows.append(k1_kpass_wide(
-        timer, f"IVF-PQ pass merge at intermediate degree "
-        f"{WIDE_CAGRA[-1][0]}, k={big_pass}", cap))
-    del cap
+    for (d0, _), cap in zip((w for w in WIDE_CAGRA if w[1] == "ivf_pq"),
+                            caps):
+        k1_rows.append(k1_radix_wide(
+            timer, f"IVF-PQ pass merge at intermediate degree {d0}, "
+            f"k={2 * d0 + 1}", cap))
+    del caps
     launches = {kern: totals[kern] - n for kern, n in before.items()}
     rows = [k2_wide(timer, bidx, q, launches["fused_knn.wide"]),
             k3_wide_form(timer, iidx, q, launches["ivf_flat_scan.wide"]),
@@ -3267,29 +3290,38 @@ def wide_k_phase(timer, x, q, bidx, iidx, pidx, sidx, pass_call, totals):
     return rows, k1_rows
 
 
-def k1_kpass_wide(timer, what: str, cap) -> dict:
-    """K1's k-pass form on a merge input past k = 512 as the path handed
-    it (``cap``, the calls that matched): the card's time alone
-    (``device_ms``), beside ``torch.topk``'s event time on the same
-    input, whose values it must equal, and the bytes bound (the input
-    read once, k (value, column) pairs a row written); launches: the
-    matching calls of the paths."""
+def k1_radix_wide(timer, what: str, cap) -> dict:
+    """K1's radix select on a merge input past k = 512 as the path handed
+    it (``cap``: the first of the calls that matched, and their count):
+    bit for bit against its plain version, values equal to
+    ``torch.topk``'s; the card's time alone (``device_ms``) beside
+    ``torch.topk``'s event time on the same input and the bytes bound (the
+    input read once, k (value, column) pairs a row written); launches:
+    the growth of ``select_k.radix`` across the paths' calls at this k,
+    one a call."""
     if cap.call is None:
         raise AssertionError(f"K1 {what}: the path made no such merge")
-    v, k = cap.call[0][0], cap.call[0][1]
+    if cap.launches != cap.n:
+        raise AssertionError(f"K1 {what}: {cap.n} merges on the paths "
+                             f"launched the radix form {cap.launches} "
+                             "times")
+    v, k = cap.call[0][0].cuda(), cap.call[0][1]
     rows, n = v.shape
-    kv, _ = sk.kpass_select_k(v, k, form="kpass")
+    got = sk.kpass_select_k(v, k, form="radix")
+    check_bits(sk.select_k_plain(v, k), got,
+               f"K1 radix {what} ({rows}, {n}), the path's values")
     tv, _ = torch.topk(v, k, dim=1, largest=False)
-    if not torch.equal(kv, tv):
+    if not torch.equal(got[0], tv):
         raise AssertionError(f"K1 {what}: values differ from torch.topk's")
-    ms = device_ms(lambda: sk.kpass_select_k(v, k, form="kpass"), reps=3)
+    del got, tv
+    ms = device_ms(lambda: sk.kpass_select_k(v, k, form="radix"))
     lib = timer(lambda: torch.topk(v, k, dim=1, largest=False), reps=3)
     b, by = bound(rows * n * 4 + rows * k * 8, 0.0, float(rows) * n)
-    log(f"  K1 k-pass {what} ({rows}, {n}): alone {ms:.3f} ms, torch.topk "
-        f"{lib:.3f} ms, bound {b:.4f} ms by {by}; {cap.n} launches on the "
-        "path; values equal to torch.topk's")
-    return dict(what=what, shape=f"({rows}, {n}) k={k}", form="kpass",
-                launches=cap.n, kpass_device_ms=ms, library_ms=lib,
+    log(f"  K1 radix {what} ({rows}, {n}): alone {ms:.3f} ms, torch.topk "
+        f"{lib:.3f} ms, bound {b:.4f} ms by {by}; {cap.launches} launches "
+        "on the paths")
+    return dict(what=what, shape=f"({rows}, {n}) k={k}", form="radix",
+                launches=cap.launches, radix_device_ms=ms, library_ms=lib,
                 bound_ms=b, bound_by=by)
 
 
@@ -4117,7 +4149,7 @@ def main() -> int:
     wide_rows, k1_wide = wide_k_phase(timer, x, q, bidx, iidx, pidx, sidx,
                                       k4_route, moved)
     kernels += wide_rows
-    row_of(kernels, "select_k")["kpass_wide"] = k1_wide
+    row_of(kernels, "select_k")["radix_wide"] = k1_wide
     del k4_route
     del iidx, pidx
     mark(t_start, "wide-k phase")

@@ -21,9 +21,11 @@ Two engines:
   takes the plain version for a CPU tensor. K1 has two forms, chosen by
   k alone (:func:`select_form`): the warp select (a sorted queue in a
   warp's registers, one warp per row; past k = 256 a 512-key queue
-  folding 128-key buffers) for k <= :data:`WARP_MAX_K`, and the k passes
-  of a block-wide arg-min above it. Each form has its own launch
-  counter.
+  folding 128-key buffers) for k <= :data:`WARP_MAX_K`, and the radix
+  select above it (one block per row: digit histograms find the k-th
+  key, an ordered compaction takes the keys before it and its first
+  ties, a bitonic sort orders them; past the kernel's ``kRadixCap`` =
+  2,048 keys in rounds). Each form has its own launch counter.
 * ``TOPK`` — the plain version, :func:`select_k_plain`: a stable sort and
   a slice (``torch.topk`` is not used: its tie order is unspecified).
 
@@ -48,7 +50,7 @@ WARP_MAX_K = 512   # the warp select's queue: at most 512 keys a warp
 
 launches = 0            # K1 launches since the last reset, both forms
 warp_launches = 0       # of them, the warp select's
-kpass_launches = 0      # of them, the k passes'
+radix_launches = 0      # of them, the radix select's
 
 
 class SelectAlgo(enum.Enum):
@@ -99,21 +101,21 @@ def smallest_k_plain(values: torch.Tensor, k: int
 
 def select_form(k: int) -> str:
     """The form of K1 that selects k per row: ``"warp"`` (the warp select)
-    up to :data:`WARP_MAX_K`, ``"kpass"`` above it. A rule of shape: a
+    up to :data:`WARP_MAX_K`, ``"radix"`` above it. A rule of shape: a
     form that fails to build or launch raises."""
-    return "warp" if k <= WARP_MAX_K else "kpass"
+    return "warp" if k <= WARP_MAX_K else "radix"
 
 
 def kpass_select_k(values: torch.Tensor, k: int, select_min: bool = True,
                    form: Optional[str] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K1 on a (rows, n) float32 tensor → (values, int32 columns)
-    (rows, k). ``form`` (``"warp"`` or ``"kpass"``) overrides
+    (rows, k). ``form`` (``"warp"`` or ``"radix"``) overrides
     :func:`select_form`, for holding both forms against the plain version;
     the warp select takes k <= :data:`WARP_MAX_K`. A CPU tensor takes the
     plain version. The order, NaN and -0.0 included, is the module
     docstring's."""
-    global launches, warp_launches, kpass_launches
+    global launches, warp_launches, radix_launches
     if values.device.type == "cpu":
         return select_k_plain(values, k, select_min)
     expects(values.is_cuda, "select_k kernel needs a CUDA tensor, got %s",
@@ -129,12 +131,12 @@ def kpass_select_k(values: torch.Tensor, k: int, select_min: bool = True,
     if rows == 0:
         return ov, oi
     form = select_form(k) if form is None else form
-    expects(form in ("warp", "kpass") and (form == "kpass"
+    expects(form in ("warp", "radix") and (form == "radix"
                                            or k <= WARP_MAX_K),
             "select_k kernel: no form %r for k=%d", form, k)
     lib = _cuda.library("select_k")
     entry = (lib.raft_select_k_warp if form == "warp"
-             else lib.raft_select_k_kpass)
+             else lib.raft_select_k_radix)
     status = entry(values.data_ptr(), rows, n, k, int(select_min),
                    ov.data_ptr(), oi.data_ptr(), _cuda.stream_of(values))
     _cuda.check(status, f"select_k ({form})")
@@ -142,7 +144,7 @@ def kpass_select_k(values: torch.Tensor, k: int, select_min: bool = True,
     if form == "warp":
         warp_launches += 1
     else:
-        kpass_launches += 1
+        radix_launches += 1
     return ov, oi
 
 

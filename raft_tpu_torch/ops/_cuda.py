@@ -51,7 +51,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "select_k": {
         "raft_select_k_warp": ([_P, _I, _I, _I, _I, _P, _P, _P], _I),
-        "raft_select_k_kpass": ([_P, _I, _I, _I, _I, _P, _P, _P], _I),
+        "raft_select_k_radix": ([_P, _I, _I, _I, _I, _P, _P, _P], _I),
     },
     **{lib: {
         "raft_fused_knn": ([_P] * 6 + [_I] * 7 + [_P] * 3, _I),

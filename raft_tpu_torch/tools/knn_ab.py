@@ -2,7 +2,7 @@
 other in one process, at the shapes of ``chip_smoke.py``'s paths.
 
     python -m raft_tpu_torch.tools.knn_ab [--stores S,S,...] [--ks K,K,...] \\
-        [--no-k1] DIR [DIR ...]
+        [--no-k1] [--no-k2] DIR [DIR ...]
 
 Each DIR holds a copy of ``raft_tpu_torch/csrc`` (this tree's, another
 commit's from ``git archive``, or a copy with one edit, such as a
@@ -12,12 +12,17 @@ default all five) is built with ``_cuda``'s flags into DIR
 (``kernel_ab.build``: one nvcc each, all started together) and loaded by
 ctypes; entry points must keep this tree's C signatures.
 
-* K1 on the IVF-PQ graph pass's merge input: the first batch of CAGRA's
-  IVF-PQ pass on ``chip_smoke.py``'s 1M x 128 rows (``scan_ab``'s index
-  and batch), scanned by this tree's K4 at k = 257 into (32,768, 64 x
-  257) candidates. Each version's warp form and k-pass form, checked
-  equal to the plain version (a version that refuses k = 257 in a form
-  says so), timed beside ``torch.topk`` and the plain version.
+* K1 at the merges ``chip_smoke.py``'s paths hand it, built on its 1M x
+  128 rows: the IVF-PQ graph pass's first batch (``scan_ab``'s index and
+  batch) scanned by this tree's K4 at k = 257 into (32,768, 64 x 257)
+  candidates and, on its first 8,192 rows, at k = 1,025 (the pass at
+  intermediate degree 512: (8,192, 65,600)); and the IVF-Flat search at
+  k = 2,048 (``chip_smoke.py``'s index, its 10,000 queries x 20 probes:
+  (10,000, 40,960)). Each version's form past k = 512 (the radix select,
+  ``raft_select_k_radix``; an older tree's k passes,
+  ``raft_select_k_kpass``) at every shape, its warp form at 257, each
+  checked equal to the plain version, timed beside ``torch.topk`` and the
+  plain version.
 * K2 at the brute-force path's shape (10,000 queries, 1M rows, d = 128,
   l2) in each store: the f32 rows, ``brute_force.build``'s bf16, int8 and
   int4 stores and the bench's uint8 byte grid; at each k of ``--ks``
@@ -37,6 +42,7 @@ the root of the repository, on one card.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import subprocess
 import sys
 from pathlib import Path
@@ -46,12 +52,13 @@ import torch
 
 from .. import bench
 from ..matrix import select_k as sk
-from ..neighbors import brute_force
+from ..neighbors import brute_force, ivf_flat
 from ..ops import _cuda
 from ..ops import fused_knn as fk
 from ..ops import ivf_pq_scan as ipq
+from ..ops import ivf_scan as iscan
 from .kernel_ab import build, median_ms
-from .scan_ab import _K, pass_batch
+from .scan_ab import _K, _PASS_WIDE, pass_batch, path_rows
 
 _STORES = ("float32", "bfloat16", "int8", "uint8", "int4")
 
@@ -65,42 +72,83 @@ def rounds(dirs, runs, reps):
     return times
 
 
-def k1_ab(dirs, libs) -> None:
+# K1's C signature, also an older tree's k-pass entry
+_K1_ARGS = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+
+
+def k1_inputs():
+    """The merge inputs → [(what, values, k)]."""
     b = pass_batch()
-    cand, _ = ipq.ivf_pq_scan_candidates(
-        b["codes"], b["dn"], None, b["cb"], b["centers"], b["q"],
-        b["probed"], b["offsets"], b["sizes"], _K, "l2")
-    del b
-    rows, n = cand.shape
-    ref = sk.select_k_plain(cand, _K)
+    args = (b["codes"], b["dn"], None, b["cb"], b["centers"])
+    rest = (b["offsets"], b["sizes"])
+    c257, _ = ipq.ivf_pq_scan_candidates(*args, b["q"], b["probed"], *rest,
+                                         _K, "l2")
+    m = _PASS_WIDE[-1][1]
+    c1025, _ = ipq.ivf_pq_scan_candidates(*args, b["q"][:m],
+                                          b["probed"][:m], *rest,
+                                          _PASS_WIDE[-1][0], "l2")
+    del b, args, rest
+    cs, x, q = path_rows()
+    idx = ivf_flat.build(x, ivf_flat.IndexParams(n_lists=cs.N_LISTS,
+                                                 seed=cs.SEED))
+    probed = iscan.coarse_probe(q, idx.centers, cs.N_PROBES, "l2",
+                                idx.center_norms).int().contiguous()
+    c2048, _ = iscan.ivf_flat_scan_candidates(
+        idx.data, idx.data_norms, None, q, fk.prepare_norms("l2", q),
+        probed, idx.offsets_dev, idx.sizes_dev, 2048, "l2")
+    del idx, x, q
+    torch.cuda.empty_cache()
+    return [("the IVF-PQ pass's merge", c257, _K),
+            ("the degree-512 IVF-PQ pass's merge", c1025,
+             _PASS_WIDE[-1][0]),
+            ("the IVF-Flat search's merge", c2048, 2048)]
+
+
+def k1_ab(dirs, libs) -> None:
+    shapes = k1_inputs()
     stream = torch.cuda.current_stream().cuda_stream
-    ov = torch.empty((rows, _K), dtype=torch.float32, device="cuda")
-    oi = torch.empty((rows, _K), dtype=torch.int32, device="cuda")
-    print(f"K1 on the graph pass's merge ({rows}, {n}) k={_K}")
-    for form in ("warp", "kpass"):
-        runs = {}
-        for d in dirs:
-            fn = getattr(libs[d]["k1"], f"raft_select_k_{form}")
+    for what, cand, k in shapes:
+        rows, n = cand.shape
+        ref = sk.select_k_plain(cand, k)
+        ov = torch.empty((rows, k), dtype=torch.float32, device="cuda")
+        oi = torch.empty((rows, k), dtype=torch.int32, device="cuda")
+        print(f"K1 on {what} ({rows}, {n}) k={k}")
+        forms = ("warp", "wide") if k <= sk.WARP_MAX_K else ("wide",)
+        for form in forms:
+            runs = {}
+            for d in dirs:
+                lib = libs[d]["k1"]
+                name = ("raft_select_k_warp" if form == "warp" else next(
+                    e for e in ("raft_select_k_radix", "raft_select_k_kpass")
+                    if hasattr(lib, e)))
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = _K1_ARGS, ctypes.c_int
 
-            def run(fn=fn):
-                return fn(cand.data_ptr(), rows, n, _K, 1, ov.data_ptr(),
-                          oi.data_ptr(), stream)
+                def run(fn=fn):
+                    return fn(cand.data_ptr(), rows, n, k, 1, ov.data_ptr(),
+                              oi.data_ptr(), stream)
 
-            if run() != 0:
-                print(f"K1 {form} {d}: refuses k={_K}")
-                continue
-            torch.cuda.synchronize()
-            same = torch.equal(ov, ref[0]) and torch.equal(oi, ref[1])
-            print(f"K1 {form} {d}: equal to the plain version: {same}")
-            runs[d] = run
-        if runs:
-            ds = list(runs)
-            for d, ts in rounds(ds, runs, 3).items():
-                print(f"K1 {form} {d}: ms " + " / ".join(f"{t:.3f}"
-                                                         for t in ts))
-    topk = median_ms(lambda: torch.topk(cand, _K, dim=1, largest=False), 3)
-    plain = median_ms(lambda: sk.select_k_plain(cand, _K), 3)
-    print(f"K1 torch.topk: ms {topk:.3f}; plain: ms {plain:.3f}")
+                if run() != 0:
+                    print(f"K1 {name} {d}: refuses k={k}")
+                    continue
+                torch.cuda.synchronize()
+                same = torch.equal(ov, ref[0]) and torch.equal(oi, ref[1])
+                print(f"K1 {name} {d}: equal to the plain version: {same}")
+                runs[d] = (name, run)
+            if runs:
+                times = rounds(list(runs), {d: r[1] for d, r in runs.items()},
+                               3)
+                for d, ts in times.items():
+                    print(f"K1 {runs[d][0]} {d}: ms "
+                          + " / ".join(f"{t:.3f}" for t in ts)
+                          + f"; median {float(np.median(ts)):.3f}")
+        topk = median_ms(lambda: torch.topk(cand, k, dim=1, largest=False), 3)
+        plain = median_ms(lambda: sk.select_k_plain(cand, k), 3)
+        print(f"K1 torch.topk: ms {topk:.3f}; plain: ms {plain:.3f}; bytes "
+              f"bound {(rows * n * 4 + rows * k * 8) / 3.35e12 * 1e3:.3f}")
+        del ref, ov, oi
+    del shapes
+    torch.cuda.empty_cache()
 
 
 def store_data(stores):
@@ -201,22 +249,28 @@ def main(argv) -> int:
     ap.add_argument("--stores", default=",".join(_STORES))
     ap.add_argument("--ks", default="10,257,1024")
     ap.add_argument("--no-k1", action="store_true")
+    ap.add_argument("--no-k2", action="store_true")
     ap.add_argument("dirs", nargs="+")
     a = ap.parse_args(argv)
-    stores = [s for s in a.stores.split(",") if s]
+    stores = [] if a.no_k2 else [s for s in a.stores.split(",") if s]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi)
     kernels = {s: (_cuda.STORE_SOURCES["fused_knn"][s], None)
                for s in stores}
-    if not a.no_k1:
-        kernels["k1"] = ("select_k", None)
     libs, notes = build(a.dirs, kernels)
+    if not a.no_k1:
+        k1 = {"k1": ("select_k", None)}
+        libs_k1, notes_k1 = build(a.dirs, k1)
+        for d, lib in libs_k1.items():
+            libs.setdefault(d, {}).update(lib)
+        notes += notes_k1
     print("\n".join(notes))
     if not a.no_k1:
         k1_ab(a.dirs, libs)
-    k2_ab(a.dirs, libs, stores, [int(k) for k in a.ks.split(",") if k])
+    if stores:
+        k2_ab(a.dirs, libs, stores, [int(k) for k in a.ks.split(",") if k])
     return 0
 
 

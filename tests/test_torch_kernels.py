@@ -407,25 +407,25 @@ def select_rows(n, select_min, seed, rows=300):
 def test_select_k_kernel_on_card(n, select_min):
     """K1, each form, against its plain version: the warp select for
     k <= 512 (past 256 a 512-key queue with 128-key buffers; rows read
-    16 bytes a lane where n % 4 == 0, else 4) and the k passes for every
-    k, rows in shared memory up to the card's opt-in limit (n = 20000 at
-    k = 600 too) and (n = 60000) streamed from device memory, heavy
-    ties, -0.0 against 0.0, rows of ±inf and rows with fewer finite
-    values than k. Each call counts one launch of its form, and the
-    default takes the form the rule gives."""
+    16 bytes a lane where n % 4 == 0, else 4) and the radix select for
+    every k, rows staged in shared memory where they fit (n = 20000 at
+    k = 600 too) and (n = 60000) read from device memory, heavy ties,
+    -0.0 against 0.0, rows of ±inf and rows with fewer finite values
+    than k. Each call counts one launch of its form, and the default
+    takes the form the rule gives."""
     need_cuda()
     xc = select_rows(n, select_min, n)
     for k in (k for k in SELECT_KS if k <= n):
         pv, pi = tsk.select_k_plain(xc, k, select_min)
-        forms = ("warp", "kpass") if k <= tsk.WARP_MAX_K else ("kpass",)
+        forms = ("warp", "radix") if k <= tsk.WARP_MAX_K else ("radix",)
         for form in forms + (None,):
-            counts = (tsk.warp_launches, tsk.kpass_launches)
+            counts = (tsk.warp_launches, tsk.radix_launches)
             kv, ki = tsk.kpass_select_k(xc, k, select_min, form=form)
             torch.cuda.synchronize()
             assert torch.equal(kv, pv) and torch.equal(ki, pi), (k, form)
             used = form or tsk.select_form(k)
             assert (tsk.warp_launches - counts[0],
-                    tsk.kpass_launches - counts[1]) == (
+                    tsk.radix_launches - counts[1]) == (
                         (1, 0) if used == "warp" else (0, 1))
 
 
@@ -456,7 +456,7 @@ def test_select_k_kernel_nan_order(n):
     x = nan_rows(n, n)
     for k in (k for k in (1, 5, 20, 33, 256, 257, 300, 384, 511, 512)
               if k <= n):
-        forms = ("warp", "kpass") if k <= tsk.WARP_MAX_K else ("kpass",)
+        forms = ("warp", "radix") if k <= tsk.WARP_MAX_K else ("radix",)
         for sel in (True, False):
             pv, pi = tsk.select_k_plain(x, k, sel)
             for form in forms:
@@ -1358,7 +1358,7 @@ def test_select_k_kernel_nn_descent_merge(rows, n, k):
         np.float32)).cuda()
     for x in (ints, gauss):
         pv, pi = tsk.select_k_plain(x, k)
-        for form in ("warp", "kpass"):
+        for form in ("warp", "radix"):
             kv, ki = tsk.kpass_select_k(x, k, form=form)
             torch.cuda.synchronize()
             assert torch.equal(kv, pv) and torch.equal(ki, pi), form
@@ -1395,10 +1395,111 @@ def test_select_k_kernel_graph_pass_merge(select_min):
     for x in (runs, gauss):
         a = x if select_min else -x
         pv, pi = tsk.select_k_plain(a, k, select_min)
-        for form in ("warp", "kpass"):
+        for form in ("warp", "radix"):
             kv, ki = tsk.kpass_select_k(a, k, select_min, form=form)
             torch.cuda.synchronize()
             assert torch.equal(kv, pv) and torch.equal(ki, pi), form
+
+
+# K1's radix select past the warp form: rows staged in shared memory
+# (1,806 and 20,000 columns) and read from device memory, their keys at or
+# below the bucket gathered once they fit (40,960: the IVF-Flat merge at
+# k = 2,048; 65,600: the degree-512 IVF-PQ pass's merge), k past one
+# round of 2,048 keys (2,049, 4,097) and k = n (every column, in rounds)
+RADIX_NS = (1806, 20000, 40960, 60000, 65600)
+RADIX_KS = (513, 600, 1024, 1025, 2048, 2049, 4097)
+
+
+def radix_rows(n, select_min, seed, rows=12):
+    """Integer rows with heavy ties and ±inf cells (the side a selection
+    takes last), then: row 0 one repeated value, row 1 all ±inf, row 2
+    with 300 finite cells (fewer than every k here), row 3 NaN, -NaN,
+    ±inf and -0.0 against 0.0 mixed in, row 4 Gaussian."""
+    rng = np.random.default_rng(seed)
+    bad = np.inf if select_min else -np.inf
+    x = rng.integers(0, 2000, (rows, n)).astype(np.float32)
+    x[rng.random((rows, n)) < 0.05] = bad
+    x[0] = 7.0
+    x[1] = bad
+    x[2, 300:] = bad
+    x[2] = x[2, rng.permutation(n)]
+    x[3] = rng.integers(-3, 4, n)
+    for v, share in ((np.nan, 0.15), (-np.float32(np.nan), 0.03),
+                     (np.inf, 0.05), (-np.inf, 0.05), (-0.0, 0.1)):
+        x[3, rng.random(n) < share] = v
+    x[4] = rng.standard_normal(n)
+    return torch.from_numpy(x).cuda()
+
+
+def check_radix(x, k, select_min):
+    """K1's radix select on x at k bit for bit against the plain version,
+    one launch of its form counted."""
+    pv, pi = tsk.select_k_plain(x, k, select_min)
+    counts = (tsk.warp_launches, tsk.radix_launches)
+    kv, ki = tsk.kpass_select_k(x, k, select_min, form="radix")
+    torch.cuda.synchronize()
+    assert_bits_equal(kv, pv)
+    assert torch.equal(ki, pi), (tuple(x.shape), k, select_min)
+    assert (tsk.warp_launches - counts[0],
+            tsk.radix_launches - counts[1]) == (0, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", RADIX_NS)
+@pytest.mark.parametrize("select_min", [True, False])
+def test_select_k_radix_on_card(n, select_min):
+    """K1's radix select past k = 512 (k = n too), bit for bit against
+    its plain version on rows of one repeated value, all ±inf, fewer
+    finite cells than k, NaN / -NaN / -0.0 and Gaussian values; each call
+    one launch of the radix form, and the default takes it past 512."""
+    need_cuda()
+    x = radix_rows(n, select_min, n + select_min)
+    for k in sorted({k for k in RADIX_KS if k <= n} | {n}):
+        check_radix(x, k, select_min)
+    counts = tsk.radix_launches
+    tsk.kpass_select_k(x, 513, select_min)
+    assert tsk.radix_launches == counts + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("select_min", [True, False])
+def test_select_k_radix_merge_rows(select_min):
+    """K1's radix select on rows built like the wide-k merges: 64 sorted
+    runs of 1,025 with +inf tails (the degree-512 IVF-PQ pass, k =
+    1,025) and 20 of 2,048 (the IVF-Flat search at k = 2,048), both
+    wider than shared memory, integer values with ties, the runs
+    negated for a max selection; and one row of each alone."""
+    need_cuda()
+    for runs, k in ((64, 1025), (20, 2048)):
+        x = graph_pass_rows(256, runs, k, seed=k)
+        x = x if select_min else -x
+        check_radix(x, k, select_min)
+        check_radix(x[:1].contiguous(), k, select_min)
+        check_radix(x, 513, select_min)
+
+
+@pytest.mark.cuda
+def test_select_k_radix_on_two_streams_at_once():
+    """K1's radix select launched on two streams at once, over two inputs
+    of different widths and k (one staged, one read from device memory),
+    gives what each gives alone."""
+    need_cuda()
+    xa = radix_rows(20000, True, 1, rows=64)
+    xb = radix_rows(65600, False, 2, rows=48)
+    calls = [lambda: tsk.kpass_select_k(xa, 2048, True, form="radix"),
+             lambda: tsk.kpass_select_k(xb, 1025, False, form="radix")]
+    alone = [fn() for fn in calls]
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for rnd in range(3):
+        with torch.cuda.stream(streams[rnd % 2]):
+            got_a = calls[0]()
+        with torch.cuda.stream(streams[1 - rnd % 2]):
+            got_b = calls[1]()
+        torch.cuda.synchronize()
+        for got, ref in ((got_a, alone[0]), (got_b, alone[1])):
+            assert_bits_equal(got[0], ref[0])
+            assert torch.equal(got[1], ref[1]), rnd
 
 
 @pytest.mark.cuda

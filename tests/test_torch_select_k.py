@@ -73,7 +73,7 @@ def test_k_out_of_range_raises():
 
 @pytest.mark.parametrize("k,form", [(1, "warp"), (20, "warp"), (256, "warp"),
                                     (257, "warp"), (512, "warp"),
-                                    (513, "kpass"), (1024, "kpass")])
+                                    (513, "radix"), (1024, "radix")])
 def test_form_is_chosen_by_k(k, form):
     assert tsk.select_form(k) == form
 

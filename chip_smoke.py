@@ -119,8 +119,8 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    same rows; >= 0.90 but for int8, whose quantization sets it).
 6. kernels: each kernel against its plain PyTorch version on the card at
    the path's shapes (K1 at every (rows, n, k) the paths hand it — the
-   coarse probe, the brute-force split merge, the CAGRA build's at each
-   size of batch (full and last) whose K2 plan splits the corpus, the
+   coarse probe, the brute-force split merge (the CAGRA build's k = 129
+   is K2's wide form, which merges its splits itself), the
    IVF-Flat and IVF-PQ probe merges, refine, the edge engine's parent
    pick and buffer merge, the allgather merge at k = 100, NN-descent's
    merge at k = 64 (the bench's build) and 128 (the graph route) and the
@@ -217,9 +217,10 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    the dense form's times of the same run.
 
 8. wide k, after the K2–K4 phases and on the path's data and indexes,
-   each path with the counters reset before it: brute force at k = 256,
-   257 and 1,024 (K2's wide form past 256 + K1), its int8 store at 256
-   and 1,024, 4 shards at 1,024 with each merge engine (equal on every
+   each path with the counters reset before it: brute force at k = 24,
+   257 and 1,024 (K2's wide form past the k-lists' 24, which selects
+   each query's k from its splits itself: no K1 merge), its int8 store
+   at 24 and 1,024, 4 shards at 1,024 with each merge engine (equal on every
    shard, and to the single card's ids); IVF-Flat and IVF-PQ (20 probes,
    bf16 LUT) at k = 512, 1,025 and 2,048 (the grouped forms' wide plans,
    one grouped launch a search, no per-pair one); each search's first
@@ -227,22 +228,25 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    ``WIDE_CAGRA_ROWS`` rows at intermediate degree 256 by the exact
    route (K2 at k = 257) and by the IVF-PQ pass at 256 and 512 (K4 at
    k = 513 and 1,025, ``cagra.pass_batch``'s batches), graph degree 64:
-   the kNN graph's seconds, its edge recall (the exact route's must be 1)
-   and the fused search's recall@10 at itopk 64. Then the new forms
-   against their plain versions: K2's on integer inputs at k = 257,
-   1,024 and 2,048 (equal) and on the path's data at 1,024 (values slot
-   by slot, ids as sets); K3's and K4's at k = 1,025 on 1,000 queries of
+   the kNN graph's seconds and its stages' (K2, K4, K1's merges, refine
+   and refine's K1 merges), its edge recall (the exact route's must be
+   1) and the fused search's recall@10 at itopk 64. Then the new forms
+   against their plain versions: K2's on integer inputs at k = 32, 65,
+   129, 257, 1,024 and 2,048 (equal) and on the path's data at 1,024
+   (values slot by slot, ids as sets), timed at each of those k,
+   its scratch held to the library's statement; K3's and K4's at k = 1,025 on 1,000 queries of
    the path (the same), on integer-valued copies (equal; at k = 1,024
    equal to the per-pair form bit for bit), each pair's first 512
    columns the plan at 512's; K4 at the pass's batches past 256, its
-   grouped form at k = 513 faster than the per-pair form. Each is timed
+   grouped form at k = 513 faster than the per-pair form, each batch
+   beside its bound (``scan_bound``). Each is timed
    beside its plain version and bound (K2 also beside ``addmm`` +
    ``torch.topk`` at k = 1,024) in the rows ``fused_knn.wide``,
    ``ivf_flat_scan.wide`` and ``ivf_pq_scan.wide`` (launches: the
    phase's paths'). K1's radix select at the merges these paths hand it
-   past k = 512 (the IVF-Flat search at k = 2,048, brute force's split
-   merge at k = 1,024, the IVF-PQ pass's at intermediate degree 256 and
-   512: k = 513 and 1,025), as captured: bit for bit against its plain
+   past k = 512 (the IVF-Flat search at k = 2,048, the IVF-PQ pass's at
+   intermediate degree 256 and 512: k = 513 and 1,025, and the degree-512
+   pass's refine at k = 513), as captured: bit for bit against its plain
    version, its time alone, its launches on the paths, its bytes bound
    and ``torch.topk``'s time on the same input, whose values it must
    equal (the K1 row's ``radix_wide``).
@@ -1772,14 +1776,17 @@ def int_lists(p, k, seed):
             [torch.from_numpy(gid[r]).cuda() for r in range(p)])
 
 
+K7_LIST_K = 256   # K7's inputs: the shards' lists up to it
+
+
 def k7_lists(x, sidx, q, k):
     """Shard 0's hop-0 fold at k on the path's data: its own list, then
-    shard p−1's block at positions (p−1)·k + j. Up to K2's LIST_MAX_K the
-    shards' candidate lists; above it each shard's exact distances to its
-    first k rows (the path's data, unsorted)."""
+    shard p−1's block at positions (p−1)·k + j. Up to :data:`K7_LIST_K`
+    the shards' candidate lists; above it each shard's exact distances to
+    its first k rows (the path's data, unsorted)."""
     p = sidx.n_shards
     slot = torch.arange(k, dtype=torch.int32, device=q.device).repeat(M, 1)
-    if k <= fk.LIST_MAX_K:
+    if k <= K7_LIST_K:
         ds, gs = sharded_knn.shard_candidates(sidx, q, k)
         d0, g0, d1, g1 = ds[0], gs[0], ds[-1], gs[-1]
     else:
@@ -2274,10 +2281,11 @@ def k1_phase(timer, inputs, launches, by_form):
 
 
 def k2_phase(timer, bidx, q, launches, knn_graph_s):
-    """K2 equal to its plain version on integer inputs (k = 10, 129, 256),
-    close to it on the path's data at k = 10 (l2, ip) and at the CAGRA
-    build's k = 129; timed at the brute-force path's shape and at the
-    CAGRA build's (one full batch against the corpus at k = 129),
+    """K2 equal to its plain version on integer inputs (k = 10, the
+    k-lists' widest LIST_MAX_K, and the CAGRA build's 129: the wide form),
+    close to it on the path's data at k = 10 (l2, ip) and at k = 129;
+    timed at the brute-force path's shape and at the CAGRA build's (one
+    full batch against the corpus at k = 129, the wide form),
     each against two bounds: the FP32 pipe's and the 3xTF32 product's on
     the tensor cores (three TF32 products, the least an f32-accurate
     product costs there), which is the row's bound."""
@@ -2800,8 +2808,8 @@ def wide_paths(x, q, bidx, iidx, pidx, sidx, bi, totals) -> dict:
         return out
 
     bf_ks = (fk.LIST_MAX_K,) + WIDE_BF_KS
-    res = run_path("brute force past k=256", ("fused_knn", "fused_knn.wide",
-                                              "select_k"),
+    res = run_path("brute force past the k-lists",
+                   ("fused_knn", "fused_knn.wide", "select_k"),
                    lambda: searches(lambda k: brute_force.search(bidx, q, k),
                                     bf_ks), totals)
     for a, b in zip(bf_ks, bf_ks[1:]):
@@ -2813,7 +2821,7 @@ def wide_paths(x, q, bidx, iidx, pidx, sidx, bi, totals) -> dict:
     check_knn(f"brute force k={big}", *single, big)
     del res
     i8 = brute_force.build(x, dtype="int8")
-    res = run_path("brute force int8 past k=256",
+    res = run_path("brute force int8 past the k-lists",
                    ("fused_knn", "fused_knn.int8", "fused_knn.wide",
                     "select_k"),
                    lambda: searches(lambda k: brute_force.search(i8, q, k),
@@ -2899,7 +2907,8 @@ def wide_cagra(x, q, bi, totals) -> dict:
             taps = {"ivf_pq build": (ivf_pq, "build"),
                     "K4": (ipq, "ivf_pq_scan_candidates"),
                     "K1 merge": (ipq, "kpass_select_k"),
-                    "refine": (refine, "refine")}
+                    "refine": (refine, "refine"),
+                    "refine's K1": (refine, "select_k")}
         stages = {}
 
         def build():
@@ -2921,9 +2930,9 @@ def wide_cagra(x, q, bi, totals) -> dict:
                                                        engine="fused"))
             return knn, info, (t_knn, t_opt, t_seeds, t_store, t), i
 
-        if route == "brute":
-            kernels = ("fused_knn", "select_k") + (
-                ("fused_knn.wide",) if kk > fk.LIST_MAX_K else ())
+        if route == "brute":   # past the k-lists K2 merges its splits
+            kernels = ("fused_knn",) + (
+                ("fused_knn.wide",) if kk > fk.LIST_MAX_K else ("select_k",))
         else:
             kernels = ("ivf_pq_scan", "ivf_pq_scan.group", "select_k") + (
                 ("ivf_pq_scan.wide",) if kk > iscan.GROUP_MAX_K else ())
@@ -2959,13 +2968,21 @@ def wide_cagra(x, q, bi, totals) -> dict:
     return out
 
 
+K2_WIDE_KS = (32, 65, 129, 257, 1024, 2048)   # K2's wide form: checked, timed
+
+
 def k2_wide(timer, bidx, q, launches) -> dict:
-    """K2's wide form (k > 256): equal to its plain version on integer
-    inputs at k = 257, 1,024 and 2,048 (l2, ip), close to it on the
-    path's data (values slot by slot, ids as sets) at k = 1,024 on
-    :data:`WIDE_CHECK_QUERIES` queries; timed at the brute-force path's
-    shape at each of :data:`WIDE_BF_KS` beside the plain version,
-    ``addmm`` + ``torch.topk`` at the same k and the 3xTF32 bound."""
+    """K2's wide form (k past the k-lists' LIST_MAX_K = 24): equal to its
+    plain version on integer inputs at each of :data:`K2_WIDE_KS` (l2,
+    ip), close to it on the path's data (values slot by slot, ids as sets)
+    at k = 1,024 on :data:`WIDE_CHECK_QUERIES` queries; its scratch as the
+    library states it against ``fused_knn.wide_scratch_bytes``; timed at
+    the brute-force path's shape at each of :data:`K2_WIDE_KS` (a launch:
+    the form's splits, their shared bound and its selection, no K1 merge
+    after it) beside the plain version, ``addmm`` + ``torch.topk`` at
+    k = 1,024 and the bound at each k: the larger of the 3xTF32 products
+    and the bytes (queries, rows and norms read once, k (value, id) pairs
+    a query written)."""
     x, norms = bidx.dataset, bidx.norms
     rng = np.random.default_rng(SEED + 7)
     qi = torch.from_numpy(rng.integers(-3, 4, (256, 32)).astype(
@@ -2973,7 +2990,7 @@ def k2_wide(timer, bidx, q, launches) -> dict:
     xi = torch.from_numpy(rng.integers(-3, 4, (50_000, 32)).astype(
         np.float32)).cuda()
     for metric in ("l2", "ip"):
-        for k in (257, 1024, 2048):
+        for k in K2_WIDE_KS:
             check_equal(fk.fused_knn_plain(qi, xi, k, metric),
                         fk.fused_knn(qi, xi, k, metric),
                         f"K2 wide {metric} (256, 50000, 32) k={k}, integer "
@@ -2986,9 +3003,19 @@ def k2_wide(timer, bidx, q, launches) -> dict:
                        f"{N}, {D}) k={big}")
     qn = fk.prepare_norms("l2", q)
     dn = fk.prepare_norms("l2", x, norms)
+    splits = {k: fk._split_plan(M, N, k, D, "l2", x.device)[0]
+              for k in K2_WIDE_KS}
+    lib_f32 = _cuda.library(_cuda.STORE_SOURCES["fused_knn"]["float32"])
+    for k in K2_WIDE_KS:
+        on_card = lib_f32.raft_fused_knn_wide_scratch(M, splits[k],
+                                                      fk.wide_cap(k))
+        if on_card != fk.wide_scratch_bytes(M, splits[k], k):
+            raise AssertionError(f"K2 wide k={k}: the library's scratch "
+                                 f"{on_card} differs from "
+                                 "wide_scratch_bytes'")
     times = {k: timer(lambda: fk.fused_knn_candidates(q, qn, x, dn, None, k,
                                                       "l2"), reps=3)
-             for k in WIDE_BF_KS}
+             for k in K2_WIDE_KS}
     plain = timer(lambda: fk.fused_knn_plain(q, x, big, "l2", norms),
                   reps=1, warmup=0)
 
@@ -2999,27 +3026,27 @@ def k2_wide(timer, bidx, q, launches) -> dict:
             torch.topk(dist, big, dim=1, largest=False)
 
     lib = timer(library, reps=3)
-    splits = {k: fk._split_plan(M, N, k, D, "l2", x.device)[0]
-              for k in WIDE_BF_KS}
     tf = 3 * 2.0 * M * N * D / TF32_FLOPS_PER_S * 1e3
-    # its least bytes: queries, rows and norms read once, each (query,
-    # split)'s k candidates written
-    t_bytes, _ = bound(M * D * 4 + N * (D + 1) * 4
-                       + M * splits[big] * big * 8, 0.0)
-    b, by = (t_bytes, "bytes") if t_bytes >= tf else (tf, "operations")
+    bounds = {}
+    for k in K2_WIDE_KS:
+        t_bytes, _ = bound(M * D * 4 + N * (D + 1) * 4 + M * k * 8, 0.0)
+        bounds[k] = (t_bytes, "bytes") if t_bytes >= tf else (
+            tf, "operations")
+    b, by = bounds[big]
     log(f"  K2 wide at ({M}, {N}, {D}): " + ", ".join(
         f"k={k} {t:.2f} ms ({splits[k]} splits, buffers "
         f"{fk.wide_scratch_bytes(M, splits[k], k) / 1e9:.2f} GB)"
         for k, t in times.items())
-        + f"; bound {b:.2f} ms ({by}; 3xTF32 products {tf:.2f}, bytes "
-        f"{t_bytes:.2f}); plain {plain:.1f} ms; addmm + "
-        f"topk(k={big}) {lib:.1f} ms")
+        + f"; bound at k={big} {b:.2f} ms ({by}; 3xTF32 products {tf:.2f}); "
+        f"plain {plain:.1f} ms; addmm + topk(k={big}) {lib:.1f} ms")
     return dict(name="fused_knn.wide", route="cuda",
                 source="raft_tpu_torch/csrc/fused_knn.cuh",
                 replaces="raft_tpu/ops/fused_knn.py:336", launches=launches,
                 max_abs_err=err, ms=times[big], plain_ms=plain, bound_ms=b,
                 bound_by=by, bound_kind="3xTF32", library_ms=lib,
-                ms_by_k=times, splits_by_k=splits,
+                ms_by_k=times, bound_ms_by_k={k: v[0] for k, v in
+                                              bounds.items()},
+                splits_by_k=splits,
                 shape=f"({M}, {N}, {D}) k={big} l2, {splits[big]} corpus "
                 f"splits")
 
@@ -3185,17 +3212,30 @@ def k4_wide_form(timer, pidx, q, pass_call, launches) -> dict:
     n_probes = pa[4].shape[1]
     rows = {kk: cagra.pass_batch(CAGRA_BATCH, n_probes, kk)
             for kk in (2 * 256 + 1, 2 * 512 + 1)}
-    pass_ms = {}
+    pass_ms, pass_bound = {}, {}
+    sizes = pa[6].long()
     for kk, m in rows.items():
         sub = list(pa)
         sub[4], sub[7] = pa[4][:m], pa[7][:m]
         pass_ms[kk] = timer(lambda: cand(sub, kk), reps=3)
+        # as the graph pass's bound (k4_graph_pass): each probed list's
+        # codes and norms read once, the cheaper of the LUT route and the
+        # decoded rows' products, k (value, row) pairs a pair out
+        pl = sub[4].long()
+        scanned = int(sizes[pl].sum())
+        pass_bound[kk] = scan_bound(
+            int(sizes[torch.unique(pl)].sum()) * (pq_dim + 4)
+            + sub[7].numel() * 4 + pa[2].numel() * 4 + pa[3].numel() * 4
+            + pl.numel() * (4 + kk * 8),
+            scanned, pq_dim * pq_len, tf32_products(pa[3]),
+            (m * 2 * pq_dim * book * pq_len, scanned * pq_dim))
     kk, m = next(iter(rows.items()))
     sub = list(pa)
     sub[4], sub[7] = pa[4][:m], pa[7][:m]
     pass_pair = timer(lambda: cand(sub, kk, "pair"), reps=1, warmup=1)
     log(f"  K4 at the graph pass's batches past k=256: " + ", ".join(
-        f"k={kk} on {m} rows grouped {pass_ms[kk]:.3f} ms" for kk, m in
+        f"k={kk} on {m} rows grouped {pass_ms[kk]:.3f} ms, bound "
+        f"{pass_bound[kk][0]:.3f} ms ({pass_bound[kk][1]})" for kk, m in
         rows.items()) + f"; per-pair at k={kk} on {m} rows {pass_pair:.3f} "
         "ms")
     if pass_ms[kk] >= pass_pair:
@@ -3233,6 +3273,8 @@ def k4_wide_form(timer, pidx, q, pass_call, launches) -> dict:
                 launches=launches, max_abs_err=err, ms=times[k],
                 plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
                 ms_by_k=times, pass_ms=pass_ms, pass_rows=rows,
+                pass_bound_ms={kk: v[0] for kk, v in pass_bound.items()},
+                pass_bound_by={kk: v[1] for kk, v in pass_bound.items()},
                 pass_pair_ms=pass_pair,
                 shape=f"{M} queries x {N_PROBES} probes, pq_dim={PQ_DIM}, "
                 f"bf16 LUT, k={k}")
@@ -3250,41 +3292,50 @@ def wide_k_phase(timer, x, q, bidx, iidx, pidx, sidx, pass_call, totals):
                                               "ivf_flat_scan.wide",
                                               "ivf_pq_scan.wide")}
     # K1's radix select past k = 512 at the merges these paths hand it: the
-    # IVF-Flat search's at the widest k, brute force's split merge at its
-    # widest k, the IVF-PQ pass's at intermediate degrees 256 and 512
-    big_ivf, big_bf = WIDE_IVF_KS[-1], WIDE_BF_KS[-1]
-    pass_ks = [2 * d0 + 1 for d0, route in WIDE_CAGRA if route == "ivf_pq"]
+    # IVF-Flat search's at the widest k, the IVF-PQ pass's at intermediate
+    # degrees 256 and 512 and the degree-512 pass's refine (brute force's
+    # wide form merges its splits itself)
+    big_ivf = WIDE_IVF_KS[-1]
+    pass_d0 = [d0 for d0, route in WIDE_CAGRA if route == "ivf_pq"]
     with captured(iscan, "kpass_select_k",
                   lambda v, k, *a, **kw: k == big_ivf,
-                  counter="select_k.radix") as cap_ivf, \
-            captured(fk, "kpass_select_k",
-                     lambda v, k, *a, **kw: k == big_bf,
-                     counter="select_k.radix") as cap_bf:
+                  counter="select_k.radix") as cap_ivf:
         paths = wide_paths(x, q, bidx, iidx, pidx, sidx, bi, totals)
     k1_rows = [k1_radix_wide(timer, f"IVF-Flat search merge, k={big_ivf}",
-                             cap_ivf),
-               k1_radix_wide(timer, f"brute-force split merge, k={big_bf}",
-                             cap_bf)]
-    del cap_ivf, cap_bf
+                             cap_ivf)]
+    del cap_ivf
     with contextlib.ExitStack() as stack:
         caps = [stack.enter_context(captured(
-            ipq, "kpass_select_k", lambda v, k, *a, kk=kk, **kw: k == kk,
-            to_host=True, counter="select_k.radix")) for kk in pass_ks]
+            ipq, "kpass_select_k",
+            lambda v, k, *a, kk=2 * d0 + 1, **kw: k == kk, to_host=True,
+            counter="select_k.radix")) for d0 in pass_d0]
+        # the refine that follows the widest pass selects d0 + 1 of its
+        # 2·d0 + 1 candidates a row
+        caps.append(stack.enter_context(captured(
+            refine, "select_k", lambda v, k, *a, kk=pass_d0[-1] + 1,
+            **kw: k == kk and v.shape[1] == 2 * kk - 1, to_host=True,
+            counter="select_k.radix")))
         routes = wide_cagra(x, q, bi, totals)
-    for (d0, _), cap in zip((w for w in WIDE_CAGRA if w[1] == "ivf_pq"),
-                            caps):
+    for d0, cap in zip(pass_d0, caps):
         k1_rows.append(k1_radix_wide(
             timer, f"IVF-PQ pass merge at intermediate degree {d0}, "
             f"k={2 * d0 + 1}", cap))
+    k1_rows.append(k1_radix_wide(
+        timer, f"IVF-PQ pass refine at intermediate degree {pass_d0[-1]}, "
+        f"k={pass_d0[-1] + 1}", caps[-1]))
     del caps
     launches = {kern: totals[kern] - n for kern, n in before.items()}
-    rows = [k2_wide(timer, bidx, q, launches["fused_knn.wide"]),
+    # the wide form's launches on every path so far (the CAGRA builds at
+    # k = 129, the bench's, this phase's)
+    rows = [k2_wide(timer, bidx, q, totals["fused_knn.wide"]),
             k3_wide_form(timer, iidx, q, launches["ivf_flat_scan.wide"]),
             k4_wide_form(timer, pidx, q, pass_call,
                          launches["ivf_pq_scan.wide"])]
     rows[0].update(search_ms=paths["brute_force"],
                    int8_search_ms=paths["brute_force_int8"],
-                   cagra_routes=routes)
+                   cagra_routes=routes,
+                   cagra_exact_knn_graph_s=routes["brute_256"]["knn_graph_s"],
+                   wide_k_phase_launches=launches["fused_knn.wide"])
     rows[1].update(search_ms=paths["ivf_flat"])
     rows[2].update(search_ms=paths["ivf_pq"])
     return rows, k1_rows
@@ -4137,7 +4188,9 @@ def main() -> int:
                         by_form(moved, "select_k"))]
     del k1_in
     mark(t_start, "K1 phase")
-    kernels += [k2_phase(timer, bidx, q, f32["fused_knn"],
+    # K2's k-list plans' launches (its wide form has its own row)
+    kernels += [k2_phase(timer, bidx, q,
+                         f32["fused_knn"] - moved["fused_knn.wide"],
                          cidx.build_stats["knn_graph_s"]),
                {**k3_phase(timer, iidx, q, f32["ivf_flat_scan"],
                            by_form(moved, "ivf_flat_scan")),

@@ -14,8 +14,7 @@
 // fragments, cp.async copies and fragment selection of tf32_tile.cuh,
 // which the grouped forms of K3 and K4 share.
 //
-// A block of 8 warps owns BM = 32·MF queries (MF = 4 for k <= 64, 2
-// above) and walks its split of the corpus in tiles of BN = 128 rows; the
+// A block of 8 warps owns BM = 32·MF queries (MF = 4) and walks its split of the corpus in tiles of BN = 128 rows; the
 // warps sit 2 along the queries x 4 along the rows, each computing a
 // (16·MF) x 32 piece as MF x 4 mma tiles. The query tile is copied into
 // shared memory once and stays there (nk blocks of BM x 32 dimensions)
@@ -50,12 +49,12 @@
 // column, so the (value, column) order is exact whatever the order in
 // which candidates arrive. A distance of +inf (a filtered row) or NaN is
 // never offered, so a query with fewer than k such rows ends in
-// (+inf, -1) slots. The k-lists cost BM·k·8 bytes of shared memory, so
-// the query tile shrinks with k: 128 queries and CAP = the queue's C
-// (32 or 64 keys) for k <= 64; 64 queries above, with CAP = 128 up to
-// k = 128 and 64 up to k = 256 (the CAGRA build's k = 129, d = 128:
-// 66 KB of lists, 33 KB of buffers, 32 KB of resident queries, a 48 KB
-// ring).
+// (+inf, -1) slots. The k-lists cost BM·k·8 bytes of shared memory:
+// 128 queries and CAP = the queue's C (32 keys) up to k = kListMaxK (24).
+// Past it the wide form below: on the H100 it beats the k-list plans on
+// f32 rows from k = 32 and on int8 rows from 33 (not on bf16 rows up to
+// 64), and the plans of 64 queries that took k = 65 to 256 by 17–46%
+// (PERF.md).
 //
 // When there are too few query tiles to fill the card, the corpus is
 // split over blockIdx.y; each split writes its k best, sorted, into its
@@ -96,36 +95,45 @@
 // bound is the product count: 2 TF32 products (1 bf16 product for bf16)
 // of 2·m·n·d operations each; the corpus bytes fall with the store.
 //
-// Past k = 256 (fused_knn_wide_kernel, raft_fused_knn_wide): the k-lists
-// would take BM·k·8 bytes of shared memory (128 KB at 64 queries and
-// k = 256), so the wide form keeps none. The tile loop, its products and
-// its distances are the same code with MF = 2 (64 queries a block), so a
-// distance is the same bits in both forms. Each (query, split) owns a
-// candidate buffer of cap keys (a value and its column) in device memory,
-// the wrapper's scratch, and each query a bound in shared memory, the
-// end of the bucket of its k-th key so far (list_select.cuh's 64-bit
-// keys: order bits, column, -0.0 flag). A finished tile's distances
-// below their query's bound go to its buffer: the four threads that hold
-// a query's fragment values take their slots by one shared atomic. A
-// tile offers at most 128 keys a query, so a buffer past cap - 128 keys
-// is shrunk before the next tile (one warp a query: the radix passes of
-// list_select.cuh find the bucket of its k-th key, the buffer keeps that
-// bucket and the keys below it, at most cap - 128, compacted in place,
-// and the bound becomes the bucket's end). A split holds hundreds of k
-// rows, so after the first tiles almost every distance is turned away by
-// one compare, as in the plans below 256. At the split's end the buffer
-// is selected in rounds (list_select.cuh::select_rounds) into the split's
-// k columns, sorted by (value, column), and K1 merges the splits as
-// below. The bound is strict, ties are broken by the column inside the
-// key, and a buffer's keys are unique, so the result is the same bits
-// whatever the order of the atomics. Its bound on this card is the
-// k-list plans' (the 3xTF32 products); the buffers add at most
-// m·splits·cap·8 bytes of writes and their shrinks' reads, and the
-// split plan (ops/fused_knn.py::split_plan) keeps splits·k small beside
-// the corpus, so that the offers stay rare.
+// Past the k-lists (fused_knn_wide_kernel + fused_knn_wide_select,
+// raft_fused_knn_wide; kListMaxK): the k-lists would take BM·k·8 bytes of
+// shared memory, so the wide form keeps none. Its tile loop, products and
+// distances are the k = 10 plan's (MF = 4, 128 queries a block, the
+// distance bits independent of MF), so a distance is the same bits in
+// every form. Each (query, split) owns a candidate buffer of cap 64-bit
+// keys in device memory (list_select.cuh's buffer keys: order bits,
+// column, -0.0 flag), the wrapper's scratch, and each query a bound in
+// shared memory below which its distances are offered: a distance is
+// compared with the bound's value, and only one equal to it builds its
+// key to compare; each thread takes the slots of its keys by one shared
+// atomic and writes whole keys, and a thread that fills a buffer past
+// cap - 128 keys (a tile offers at most 128 a query) marks the row, so a
+// tile costs one barrier. A marked buffer is shrunk before the next tile
+// by the whole block, out of line (block_select.cuh: every thread's loads
+// in flight at once, the buffer staged in shared memory up to 2,048 keys,
+// 10-bit histograms, a block-wide scan): its keys below the bound, or the
+// k best and their bucket, at most fit of them, and the bound becomes the
+// end of the k-th key's bucket. That bound holds for the query's every
+// split: it has k keys below it. So a shrink publishes it (atomicMin on
+// the query's bound in device memory) and reads the others' first, and
+// every block starts from the bound the earlier splits left: the splits
+// of a query tile that run in a later wave than its first offer about k
+// keys where the first offers many times that. Keys at or past a bound
+// stay in a buffer until its next shrink, and no key below the final
+// bound is ever dropped. After the tile loop, one block a query selects
+// the k best keys below its final bound from all its splits' buffers (in
+// rounds of 2,048: a radix bucket, a gather into shared memory, a
+// bitonic sort) into the query's k output slots: the splits meet there,
+// not in K1. The keys are unique, so the result is the same bits
+// whatever the order of the atomics and of the blocks. Measured on the
+// H100 (PERF.md): the 64-query tile of the form before this one cost it
+// ~24 of 177 ms at k = 1,024, its offers, one warp's shrinks (each load
+// waiting on the last) and per-split selections most of the rest. Its
+// bound on this card is the k-list plans' (the 3xTF32 products); the
+// buffers add their keys' writes and the shrinks' reads.
 #pragma once
 
-#include "list_select.cuh"
+#include "block_select.cuh"
 #include "tf32_tile.cuh"
 
 namespace {
@@ -360,14 +368,87 @@ fused_knn_kernel(const float* __restrict__ q, const float* __restrict__ qn,
   }
 }
 
-// ---- the wide form: past k = 256 ----
+// ---- the wide form: past the k-lists ----
 //
-// Its own kernel beside fused_knn_kernel, whose tile loop and epilogue it
-// repeats, so that the k-list plans compile as before (one template over
-// both plans changed K4's narrow register allocation and cost it 2.4%;
-// ivf_pq_scan.cu).
-constexpr int kWideMF = 2;  // 64 queries a block
-constexpr size_t kWideSel = (kThreads / 32) * lsel::kWarpBytes;
+// Its own kernels beside fused_knn_kernel, whose tile loop and epilogue
+// the first repeats, so that the k-list plans compile as before (one
+// template over both plans changed K4's narrow register allocation and
+// cost it 2.4%; ivf_pq_scan.cu).
+// the widest k of the k-list plans (ops/fused_knn.py, LIST_MAX_K)
+constexpr int kListMaxK = 24;
+constexpr int kWideMF = 4;  // 128 queries a block
+constexpr int kWideBM = 32 * kWideMF;
+constexpr int kWideStage = 2048;  // a buffer a shrink reads into shared memory
+
+// The wide tile loop's per-query state in shared memory: its bound and
+// its buffer's count; then the rows marked for a shrink.
+struct WideRows {
+  lsel::Key64 thr[kWideBM];
+  int cnt[kWideBM];
+  unsigned need[kWideBM / 32];
+};
+
+// A (query, split)'s key (list_select.cuh's buffer key order) from a
+// distance v of column col whose order bits are ok.
+__device__ __forceinline__ lsel::Key64 wide_key(unsigned ok, int col,
+                                                float v) {
+  return ((lsel::Key64)ok << 32) | ((unsigned)col << 1) |
+         (__float_as_uint(v) == 0x80000000u ? 1u : 0u);
+}
+
+// Shrink query r's buffer buf (the whole block calls it): of its keys
+// below the bound (the tighter of the block's and the query's in device
+// memory, bound, which the other splits tighten), keep the k best and
+// their bucket (at most fit), the bound becoming the bucket's end, which
+// every split of the query may then use; or, where at most fit keys lie
+// below the bound, keep those. A buffer of at most kWideStage keys is
+// read once, into stage (shared memory), and its passes run there. Apart
+// from the tile loop (not inlined): it runs on a few tiles in a hundred.
+__device__ __noinline__ void wide_shrink(lsel::Key64* buf,
+                                         lsel::Key64* stage, WideRows& rows,
+                                         bsel::Scratch& sel,
+                                         lsel::Key64* bound, int r, int k,
+                                         int fit) {
+  const int held = rows.cnt[r];
+  const lsel::Key64 lim = min(rows.thr[r], __ldcg(bound));
+  const lsel::Key64* from = buf;
+  if (held <= kWideStage) {
+    for (int i0 = 0; i0 < held; i0 += bsel::kBlock * bsel::kUnroll) {
+      lsel::Key64 v[bsel::kUnroll];
+#pragma unroll
+      for (int u = 0; u < bsel::kUnroll; ++u) {
+        const int i = i0 + u * bsel::kBlock + (int)threadIdx.x;
+        v[u] = i < held ? buf[i] : lsel::kNone64;
+      }
+#pragma unroll
+      for (int u = 0; u < bsel::kUnroll; ++u) {
+        const int i = i0 + u * bsel::kBlock + (int)threadIdx.x;
+        if (i < held) stage[i] = v[u];
+      }
+    }
+    __syncthreads();
+    from = stage;
+  }
+  const bsel::Segments<bsel::OneCount> src{from, 0, 1, {held}};
+  int below;
+  lsel::Key64 lo, hi;
+  bsel::key_range(src, 0ull, lim, sel, below, lo, hi);
+  lsel::Key64 thr = lim;
+  if (below > fit) {
+    const bsel::Bucket b =
+        bsel::find_bucket(src, 0ull, lim, lo, hi, k, fit, false, sel);
+    const lsel::Key64 end = b.sh >= 64 ? 0ull : (b.pre + 1ull) << b.sh;
+    if (end != 0ull && end < lim) thr = end;
+  }
+  const int kept = bsel::gather(
+      src, buf, [&](lsel::Key64 key) { return key < thr; }, sel);
+  if (threadIdx.x == 0) {
+    rows.cnt[r] = kept;
+    rows.thr[r] = thr;
+    if (thr < lim) atomicMin(bound, thr);
+  }
+  __syncthreads();
+}
 
 template <int METRIC, int S>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -378,31 +459,31 @@ fused_knn_wide_kernel(const float* __restrict__ q,
                       const float* __restrict__ pen,
                       const float* __restrict__ scales, int m, int n, int d,
                       int k, int rows_per_split, int vec, int a_res, int ns,
-                      int cap, float* __restrict__ buf_v,
-                      int* __restrict__ buf_c, float* __restrict__ out_v,
-                      int* __restrict__ out_i) {
+                      int cap, int fit, lsel::Key64* __restrict__ keys,
+                      lsel::Key64* __restrict__ bounds,
+                      int* __restrict__ counts) {
   constexpr int MF = kWideMF;
-  constexpr int BM = 32 * MF;
+  constexpr int BM = kWideBM;
   constexpr bool RAW = S != kF32;       // rows staged as stored bytes
   constexpr bool BF = S == kBF16;       // bf16 products
   constexpr int NSIDE = RAW ? 3 : 2;    // (dn, pen[, scale]) a column
   const int nk = (d + BK - 1) / BK;
   const int dw = S == kI4 ? d / 2 : d;  // a stored row's elements
-  // the query tile and the ns ring stages as fused_knn_kernel's; the
-  // warps' selection space takes their place once the tiles are done
+  // the query tile and the ns ring stages as fused_knn_kernel's
   const int a_bytes = a_res == 0 ? 0
                       : BF       ? nk * BM * BK * 2
                                  : a_res * nk * BM * BK * 4;
   const int stage = (a_res ? 0 : BM * BK * 4) + BN * BK * store_bytes<S>();
-  const int tile_bytes = max(a_bytes + ns * stage, (int)kWideSel);
   extern __shared__ __align__(16) float smem[];
   float* a_tile = smem;
   unsigned char* ring = (unsigned char*)smem + a_bytes;
-  // 4 x (dn, pen[, scale])
-  float* sides = (float*)((unsigned char*)smem + tile_bytes);
-  lsel::Key64* thr = (lsel::Key64*)(sides + 4 * NSIDE * BN);  // BM bounds
-  int* cnt = (int*)(thr + BM);                                 // BM counts
-  unsigned* hist = (unsigned*)(cnt + BM);  // a warp's kBins for its shrinks
+  bsel::Scratch& sel =
+      *reinterpret_cast<bsel::Scratch*>(ring + ns * stage);
+  WideRows& rows = *reinterpret_cast<WideRows*>(&sel + 1);
+  // 4 x (dn, pen[, scale]), then a shrink's copy of a buffer
+  float* sides = reinterpret_cast<float*>(&rows + 1);
+  lsel::Key64* stage_keys =
+      reinterpret_cast<lsel::Key64*>(sides + 4 * NSIDE * BN);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -417,14 +498,16 @@ fused_knn_wide_kernel(const float* __restrict__ q,
   const int c_end = min(n, c_begin + rows_per_split);
   // query q0 + r's buffer in this split
   auto buffer = [&](int r) {
-    return ((size_t)(q0 + r) * gridDim.y + split) * cap;
+    return keys + ((size_t)(q0 + r) * gridDim.y + split) * cap;
   };
 
-  // rows past m take nothing (a bound below every key)
+  // each query starts from the bound the splits before it left (rows past
+  // m take nothing: a bound below every key)
   for (int r = tid; r < BM; r += kThreads) {
-    thr[r] = q0 + r < m ? lsel::kNone64 : 0ull;
-    cnt[r] = 0;
+    rows.thr[r] = q0 + r < m ? __ldcg(bounds + q0 + r) : 0ull;
+    rows.cnt[r] = 0;
   }
+  if (tid < BM / 32) rows.need[tid] = 0u;
 
   // this thread's rows of the tile: wm·16·MF + 16·i + g + 8·h
   float qnr[MF][2];
@@ -566,54 +649,61 @@ fused_knn_wide_kernel(const float* __restrict__ q,
       }
     }
     // a query's 32 values of this warp sit with the four threads of its
-    // row group: their keys below the bound take slots of the buffer by
-    // one atomic, in the threads' order
+    // row group: each thread's keys below the bound take slots of the
+    // buffer by one atomic; a thread that fills the buffer past
+    // cap - 128 keys marks the row for a shrink
     const int col0 = c0 + wn * 32 + 2 * t4;
+    bool full = false;
 #pragma unroll
     for (int i = 0; i < MF; ++i) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = wm * 16 * MF + 16 * i + g + 8 * h;
-        const lsel::Key64 bound = thr[r];
-        unsigned take = 0u;
-        int mine = 0;
+        const lsel::Key64 bound = rows.thr[r];
+        // the bound's value: a distance below it is taken, one equal to it
+        // where its key is below the bound (no bound: below +inf)
+        const float bv = bound == lsel::kNone64
+                             ? CUDART_INF_F
+                             : lsel::buffer_value(bound & ~1ull);
+        unsigned take = 0u, tie = 0u;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
 #pragma unroll
           for (int e1 = 0; e1 < 2; ++e1) {
             const float v = acc[i][j][2 * h + e1];
-            const unsigned ok = lsel::order_key(v);
-            const lsel::Key64 key =
-                ((lsel::Key64)ok << 32) |
-                ((unsigned)(col0 + 8 * j + e1) << 1) |
-                (__float_as_uint(v) == 0x80000000u ? 1u : 0u);
-            if (ok != lsel::kNone && key < bound) {
-              take |= 1u << (2 * j + e1);
-              ++mine;
+            take |= (v < bv ? 1u : 0u) << (2 * j + e1);
+            tie |= (v == bv ? 1u : 0u) << (2 * j + e1);
+          }
+        }
+        if (tie != 0u) {  // rare: a value equal to the bound's
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int e1 = 0; e1 < 2; ++e1) {
+              const float v = acc[i][j][2 * h + e1];
+              if ((tie >> (2 * j + e1) & 1u) && v < CUDART_INF_F &&
+                  wide_key(lsel::order_key(v), col0 + 8 * j + e1, v) <
+                      bound) {
+                take |= 1u << (2 * j + e1);
+              }
             }
           }
         }
-        int incl = mine;
-#pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-          const int y = __shfl_up_sync(RAFT_FULL_MASK, incl, off, 4);
-          if (t4 >= off) incl += y;
-        }
-        const int quad = __shfl_sync(RAFT_FULL_MASK, incl, 3, 4);
-        int base = 0;
-        if (t4 == 3 && quad > 0) base = atomicAdd(&cnt[r], quad);
-        base = __shfl_sync(RAFT_FULL_MASK, base, 3, 4);
         if (take != 0u) {
-          const size_t b = buffer(r) + base + incl - mine;
-          int o = 0;
+          const int mine = __popc(take);
+          const int base = atomicAdd(&rows.cnt[r], mine);
+          if (base + mine > cap - BN) {
+            atomicOr(&rows.need[r >> 5], 1u << (r & 31));
+            full = true;
+          }
+          lsel::Key64* out = buffer(r) + base;
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
 #pragma unroll
             for (int e1 = 0; e1 < 2; ++e1) {
               if (take & (1u << (2 * j + e1))) {
-                buf_v[b + o] = acc[i][j][2 * h + e1];
-                buf_c[b + o] = col0 + 8 * j + e1;
-                ++o;
+                const float v = acc[i][j][2 * h + e1];
+                *out++ = wide_key(lsel::order_key(v), col0 + 8 * j + e1, v);
               }
             }
           }
@@ -626,49 +716,60 @@ fused_knn_wide_kernel(const float* __restrict__ q,
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    // every buffer keeps room for the next tile's 128 keys a query
-    __syncthreads();
-    for (int r = warp; r < BM; r += kThreads / 32) {
-      const int held = cnt[r];
-      if (held > cap - BN) {
-        const size_t b = buffer(r);
-        lsel::Key64 bound;
-        const int kept =
-            lsel::shrink_buffer(buf_v + b, buf_c + b, held, k, cap - BN,
-                                hist + warp * lsel::kBins, bound, lane);
-        if (lane == 0) {
-          cnt[r] = kept;
-          thr[r] = bound;
+    // every buffer keeps room for the next tile's 128 keys a query: the
+    // marked rows are shrunk, one at a time by the block
+    if (__syncthreads_or(full)) {
+      unsigned marked[BM / 32];
+#pragma unroll
+      for (int w = 0; w < BM / 32; ++w) marked[w] = rows.need[w];
+      __syncthreads();  // every thread has the marks before they clear
+      if (tid < BM / 32) rows.need[tid] = 0u;
+#pragma unroll
+      for (int w = 0; w < BM / 32; ++w) {
+        for (unsigned left = marked[w]; left != 0u; left &= left - 1u) {
+          const int r = w * 32 + __ffs(left) - 1;
+          wide_shrink(buffer(r), stage_keys, rows, sel, bounds + q0 + r, r,
+                      k, fit);
         }
-        __syncwarp();
       }
     }
   }
 
-  // the split is done: each query's buffer, selected in rounds, to the
-  // split's k columns; warp w owns rows w, w + 8, ...
-  __syncthreads();
-  unsigned char* ws =
-      reinterpret_cast<unsigned char*>(smem) + warp * lsel::kWarpBytes;
-  const size_t stride = (size_t)gridDim.y * k;
-  for (int r = warp; r < BM; r += kThreads / 32) {
-    const int qi = q0 + r;
-    if (qi >= m) continue;
-    const size_t b = buffer(r);
-    float* ov = out_v + (size_t)qi * stride + (size_t)split * k;
-    int* oi = out_i + (size_t)qi * stride + (size_t)split * k;
-    lsel::select_rounds(
-        lsel::BufferKeys{buf_v + b, buf_c + b}, cnt[r], k, ws,
-        [&](int e, lsel::Key64 key) {
-          ov[e] = lsel::buffer_value(key);
-          oi[e] = lsel::buffer_column(key);
-        },
-        [&](int e) {
-          ov[e] = CUDART_INF_F;
-          oi[e] = -1;
-        },
-        lane);
+  // the split is done: its buffers' counts to the selection
+  for (int r = tid; r < BM; r += kThreads) {
+    if (q0 + r < m) counts[(size_t)(q0 + r) * gridDim.y + split] = rows.cnt[r];
   }
+}
+
+// The wide form's selection: one block a query, the k best keys below the
+// query's final bound over its splits' buffers, sorted, to its k output
+// slots (block_select.cuh). A key at or past the bound cannot be among the
+// k best, and every key that can is in a buffer; the keys are unique, so
+// this is the (value, lowest column) order of the JAX kernel.
+__global__ void __launch_bounds__(bsel::kBlock)
+fused_knn_wide_select(const lsel::Key64* __restrict__ keys,
+                      const lsel::Key64* __restrict__ bounds,
+                      const int* __restrict__ counts, int splits, int cap,
+                      int k, float* __restrict__ out_v,
+                      int* __restrict__ out_i) {
+  __shared__ bsel::Scratch sel;
+  __shared__ lsel::Key64 cand[bsel::kRound];
+  const int qi = blockIdx.x;
+  const int* cnt = counts + (size_t)qi * splits;
+  const bsel::Segments<bsel::ManyCounts> src{
+      keys + (size_t)qi * splits * cap, (size_t)cap, splits, {cnt}};
+  float* ov = out_v + (size_t)qi * k;
+  int* oi = out_i + (size_t)qi * k;
+  bsel::select(
+      src, bounds[qi], k, cand, sel,
+      [&](int e, lsel::Key64 key) {
+        ov[e] = lsel::buffer_value(key);
+        oi[e] = lsel::buffer_column(key);
+      },
+      [&](int e) {
+        ov[e] = CUDART_INF_F;
+        oi[e] = -1;
+      });
 }
 
 // A launch's shape: the kernel, its shared memory, the queries a block,
@@ -700,37 +801,20 @@ cudaError_t prepare(int k, int d, Plan* p) {
                               (int)p->smem);
 }
 
-// The wide form's shape: the tiles (the first layout, query tile split,
-// resident or streamed, 3 ring stages then 2, that fits) share their
-// space with the warps' selection space, whichever is larger; then the
-// side buffers, the queries' bounds and counts, and each warp's histogram
-// for its shrinks.
+// The wide form's shape: the first tile layout that fits (the query tile
+// split, resident or streamed, 3 ring stages then 2), then the selection
+// scratch, the queries' rows and the side buffers.
 template <int METRIC, int S>
 cudaError_t prepare_wide(int d, Plan* p) {
-  constexpr int BM = 32 * kWideMF;
   constexpr bool RAW = S != kF32;
-  constexpr bool BF = S == kBF16;
-  const size_t nk = (d + BK - 1) / BK;
-  const size_t b_stage = (size_t)store_bytes<S>() * BK * BN;
-  const size_t a_elem = BF ? 2 : sizeof(float);
-  const size_t fixed = sizeof(float) * 4 * (RAW ? 3 : 2) * BN +
-                       (sizeof(lsel::Key64) + sizeof(int)) * BM +
-                       sizeof(unsigned) * (kThreads / 32) * lsel::kBins;
   p->kern = (const void*)fused_knn_wide_kernel<METRIC, S>;
-  p->bm = BM;
-  p->smem = 0;
-  for (int a = BF ? 1 : 2; a >= 0 && p->smem == 0; --a) {
-    for (int ns = 3; ns >= 2 && p->smem == 0; --ns) {
-      size_t tiles = a_elem * BK * a * nk * BM +
-                     ns * (sizeof(float) * BK * (a ? 0 : BM) + b_stage);
-      if (tiles < kWideSel) tiles = kWideSel;
-      if (tiles + fixed <= kSmemLimit) {
-        p->smem = tiles + fixed;
-        p->a_res = a;
-        p->ns = ns;
-      }
-    }
-  }
+  p->bm = kWideBM;
+  p->smem = fit_tiles(kWideBM, d, 3,
+                      sizeof(bsel::Scratch) + sizeof(WideRows) +
+                          sizeof(float) * 4 * (RAW ? 3 : 2) * BN +
+                          sizeof(lsel::Key64) * kWideStage,
+                      &p->a_res, &p->ns, (size_t)store_bytes<S>() * BK * BN,
+                      S == kBF16 ? 1 : 2, S == kBF16 ? 2 : sizeof(float));
   if (p->smem == 0) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(p->kern,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -738,22 +822,20 @@ cudaError_t prepare_wide(int d, Plan* p) {
 }
 
 template <int METRIC, int S>
-cudaError_t plan_metric(int k, int d, Plan* p) {
-  if (k <= 32) return prepare<4, 1, 32, METRIC, S>(k, d, p);
-  if (k <= 64) return prepare<4, 2, 64, METRIC, S>(k, d, p);
-  if (k <= 128) return prepare<2, 4, 128, METRIC, S>(k, d, p);
-  if (k <= 256) return prepare<2, 8, 64, METRIC, S>(k, d, p);
-  return prepare_wide<METRIC, S>(d, p);
+cudaError_t plan_metric(int k, int d, bool wide, Plan* p) {
+  if (wide) return prepare_wide<METRIC, S>(d, p);
+  return prepare<4, 1, 32, METRIC, S>(k, d, p);
 }
 
 // By k: 128 queries a block and a buffer of the queue's C keys up to
-// k = 64; 64 queries above (the k-lists' shared memory), with 128 keys up
-// to k = 128 and 64 up to 256; past 256 the wide form, 64 queries.
+// kListMaxK; past it the wide form, 128 queries (wide: the wide form at
+// any k).
 template <int S>
-cudaError_t plan_for(int k, int d, int metric, Plan* p) {
-  if (metric == 0) return plan_metric<0, S>(k, d, p);
-  if (metric == 1) return plan_metric<1, S>(k, d, p);
-  return plan_metric<2, S>(k, d, p);
+cudaError_t plan_for(int k, int d, int metric, Plan* p, bool wide = false) {
+  wide = wide || k > kListMaxK;
+  if (metric == 0) return plan_metric<0, S>(k, d, wide, p);
+  if (metric == 1) return plan_metric<1, S>(k, d, wide, p);
+  return plan_metric<2, S>(k, d, wide, p);
 }
 
 // How many K2 blocks for (k, d, metric) the card `device` keeps resident
@@ -782,7 +864,7 @@ int fused_knn_slots(int k, int d, int metric, int device) {
 // norms), 2 = inner product (-dot; qn, dn unused). pen may be null, and
 // scales (a store form's per-row factors; the f32 form takes none).
 // q is (m, d) f32; data (n, d) in the store (int4: (n, d / 2) bytes, d a
-// multiple of 128). 1 <= k <= 256 (past it fused_knn_wide_launch); each
+// multiple of 128). 1 <= k <= kListMaxK (past it fused_knn_wide_launch); each
 // split's rows_per_split is a multiple of 128, and splits·rows_per_split
 // >= n.
 template <int S>
@@ -791,8 +873,8 @@ int fused_knn_launch(const void* q, const void* qn, const void* data,
                      int m, int n, int d, int k, int metric, int splits,
                      int rows_per_split, void* out_v, void* out_i,
                      void* stream) {
-  if (k < 1 || k > 256 || d < 1 || splits < 1 || rows_per_split < 1 ||
-      (long long)splits * rows_per_split < n ||
+  if (k < 1 || k > kListMaxK || d < 1 || splits < 1 ||
+      rows_per_split < 1 || (long long)splits * rows_per_split < n ||
       (long long)(splits - 1) * rows_per_split >= n ||
       (S == kI4 && d % 128 != 0) || (S == kF32 && scales != nullptr)) {
     return (int)cudaErrorInvalidValue;
@@ -818,9 +900,17 @@ int fused_knn_launch(const void* q, const void* qn, const void* data,
   return (int)cudaGetLastError();
 }
 
-// The wide form (k > 256) with fused_knn_launch's arguments and the
-// candidate buffers: scratch holds m·splits·cap floats and as many ints
-// after them; cap >= k + 128.
+// The wide form's scratch: m·splits·cap keys of 8 bytes (the candidate
+// buffers), then m bounds of 8 bytes and m·splits counts of 4.
+inline size_t fused_knn_wide_scratch(int m, int splits, int cap) {
+  return sizeof(lsel::Key64) * ((size_t)m * splits * cap + m) +
+         sizeof(int) * (size_t)m * splits;
+}
+
+// The wide form, at any 1 <= k <= n, with fused_knn_launch's arguments and
+// its scratch (fused_knn_wide_scratch's bytes); cap >= k + 128. Writes
+// the k best of the whole corpus to out_v, out_i (m, k): the splits'
+// buffers meet in the selection, so there is nothing to merge after it.
 template <int S>
 int fused_knn_wide_launch(const void* q, const void* qn, const void* data,
                           const void* dn, const void* pen,
@@ -828,7 +918,7 @@ int fused_knn_wide_launch(const void* q, const void* qn, const void* data,
                           int metric, int splits, int rows_per_split,
                           int cap, void* scratch, void* out_v, void* out_i,
                           void* stream) {
-  if (k <= 256 || k > n || d < 1 || splits < 1 || rows_per_split < 1 ||
+  if (k < 1 || k > n || d < 1 || splits < 1 || rows_per_split < 1 ||
       cap < k + BN || scratch == nullptr ||
       (long long)splits * rows_per_split < n ||
       (long long)(splits - 1) * rows_per_split >= n ||
@@ -841,20 +931,28 @@ int fused_knn_wide_launch(const void* q, const void* qn, const void* data,
   const int vec_d = row_bytes % 16 == 0 && (uintptr_t)data % 16 == 0;
   const int vec = S == kF32 ? (vec_q && vec_d) * 3 : vec_q | (vec_d << 1);
   Plan p;
-  cudaError_t err = plan_for<S>(k, d, metric, &p);
+  cudaError_t err = plan_for<S>(k, d, metric, &p, true);
   if (err != cudaSuccess) return (int)err;
-  float* buf_v = (float*)scratch;
-  int* buf_c = (int*)(buf_v + (size_t)m * splits * cap);
-  void* args[] = {(void*)&q,     (void*)&qn,   (void*)&data,
-                  (void*)&dn,    (void*)&pen,  (void*)&scales,
-                  (void*)&m,     (void*)&n,    (void*)&d,
-                  (void*)&k,     (void*)&rows_per_split,
-                  (void*)&vec,   (void*)&p.a_res, (void*)&p.ns,
-                  (void*)&cap,   (void*)&buf_v, (void*)&buf_c,
-                  (void*)&out_v, (void*)&out_i};
+  // a shrink keeps the k best and their bucket, at most this many keys
+  const int fit = k + (cap - BN - k) / 4;
+  lsel::Key64* keys = (lsel::Key64*)scratch;
+  lsel::Key64* bounds = keys + (size_t)m * splits * cap;
+  int* counts = (int*)(bounds + m);
+  const cudaStream_t st = (cudaStream_t)stream;
+  err = cudaMemsetAsync(bounds, 0xff, sizeof(lsel::Key64) * m, st);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {(void*)&q,      (void*)&qn,   (void*)&data,
+                  (void*)&dn,     (void*)&pen,  (void*)&scales,
+                  (void*)&m,      (void*)&n,    (void*)&d,
+                  (void*)&k,      (void*)&rows_per_split,
+                  (void*)&vec,    (void*)&p.a_res, (void*)&p.ns,
+                  (void*)&cap,    (void*)&fit,  (void*)&keys,
+                  (void*)&bounds, (void*)&counts};
   err = cudaLaunchKernel(p.kern, dim3((m + p.bm - 1) / p.bm, splits),
-                         dim3(kThreads), args, p.smem, (cudaStream_t)stream);
+                         dim3(kThreads), args, p.smem, st);
   if (err != cudaSuccess) return (int)err;
+  fused_knn_wide_select<<<m, bsel::kBlock, 0, st>>>(
+      keys, bounds, counts, splits, cap, k, (float*)out_v, (int*)out_i);
   return (int)cudaGetLastError();
 }
 
@@ -862,9 +960,11 @@ int fused_knn_wide_launch(const void* q, const void* qn, const void* data,
 
 // One store's C entries: raft_fused_knn_slots(k, d, metric, device),
 // raft_fused_knn(q, qn, data, dn, pen, scales, m, n, d, k, metric, splits,
-// rows_per_split, out_v, out_i, stream) for k <= 256 and
-// raft_fused_knn_wide(the same with cap and scratch before out_v) past
-// it, each library built from one fused_knn*.cu that names its store.
+// rows_per_split, out_v, out_i, stream) for k <= kListMaxK and
+// raft_fused_knn_wide(the same with cap and scratch before out_v; out
+// (m, k)) past it, raft_fused_knn_wide_scratch(m, splits, cap) its
+// scratch's bytes, each library built from one fused_knn*.cu that names
+// its store.
 #define RAFT_FUSED_KNN_ENTRIES(S)                                           \
   extern "C" int raft_fused_knn_slots(int k, int d, int metric,             \
                                       int device) {                         \
@@ -887,4 +987,8 @@ int fused_knn_wide_launch(const void* q, const void* qn, const void* data,
     return fused_knn_wide_launch<S>(q, qn, data, dn, pen, scales, m, n, d,  \
                                     k, metric, splits, rows_per_split, cap, \
                                     scratch, out_v, out_i, stream);         \
+  }                                                                         \
+  extern "C" size_t raft_fused_knn_wide_scratch(int m, int splits,          \
+                                                int cap) {                  \
+    return fused_knn_wide_scratch(m, splits, cap);                          \
   }

@@ -30,11 +30,11 @@
 // and the value written is the one the scan computed), and short or empty
 // lists end in (+inf, -1). So the two give the same bits.
 //
-// Past kCap (select_rounds; K3 and K4 past k = 512, K2's candidate
-// buffers past k = 256): the same order over 64-bit keys, a distance's
-// order bits over 32 bits that are unique within the list and order its
-// ties (K3/K4: the row; K2: the column and a -0.0 flag), so no two keys
-// are equal. The k best come in rounds of at most kCap keys: a round
+// Past kCap (select_rounds; K3 and K4 past k = 512): the same order over
+// 64-bit keys, a distance's order bits over 32 bits that are unique
+// within the list and order its ties (the row; K2's wide form keys its
+// candidates the same way with the column and a -0.0 flag,
+// block_select.cuh), so no two keys are equal. The k best come in rounds of at most kCap keys: a round
 // finds the range of the keys after the last one written (its floor),
 // the bucket of its c-th key (c <= kCap) by the same 10-bit histogram
 // passes (until the bucket and the keys below it fit kCap, or the bucket
@@ -42,8 +42,7 @@
 // first c. Nothing leaves the warp's shared memory but what the output
 // slots take, so the selection needs no buffer of its own at any k; a
 // round costs a few reads of the list, so k keys cost about k / 512
-// times the reads of one round. K2 also keeps its candidate buffers to a
-// bound with the same passes (shrink_buffer).
+// times the reads of one round.
 #pragma once
 
 #include "topk_common.cuh"
@@ -340,19 +339,8 @@ struct RowKeys {
   }
 };
 
-// A candidate buffer of (value, column) pairs as keys: (order bits,
-// column, -0.0 flag); every value in it is taken.
-struct BufferKeys {
-  const float* v;
-  const int* c;
-  __device__ __forceinline__ Key64 operator()(int i) const {
-    const float x = v[i];
-    return ((Key64)order_key(x) << 32) | ((unsigned)c[i] << 1) |
-           (__float_as_uint(x) == 0x80000000u ? 1u : 0u);
-  }
-};
-
-// The value and column of a BufferKeys key, bit for bit.
+// The value and column of a buffer key (order bits, column, -0.0 flag;
+// K2's wide form), bit for bit.
 __device__ __forceinline__ float buffer_value(Key64 key) {
   if (key & 1ull) return -0.f;
   const unsigned ok = (unsigned)(key >> 32);
@@ -535,47 +523,6 @@ __device__ __forceinline__ void select_rounds(const Keys& keys, int n, int k,
   }
   for (int e = done + lane; e < k; e += 32) none(e);
   __syncwarp();
-}
-
-// Keep the k best keys of a candidate buffer (v, c)[0, n) (k < n) and
-// those of their bucket, at most fit in all (the k-th key's bucket as
-// find_bucket leaves it): the buffer compacted in place, in order.
-// Returns the count kept; thr becomes the bucket's end, below which every
-// kept key lies and no other key of the buffer (a later candidate at or
-// past it cannot be among the k best).
-__device__ __forceinline__ int shrink_buffer(float* v, int* c, int n, int k,
-                                             int fit, unsigned* hist,
-                                             Key64& thr, int lane) {
-  const BufferKeys keys{v, c};
-  int count;
-  Key64 lo, hi;
-  key_range(keys, n, 0ull, lane, count, lo, hi);
-  const Bucket b = find_bucket(keys, n, 0ull, lo, hi, k, fit, hist, lane);
-  // the end of the bucket: (pre + 1) << sh, or no bound if that wraps
-  const Key64 end = b.sh >= 64 ? 0ull : (b.pre + 1ull) << b.sh;
-  thr = end == 0ull ? kNone64 : end;
-  int kept = 0;
-  for (int base = 0; base < n; base += 32) {
-    const int i = base + lane;
-    float x = 0.f;
-    int col = 0;
-    bool take = false;
-    if (i < n) {
-      x = v[i];
-      col = c[i];
-      take = keys(i) < thr;
-    }
-    const unsigned ball = __ballot_sync(RAFT_FULL_MASK, take);
-    __syncwarp();  // this chunk is read before it is written over
-    if (take) {
-      const int o = kept + __popc(ball & ((1u << lane) - 1u));
-      v[o] = x;
-      c[o] = col;
-    }
-    kept += __popc(ball);
-  }
-  __syncwarp();
-  return kept;
 }
 
 }  // namespace lsel

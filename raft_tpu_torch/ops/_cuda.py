@@ -56,6 +56,7 @@ _SIGNATURES = {
     **{lib: {
         "raft_fused_knn": ([_P] * 6 + [_I] * 7 + [_P] * 3, _I),
         "raft_fused_knn_wide": ([_P] * 6 + [_I] * 8 + [_P] * 4, _I),
+        "raft_fused_knn_wide_scratch": ([_I] * 3, ctypes.c_size_t),
         "raft_fused_knn_slots": ([_I, _I, _I, _I], _I),
     } for lib in STORE_SOURCES["fused_knn"].values()},
     **{lib: {

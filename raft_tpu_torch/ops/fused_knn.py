@@ -7,13 +7,14 @@ caller negates), with the filter as an additive penalty row (+inf drops a
 row). The order is (value, smallest column); empty slots are (+inf, -1).
 
 On a CUDA tensor it launches K2 over query tiles x corpus splits
-(:func:`fused_knn_candidates`) and, when the corpus was split, merges the
-splits' candidates with K1. It takes every k <= n, as the JAX kernel
-does: up to :data:`LIST_MAX_K` = 256 each block keeps its queries'
-k-lists in shared memory; past it the wide form keeps each query's
-candidates in a buffer of :func:`wide_cap` keys a split in device memory
-(a scratch from ``torch.empty`` a call) behind a bound in shared memory,
-and selects each split's k once at its end. K2 forms the distance block on the tensor
+(:func:`fused_knn_candidates`). It takes every k <= n, as the JAX kernel
+does: up to :data:`LIST_MAX_K` each block keeps its queries' k-lists in
+shared memory, and K1 merges the splits' candidates; past it the wide
+form keeps each (query, split)'s candidates in a buffer of
+:func:`wide_cap` keys in device memory (a scratch from ``torch.empty`` a
+call) behind a bound that every split of the query shares, and selects
+each query's k from its splits' buffers at the end, so nothing is merged
+after it. K2 forms the distance block on the tensor
 cores as 3xTF32 (each f32 operand split into two TF32 parts, three
 products summed in f32), the counterpart of the JAX package's
 ``precision="highest"``. On a CPU tensor it takes the plain version,
@@ -53,10 +54,11 @@ wide_launches = 0   # of them, the wide form's (k > LIST_MAX_K)
 # of them, each low-precision store's form
 launches_bfloat16 = launches_int8 = launches_uint8 = launches_int4 = 0
 
-LIST_MAX_K = 256  # up to it a K2 block keeps its queries' k-lists in
-                  # shared memory; past it the wide form
-# the wide form's candidates (m x splits·k) and buffers (m x splits·cap,
-# cap about 2k) at most this many bytes: splits shrink as k grows
+LIST_MAX_K = 24   # up to it a K2 block keeps its queries' k-lists in
+                  # shared memory; past it the wide form (the kernel's
+                  # kListMaxK)
+# the wide form's buffers (m x splits·cap keys of 8 bytes, cap about 2k)
+# at most this many bytes: splits shrink as k grows
 WIDE_BUDGET = 2 << 30
 _TN = 128      # K2's corpus tile
 _METRIC_CODE = {"l2": 0, "cos": 1, "ip": 2}
@@ -195,38 +197,44 @@ def fused_knn_plain(queries: torch.Tensor, dataset: torch.Tensor, k: int,
 
 
 def block_queries(k: int) -> int:
-    """The queries one K2 block keeps for lists of width k: 128 up to
-    k = 64, 64 above (``csrc/fused_knn.cu``: its k-lists and candidate
-    buffers share the block's shared memory with the tile ring)."""
-    return 128 if k <= 64 else 64
+    """The queries one K2 block keeps for lists of width k: 128 at every
+    k (``csrc/fused_knn.cu``: the k-list plans up to :data:`LIST_MAX_K`,
+    whose k-lists share the block's shared memory with the tile ring, and
+    the wide form past it, which keeps a bound a query there)."""
+    return 128
 
 
 def wide_cap(k: int) -> int:
-    """Keys of a wide K2 candidate buffer (one a query and split): 2k
-    rounded up to the 128-row tile, so a buffer shrunk to its k best has
-    room for another tile's 128 keys (``csrc/fused_knn.cuh``)."""
-    return round_up_to(2 * k, _TN)
+    """Keys of a wide K2 candidate buffer (one a query and split): 2k,
+    and at least k + 128, rounded up to the 128-row tile, so a buffer
+    shrunk to its k best has room for another tile's 128 keys
+    (``csrc/fused_knn.cuh``)."""
+    return round_up_to(max(2 * k, k + _TN), _TN)
 
 
 def wide_scratch_bytes(m: int, splits: int, k: int) -> int:
-    """The wide form's candidate buffers for one launch: a value and a
-    column, 8 bytes, for each of :func:`wide_cap` keys a (query, split)."""
-    return 8 * m * splits * wide_cap(k)
+    """The wide form's scratch for one launch: the candidate buffers (a
+    64-bit key for each of :func:`wide_cap` slots a (query, split)), then
+    a 64-bit bound a query and a 32-bit count a (query, split)."""
+    return 8 * m * splits * wide_cap(k) + 8 * m + 4 * m * splits
 
 
-def split_plan(m: int, n: int, k: int, slots: int) -> Tuple[int, int]:
+def split_plan(m: int, n: int, k: int, slots: int,
+               queries: Optional[int] = None) -> Tuple[int, int]:
     """(splits, rows per split) of K2's grid on a card that keeps ``slots``
     of its blocks resident: about 4 waves of blocks, the split count taken
     in [half, twice] that aim where the last wave is fullest (the fewest
     splits among equals), at least 4 tiles a split. Past
     :data:`LIST_MAX_K` also at least 2k rows a split, and the wide form's
-    candidates and buffers (``m·splits·(k + wide_cap(k))`` keys of 8
-    bytes) within :data:`WIDE_BUDGET`."""
-    tiles = cdiv(m, block_queries(k))
+    buffers (``m·splits·wide_cap(k)`` keys of 8 bytes) within
+    :data:`WIDE_BUDGET`. ``queries``: a block's queries, if not
+    :func:`block_queries`' (another tree's plan, timed beside this one's
+    by ``tools/knn_ab.py``)."""
+    tiles = cdiv(m, queries or block_queries(k))
     most = max(1, cdiv(n, 4 * _TN))
     if k > LIST_MAX_K:
         most = max(1, min(most, n // (2 * k),
-                          WIDE_BUDGET // max(1, 8 * m * (k + wide_cap(k)))))
+                          WIDE_BUDGET // max(1, 8 * m * wide_cap(k))))
     aim = max(1, min(most, cdiv(4 * slots, tiles)))
     best, fill = (1, round_up_to(n, _TN)), -1.0
     for s in range(max(1, aim // 2), min(most, 2 * aim) + 1):
@@ -263,8 +271,10 @@ def fused_knn_candidates(q: torch.Tensor, qn: Optional[torch.Tensor],
                          store: Optional[str] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """One launch of K2's form for the corpus's store → (values, ids)
-    (m, splits*k) and ``splits``: the sorted k best of each corpus split,
-    side by side. ``store``: the corpus's store (its dtype's name unless
+    (m, parts·k) and ``parts``: the sorted k best of each part of the
+    corpus, side by side (the k-list plans: each corpus split a part, for
+    K1 to merge; the wide form: one part, the splits having met in its
+    selection). ``store``: the corpus's store (its dtype's name unless
     given; ``"int4"`` must be named, and ``q`` is then (m, 2·half_p), see
     :func:`kernel_queries`); ``scales``: a low-precision store's per-row
     factors."""
@@ -301,21 +311,23 @@ def fused_knn_candidates(q: torch.Tensor, qn: Optional[torch.Tensor],
     expects(penalty is None or penalty.shape == (n,), "penalty must be (n,)")
     expects(scales is None or scales.shape == (n,), "scales must be (n,)")
     splits, per_split = _split_plan(m, n, k, dim, metric, q.device, store)
-    out_v = torch.empty((m, splits * k), dtype=torch.float32,
+    wide = k > LIST_MAX_K
+    parts = 1 if wide else splits
+    out_v = torch.empty((m, parts * k), dtype=torch.float32,
                         device=q.device)
-    out_i = torch.empty((m, splits * k), dtype=torch.int32, device=q.device)
+    out_i = torch.empty((m, parts * k), dtype=torch.int32, device=q.device)
     if m == 0:
-        return out_v, out_i, splits
+        return out_v, out_i, parts
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _cuda.library(_cuda.STORE_SOURCES["fused_knn"][store])
-    if k <= LIST_MAX_K:
+    if not wide:
         status = lib.raft_fused_knn(q.data_ptr(), ptr(qn), data.data_ptr(),
                                     ptr(dn), ptr(penalty), ptr(scales), m,
                                     n, dim, k, _METRIC_CODE[metric], splits,
                                     per_split, out_v.data_ptr(),
                                     out_i.data_ptr(), _cuda.stream_of(q))
     else:
-        # each (query, split)'s buffer of values, then of columns
+        # the (query, split)s' buffers, the queries' bounds, the counts
         cap = wide_cap(k)
         scratch = torch.empty(wide_scratch_bytes(m, splits, k),
                               dtype=torch.uint8, device=q.device)
@@ -326,10 +338,10 @@ def fused_knn_candidates(q: torch.Tensor, qn: Optional[torch.Tensor],
             out_i.data_ptr(), _cuda.stream_of(q))
     _cuda.check(status, f"fused_knn ({store})")
     launches += 1
-    wide_launches += k > LIST_MAX_K
+    wide_launches += wide
     if store != "float32":
         globals()[f"launches_{store}"] += 1
-    return out_v, out_i, splits
+    return out_v, out_i, parts
 
 
 def fused_knn(queries: torch.Tensor, dataset: torch.Tensor, k: int,

@@ -28,10 +28,14 @@ ctypes; entry points must keep this tree's C signatures.
   int4 stores and the bench's uint8 byte grid; at each k of ``--ks``
   (default 10, the path's, and 257 and 1,024, past the k-lists: the wide
   form, ``raft_fused_knn_wide``, with its candidate buffers; a version
-  without that entry says so). Each version launches its library with
-  its own split plan (``fused_knn.split_plan`` over its
-  ``raft_fused_knn_slots``); whether its outputs equal the first
-  version's is printed (a diagnostic build's do not).
+  whose wide entry refuses k runs its k-list plan, one without either
+  says so). Up to ``LIST_MAX_K`` a tree whose wide entry takes any k is
+  also timed in its wide form, as ``DIR:wide`` (where the plans cross).
+  Each version launches its library with its own split plan
+  (``fused_knn.split_plan`` over its ``raft_fused_knn_slots``); whether
+  its results (its splits' lists merged by this tree's K1, as
+  ``fused_knn`` merges them) equal the first version's is printed (a
+  diagnostic build's do not), and the time of that merge.
 
 Prints the card's name and power limit, each instance's registers and
 spills from ptxas, and each version's median time in four rounds
@@ -176,40 +180,66 @@ def store_data(stores):
     return out
 
 
-def k2_launcher(lib, store_rows, k, what):
+def k2_launcher(lib, store_rows, k, what, forms):
     """A function → this library's K2 over a store's rows at k with its
-    own split plan (past k = 256 its wide entry and candidate buffers),
-    and the plan; None where the library has no form for k."""
+    own split plan, and (resident blocks, splits, parts, form); None where
+    the library has none of ``forms`` ("wide", "list") for k, the first it
+    takes being run: its wide entry (with its scratch: the size the
+    library states, or an older tree's per-split buffers of 8 bytes a
+    key), its k-list entry. ``parts``: the sorted lists a query that it
+    writes (the splits, for K1 to merge, or one)."""
     qk, qn, xs, dn, sc = store_rows
     m, d = qk.shape
     n = xs.shape[0]
-    wide = k > fk.LIST_MAX_K
-    if wide and not hasattr(lib, "raft_fused_knn_wide"):
-        return None, None
     slots = lib.raft_fused_knn_slots(k, d, 0, 0)
     if slots < 0:
         _cuda.check(-slots, f"{what} fused_knn slots")
-    splits, per = fk.split_plan(m, n, k, slots)
-    ov = torch.empty((m, splits * k), dtype=torch.float32, device="cuda")
-    oi = torch.empty((m, splits * k), dtype=torch.int32, device="cuda")
-    scratch = torch.empty(fk.wide_scratch_bytes(m, splits, k) if wide else 1,
-                          dtype=torch.uint8, device="cuda")
-    head = (qk.data_ptr(), qn.data_ptr(), xs.data_ptr(), dn.data_ptr(), None,
-            None if sc is None else sc.data_ptr(), m, n, d, k, 0, splits, per)
-
-    def run():
-        stream = torch.cuda.current_stream().cuda_stream
-        if wide:
-            status = lib.raft_fused_knn_wide(
-                *head, fk.wide_cap(k), scratch.data_ptr(), ov.data_ptr(),
-                oi.data_ptr(), stream)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    for form in forms:
+        if form == "wide" and not hasattr(lib, "raft_fused_knn_wide"):
+            continue
+        merged = form == "wide" and hasattr(lib,
+                                            "raft_fused_knn_wide_scratch")
+        # a block's queries: the wide form 128 (an older tree's 64), the
+        # k-lists 128 up to k = 64 and 64 above
+        queries = 128 if merged or (form == "list" and k <= 64) else 64
+        splits, per = fk.split_plan(m, n, k, slots, queries=queries)
+        parts = 1 if merged else splits
+        ov = torch.empty((m, parts * k), dtype=torch.float32, device="cuda")
+        oi = torch.empty((m, parts * k), dtype=torch.int32, device="cuda")
+        cap = fk.wide_cap(k)
+        size = (lib.raft_fused_knn_wide_scratch(m, splits, cap) if merged
+                else 8 * m * splits * cap if form == "wide" else 1)
+        scratch = torch.empty(size, dtype=torch.uint8, device="cuda")
+        head = (qk.data_ptr(), qn.data_ptr(), xs.data_ptr(), dn.data_ptr(),
+                None, None if sc is None else sc.data_ptr(), m, n, d, k, 0,
+                splits, per)
+        if form == "wide":
+            call = lambda h=head, s=scratch, v=ov, i=oi: (  # noqa: E731
+                lib.raft_fused_knn_wide(*h, cap, s.data_ptr(), v.data_ptr(),
+                                        i.data_ptr(), stream()))
         else:
-            status = lib.raft_fused_knn(*head, ov.data_ptr(), oi.data_ptr(),
-                                        stream)
-        _cuda.check(status, what)
-        return ov, oi
+            call = lambda h=head, v=ov, i=oi: lib.raft_fused_knn(  # noqa
+                *h, v.data_ptr(), i.data_ptr(), stream())
+        if call() != 0:   # this tree's form refuses k
+            continue
 
-    return run, (slots, splits)
+        def run(call=call, ov=ov, oi=oi):
+            _cuda.check(call(), what)
+            return ov, oi
+
+        return run, (slots, splits, parts, form)
+    return None, None
+
+
+def merged(cand_v, cand_i, parts: int, k: int):
+    """A launch's lists as ``fused_knn`` returns them: the parts merged by
+    this tree's K1 where there are several."""
+    if parts == 1:
+        return cand_v, cand_i
+    vals, pos = sk.kpass_select_k(cand_v, k)
+    ids = torch.gather(cand_i, 1, pos.long())
+    return vals, torch.where(torch.isfinite(vals), ids, -1)
 
 
 def k2_ab(dirs, libs, stores, ks) -> None:
@@ -217,30 +247,48 @@ def k2_ab(dirs, libs, stores, ks) -> None:
     for store in stores:
         for k in ks:
             what = f"K2.{store} k={k}"
-            runs, outs = {}, {}
-            for dr in dirs:
-                run, plan = k2_launcher(libs[dr][store], data[store], k,
-                                        f"{dr} {what}")
+            runs, outs, plans = {}, {}, {}
+            # each tree's form for k (past LIST_MAX_K its wide entry where
+            # it takes k); up to LIST_MAX_K also the wide form of a tree
+            # whose wide entry takes any k, as "DIR:wide"
+            versions = [(dr, ("wide", "list") if k > fk.LIST_MAX_K
+                         else ("list",)) for dr in dirs]
+            if k <= fk.LIST_MAX_K:
+                versions += [(f"{dr}:wide", ("wide",)) for dr in dirs
+                             if hasattr(libs[dr][store],
+                                        "raft_fused_knn_wide_scratch")]
+            for dr, forms in versions:
+                lib = libs[dr.split(":")[0]][store]
+                run, plan = k2_launcher(lib, data[store], k, f"{dr} {what}",
+                                        forms)
                 if run is None:
                     print(f"{what} {dr}: no form for this k")
                     continue
-                out = run()
+                cv, ci = run()
+                outs[dr] = merged(cv, ci, plan[2], k)
                 torch.cuda.synchronize()
-                runs[dr], outs[dr] = run, (plan[1], *out)
-                print(f"{what} {dr}: {plan[0]} resident blocks, {plan[1]} "
-                      "splits")
-            timed = [dr for dr in dirs if dr in runs]
+                runs[dr], plans[dr] = run, plan
+                print(f"{what} {dr}: {plan[3]} form, {plan[0]} resident "
+                      f"blocks, {plan[1]} splits, {plan[2]} lists a query")
+            timed = [dr for dr, _ in versions if dr in runs]
             first = outs[timed[0]]
             for dr in timed[1:]:
-                got = outs[dr]
-                same = got[0] == first[0] and all(
-                    torch.equal(a, c) for a, c in zip(got[1:], first[1:]))
-                print(f"{what} {dr}: outputs equal to {timed[0]}'s: {same}")
+                same = all(torch.equal(a, c)
+                           for a, c in zip(outs[dr], first))
+                print(f"{what} {dr}: results equal to {timed[0]}'s: {same}")
+            del outs
             for dr, ts in rounds(timed, runs, 3).items():
                 print(f"{what} {dr}: ms " + " / ".join(f"{t:.3f}"
                                                        for t in ts)
                       + f"; median {float(np.median(ts)):.3f}")
-            del runs, outs
+            for dr in timed:  # the splits' merge, as fused_knn runs it
+                parts = plans[dr][2]
+                if parts > 1:
+                    cand = runs[dr]()[0]
+                    ms = median_ms(lambda: sk.kpass_select_k(cand, k), 3)
+                    print(f"{what} {dr}: this tree's K1 merge of its "
+                          f"{parts} lists {tuple(cand.shape)}: ms {ms:.3f}")
+            del runs
             torch.cuda.empty_cache()
 
 

@@ -113,8 +113,11 @@ def test_split_plan(m, n, k, slots):
 
 
 def test_block_queries():
+    """128 queries a K2 block at every k: the k-list plans up to
+    LIST_MAX_K = 24, the wide form past it (the 64-query k-list plans
+    for k = 65 to 256 are gone)."""
     assert [tfk.block_queries(k) for k in (1, 64, 65, 129, 256)] == [
-        128, 128, 64, 64, 64]
+        128, 128, 128, 128, 128]
 
 
 def test_zero_distance_is_positive_zero():

@@ -490,10 +490,12 @@ def exact_knn(q, x, k, metric, pen):
 @pytest.mark.parametrize("metric", ["l2", "cos", "ip"])
 @pytest.mark.parametrize("m", [7, 200])
 def test_fused_knn_kernel_on_card(metric, m, d):
-    """K2 with the corpus split over blocks and merged by K1: equal to its
-    plain version on integer-valued inputs (3xTF32 holds them exactly; the
-    cosine's quotients close) at k up to LIST_MAX_K across the kernel's query
-    tiles (128 queries to k = 64, 64 above); on Gaussian inputs at
+    """K2 with the corpus split over blocks (merged by K1 up to LIST_MAX_K
+    = 24, by the wide form's own selection past it): equal to its plain
+    version on integer-valued inputs (3xTF32 holds them exactly; the
+    cosine's quotients close) at k up to 256 across the kernel's query
+    tiles (128 queries; k = 100, 129 and 256 the wide form); on Gaussian
+    inputs at
     k <= 100 close to both the plain version and the float64 evaluation
     of the same formulas. Gaussian inputs stop at k = 100: with 129 or
     256 slots a row, near ties split the ids of more than 1% of the rows
@@ -530,8 +532,9 @@ def test_fused_knn_kernel_on_card(metric, m, d):
 @pytest.mark.parametrize("store", STORE_NAMES)
 def test_fused_knn_store_kernel_on_card(store, metric, d):
     """K2's store forms (:func:`store_case`), the corpus split over blocks
-    and merged by K1, against the plain version: equal on integer-valued
-    stores (l2, ip) at k up to LIST_MAX_K, close on Gaussian ones at k <= 100
+    (merged by K1 up to LIST_MAX_K, the wide form past it), against the
+    plain version: equal on integer-valued stores (l2, ip) at k up to 256,
+    close on Gaussian ones at k <= 100
     (:func:`assert_knn_close`, as K2's f32 test); n = 40,000 and m = 200
     not multiples of the tiles, a penalty row dropping a fifth of the
     rows, d = 100 rows that are no multiple of 16 bytes in any store but
@@ -938,13 +941,14 @@ def test_group_plans_match_the_library(kernel, store):
                 tis.group_queries(k), a_res, ns, smem), (d, k)
 
 
-# ---- past the old limits: K2 past 256, K3 and K4 past 512 ----
+# ---- past the old limits: K2 past its k-lists, K3 and K4 past 512 ----
 
 # the k of the new forms' card tests: around the grouped plans' 512 and
 # the per-pair forms' 1024, and FAR_K (past any one sort of a warp's
 # shared memory; on FAR_QUERIES queries)
 WIDE_SCAN_KS = (513, 1024, 1025, 2048)
-WIDE_K2_KS = (257, 511, 512, 513, 1024, 1025, 2048)
+WIDE_K2_KS = (25, 32, 33, 64, 65, 129, 256, 257, 511, 512, 513, 1024,
+              1025, 2048)
 FAR_K, FAR_QUERIES = 16_500, 8
 
 
@@ -959,7 +963,7 @@ def zero_penalty(rng, n: int, inf_share: float) -> np.ndarray:
 
 def wide_knn_case(store: str, seed: int, n: int = 20_000, d: int = 64,
                   m: int = 100):
-    """Integer-valued rows and queries for K2 past 256 in ``store`` (as
+    """Integer-valued rows and queries for K2's wide form in ``store`` (as
     :func:`store_case`: held exactly at a scale of 1, so every distance is
     exact and ties come by the hundred at every value), 600 copies of one
     row scattered, query 0 all zeros (-0.0 under ip), and three penalty
@@ -991,47 +995,45 @@ def wide_knn_case(store: str, seed: int, n: int = 20_000, d: int = 64,
 
 
 def knn_split_plain(q, x, k, metric, pen, sc, dim4, store):
-    """K2's wide form held split by split: its candidates (m, splits·k)
-    against the plain version over each split's rows alone (ids shifted to
-    the corpus, (+inf, -1) past a short split), values bit for bit."""
-    m, n = q.shape[0], x.shape[0]
+    """K2's wide form held at its own output: its candidates are one list
+    a query (the corpus splits meet in the form's selection, which keys
+    -0.0 as 0.0 and breaks ties by column, as the plain version's stable
+    sort does), so they equal the plain version over the whole corpus,
+    values bit for bit, -0.0 beside 0.0 included. Returns the splits of
+    the launch's plan."""
     qf = q.float()
     qn = tfk.prepare_norms(metric, qf)
     dn = tfk.corpus_norms(metric, x, None, sc, dim4)
     qk = tfk.kernel_queries(qf, store, x.shape[1]).contiguous()
-    cv, ci, splits = tfk.fused_knn_candidates(
+    cv, ci, parts = tfk.fused_knn_candidates(
         qk, qn, x, None if dn is None else dn.contiguous(), pen, k, metric,
         sc, store)
-    per = -(-n // splits)
-    per = -(-per // 128) * 128
-    for s in range(splits):
-        lo, hi = s * per, min(n, (s + 1) * per)
-        kk = min(k, hi - lo)
-        pv, pi = tfk.fused_knn_plain(
-            q, x[lo:hi], kk, metric, None, pen[lo:hi],
-            None if sc is None else sc[lo:hi], dim4)
-        got_v, got_i = cv[:, s * k:(s + 1) * k], ci[:, s * k:(s + 1) * k]
-        assert_bits_equal(got_v[:, :kk].contiguous(), pv)
-        assert torch.equal(got_i[:, :kk], torch.where(pi >= 0, pi + lo, -1))
-        assert bool(torch.isinf(got_v[:, kk:]).all())
-        assert bool((got_i[:, kk:] == -1).all())
-    return splits
+    assert parts == 1 and cv.shape == (q.shape[0], k)
+    pv, pi = tfk.fused_knn_plain(q, x, k, metric, None, pen, sc, dim4)
+    assert_bits_equal(cv, pv)
+    assert torch.equal(ci, pi)
+    return tfk._split_plan(q.shape[0], x.shape[0], k, qk.shape[1], metric,
+                           q.device, store)[0]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", ["l2", "cos", "ip"])
 @pytest.mark.parametrize("store", ("float32",) + STORE_NAMES)
 def test_fused_knn_wide_kernel_on_card(store, metric):
-    """K2's wide form (k > 256) + the K1 merge on :func:`wide_knn_case`'s
-    integer rows at k = 257, 511, 512, 513, 1024, 1025, 2048, at FAR_K on
-    8 queries and at k = n on 8: equal to the plain version, values bit
-    for bit (l2, ip; cosine's quotients close), with +inf penalties on
-    30% and 95% of the rows (then fewer finite rows than k: (+inf, -1)
-    slots); launched twice, bit-equal (the buffers' slots come from
-    atomics); each split's candidates bit for bit against the plain
-    version over the split's rows, -0.0 beside 0.0 included (query 0
-    under ip). On Gaussian rows the first 256 columns at k = 1024 are
-    those of the k-list plan at k = 256, bit for bit."""
+    """K2's wide form (k past LIST_MAX_K = 24: its splits sharing a bound,
+    their buffers selected together, no K1 merge) on
+    :func:`wide_knn_case`'s integer rows at k = 25, 32, 33, 64, 65, 129,
+    256 (the k-list plans' until the wide form took them), 257, 511,
+    512, 513, 1024,
+    1025, 2048, at FAR_K on 8 queries and at k = n on 8: equal to the
+    plain version, values bit for bit (l2, ip; cosine's quotients close),
+    with +inf penalties on 30% and 95% of the rows (then fewer finite rows
+    than k: (+inf, -1) slots); launched twice, bit-equal (the buffers'
+    slots and the shared bounds come from atomics); its candidates (one
+    list a query) bit for bit against the plain version, -0.0 beside 0.0
+    included (query 0 under ip). On Gaussian rows the first 24 columns at
+    k = 1024 are those of the k-list plan at k = 24, and the first 256
+    those of the form at 256, bit for bit."""
     need_cuda()
     x, sc, dim4, q, pens = wide_knn_case(store, 61)
     n = x.shape[0]
@@ -1054,18 +1056,63 @@ def test_fused_knn_wide_kernel_on_card(store, metric):
             else:
                 assert_knn_sets_close(pv.cpu(), pi.cpu(), kv.cpu(),
                                       ki.cpu(), min_shared=0.99)
-        if metric != "cos" and k in (257, 1025, FAR_K):
+        if metric != "cos" and k in (65, 257, 1025, FAR_K):
             knn_split_plain(q[:rows], x, k, metric, pens[2], sc, dim4,
                             store)
     xg, scg, d4g, qg = store_case(store, False, 20_000, 64, 100, 17)
     xg, qg = xg.cuda(), qg.cuda()
     scg = None if scg is None else scg.cuda()
-    v256, i256 = tfk.fused_knn(qg, xg, 256, metric, scales=scg,
-                               int4_dim=d4g)
     v1k, i1k = tfk.fused_knn(qg, xg, 1024, metric, scales=scg, int4_dim=d4g)
-    torch.cuda.synchronize()
-    assert_bits_equal(v1k[:, :256].contiguous(), v256)
-    assert torch.equal(i1k[:, :256], i256)
+    for short in (tfk.LIST_MAX_K, 256):
+        vs, is_ = tfk.fused_knn(qg, xg, short, metric, scales=scg,
+                                int4_dim=d4g)
+        torch.cuda.synchronize()
+        assert_bits_equal(v1k[:, :short].contiguous(), vs)
+        assert torch.equal(i1k[:, :short], is_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", ("float32",) + STORE_NAMES)
+def test_fused_knn_wide_short_splits_on_card(store):
+    """K2's wide form launched by its entry with more splits than its plan
+    takes: 8 splits of 384 rows over 3,000, fewer than 2k (k = 300) and
+    than k (k = 1,000 and n - 1), so that some splits never shrink nor
+    tighten the shared bound while others do; equal to the plain version,
+    values bit for bit, with +inf on 95% of the rows and with -0.0 beside
+    0.0 (l2, ip); the entry refuses a buffer shorter than k + 128."""
+    need_cuda()
+    from raft_tpu_torch.ops import _cuda
+
+    x, sc, dim4, q, pens = wide_knn_case(store, 62, n=3000)
+    n, m = x.shape[0], q.shape[0]
+    lib = _cuda.library(_cuda.STORE_SOURCES["fused_knn"][store])
+    splits, per = 8, 384
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    for metric in ("l2", "ip"):
+        qf = q.float()
+        qn = tfk.prepare_norms(metric, qf)
+        dn = tfk.corpus_norms(metric, x, None, sc, dim4)
+        dn = None if dn is None else dn.contiguous()
+        qk = tfk.kernel_queries(qf, store, x.shape[1]).contiguous()
+        for k in (300, 1000, n - 1):
+            cap = tfk.wide_cap(k)
+            scratch = torch.empty(tfk.wide_scratch_bytes(m, splits, k),
+                                  dtype=torch.uint8, device="cuda")
+            for pen in pens[1:]:
+                ov = torch.empty((m, k), dtype=torch.float32, device="cuda")
+                oi = torch.empty((m, k), dtype=torch.int32, device="cuda")
+                head = (qk.data_ptr(), ptr(qn), x.data_ptr(), ptr(dn),
+                        pen.data_ptr(), ptr(sc), m, n, qk.shape[1], k,
+                        tfk._METRIC_CODE[metric], splits, per)
+                tail = (scratch.data_ptr(), ov.data_ptr(), oi.data_ptr(),
+                        _cuda.stream_of(qk))
+                assert lib.raft_fused_knn_wide(*head, cap, *tail) == 0
+                assert lib.raft_fused_knn_wide(*head, k + 127, *tail) != 0
+                pv, pi = tfk.fused_knn_plain(q, x, k, metric, penalty=pen,
+                                             scales=sc, int4_dim=dim4)
+                torch.cuda.synchronize()
+                assert_bits_equal(ov, pv)
+                assert torch.equal(oi, pi), (metric, k)
 
 
 @pytest.mark.cuda

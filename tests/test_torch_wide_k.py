@@ -1,5 +1,6 @@
-"""The port past its kernels' old limits — K2 past k = 256, K3 and K4 past
-512 and 1024 — against the JAX package, whose kernels take any k: brute
+"""The port past its kernels' old limits — K2 past its k-lists (k = 256
+until the wide form took every k past 64), K3 and K4 past 512 and 1024 —
+against the JAX package, whose kernels take any k: brute
 force at k = 300 and k = n against ``brute_force.search(algo="matmul")``,
 IVF-Flat (every store) and IVF-PQ (f32 LUT) at k = 1,100 on JAX-built
 indexes against the ``algo="xla"`` engines, and CAGRA's exact graph at
@@ -159,20 +160,21 @@ def test_cagra_exact_graph_at_degree_256_matches_jax():
     (8, 20_000, 16_500, 132), (100, 20_000, 20_000, 132),
     (200, 40_000, 2048, 264), (1, 1000, 300, 132)])
 def test_wide_split_plan(m, n, k, slots):
-    """K2's grid past k = 256: every row in one split of a multiple of 128
-    rows; at least 2k rows a split unless there is one split; the
-    candidates and buffers, m·splits·(k + wide_cap(k)) keys of 8 bytes,
-    within WIDE_BUDGET unless there is one split; among the split counts
-    it may take, the one whose last wave is fullest (fewest among
-    equals). Up to 256 the rule is the k-lists' plan's, unchanged."""
+    """K2's grid past LIST_MAX_K (the wide form): every row in one split
+    of a multiple of 128 rows; at least 2k rows a split unless there is
+    one split; the buffers, m·splits·wide_cap(k) keys of 8 bytes, within
+    WIDE_BUDGET unless there is one split (the splits' merged lists are
+    the form's own (m, k) output); 128 queries a block; among the split
+    counts it may take, the one whose last wave is fullest (fewest among
+    equals). Up to LIST_MAX_K the rule is the k-lists' plan's."""
     splits, rows = tfk.split_plan(m, n, k, slots)
     assert rows % 128 == 0 and (splits - 1) * rows < n <= splits * rows
     if splits > 1:
         assert rows >= 2 * k
-        assert 8 * m * splits * (k + tfk.wide_cap(k)) <= tfk.WIDE_BUDGET
+        assert 8 * m * splits * tfk.wide_cap(k) <= tfk.WIDE_BUDGET
     most = max(1, min(-(-n // 512), n // (2 * k),
-                      tfk.WIDE_BUDGET // (8 * m * (k + tfk.wide_cap(k)))))
-    tiles = -(-m // 64)
+                      tfk.WIDE_BUDGET // (8 * m * tfk.wide_cap(k))))
+    tiles = -(-m // 128)
     aim = max(1, min(most, -(-4 * slots // tiles)))
     fill = lambda s: (lambda b: b / (-(-b // slots) * slots))(  # noqa: E731
         tiles * -(-n // (-(-(-(-n // s)) // 128) * 128)))
@@ -182,14 +184,18 @@ def test_wide_split_plan(m, n, k, slots):
 
 
 def test_wide_cap_and_buffers():
-    """A wide K2 buffer holds 2k keys rounded up to the 128-row tile, so
-    a buffer shrunk to its k best keeps room for a tile's 128 (the kernel
-    refuses less); the buffers of a launch take 8 bytes a key."""
-    for k in (257, 300, 512, 1024, 1025, 16_500):
+    """A wide K2 buffer holds 2k keys, at least k + 128, rounded up to the
+    128-row tile, so a buffer shrunk to its k best keeps room for a tile's
+    128 (the kernel refuses less); a launch's scratch is its buffers at 8
+    bytes a key, a 64-bit bound a query and a 32-bit count a (query,
+    split). The wide form starts past LIST_MAX_K = 24."""
+    for k in (25, 65, 100, 129, 257, 300, 512, 1024, 1025, 16_500):
         cap = tfk.wide_cap(k)
         assert cap % 128 == 0 and cap >= 2 * k and cap >= k + 128
-        assert tfk.wide_scratch_bytes(100, 7, k) == 8 * 100 * 7 * cap
-    assert tfk.LIST_MAX_K == 256
+        assert cap < max(2 * k, k + 128) + 128
+        assert tfk.wide_scratch_bytes(100, 7, k) == \
+            8 * 100 * 7 * cap + 8 * 100 + 4 * 100 * 7
+    assert tfk.LIST_MAX_K == 24
 
 
 def test_wide_scan_scratch_statement():

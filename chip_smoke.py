@@ -107,6 +107,22 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    at the start of the run, so no earlier run's verdict steers this one)
    and finds and follows the bench cell's graph verdict and engine
    verdicts.
+   Then serialize, on the path's four indexes: each saved with its
+   family's ``save`` into a temporary directory under ``build/`` (MiB
+   and save seconds printed) and loaded onto the card by a child
+   ``python -c`` process (load seconds printed, the files warm in the
+   page cache), which searches them with explicit engines — brute force
+   at k = 10, IVF-Flat and IVF-PQ at 20 probes, IVF-PQ refined to k = 10
+   against the loaded brute-force rows, CAGRA with the edge and the
+   fused engine on the edge store rebuilt from the loaded graph — and
+   must launch each of K1-K6; its ids and distances must equal the
+   parent's searches on the in-memory indexes bit for bit. The IVF-Flat,
+   IVF-PQ and CAGRA indexes are also written as RAFT-native files
+   (``core.raft_format``), loaded back and searched bit-equal to the
+   in-memory ones (CAGRA without its seed set, which a RAFT file does
+   not keep). One byte flipped inside the IVF-PQ file's ``codes``
+   section must make ``load`` raise ``CorruptIndexError`` naming
+   ``codes``.
 5. stores: the low-precision stores through the entry points, each path
    with the counters reset before it, no plain version of K2 or K3
    allowed to run, and every K2 or K3 launch the store's form: brute
@@ -270,6 +286,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -278,7 +295,8 @@ import torch
 
 from raft_tpu_torch import bench
 from raft_tpu_torch.comms import Mesh
-from raft_tpu_torch.core.errors import RaftError
+from raft_tpu_torch.core import raft_format
+from raft_tpu_torch.core.errors import CorruptIndexError, RaftError
 from raft_tpu_torch.matrix import select_k as sk
 from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
                                       refine)
@@ -1761,6 +1779,163 @@ def entry_phase(x, q, bidx, iidx, pidx, cidx, cell, totals):
                              f"{child.stderr[-4000:]}")
     log(f"verdict file {os.environ['RAFT_TPU_TORCH_AUTOTUNE_CACHE']} read "
         f"by a fresh process: {child.stdout.strip()}")
+
+
+# the serialize phase's child: the four files loaded onto the card in a
+# fresh process and searched with explicit engines, every launch counter
+# of K1-K6 read after
+SERIAL_CHILD = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+from raft_tpu_torch.matrix import select_k as sk
+from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
+                                      refine)
+from raft_tpu_torch.ops import cagra_fused as cf
+from raft_tpu_torch.ops import fused_knn as fk
+from raft_tpu_torch.ops import graph_expand as ge
+from raft_tpu_torch.ops import ivf_pq_scan as ipq
+from raft_tpu_torch.ops import ivf_scan as iscan
+d, spec = sys.argv[1], json.loads(sys.argv[2])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+counters = {"select_k": sk, "fused_knn": fk, "ivf_flat_scan": iscan,
+            "ivf_pq_scan": ipq, "graph_expand": ge, "cagra_fused": cf}
+for mod in counters.values():
+    mod.launches = 0
+dev = torch.device("cuda", 0)
+q = torch.from_numpy(np.load(os.path.join(d, "queries.npy"))).to(dev)
+load_s, idx = {}, {}
+for name, mod in (("brute_force", brute_force), ("ivf_flat", ivf_flat),
+                  ("ivf_pq", ivf_pq), ("cagra", cagra)):
+    t0 = time.perf_counter()
+    idx[name] = mod.load(os.path.join(d, name + ".idx"))
+    torch.cuda.synchronize()
+    load_s[name] = time.perf_counter() - t0
+k, k0, probes = spec["k"], spec["k0"], spec["n_probes"]
+out = {"brute_force": brute_force.search(idx["brute_force"], q, k),
+       "ivf_flat": ivf_flat.search(idx["ivf_flat"], q, k,
+                                   ivf_flat.SearchParams(n_probes=probes))}
+pv, pi = ivf_pq.search(idx["ivf_pq"], q, k0,
+                       ivf_pq.SearchParams(n_probes=probes))
+out["ivf_pq"] = (pv, pi)
+out["ivf_pq_refined"] = refine.refine(idx["brute_force"].dataset, q, pi, k)
+sp = cagra.SearchParams(itopk_size=spec["itopk"], search_width=1)
+for eng in ("edge", "fused"):
+    out["cagra_" + eng] = cagra.search(idx["cagra"], q, k, sp, engine=eng)
+torch.cuda.synchronize()
+for name, (v, i) in out.items():
+    np.save(os.path.join(d, name + ".values.npy"), v.cpu().numpy())
+    np.save(os.path.join(d, name + ".ids.npy"), i.cpu().numpy())
+print(json.dumps({"load_s": load_s, "launches": {
+    name: mod.launches for name, mod in counters.items()}}))
+"""
+
+
+def flip_in_section(path: str, name: str, at: int) -> None:
+    """Flip one byte ``at`` bytes into the npy frame of array ``name`` of
+    a RAFTTPU2 file (past its name frame and 8-byte length)."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    frame = len(name).to_bytes(2, "little") + name.encode()
+    pos = blob.find(frame)
+    if pos < 0 or blob.find(frame, pos + 1) >= 0:
+        raise AssertionError(f"{path}: no single {name!r} section")
+    pos += len(frame) + 8 + at
+    with open(path, "r+b") as f:
+        f.seek(pos)
+        f.write(bytes([blob[pos] ^ 0x5A]))
+
+
+def serialize_phase(bidx, iidx, pidx, cidx, q) -> None:
+    """The path's four indexes saved and loaded in a fresh process, which
+    searches them through K1-K6, bit-equal to the in-memory searches; the
+    IVF-Flat, IVF-PQ and CAGRA indexes through RAFT-native files, the
+    same; a flipped byte in the IVF-PQ file's codes caught."""
+    sp_flat = ivf_flat.SearchParams(n_probes=N_PROBES)
+    sp_pq = ivf_pq.SearchParams(n_probes=N_PROBES)
+    pv, pi = ivf_pq.search(pidx, q, K0, sp_pq)
+    want = {"brute_force": brute_force.search(bidx, q, K),
+            "ivf_flat": ivf_flat.search(iidx, q, K, sp_flat),
+            "ivf_pq": (pv, pi),
+            "ivf_pq_refined": refine.refine(bidx.dataset, q, pi, K),
+            **{f"cagra_{eng}": cagra.search(cidx, q, K, CAGRA_SP,
+                                            engine=eng)
+               for eng in ("edge", "fused")}}
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="serialize-",
+                                     dir=os.path.abspath("build")) as d:
+        np.save(os.path.join(d, "queries.npy"), q.cpu().numpy())
+        for name, mod, idx in (("brute_force", brute_force, bidx),
+                               ("ivf_flat", ivf_flat, iidx),
+                               ("ivf_pq", ivf_pq, pidx),
+                               ("cagra", cagra, cidx)):
+            path = os.path.join(d, f"{name}.idx")
+            _, t = host_time(lambda: mod.save(idx, path))
+            log(f"serialize: {name} saved, {os.path.getsize(path) / 2**20:.1f}"
+                f" MiB in {t:.3f} s")
+        torch.cuda.empty_cache()
+        log(f"serialize: card memory before the child: {card_memory()}")
+        spec = {"k": K, "k0": K0, "n_probes": N_PROBES, "itopk": ITOPK}
+        child, t_child = host_time(lambda: subprocess.run(
+            [sys.executable, "-c", SERIAL_CHILD, d, json.dumps(spec)],
+            capture_output=True, text=True, timeout=900,
+            cwd=os.path.dirname(os.path.abspath(__file__))))
+        if child.returncode != 0:
+            raise AssertionError(f"serialize child process failed: "
+                                 f"{child.stderr[-4000:]}")
+        got = json.loads(child.stdout.strip().splitlines()[-1])
+        log(f"serialize: a fresh process ({t_child:.1f} s in all) loaded "
+            "the files (warm in the page cache) in "
+            + ", ".join(f"{n} {s:.3f} s" for n, s in got["load_s"].items())
+            + f"; launches {json.dumps(got['launches'])}")
+        missed = [n for n, c in got["launches"].items() if c == 0]
+        if missed:
+            raise AssertionError(f"serialize child: {missed} not launched")
+        dev = q.device
+        for name, ref in want.items():
+            back = tuple(torch.from_numpy(np.load(os.path.join(
+                d, f"{name}.{part}.npy"))).to(dev)
+                for part in ("values", "ids"))
+            check_bits(ref, back, f"serialize: {name} loaded in a fresh "
+                       "process against the in-memory index")
+
+        # RAFT-native files: IVF-Flat, IVF-PQ, CAGRA (which keeps no seeds)
+        noseed = dataclasses.replace(cidx, seed_nodes=None, health_conn=None)
+        for name, idx, save, load, search in (
+                ("ivf_flat", iidx, raft_format.save_raft_ivf_flat,
+                 raft_format.load_raft_ivf_flat,
+                 lambda i: ivf_flat.search(i, q, K, sp_flat)),
+                ("ivf_pq", pidx, raft_format.save_raft_ivf_pq,
+                 raft_format.load_raft_ivf_pq,
+                 lambda i: ivf_pq.search(i, q, K0, sp_pq)),
+                ("cagra", noseed, raft_format.save_raft_cagra,
+                 raft_format.load_raft_cagra,
+                 lambda i: cagra.search(i, q, K, CAGRA_SP,
+                                        engine="fused"))):
+            path = os.path.join(d, f"{name}.raft")
+            _, t_save = host_time(lambda: save(idx, path))
+            loaded, t_load = host_time(lambda: load(path))
+            log(f"serialize: {name} RAFT file "
+                f"{os.path.getsize(path) / 2**20:.1f} MiB, saved in "
+                f"{t_save:.3f} s, loaded in {t_load:.3f} s")
+            check_bits(search(idx), search(loaded),
+                       f"serialize: {name} from a RAFT file against the "
+                       "in-memory index")
+            del loaded
+            os.remove(path)
+
+        path = os.path.join(d, "ivf_pq.idx")
+        flip_in_section(path, "codes", 4096)
+        try:
+            ivf_pq.load(path)
+        except CorruptIndexError as e:
+            if e.section != "codes":
+                raise AssertionError(f"serialize: a flipped codes byte "
+                                     f"reported as section {e.section!r}")
+            log(f"serialize: a flipped byte in the codes section: {e}")
+        else:
+            raise AssertionError("serialize: a flipped codes byte loaded")
 
 
 def int_lists(p, k, seed):
@@ -4169,6 +4344,8 @@ def main() -> int:
     mark(t_start, "bench phase")
     entry_phase(x, q, bidx, iidx, pidx, cidx, cell, moved)
     mark(t_start, "entry-point phase")
+    serialize_phase(bidx, iidx, pidx, cidx, q)
+    mark(t_start, "serialize phase")
     stores = stores_phase(x, q, moved)
     mark(t_start, "store paths")
     # the f32 forms' launches: every store's form counts under K2 and K3 too

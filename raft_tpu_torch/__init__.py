@@ -9,7 +9,9 @@ search over a mesh of shards, and the primitives they call:
 
 - ``core``      errors, the sample-filter bitset, deadlines and
                 cancellation between query chunks, the chunks'
-                workspace budget
+                workspace budget, the index file format (``serialize``,
+                the families' ``save`` / ``load``) and RAFT-native
+                index files (``raft_format``)
 - ``distance``  metric types, fused L2 + argmin
 - ``matrix``    select_k (kernel K1)
 - ``ops``       the hand-written CUDA kernels' wrappers: fused_knn (K2),

@@ -1,12 +1,24 @@
 """Contract checks: counterpart of ``raft_tpu/core/errors.py``
-(``RaftError``, ``ShardsDownError``, ``expects``)."""
+(``RaftError``, ``CorruptIndexError``, ``ShardsDownError``, ``expects``)."""
 from __future__ import annotations
 
-__all__ = ["RaftError", "ShardsDownError", "expects"]
+__all__ = ["RaftError", "CorruptIndexError", "ShardsDownError", "expects"]
 
 
 class RaftError(RuntimeError):
     """Base exception for raft_tpu_torch (analog of ``raft::exception``)."""
+
+
+class CorruptIndexError(RaftError, ValueError):
+    """A serialized index failed an integrity check (CRC mismatch,
+    truncation, unparseable section). ``section`` names the file section
+    that failed: ``"header"``, ``"array table"`` or an array name. Also a
+    ValueError, as a malformed file is bad input."""
+
+    def __init__(self, section: str, detail: str = ""):
+        self.section = section
+        msg = f"corrupt index file: section {section!r}"
+        super().__init__(f"{msg} ({detail})" if detail else msg)
 
 
 class ShardsDownError(RaftError):

@@ -1,6 +1,7 @@
 """Inverted-list layout: counterpart of
 ``raft_tpu/neighbors/_list_layout.py`` (``count_sizes``, ``plan_offsets``,
-``_dest_rows``, ``scatter_build``, ``list_skew``).
+``_dest_rows``, ``scatter_build``, ``gather_dense``, ``dense_offsets``,
+``list_skew``).
 
 Lists are contiguous row ranges of one dense array, each list's start
 aligned to 8 rows. Inside a list, rows keep their input order (a stable
@@ -14,7 +15,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["count_sizes", "plan_offsets", "scatter_build", "list_skew"]
+__all__ = ["count_sizes", "plan_offsets", "scatter_build", "gather_dense",
+           "dense_offsets", "list_skew"]
 
 _ALIGN = 8
 
@@ -66,6 +68,27 @@ def scatter_build(labels: torch.Tensor, arrays: Sequence[torch.Tensor],
         buf[dest] = arr[order]
         out.append(buf)
     return out, offsets, sizes
+
+
+def dense_offsets(sizes: np.ndarray) -> np.ndarray:
+    """(n_lists+1,) offsets of the lists packed with no slack."""
+    offsets = np.zeros(len(sizes) + 1, np.int64)
+    np.cumsum(sizes, out=offsets[1:])
+    return offsets
+
+
+def gather_dense(arrays: Sequence[torch.Tensor], offsets: np.ndarray,
+                 sizes: np.ndarray) -> list:
+    """The valid rows of a layout, packed list by list with no slack
+    (rows at :func:`dense_offsets`); views of the arrays when the layout
+    has no slack."""
+    dense = dense_offsets(sizes)
+    if np.array_equal(np.asarray(offsets, np.int64), dense):
+        return [a[: int(dense[-1])] for a in arrays]
+    rows = (np.repeat(np.asarray(offsets[:-1], np.int64) - dense[:-1],
+                      sizes) + np.arange(int(dense[-1])))
+    idx = torch.as_tensor(rows, device=arrays[0].device)
+    return [a[idx] for a in arrays]
 
 
 def list_skew(sizes: np.ndarray) -> dict:

@@ -1,7 +1,7 @@
 """Exact brute-force kNN: counterpart of
 ``raft_tpu/neighbors/brute_force.py`` (``Index``, ``build``, ``search``,
 ``knn``, ``knn_merge_parts``, ``health``, ``quantization_error``,
-``make_searcher``).
+``make_searcher``, ``save``, ``load``).
 
 Engines (``algo``):
 
@@ -30,6 +30,7 @@ import torch
 
 from ..core.bitset import Bitset
 from ..core.errors import expects
+from ..core.serialize import device_tensor, load_arrays, save_arrays
 from ..distance.distance_types import DistanceType, canonical_metric
 from ..matrix.select_k import select_k
 from ..ops.fused_knn import fused_knn, fused_knn_plain
@@ -38,11 +39,15 @@ from ..ops.quant import (dequantize_store, int8_scale_report, quantize_rows,
 from ..utils import query_chunks, resolve_device, run_query_chunks
 
 __all__ = ["Index", "build", "search", "knn", "knn_merge_parts", "health",
-           "health_sample_rows", "quantization_error", "make_searcher"]
+           "health_sample_rows", "quantization_error", "make_searcher",
+           "save", "load"]
 
 # a search under a deadline with no query_chunk runs this many queries a
 # chunk (the JAX package's)
 DEADLINE_CHUNK = 4096
+
+# the file version save writes (the JAX package's); load reads 1 and 2
+_SERIAL_VERSION = 2
 
 # metric → the kernels' metric code (shared with ivf_flat)
 _KERNEL_METRICS = {
@@ -238,3 +243,43 @@ def knn_merge_parts(part_distances: torch.Tensor, part_indices: torch.Tensor,
     d = part_distances.permute(1, 0, 2).reshape(m, p * k)
     i = part_indices.permute(1, 0, 2).reshape(m, p * k)
     return select_k(d.contiguous(), k, select_min=select_min, indices=i)
+
+
+def save(index: Index, path) -> None:
+    """Write the index in the JAX package's file format (kind
+    "brute_force", version 2): meta ``metric``, ``metric_arg`` (2.0, the
+    only one the port has), ``store_dtype`` and, for int4,
+    ``logical_dim``; arrays ``dataset`` (bfloat16 as its uint16 words),
+    ``norms`` and ``scales`` where the index has them. Byte-equal to the
+    JAX package's file of the same index."""
+    meta = {"metric": index.metric.value, "metric_arg": 2.0,
+            "store_dtype": index.store_name}
+    if index.logical_dim is not None:
+        meta["logical_dim"] = int(index.logical_dim)
+    arrays = {"dataset": index.dataset}
+    if index.norms is not None:
+        arrays["norms"] = index.norms
+    if index.scales is not None:
+        arrays["scales"] = index.scales
+    save_arrays(path, "brute_force", _SERIAL_VERSION, meta, arrays)
+
+
+def load(path, device=None) -> Index:
+    """Read a brute-force file of either package onto ``device`` (the CUDA
+    card by default). A metric other than the expanded four, or a
+    ``metric_arg`` other than 2.0, raises: the JAX package's scan engine
+    for them is not ported yet."""
+    _, version, meta, arrays = load_arrays(path, "brute_force")
+    expects(version in (1, 2), "unsupported serialization version %d",
+            version)
+    mt = DistanceType(meta["metric"])
+    expects(mt in _KERNEL_METRICS, "brute force with metric %s is not "
+            "ported yet (the scan engine)", mt.name)
+    expects(float(meta["metric_arg"]) == 2.0, "metric_arg %r is not ported "
+            "yet (the scan engine)", meta["metric_arg"])
+    dev = resolve_device(device)
+    dataset = device_tensor(arrays["dataset"], dev,
+                            meta.get("store_dtype") == "bfloat16")
+    norms, scales = (device_tensor(arrays[a], dev) if a in arrays else None
+                     for a in ("norms", "scales"))
+    return Index(dataset, norms, mt, scales, meta.get("logical_dim"))

@@ -2,7 +2,7 @@
 (``BuildAlgo``, ``IndexParams``, ``SearchParams``, ``Index``, ``ENGINES``,
 ``build_knn_graph``, ``optimize``, ``build``, ``build_covering_seeds``,
 ``prepare_search``, ``prepare_traversal``, ``search``, ``health``,
-``make_searcher``).
+``make_searcher``, ``save``, ``load``).
 
 Build: the all-points kNN graph (:func:`build_knn_graph`: the exact
 graph by brute-force search through K2 + the K1 merge, batched
@@ -43,8 +43,11 @@ raises, where JAX rewrites it to its edge engine). ``query_chunk`` and a
 deadline (``res``) traverse the queries in chunks, each with its own
 random seed rows; :func:`health` reports connectivity and quantization
 error; :func:`make_searcher` freezes a search's options. Not ported: the
-guarded fallback chains (a kernel failure raises), ``save``/``load``,
-``make_searcher``'s ``degrade`` and ``donate=True``. The TPU-only build
+guarded fallback chains (a kernel failure raises),
+``make_searcher``'s ``degrade`` and ``donate=True``. ``save`` / ``load``
+read and write the JAX package's files (dataset, graph, seed set); the
+traversal copies, the edge store and ``build_stats`` are derived and
+rebuilt on first use. The TPU-only build
 paths (``_parted_brute_graph``'s compile cap, the tail-wrapping batch
 loop) have no counterpart. Every matrix product runs in full float32
 (``torch.backends.cuda.matmul.allow_tf32`` False).
@@ -61,6 +64,7 @@ import torch
 
 from ..core.bitset import Bitset
 from ..core.errors import RaftError, expects
+from ..core.serialize import device_tensor, load_arrays, save_arrays
 from ..distance.distance_types import DistanceType, canonical_metric
 from ..matrix.select_k import select_k
 from ..ops import autotune
@@ -80,7 +84,7 @@ __all__ = ["BuildAlgo", "IndexParams", "SearchParams", "Index", "EdgeStore",
            "pass_batch", "build", "build_knn_graph", "optimize",
            "build_covering_seeds", "prepare_search", "prepare_traversal",
            "search", "tune_search", "resolve_engine", "health",
-           "make_searcher"]
+           "make_searcher", "save", "load"]
 
 ENGINES = ("gather", "edge", "fused")
 # knn_graph_algo="auto": the exact graph up to this many rows, NN-descent
@@ -95,6 +99,8 @@ PASS_BUDGET = 9 << 29
 DEADLINE_CHUNK = 1024
 _METRICS = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
             DistanceType.InnerProduct)
+# the file version save writes with a seed set (1 without); load reads both
+_SERIAL_VERSION = 2
 _INF = float("inf")
 
 
@@ -1053,3 +1059,37 @@ def make_searcher(index: Index, params: SearchParams | None = None, *,
         return search(index, queries, k, base, res=res, **opts)
 
     return _fn
+
+
+def save(index: Index, path) -> None:
+    """Write the index in the JAX package's file format (kind "cagra"):
+    meta ``metric``; arrays ``dataset``, ``graph`` and, where the index
+    has a covering seed set, ``seed_nodes`` — version 2 with seeds, 1
+    without. The traversal copies, edge store and build stats are not
+    written. Byte-equal to the JAX package's file of the same index."""
+    arrays = {"dataset": index.dataset, "graph": index.graph}
+    version = 1
+    if index.seed_nodes is not None:
+        arrays["seed_nodes"] = index.seed_nodes
+        version = _SERIAL_VERSION
+    save_arrays(path, "cagra", version, {"metric": index.metric.value},
+                arrays)
+
+
+def load(path, device=None) -> Index:
+    """Read a CAGRA file of either package (version 1 or 2) onto
+    ``device`` (the CUDA card by default); the seed set comes back sorted
+    and unique, as int32."""
+    _, version, meta, arrs = load_arrays(path, "cagra")
+    expects(version in (1, _SERIAL_VERSION), "unsupported version %d",
+            version)
+    mt = DistanceType(meta["metric"])
+    expects(mt in _METRICS, "cagra with metric %s is not ported yet",
+            mt.name)
+    dev = resolve_device(device)
+    seeds = arrs.get("seed_nodes")
+    if seeds is not None:
+        seeds = device_tensor(np.unique(seeds).astype(np.int32), dev)
+    return Index(device_tensor(arrs["dataset"], dev),
+                 device_tensor(np.asarray(arrs["graph"], np.int32), dev),
+                 mt, seeds)

@@ -1,6 +1,7 @@
 """IVF-Flat index: counterpart of ``raft_tpu/neighbors/ivf_flat.py``
 (``IndexParams``, ``SearchParams``, ``Index``, ``build``, ``extend``,
-``search``, ``reconstruct``, ``health``, ``make_searcher``).
+``search``, ``reconstruct``, ``health``, ``make_searcher``, ``save``,
+``load``).
 
 Lists are contiguous row ranges of one cluster-sorted array
 (``_list_layout``), stored float32, bfloat16, int8 with per-row scales or
@@ -19,9 +20,12 @@ the probe and gather + score + stable select for the scan
 A filter removes rows through an additive penalty row in sorted row
 order, and lists with no surviving row are pruned from the probe — the
 JAX package's search under ``filter_policy.suspended()``. Its adaptive
-widen/crossover policy, ``extend`` into a non-empty index, host streaming
-and serialization are not ported yet. Every matrix product runs in full
-float32 (``torch.backends.cuda.matmul.allow_tf32`` False), as the JAX
+widen/crossover policy, ``extend`` into a non-empty index and host
+streaming are not ported yet. ``save`` / ``load`` read and write the JAX
+package's files: lists packed with no slack; a loaded index keeps that
+dense layout (list starts at any row; the kernels take them). Every
+matrix product runs in full float32
+(``torch.backends.cuda.matmul.allow_tf32`` False), as the JAX
 package's ``precision="highest"``.
 """
 from __future__ import annotations
@@ -36,6 +40,7 @@ from ..cluster import kmeans_balanced
 from ..core.bitset import Bitset
 from ..core.errors import RaftError, expects
 from ..core.resources import workspace_chunk_bytes
+from ..core.serialize import device_tensor, load_arrays, save_arrays
 from ..distance.distance_types import DistanceType, canonical_metric
 from ..matrix.select_k import SelectAlgo
 from ..ops.ivf_scan import coarse_probe, ivf_flat_scan, ivf_flat_scan_plain
@@ -43,11 +48,17 @@ from ..ops.quant import (STORES, dequantize_rows, int8_scale_report,
                          quantize_rows, store_dtype)
 from ..utils import (query_chunks, resolve_device, round_up_to,
                      run_query_chunks)
-from ._list_layout import list_skew, scatter_build
+from ._list_layout import (dense_offsets, gather_dense, list_skew,
+                           scatter_build)
 from .brute_force import _KERNEL_METRICS, _postprocess, health_sample_rows
 
 __all__ = ["IndexParams", "SearchParams", "Index", "build", "extend",
-           "search", "reconstruct", "health", "make_searcher"]
+           "search", "reconstruct", "health", "make_searcher", "save",
+           "load"]
+
+# the file version save writes (the JAX package's); load reads 1 and 2
+_SERIAL_VERSION = 2
+
 
 @dataclasses.dataclass
 class IndexParams:
@@ -312,3 +323,49 @@ def make_searcher(index: Index, params: SearchParams | None = None, *,
         return search(index, queries, k, base, res=res, **opts)
 
     return _fn
+
+
+def save(index: Index, path) -> None:
+    """Write the index in the JAX package's file format (kind "ivf_flat",
+    version 2): meta ``metric``, ``n_lists``, ``store_dtype``; arrays
+    ``data`` (bfloat16 as its uint16 words), ``source_ids``, ``centers``,
+    ``list_offsets`` and, for int8, ``scales``, the lists packed with no
+    slack (``list_offsets`` the cumulative sizes). Byte-equal to the JAX
+    package's file of the same index."""
+    arrays = [index.data, index.source_ids]
+    if index.scales is not None:
+        arrays.append(index.scales)
+    arrays = gather_dense(arrays, index.list_offsets, index.list_sizes)
+    out = {"data": arrays[0], "source_ids": arrays[1],
+           "centers": index.centers,
+           "list_offsets": dense_offsets(index.list_sizes)}
+    if index.scales is not None:
+        out["scales"] = arrays[2]
+    save_arrays(path, "ivf_flat", _SERIAL_VERSION,
+                {"metric": index.metric.value, "n_lists": index.n_lists,
+                 "store_dtype": index.store_name}, out)
+
+
+def load(path, device=None) -> Index:
+    """Read an IVF-Flat file of either package onto ``device`` (the CUDA
+    card by default). The lists keep the file's dense layout; the row
+    norms are computed from the dequantized rows and the center norms
+    from the centers, as :func:`build` computes them."""
+    _, version, meta, arrs = load_arrays(path, "ivf_flat")
+    expects(version in (1, 2), "unsupported version %d", version)
+    mt = DistanceType(meta["metric"])
+    expects(mt in _KERNEL_METRICS, "ivf_flat with metric %s is not ported "
+            "yet", mt.name)
+    dev = resolve_device(device)
+    data = device_tensor(arrs["data"], dev,
+                         meta.get("store_dtype") == "bfloat16")
+    scales = (device_tensor(arrs["scales"], dev) if "scales" in arrs
+              else None)
+    deq = dequantize_rows(data, scales)
+    norms = (deq * deq).sum(dim=1)
+    del deq
+    centers = device_tensor(arrs["centers"], dev)
+    offsets = np.asarray(arrs["list_offsets"], np.int64)
+    return Index(data, norms, device_tensor(arrs["source_ids"], dev),
+                 centers, (centers * centers).sum(dim=1), offsets,
+                 np.diff(offsets), mt, scales)

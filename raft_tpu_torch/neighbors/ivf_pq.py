@@ -1,7 +1,7 @@
 """IVF-PQ index: counterpart of ``raft_tpu/neighbors/ivf_pq.py``
 (``CodebookGen``, ``IndexParams``, ``SearchParams``, ``Index``,
 ``make_rotation_matrix``, ``build``, ``extend``, ``search``, ``health``,
-``make_searcher``).
+``make_searcher``, ``pack_codes``, ``unpack_codes``, ``save``, ``load``).
 
 Everything lives in rotated space, as in the JAX package: the dataset is
 rotated once at build and the queries once at search (an orthogonal
@@ -32,9 +32,10 @@ A filter removes rows through an additive penalty row in sorted row
 order, and lists with no surviving row are pruned from the probe — the
 JAX package's search under ``filter_policy.suspended()``. Not ported yet:
 ``PER_CLUSTER`` codebooks, ``list_growth != 1.0`` and ``extend`` into a
-non-empty index, ``build_from_batches``, host streaming, save/load and the
-adaptive filter policy. Every matrix product runs in full float32
-(``torch.backends.cuda.matmul.allow_tf32`` False).
+non-empty index, ``build_from_batches``, host streaming and the adaptive
+filter policy. ``save`` / ``load`` read and write the JAX package's files
+(bit-packed codes, lists packed with no slack). Every matrix product runs
+in full float32 (``torch.backends.cuda.matmul.allow_tf32`` False).
 """
 from __future__ import annotations
 
@@ -51,6 +52,7 @@ from ..cluster.kmeans import segment_sum
 from ..core.bitset import Bitset
 from ..core.errors import RaftError, expects
 from ..core.resources import workspace_chunk_bytes
+from ..core.serialize import device_tensor, load_arrays, save_arrays
 from ..distance.distance_types import DistanceType, canonical_metric
 from ..distance.fused_l2_nn import fused_l2_nn_argmin
 from ..matrix.select_k import SelectAlgo
@@ -59,14 +61,17 @@ from ..ops.ivf_pq_scan import (decoded_row_norms, ivf_pq_scan,
                                pq_chunk_rows)
 from ..ops.ivf_scan import coarse_probe
 from ..utils import cdiv, query_chunks, resolve_device, run_query_chunks
-from ._list_layout import list_skew, scatter_build
+from ._list_layout import (dense_offsets, gather_dense, list_skew,
+                           scatter_build)
 from .brute_force import _postprocess, health_sample_rows
 from .ivf_flat import _filter_rows
 
 __all__ = ["CodebookGen", "IndexParams", "SearchParams", "Index",
            "make_rotation_matrix", "build", "extend", "search", "health",
-           "make_searcher"]
+           "make_searcher", "pack_codes", "unpack_codes", "save", "load"]
 
+# the file version save writes and load reads (the JAX package's)
+_SERIAL_VERSION = 1
 _METRICS = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
             DistanceType.InnerProduct)
 
@@ -504,3 +509,73 @@ def make_searcher(index: Index, params: SearchParams | None = None, *,
         return search(index, queries, k, base, res=res, **opts)
 
     return _fn
+
+
+def pack_codes(codes: np.ndarray, pq_bits: int) -> np.ndarray:
+    """Bit-pack (n, pq_dim) byte codes → (n, ceil(pq_dim·pq_bits/8))
+    bytes, each code's most significant bit first, each row padded to
+    whole bytes (the JAX package's file layout; at 8 bits the codes as
+    they are)."""
+    codes = np.asarray(codes, np.uint8)
+    if pq_bits == 8:
+        return np.ascontiguousarray(codes)
+    n, pq_dim = codes.shape
+    bits = np.unpackbits(codes[:, :, None], axis=2,
+                         count=8)[:, :, 8 - pq_bits:]
+    flat = bits.reshape(n, pq_dim * pq_bits)
+    flat = np.pad(flat, ((0, 0), (0, cdiv(pq_dim * pq_bits, 8) * 8
+                                  - flat.shape[1])))
+    return np.packbits(flat, axis=1)
+
+
+def unpack_codes(packed: np.ndarray, pq_dim: int, pq_bits: int
+                 ) -> np.ndarray:
+    """Inverse of :func:`pack_codes`."""
+    packed = np.asarray(packed, np.uint8)
+    if pq_bits == 8:
+        return np.ascontiguousarray(packed[:, :pq_dim])
+    flat = np.unpackbits(packed, axis=1)[:, : pq_dim * pq_bits]
+    bits = flat.reshape(packed.shape[0], pq_dim, pq_bits)
+    weights = (1 << np.arange(pq_bits - 1, -1, -1)).astype(np.uint32)
+    return (bits * weights).sum(axis=2).astype(np.uint8)
+
+
+def save(index: Index, path) -> None:
+    """Write the index in the JAX package's file format (kind "ivf_pq",
+    version 1): meta ``metric``, ``pq_bits``, ``codebook_kind``,
+    ``pq_dim``; arrays ``codes`` (:func:`pack_codes`), ``source_ids``,
+    ``centers_rot``, ``codebooks``, ``rotation`` and ``list_offsets``,
+    the lists packed with no slack. Byte-equal to the JAX package's file
+    of the same index."""
+    codes, ids = gather_dense((index.codes, index.source_ids),
+                              index.list_offsets, index.list_sizes)
+    save_arrays(
+        path, "ivf_pq", _SERIAL_VERSION,
+        {"metric": index.metric.value, "pq_bits": index.pq_bits,
+         "codebook_kind": index.codebook_kind.value,
+         "pq_dim": index.pq_dim},
+        {"codes": pack_codes(codes.cpu().numpy(), index.pq_bits),
+         "source_ids": ids, "centers_rot": index.centers_rot,
+         "codebooks": index.codebooks, "rotation": index.rotation,
+         "list_offsets": dense_offsets(index.list_sizes)})
+
+
+def load(path, device=None) -> Index:
+    """Read an IVF-PQ file of either package onto ``device`` (the CUDA card
+    by default); the lists keep the file's dense layout. PER_CLUSTER
+    codebooks raise, as :func:`build` does."""
+    _, version, meta, arrs = load_arrays(path, "ivf_pq")
+    expects(version == _SERIAL_VERSION, "unsupported version %d", version)
+    expects(CodebookGen(meta["codebook_kind"]) is CodebookGen.PER_SUBSPACE,
+            "PER_CLUSTER codebooks are not ported yet")
+    mt = DistanceType(meta["metric"])
+    expects(mt in _METRICS, "ivf_pq with metric %s is not ported yet",
+            mt.name)
+    dev = resolve_device(device)
+    codes = unpack_codes(arrs.pop("codes"), meta["pq_dim"], meta["pq_bits"])
+    offsets = np.asarray(arrs["list_offsets"], np.int64)
+    return Index(device_tensor(codes, dev),
+                 device_tensor(arrs["source_ids"], dev),
+                 *(device_tensor(arrs[a], dev)
+                   for a in ("centers_rot", "codebooks", "rotation")),
+                 offsets, np.diff(offsets), mt, meta["pq_bits"])

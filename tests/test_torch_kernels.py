@@ -2197,3 +2197,72 @@ def test_graph_race_on_card():
     idx = tcagra.build(x, tcagra.IndexParams(intermediate_graph_degree=32,
                                               graph_degree=16))
     assert idx.build_stats["knn_algo"] == winner
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["brute_force", "ivf_flat", "ivf_flat_int8",
+                                    "ivf_pq", "cagra"])
+def test_save_load_on_card(tmp_path, family):
+    """An index built on the card, saved, and loaded back onto the card
+    searches bit-equal through the kernels (K2, K3, K4, K6; the launch
+    counters move) to the index it was saved from. The loaded IVF lists
+    are packed with no slack, so list starts fall off multiples of 8
+    where the built ones sit on them: K3 and K4 take both. IVF-Flat runs
+    on integer-valued rows, where K3's float32 form also equals its plain
+    version."""
+    need_cuda()
+    if family.startswith("ivf_flat"):
+        rng = np.random.default_rng(23)
+        x = torch.from_numpy(rng.integers(-8, 9, (20_000, 32)).astype(
+            np.float32)).cuda()
+        q = torch.from_numpy(rng.integers(-3, 4, (500, 32)).astype(
+            np.float32)).cuda()
+    else:
+        x, q = race_data(20_000, 500)
+    mod, counter, build, search = {
+        "brute_force": (brute_force, (tfk, "launches"),
+                        lambda: brute_force.build(x),
+                        lambda i, **kw: brute_force.search(i, q, 10)),
+        "ivf_flat": (tivf, (tis, "launches"),
+                     lambda: tivf.build(x, tivf.IndexParams(n_lists=64)),
+                     lambda i, algo="auto": tivf.search(
+                         i, q, 10, tivf.SearchParams(n_probes=8),
+                         algo=algo)),
+        "ivf_flat_int8": (tivf, (tis, "launches_int8"),
+                          lambda: tivf.build(x, tivf.IndexParams(
+                              n_lists=64, dtype="int8")),
+                          lambda i, algo="auto": tivf.search(
+                              i, q, 10, tivf.SearchParams(n_probes=8),
+                              algo=algo)),
+        "ivf_pq": (tivfpq, (tpq, "launches"),
+                   lambda: tivfpq.build(x, tivfpq.IndexParams(n_lists=64,
+                                                              pq_dim=16)),
+                   lambda i, **kw: tivfpq.search(
+                       i, q, 20, tivfpq.SearchParams(n_probes=8))),
+        "cagra": (tcagra, (tcf, "launches"),
+                  lambda: tcagra.build(x, tcagra.IndexParams(
+                      intermediate_graph_degree=64, graph_degree=32,
+                      knn_graph_algo="brute")),
+                  lambda i, **kw: tcagra.search(
+                      i, q, 10, tcagra.SearchParams(itopk_size=64),
+                      engine="fused")),
+    }[family]
+    idx = build()
+    want = search(idx)
+    mod.save(idx, tmp_path / "index.bin")
+    loaded = mod.load(tmp_path / "index.bin")
+    assert loaded.device.type == "cuda"
+    before = getattr(*counter)
+    got = search(loaded)
+    torch.cuda.synchronize()
+    assert getattr(*counter) > before
+    assert_bits_equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    if family.startswith("ivf"):
+        assert (idx.list_offsets % 8 == 0).all()
+        starts = loaded.list_offsets[:-1][loaded.list_sizes > 0]
+        assert (starts % 8 != 0).any()
+    if family == "ivf_flat":
+        plain = search(loaded, algo="plain")
+        assert_bits_equal(got[0], plain[0])
+        assert torch.equal(got[1], plain[1])

@@ -51,6 +51,27 @@ store mode: dense, int4, pq; K6 dense and int4), then:
 2. determinism: the path's IVF-Flat and IVF-PQ indexes, built once more
    from the same rows in the same process, must be bit-equal to the
    path's (centers, lists, rotation, codebooks, codes).
+   Then the IVF and brute-force remainders, each path with the counters
+   reset before it: IVF-Flat and IVF-PQ streamed by
+   ``build_from_batches`` in 8 batches of 131,072 rows (a multiple of
+   the builds' GEMM row chunks, so every assignment and encode product
+   takes the one-shot build's row blocks) with the whole corpus as
+   ``trainset``: quantizers, list sizes and each list's rows (in order)
+   bit-equal to the path's one-shot indexes, and each search bit-equal
+   through K3 and K4 (one grouped launch); IVF-PQ with per-cluster
+   codebooks at the path's parameters, built and searched (K4's
+   per-cluster form, two launches), its recall@10 raw and refined beside
+   the per-subspace index's, then K4's per-cluster form against its
+   plain version (the path's bf16 LUT on all queries, launched twice
+   bit-equal; integer codebooks, centers and queries at both LUTs and
+   metrics, equal), timed with its bound (the row
+   ``ivf_pq_scan.per_cluster``); brute force's scan engine (``auto`` for
+   these metrics) at L1, Linf, Lp (p = 3), Canberra and correlation on
+   1,000 queries, K1 launched twice a tile and K2 never, every returned
+   value against float64 numpy at its row and two queries' k best
+   against float64 over all rows (rtol 1e-5; Canberra 1e-4 and
+   correlation atol 1e-5, ``SCAN_TOL`` says why); the phase's seconds
+   and peak device memory.
 3. graph routes, on the path's data, each with the counters reset before
    it and read after: CAGRA's NN-descent graph at the path's parameters
    (degree 128 → 64: ``build``'s stages one by one, so that the kNN
@@ -300,6 +321,7 @@ from raft_tpu_torch.core.errors import CorruptIndexError, RaftError
 from raft_tpu_torch.matrix import select_k as sk
 from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
                                       refine)
+from raft_tpu_torch.neighbors._list_layout import gather_dense
 from raft_tpu_torch.ops import _cuda
 from raft_tpu_torch.ops import cagra_fused as cf
 from raft_tpu_torch.ops import nn_descent as nnd
@@ -312,6 +334,7 @@ from raft_tpu_torch.ops import ring_topk as rt
 from raft_tpu_torch.parallel import sharded_ann, sharded_knn
 from raft_tpu_torch.stats.metrics import neighborhood_recall
 from raft_tpu_torch.tools import kernel_ab, scan_ab
+from raft_tpu_torch.utils import cdiv, round_up_to
 
 SEED = 0
 N, D, M, K = 1_000_000, 128, 10_000, 10
@@ -399,6 +422,7 @@ _COUNTERS = {"select_k": (sk, "launches"),
              "ivf_pq_scan.group": (ipq, "group_launches"),
              "ivf_pq_scan.pair": (ipq, "pair_launches"),
              "ivf_pq_scan.wide": (ipq, "wide_launches"),
+             "ivf_pq_scan.per_cluster": (ipq, "per_cluster_launches"),
              "graph_expand": (ge, "launches"),
              **{f"graph_expand.{m}": (ge, f"launches_{m}")
                 for m in ("dense", "int4", "pq")},
@@ -1190,7 +1214,7 @@ def edge_recall(graph, x, k: int, seed: int) -> float:
     return neighborhood_recall(graph[rows], exact_graph_rows(x, rows, k))
 
 
-def ivf_pq_route(x, q, bi, cidx, p, recalls, totals):
+def ivf_pq_route(x, q, bi, cidx, p, recalls, totals, peak_floor):
     """CAGRA's IVF-PQ graph pass on all of ``x`` at the path's parameters
     ``p``, as the NN-descent route: ``cagra.build``'s stages one by one
     (the pass's own stages — the IVF-PQ build, K4, the K1 merge, refine —
@@ -1199,13 +1223,14 @@ def ivf_pq_route(x, q, bi, cidx, p, recalls, totals):
     NN-descent's), K4's launches (grouped, once a batch) and the route's
     own peak device memory. → (K1's merge input, K4's input, as the pass
     handed them; the run's peak device memory before the route, which
-    resets it)."""
+    resets it: the peak since the last reset, or ``peak_floor``, the
+    peak before that reset, when it is higher)."""
     n = x.shape[0]
     exact_s = cidx.build_stats["knn_graph_s"]
     n_lists = max(16, min(1024, int(np.sqrt(n) * 2)))    # build_knn_graph's
     merge_w = max(16, min(64, n_lists // 8)) * PASS_K
     batches = -(-n // CAGRA_BATCH)
-    run_peak = torch.cuda.max_memory_allocated()
+    run_peak = max(peak_floor, torch.cuda.max_memory_allocated())
     torch.cuda.reset_peak_memory_stats()
 
     def pq_path():
@@ -1309,7 +1334,7 @@ def ivf_pq_route(x, q, bi, cidx, p, recalls, totals):
     return k1_pass_cap.call, k4_cap.call, run_peak
 
 
-def graph_route_phase(x, q, bidx, cidx, totals):
+def graph_route_phase(x, q, bidx, cidx, totals, peak_floor):
     """CAGRA's other graph builders on the path's data. NN-descent at the
     path's parameters (degree 128 → 64): the stages of ``cagra.build``
     one by one (kNN graph, optimize, covering seeds) so the kNN graph's
@@ -1320,7 +1345,8 @@ def graph_route_phase(x, q, bidx, cidx, totals):
     own peak device memory. Then ``tune_search`` on the path's index.
     Returns K1's NN-descent and graph-pass merge inputs and K4's
     graph-pass input, each as the path handed it to the kernel, and the
-    run's peak device memory before the IVF-PQ route (which resets it)."""
+    run's peak device memory before the IVF-PQ route (which resets it;
+    ``peak_floor``: the run's peak before an earlier reset)."""
     n = x.shape[0]
     _, bi = brute_force.search(bidx, q, K)
     _, ei = cagra.search(cidx, q, K, CAGRA_SP, engine="fused")
@@ -1374,7 +1400,7 @@ def graph_route_phase(x, q, bidx, cidx, totals):
     del knn, nd, ni
 
     k1_pass, k4_call, run_peak = ivf_pq_route(
-        x, q, bi, cidx, p, (exact_recall, nnd_recall), totals)
+        x, q, bi, cidx, p, (exact_recall, nnd_recall), totals, peak_floor)
 
     # the race on the path's index (a copy of its handle: a gather win
     # drops the copy's store, and the kernel phases read the path's)
@@ -4289,6 +4315,302 @@ def k6_int4_phase(timer, cidx, q, buf_d, buf_i, launches) -> dict:
                       f"{max_iter} hops max, int4 tiles {deg_p} x {w}")
 
 
+# ------------------------------------------------ the IVF and brute-force
+# remainders: streamed builds, per-cluster codebooks, the scan engine
+
+STREAM_BATCHES = 8
+# the IVF builds' GEMM row chunks: kmeans_balanced.predict at 1,024 lists
+# (fused_l2_nn's 256 MiB block / 4 KiB a row); IVF-PQ's encode batch
+# (ops.ivf_pq_scan.pq_chunk_rows(64, 256) = 32,768) divides it
+STREAM_ALIGN = 65_536
+SCAN_QUERIES = 1000
+SCAN_METRICS = (("l1", 2.0), ("linf", 2.0), ("lp", 3.0), ("canberra", 2.0),
+                ("correlation", 2.0))
+SCAN_SAMPLE = (0, SCAN_QUERIES - 1)   # queries held against the whole corpus
+# (rtol, atol) against float64. Canberra: 128 quotients, each rounded on
+# its own, and a term whose denominator |x| + |y| is tiny carries its
+# numerator's rounding at full weight. Correlation: 1 - cos of the
+# centered rows, whose float32 dot cancels to an absolute error of ~1e-6
+# of the norms' product, whatever the distance.
+SCAN_TOL = {"canberra": (1e-4, 0.0), "correlation": (1e-5, 1e-5)}
+
+
+def stream_batches(x):
+    """``STREAM_BATCHES`` batches over the rows, each a multiple of
+    ``STREAM_ALIGN`` rows but the last, so that every assignment and
+    encode product of a streamed build takes the same row blocks as the
+    one-shot build's (the blocks of one GEMM shape give the same bits)."""
+    b = round_up_to(cdiv(N, STREAM_BATCHES), STREAM_ALIGN)
+    out = [x[i : i + b] for i in range(0, N, b)]
+    if len(out) != STREAM_BATCHES:
+        raise AssertionError(f"{len(out)} batches of {b} rows")
+    return out
+
+
+def same_lists(a, b, arrays, what: str) -> None:
+    """The two indexes hold the same lists: sizes, and each list's rows
+    (``arrays``, bit for bit) in the same order."""
+    if not np.array_equal(a.list_sizes, b.list_sizes):
+        raise AssertionError(f"{what}: list sizes differ")
+    da = gather_dense([getattr(a, n) for n in arrays], a.list_offsets,
+                      a.list_sizes)
+    db = gather_dense([getattr(b, n) for n in arrays], b.list_offsets,
+                      b.list_sizes)
+    for name, u, v in zip(arrays, da, db):
+        if u.is_floating_point():
+            u, v = u.view(torch.int32), v.view(torch.int32)
+        if not torch.equal(u, v):
+            raise AssertionError(f"{what}: lists differ in {name}")
+    log(f"  {what}: the same lists, rows in the same order "
+        f"({', '.join(arrays)} bit for bit); capacity "
+        f"{int(a.list_offsets[-1])} rows against {int(b.list_offsets[-1])}")
+
+
+def streamed_builds(x, q, iidx, pidx, totals):
+    """IVF-Flat and IVF-PQ streamed by ``build_from_batches`` in
+    ``STREAM_BATCHES`` batches with the whole corpus as ``trainset`` (the
+    quantizers the one-shot build trains): the same lists as the path's
+    one-shot indexes, each list's rows in the same order, and each search
+    bit-equal through K3 and K4. → the build seconds."""
+    batches = stream_batches(x)
+    secs = {}
+    for name, mod, one, params, sp, k, rows in (
+            ("ivf_flat", ivf_flat, iidx,
+             ivf_flat.IndexParams(n_lists=N_LISTS, seed=SEED),
+             ivf_flat.SearchParams(n_probes=N_PROBES), K,
+             ("data", "data_norms", "source_ids")),
+            ("ivf_pq", ivf_pq, pidx,
+             ivf_pq.IndexParams(n_lists=N_LISTS, pq_dim=PQ_DIM,
+                                pq_bits=PQ_BITS, seed=SEED),
+             ivf_pq.SearchParams(n_probes=N_PROBES), K0,
+             ("codes", "source_ids", "row_norms"))):
+        idx, t = host_time(lambda: mod.build_from_batches(batches, params,
+                                                          trainset=x))
+        secs[name] = t
+        log(f"{name} streamed in {len(batches)} batches of "
+            f"{batches[0].shape[0]} rows: {t:.3f} s (list_growth "
+            f"{idx.list_growth})")
+        centers = ("centers",) if name == "ivf_flat" else (
+            "centers_rot", "rotation", "codebooks")
+        for c in centers:
+            check_bits((getattr(idx, c),), (getattr(one, c),),
+                       f"{name} streamed {c} against the one-shot build's")
+        same_lists(idx, one, rows, f"{name} streamed against one-shot")
+        scan = f"{name}_scan"
+        got = run_path(f"{name} streamed", (scan, f"{scan}.group",
+                                            "select_k"),
+                       lambda: mod.search(idx, q, k, sp), totals)
+        check_scan_forms(f"{name} streamed", scan, 1)
+        check_bits(mod.search(one, q, k, sp), got,
+                   f"{name} streamed search ({M} queries, k={k}) against "
+                   "the one-shot build's")
+        del idx
+    return secs
+
+
+def per_cluster_row(timer, cidx, pidx, q, launches) -> dict:
+    """K4's per-cluster form against its plain version on the per-cluster
+    index (bf16 LUT, the path's search: all queries; launched twice,
+    bit-equal), on an integer-valued copy (equal, f32 and bf16 LUTs, both
+    metrics, 1,000 queries), timed beside the plain version, with
+    :func:`scan_bound` at its LUT mode (the per-cluster LUT route: a
+    table a (query, probe) pair)."""
+    q_rot = (q @ cidx.rotation.T).contiguous()
+    probed = iscan.coarse_probe(q_rot, cidx.centers_rot, N_PROBES, "l2",
+                                cidx.center_norms)
+
+    def args(idx, mode, qr, pr):
+        return (idx.codes, idx.row_norms, idx.centers_rot,
+                ipq.lut_codebook(idx.codebooks, mode), pr, idx.offsets_dev,
+                idx.sizes_dev, qr)
+
+    path = args(cidx, "bf16", q_rot, probed)
+    kw = dict(per_cluster=True)
+    out = {}
+    plain = timer(lambda: out.setdefault("ref", ipq.ivf_pq_scan_plain(
+        *path, K0, "l2", **kw)), reps=1, warmup=0)
+    got = ipq.ivf_pq_scan(*path, K0, "l2", **kw)
+    err = check_close(*out["ref"], *got, f"K4 ivf_pq_scan per-cluster form, "
+                      f"bf16 LUT ({M} queries, n_probes={N_PROBES})")
+    check_bits(got, ipq.ivf_pq_scan(*path, K0, "l2", **kw),
+               "K4 ivf_pq_scan per-cluster form, launched twice")
+    rng = np.random.default_rng(SEED + 21)
+    ints = lambda shape_: torch.from_numpy(rng.integers(  # noqa: E731
+        -3, 4, shape_).astype(np.float32)).cuda()
+    iidx = dataclasses.replace(cidx, codebooks=ints(cidx.codebooks.shape),
+                               centers_rot=ints(cidx.centers_rot.shape))
+    qi = ints((1000, cidx.rot_dim))
+    pri = iscan.coarse_probe(qi, iidx.centers_rot, N_PROBES, "l2",
+                             iidx.center_norms)
+    for mode in ("f32", "bf16"):
+        a = args(iidx, mode, qi, pri)
+        for metric in ("l2", "ip"):
+            check_equal(ipq.ivf_pq_scan_plain(*a, K0, metric, **kw),
+                        ipq.ivf_pq_scan(*a, K0, metric, **kw),
+                        f"K4 ivf_pq_scan per-cluster form, {mode} LUT "
+                        f"{metric}, integer codebooks/centers/queries "
+                        "(1000 queries)")
+    del iidx
+    ms = timer(lambda: ipq.ivf_pq_scan_candidates(
+        cidx.codes, cidx.row_norms, None, path[3], cidx.centers_rot, q_rot,
+        probed, cidx.offsets_dev, cidx.sizes_dev, K0, "l2", "group", True))
+    sizes = cidx.sizes_dev.long()
+    scanned = int(sizes[probed.long()].sum())
+    distinct_rows = int(sizes[torch.unique(probed)].sum())
+    pairs = M * N_PROBES
+    book, pq_len = cidx.pq_book_size, cidx.pq_len
+    b, by = scan_bound(distinct_rows * (PQ_DIM + 4) + q_rot.numel() * 4
+                       + cidx.centers_rot.numel() * 4
+                       + cidx.codebooks.numel() * 4 + pairs * (4 + K0 * 8),
+                       scanned, cidx.rot_dim, tf32_products(path[3]),
+                       (pairs * 2 * PQ_DIM * book * pq_len,
+                        scanned * PQ_DIM))
+    log(f"  K4.per_cluster scans {scanned} (pair, row) products over "
+        f"{distinct_rows} distinct rows: {ms:.3f} ms, plain {plain:.1f} ms, "
+        f"bound {b:.4f} ms ({by}); launches {launches}")
+    return dict(name="ivf_pq_scan.per_cluster", route="cuda",
+                source="raft_tpu_torch/csrc/ivf_pq_scan.cu",
+                replaces="raft_tpu/ops/ivf_pq_scan.py:290",
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=b, bound_by=by, library_ms=None, form="group",
+                shape=f"{M} queries x {N_PROBES} probes, pq_dim={PQ_DIM}, "
+                      f"per-cluster codebooks ({N_LISTS} x {book} x "
+                      f"{pq_len}), k={K0}, bf16 LUT")
+
+
+def per_cluster_path(x, q, bi, pidx, totals, timer) -> dict:
+    """An IVF-PQ index with per-cluster codebooks built and searched
+    through the entry points at the path's parameters, its recall@10 (raw
+    and refined) beside the per-subspace index's at the same n_probes,
+    then K4's per-cluster form against its plain version."""
+    params = ivf_pq.IndexParams(n_lists=N_LISTS, pq_dim=PQ_DIM,
+                                pq_bits=PQ_BITS, seed=SEED,
+                                codebook_kind=ivf_pq.CodebookGen.PER_CLUSTER)
+    cidx, t_build = host_time(lambda: ivf_pq.build(x, params))
+    sp = ivf_pq.SearchParams(n_probes=N_PROBES)
+
+    def search():
+        (v, i), t_first = host_time(lambda: ivf_pq.search(cidx, q, K0, sp))
+        (v, i), t = host_time(lambda: ivf_pq.search(cidx, q, K0, sp))
+        return v, i, t_first, t
+
+    v, i, t_first, t = run_path(
+        "ivf_pq per-cluster", ("ivf_pq_scan", "ivf_pq_scan.group",
+                               "ivf_pq_scan.per_cluster", "select_k"),
+        search, totals)
+    check_scan_forms("ivf_pq per-cluster", "ivf_pq_scan", 2)
+    launches = counts()["ivf_pq_scan.per_cluster"]
+    check_knn("ivf_pq per-cluster", v, i, K0)
+    recalls = {}
+    for kind, ids in (("per-cluster", i),
+                      ("per-subspace", ivf_pq.search(pidx, q, K0, sp)[1])):
+        _, ri = refine.refine(x, q, ids, K)
+        recalls[kind] = (neighborhood_recall(ids[:, :K], bi),
+                         neighborhood_recall(ri, bi))
+    split = ", ".join(f"{k} {s:.3f} s" for k, s in
+                      cidx.build_seconds.items())
+    log(f"ivf_pq per-cluster: build {t_build:.3f} s ({split}; codebooks "
+        f"{tuple(cidx.codebooks.shape)}), search(n_probes={N_PROBES}, "
+        f"k0={K0}, bf16 LUT) first {t_first * 1e3:.1f} ms, steady "
+        f"{t * 1e3:.1f} ms; recall@{K} raw / refined: per-cluster "
+        f"{recalls['per-cluster'][0]:.4f} / {recalls['per-cluster'][1]:.4f}"
+        f", per-subspace {recalls['per-subspace'][0]:.4f} / "
+        f"{recalls['per-subspace'][1]:.4f}")
+    row = per_cluster_row(timer, cidx, pidx, q, launches)
+    row.update(build_s=t_build, search_ms=t * 1e3,
+               recall_raw=recalls["per-cluster"][0],
+               recall_refined=recalls["per-cluster"][1],
+               per_subspace_recall_raw=recalls["per-subspace"][0],
+               per_subspace_recall_refined=recalls["per-subspace"][1])
+    return row
+
+
+def numpy_metric(rows, qv, metric: str, arg: float):
+    """float64 distances of the rows (n, d) to one query (d,), the
+    metric's formula in numpy."""
+    if metric == "correlation":
+        rc = rows - rows.mean(axis=1, keepdims=True)
+        qc = qv - qv.mean()
+        den = np.sqrt((rc * rc).sum(1)) * np.sqrt((qc * qc).sum())
+        return 1.0 - (rc @ qc) / np.maximum(den, 1e-30)
+    diff = np.abs(rows - qv)
+    if metric == "l1":
+        return diff.sum(1)
+    if metric == "linf":
+        return diff.max(1)
+    if metric == "lp":
+        return (diff ** arg).sum(1) ** (1.0 / arg)
+    den = np.abs(rows) + np.abs(qv)
+    return np.where(den == 0, 0.0, diff / np.where(den == 0, 1.0, den)).sum(1)
+
+
+def scan_engine_path(x, q, totals) -> dict:
+    """Brute force's scan engine at L1, Linf, Lp (p = 3), Canberra and
+    correlation on ``SCAN_QUERIES`` queries over the path's rows through
+    the entry points (``auto`` takes the scan for these metrics): K1 must
+    select each tile and merge it with the best so far (two launches a
+    tile, no K2 launch); every returned value held against float64 numpy
+    at its row, and the queries of ``SCAN_SAMPLE`` against the whole
+    corpus in float64 (their k best values, slot by slot). → ms a
+    metric."""
+    qs = q[:SCAN_QUERIES].contiguous()
+    x64 = x.cpu().double().numpy()
+    q64 = qs.cpu().double().numpy()
+    tiles = -(-N // 8192)
+    ms = {}
+    for metric, arg in SCAN_METRICS:
+        idx = brute_force.build(x, metric, metric_arg=arg)
+        (v, i), t = run_path(f"brute_force scan {metric}", ("select_k",),
+                             lambda: host_time(lambda: brute_force.search(
+                                 idx, qs, K)), totals)
+        moved = counts()
+        if moved["select_k"] != 2 * tiles or moved["fused_knn"]:
+            raise AssertionError(f"scan {metric}: K1 {moved['select_k']} "
+                                 f"launches (expected {2 * tiles}), K2 "
+                                 f"{moved['fused_knn']}")
+        del idx
+        ms[metric] = t * 1e3
+        rtol, atol = SCAN_TOL.get(metric, (1e-5, 0.0))
+        vh, ih = v.cpu().double().numpy(), i.cpu().long().numpy()
+        got = np.stack([numpy_metric(x64[ih[r]], q64[r], metric, arg)
+                        for r in range(SCAN_QUERIES)])
+        np.testing.assert_allclose(vh, got, rtol=rtol, atol=atol,
+                                   err_msg=f"scan {metric}: values at ids")
+        err = float(np.abs(vh - got).max())
+        for r in SCAN_SAMPLE:
+            best = np.sort(numpy_metric(x64, q64[r], metric, arg))[:K]
+            np.testing.assert_allclose(
+                vh[r], best, rtol=rtol, atol=atol,
+                err_msg=f"scan {metric}: query {r}'s k best")
+        log(f"  brute_force scan {metric} (metric_arg {arg}): "
+            f"{SCAN_QUERIES} queries, k={K}, {t * 1e3:.1f} ms "
+            f"({SCAN_QUERIES / t:.0f} QPS), K1 {moved['select_k']} launches "
+            f"({tiles} tiles); against float64 numpy: max |err| {err:.3g} "
+            f"(rtol {rtol}, atol {atol}), queries {list(SCAN_SAMPLE)} equal "
+            "to their k best over all rows")
+    return ms
+
+
+def remainders_phase(x, q, bidx, iidx, pidx, totals):
+    """The IVF and brute-force remainders at the path's width: streamed
+    IVF builds against the one-shot ones, per-cluster IVF-PQ through K4,
+    the scan engine's metrics; the phase's seconds and peak device
+    memory. → (K4's per-cluster kernel row, the run's peak device memory
+    before the phase, which resets it)."""
+    t0 = time.perf_counter()
+    before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bi = brute_force.search(bidx, q, K)[1]
+    secs = streamed_builds(x, q, iidx, pidx, totals)
+    row = per_cluster_path(x, q, bi, pidx, totals, Timer())
+    scan_ms = scan_engine_path(x, q, totals)
+    row.update(streamed_build_s=secs, scan_engine_ms=scan_ms)
+    log(f"remainders phase: {time.perf_counter() - t0:.1f} s, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the "
+        f"run's before it {before / 2**30:.2f} GiB)")
+    return row, before
+
+
 def row_of(kernels, name: str) -> dict:
     """The kernel row named ``name``."""
     return next(k for k in kernels if k["name"] == name)
@@ -4337,8 +4659,10 @@ def main() -> int:
     bidx, iidx, pidx, cidx, sidx, moved = path_phase(x, q)
     mark(t_start, "path phase")
     determinism_phase(x, iidx, pidx)
+    k4_cluster, pre_peak = remainders_phase(x, q, bidx, iidx, pidx, moved)
+    mark(t_start, "remainders phase")
     k1_route, k1_pass, k4_route, route_peak = graph_route_phase(
-        x, q, bidx, cidx, moved)
+        x, q, bidx, cidx, moved, pre_peak)
     mark(t_start, "graph-route phase")
     k1_bench, k6_bench, cell = bench_phase(moved, torch.device("cuda", 0))
     mark(t_start, "bench phase")
@@ -4365,16 +4689,20 @@ def main() -> int:
                         by_form(moved, "select_k"))]
     del k1_in
     mark(t_start, "K1 phase")
-    # K2's k-list plans' launches (its wide form has its own row)
+    # K2's k-list plans' launches (its wide form has its own row); K4's
+    # per-subspace launches (its per-cluster form, grouped, has its own)
+    k4_forms = by_form(moved, "ivf_pq_scan")
+    k4_cluster_n = k4_forms.pop("per_cluster")
+    k4_forms["group"] -= k4_cluster_n
     kernels += [k2_phase(timer, bidx, q,
                          f32["fused_knn"] - moved["fused_knn.wide"],
                          cidx.build_stats["knn_graph_s"]),
                {**k3_phase(timer, iidx, q, f32["ivf_flat_scan"],
                            by_form(moved, "ivf_flat_scan")),
                 **k3_wide(timer, iidx, q)},
-               {**k4_phase(timer, pidx, q, moved["ivf_pq_scan"],
-                           by_form(moved, "ivf_pq_scan")),
-                **k4_graph_pass(timer, k4_route, split_libs)}]
+               {**k4_phase(timer, pidx, q,
+                           moved["ivf_pq_scan"] - k4_cluster_n, k4_forms),
+                **k4_graph_pass(timer, k4_route, split_libs)}, k4_cluster]
     mark(t_start, "K2, K3 and K4 phases")
     wide_rows, k1_wide = wide_k_phase(timer, x, q, bidx, iidx, pidx, sidx,
                                       k4_route, moved)

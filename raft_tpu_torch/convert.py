@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .comms import Mesh
-from .distance.distance_types import DistanceType, canonical_metric
+from .distance.distance_types import canonical_metric
 from .neighbors import brute_force, cagra, ivf_flat, ivf_pq
 from .ops import quant
 from .ops.quant import dequantize_store
@@ -68,9 +68,10 @@ def brute_force_index_from_numpy(arrays: Mapping, metric=None,
                                  device=None) -> brute_force.Index:
     """``arrays``: ``dataset`` (n, d) in its store (:func:`_rows`; int4:
     the (n, half_p) bytes), ``scales`` (n,) for int8 and int4 stores,
-    ``logical_dim`` for int4 and, for the L2 and cosine metrics, ``norms``
-    (n,) (derived from the dequantized rows when absent); ``metric`` as
-    in :func:`_metric`."""
+    ``logical_dim`` for int4, optionally ``metric_arg`` (2.0 when absent)
+    and, for the expanded L2 and cosine metrics, ``norms`` (n,) (derived
+    from the dequantized rows when absent); ``metric`` as in
+    :func:`_metric`."""
     dev = resolve_device(device)
     mt = _metric(arrays, metric)
     dataset = _rows(arrays["dataset"], dev)
@@ -78,18 +79,21 @@ def brute_force_index_from_numpy(arrays: Mapping, metric=None,
     dim = arrays.get("logical_dim")
     dim = None if dim is None else int(dim)
     norms = _optional(arrays, "norms", torch.float32, dev)
-    if norms is None and mt is not DistanceType.InnerProduct:
+    if norms is None and mt in brute_force._NORM_METRICS:
         deq = dequantize_store(dataset, scales, dim)
         norms = (deq * deq).sum(dim=1)
-    return brute_force.Index(dataset, norms, mt, scales, dim)
+    return brute_force.Index(dataset, norms, mt, scales, dim,
+                             float(arrays.get("metric_arg", 2.0)))
 
 
 def ivf_flat_index_from_numpy(arrays: Mapping, metric=None,
                               device=None) -> ivf_flat.Index:
     """``arrays``: ``data`` (in its store, :func:`_rows`), ``data_norms``,
     ``source_ids``, ``centers``, ``center_norms``, ``list_offsets``,
-    ``list_sizes_arr`` and, for an int8 store, ``scales`` (the JAX
-    index's field names); ``metric`` as in :func:`_metric`."""
+    ``list_sizes_arr``, for an int8 store ``scales`` and optionally
+    ``list_growth`` and ``conservative_memory`` (the JAX index's field
+    names; a capacity layout with slack between lists as it is);
+    ``metric`` as in :func:`_metric`."""
     dev = resolve_device(device)
     return ivf_flat.Index(
         _rows(arrays["data"], dev),
@@ -100,16 +104,20 @@ def ivf_flat_index_from_numpy(arrays: Mapping, metric=None,
         np.asarray(arrays["list_offsets"], np.int64),
         np.asarray(arrays["list_sizes_arr"], np.int64),
         _metric(arrays, metric), _optional(arrays, "scales", torch.float32,
-                                           dev))
+                                           dev),
+        float(arrays.get("list_growth", 1.0)),
+        bool(arrays.get("conservative_memory", False)))
 
 
 def ivf_pq_index_from_numpy(arrays: Mapping, metric=None,
                             device=None) -> ivf_pq.Index:
     """``arrays``: ``codes``, ``source_ids``, ``centers_rot``,
-    ``codebooks``, ``rotation``, ``list_offsets``, ``list_sizes_arr``,
-    ``pq_bits`` and ``codebook_kind`` (the JAX index's field names; the
-    codebook kind as its enum or that enum's value); ``metric`` as in
-    :func:`_metric`. The decoded row norms are computed here."""
+    ``codebooks`` ((pq_dim | n_lists, book, pq_len) by the codebook kind),
+    ``rotation``, ``list_offsets``, ``list_sizes_arr``, ``pq_bits``,
+    ``codebook_kind`` and optionally ``list_growth`` (the JAX index's
+    field names; the codebook kind as its enum or that enum's value; a
+    capacity layout as it is); ``metric`` as in :func:`_metric`. The
+    decoded row norms are computed here."""
     dev = resolve_device(device)
     kind = arrays.get("codebook_kind", ivf_pq.CodebookGen.PER_SUBSPACE)
     return ivf_pq.Index(
@@ -121,7 +129,8 @@ def ivf_pq_index_from_numpy(arrays: Mapping, metric=None,
         np.asarray(arrays["list_offsets"], np.int64),
         np.asarray(arrays["list_sizes_arr"], np.int64),
         _metric(arrays, metric), int(arrays["pq_bits"]),
-        ivf_pq.CodebookGen(int(getattr(kind, "value", kind))))
+        ivf_pq.CodebookGen(int(getattr(kind, "value", kind))),
+        float(arrays.get("list_growth", 1.0)))
 
 
 def cagra_index_from_numpy(arrays: Mapping, metric=None, device=None,

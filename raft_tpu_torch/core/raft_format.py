@@ -9,7 +9,8 @@ field order:
 
 * IVF-PQ, version 3 (detail/ivf_pq_serialize.cuh:60-87): version, size,
   dim, pq_bits, pq_dim, conservative_memory_allocation, metric,
-  codebook_kind, n_lists; pq_centers (pq_dim, len, book), centers
+  codebook_kind, n_lists; pq_centers (pq_dim, len, book), or (n_lists,
+  len, book) for per-cluster codebooks, centers
   (n_lists, dim_ext), centers_rot, rotation_matrix; list_sizes (u32);
   then a list at a time its size, its interleaved codes and its ids.
 * IVF-Flat, version 4 (detail/ivf_flat_serialize.cuh:54-92): a 4-byte
@@ -202,7 +203,7 @@ def load_raft_ivf_pq(path_or_file, device=None):
         metric = _METRIC_BY_INT[int(_read(f))]
         kind = ivf_pq.CodebookGen(int(_read(f)))
         n_lists = int(_read(f))
-        pq_centers = _read(f)           # PER_SUBSPACE: (pq_dim, len, book)
+        pq_centers = _read(f)           # (pq_dim | n_lists, len, book)
         _centers = _read(f)             # (n_lists, dim_ext), not kept
         centers_rot = _read(f)          # (n_lists, rot_dim)
         rotation = _read(f)             # (rot_dim, dim)
@@ -231,8 +232,8 @@ def load_raft_ivf_pq(path_or_file, device=None):
     expects(ids.size == 0 or ids.max() < 2 ** 31,
             "source ids exceed int32 (the port stores int32 ids)")
     dev = resolve_device(device)
-    # RAFT's pq_centers are (pq_dim, pq_len, book), the index's
-    # (pq_dim, book, pq_len)
+    # RAFT's pq_centers are (pq_dim | n_lists, pq_len, book), the index's
+    # (pq_dim | n_lists, book, pq_len)
     codebooks = np.ascontiguousarray(pq_centers.transpose(0, 2, 1))
     return ivf_pq.Index(
         device_tensor(codes, dev), device_tensor(ids.astype(np.int32), dev),
@@ -305,7 +306,7 @@ def load_raft_ivf_flat(path_or_file, device=None):
         n_lists = int(_read(f))
         metric = _METRIC_BY_INT[int(_read(f))]
         _adaptive = bool(_read(f))
-        _conservative = bool(_read(f))
+        conservative = bool(_read(f))
         centers = _read(f)
         has_norms = bool(_read(f))
         center_norms = _read(f) if has_norms else None
@@ -358,7 +359,8 @@ def load_raft_ivf_flat(path_or_file, device=None):
     ids = device_tensor(ids.astype(np.int32), dev)
     return ivf_flat.Index(
         data, (deq * deq).sum(dim=1), ids, cen, cn,
-        dense_offsets(list_sizes), list_sizes, metric, scales)
+        dense_offsets(list_sizes), list_sizes, metric, scales,
+        conservative_memory=conservative)
 
 
 def save_raft_ivf_flat(index, path_or_file) -> None:
@@ -382,7 +384,7 @@ def save_raft_ivf_flat(index, path_or_file) -> None:
         _write(f, np.uint32(index.n_lists))
         _write(f, np.int32(_INT_BY_METRIC[index.metric]))
         _write(f, np.uint8(0))          # adaptive_centers
-        _write(f, np.uint8(0))          # conservative_memory_allocation
+        _write(f, np.uint8(int(index.conservative_memory)))
         _write(f, host_array(index.centers).astype(np.float32))
         _write(f, np.uint8(1))
         _write(f, host_array(index.center_norms).astype(np.float32))

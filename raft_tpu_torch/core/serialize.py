@@ -1,7 +1,8 @@
 """Index files in NumPy ``.npy`` framing: counterpart of
 ``raft_tpu/core/serialize.py`` (``serialize_scalar``,
 ``deserialize_scalar``, ``serialize_array``, ``deserialize_array``,
-``save_arrays``, ``load_arrays``, ``fsync_dir``).
+``serialize_header``, ``deserialize_header``, ``save_arrays``,
+``load_arrays``, ``fsync_dir``).
 
 The wire format is the JAX package's, byte for byte, so that either
 package reads the other's files:
@@ -14,7 +15,10 @@ package reads the other's files:
   payload with the length folded in last. A mismatch, a truncation or a
   length past the end of the file raises :class:`CorruptIndexError`
   naming the section.
-* ``RAFT_TPU`` files (the legacy layout, without checksums) are read.
+* ``RAFT_TPU`` files (the legacy layout, without checksums) are read;
+  :func:`serialize_header` / :func:`deserialize_header` write and read
+  that layout's header (its magic, then the same kind, version and
+  metadata, no CRC) for callers that frame their own arrays after it.
 
 Path saves are atomic: a temp file in the target directory, fsynced,
 ``os.replace``-d into place, and the directory fsynced
@@ -40,8 +44,9 @@ import torch
 from .errors import CorruptIndexError
 
 __all__ = ["serialize_scalar", "deserialize_scalar", "serialize_array",
-           "deserialize_array", "host_array", "device_tensor",
-           "save_arrays", "load_arrays", "fsync_dir"]
+           "deserialize_array", "serialize_header", "deserialize_header",
+           "host_array", "device_tensor", "save_arrays", "load_arrays",
+           "fsync_dir"]
 
 _MAGIC = b"RAFT_TPU"      # legacy layout, no checksums
 _MAGIC_CRC = b"RAFTTPU2"  # the checksummed layout
@@ -241,6 +246,30 @@ def _serialize_header_body(f: BinaryIO, kind: str, version: int,
         else:
             raise TypeError(f"unsupported meta value for {k!r}: {type(v)}")
         f.write(struct.pack("<H", len(kb)) + kb + tag + payload)
+
+
+def serialize_header(f: BinaryIO, kind: str, version: int,
+                     meta: Dict[str, Any]) -> None:
+    """The legacy layout's versioned header: the ``RAFT_TPU`` magic, the
+    index kind, its serialization version and a metadata dict of plain
+    bools, ints, floats and strings, sorted by key."""
+    f.write(_MAGIC)
+    _serialize_header_body(f, kind, version, meta)
+
+
+def deserialize_header(f: BinaryIO, expect_kind: str | None = None):
+    """Read a :func:`serialize_header` header → (kind, version, meta).
+    A wrong magic raises :class:`CorruptIndexError`; a kind other than
+    ``expect_kind`` (when given) raises ``ValueError``."""
+    magic = _read_exact(f, len(_MAGIC), "header")
+    if magic != _MAGIC:
+        raise CorruptIndexError(
+            "header", "not a raft_tpu serialized file (bad magic)")
+    kind, version, meta = _deserialize_header_body(f)
+    if expect_kind is not None and kind != expect_kind:
+        raise ValueError(f"expected index kind {expect_kind!r}, found "
+                         f"{kind!r}")
+    return kind, version, meta
 
 
 def _deserialize_header_body(f: BinaryIO):

@@ -15,6 +15,17 @@
 // Two forms: the wrapper takes the grouped one at every k
 // (ops/ivf_scan.py::scan_form) and the per-pair one by name.
 //
+// Per-cluster codebooks (RAFT's codebook_gen::PER_CLUSTER; the JAX
+// package serves them on its XLA gather path, no Pallas kernel): one
+// (book, pq_len) codebook a list, which decodes every subspace of that
+// list's rows. The grouped form takes them through its own entry
+// (raft_ivf_pq_scan_group_per_cluster): a group tile holds one list, so
+// the tile's codebook base moves to cb + list·book·pq_len and a
+// dimension's column offset loses its subspace term; nothing else
+// changes, and a codebook of 256 x pq_len floats a list is read through
+// the L1 cache as the per-subspace one is. The per-pair form takes
+// per-subspace codebooks only.
+//
 // The grouped form (every k, raft_ivf_pq_scan_group) keeps the TPU
 // kernel's grouping and its decode. One block of 8 warps owns one group
 // tile of the wrapper's pack_pairs (BM = 128 queries of one list for
@@ -114,12 +125,14 @@ ivf_pq_group_kernel(const uint8_t* __restrict__ codes,
                     const int* __restrict__ offsets,
                     const int* __restrict__ sizes, int p, int pq_dim,
                     int pq_len, int book, int k, int metric, int vec,
-                    int a_res, float* __restrict__ out_v,
+                    int a_res, int per_cluster, float* __restrict__ out_v,
                     int* __restrict__ out_i) {
   constexpr int BM = 32 * MF;
   const int cnt = gcount[blockIdx.x];
   if (cnt <= 0) return;  // past the live groups (block-uniform)
   const int list = glist[blockIdx.x];
+  // per-cluster codebooks: the tile's list's (book, pq_len) codebook
+  if (per_cluster) cb += (size_t)list * book * pq_len;
   const int start = gstart[blockIdx.x];
   const int c_begin = offsets[list];
   const int c_end = c_begin + max(sizes[list], 0);
@@ -162,7 +175,7 @@ ivf_pq_group_kernel(const uint8_t* __restrict__ codes,
   for (int c = tid; c < nk * BK; c += kThreads) {
     const int s = c / pq_len;
     col_sub[c] = c < d ? s : -1;
-    col_cb[c] = (s * book) * pq_len + (c - s * pq_len);
+    col_cb[c] = (per_cluster ? 0 : (s * book) * pq_len) + (c - s * pq_len);
   }
   for (int e = tid; e < BM * k; e += kThreads) {
     list_v[e] = CUDART_INF_F;
@@ -398,7 +411,7 @@ struct WideArgs : wide::Frame {
   const int* gcount;
   const int* offsets;
   const int* sizes;
-  int p, pq_dim, pq_len, book, k, metric, vec, a_res;
+  int p, pq_dim, pq_len, book, k, metric, vec, a_res, per_cluster;
 };
 
 constexpr int kSides = 3;    // side buffer slots (see scan_wide)
@@ -468,7 +481,8 @@ __device__ __forceinline__ void scan_wide(const WideArgs& a, int gi, int cnt,
   for (int c = tid; c < nk * BK; c += kThreads) {
     const int s = c / pq_len;
     col_sub[c] = c < d ? s : -1;
-    col_cb[c] = (s * a.book) * pq_len + (c - s * pq_len);
+    col_cb[c] =
+        (a.per_cluster ? 0 : (s * a.book) * pq_len) + (c - s * pq_len);
   }
   __syncthreads();
   if (c_end <= c_begin) {  // an empty or filter-pruned list (block-uniform)
@@ -531,10 +545,13 @@ __device__ __forceinline__ void scan_wide(const WideArgs& a, int gi, int cnt,
                     : kNoCode;
     }
   };
+  // per-cluster codebooks: the tile's list's (book, pq_len) codebook
+  const float* cb =
+      a.cb + (a.per_cluster ? (size_t)list * a.book * pq_len : 0);
   auto fetch_values = [&](int s) {
     const int tile = s / nk;
     const int k0 = (s - tile * nk) * BK;
-    const float* cbc = a.cb + col_cb[k0 + lane];
+    const float* cbc = cb + col_cb[k0 + lane];
 #pragma unroll
     for (int i = 0; i < kDec; ++i) {
       val[i] = code[i] != kNoCode ? __ldg(cbc + code[i] * pq_len) : 0.f;
@@ -923,7 +940,9 @@ ivf_pq_pair_kernel(const uint8_t* __restrict__ codes,
 
 // codes: (rows, pq_dim) uint8; dn: (rows,) decoded squared row norms
 // (may be null for ip); pen: (rows,) additive penalty or null; cb:
-// (pq_dim, book, pq_len) float32 codebook of the LUT mode; centers:
+// (pq_dim, book, pq_len) float32 codebook of the LUT mode (the grouped
+// form's per-cluster entry: (n_lists, book, pq_len), each list's rows
+// decoded through its own codebook in every subspace); centers:
 // (n_lists, pq_dim*pq_len) rotated centers; q: (m, pq_dim*pq_len)
 // rotated queries. metric: 0 = squared L2, 1 = inner product (-dot).
 //
@@ -935,14 +954,15 @@ ivf_pq_pair_kernel(const uint8_t* __restrict__ codes,
 // up to 256, 32 above). k >= 1. Past k = 256 scratch holds
 // raft_ivf_pq_scan_group_scratch(k, d, lmax) bytes of device memory and
 // no list is longer than lmax rows (below, scratch may be null).
-extern "C" int raft_ivf_pq_scan_group(
-    const void* codes, const void* dn, const void* pen, const void* cb,
-    const void* centers, const void* q, const void* exact,
-    const void* order, const void* glist, const void* gstart,
-    const void* gcount, const void* offsets, const void* sizes,
-    void* scratch, int n_groups, int qg, int p, int pq_dim, int pq_len,
-    int book, int k, int metric, int lmax, void* out_v, void* out_i,
-    void* stream) {
+static int scan_group(const void* codes, const void* dn, const void* pen,
+                      const void* cb, const void* centers, const void* q,
+                      const void* exact, const void* order,
+                      const void* glist, const void* gstart,
+                      const void* gcount, const void* offsets,
+                      const void* sizes, void* scratch, int n_groups, int qg,
+                      int p, int pq_dim, int pq_len, int book, int k,
+                      int metric, int lmax, int per_cluster, void* out_v,
+                      void* out_i, void* stream) {
   const int d = pq_dim * pq_len;
   if (k < 1 || d < 1 || n_groups < 0) return (int)cudaErrorInvalidValue;
   Plan pl;
@@ -964,7 +984,7 @@ extern "C" int raft_ivf_pq_scan_group(
                      (const int*)glist, (const int*)gstart,
                      (const int*)gcount, (const int*)offsets,
                      (const int*)sizes, p, pq_dim, pq_len, book, k, metric,
-                     vec, pl.a_res};
+                     vec, pl.a_res, per_cluster};
     err = wide::launch(pl.kern, pl.smem, a, s);
   } else {
     void* args[] = {(void*)&codes,  (void*)&dn,     (void*)&pen,
@@ -974,12 +994,41 @@ extern "C" int raft_ivf_pq_scan_group(
                     (void*)&sizes,  (void*)&p,      (void*)&pq_dim,
                     (void*)&pq_len, (void*)&book,   (void*)&k,
                     (void*)&metric, (void*)&vec,    (void*)&pl.a_res,
-                    (void*)&out_v,  (void*)&out_i};
+                    (void*)&per_cluster, (void*)&out_v, (void*)&out_i};
     err = cudaLaunchKernel(pl.kern, dim3(n_groups), dim3(kThreads), args,
                            pl.smem, s);
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+extern "C" int raft_ivf_pq_scan_group(
+    const void* codes, const void* dn, const void* pen, const void* cb,
+    const void* centers, const void* q, const void* exact,
+    const void* order, const void* glist, const void* gstart,
+    const void* gcount, const void* offsets, const void* sizes,
+    void* scratch, int n_groups, int qg, int p, int pq_dim, int pq_len,
+    int book, int k, int metric, int lmax, void* out_v, void* out_i,
+    void* stream) {
+  return scan_group(codes, dn, pen, cb, centers, q, exact, order, glist,
+                    gstart, gcount, offsets, sizes, scratch, n_groups, qg, p,
+                    pq_dim, pq_len, book, k, metric, lmax, 0, out_v, out_i,
+                    stream);
+}
+
+// The same with per-cluster codebooks, cb (n_lists, book, pq_len).
+extern "C" int raft_ivf_pq_scan_group_per_cluster(
+    const void* codes, const void* dn, const void* pen, const void* cb,
+    const void* centers, const void* q, const void* exact,
+    const void* order, const void* glist, const void* gstart,
+    const void* gcount, const void* offsets, const void* sizes,
+    void* scratch, int n_groups, int qg, int p, int pq_dim, int pq_len,
+    int book, int k, int metric, int lmax, void* out_v, void* out_i,
+    void* stream) {
+  return scan_group(codes, dn, pen, cb, centers, q, exact, order, glist,
+                    gstart, gcount, offsets, sizes, scratch, n_groups, qg, p,
+                    pq_dim, pq_len, book, k, metric, lmax, 1, out_v, out_i,
+                    stream);
 }
 
 // The grouped form's plan for (k, d = pq_dim·pq_len): out[0..4) = the

@@ -10,15 +10,25 @@ Engines (``algo``):
 * ``"matmul"`` — the plain engine
   (:func:`raft_tpu_torch.ops.fused_knn.fused_knn_plain`): the explicit
   choice of ``torch.matmul`` + norms + stable sort on any device.
+* ``"scan"`` — the JAX package's composed streaming engine, for every
+  metric it takes (``auto`` picks it for each metric K2 does not serve):
+  the dataset in tiles of ``tile_size`` rows, each tile's distance block
+  from ``distance/pairwise`` (plain PyTorch, the counterpart of JAX's XLA
+  code: no Pallas kernel covers these metrics; the elementwise metrics
+  in 64 MiB pieces), each tile's top-k and its merge with the best so
+  far through ``matrix.select_k`` — kernel K1 on CUDA, a smallest or a
+  largest selection by the metric.
 
 The corpus is stored in any rung of ``ops/quant`` (``build(dtype=...)``):
 float32, bfloat16, int8 with per-row scales, uint8 (byte-valued corpora)
-or int4 split-half nibbles; both engines compute the JAX package's
-contract for each store (``ops/fused_knn``). Expanded metrics only
-(squared L2, L2, cosine, inner product); the JAX package's composed
-``scan`` engine for the other metrics is not ported yet. Every matrix
-product runs in full float32 (``torch.backends.cuda.matmul.allow_tf32``
-False), as the JAX package's ``precision="highest"``.
+or int4 split-half nibbles (the kernels' metrics only); every engine
+computes the JAX package's contract for each store (``ops/fused_knn``;
+the scan engine dequantizes a tile at a time). ``metric_arg`` is
+LpUnexpanded's p. ``valid_rows`` excludes the rows from that index on,
+through the penalty row on K2 and the plain engine, as a mask on the
+scan. Every matrix product runs in full float32
+(``torch.backends.cuda.matmul.allow_tf32`` False), as the JAX package's
+``precision="highest"``.
 """
 from __future__ import annotations
 
@@ -31,12 +41,16 @@ import torch
 from ..core.bitset import Bitset
 from ..core.errors import expects
 from ..core.serialize import device_tensor, load_arrays, save_arrays
-from ..distance.distance_types import DistanceType, canonical_metric
+from ..distance.distance_types import (DistanceType, canonical_metric,
+                                      is_min_close)
+from ..distance.pairwise import (_ELEMENTWISE, _EXPANDED, _haversine,
+                                 elementwise_distance)
 from ..matrix.select_k import select_k
 from ..ops.fused_knn import fused_knn, fused_knn_plain
 from ..ops.quant import (dequantize_store, int8_scale_report, quantize_rows,
                          store_dtype)
-from ..utils import query_chunks, resolve_device, run_query_chunks
+from ..utils import (query_chunks, resolve_device, round_up_to,
+                     run_query_chunks)
 
 __all__ = ["Index", "build", "search", "knn", "knn_merge_parts", "health",
            "health_sample_rows", "quantization_error", "make_searcher",
@@ -56,20 +70,25 @@ _KERNEL_METRICS = {
     DistanceType.CosineExpanded: "cos",
     DistanceType.InnerProduct: "ip",
 }
+# the metrics whose index keeps the squared row norms (JAX's)
+_NORM_METRICS = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
+                 DistanceType.CosineExpanded)
 
 
 @dataclasses.dataclass
 class Index:
     """Brute-force index: the stored dataset plus the squared norms of its
-    dequantized rows (for the L2 and cosine metrics). ``scales``: the
-    per-row factors of an int8 or int4 store; ``logical_dim``: the row
-    width of an int4 store (its bytes are (n, half_p))."""
+    dequantized rows (for the expanded L2 and cosine metrics). ``scales``:
+    the per-row factors of an int8 or int4 store; ``logical_dim``: the
+    row width of an int4 store (its bytes are (n, half_p));
+    ``metric_arg``: LpUnexpanded's p."""
 
     dataset: torch.Tensor           # (n, d) f32 | bf16 | int8 | uint8
     norms: Optional[torch.Tensor]   # (n,) squared L2 norms
     metric: DistanceType
     scales: Optional[torch.Tensor] = None   # (n,) f32, int8/int4 only
     logical_dim: Optional[int] = None       # int4 only
+    metric_arg: float = 2.0
 
     @property
     def size(self) -> int:
@@ -93,25 +112,27 @@ class Index:
 
 
 def build(dataset, metric="sqeuclidean", dtype="float32",
-          device=None) -> Index:
+          device=None, metric_arg: float = 2.0) -> Index:
     """Store the dataset on ``device`` (the CUDA card by default) in the
     store ``dtype`` (float32, bfloat16, int8, uint8 or int4, as
-    ``ops.quant.quantize_rows``) and precompute the norms of the
-    dequantized rows."""
+    ``ops.quant.quantize_rows``; int4 for the kernels' metrics only) and,
+    for the expanded L2 and cosine metrics, precompute the norms of the
+    dequantized rows. Any metric; ``metric_arg`` is LpUnexpanded's p."""
     dev = resolve_device(device)
     dataset = torch.as_tensor(dataset).to(device=dev, dtype=torch.float32)
     expects(dataset.dim() == 2, "dataset must be (n, d)")
     mt = canonical_metric(metric)
-    expects(mt in _KERNEL_METRICS,
-            "brute force supports L2/cosine/IP metrics, got %s", mt.name)
     int4 = store_dtype(dtype) == "int4"
+    expects(not int4 or mt in _KERNEL_METRICS,
+            "int4 storage supports L2/cosine/IP metrics, got %s", mt.name)
     stored, scales = quantize_rows(dataset.contiguous(), dtype)
     logical_dim = dataset.shape[1] if int4 else None
     norms = None
-    if mt is not DistanceType.InnerProduct:
+    if mt in _NORM_METRICS:
         deq = dequantize_store(stored, scales, logical_dim)
         norms = (deq * deq).sum(dim=1)
-    return Index(stored.contiguous(), norms, mt, scales, logical_dim)
+    return Index(stored.contiguous(), norms, mt, scales, logical_dim,
+                 float(metric_arg))
 
 
 def health_sample_rows(n: int, sample: int) -> np.ndarray:
@@ -157,12 +178,27 @@ def health(index: Index, sample: int = 256) -> dict:
     return report
 
 
-def _penalty_row(index: Index, filter):
-    """(n,) additive min-space penalty: +inf on filtered-out rows, else 0
-    (``None`` without a filter)."""
-    if filter is None:
+def _valid_mask(index: Index, filter, valid_rows):
+    """(n,) bool: the rows a search may return (the filter's set bits,
+    rows below ``valid_rows``), ``None`` when every row may."""
+    if filter is None and valid_rows is None:
         return None
-    keep = filter.to(index.device).to_mask()
+    keep = torch.ones(index.size, dtype=torch.bool, device=index.device)
+    if filter is not None:
+        keep = filter.to(index.device).to_mask()
+    if valid_rows is not None:
+        rows = torch.arange(index.size, device=index.device)
+        keep = keep & (rows < torch.as_tensor(valid_rows,
+                                              device=index.device))
+    return keep
+
+
+def _penalty_row(index: Index, filter, valid_rows=None):
+    """(n,) additive min-space penalty: +inf on filtered-out rows and rows
+    at or past ``valid_rows``, else 0 (``None`` without either)."""
+    keep = _valid_mask(index, filter, valid_rows)
+    if keep is None:
+        return None
     return torch.where(keep, 0.0, float("inf")).to(torch.float32)
 
 
@@ -176,18 +212,84 @@ def _postprocess(mt: DistanceType, vals: torch.Tensor) -> torch.Tensor:
     return vals
 
 
+def _tile_distances(q, q_norm, tile, tile_norm, mt: DistanceType,
+                    metric_arg: float):
+    """(m, t) distance block of the queries to one dataset tile (the JAX
+    package's ``_tile_distances``)."""
+    if mt in (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded):
+        d = torch.clamp_min(q_norm[:, None] + tile_norm[None, :]
+                            - 2.0 * (q @ tile.T), 0.0)
+        return torch.sqrt(d) if mt is DistanceType.L2SqrtExpanded else d
+    if mt is DistanceType.CosineExpanded:
+        qn = torch.sqrt(torch.clamp_min(q_norm, 1e-30))
+        tn = torch.sqrt(torch.clamp_min(tile_norm, 1e-30))
+        return 1.0 - (q @ tile.T) / (qn[:, None] * tn[None, :])
+    if mt is DistanceType.InnerProduct:
+        return q @ tile.T
+    if mt is DistanceType.Haversine:
+        return _haversine(q, tile)
+    if mt in (DistanceType.CorrelationExpanded,
+              DistanceType.HellingerExpanded,
+              DistanceType.RusselRaoExpanded):
+        return _EXPANDED[mt](q, tile)
+    expects(mt in _ELEMENTWISE, "metric %s unsupported by brute force",
+            mt.name)
+    return elementwise_distance(q, tile, mt, metric_arg)
+
+
+def _search_scan(index: Index, q: torch.Tensor, k: int, filter,
+                 valid_rows, tile_size: int):
+    """The scan engine (JAX's ``algo="scan"``): per dataset tile, the
+    distance block, excluded rows set to the worst value, the tile's best
+    ``min(k, tile)`` by ``select_k`` and their merge with the running best
+    (the running best first, so ties keep the earlier rows and the
+    (worst, -1) slots of a search with fewer than k admitted rows), both
+    selections through ``matrix.select_k`` (K1 on CUDA). Values are the
+    metric's own (inner products largest first)."""
+    mt = index.metric
+    select_min = is_min_close(mt)
+    n, m = index.size, q.shape[0]
+    tile = min(tile_size, round_up_to(n, 128))
+    bad = float("inf") if select_min else -float("inf")
+    keep = _valid_mask(index, filter, valid_rows)
+    q_norm = (q * q).sum(dim=1)
+    best_v = torch.full((m, k), bad, dtype=torch.float32, device=q.device)
+    best_i = torch.full((m, k), -1, dtype=torch.int32, device=q.device)
+    for base in range(0, n, tile):
+        end = min(base + tile, n)
+        scales = None if index.scales is None else index.scales[base:end]
+        rows = dequantize_store(index.dataset[base:end], scales,
+                                index.logical_dim)
+        norms = (index.norms[base:end] if index.norms is not None
+                 else torch.zeros(end - base, device=q.device))
+        d = _tile_distances(q, q_norm, rows, norms, mt, index.metric_arg)
+        if keep is not None:
+            d = torch.where(keep[None, base:end], d, bad)
+        t_val, t_loc = select_k(d.contiguous(), min(k, end - base),
+                                select_min)
+        merged_v = torch.cat([best_v, t_val], dim=1)
+        merged_i = torch.cat([best_i, t_loc + base], dim=1)
+        best_v, best_i = select_k(merged_v, k, select_min, merged_i)
+    return best_v, best_i
+
+
 def search(index: Index, queries, k: int,
            filter: Optional[Bitset] = None,  # noqa: A002 - reference name
-           algo: str = "auto", query_chunk: int = 0, res=None
+           algo: str = "auto", query_chunk: int = 0, res=None,
+           valid_rows=None, tile_size: int = 8192
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest neighbors of each query → (distances (m, k), int32
     indices (m, k)), on the index's device.
 
     ``filter``: optional sample bitset; cleared bits are excluded.
-    ``algo``: "auto" or "pallas" — K2 + the K1 merge on CUDA, their
-    plain versions on the CPU; "matmul" — the plain engine (GEMM + norms
-    + stable sort) on any device. ``query_chunk``: run queries in chunks
-    of this many rows. ``res``: a ``core.deadline.Deadline`` (or an
+    ``valid_rows``: rows at index >= ``valid_rows`` are excluded.
+    ``algo``: "auto" — K2 for the metrics it serves (squared L2, L2,
+    cosine, inner product), the scan engine for every other; "pallas" —
+    K2 + the K1 merge on CUDA, their plain versions on the CPU; "matmul"
+    — the plain engine (GEMM + norms + stable sort) on any device;
+    "scan" — the streaming tile engine (module docstring) over
+    ``tile_size`` rows a tile, any metric. ``query_chunk``: run queries
+    in chunks of this many rows. ``res``: a ``core.deadline.Deadline`` (or an
     object carrying one as ``deadline``): the queries run in chunks
     (``query_chunk``, else :data:`DEADLINE_CHUNK`) with a checkpoint
     before each, which raises ``DeadlineExceeded`` with the finished
@@ -203,14 +305,21 @@ def search(index: Index, queries, k: int,
     chunk = query_chunks(q.shape[0], query_chunk, res, DEADLINE_CHUNK)
     if chunk:
         return run_query_chunks(
-            lambda qc, _s0: search(index, qc, k, filter, algo), q, chunk,
-            res)
-    expects(algo in ("auto", "pallas", "matmul"),
+            lambda qc, _s0: search(index, qc, k, filter, algo,
+                                   valid_rows=valid_rows,
+                                   tile_size=tile_size), q, chunk, res)
+    expects(algo in ("auto", "pallas", "matmul", "scan"),
             "unknown brute-force algo %r", algo)
-    engine = fused_knn_plain if algo == "matmul" else fused_knn
     mt = index.metric
+    if algo == "auto":
+        algo = "pallas" if mt in _KERNEL_METRICS else "scan"
+    if algo == "scan":
+        return _search_scan(index, q, k, filter, valid_rows, tile_size)
+    expects(mt in _KERNEL_METRICS, "algo=%r supports L2/cosine/IP, got %s",
+            algo, mt.name)
+    engine = fused_knn_plain if algo == "matmul" else fused_knn
     vals, idxs = engine(q, index.dataset, k, _KERNEL_METRICS[mt],
-                        index.norms, _penalty_row(index, filter),
+                        index.norms, _penalty_row(index, filter, valid_rows),
                         index.scales, index.logical_dim)
     return _postprocess(mt, vals), idxs
 
@@ -229,9 +338,11 @@ def make_searcher(index: Index, params=None, **opts):
     return _fn
 
 
-def knn(dataset, queries, k, metric="sqeuclidean", device=None):
+def knn(dataset, queries, k, metric="sqeuclidean", device=None,
+        metric_arg: float = 2.0):
     """One-shot build + search (the reference's free function)."""
-    return search(build(dataset, metric, device=device), queries, k)
+    return search(build(dataset, metric, device=device,
+                        metric_arg=metric_arg), queries, k)
 
 
 def knn_merge_parts(part_distances: torch.Tensor, part_indices: torch.Tensor,
@@ -247,12 +358,13 @@ def knn_merge_parts(part_distances: torch.Tensor, part_indices: torch.Tensor,
 
 def save(index: Index, path) -> None:
     """Write the index in the JAX package's file format (kind
-    "brute_force", version 2): meta ``metric``, ``metric_arg`` (2.0, the
-    only one the port has), ``store_dtype`` and, for int4,
+    "brute_force", version 2): meta ``metric``, ``metric_arg``,
+    ``store_dtype`` and, for int4,
     ``logical_dim``; arrays ``dataset`` (bfloat16 as its uint16 words),
     ``norms`` and ``scales`` where the index has them. Byte-equal to the
     JAX package's file of the same index."""
-    meta = {"metric": index.metric.value, "metric_arg": 2.0,
+    meta = {"metric": index.metric.value,
+            "metric_arg": float(index.metric_arg),
             "store_dtype": index.store_name}
     if index.logical_dim is not None:
         meta["logical_dim"] = int(index.logical_dim)
@@ -266,20 +378,15 @@ def save(index: Index, path) -> None:
 
 def load(path, device=None) -> Index:
     """Read a brute-force file of either package onto ``device`` (the CUDA
-    card by default). A metric other than the expanded four, or a
-    ``metric_arg`` other than 2.0, raises: the JAX package's scan engine
-    for them is not ported yet."""
+    card by default), with its metric and ``metric_arg``."""
     _, version, meta, arrays = load_arrays(path, "brute_force")
     expects(version in (1, 2), "unsupported serialization version %d",
             version)
     mt = DistanceType(meta["metric"])
-    expects(mt in _KERNEL_METRICS, "brute force with metric %s is not "
-            "ported yet (the scan engine)", mt.name)
-    expects(float(meta["metric_arg"]) == 2.0, "metric_arg %r is not ported "
-            "yet (the scan engine)", meta["metric_arg"])
     dev = resolve_device(device)
     dataset = device_tensor(arrays["dataset"], dev,
                             meta.get("store_dtype") == "bfloat16")
     norms, scales = (device_tensor(arrays[a], dev) if a in arrays else None
                      for a in ("norms", "scales"))
-    return Index(dataset, norms, mt, scales, meta.get("logical_dim"))
+    return Index(dataset, norms, mt, scales, meta.get("logical_dim"),
+                 meta["metric_arg"])

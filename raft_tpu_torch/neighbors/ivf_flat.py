@@ -1,12 +1,16 @@
 """IVF-Flat index: counterpart of ``raft_tpu/neighbors/ivf_flat.py``
-(``IndexParams``, ``SearchParams``, ``Index``, ``build``, ``extend``,
-``search``, ``reconstruct``, ``health``, ``make_searcher``, ``save``,
-``load``).
+(``IndexParams``, ``SearchParams``, ``Index``, ``build``,
+``build_from_batches``, ``extend``, ``search``, ``reconstruct``,
+``health``, ``make_searcher``, ``save``, ``load``).
 
 Lists are contiguous row ranges of one cluster-sorted array
 (``_list_layout``), stored float32, bfloat16, int8 with per-row scales or
 uint8 (``IndexParams.dtype``, ``ops/quant``), with the squared norms of the
-dequantized rows beside them. Search is two stages: a coarse probe (one
+dequantized rows beside them. ``IndexParams.list_growth`` > 1 leaves
+capacity slack in each list, so that ``extend`` into a filled index is
+one scatter of the new rows while every list has room, and a repack with
+the same slack when one overflows; ``build_from_batches`` streams a
+corpus through those extends. Search is two stages: a coarse probe (one
 ``torch.matmul`` over the centers and a select, kernel K1 on CUDA) picks
 ``n_probes`` lists per query, then the list scan (kernel K3 on CUDA, with
 the K1 merge) returns each query's k best rows, mapped to source ids.
@@ -20,10 +24,10 @@ the probe and gather + score + stable select for the scan
 A filter removes rows through an additive penalty row in sorted row
 order, and lists with no surviving row are pruned from the probe — the
 JAX package's search under ``filter_policy.suspended()``. Its adaptive
-widen/crossover policy, ``extend`` into a non-empty index and host
-streaming are not ported yet. ``save`` / ``load`` read and write the JAX
-package's files: lists packed with no slack; a loaded index keeps that
-dense layout (list starts at any row; the kernels take them). Every
+widen/crossover policy and host streaming are not ported yet. ``save`` /
+``load`` read and write the JAX package's files: lists packed with no
+slack; a loaded index keeps that dense layout (list starts at any row;
+the kernels take them). Every
 matrix product runs in full float32
 (``torch.backends.cuda.matmul.allow_tf32`` False), as the JAX
 package's ``precision="highest"``.
@@ -49,12 +53,12 @@ from ..ops.quant import (STORES, dequantize_rows, int8_scale_report,
 from ..utils import (query_chunks, resolve_device, round_up_to,
                      run_query_chunks)
 from ._list_layout import (dense_offsets, gather_dense, list_skew,
-                           scatter_build)
+                           scatter_extend, span_labels, streaming_build)
 from .brute_force import _KERNEL_METRICS, _postprocess, health_sample_rows
 
-__all__ = ["IndexParams", "SearchParams", "Index", "build", "extend",
-           "search", "reconstruct", "health", "make_searcher", "save",
-           "load"]
+__all__ = ["IndexParams", "SearchParams", "Index", "build",
+           "build_from_batches", "extend", "search", "reconstruct",
+           "health", "make_searcher", "save", "load"]
 
 # the file version save writes (the JAX package's); load reads 1 and 2
 _SERIAL_VERSION = 2
@@ -62,13 +66,18 @@ _SERIAL_VERSION = 2
 
 @dataclasses.dataclass
 class IndexParams:
-    """Mirror of ivf_flat::index_params (ivf_flat_types.hpp)."""
+    """Mirror of ivf_flat::index_params (ivf_flat_types.hpp).
+    ``list_growth``: each list's capacity slack factor (1.0: the lists
+    packed, aligned; more: ``extend`` scatters into the slack until a list
+    overflows). ``add_data_on_build`` False trains the quantizer only."""
 
     n_lists: int = 1024
     metric: DistanceType | str = DistanceType.L2Expanded
     kmeans_n_iters: int = 20
     kmeans_trainset_fraction: float = 0.5
+    add_data_on_build: bool = True
     seed: int = 0
+    list_growth: float = 1.0
     # the lists' store: float32 | bfloat16 | int8 (per-row scales) |
     # uint8 (byte-valued corpora, exact)
     dtype: str = "float32"
@@ -92,8 +101,11 @@ class Index:
     (cap_total,) int32 original ids (-1 on slack);
     ``centers``/``center_norms``: the coarse quantizer;
     ``list_offsets`` (n_lists + 1,) and ``list_sizes`` (n_lists,) host
-    int64 arrays. ``offsets_dev``/``sizes_dev`` are their int32 copies on
-    the index's device, made once for the scan."""
+    int64 arrays. ``list_growth`` is the slack factor extends lay the
+    lists out with; ``conservative_memory`` RAFT's flag of that name, kept
+    for its files. ``offsets_dev``/``sizes_dev`` are the int32 copies of
+    the offsets and sizes on the index's device, made once for the
+    scan."""
 
     data: torch.Tensor
     data_norms: torch.Tensor
@@ -104,6 +116,8 @@ class Index:
     list_sizes: np.ndarray
     metric: DistanceType
     scales: Optional[torch.Tensor] = None
+    list_growth: float = 1.0
+    conservative_memory: bool = False
     offsets_dev: torch.Tensor = dataclasses.field(init=False, repr=False)
     sizes_dev: torch.Tensor = dataclasses.field(init=False, repr=False)
 
@@ -137,7 +151,8 @@ class Index:
 
 
 def build(dataset, params: IndexParams | None = None, device=None) -> Index:
-    """Train the coarse quantizer on a strided subsample and fill the lists
+    """Train the coarse quantizer on a strided subsample and, unless
+    ``add_data_on_build`` is False, fill the lists
     (detail/ivf_flat_build.cuh:123), on ``device`` (the CUDA card by
     default)."""
     p = params or IndexParams()
@@ -165,17 +180,30 @@ def build(dataset, params: IndexParams | None = None, device=None) -> Index:
         (centers * centers).sum(dim=1), np.zeros(p.n_lists + 1, np.int64),
         np.zeros(p.n_lists, np.int64), mt,
         torch.zeros((0,), dtype=torch.float32, device=dev)
-        if store == "int8" else None)
-    return extend(index, dataset)
+        if store == "int8" else None, p.list_growth)
+    return extend(index, dataset) if p.add_data_on_build else index
+
+
+def build_from_batches(batches, params: IndexParams | None = None,
+                       trainset=None, device=None) -> Index:
+    """Streaming build for corpora larger than the host holds (the role of
+    the reference's bounded-batch extend loop): the quantizer trains on
+    ``trainset``, else on the first batch, then each (b, d) block of
+    ``batches`` is extended in turn. ``list_growth`` is floored at 1.2,
+    so most extends scatter into slack. On ``device`` (the CUDA card by
+    default)."""
+    dev = resolve_device(device)
+    return streaming_build(batches, params or IndexParams(),
+                           lambda x, p: build(x, p, dev), extend, trainset)
 
 
 def extend(index: Index, new_vectors, new_ids=None) -> Index:
-    """Fill an empty index with vectors (ids 0..n-1 unless ``new_ids``):
-    assign each to its nearest center, code them in the index's store and
-    scatter the lists, the scales with their rows. Adding to a non-empty
-    index is not ported yet."""
-    expects(index.size == 0,
-            "extend of a non-empty index is not ported yet")
+    """Add vectors (detail/ivf_flat_build.cuh extend): assign each to its
+    nearest center, code it in the index's store and append it to its
+    list, the scales with their rows. Ids continue from the largest id
+    held (0 for an empty index) unless ``new_ids`` are given. While every
+    list has room the new rows are scattered into the slack; a list that
+    overflows repacks the lists with ``list_growth`` slack."""
     dev = index.device
     new_vectors = torch.as_tensor(new_vectors).to(device=dev,
                                                   dtype=torch.float32)
@@ -183,7 +211,9 @@ def extend(index: Index, new_vectors, new_ids=None) -> Index:
             "dim mismatch")
     n_new = new_vectors.shape[0]
     if new_ids is None:
-        new_ids = torch.arange(n_new, dtype=torch.int32, device=dev)
+        base = int(index.source_ids.max()) + 1 if index.size else 0
+        new_ids = torch.arange(base, base + n_new, dtype=torch.int32,
+                               device=dev)
     else:
         new_ids = torch.as_tensor(new_ids).to(device=dev, dtype=torch.int32)
     labels, _ = kmeans_balanced.predict(new_vectors, index.centers)
@@ -191,13 +221,18 @@ def extend(index: Index, new_vectors, new_ids=None) -> Index:
     deq = dequantize_rows(stored, scales)
     norms = (deq * deq).sum(dim=1)      # the norms of the stored rows
     arrays, fills = [stored, norms, new_ids], [0, 0.0, -1]
+    old = [index.data, index.data_norms, index.source_ids]
     if scales is not None:
         arrays.append(scales)
+        old.append(index.scales)
         fills.append(1.0)
-    out, offsets, sizes = scatter_build(labels, arrays, fills, index.n_lists)
+    out, offsets, sizes = scatter_extend(
+        labels, arrays, old, fills, index.list_offsets, index.list_sizes,
+        index.list_growth)
     return Index(out[0], out[1], out[2], index.centers, index.center_norms,
                  offsets, sizes, index.metric,
-                 out[3] if scales is not None else None)
+                 out[3] if scales is not None else None, index.list_growth,
+                 index.conservative_memory)
 
 
 def _filter_rows(index: Index, filter: Bitset):
@@ -207,9 +242,7 @@ def _filter_rows(index: Index, filter: Bitset):
     ids = index.source_ids.long()
     keep = (ids >= 0) & mask[ids.clamp_min(0)]
     pen = torch.where(keep, 0.0, float("inf")).to(torch.float32)
-    spans = torch.as_tensor(np.diff(index.list_offsets), device=index.device)
-    labels = torch.repeat_interleave(
-        torch.arange(index.n_lists, device=index.device), spans)
+    labels = span_labels(np.diff(index.list_offsets), index.device)
     survivors = torch.bincount(labels[keep], minlength=index.n_lists)
     return pen, survivors
 

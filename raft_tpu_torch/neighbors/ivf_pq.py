@@ -1,29 +1,39 @@
 """IVF-PQ index: counterpart of ``raft_tpu/neighbors/ivf_pq.py``
 (``CodebookGen``, ``IndexParams``, ``SearchParams``, ``Index``,
-``make_rotation_matrix``, ``build``, ``extend``, ``search``, ``health``,
-``make_searcher``, ``pack_codes``, ``unpack_codes``, ``save``, ``load``).
+``make_rotation_matrix``, ``build``, ``build_from_batches``, ``extend``,
+``search``, ``reconstruct``, ``health``, ``make_searcher``,
+``pack_codes``, ``unpack_codes``, ``save``, ``load``).
 
 Everything lives in rotated space, as in the JAX package: the dataset is
 rotated once at build and the queries once at search (an orthogonal
 rotation keeps L2 and inner products), and the coarse centers, residuals
 and codebooks stay in rotated coordinates. Lists are contiguous row
 ranges of one cluster-sorted (rows, pq_dim) uint8 code matrix
-(``_list_layout``), one byte per subspace for any ``pq_bits`` in 4..8.
+(``_list_layout``), one byte per subspace for any ``pq_bits`` in 4..8,
+with ``IndexParams.list_growth`` capacity slack as IVF-Flat's.
 
 Build: balanced k-means on a strided subsample (the coarse quantizer),
-the rotation, then one codebook per subspace trained by fixed-iteration
-Lloyd on the subsample's rotated residuals (labels from
-``kmeans_balanced.predict``); ``extend`` assigns every row to its nearest
-*rotated* center by a plain argmin, encodes its residual and scatters the
-lists. The decoded row norms ``||c_l + dec_i||²`` are computed once, when
-an :class:`Index` is made.
+the rotation, then the codebooks, trained by fixed-iteration Lloyd on the
+subsample's rotated residuals (labels from ``kmeans_balanced.predict``):
+``PER_SUBSPACE`` one a subspace, (pq_dim, 2^pq_bits, pq_len);
+``PER_CLUSTER`` one a list, (n_lists, 2^pq_bits, pq_len), each trained on
+2,048 of its list's residual rows drawn with replacement, their
+subspaces pooled (the JAX package's ``_train_per_cluster``; the draws
+come from a ``torch.Generator``, so a per-cluster build matches JAX's in
+quality, not bit for bit). ``extend`` assigns every row to its nearest
+*rotated* center by a plain argmin, encodes its residual and appends it
+to its list (into a filled index too: one scatter while the lists have
+slack, a repack when one overflows); ``build_from_batches`` streams a
+corpus through those extends. The decoded row norms ``||c_l + dec_i||²``
+are computed once, when an :class:`Index` is made.
 
 Search: rotate the queries, the coarse probe on the rotated centers
 (``torch.matmul`` + kernel K1 on CUDA), then the PQ list scan (kernel K4
 on CUDA, with the K1 merge) in the expanded form of the JAX package's
 Pallas scan, with the codebook rounded to the LUT mode
-(``SearchParams.lut_dtype``). ``algo="plain"`` asks for the plain
-versions on any device. The JAX package's gather engine
+(``SearchParams.lut_dtype``; per-cluster codebooks take bf16 for an int8
+request, as the JAX package's gather path does). ``algo="plain"`` asks
+for the plain versions on any device. The JAX package's gather engine
 (``algo="xla"``), which rounds the *LUT* to bf16 and sums it in bf16,
 is not ported as an engine: under ``lut_dtype=float32`` both compute the
 same distances up to float32 rounding.
@@ -31,10 +41,9 @@ same distances up to float32 rounding.
 A filter removes rows through an additive penalty row in sorted row
 order, and lists with no surviving row are pruned from the probe — the
 JAX package's search under ``filter_policy.suspended()``. Not ported yet:
-``PER_CLUSTER`` codebooks, ``list_growth != 1.0`` and ``extend`` into a
-non-empty index, ``build_from_batches``, host streaming and the adaptive
-filter policy. ``save`` / ``load`` read and write the JAX package's files
-(bit-packed codes, lists packed with no slack). Every matrix product runs
+host streaming and the adaptive filter policy. ``save`` / ``load`` read
+and write the JAX package's files (bit-packed codes, lists packed with no
+slack). Every matrix product runs
 in full float32 (``torch.backends.cuda.matmul.allow_tf32`` False).
 """
 from __future__ import annotations
@@ -62,18 +71,21 @@ from ..ops.ivf_pq_scan import (decoded_row_norms, ivf_pq_scan,
 from ..ops.ivf_scan import coarse_probe
 from ..utils import cdiv, query_chunks, resolve_device, run_query_chunks
 from ._list_layout import (dense_offsets, gather_dense, list_skew,
-                           scatter_build)
+                           scatter_extend, span_labels, streaming_build)
 from .brute_force import _postprocess, health_sample_rows
 from .ivf_flat import _filter_rows
 
 __all__ = ["CodebookGen", "IndexParams", "SearchParams", "Index",
-           "make_rotation_matrix", "build", "extend", "search", "health",
-           "make_searcher", "pack_codes", "unpack_codes", "save", "load"]
+           "make_rotation_matrix", "build", "build_from_batches", "extend",
+           "search", "reconstruct", "health", "make_searcher", "pack_codes",
+           "unpack_codes", "save", "load"]
 
 # the file version save writes and load reads (the JAX package's)
 _SERIAL_VERSION = 1
 _METRICS = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
             DistanceType.InnerProduct)
+# residual rows a list a per-cluster codebook trains on (JAX's)
+_SAMPLES_PER_LIST = 2048
 
 
 class CodebookGen(enum.Enum):
@@ -85,7 +97,9 @@ class CodebookGen(enum.Enum):
 
 @dataclasses.dataclass
 class IndexParams:
-    """Mirror of ivf_pq::index_params (ivf_pq_types.hpp:110)."""
+    """Mirror of ivf_pq::index_params (ivf_pq_types.hpp:110).
+    ``list_growth``: each list's capacity slack factor, as IVF-Flat's;
+    ``add_data_on_build`` False trains the quantizers only."""
 
     n_lists: int = 1024
     metric: DistanceType | str = DistanceType.L2Expanded
@@ -95,8 +109,9 @@ class IndexParams:
     pq_dim: int = 0                    # 0 → dim/4 rounded to a multiple of 8
     codebook_kind: CodebookGen = CodebookGen.PER_SUBSPACE
     force_random_rotation: bool = False
+    add_data_on_build: bool = True
     seed: int = 0
-    list_growth: float = 1.0           # only 1.0 is ported
+    list_growth: float = 1.0
 
 
 @dataclasses.dataclass
@@ -105,8 +120,8 @@ class SearchParams:
     ``lut_dtype`` picks the codebook the ``q·decode`` term reads:
     ``torch.float32`` exact, ``torch.bfloat16`` (default, the fp16-LUT
     role) or ``torch.int8`` (per-subspace symmetric quantization, the
-    fp8-LUT role); the names "float32", "bfloat16", "int8" and their
-    aliases work too."""
+    fp8-LUT role; bf16 on per-cluster codebooks); the names "float32",
+    "bfloat16", "int8" and their aliases work too."""
 
     n_probes: int = 20
     lut_dtype: torch.dtype | str = torch.bfloat16
@@ -142,12 +157,14 @@ class Index:
     ``codes``: (cap_total, pq_dim) uint8 cluster-sorted (rows in
     [offset + size, next offset) are unread slack, code 0);
     ``source_ids``: (cap_total,) int32 (-1 on slack); ``centers_rot``:
-    (n_lists, rot_dim); ``codebooks``: (pq_dim, 2^pq_bits, pq_len);
-    ``rotation``: (rot_dim, dim) with orthonormal columns;
-    ``list_offsets`` (n_lists + 1,) and ``list_sizes`` (n_lists,) host
-    int64 arrays. Made once here: ``row_norms`` (the decoded squared row
-    norms, from the unrounded codebook), ``center_norms`` and the int32
-    ``offsets_dev``/``sizes_dev`` on the index's device. ``build_seconds``
+    (n_lists, rot_dim); ``codebooks``: (pq_dim, 2^pq_bits, pq_len), or
+    (n_lists, 2^pq_bits, pq_len) for ``PER_CLUSTER``; ``rotation``:
+    (rot_dim, dim) with orthonormal columns; ``list_offsets`` (n_lists +
+    1,) and ``list_sizes`` (n_lists,) host int64 arrays; ``list_growth``
+    the slack factor extends lay the lists out with. Made once here:
+    ``row_norms`` (the decoded squared row norms, from the unrounded
+    codebook), ``center_norms`` and the int32 ``offsets_dev`` /
+    ``sizes_dev`` on the index's device. ``build_seconds``
     holds the build's stages when :func:`build` made the index."""
 
     codes: torch.Tensor
@@ -160,6 +177,7 @@ class Index:
     metric: DistanceType
     pq_bits: int
     codebook_kind: CodebookGen = CodebookGen.PER_SUBSPACE
+    list_growth: float = 1.0
     row_norms: torch.Tensor = dataclasses.field(init=False, repr=False)
     center_norms: torch.Tensor = dataclasses.field(init=False, repr=False)
     offsets_dev: torch.Tensor = dataclasses.field(init=False, repr=False)
@@ -168,14 +186,17 @@ class Index:
                                             default_factory=dict)
 
     def __post_init__(self):
-        expects(self.codebook_kind is CodebookGen.PER_SUBSPACE,
-                "PER_CLUSTER codebooks are not ported yet")
         expects(self.codebooks.shape[1] == 1 << self.pq_bits,
                 "codebooks hold %d entries, pq_bits=%d needs %d",
                 self.codebooks.shape[1], self.pq_bits, 1 << self.pq_bits)
+        books = self.n_lists if self.per_cluster else self.pq_dim
+        expects(self.codebooks.shape[0] == books,
+                "%s codebooks must number %d, got %d",
+                self.codebook_kind.name, books, self.codebooks.shape[0])
         dev = self.codes.device
-        self.row_norms = decoded_row_norms(self.codes, self.centers_rot,
-                                           self.codebooks, self.list_offsets)
+        self.row_norms = decoded_row_norms(
+            self.codes, self.centers_rot, self.codebooks, self.list_offsets,
+            self.per_cluster)
         self.center_norms = (self.centers_rot * self.centers_rot).sum(dim=1)
         self.offsets_dev = torch.as_tensor(
             self.list_offsets[:-1], dtype=torch.int32, device=dev)
@@ -197,7 +218,11 @@ class Index:
 
     @property
     def pq_dim(self) -> int:
-        return self.codebooks.shape[0]
+        return self.codes.shape[1]
+
+    @property
+    def per_cluster(self) -> bool:
+        return self.codebook_kind is CodebookGen.PER_CLUSTER
 
     @property
     def pq_len(self) -> int:
@@ -292,23 +317,63 @@ def _kmeans_fixed(x: torch.Tensor, k: int, iters: int,
     return centers
 
 
-def _encode(resid_rot: torch.Tensor, codebooks: torch.Tensor
-            ) -> torch.Tensor:
+def _train_per_cluster(resid_rot: torch.Tensor, labels: torch.Tensor,
+                       n_lists: int, pq_len: int, book: int, iters: int,
+                       gen: torch.Generator) -> torch.Tensor:
+    """Per-cluster codebooks (ivf_pq_build.cuh:469 train_per_cluster):
+    each list trains on :data:`_SAMPLES_PER_LIST` of its residual rows,
+    drawn with replacement (row 0 for an empty list), their subspaces
+    pooled into one set of pq_len-wide points → (n_lists, book, pq_len).
+    The lists train in chunks, so that a chunk's (lists, samples·pq_dim,
+    book) distance block stays within ``workspace_chunk_bytes``'s
+    default budget."""
+    dev = resid_rot.device
+    n = resid_rot.shape[0]
+    pq_dim = resid_rot.shape[1] // pq_len
+    slices = resid_rot.reshape(n, pq_dim, pq_len)
+    order = torch.argsort(labels, stable=True)
+    counts = torch.bincount(labels, minlength=n_lists)
+    starts = torch.cumsum(counts, 0) - counts
+    u = torch.rand((n_lists, _SAMPLES_PER_LIST), generator=gen, device=dev)
+    pick = torch.minimum((u * counts[:, None]).long(),
+                         (counts - 1).clamp_min(0)[:, None])
+    rows = torch.where(counts[:, None] > 0,
+                       order[(starts[:, None] + pick).clamp_max(n - 1)], 0)
+    points = _SAMPLES_PER_LIST * pq_dim
+    per_list = points * book * 4
+    step = max(1, workspace_chunk_bytes(None) // per_list)
+    out = []
+    for l0 in range(0, n_lists, step):
+        pool = slices[rows[l0 : l0 + step]].reshape(-1, points, pq_len)
+        out.append(_kmeans_fixed(pool, book, iters, gen))
+    return torch.cat(out)
+
+
+def _encode(resid_rot: torch.Tensor, codebooks: torch.Tensor,
+            labels: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Residuals (n, rot_dim) → (n, pq_dim) uint8 codes: per-subspace
-    argmin of ``||r_s||² - 2 r_s·cb + ||cb||²`` (ties to the lower code)."""
-    pq_dim, _, pq_len = codebooks.shape
-    slices = resid_rot.reshape(resid_rot.shape[0], pq_dim, pq_len)
-    d2 = ((slices * slices).sum(dim=2)[:, :, None]
-          - 2.0 * torch.einsum("nsl,sbl->nsb", slices, codebooks)
-          + (codebooks * codebooks).sum(dim=2)[None, :, :])
+    argmin of ``||r_s||² - 2 r_s·cb + ||cb||²`` (ties to the lower code);
+    with ``labels`` (per-cluster codebooks) ``cb`` is the row's list's."""
+    _, _, pq_len = codebooks.shape
+    slices = resid_rot.reshape(resid_rot.shape[0], -1, pq_len)
+    if labels is not None:
+        books = codebooks[labels]                    # (n, book, pq_len)
+        d2 = ((slices * slices).sum(dim=2)[:, :, None]
+              - 2.0 * torch.bmm(slices, books.transpose(1, 2))
+              + (books * books).sum(dim=2)[:, None, :])
+    else:
+        d2 = ((slices * slices).sum(dim=2)[:, :, None]
+              - 2.0 * torch.einsum("nsl,sbl->nsb", slices, codebooks)
+              + (codebooks * codebooks).sum(dim=2)[None, :, :])
     return d2.argmin(dim=2).to(torch.uint8)
 
 
 def build(dataset, params: IndexParams | None = None, device=None) -> Index:
-    """Train the coarse quantizer, the rotation and the codebooks, then
-    encode and pack the dataset (detail/ivf_pq_build.cuh:1729), on
-    ``device`` (the CUDA card by default). The index's ``build_seconds``
-    splits the time into "coarse_kmeans", "codebooks" and "encode"."""
+    """Train the coarse quantizer, the rotation and the codebooks, then,
+    unless ``add_data_on_build`` is False, encode and pack the dataset
+    (detail/ivf_pq_build.cuh:1729), on ``device`` (the CUDA card by
+    default). The index's ``build_seconds`` splits the time into
+    "coarse_kmeans", "codebooks" and "encode"."""
     p = params or IndexParams()
     dev = resolve_device(device)
     dataset = torch.as_tensor(dataset).to(device=dev, dtype=torch.float32)
@@ -320,9 +385,6 @@ def build(dataset, params: IndexParams | None = None, device=None) -> Index:
     expects(4 <= p.pq_bits <= 8, "pq_bits must be in [4,8], got %d",
             p.pq_bits)
     expects(p.n_lists <= n, "n_lists %d > n %d", p.n_lists, n)
-    expects(p.codebook_kind is CodebookGen.PER_SUBSPACE,
-            "PER_CLUSTER codebooks are not ported yet")
-    expects(p.list_growth == 1.0, "list_growth != 1.0 is not ported yet")
     pq_dim = p.pq_dim or _default_pq_dim(dim)
     pq_len = cdiv(dim, pq_dim)
     rot_dim = pq_dim * pq_len
@@ -344,37 +406,57 @@ def build(dataset, params: IndexParams | None = None, device=None) -> Index:
     # (ivf_pq_build.cuh:1855-1873)
     t_labels, _ = kmeans_balanced.predict(trainset, centers)
     t_resid = trainset @ rotation.T - centers_rot[t_labels]
-    codebooks = _kmeans_fixed(
-        t_resid.reshape(-1, pq_dim, pq_len).transpose(0, 1),
-        1 << p.pq_bits, p.kmeans_n_iters,
-        kmeans_balanced._generator(p.seed + 1, dev))
+    gen = kmeans_balanced._generator(p.seed + 1, dev)
+    if p.codebook_kind is CodebookGen.PER_SUBSPACE:
+        codebooks = _kmeans_fixed(
+            t_resid.reshape(-1, pq_dim, pq_len).transpose(0, 1),
+            1 << p.pq_bits, p.kmeans_n_iters, gen)
+    else:
+        codebooks = _train_per_cluster(t_resid, t_labels, p.n_lists, pq_len,
+                                       1 << p.pq_bits, p.kmeans_n_iters,
+                                       gen)
     laps.mark("codebooks")
 
     index = Index(torch.zeros((0, pq_dim), dtype=torch.uint8, device=dev),
                   torch.zeros((0,), dtype=torch.int32, device=dev),
                   centers_rot, codebooks, rotation,
                   np.zeros(p.n_lists + 1, np.int64),
-                  np.zeros(p.n_lists, np.int64), mt, p.pq_bits)
-    index = extend(index, dataset)
-    laps.mark("encode")
+                  np.zeros(p.n_lists, np.int64), mt, p.pq_bits,
+                  p.codebook_kind, p.list_growth)
+    if p.add_data_on_build:
+        index = extend(index, dataset)
+        laps.mark("encode")
     index.build_seconds = laps.seconds
     return index
 
 
+def build_from_batches(batches, params: IndexParams | None = None,
+                       trainset=None, device=None) -> Index:
+    """Streaming build (the reference's bounded-batch build): the
+    quantizers train on ``trainset``, else on the first batch, then each
+    (b, d) block of ``batches`` is assigned, encoded and appended in turn
+    (``list_growth`` floored at 1.2, so most extends scatter into slack).
+    On ``device`` (the CUDA card by default)."""
+    dev = resolve_device(device)
+    return streaming_build(batches, params or IndexParams(),
+                           lambda x, p: build(x, p, dev), extend, trainset)
+
+
 def extend(index: Index, new_vectors, new_ids=None) -> Index:
-    """Fill an empty index with vectors (ids 0..n-1 unless ``new_ids``):
-    assign each to its nearest rotated center, encode its residual, and
-    scatter the lists (ivf_pq_build.cuh:1550), in batches of
-    :func:`pq_chunk_rows` rows. Adding to a non-empty index is not ported
-    yet."""
-    expects(index.size == 0,
-            "extend of a non-empty index is not ported yet")
+    """Add vectors (ivf_pq_build.cuh:1550): assign each to its nearest
+    rotated center and encode its residual, in batches of
+    :func:`pq_chunk_rows` rows, then append the codes to their lists: one
+    scatter while every list has room, a repack with ``list_growth``
+    slack when one overflows. Ids continue from the largest id held (0
+    for an empty index) unless ``new_ids`` are given."""
     dev = index.device
     x = torch.as_tensor(new_vectors).to(device=dev, dtype=torch.float32)
     expects(x.dim() == 2 and x.shape[1] == index.dim, "dim mismatch")
     n_new = x.shape[0]
     if new_ids is None:
-        new_ids = torch.arange(n_new, dtype=torch.int32, device=dev)
+        base = int(index.source_ids.max()) + 1 if index.size else 0
+        new_ids = torch.arange(base, base + n_new, dtype=torch.int32,
+                               device=dev)
     else:
         new_ids = torch.as_tensor(new_ids).to(device=dev, dtype=torch.int32)
     batch = pq_chunk_rows(index.pq_dim, index.pq_book_size)
@@ -384,16 +466,18 @@ def extend(index: Index, new_vectors, new_ids=None) -> Index:
         xr = x[b0 : b0 + batch] @ index.rotation.T
         # nearest rotated center == nearest center (orthogonal rotation)
         lb = fused_l2_nn_argmin(xr, cr)[0]
-        codes.append(_encode(xr - cr[lb], index.codebooks))
+        codes.append(_encode(xr - cr[lb], index.codebooks,
+                             lb if index.per_cluster else None))
         labels.append(lb)
     labels = torch.cat(labels) if labels else torch.zeros(
         (0,), dtype=torch.int64, device=dev)
-    codes = torch.cat(codes) if codes else index.codes
-    (codes, ids), offsets, sizes = scatter_build(
-        labels, [codes, new_ids], [0, -1], index.n_lists)
+    codes = torch.cat(codes) if codes else index.codes[:0]
+    (codes, ids), offsets, sizes = scatter_extend(
+        labels, [codes, new_ids], [index.codes, index.source_ids], [0, -1],
+        index.list_offsets, index.list_sizes, index.list_growth)
     return Index(codes, ids, index.centers_rot, index.codebooks,
                  index.rotation, offsets, sizes, index.metric, index.pq_bits,
-                 index.codebook_kind)
+                 index.codebook_kind, index.list_growth)
 
 
 def search(index: Index, queries, k: int,
@@ -428,6 +512,8 @@ def search(index: Index, queries, k: int,
     expects(algo in ("auto", "pallas", "plain"),
             "unknown ivf_pq algo %r", algo)
     mode = _lut_mode(p.lut_dtype)
+    if index.per_cluster and mode == "int8":
+        mode = "bf16"     # the JAX gather path's int8 for per-cluster books
     n_probes = min(p.n_probes, index.n_lists)
     chunk = query_chunks(q.shape[0], query_chunk, res,
                          workspace_chunk_bytes(res)
@@ -451,10 +537,32 @@ def search(index: Index, queries, k: int,
     scan = ivf_pq_scan_plain if plain else ivf_pq_scan
     vals, rows = scan(index.codes, index.row_norms, index.centers_rot,
                       lut_codebook(index.codebooks, mode), probed,
-                      index.offsets_dev, sizes, q_rot, k, metric, pen)
+                      index.offsets_dev, sizes, q_rot, k, metric, pen,
+                      per_cluster=index.per_cluster)
     ids = torch.where(rows >= 0, index.source_ids[rows.clamp_min(0).long()],
                       -1)
     return _postprocess(mt, vals), ids
+
+
+def reconstruct(index: Index, row_ids) -> torch.Tensor:
+    """Decode rows back to approximate input-space vectors by physical row
+    id (ivf_pq helpers reconstruct_list_data): the row's rotated center
+    plus its decoded residual (through the row's list's codebook for
+    ``PER_CLUSTER``), rotated back. A row's list is the one whose capacity
+    span holds it, slack rows included, as the JAX package decodes them."""
+    rid = torch.as_tensor(row_ids).to(device=index.device,
+                                      dtype=torch.int64).reshape(-1)
+    cap = index.codes.shape[0]
+    expects(rid.numel() == 0 or (int(rid.min()) >= 0
+                                 and int(rid.max()) < cap),
+            "row_ids out of range [0, %d)", cap)
+    labels = span_labels(np.diff(index.list_offsets), index.device)[rid]
+    codes = index.codes[rid].long()                     # (r, pq_dim)
+    books = (labels[:, None] if index.per_cluster
+             else torch.arange(index.pq_dim, device=index.device)[None, :])
+    decoded = index.codebooks[books, codes]             # (r, pq_dim, pq_len)
+    y_rot = index.centers_rot[labels] + decoded.reshape(rid.numel(), -1)
+    return y_rot @ index.rotation
 
 
 def health(index: Index, sample: int = 256) -> dict:
@@ -562,12 +670,10 @@ def save(index: Index, path) -> None:
 
 def load(path, device=None) -> Index:
     """Read an IVF-PQ file of either package onto ``device`` (the CUDA card
-    by default); the lists keep the file's dense layout. PER_CLUSTER
-    codebooks raise, as :func:`build` does."""
+    by default), either codebook kind; the lists keep the file's dense
+    layout."""
     _, version, meta, arrs = load_arrays(path, "ivf_pq")
     expects(version == _SERIAL_VERSION, "unsupported version %d", version)
-    expects(CodebookGen(meta["codebook_kind"]) is CodebookGen.PER_SUBSPACE,
-            "PER_CLUSTER codebooks are not ported yet")
     mt = DistanceType(meta["metric"])
     expects(mt in _METRICS, "ivf_pq with metric %s is not ported yet",
             mt.name)
@@ -578,4 +684,5 @@ def load(path, device=None) -> Index:
                  device_tensor(arrs["source_ids"], dev),
                  *(device_tensor(arrs[a], dev)
                    for a in ("centers_rot", "codebooks", "rotation")),
-                 offsets, np.diff(offsets), mt, meta["pq_bits"])
+                 offsets, np.diff(offsets), mt, meta["pq_bits"],
+                 CodebookGen(meta["codebook_kind"]))

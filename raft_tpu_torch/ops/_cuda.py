@@ -68,6 +68,8 @@ _SIGNATURES = {
     } for lib in STORE_SOURCES["ivf_flat_scan"].values()},
     "ivf_pq_scan": {
         "raft_ivf_pq_scan_group": ([_P] * 14 + [_I] * 9 + [_P] * 3, _I),
+        "raft_ivf_pq_scan_group_per_cluster": (
+            [_P] * 14 + [_I] * 9 + [_P] * 3, _I),
         "raft_ivf_pq_scan_pair": ([_P] * 10 + [_I] * 7 + [_P] * 3, _I),
         "raft_ivf_pq_scan_group_plan": ([_I, _I, _P], _I),
         "raft_ivf_pq_scan_group_scratch": ([_I, _I, _I, _P], _I),

@@ -10,12 +10,20 @@ The scan scores a probed list's PQ-coded rows in the JAX package's
     ip:  d(q, i) = -q·c_l - Σ_s lut[s, code_is]
     lut[s, b] = Σ_l q[s·pq_len + l] · cb[s, b, l]
 
-plus the additive penalty row; rows outside the list are +inf. The row
+plus the additive penalty row; rows outside the list are +inf. With
+per-cluster codebooks (``per_cluster=True``: one (book, pq_len) codebook
+a list, (n_lists, book, pq_len) in all) every subspace of a list's rows
+decodes through its list's codebook, ``lut[s, b] = Σ_l q[s·pq_len + l] ·
+cb[L, b, l]`` for the probed list L, so the table depends on the
+(query, probe) pair. The row
 norms ``||c_l + dec_i||²`` come from the unrounded float32 codebook
 (:func:`decoded_row_norms`, once per index); only the ``q·decode`` term
 reads the codebook of the LUT mode (:func:`lut_codebook`): ``"f32"`` as
 it is, ``"bf16"`` rounded to bfloat16, ``"int8"`` quantized per subspace
-with a symmetric scale and decoded back to float32.
+with a symmetric scale and decoded back to float32 (per-subspace
+codebooks only: the JAX package's gather path, which serves per-cluster
+codebooks, takes bf16 for an int8 request, and so does the port's
+``ivf_pq.search``).
 
 On a CUDA tensor :func:`ivf_pq_scan` launches K4 once
 (:func:`ivf_pq_scan_candidates`), each pair writing its sorted k best
@@ -34,7 +42,12 @@ the longest list and not by k, and selects each pair's k once, by a
 radix select, in rounds of 512 keys past k = 512:
 ``csrc/list_select.cuh``; so the grouped form takes every k); the
 per-pair form (k up to 1024, by name) builds each pair's
-lookup table in shared memory and sums it subspace by subspace. On a CPU
+lookup table in shared memory and sums it subspace by subspace; it takes
+per-subspace codebooks only. The grouped form takes either kind: with
+per-cluster codebooks it decodes a group tile through the codebook of
+the tile's list (one more argument and one base pointer a tile, its
+own entry ``raft_ivf_pq_scan_group_per_cluster`` and its own counter,
+``per_cluster_launches``). On a CPU
 tensor it takes the plain version, :func:`ivf_pq_scan_plain`, which
 gathers every probed row of each query back to back in probe order, sums
 LUT entries subspace by subspace and makes one stable select. On
@@ -61,11 +74,13 @@ from .ivf_scan import (GROUP_MAX_K, _candidate_rows, check_form,
                        wide_scratch_on_card)
 
 __all__ = ["pq_chunk_rows", "decoded_row_norms", "int8_codebook",
-           "lut_codebook", "pq_lut", "ivf_pq_scan", "ivf_pq_scan_plain",
+           "lut_codebook", "pq_lut", "pq_lut_per_cluster", "ivf_pq_scan",
+           "ivf_pq_scan_plain",
            "ivf_pq_scan_candidates", "largest_list"]
 
 launches = 0         # K4 launches since the last reset, both forms
 group_launches = 0   # of them, the grouped form's
+per_cluster_launches = 0  # of the grouped ones, on per-cluster codebooks
 pair_launches = 0    # of them, the per-pair form's
 wide_launches = 0    # of the grouped ones, past k = 512 (in rounds)
 
@@ -86,14 +101,16 @@ def pq_chunk_rows(pq_dim: int, book: int,
 
 
 def decoded_row_norms(codes: torch.Tensor, centers_rot: torch.Tensor,
-                      codebooks: torch.Tensor,
-                      list_offsets: np.ndarray) -> torch.Tensor:
+                      codebooks: torch.Tensor, list_offsets: np.ndarray,
+                      per_cluster: bool = False) -> torch.Tensor:
     """(rows,) ``||c_l(i) + decode(i)||²`` for every row of the
     cluster-sorted ``codes``, slack rows included (their list is the one
     whose capacity span holds them). Subspaces are orthogonal, so this is
-    ``||c||² + 2 Σ_s c_s·cb[s, code] + Σ_s ||cb[s, code]||²``; computed
-    in row chunks of :func:`pq_chunk_rows`."""
-    pq_dim, book, pq_len = codebooks.shape
+    ``||c||² + 2 Σ_s c_s·cb[s, code] + Σ_s ||cb[s, code]||²``, with
+    ``cb[l(i), code]`` in every subspace for per-cluster codebooks;
+    computed in row chunks of :func:`pq_chunk_rows`."""
+    _, book, pq_len = codebooks.shape
+    pq_dim = codes.shape[1]
     dev = codes.device
     n = codes.shape[0]
     spans = torch.as_tensor(np.diff(np.asarray(list_offsets)), device=dev)
@@ -104,8 +121,10 @@ def decoded_row_norms(codes: torch.Tensor, centers_rot: torch.Tensor,
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     chunk = pq_chunk_rows(pq_dim, book)
     for b0 in range(0, n, chunk):
-        c = centers_rot[labels[b0 : b0 + chunk]].to(torch.float32)
-        dec = cb[sub, codes[b0 : b0 + chunk].long()]   # (b, pq_dim, pq_len)
+        lab = labels[b0 : b0 + chunk]
+        c = centers_rot[lab].to(torch.float32)
+        books = lab[:, None] if per_cluster else sub
+        dec = cb[books, codes[b0 : b0 + chunk].long()]  # (b, pq_dim, pq_len)
         cs = c.reshape(c.shape[0], pq_dim, pq_len)
         cross = 2.0 * (cs * dec).sum(dim=(1, 2))
         dec2 = (dec * dec).sum(dim=(1, 2))
@@ -153,6 +172,22 @@ def pq_lut(q_rot: torch.Tensor, cb_mode: torch.Tensor) -> torch.Tensor:
     return lut
 
 
+def pq_lut_per_cluster(q_rot: torch.Tensor, cb_mode: torch.Tensor,
+                       probed: torch.Tensor, pq_dim: int) -> torch.Tensor:
+    """(m, p, pq_dim, book) lookup tables of per-cluster codebooks, one a
+    (query, probe) pair: ``lut[i, j, s, b] = Σ_l q_i[s·pq_len + l] ·
+    cb[probed[i, j], b, l]``, summed over l in order."""
+    _, book, pq_len = cb_mode.shape
+    m, p = probed.shape
+    qs = q_rot.reshape(m, 1, pq_dim, 1, pq_len)
+    books = cb_mode[probed.long()][:, :, None]     # (m, p, 1, book, pq_len)
+    lut = torch.zeros((m, p, pq_dim, book), dtype=torch.float32,
+                      device=q_rot.device)
+    for l in range(pq_len):
+        lut = lut + qs[..., l] * books[..., l]
+    return lut
+
+
 def _scan_smem_bytes(pq_dim: int, book: int, rot_dim: int, k: int) -> int:
     """Dynamic shared memory of one per-pair K4 block: the float32 LUT,
     the query, one tile of candidate distances and the pair's k-best
@@ -165,16 +200,19 @@ def ivf_pq_scan_plain(codes: torch.Tensor, row_norms: torch.Tensor,
                       probed: torch.Tensor, offsets: torch.Tensor,
                       sizes: torch.Tensor, q_rot: torch.Tensor, k: int,
                       metric: str = "l2",
-                      penalty: Optional[torch.Tensor] = None
+                      penalty: Optional[torch.Tensor] = None,
+                      per_cluster: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K4 (+ the K1 merge): gather each query's probed
     rows back to back in probe order, sum their LUT entries subspace by
-    subspace, apply the epilogue, one stable select. Chunked over queries
-    so the gathered codes stay within 256 MiB."""
+    subspace (per-cluster codebooks: the LUT of the row's probe), apply
+    the epilogue, one stable select. Chunked over queries so the gathered
+    codes and the per-cluster LUTs stay within 256 MiB."""
     expects(metric in _METRIC_CODE, "unknown metric %s", metric)
     q = q_rot.to(torch.float32)
     m = q.shape[0]
-    pq_dim = cb_mode.shape[0]
+    pq_dim = codes.shape[1]
+    book = cb_mode.shape[1]
     dev = q.device
     out_v = torch.full((m, k), _INF, dtype=torch.float32, device=dev)
     out_i = torch.full((m, k), -1, dtype=torch.int32, device=dev)
@@ -184,7 +222,10 @@ def ivf_pq_scan_plain(codes: torch.Tensor, row_norms: torch.Tensor,
     max_rows = max(1, int(sizes.long()[probed].sum(dim=1).max()))
     kk = min(k, max_rows)
     qn = (q * q).sum(dim=1)
-    chunk = int(max(1, (256 << 20) // (max_rows * (pq_dim + 24))))
+    per_q = max_rows * (pq_dim + 24)
+    if per_cluster:
+        per_q += probed.shape[1] * (pq_dim + cb_mode.shape[2]) * book * 4
+    chunk = int(max(1, (256 << 20) // per_q))
     for s0 in range(0, m, chunk):
         qc = q[s0 : s0 + chunk]
         pr = probed[s0 : s0 + chunk]
@@ -192,11 +233,20 @@ def ivf_pq_scan_plain(codes: torch.Tensor, row_norms: torch.Tensor,
         cross = torch.bmm(centers_rot[pr].to(torch.float32),
                           qc[:, :, None])[:, :, 0]        # (mc, p) q·c_l
         qcl = torch.gather(cross, 1, probe_of)
-        lut = pq_lut(qc, cb_mode)
         cg = codes[rows]                                   # (mc, S, pq_dim)
         acc = torch.zeros(rows.shape, dtype=torch.float32, device=dev)
-        for s in range(pq_dim):
-            acc = acc + torch.gather(lut[:, s, :], 1, cg[:, :, s].long())
+        if per_cluster:
+            lut = pq_lut_per_cluster(qc, cb_mode, pr, pq_dim).reshape(
+                qc.shape[0], -1)
+            base = probe_of * (pq_dim * book)
+            for s in range(pq_dim):
+                acc = acc + torch.gather(
+                    lut, 1, base + s * book + cg[:, :, s].long())
+        else:
+            lut = pq_lut(qc, cb_mode)
+            for s in range(pq_dim):
+                acc = acc + torch.gather(lut[:, s, :], 1,
+                                         cg[:, :, s].long())
         if metric == "l2":
             dist = torch.clamp_min(qn[s0 : s0 + chunk, None] + row_norms[rows]
                                    - 2.0 * qcl + (-2.0) * acc, 0.0)
@@ -217,17 +267,29 @@ def ivf_pq_scan_candidates(codes: torch.Tensor, dn: torch.Tensor,
                            cb_mode: torch.Tensor, centers_rot: torch.Tensor,
                            q: torch.Tensor, probed: torch.Tensor,
                            offsets: torch.Tensor, sizes: torch.Tensor,
-                           k: int, metric: str, form: Optional[str] = None
+                           k: int, metric: str, form: Optional[str] = None,
+                           per_cluster: bool = False
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of K4 → per-pair (values, rows) (m, p*k), pairs in
     probe-rank order within each query's row. ``form`` (``"group"`` or
-    ``"pair"``) overrides ``ivf_scan.scan_form``."""
+    ``"pair"``) overrides ``ivf_scan.scan_form``; ``per_cluster``:
+    ``cb_mode`` is (n_lists, book, pq_len), which the grouped form alone
+    takes."""
     global launches, group_launches, pair_launches, wide_launches
+    global per_cluster_launches
     expects(q.is_cuda, "ivf_pq_scan kernel needs CUDA tensors")
     m, rot_dim = q.shape
     p = probed.shape[1]
-    expects(cb_mode.dim() == 3, "codebook must be (pq_dim, book, pq_len)")
-    pq_dim, book, pq_len = cb_mode.shape
+    expects(cb_mode.dim() == 3, "codebook must be (pq_dim | n_lists, book, "
+            "pq_len)")
+    _, book, pq_len = cb_mode.shape
+    pq_dim = codes.shape[1] if codes.dim() == 2 else -1
+    expects(not per_cluster or cb_mode.shape[0] == offsets.shape[0],
+            "per-cluster codebooks must be (n_lists=%d, book, pq_len), got "
+            "%s", offsets.shape[0], tuple(cb_mode.shape))
+    expects(per_cluster or cb_mode.shape[0] == pq_dim,
+            "per-subspace codebooks must be (pq_dim=%d, book, pq_len), got "
+            "%s", pq_dim, tuple(cb_mode.shape))
     expects(pq_dim * pq_len == rot_dim and centers_rot.dim() == 2
             and centers_rot.shape[1] == rot_dim,
             "rot_dim %d != pq_dim %d x pq_len %d or centers %s", rot_dim,
@@ -241,6 +303,9 @@ def ivf_pq_scan_candidates(codes: torch.Tensor, dn: torch.Tensor,
     expects(probed.shape[0] == m, "probed must be (%d, p)", m)
     expects(metric in _METRIC_CODE, "unknown metric %s", metric)
     form = check_form(form, k)
+    expects(form == "group" or not per_cluster,
+            "the per-pair ivf_pq_scan form takes per-subspace codebooks "
+            "only")
     if form == "pair":
         smem = _scan_smem_bytes(pq_dim, book, rot_dim, k)
         expects(smem <= _cuda.SMEM_PER_BLOCK,
@@ -281,7 +346,9 @@ def ivf_pq_scan_candidates(codes: torch.Tensor, dn: torch.Tensor,
             lmax = largest_list(sizes)
             nbytes = wide_scratch_on_card("ivf_pq_scan", k, rot_dim, lmax)[0]
             scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
-        status = lib.raft_ivf_pq_scan_group(
+        entry = (lib.raft_ivf_pq_scan_group_per_cluster if per_cluster
+                 else lib.raft_ivf_pq_scan_group)
+        status = entry(
             codes.data_ptr(), ptr(dn), ptr(penalty), cb_mode.data_ptr(),
             centers_rot.data_ptr(), q.data_ptr(), exact.data_ptr(),
             order.data_ptr(), glist.data_ptr(), gstart.data_ptr(),
@@ -305,6 +372,7 @@ def ivf_pq_scan_candidates(codes: torch.Tensor, dn: torch.Tensor,
     if form == "group":
         group_launches += 1
         wide_launches += k > GROUP_MAX_K
+        per_cluster_launches += per_cluster
     else:
         pair_launches += 1
     return out_v, out_i
@@ -316,13 +384,14 @@ def ivf_pq_scan(codes: torch.Tensor, row_norms: torch.Tensor,
                 sizes: torch.Tensor, q_rot: torch.Tensor, k: int,
                 metric: str = "l2",
                 penalty: Optional[torch.Tensor] = None,
-                form: Optional[str] = None
+                form: Optional[str] = None, per_cluster: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scan the probed PQ lists → per-query k best (min-space values,
     int32 rows of ``codes``, -1 where fewer than k candidates).
     ``codes`` is the cluster-sorted (rows, pq_dim) uint8 store,
     ``row_norms`` its decoded squared norms, ``cb_mode`` the
     (pq_dim, book, pq_len) codebook of the LUT mode (:func:`lut_codebook`),
+    (n_lists, book, pq_len) with ``per_cluster``,
     ``offsets``/``sizes`` (n_lists,) each list's first row and length,
     ``q_rot`` the rotated queries, ``penalty`` an optional (rows,)
     additive row penalty. ``form`` overrides ``ivf_scan.scan_form`` on
@@ -331,7 +400,7 @@ def ivf_pq_scan(codes: torch.Tensor, row_norms: torch.Tensor,
         expects(form in (None, "group", "pair"), "unknown form %r", form)
         return ivf_pq_scan_plain(codes, row_norms, centers_rot, cb_mode,
                                  probed, offsets, sizes, q_rot, k, metric,
-                                 penalty)
+                                 penalty, per_cluster)
     dev = codes.device
     f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()  # noqa: E731
     probed, offsets, sizes = (t.to(device=dev, dtype=torch.int32)
@@ -340,7 +409,7 @@ def ivf_pq_scan(codes: torch.Tensor, row_norms: torch.Tensor,
         codes, f32(row_norms) if metric == "l2" else None,
         None if penalty is None else f32(penalty), f32(cb_mode),
         f32(centers_rot), f32(q_rot), probed, offsets, sizes, k, metric,
-        form)
+        form, per_cluster)
     vals, pos = kpass_select_k(cand_v, k)
     rows = torch.gather(cand_i, 1, pos.long())
     return vals, torch.where(torch.isfinite(vals), rows, -1)

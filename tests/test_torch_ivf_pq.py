@@ -194,16 +194,24 @@ def test_port_build_recall_and_refine(data, jax_builds):
 
 
 def test_unported_options_raise(data):
+    """The options ported since (per-cluster codebooks, list slack, an
+    extend into a filled index) build and search; what stays unported
+    (the brownout controller) and an unknown LUT dtype raise."""
     x = data[0][:500]
     for kw in (dict(codebook_kind=ivf_pq.CodebookGen.PER_CLUSTER),
                dict(list_growth=1.2)):
-        with pytest.raises(Exception, match="not ported yet"):
-            ivf_pq.build(x, ivf_pq.IndexParams(n_lists=4, **kw),
-                         device="cpu")
+        idx = ivf_pq.build(x, ivf_pq.IndexParams(n_lists=4, pq_dim=8,
+                                                 pq_bits=4, **kw),
+                           device="cpu")
+        assert idx.size == 500
+        assert idx.list_offsets[-1] > 500 or "list_growth" not in kw
+        assert ivf_pq.search(idx, x[:2], 3)[1].shape == (2, 3)
     idx = ivf_pq.build(x, ivf_pq.IndexParams(n_lists=4, pq_dim=8,
                                              pq_bits=4), device="cpu")
+    more = ivf_pq.extend(idx, x[:10])
+    assert more.size == 510 and int(more.source_ids.max()) == 509
     with pytest.raises(Exception, match="not ported yet"):
-        ivf_pq.extend(idx, x[:10])
+        ivf_pq.make_searcher(idx, degrade=object())
     with pytest.raises(Exception, match="unknown lut_dtype"):
         ivf_pq.search(idx, x[:2], 3, ivf_pq.SearchParams(lut_dtype="f64"))
 

@@ -2266,3 +2266,119 @@ def test_save_load_on_card(tmp_path, family):
         plain = search(loaded, algo="plain")
         assert_bits_equal(got[0], plain[0])
         assert torch.equal(got[1], plain[1])
+
+
+def pq_store_per_cluster(integer: bool, seed: int, **shape):
+    """:func:`pq_store` with per-cluster codebooks: one (book, pq_len)
+    codebook a list, (lists, book, pq_len) — small integers or Gaussian
+    values — and the decoded row norms through each row's list's
+    codebook."""
+    st = pq_store(integer, seed, **shape)
+    rng = np.random.default_rng(seed + 500)
+    lists = st["centers_rot"].shape[0]
+    _, book, pq_len = st["codebooks"].shape
+    gen = ((lambda s: rng.integers(-3, 4, s)) if integer
+           else rng.standard_normal)
+    st["codebooks"] = torch.from_numpy(
+        gen((lists, book, pq_len)).astype(np.float32))
+    st["row_norms"] = tpq.decoded_row_norms(
+        st["codes"], st["centers_rot"], st["codebooks"],
+        st["list_offsets"], per_cluster=True)
+    return st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_ivf_pq_scan_per_cluster_on_card(mode, metric):
+    """K4's per-cluster form (the grouped kernel at k = 20 and 257, the
+    wide plan at 1,025) + the K1 merge against the plain version's
+    per-cluster decode, with the penalty row and an empty list: equal on
+    small-integer codebooks and queries, close on Gaussian ones (k = 20
+    slot by slot; 257 and 1,025 values slot by slot, ids as sets); two
+    launches bit-equal; every launch counted as per-cluster; the per-pair
+    form refuses per-cluster codebooks."""
+    need_cuda()
+    for integer in (True, False):
+        st = pq_store_per_cluster(integer, 31, n=12000, pq_dim=16,
+                                  pq_len=2, lists=16, m=300, p=4)
+        args = pq_scan_args(st, mode, "cuda")
+        pen = st["penalty"].cuda()
+        for k in (20, 257, 1025):
+            before = (tpq.per_cluster_launches, tpq.group_launches)
+            kv, ki = tpq.ivf_pq_scan(*args, k, metric, pen, form="group",
+                                     per_cluster=True)
+            kv2, ki2 = tpq.ivf_pq_scan(*args, k, metric, pen,
+                                       per_cluster=True)
+            pv, pi = tpq.ivf_pq_scan_plain(*args, k, metric, pen,
+                                           per_cluster=True)
+            torch.cuda.synchronize()
+            assert (tpq.per_cluster_launches - before[0],
+                    tpq.group_launches - before[1]) == (2, 2)
+            assert_bits_equal(kv, kv2)
+            assert torch.equal(ki, ki2)
+            if integer:
+                assert torch.equal(kv, pv) and torch.equal(ki, pi), k
+            elif k > GAUSSIAN_MAX_K:
+                assert_knn_sets_close(pv.cpu(), pi.cpu(), kv.cpu(),
+                                      ki.cpu())
+            else:
+                assert_knn_close(pv.cpu(), pi.cpu(), kv.cpu(), ki.cpu())
+        with pytest.raises(RaftError, match="per-pair"):
+            tpq.ivf_pq_scan(*args, 20, metric, pen, form="pair",
+                            per_cluster=True)
+
+
+def _relayout(arrays, fills, offsets, sizes, growth):
+    """The lists of a layout laid out again with ``growth`` slack: the
+    same rows in the same order a list, at other offsets."""
+    from raft_tpu_torch.neighbors import _list_layout as ll
+
+    dense = ll.gather_dense(arrays, offsets, sizes)
+    labels = ll.span_labels(sizes, dense[0].device)
+    out, offs, szs = ll.scatter_build(labels, dense, fills, len(sizes),
+                                      growth)
+    assert np.array_equal(szs, sizes)
+    return out, offs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["ivf_flat", "ivf_pq", "ivf_pq_cluster"])
+def test_ivf_scans_on_slack_layout(family):
+    """K3 and K4 (per-subspace and per-cluster codebooks) on the lists of
+    an index built on the card with no slack, laid out again with
+    ``list_growth`` 1.5 (starts further apart, slack rows of code 0 / id
+    -1 between them): every search bit-equal to the dense layout's, at k
+    = 10 and at 1,025 (the wide plans, which size their scratch by the
+    longest list), the row norms recomputed on the new layout."""
+    need_cuda()
+    x, q = race_data(20_000, 500)
+    if family == "ivf_flat":
+        idx = tivf.build(x, tivf.IndexParams(n_lists=32))
+        (data, dn, ids), offs = _relayout(
+            [idx.data, idx.data_norms, idx.source_ids], [0, 0.0, -1],
+            idx.list_offsets, idx.list_sizes, 1.5)
+        slack = tivf.Index(data, dn, ids, idx.centers, idx.center_norms,
+                           offs, idx.list_sizes, idx.metric, None, 1.5)
+        search = lambda i, k: tivf.search(  # noqa: E731
+            i, q, k, tivf.SearchParams(n_probes=8))
+    else:
+        kind = (tivfpq.CodebookGen.PER_CLUSTER if family.endswith("cluster")
+                else tivfpq.CodebookGen.PER_SUBSPACE)
+        idx = tivfpq.build(x, tivfpq.IndexParams(n_lists=32, pq_dim=16,
+                                                 codebook_kind=kind))
+        (codes, ids), offs = _relayout([idx.codes, idx.source_ids], [0, -1],
+                                       idx.list_offsets, idx.list_sizes,
+                                       1.5)
+        slack = tivfpq.Index(codes, ids, idx.centers_rot, idx.codebooks,
+                             idx.rotation, offs, idx.list_sizes, idx.metric,
+                             idx.pq_bits, kind, 1.5)
+        search = lambda i, k: tivfpq.search(  # noqa: E731
+            i, q, k, tivfpq.SearchParams(n_probes=8,
+                                         lut_dtype=torch.float32))
+    assert offs[-1] > idx.list_offsets[-1]
+    for k in (10, 1025):
+        want, got = search(idx, k), search(slack, k)
+        torch.cuda.synchronize()
+        assert_bits_equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])

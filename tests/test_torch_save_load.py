@@ -11,9 +11,11 @@ versions 2 and 1). For each:
 - a port file loaded by the JAX package searches like the port index;
 - a port file loaded back by the port on the CPU searches bit-equal.
 
-Also ``pack_codes`` / ``unpack_codes`` against JAX's, and the refusals:
-PER_CLUSTER codebooks, ``metric_arg`` != 2.0 and the metrics the port
-has no engine for, an unknown version, a wrong kind.
+Also ``pack_codes`` / ``unpack_codes`` against JAX's; files of the
+metrics and ``metric_arg`` only the scan engine serves and of
+PER_CLUSTER codebooks, loaded by the port; the refusals: a metric no
+engine computes (at search, as JAX's), an unknown version, a wrong
+kind.
 
 Tolerances. Brute force, IVF-Flat and CAGRA run on integer-valued rows
 and queries (``test_torch_kernels.store_case``; every store holds them
@@ -128,16 +130,31 @@ def test_brute_force(tmp_path, store, metric):
 
 
 @pytest.mark.parametrize("metric,arg,match", [
-    ("l1", 2.0, "not ported yet"), ("minkowski", 3.0, "not ported yet"),
-    ("sqeuclidean", 3.0, "metric_arg")])
+    ("l1", 2.0, None), ("minkowski", 3.0, None),
+    ("jaccard", 2.0, "unsupported by brute force")])
 def test_brute_force_refuses_unported_metrics(tmp_path, metric, arg, match):
-    """A metric the port has no engine for, or a metric_arg other than
-    2.0, raises: the metric is never changed silently."""
-    x, _ = _rows("float32", n=64)
-    jbf.save(jbf.build(jnp.asarray(x), metric, metric_arg=arg),
-             tmp_path / "j.idx")
+    """A file of any metric loads with its metric and ``metric_arg``
+    unchanged: the scan engine's metrics search as JAX's scan does; a
+    metric no engine computes (Jaccard, a set metric) raises at search,
+    as in JAX: the metric is never changed silently."""
+    x, q = _rows("float32", n=64)
+    jidx = jbf.build(jnp.asarray(x), metric, metric_arg=arg)
+    jbf.save(jidx, tmp_path / "j.idx")
+    loaded = brute_force.load(tmp_path / "j.idx", device="cpu")
+    assert loaded.metric.value == jidx.metric.value
+    assert loaded.metric_arg == arg
+    if match is None:
+        # integer rows: the sums are exact; Minkowski's root may differ by
+        # an ulp between XLA's pow and torch's
+        jv, ji = jbf.search(jidx, q, K, algo="scan")
+        tv, ti = brute_force.search(loaded, q, K)
+        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-6)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        return
     with pytest.raises(RaftError, match=match):
-        brute_force.load(tmp_path / "j.idx", device="cpu")
+        brute_force.search(loaded, q, K)
+    with pytest.raises(Exception, match=match):
+        jbf.search(jidx, q, K)
 
 
 # ---------------------------------------------------------------- IVF-Flat
@@ -269,13 +286,18 @@ def test_pack_codes_matches_jax(pq_bits):
 
 
 def test_ivf_pq_refuses_per_cluster(tmp_path, gauss):
+    """A PER_CLUSTER file (ported since it was refused) loads as a
+    per-cluster index: its codebooks (n_lists, book, pq_len), its file
+    byte-equal when the port saves it again."""
     jidx = jpq.build(jnp.asarray(gauss[0]), jpq.IndexParams(
         n_lists=N_LISTS, pq_bits=4, pq_dim=8,
         codebook_kind=jpq.CodebookGen.PER_CLUSTER))
     jpq.save(jidx, tmp_path / "j.idx")
-    with pytest.raises(RaftError, match="PER_CLUSTER codebooks are not "
-                       "ported yet"):
-        ivf_pq.load(tmp_path / "j.idx", device="cpu")
+    loaded = ivf_pq.load(tmp_path / "j.idx", device="cpu")
+    assert loaded.codebook_kind is ivf_pq.CodebookGen.PER_CLUSTER
+    assert tuple(loaded.codebooks.shape) == (N_LISTS, 16, 4)
+    ivf_pq.save(loaded, tmp_path / "t.idx")
+    assert _bytes(tmp_path / "t.idx") == _bytes(tmp_path / "j.idx")
 
 
 # ------------------------------------------------------------------- CAGRA

@@ -72,6 +72,30 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    against float64 over all rows (rtol 1e-5; Canberra 1e-4 and
    correlation atol 1e-5, ``SCAN_TOL`` says why); the phase's seconds
    and peak device memory.
+   Then the filters phase: the adaptive filter policy
+   (``ops/filter_policy``) on the path's four indexes with four filters
+   made from the seed — Bernoulli keep 0.5, 0.05 and 0.009 (CAGRA's
+   widest level, 8, with more than 8,192 survivors) and a tenant slice
+   (whole IVF-Flat lists from list 0 on, at most 8,192 rows: the
+   crossover on every family). For each filter and family: the
+   decision (selectivity, level, n_probes or itopk, lists pruned, the
+   crossover), recall@10 with the policy and under ``suspended()``
+   against the exact filtered answer (K2 with the penalty row under
+   ``suspended()``), the search's ms and its launches by kernel and form,
+   counters reset before it. Checks: the policy's recall at least
+   ``suspended()``'s minus 0.01; the crossovers of brute force, IVF-Flat
+   and CAGRA equal to the exact answer (ids on >= 0.999 of rows, values
+   to rtol 1e-5; bit-equality printed); IVF-PQ's crossover recall@10 at
+   least the path's unfiltered raw recall; a widened IVF search one
+   grouped K3 or K4 launch; CAGRA at level 8 (itopk 512, past K6's 256)
+   K5 and no K6. Then ``filter_policy.tune_crossover`` for CAGRA at the
+   keep-0.009 filter and the search that follows its verdict (a "brute"
+   verdict must cross over: K2, the exact answer's ids), then
+   ``brute_force.tune_search`` at the path's shape
+   (K2 against the scan engine), ``bench.roofline.probe(quick=True)``
+   (each peak at most the data sheet's) and the select_k sweep (K1
+   against ``torch.topk`` at the JAX sweep's eight shapes, its document
+   in ``build/``), each printed with the card's name and power limit.
 3. graph routes, on the path's data, each with the counters reset before
    it and read after: CAGRA's NN-descent graph at the path's parameters
    (degree 128 → 64: ``build``'s stages one by one, so that the kNN
@@ -315,8 +339,10 @@ import numpy as np
 import torch
 
 from raft_tpu_torch import bench
+from raft_tpu_torch.bench import roofline, select_k_sweep
 from raft_tpu_torch.comms import Mesh
 from raft_tpu_torch.core import raft_format
+from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.errors import CorruptIndexError, RaftError
 from raft_tpu_torch.matrix import select_k as sk
 from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
@@ -324,6 +350,7 @@ from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
 from raft_tpu_torch.neighbors._list_layout import gather_dense
 from raft_tpu_torch.ops import _cuda
 from raft_tpu_torch.ops import cagra_fused as cf
+from raft_tpu_torch.ops import filter_policy
 from raft_tpu_torch.ops import nn_descent as nnd
 from raft_tpu_torch.ops import fused_knn as fk
 from raft_tpu_torch.ops import graph_expand as ge
@@ -1818,6 +1845,7 @@ from raft_tpu_torch.matrix import select_k as sk
 from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
                                       refine)
 from raft_tpu_torch.ops import cagra_fused as cf
+from raft_tpu_torch.ops import filter_policy
 from raft_tpu_torch.ops import fused_knn as fk
 from raft_tpu_torch.ops import graph_expand as ge
 from raft_tpu_torch.ops import ivf_pq_scan as ipq
@@ -4611,6 +4639,194 @@ def remainders_phase(x, q, bidx, iidx, pidx, totals):
     return row, before
 
 
+# the filters phase: Bernoulli filters at these keep rates, made from
+# the seed, and a tenant slice (the first IVF-Flat lists, by label, whose
+# rows number at most FILTER_TENANT_MAX: the crossover's default threshold)
+FILTER_KEEPS = (0.5, 0.05, 0.009)
+FILTER_TENANT_MAX = 8192
+FILTER_RECALL_GAP = 0.01        # the policy's recall >= suspended()'s - this
+CROSSOVER_MIN_ROWS = 0.999      # crossover ids equal to the exact answer's
+# the card's data sheet (H100 SXM): a probe reading above it is a fault
+DATASHEET = {"matmul_bf16_tflops": 989.0, "matmul_f32_tflops": 67.0,
+             "hbm_stream_gbps": 3350.0}
+
+
+def filter_masks(iidx) -> dict:
+    """name -> (N,) bool keep mask: the Bernoulli filters and the tenant
+    slice (whole IVF-Flat lists from list 0 on while their rows number at
+    most FILTER_TENANT_MAX)."""
+    rng = np.random.default_rng(SEED + 22)
+    masks = {f"keep {p}": rng.random(N) < p for p in FILTER_KEEPS}
+    sizes = np.asarray(iidx.list_sizes)
+    lists = int(np.searchsorted(np.cumsum(sizes), FILTER_TENANT_MAX,
+                                side="right"))
+    sid = iidx.source_ids[:int(iidx.list_offsets[lists])].cpu().numpy()
+    tenant = np.zeros(N, bool)
+    tenant[sid[sid >= 0]] = True
+    masks[f"tenant ({lists} lists)"] = tenant
+    return masks
+
+
+def launched(moved: dict) -> str:
+    return ", ".join(f"{k} {v}" for k, v in moved.items() if v)
+
+
+def crossover_race(cidx, q, sp, exact, fd, smi: str) -> None:
+    """``filter_policy.tune_crossover`` for CAGRA at the keep-0.009 filter
+    (above the survivor threshold, so the widened walk serves it): the
+    widened walk against the compacted brute pass, the verdict, and the
+    search that follows it (a "brute" verdict crosses over: K2, no K5 or
+    K6, the exact answer's ids)."""
+    filt, ei = exact
+    key, winner, times = filter_policy.tune_crossover(
+        "cagra", N, D, K, fd.selectivity,
+        lambda qq: cagra.search(cidx, qq, K, sp, filter=filt),
+        lambda qq: filter_policy.survivor_brute_dense(
+            cidx.dataset, cidx.metric, qq, K, filt), q)
+    reset_counts()
+    (_, i), t = host_time(lambda: cagra.search(cidx, q, K, sp, filter=filt))
+    moved = counts()
+    raced = ", ".join(f"{e} {s * 1e3:.1f} ms" for e, s in times.items())
+    log(f"filter_policy.tune_crossover (cagra, {fd.survivors} survivors, "
+        f"{key}): {winner} ({raced}); the search after it {t * 1e3:.1f} "
+        f"ms, recall@{K} {neighborhood_recall(i, ei):.4f}, launches: "
+        f"{launched(moved)} [{smi}]")
+    if winner == "brute" and (moved["fused_knn"] != 1 or moved[
+            "graph_expand"] or moved["cagra_fused"] or float(
+                (i == ei).all(dim=1).float().mean()) < CROSSOVER_MIN_ROWS):
+        raise AssertionError("cagra: a brute crossover verdict was not "
+                             "followed")
+
+
+def filters_phase(x, q, bidx, iidx, pidx, cidx, totals):
+    """The adaptive filter policy on the path's four indexes: for each
+    filter and family the decision, recall@10 with the policy and under
+    ``suspended()`` against the exact filtered answer (K2 with the
+    penalty row under ``suspended()``), the search's ms and its launches
+    (counters reset before it); the crossovers held to the exact answer;
+    then brute force's engine race (and ``auto`` on K2 after its
+    verdict), the roofline probe and the select_k sweep."""
+    t0 = time.perf_counter()
+    dev = x.device
+    sp_flat = ivf_flat.SearchParams(n_probes=N_PROBES)
+    sp_pq = ivf_pq.SearchParams(n_probes=N_PROBES)
+    sp_cagra = dataclasses.replace(CAGRA_SP, engine="fused")
+    bi = brute_force.search(bidx, q, K)[1]
+    raw_pq = neighborhood_recall(ivf_pq.search(pidx, q, K0, sp_pq)[1][:, :K],
+                                 bi)
+    searches = {
+        "brute_force": lambda f: brute_force.search(bidx, q, K, filter=f),
+        "ivf_flat": lambda f: ivf_flat.search(iidx, q, K, sp_flat, filter=f),
+        "ivf_pq": lambda f: tuple(t[:, :K] for t in ivf_pq.search(
+            pidx, q, K0, sp_pq, filter=f)),
+        "cagra": lambda f: cagra.search(cidx, q, K, sp_cagra, filter=f),
+    }
+    decide = {
+        "brute_force": lambda f: filter_policy.decide_graph(
+            f, N, D, K, "brute_force", dev),
+        "ivf_flat": lambda f: filter_policy.decide_ivf(
+            iidx, f, N_PROBES, K, "ivf_flat"),
+        "ivf_pq": lambda f: filter_policy.decide_ivf(
+            pidx, f, N_PROBES, K0, "ivf_pq"),
+        "cagra": lambda f: filter_policy.decide_graph(f, N, D, K, "cagra",
+                                                      dev),
+    }
+    decisions, exact = {}, {}
+    for name, mask in filter_masks(iidx).items():
+        filt = Bitset.from_mask(torch.from_numpy(mask).to(dev))
+        with filter_policy.suspended():
+            (ev, ei), t_exact = host_time(lambda: brute_force.search(
+                bidx, q, K, filter=filt))
+        exact[name] = (filt, ei)
+        log(f"filter {name}: {int(mask.sum())} of {N} rows survive; exact "
+            f"answer (K2 + penalty, suspended) {t_exact * 1e3:.1f} ms")
+        for fam, search in searches.items():
+            fd = decide[fam](filt)
+            search(filt)                                  # warm
+            reset_counts()
+            (v, i), t = host_time(lambda: search(filt))
+            moved = counts()
+            for kern, n in moved.items():
+                totals[kern] += n
+            with filter_policy.suspended():
+                _, si = search(filt)
+            rec, rec_s = neighborhood_recall(i, ei), neighborhood_recall(
+                si, ei)
+            width = (f"n_probes {fd.n_probes}, lists pruned "
+                     f"{fd.lists_pruned}" if fam.startswith("ivf") else
+                     f"itopk {min(max(ITOPK, K) * fd.level, N)}"
+                     if fam == "cagra" else "no width")
+            log(f"  {fam}: selectivity {fd.selectivity:.6f}, level "
+                f"{fd.level}, {width}, use_brute {fd.use_brute}; recall@{K} "
+                f"{rec:.4f} (suspended {rec_s:.4f}); {t * 1e3:.1f} ms; "
+                f"launches: {launched(moved)}")
+            if rec < rec_s - FILTER_RECALL_GAP:
+                raise AssertionError(f"filters {name} {fam}: recall {rec:.4f}"
+                                     f" below suspended()'s {rec_s:.4f}")
+            if fd.use_brute and fam != "ivf_pq":
+                check_close(ev, ei, v, i, f"{fam} crossover vs exact",
+                            CROSSOVER_MIN_ROWS)
+                bits = bool(torch.equal(v.view(torch.int32),
+                                        ev.view(torch.int32))
+                            and torch.equal(i, ei))
+                log(f"  {fam} crossover bit-equal to the exact answer: "
+                    f"{bits}")
+            elif fd.use_brute and rec < raw_pq:
+                raise AssertionError(f"ivf_pq crossover recall {rec:.4f} "
+                                     f"below the path's raw {raw_pq:.4f}")
+            scan = f"{fam}_scan"
+            if fam.startswith("ivf") and fd.level > 1 and not fd.use_brute \
+                    and (moved[scan], moved[f"{scan}.group"],
+                         moved[f"{scan}.pair"]) != (1, 1, 0):
+                raise AssertionError(f"filters {name} {fam}: {scan} "
+                                     f"launches {launched(moved)}, expected "
+                                     "one, grouped")
+            if (fam == "cagra" and fd.level == 8 and not fd.use_brute
+                    and fd.survivors and (moved["graph_expand"] == 0
+                                          or moved["cagra_fused"])):
+                raise AssertionError(f"filters {name}: widened CAGRA "
+                                     f"launched K5 {moved['graph_expand']},"
+                                     f" K6 {moved['cagra_fused']} times")
+            decisions[name, fam] = fd
+    if not any(fd.level == 8 and not fd.use_brute
+               for (_, fam), fd in decisions.items() if fam == "cagra"):
+        raise AssertionError("filters: no CAGRA search widened to level 8")
+    if not all(fd.use_brute for (name, _), fd in decisions.items()
+               if name.startswith("tenant")):
+        raise AssertionError("filters: the tenant slice did not cross over")
+    log(f"filters: IVF-PQ raw recall@{K} of the path, unfiltered, "
+        f"{raw_pq:.4f}")
+    smi = smi_line()
+    crossover_race(cidx, q, sp_cagra, exact[f"keep {FILTER_KEEPS[-1]}"],
+                   decisions[f"keep {FILTER_KEEPS[-1]}", "cagra"], smi)
+    winner, times = brute_force.tune_search(bidx, q, K, reps=3)
+    raced = ", ".join(f"{e} {t * 1e3:.1f} ms" for e, t in times.items())
+    log(f"brute_force.tune_search at ({N}, {D}), {M} queries, k={K}: "
+        f"{winner} ({raced}) [{smi}]")
+    reset_counts()
+    brute_force.search(bidx, q, K)
+    moved = counts()
+    for kern, n in moved.items():
+        totals[kern] += n
+    if moved["fused_knn"] == 0:
+        raise AssertionError(f"brute force auto after a {winner!r} verdict "
+                             f"did not launch K2: {launched(moved)}")
+    log(f"brute force auto after the {winner!r} verdict: "
+        f"{launched(moved)}")
+    peaks = roofline.probe(quick=True)
+    log(f"roofline.probe(quick=True): {json.dumps(peaks)} [{smi}]")
+    for key, limit in DATASHEET.items():
+        if peaks[key] > limit:
+            raise AssertionError(f"roofline {key} {peaks[key]:.1f} above the "
+                                 f"data sheet's {limit}: a fault of the probe")
+    sweep = select_k_sweep.run()
+    for r in sweep["results"]:
+        log(f"select_k sweep ({r['rows']}, {r['n']}), k={r['k']}: K1 "
+            f"{r['ms']['kpass']:.4f} ms, torch.topk {r['ms']['topk']:.4f} ms"
+            f" -> {r['winner']} [{sweep['device']}, {sweep['power_limit']}]")
+    log(f"filters phase: {time.perf_counter() - t0:.1f} s")
+
+
 def row_of(kernels, name: str) -> dict:
     """The kernel row named ``name``."""
     return next(k for k in kernels if k["name"] == name)
@@ -4661,6 +4877,8 @@ def main() -> int:
     determinism_phase(x, iidx, pidx)
     k4_cluster, pre_peak = remainders_phase(x, q, bidx, iidx, pidx, moved)
     mark(t_start, "remainders phase")
+    filters_phase(x, q, bidx, iidx, pidx, cidx, moved)
+    mark(t_start, "filters phase")
     k1_route, k1_pass, k4_route, route_peak = graph_route_phase(
         x, q, bidx, cidx, moved, pre_peak)
     mark(t_start, "graph-route phase")

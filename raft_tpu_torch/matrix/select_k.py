@@ -29,7 +29,10 @@ Two engines:
 * ``TOPK`` — the plain version, :func:`select_k_plain`: a stable sort and
   a slice (``torch.topk`` is not used: its tie order is unspecified).
 
-``AUTO`` is the kernel on CUDA and the plain version on the CPU. The JAX
+``AUTO`` is the kernel on CUDA and the plain version on the CPU, whatever
+a :func:`tune_select_k` verdict says: that race (K1 against
+``torch.topk``, the library call) is a calibration record, since a plain
+or library version may serve no main path on the card. The JAX
 package's ``RADIX`` alias of ``TOPK`` is not carried over.
 """
 from __future__ import annotations
@@ -41,10 +44,11 @@ import torch
 
 from ..core.errors import expects
 from ..ops import _cuda
+from ..utils import resolve_device
 
 __all__ = ["SelectAlgo", "WARP_MAX_K", "order_key", "select_form",
            "select_k", "select_k_plain", "smallest_k_plain",
-           "kpass_select_k"]
+           "kpass_select_k", "tune_select_k"]
 
 WARP_MAX_K = 512   # the warp select's queue: at most 512 keys a warp
 
@@ -170,3 +174,26 @@ def select_k(values: torch.Tensor, k: int, select_min: bool = True,
     if indices is not None:
         idxs = torch.gather(indices, -1, idxs.long()).to(torch.int32)
     return vals, idxs
+
+
+def tune_select_k(rows: int, n: int, k: int, select_min: bool = True,
+                  reps: int = 5, device=None):
+    """Race K1 (``"kpass"``) against ``torch.topk`` (``"topk"``) on a
+    (rows, n) float32 normal tensor made from seed 0 on ``device`` (the
+    card by default), record the winner under the (n, k) shape class and
+    return (winner, {name: median seconds}) — the measurement role of the
+    reference's ``choose_select_k_algorithm`` table. The verdict steers no
+    dispatch (module docstring). On the CPU ``"kpass"`` is the plain
+    version."""
+    from ..ops import autotune
+
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((rows, n), generator=gen, device=dev)
+    cands = {
+        "topk": lambda v: torch.topk(v, k, dim=-1, largest=not select_min),
+        "kpass": lambda v: kpass_select_k(v, k, select_min),
+    }
+    return autotune.tune_best(autotune.shape_bucket("select_k", dev, n=n,
+                                                    k=k),
+                              cands, x, reps=reps, force=True)

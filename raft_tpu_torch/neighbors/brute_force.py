@@ -1,17 +1,22 @@
 """Exact brute-force kNN: counterpart of
 ``raft_tpu/neighbors/brute_force.py`` (``Index``, ``build``, ``search``,
 ``knn``, ``knn_merge_parts``, ``health``, ``quantization_error``,
-``make_searcher``, ``save``, ``load``).
+``make_searcher``, ``tune_search``, ``save``, ``load``).
 
 Engines (``algo``):
 
-* ``"auto"`` / ``"pallas"`` — :func:`raft_tpu_torch.ops.fused_knn.fused_knn`:
-  kernel K2 (+ the K1 merge) on CUDA, its plain version on the CPU.
+* ``"auto"`` — ``"pallas"`` for the metrics K2 serves and ``"scan"`` for
+  every other, whatever a :func:`tune_search` verdict says: the scan
+  engine computes K2's metrics with library products, which may serve no
+  main path, so the verdict is a calibration record.
+* ``"pallas"`` — :func:`raft_tpu_torch.ops.fused_knn.fused_knn`: kernel
+  K2 (+ the K1 merge) on CUDA, its plain version on the CPU.
 * ``"matmul"`` — the plain engine
   (:func:`raft_tpu_torch.ops.fused_knn.fused_knn_plain`): the explicit
-  choice of ``torch.matmul`` + norms + stable sort on any device.
+  choice of ``torch.matmul`` + norms + stable sort on any device. It
+  never races and ``auto`` never runs it.
 * ``"scan"`` — the JAX package's composed streaming engine, for every
-  metric it takes (``auto`` picks it for each metric K2 does not serve):
+  metric it takes:
   the dataset in tiles of ``tile_size`` rows, each tile's distance block
   from ``distance/pairwise`` (plain PyTorch, the counterpart of JAX's XLA
   code: no Pallas kernel covers these metrics; the elementwise metrics
@@ -26,7 +31,11 @@ computes the JAX package's contract for each store (``ops/fused_knn``;
 the scan engine dequantizes a tile at a time). ``metric_arg`` is
 LpUnexpanded's p. ``valid_rows`` excludes the rows from that index on,
 through the penalty row on K2 and the plain engine, as a mask on the
-scan. Every matrix product runs in full float32
+scan. A filtered search follows ``ops/filter_policy``: where few rows
+survive (and with no ``valid_rows``, on any store but int4), the
+survivors' rows are gathered and searched as an index of their own (the
+crossover); inside ``filter_policy.suspended()`` the filter is only the
+penalty row. Every matrix product runs in full float32
 (``torch.backends.cuda.matmul.allow_tf32`` False), as the JAX package's
 ``precision="highest"``.
 """
@@ -46,6 +55,7 @@ from ..distance.distance_types import (DistanceType, canonical_metric,
 from ..distance.pairwise import (_ELEMENTWISE, _EXPANDED, _haversine,
                                  elementwise_distance)
 from ..matrix.select_k import select_k
+from ..ops import autotune, filter_policy
 from ..ops.fused_knn import fused_knn, fused_knn_plain
 from ..ops.quant import (dequantize_store, int8_scale_report, quantize_rows,
                          store_dtype)
@@ -54,7 +64,7 @@ from ..utils import (query_chunks, resolve_device, round_up_to,
 
 __all__ = ["Index", "build", "search", "knn", "knn_merge_parts", "health",
            "health_sample_rows", "quantization_error", "make_searcher",
-           "save", "load"]
+           "tune_search", "save", "load"]
 
 # a search under a deadline with no query_chunk runs this many queries a
 # chunk (the JAX package's)
@@ -273,6 +283,37 @@ def _search_scan(index: Index, q: torch.Tensor, k: int, filter,
     return best_v, best_i
 
 
+def _tune_key(index: Index, m: int, k: int) -> str:
+    """Verdict key of the engine race: the shape class and the store (the
+    crossover moves with the bytes a row)."""
+    return autotune.shape_bucket("bf_search", index.device, n=index.size,
+                                 m=m, d=index.dim, k=k,
+                                 store=index.store_name)
+
+
+def _resolve_algo(index: Index) -> str:
+    """The engine ``algo="auto"`` runs: K2 for its metrics, the scan for
+    the others (module docstring)."""
+    return "pallas" if index.metric in _KERNEL_METRICS else "scan"
+
+
+def tune_search(index: Index, queries, k: int, reps: int = 5):
+    """Race the engines on ``queries`` (:func:`raft_tpu_torch.ops.autotune.
+    tune_best`, each call closed by a host read of its output) and record
+    the fastest for the shape class: K2 (``"pallas"``, for its metrics)
+    against the scan engine. The plain ``"matmul"`` engine never races.
+    The verdict is a calibration record that ``algo="auto"`` does not
+    follow (module docstring). Returns (winner, {engine: median
+    seconds})."""
+    q = torch.as_tensor(queries).to(device=index.device,
+                                    dtype=torch.float32)
+    cands = {"scan": lambda qq: search(index, qq, k, algo="scan")}
+    if index.metric in _KERNEL_METRICS:
+        cands["pallas"] = lambda qq: search(index, qq, k, algo="pallas")
+    return autotune.tune_best(_tune_key(index, q.shape[0], k), cands, q,
+                              reps=reps, force=True, value_read=True)
+
+
 def search(index: Index, queries, k: int,
            filter: Optional[Bitset] = None,  # noqa: A002 - reference name
            algo: str = "auto", query_chunk: int = 0, res=None,
@@ -281,47 +322,63 @@ def search(index: Index, queries, k: int,
     """k nearest neighbors of each query → (distances (m, k), int32
     indices (m, k)), on the index's device.
 
-    ``filter``: optional sample bitset; cleared bits are excluded.
+    ``filter``: optional sample bitset; cleared bits are excluded. With no
+    ``valid_rows``, outside ``filter_policy.suspended()`` and on any store
+    but int4, a filter whose survivors number at most
+    ``RAFT_TPU_FILTER_BRUTE_MAX`` (or as a crossover verdict says) is
+    served by the crossover (``ops/filter_policy``: the survivors
+    searched as an index of their own; slots past them (+inf, -1)).
     ``valid_rows``: rows at index >= ``valid_rows`` are excluded.
     ``algo``: "auto" — K2 for the metrics it serves (squared L2, L2,
-    cosine, inner product), the scan engine for every other; "pallas" —
-    K2 + the K1 merge on CUDA, their plain versions on the CPU; "matmul"
-    — the plain engine (GEMM + norms + stable sort) on any device;
-    "scan" — the streaming tile engine (module docstring) over
-    ``tile_size`` rows a tile, any metric. ``query_chunk``: run queries
-    in chunks of this many rows. ``res``: a ``core.deadline.Deadline`` (or an
-    object carrying one as ``deadline``): the queries run in chunks
-    (``query_chunk``, else :data:`DEADLINE_CHUNK`) with a checkpoint
-    before each, which raises ``DeadlineExceeded`` with the finished
-    chunks' results once the budget is spent. A chunked search equals
-    the unchunked one. On CUDA the kernel takes every k <= the index's
-    size (past ``fused_knn.LIST_MAX_K`` its wide form)."""
+    cosine, inner product) and the scan engine for every other; "pallas" — K2 + the K1 merge on CUDA, their
+    plain versions on the CPU; "matmul" — the plain engine (GEMM + norms +
+    stable sort) on any device; "scan" — the streaming tile engine
+    (module docstring) over ``tile_size`` rows a tile, any metric.
+    ``query_chunk``: run queries in chunks of this many rows. ``res``: a
+    ``core.deadline.Deadline`` (or an object carrying one as
+    ``deadline``): the queries run in chunks (``query_chunk``, else
+    :data:`DEADLINE_CHUNK`) with a checkpoint before each, which raises
+    ``DeadlineExceeded`` with the finished chunks' results once the
+    budget is spent. A chunked search equals the unchunked one. On CUDA
+    the kernel takes every k <= the index's size (past
+    ``fused_knn.LIST_MAX_K`` its wide form)."""
     q = torch.as_tensor(queries).to(device=index.device,
                                     dtype=torch.float32)
     expects(q.dim() == 2 and q.shape[1] == index.dim,
             "queries must be (m, %d), got %s", index.dim, tuple(q.shape))
     expects(0 < k <= index.size, "k=%d out of range for index of size %d",
             k, index.size)
-    chunk = query_chunks(q.shape[0], query_chunk, res, DEADLINE_CHUNK)
-    if chunk:
-        return run_query_chunks(
-            lambda qc, _s0: search(index, qc, k, filter, algo,
-                                   valid_rows=valid_rows,
-                                   tile_size=tile_size), q, chunk, res)
     expects(algo in ("auto", "pallas", "matmul", "scan"),
             "unknown brute-force algo %r", algo)
     mt = index.metric
-    if algo == "auto":
-        algo = "pallas" if mt in _KERNEL_METRICS else "scan"
-    if algo == "scan":
-        return _search_scan(index, q, k, filter, valid_rows, tile_size)
-    expects(mt in _KERNEL_METRICS, "algo=%r supports L2/cosine/IP, got %s",
-            algo, mt.name)
-    engine = fused_knn_plain if algo == "matmul" else fused_knn
-    vals, idxs = engine(q, index.dataset, k, _KERNEL_METRICS[mt],
-                        index.norms, _penalty_row(index, filter, valid_rows),
-                        index.scales, index.logical_dim)
-    return _postprocess(mt, vals), idxs
+    if (filter is not None and valid_rows is None
+            and index.logical_dim is None
+            and not filter_policy.adaptive_off()):
+        fd = filter_policy.decide_graph(filter, index.size, index.dim, k,
+                                        "brute_force", index.device)
+        if fd.use_brute:
+            return filter_policy.survivor_brute_dense(
+                index.dataset, mt, q, k, filter, index.scales,
+                index.metric_arg, index.norms, query_chunk, res)
+
+    eng = _resolve_algo(index) if algo == "auto" else algo
+
+    def one(qc: torch.Tensor, _s0: int = 0):
+        if eng == "scan":
+            return _search_scan(index, qc, k, filter, valid_rows, tile_size)
+        expects(mt in _KERNEL_METRICS,
+                "algo=%r supports L2/cosine/IP, got %s", eng, mt.name)
+        engine = fused_knn_plain if eng == "matmul" else fused_knn
+        vals, idxs = engine(qc, index.dataset, k, _KERNEL_METRICS[mt],
+                            index.norms,
+                            _penalty_row(index, filter, valid_rows),
+                            index.scales, index.logical_dim)
+        return _postprocess(mt, vals), idxs
+
+    chunk = query_chunks(q.shape[0], query_chunk, res, DEADLINE_CHUNK)
+    if chunk:
+        return run_query_chunks(one, q, chunk, res)
+    return one(q)
 
 
 def make_searcher(index: Index, params=None, **opts):

@@ -34,8 +34,13 @@ then re-score the returned k exactly in float32. Engines:
 
 Every selection (the buffer, the parent pick, the merges, the final
 re-rank) goes through ``select_k`` — K1 on CUDA. A filtered search
-equals the JAX package's under ``filter_policy.suspended()``: the
-adaptive widen/crossover is not ported. The edge store comes at int8,
+follows ``ops/filter_policy``: ``itopk`` widened by the filter's
+selectivity (x2 below 0.5, x4 below 0.1, x8 below 0.01), or, where few
+rows survive, the survivors searched exactly by brute force (the
+crossover); a widened plan past K6's ``itopk`` runs the edge engine
+where the fused one was asked for or chosen. Inside
+``filter_policy.suspended()`` the filter is only the survivor-aware
+seeding and the edge penalty. The edge store comes at int8,
 bf16, int4 (split-half nibbles) or pq (PQ codes and their codebook): the
 edge engine serves all four, the fused engine all but pq (K6 has no pq
 form, nor has the JAX kernel; an explicit fused search on a pq store
@@ -67,7 +72,7 @@ from ..core.errors import RaftError, expects
 from ..core.serialize import device_tensor, load_arrays, save_arrays
 from ..distance.distance_types import DistanceType, canonical_metric
 from ..matrix.select_k import select_k
-from ..ops import autotune
+from ..ops import autotune, filter_policy
 from ..ops import nn_descent as nnd
 from ..ops.cagra_fused import (dup_mask, edge_hop, fused_capable,
                                fused_traverse, merge_candidates,
@@ -672,14 +677,28 @@ def resolve_engine(index: Index, m: int, k: int,
     verdict :func:`tune_search` recorded for the shape (a store-backed
     one only while the store is attached); without one, the JAX
     package's store rule — ``"edge"`` on CUDA when an edge store is
-    attached, else ``"gather"``."""
+    attached, else ``"gather"``. A ``"fused"`` verdict whose plan K6
+    cannot serve gives ``"edge"``."""
     p = params or SearchParams()
     store = index.edge_store
     hit = autotune.lookup(_tune_key(index, m, k, p, store))
+    if hit == "fused" and store is not None and not _fused_serves(
+            index, p, k, store):
+        return "edge"
     if hit == "gather" or (hit in ("edge", "fused") and store is not None):
         return hit
     return ("edge" if store is not None and index.device.type == "cuda"
             else "gather")
+
+
+def _fused_serves(index: Index, p: SearchParams, k: int,
+                  store: EdgeStore) -> bool:
+    """Whether K6 serves the plan of ``p`` at ``k`` on ``store``
+    (``ops.cagra_fused.fused_capable``)."""
+    itopk, width, max_iter = _plan_dims(p, k)
+    return fused_capable(itopk, width, min(index.graph_degree, itopk),
+                         store.deg_p, store.dim_p, store.mode, max_iter,
+                         index.device)
 
 
 def tune_search(index: Index, queries, k: int,
@@ -702,13 +721,9 @@ def tune_search(index: Index, queries, k: int,
     prepare_search(index, p.candidate_dtype)
     st = index.edge_store
     key = _tune_key(index, q.shape[0], k, p, st)
-    itopk, width, max_iter = _plan_dims(p, k)
-    kprime = min(index.graph_degree, itopk)
     cands = {e: (lambda qq, e=e: search(index, qq, k, p, engine=e))
              for e in (engines or ENGINES)
-             if e != "fused" or fused_capable(
-                 itopk, width, kprime, st.deg_p, st.dim_p, st.mode,
-                 max_iter, index.device)}
+             if e != "fused" or _fused_serves(index, p, k, st)}
     winner, timings = autotune.tune_best(key, cands, q, reps=reps,
                                          force=True)
     if winner not in ("edge", "fused"):
@@ -846,7 +861,9 @@ def search(index: Index, queries, k: int,
     (m, k), int32 ids (m, k)) on the index's device; -1 ids (+inf, or
     -inf for inner product) where fewer than k were found.
 
-    ``filter``: optional sample bitset, cleared bits excluded. ``engine``
+    ``filter``: optional sample bitset, cleared bits excluded; outside
+    ``filter_policy.suspended()`` it widens ``itopk`` or crosses over to
+    an exact search of the survivors (module docstring). ``engine``
     overrides ``SearchParams.engine``: "gather", "edge" (K5 per hop),
     "fused" (K6) or "auto"; "edge" and "fused" build the int8 edge store
     first when none is attached. "fused" on a pq store raises: K6 has no
@@ -867,6 +884,19 @@ def search(index: Index, queries, k: int,
             "bad query shape %s", tuple(q.shape))
     q = q.contiguous()
     itopk, width, max_iter = _plan_dims(p, k)
+    widened = False
+    if filter is not None and not filter_policy.adaptive_off():
+        fd = filter_policy.decide_graph(filter, index.size, index.dim, k,
+                                        "cagra", dev)
+        if fd.use_brute:
+            return filter_policy.survivor_brute_dense(
+                index.dataset, index.metric, q, k, filter,
+                query_chunk=query_chunk, res=res)
+        if fd.level > 1:
+            p = dataclasses.replace(p, itopk_size=min(
+                max(p.itopk_size, k) * fd.level, max(index.size, k)))
+            itopk, width, max_iter = _plan_dims(p, k)
+            widened = True
     if (index.seed_nodes is not None and filter is None
             and index.seed_nodes.shape[0] >= 64):
         # the covering set seeds; random rows stay as insurance
@@ -895,6 +925,8 @@ def search(index: Index, queries, k: int,
     if eng in ("edge", "fused") and index.edge_store is None:
         prepare_traversal(index)
     st = index.edge_store
+    if eng == "fused" and widened and not _fused_serves(index, p, k, st):
+        eng = "edge"      # the widened itopk is past K6's
     expects(eng != "fused" or st.mode != "pq",
             "the fused engine (K6) has no pq form, as the JAX kernel has "
             "none; search a pq edge store with engine='edge'")

@@ -22,9 +22,11 @@ the probe and gather + score + stable select for the scan
 (:func:`raft_tpu_torch.ops.ivf_scan.ivf_flat_scan_plain`).
 
 A filter removes rows through an additive penalty row in sorted row
-order, and lists with no surviving row are pruned from the probe — the
-JAX package's search under ``filter_policy.suspended()``. Its adaptive
-widen/crossover policy and host streaming are not ported yet. ``save`` /
+order, lists with no surviving row are pruned from the probe, and the
+adaptive policy (``ops/filter_policy``) widens ``n_probes`` or, where few
+rows survive, searches the survivors' rows (:func:`reconstruct`) by brute
+force; inside ``filter_policy.suspended()`` only the prune stays. Host
+streaming is not ported yet. ``save`` /
 ``load`` read and write the JAX package's files: lists packed with no
 slack; a loaded index keeps that dense layout (list starts at any row;
 the kernels take them). Every
@@ -47,13 +49,14 @@ from ..core.resources import workspace_chunk_bytes
 from ..core.serialize import device_tensor, load_arrays, save_arrays
 from ..distance.distance_types import DistanceType, canonical_metric
 from ..matrix.select_k import SelectAlgo
+from ..ops import filter_policy
 from ..ops.ivf_scan import coarse_probe, ivf_flat_scan, ivf_flat_scan_plain
 from ..ops.quant import (STORES, dequantize_rows, int8_scale_report,
                          quantize_rows, store_dtype)
 from ..utils import (query_chunks, resolve_device, round_up_to,
                      run_query_chunks)
 from ._list_layout import (dense_offsets, gather_dense, list_skew,
-                           scatter_extend, span_labels, streaming_build)
+                           scatter_extend, streaming_build)
 from .brute_force import _KERNEL_METRICS, _postprocess, health_sample_rows
 
 __all__ = ["IndexParams", "SearchParams", "Index", "build",
@@ -235,16 +238,13 @@ def extend(index: Index, new_vectors, new_ids=None) -> Index:
                  index.conservative_memory)
 
 
-def _filter_rows(index: Index, filter: Bitset):
-    """Sample filter → ((cap_total,) penalty row in sorted row order, +inf
-    on filtered-out and slack rows; (n_lists,) survivors per list)."""
+def _penalty(index: Index, filter: Bitset) -> torch.Tensor:
+    """Sample filter → (cap_total,) penalty row in sorted row order: +inf
+    on filtered-out and slack rows, else 0."""
     mask = filter.to(index.device).to_mask()
     ids = index.source_ids.long()
     keep = (ids >= 0) & mask[ids.clamp_min(0)]
-    pen = torch.where(keep, 0.0, float("inf")).to(torch.float32)
-    labels = span_labels(np.diff(index.list_offsets), index.device)
-    survivors = torch.bincount(labels[keep], minlength=index.n_lists)
-    return pen, survivors
+    return torch.where(keep, 0.0, float("inf")).to(torch.float32)
 
 
 def search(index: Index, queries, k: int,
@@ -255,9 +255,11 @@ def search(index: Index, queries, k: int,
     """Probe the ``n_probes`` nearest lists of each query and return the
     exact top-k over their members → (distances (m, k), int32 source ids
     (m, k)); slots past the candidates hold (+inf, -1) (-inf for inner
-    product). ``query_chunk``: run queries in chunks of this many rows.
-    ``res``: a ``core.deadline.Deadline`` (or an object carrying one):
-    the queries run in chunks (``query_chunk``, else as many as
+    product). ``filter``: a sample bitset, decided on once a search
+    (module docstring): the probe widened to ``filter_policy``'s level,
+    or the crossover. ``query_chunk``: run queries in chunks of this many
+    rows. ``res``: a ``core.deadline.Deadline`` (or an object carrying
+    one): the queries run in chunks (``query_chunk``, else as many as
     ``core.resources.workspace_chunk_bytes(res)`` holds at n_probes x
     dim rounded up to 128 floats a query) with a checkpoint before each,
     which raises ``DeadlineExceeded`` with the finished chunks' results
@@ -272,31 +274,39 @@ def search(index: Index, queries, k: int,
     expects(algo in ("auto", "pallas", "plain"),
             "unknown ivf_flat algo %r", algo)
     n_probes = min(p.n_probes, index.n_lists)
+    pen = survivors = None
+    sizes = index.sizes_dev
+    if filter is not None:
+        fd, n_probes, survivors = filter_policy.plan_ivf(
+            index, filter, n_probes, k, "ivf_flat")
+        if fd is not None and fd.use_brute:
+            return filter_policy.survivor_brute_ivf(
+                index, reconstruct, q, k, filter, index.data_norms,
+                query_chunk, res)
+        pen = _penalty(index, filter)
+        sizes = torch.where(survivors > 0, sizes, 0).to(torch.int32)
+    mt = index.metric
+    metric = _KERNEL_METRICS[mt]
+    plain = algo == "plain"
+    scan = ivf_flat_scan_plain if plain else ivf_flat_scan
+
+    def one(qc: torch.Tensor, _s0: int = 0):
+        probed = coarse_probe(qc, index.centers, n_probes, metric,
+                              index.center_norms, survivors,
+                              SelectAlgo.TOPK if plain else SelectAlgo.AUTO)
+        vals, rows = scan(index.data, index.data_norms, probed,
+                          index.offsets_dev, sizes, qc, k, metric, pen,
+                          scales=index.scales)
+        ids = torch.where(rows >= 0,
+                          index.source_ids[rows.clamp_min(0).long()], -1)
+        return _postprocess(mt, vals), ids
+
     per_q = n_probes * round_up_to(index.dim, 128) * 4
     chunk = query_chunks(q.shape[0], query_chunk, res,
                          workspace_chunk_bytes(res) // per_q)
     if chunk:
-        return run_query_chunks(
-            lambda qc, _s0: search(index, qc, k, p, filter, 0, algo),
-            q, chunk, res)
-    mt = index.metric
-    metric = _KERNEL_METRICS[mt]
-    pen = survivors = None
-    sizes = index.sizes_dev
-    if filter is not None:
-        pen, survivors = _filter_rows(index, filter)
-        sizes = torch.where(survivors > 0, sizes, 0).to(torch.int32)
-    plain = algo == "plain"
-    probed = coarse_probe(q, index.centers, n_probes, metric,
-                          index.center_norms, survivors,
-                          SelectAlgo.TOPK if plain else SelectAlgo.AUTO)
-    scan = ivf_flat_scan_plain if plain else ivf_flat_scan
-    vals, rows = scan(index.data, index.data_norms, probed,
-                      index.offsets_dev, sizes, q, k, metric, pen,
-                      scales=index.scales)
-    ids = torch.where(rows >= 0, index.source_ids[rows.clamp_min(0).long()],
-                      -1)
-    return _postprocess(mt, vals), ids
+        return run_query_chunks(one, q, chunk, res)
+    return one(q)
 
 
 def reconstruct(index: Index, row_ids) -> torch.Tensor:

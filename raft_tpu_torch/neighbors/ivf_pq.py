@@ -39,9 +39,12 @@ is not ported as an engine: under ``lut_dtype=float32`` both compute the
 same distances up to float32 rounding.
 
 A filter removes rows through an additive penalty row in sorted row
-order, and lists with no surviving row are pruned from the probe — the
-JAX package's search under ``filter_policy.suspended()``. Not ported yet:
-host streaming and the adaptive filter policy. ``save`` / ``load`` read
+order, lists with no surviving row are pruned from the probe, and the
+adaptive policy (``ops/filter_policy``) widens ``n_probes`` or, where few
+rows survive, searches the survivors decoded and rotated back
+(:func:`reconstruct`) by brute force; inside
+``filter_policy.suspended()`` only the prune stays. Not ported yet: host
+streaming. ``save`` / ``load`` read
 and write the JAX package's files (bit-packed codes, lists packed with no
 slack). Every matrix product runs
 in full float32 (``torch.backends.cuda.matmul.allow_tf32`` False).
@@ -65,6 +68,7 @@ from ..core.serialize import device_tensor, load_arrays, save_arrays
 from ..distance.distance_types import DistanceType, canonical_metric
 from ..distance.fused_l2_nn import fused_l2_nn_argmin
 from ..matrix.select_k import SelectAlgo
+from ..ops import filter_policy
 from ..ops.ivf_pq_scan import (decoded_row_norms, ivf_pq_scan,
                                ivf_pq_scan_plain, lut_codebook,
                                pq_chunk_rows)
@@ -73,7 +77,7 @@ from ..utils import cdiv, query_chunks, resolve_device, run_query_chunks
 from ._list_layout import (dense_offsets, gather_dense, list_skew,
                            scatter_extend, span_labels, streaming_build)
 from .brute_force import _postprocess, health_sample_rows
-from .ivf_flat import _filter_rows
+from .ivf_flat import _penalty
 
 __all__ = ["CodebookGen", "IndexParams", "SearchParams", "Index",
            "make_rotation_matrix", "build", "build_from_batches", "extend",
@@ -489,8 +493,11 @@ def search(index: Index, queries, k: int,
     (distances (m, k), int32 source ids (m, k)); slots past the
     candidates hold (+inf, -1) (-inf for inner product).
 
-    ``algo``: "auto" / "pallas" — K1 + K4 on CUDA, their plain versions on
-    the CPU; "plain" — the plain versions on any device. ``query_chunk``:
+    ``filter``: a sample bitset, decided on once a search (module
+    docstring): the probe widened to ``filter_policy``'s level, or the
+    crossover over the decoded survivors. ``algo``: "auto" / "pallas" —
+    K1 + K4 on CUDA, their plain versions on the CPU; "plain" — the plain
+    versions on any device. ``query_chunk``:
     run queries in chunks of this many rows. ``res``: a
     ``core.deadline.Deadline`` (or an object carrying one): the queries
     run in chunks (``query_chunk``, else as many as
@@ -515,33 +522,40 @@ def search(index: Index, queries, k: int,
     if index.per_cluster and mode == "int8":
         mode = "bf16"     # the JAX gather path's int8 for per-cluster books
     n_probes = min(p.n_probes, index.n_lists)
+    pen = survivors = None
+    sizes = index.sizes_dev
+    if filter is not None:
+        fd, n_probes, survivors = filter_policy.plan_ivf(
+            index, filter, n_probes, k, "ivf_pq")
+        if fd is not None and fd.use_brute:
+            return filter_policy.survivor_brute_ivf(
+                index, reconstruct, q, k, filter, None, query_chunk, res)
+        pen = _penalty(index, filter)
+        sizes = torch.where(survivors > 0, sizes, 0).to(torch.int32)
+    mt = index.metric
+    metric = "ip" if mt is DistanceType.InnerProduct else "l2"
+    plain = algo == "plain"
+    scan = ivf_pq_scan_plain if plain else ivf_pq_scan
+    book = lut_codebook(index.codebooks, mode)
+
+    def one(qc: torch.Tensor, _s0: int = 0):
+        q_rot = qc @ index.rotation.T
+        probed = coarse_probe(q_rot, index.centers_rot, n_probes, metric,
+                              index.center_norms, survivors,
+                              SelectAlgo.TOPK if plain else SelectAlgo.AUTO)
+        vals, rows = scan(index.codes, index.row_norms, index.centers_rot,
+                          book, probed, index.offsets_dev, sizes, q_rot, k,
+                          metric, pen, per_cluster=index.per_cluster)
+        ids = torch.where(rows >= 0,
+                          index.source_ids[rows.clamp_min(0).long()], -1)
+        return _postprocess(mt, vals), ids
+
     chunk = query_chunks(q.shape[0], query_chunk, res,
                          workspace_chunk_bytes(res)
                          // (n_probes * index.rot_dim * 8))
     if chunk:
-        return run_query_chunks(
-            lambda qc, _s0: search(index, qc, k, p, filter, 0, algo),
-            q, chunk, res)
-    mt = index.metric
-    metric = "ip" if mt is DistanceType.InnerProduct else "l2"
-    pen = survivors = None
-    sizes = index.sizes_dev
-    if filter is not None:
-        pen, survivors = _filter_rows(index, filter)
-        sizes = torch.where(survivors > 0, sizes, 0).to(torch.int32)
-    plain = algo == "plain"
-    q_rot = q @ index.rotation.T
-    probed = coarse_probe(q_rot, index.centers_rot, n_probes, metric,
-                          index.center_norms, survivors,
-                          SelectAlgo.TOPK if plain else SelectAlgo.AUTO)
-    scan = ivf_pq_scan_plain if plain else ivf_pq_scan
-    vals, rows = scan(index.codes, index.row_norms, index.centers_rot,
-                      lut_codebook(index.codebooks, mode), probed,
-                      index.offsets_dev, sizes, q_rot, k, metric, pen,
-                      per_cluster=index.per_cluster)
-    ids = torch.where(rows >= 0, index.source_ids[rows.clamp_min(0).long()],
-                      -1)
-    return _postprocess(mt, vals), ids
+        return run_query_chunks(one, q, chunk, res)
+    return one(q)
 
 
 def reconstruct(index: Index, row_ids) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Measured engine selection: counterpart of ``raft_tpu/ops/autotune.py``
 (``shape_bucket``, ``lookup``, ``record``, ``forget``, ``entries``,
-``measure``, ``tune_best``, ``cache_path``, ``load_cache``,
+``measure``, ``measure_throughput``, ``measure_value_read_wall``,
+``tune_best``, ``TimingUnreliableError``, ``cache_path``, ``load_cache``,
 ``save_cache``).
 
 A verdict is the winner of a race between candidate engines on the
@@ -16,10 +17,15 @@ Where the port differs from the JAX package:
   here no kernel failure may hide behind a verdict, so a caller leaves a
   candidate that cannot serve the shape out *before* the race, by an
   explicit capability check.
-* :func:`measure` is JAX's per-call-synchronised median alone. JAX's
-  guards against a remote backend that replays results (input
-  perturbation, the plausibility floor and its re-measure through a
-  fresh executable) have no counterpart on a local card.
+* :func:`measure` is JAX's per-call-synchronised median, or with
+  ``value_read`` each call closed by a host read of its output's first
+  element. JAX's guards against a remote backend that replays results
+  (input perturbation, the re-measure through a fresh executable) have
+  no counterpart on a local card. The plausibility floor stays
+  (``suspect_floor_s``): a median below it is measured once more, and a
+  second median below it raises :class:`TimingUnreliableError`, which
+  :func:`tune_best` lets through like any other failure (JAX instead
+  returns the first such candidate unrecorded).
 * The on-disk cache is the port's own: ``RAFT_TPU_TORCH_AUTOTUNE_CACHE``
   names its JSON file (default ``$XDG_CACHE_HOME/raft_tpu_torch/
   autotune.json``, ``~/.cache`` without XDG; ``""`` keeps verdicts in
@@ -43,15 +49,22 @@ import os
 import statistics
 import time
 import warnings
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from ..core.errors import expects
 
 __all__ = ["shape_bucket", "lookup", "record", "forget", "entries",
-           "measure", "tune_best", "cache_path", "load_cache",
-           "save_cache"]
+           "measure", "measure_throughput", "measure_value_read_wall",
+           "tune_best", "cache_path", "load_cache", "save_cache",
+           "TimingUnreliableError"]
+
+
+class TimingUnreliableError(RuntimeError):
+    """A median below the caller's plausibility floor on two measurements
+    in a row: no honest number exists, so none is recorded."""
+
 
 _MEM_CACHE: Dict[str, str] = {}
 # the file whose verdicts _MEM_CACHE holds (None: none read yet)
@@ -161,36 +174,138 @@ def _sync(args) -> None:
             return
 
 
-def measure(fn: Callable, *args, reps: int = 5, out0=None) -> float:
-    """Median seconds a call of ``fn(*args)``, the card synchronised after
-    every call (a call's time is its whole work, not its enqueue). A
-    first call warms up unless ``out0`` (its output) says one was made."""
-    if out0 is None:
-        fn(*args)
-        _sync(args)
+def _first_leaf(out) -> Optional[torch.Tensor]:
+    """The first tensor of a (nested) tuple, list or dict output."""
+    if isinstance(out, torch.Tensor):
+        return out
+    items = out.values() if isinstance(out, dict) else (
+        out if isinstance(out, (tuple, list)) else ())
+    for item in items:
+        leaf = _first_leaf(item)
+        if leaf is not None:
+            return leaf
+    return None
+
+
+def _fold(out) -> torch.Tensor:
+    """The first element of ``out``'s first tensor as a float32 scalar on
+    its device (0 where it is not finite): a value that exists only once
+    the call that made it has run."""
+    leaf = _first_leaf(out)
+    expects(leaf is not None and leaf.numel() > 0,
+            "a value-read timing needs a tensor output")
+    x = leaf.reshape(-1)[0].to(torch.float32)
+    return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+
+
+def _timed_reps(fn, args, reps: int, value_read: bool) -> float:
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        fn(*args)
-        _sync(args)
+        out = fn(*args)
+        if value_read:
+            _fold(out).item()
+        else:
+            _sync(args)
         times.append(time.perf_counter() - t0)
     return statistics.median(times)
 
 
+def _floor_checked(run, what: str, suspect_floor_s: float) -> float:
+    """``run()``'s median, measured once more when it falls below
+    ``suspect_floor_s`` (0: no floor); a second one below it raises
+    :class:`TimingUnreliableError`, else the larger of the two counts."""
+    med = run()
+    if suspect_floor_s and med < suspect_floor_s:
+        again = run()
+        if again < suspect_floor_s:
+            raise TimingUnreliableError(
+                f"{what} {again:.3g} s a call below the plausibility floor "
+                f"{suspect_floor_s:.3g} s twice")
+        med = max(med, again)
+    return med
+
+
+def measure(fn: Callable, *args, reps: int = 5, out0=None,
+            suspect_floor_s: float = 0.0, value_read: bool = False
+            ) -> float:
+    """Median seconds a call of ``fn(*args)``, the card synchronised after
+    every call (a call's time is its whole work, not its enqueue), or with
+    ``value_read`` each call closed by a host read of its output's first
+    element. A first call warms up unless ``out0`` (its output) says one
+    was made. ``suspect_floor_s``: a per-call plausibility floor
+    (module docstring)."""
+    if out0 is None:
+        fn(*args)
+        _sync(args)
+    return _floor_checked(lambda: _timed_reps(fn, args, reps, value_read),
+                          "median", suspect_floor_s)
+
+
+def measure_throughput(fn: Callable, *args, depth: int = 6, reps: int = 3,
+                       out0=None, suspect_floor_s: float = 0.0) -> float:
+    """Steady-state seconds a call with ``depth`` calls in flight: each of
+    ``reps`` windows enqueues ``depth`` calls back to back and ends with
+    one ``torch.cuda.synchronize``, so one call's launches overlap the
+    last one's work (the reference harness's ``items_per_second``);
+    median over the windows, per call. A first call warms up unless
+    ``out0`` says one was made; ``suspect_floor_s`` as :func:`measure`'s.
+    """
+    if out0 is None:
+        fn(*args)
+        _sync(args)
+
+    def windows() -> float:
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            for _ in range(depth):
+                fn(*args)
+            _sync(args)
+            ts.append((time.perf_counter() - t0) / depth)
+        return statistics.median(ts)
+
+    return _floor_checked(windows, "throughput", suspect_floor_s)
+
+
+def measure_value_read_wall(fn: Callable, inputs: Sequence, *args,
+                            warm_input=None) -> float:
+    """Wall seconds a call over ``inputs`` with a value-read close: each
+    input is its call's first argument, the calls run back to back, the
+    first element of every output is folded into one device scalar, and
+    the window closes with one host read (``.item()``) of it, which
+    cannot return before every call feeding it has run. ``warm_input``
+    (not in ``inputs``) warms up outside the window."""
+    expects(len(inputs) > 0, "measure_value_read_wall needs inputs")
+    if warm_input is not None:
+        _fold(fn(warm_input, *args)).item()
+    t0 = time.perf_counter()
+    acc = None
+    for inp in inputs:
+        s = _fold(fn(inp, *args))
+        acc = s if acc is None else acc + s
+    acc.item()
+    return (time.perf_counter() - t0) / len(inputs)
+
+
 def tune_best(key: str, candidates: Mapping[str, Callable], *args,
-              reps: int = 5, force: bool = False
+              reps: int = 5, force: bool = False,
+              suspect_floor_s: float = 0.0, value_read: bool = False
               ) -> Tuple[str, Dict[str, float]]:
-    """Time every candidate on ``args`` (:func:`measure`), record the
-    fastest under ``key`` and return (winner, {name: median seconds}).
-    Without ``force`` a recorded verdict among the candidates is
-    returned at once, with no timings. A candidate that raises is not
-    skipped: the exception propagates."""
+    """Time every candidate on ``args`` (:func:`measure`, with
+    ``suspect_floor_s`` and ``value_read``), record the fastest under
+    ``key`` and return (winner, {name: median seconds}). Without
+    ``force`` a recorded verdict among the candidates is returned at
+    once, with no timings. A candidate that raises is not skipped: the
+    exception propagates (:class:`TimingUnreliableError` too)."""
     if not force:
         hit = lookup(key)
         if hit in candidates:
             return hit, {}
     expects(len(candidates) > 0, "autotune %s: no candidate to race", key)
-    timings = {name: measure(fn, *args, reps=reps)
+    timings = {name: measure(fn, *args, reps=reps,
+                             suspect_floor_s=suspect_floor_s,
+                             value_read=value_read)
                for name, fn in candidates.items()}
     winner = min(timings, key=timings.get)
     record(key, winner)

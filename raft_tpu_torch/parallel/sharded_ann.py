@@ -19,9 +19,11 @@ raises :class:`~raft_tpu_torch.core.errors.ShardsDownError` unless
 ``allow_partial=True``, which merges the survivors (a dead shard
 contributes (±inf, -1) slots) and also returns the health mask; with no
 shard left it raises all the same. A ``filter`` is a sample bitset over
-the GLOBAL ids, which every shard's search reads directly. As in the
-port's single-index search, a filter prunes lists with no surviving row
-from the probe (the JAX package's sharded search scans them).
+the GLOBAL ids, which every shard's search reads directly. A filter
+prunes lists with no surviving row from each shard's probe (the JAX
+package's sharded search scans them); the single-index search's adaptive
+widen and crossover stay off (``filter_policy.suspended()``), as the JAX
+package's sharded search has none.
 
 Not ported yet: the CAGRA family, ``probe_shards`` / canaries / MTTR and
 the fault sites, ``make_searcher``, ``warmup_searchers``, ``widen_rungs``,
@@ -37,7 +39,7 @@ from ..comms import Mesh
 from ..core.errors import ShardsDownError, expects
 from ..distance.distance_types import is_min_close
 from ..neighbors import ivf_flat, ivf_pq
-from ..ops import ring_topk
+from ..ops import filter_policy, ring_topk
 
 __all__ = ["ShardedIvfFlat", "build_ivf_flat", "search_ivf_flat",
            "ShardedIvfPq", "build_ivf_pq", "search_ivf_pq"]
@@ -153,6 +155,12 @@ def _merged_shard_search(index: _Sharded, queries, k: int, local,
     return res + (ok,) if allow_partial else res
 
 
+def _prune_only(search, shard, q, k, sp, filter):  # noqa: A002
+    """One shard's search with the filter as penalty and prune alone."""
+    with filter_policy.suspended():
+        return search(shard, q, k, sp, filter=filter)
+
+
 def search_ivf_flat(index: ShardedIvfFlat, queries, k: int,
                     params: ivf_flat.SearchParams | None = None,
                     allow_partial: bool = False,
@@ -167,7 +175,7 @@ def search_ivf_flat(index: ShardedIvfFlat, queries, k: int,
     sp = params or ivf_flat.SearchParams()
     return _merged_shard_search(
         index, queries, k,
-        lambda s, q: ivf_flat.search(s, q, k, sp, filter=filter),
+        lambda s, q: _prune_only(ivf_flat.search, s, q, k, sp, filter),
         allow_partial, merge_engine)
 
 
@@ -181,5 +189,5 @@ def search_ivf_pq(index: ShardedIvfPq, queries, k: int,
     sp = params or ivf_pq.SearchParams()
     return _merged_shard_search(
         index, queries, k,
-        lambda s, q: ivf_pq.search(s, q, k, sp, filter=filter),
+        lambda s, q: _prune_only(ivf_pq.search, s, q, k, sp, filter),
         allow_partial, merge_engine)

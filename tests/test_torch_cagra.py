@@ -5,8 +5,13 @@ of the build; and search on a JAX-built index carried over with
 (gather with bf16 and float32 candidates, edge, fused), with the JAX
 package's random seed rows injected into the port's one draw
 (``cagra._draw_seeds``) so both traverse from the same buffer. The JAX
-side runs its Pallas kernels in interpret mode; a filtered JAX search runs
-under ``filter_policy.suspended()`` (the port has no adaptive policy).
+side runs its Pallas kernels in interpret mode. A filtered search runs on
+both sides under each package's ``filter_policy.suspended()`` (the 60%
+filter: survivor-aware seeding and the edge penalty), and with the
+adaptive policy on both sides: ``"crossover"`` (the 60% filter at the
+default survivor threshold: the survivors searched by brute force) and
+``"widened"`` (a 30% filter with ``RAFT_TPU_FILTER_BRUTE_MAX=0``: itopk
+16 widened to 32).
 
 Tolerances. The kNN graph (small-integer data: exact distances, ties to
 the lower row in both) and ``optimize`` (integer detour counts) are equal;
@@ -23,6 +28,7 @@ search in chunks draws its own seed rows a chunk (``_chunk_seed``, as
 JAX folds the chunk's start into its key), so it is held to searches of
 each chunk alone, and by recall (within 0.05) to one batch's.
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -40,6 +46,7 @@ from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.errors import RaftError
 from raft_tpu_torch.neighbors import cagra
 from raft_tpu_torch.ops import autotune
+from raft_tpu_torch.ops import filter_policy as tfp
 from raft_tpu_torch.stats.metrics import neighborhood_recall
 from test_torch_kernels import (ENGINE_TEST_BUILD, ENGINE_TEST_FLOOR,
                                 ENGINE_TEST_SEARCH, assert_knn_close,
@@ -113,16 +120,24 @@ def jax_seeds(monkeypatch):
     monkeypatch.setattr(cagra, "_draw_seeds", draw)
 
 
-def _search_both(jidx, tidx, q, engine, cdtype, keep=None, k=K):
+def _search_both(jidx, tidx, q, engine, cdtype, keep=None, k=K,
+                 adaptive=False):
+    """Both packages' searches; a filtered one under both packages'
+    ``suspended()`` unless ``adaptive``."""
     jf = tf = None
     if keep is not None:
         jf = JaxBitset.from_mask(jnp.asarray(keep))
         tf = Bitset.from_mask(torch.from_numpy(keep))
-    with filter_policy.suspended():
+    with contextlib.ExitStack() as stack:
+        if not adaptive:
+            stack.enter_context(filter_policy.suspended())
+            stack.enter_context(tfp.suspended())
         jd, ji = jcagra.search(jidx, jnp.asarray(q), k, jcagra.SearchParams(
             candidate_dtype=cdtype, **JSP), filter=jf, engine=engine)
-    td, ti = cagra.search(tidx, torch.from_numpy(q), k, cagra.SearchParams(
-        candidate_dtype=cdtype, **JSP), filter=tf, engine=engine)
+        td, ti = cagra.search(tidx, torch.from_numpy(q), k,
+                              cagra.SearchParams(candidate_dtype=cdtype,
+                                                 **JSP),
+                              filter=tf, engine=engine)
     assert td.shape == (M, k) and ti.dtype == torch.int32
     return np.asarray(jd), np.asarray(ji), td.numpy(), ti.numpy()
 
@@ -225,15 +240,25 @@ def test_search_matches_jax_integer(data, jax_index_int, jax_seeds, engine,
     np.testing.assert_array_equal(td, jd)
 
 
-@pytest.mark.parametrize("engine,cdtype", [("gather", "bfloat16"),
-                                           ("edge", "int8"),
-                                           ("fused", "int8")])
+@pytest.mark.parametrize("engine,cdtype,policy", [
+    pytest.param("gather", "bfloat16", "suspended", id="gather-bfloat16"),
+    pytest.param("edge", "int8", "suspended", id="edge-int8"),
+    pytest.param("fused", "int8", "suspended", id="fused-int8"),
+    ("gather", "bfloat16", "crossover"), ("fused", "int8", "crossover"),
+    ("gather", "bfloat16", "widened"), ("edge", "int8", "widened"),
+    ("fused", "int8", "widened")])
 def test_search_matches_jax_filtered(data, jax_index, jax_seeds, engine,
-                                     cdtype):
-    """A 60% filter: survivor-aware seeding and the edge penalty."""
+                                     cdtype, policy, monkeypatch):
+    """A 60% filter under both packages' ``suspended()`` (survivor-aware
+    seeding and the edge penalty) and at the crossover; a 30% filter at a
+    widened level (itopk x2)."""
     keep = data[4]
+    if policy == "widened":
+        monkeypatch.setenv("RAFT_TPU_FILTER_BRUTE_MAX", "0")
+        keep = np.random.default_rng(32).random(N) < 0.3
     jd, ji, td, ti = _search_both(jax_index, _carry(jax_index), data[1],
-                                  engine, cdtype, keep)
+                                  engine, cdtype, keep,
+                                  adaptive=policy != "suspended")
     assert_knn_close(jd, ji, td, ti)
     assert keep[ti[ti >= 0]].all()
 

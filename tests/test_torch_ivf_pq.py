@@ -6,9 +6,12 @@ a carried index, equal to JAX's report.
 
 The JAX side runs its exact gather engine, ``ivf_pq.search(...,
 algo="xla")`` with ``lut_dtype=float32`` (its Pallas scan is scrambled in
-interpret mode; see ``test_torch_ivf_pq_scan.py``), and a filtered JAX
-search runs under ``filter_policy.suspended()``, the port's filter
-semantics.
+interpret mode; see ``test_torch_ivf_pq_scan.py``). A filtered search runs
+on both sides under each package's ``filter_policy.suspended()`` (case
+``True``), and with the adaptive policy on both sides: ``"crossover"``
+at the default survivor threshold (the decoded survivors searched by
+brute force), ``"widened"`` with ``RAFT_TPU_FILTER_BRUTE_MAX=0`` (8
+probes widened to 16).
 
 Tolerances. Search: distances to rtol 1e-4 and ids equal on >= 98% of
 rows, because the port scores in the expanded form
@@ -30,13 +33,12 @@ from raft_tpu.core.bitset import Bitset as JaxBitset
 from raft_tpu.distance.distance_types import canonical_metric
 from raft_tpu.neighbors import ivf_pq as jpq
 from raft_tpu.neighbors import refine as jrefine
-from raft_tpu.ops import filter_policy
 from raft_tpu_torch import convert
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.neighbors import ivf_pq, refine
 from raft_tpu_torch.stats.metrics import neighborhood_recall
 from test_torch_kernels import assert_knn_close
-from test_torch_slice import _clustered
+from test_torch_slice import _clustered, policy
 
 torch.set_num_threads(1)
 
@@ -94,11 +96,15 @@ def _carry(jidx):
 _CASES = ([("pq8", m, f) for m in ("sqeuclidean", "euclidean",
                                    "inner_product") for f in (False, True)]
           + [(b, m, f) for b in ("pq4", "rotated", "dim30")
-             for m, f in (("sqeuclidean", False), ("inner_product", True))])
+             for m, f in (("sqeuclidean", False), ("inner_product", True))]
+          + [(b, m, f) for b in ("pq8", "dim30")
+             for m in ("sqeuclidean", "inner_product")
+             for f in ("crossover", "widened")])
 
 
 @pytest.mark.parametrize("build,metric,filtered", _CASES)
-def test_carried_index_search(data, jax_builds, build, metric, filtered):
+def test_carried_index_search(data, jax_builds, build, metric, filtered,
+                              monkeypatch):
     x, q = _cut(data[:2], build)
     keep = data[2]
     jidx = dataclasses.replace(jax_builds(build),
@@ -107,19 +113,19 @@ def test_carried_index_search(data, jax_builds, build, metric, filtered):
     assert tidx.size == N and tidx.rot_dim == 32
     jf = JaxBitset.from_mask(jnp.asarray(keep)) if filtered else None
     tf = Bitset.from_mask(torch.from_numpy(keep)) if filtered else None
-    with filter_policy.suspended():
+    with policy(filtered, monkeypatch):
         jv, ji = jpq.search(jidx, jnp.asarray(q), K,
                             jpq.SearchParams(N_PROBES,
                                              lut_dtype=jnp.float32),
                             filter=jf, algo="xla")
-    for algo in ("auto", "plain"):
-        tv, ti = ivf_pq.search(
-            tidx, torch.from_numpy(q), K,
-            ivf_pq.SearchParams(N_PROBES, lut_dtype=torch.float32),
-            filter=tf, algo=algo)
-        assert tv.device.type == "cpu" and ti.dtype == torch.int32
-        assert_knn_close(np.asarray(jv), np.asarray(ji), tv.numpy(),
-                         ti.numpy(), rtol=1e-4, min_rows_equal=0.98)
+        for algo in ("auto", "plain"):
+            tv, ti = ivf_pq.search(
+                tidx, torch.from_numpy(q), K,
+                ivf_pq.SearchParams(N_PROBES, lut_dtype=torch.float32),
+                filter=tf, algo=algo)
+            assert tv.device.type == "cpu" and ti.dtype == torch.int32
+            assert_knn_close(np.asarray(jv), np.asarray(ji), tv.numpy(),
+                             ti.numpy(), rtol=1e-4, min_rows_equal=0.98)
     if filtered:
         assert keep[ti.numpy()[ti.numpy() >= 0]].all()
 

@@ -2382,3 +2382,90 @@ def test_ivf_scans_on_slack_layout(family):
         torch.cuda.synchronize()
         assert_bits_equal(got[0], want[0])
         assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["brute_force", "ivf_flat", "cagra"])
+@pytest.mark.parametrize("integer", [False, True])
+def test_crossover_equals_the_filtered_k2_search_on_card(family, integer):
+    """The crossover (500 of 20,000 rows survive) of brute force, IVF-Flat
+    and CAGRA against K2 over every row with the filter's penalty (brute
+    force under ``suspended()``): K2 on the compacted rows sums each pair
+    as over the whole corpus, and ties go to the lowest id in both, so
+    ids and values are equal; on Gaussian rows the ids on >= 99.9% of
+    the rows and the values to rtol 1e-5 (the contract held by
+    ``chip_smoke.py``)."""
+    from raft_tpu_torch.core.bitset import Bitset
+    from raft_tpu_torch.ops import filter_policy as tfp
+
+    need_cuda()
+    if integer:
+        rng = np.random.default_rng(29)
+        x = torch.from_numpy(rng.integers(-8, 9, (20_000, 32)).astype(
+            np.float32)).cuda()
+        q = torch.from_numpy(rng.integers(-3, 4, (500, 32)).astype(
+            np.float32)).cuda()
+    else:
+        x, q = race_data(20_000, 500)
+    keep = np.zeros(20_000, bool)
+    keep[np.random.default_rng(30).choice(20_000, 500, replace=False)] = True
+    filt = Bitset.from_mask(torch.from_numpy(keep).cuda())
+    bidx = brute_force.build(x)
+    with tfp.suspended():
+        want = brute_force.search(bidx, q, 10, filter=filt)
+    idx = {"brute_force": lambda: bidx,
+           "ivf_flat": lambda: tivf.build(x, tivf.IndexParams(n_lists=32)),
+           "cagra": lambda: tcagra.build(x, tcagra.IndexParams(
+               intermediate_graph_degree=32, graph_degree=16,
+               knn_graph_algo="brute"))}[family]()
+    search = {"brute_force": lambda: brute_force.search(idx, q, 10,
+                                                        filter=filt),
+              "ivf_flat": lambda: tivf.search(idx, q, 10, filter=filt),
+              "cagra": lambda: tcagra.search(idx, q, 10, filter=filt)}
+    before = tfk.launches
+    got = search[family]()
+    torch.cuda.synchronize()
+    assert tfk.launches > before
+    if integer:
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    else:
+        assert_knn_close(want[0].cpu(), want[1].cpu(), got[0].cpu(),
+                         got[1].cpu(), min_rows_equal=0.999)
+
+
+@pytest.mark.cuda
+def test_select_k_auto_keeps_k1_after_a_topk_verdict():
+    """A ``tune_select_k`` verdict for ``torch.topk`` steers nothing:
+    ``select_k``'s AUTO launches K1 on a CUDA tensor."""
+    need_cuda()
+    winner, times = tsk.tune_select_k(64, 4096, 10, reps=2)
+    assert set(times) == {"kpass", "topk"}
+    autotune.record(autotune.shape_bucket("select_k", "cuda", n=4096,
+                                          k=10), "topk")
+    x = torch.randn(64, 4096, device="cuda")
+    before = tsk.launches
+    v, i = tsk.select_k(x, 10)
+    torch.cuda.synchronize()
+    assert tsk.launches == before + 1
+    pv, pi = tsk.select_k_plain(x, 10)
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+@pytest.mark.cuda
+def test_brute_force_tune_search_races_k2_and_scan_on_card():
+    """The race launches K2 and the scan engine's K1 and records one of
+    the two; the plain "matmul" engine never runs, and ``auto`` launches
+    K2 after a "scan" verdict."""
+    need_cuda()
+    x, q = race_data(20_000, 500)
+    idx = brute_force.build(x)
+    before = tfk.launches
+    winner, times = brute_force.tune_search(idx, q, 10, reps=2)
+    assert set(times) == {"pallas", "scan"} and winner in times
+    assert tfk.launches > before
+    key = brute_force._tune_key(idx, 500, 10)
+    assert autotune.lookup(key) == winner
+    autotune.record(key, "scan")
+    before = tfk.launches
+    brute_force.search(idx, q, 10)
+    assert tfk.launches > before

@@ -4,14 +4,19 @@ and searched by both packages; the port's own IVF-Flat build judged by
 recall; and the port's package rules (no JAX, no silent CPU).
 
 The JAX side runs its exact XLA engines (brute force ``algo="matmul"``,
-IVF-Flat ``algo="xla"``). A filtered JAX search runs under
-``filter_policy.suspended()``: the port prunes zero-survivor lists like
-JAX but has no adaptive widen/crossover policy yet.
+IVF-Flat ``algo="xla"``). A filtered search runs on both sides under
+each package's ``filter_policy.suspended()`` (case ``True``: the penalty
+and the zero-survivor prune), and with the adaptive policy on both
+sides: ``"crossover"`` at the default survivor threshold (every 60%
+filter of these 4,000 rows is below 8,192 survivors), ``"widened"`` with
+``RAFT_TPU_FILTER_BRUTE_MAX=0``, which both packages read (IVF-Flat
+widens 8 probes to 16).
 
 Tolerance (Gaussian inputs): ``test_torch_kernels.assert_knn_close``:
 distances to ``rtol=1e-5, atol=1e-5·max|d|``, ids equal on >= 99% of
 rows, because XLA and torch sum in different orders.
 """
+import contextlib
 import dataclasses
 import importlib.util
 import os
@@ -36,6 +41,7 @@ from raft_tpu_torch.core.errors import RaftError
 from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
                                       refine)
 from raft_tpu_torch.ops import autotune
+from raft_tpu_torch.ops import filter_policy as tfp
 from raft_tpu_torch.parallel import sharded_ann, sharded_knn
 from raft_tpu_torch.stats.metrics import neighborhood_recall
 from test_torch_kernels import assert_knn_close
@@ -97,9 +103,26 @@ def test_bitset_packing_matches(data):
     np.testing.assert_array_equal(tb.to_mask().numpy(), keep)
 
 
-@pytest.mark.parametrize("filtered", [False, True])
+# filtered: False (no filter), True (both under suspended()), or the
+# adaptive policy on both sides at the crossover / a widened level
+FILTERED = [False, True, "crossover", "widened"]
+
+
+@contextlib.contextmanager
+def policy(filtered, monkeypatch):
+    """Both packages' filter policy for a case of ``FILTERED``."""
+    if filtered == "widened":
+        monkeypatch.setenv("RAFT_TPU_FILTER_BRUTE_MAX", "0")
+    if filtered is True:
+        with filter_policy.suspended(), tfp.suspended():
+            yield
+    else:
+        yield
+
+
+@pytest.mark.parametrize("filtered", FILTERED)
 @pytest.mark.parametrize("metric", METRICS)
-def test_brute_force_carried_index(data, metric, filtered):
+def test_brute_force_carried_index(data, metric, filtered, monkeypatch):
     x, q, keep = data
     jidx = jbf.build(jnp.asarray(x), metric)
     tidx = convert.brute_force_index_from_numpy(
@@ -108,22 +131,23 @@ def test_brute_force_carried_index(data, metric, filtered):
          "metric": jidx.metric.value}, device="cpu")
     jf = JaxBitset.from_mask(jnp.asarray(keep)) if filtered else None
     tf = Bitset.from_mask(torch.from_numpy(keep)) if filtered else None
-    with filter_policy.suspended():
+    with policy(filtered, monkeypatch):
         jv, ji = jbf.search(jidx, jnp.asarray(q), K, filter=jf,
                             algo="matmul")
-    for algo in ("auto", "matmul"):
-        tv, ti = brute_force.search(tidx, torch.from_numpy(q), K, filter=tf,
-                                    algo=algo)
-        assert tv.device.type == "cpu" and ti.dtype == torch.int32
-        assert_knn_close(np.asarray(jv), np.asarray(ji), tv.numpy(),
-                         ti.numpy())
+        for algo in ("auto", "matmul"):
+            tv, ti = brute_force.search(tidx, torch.from_numpy(q), K,
+                                        filter=tf, algo=algo)
+            assert tv.device.type == "cpu" and ti.dtype == torch.int32
+            assert_knn_close(np.asarray(jv), np.asarray(ji), tv.numpy(),
+                             ti.numpy())
     if filtered:
         assert keep[ti.numpy()].all()
 
 
-@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("filtered", FILTERED)
 @pytest.mark.parametrize("metric", METRICS)
-def test_ivf_flat_carried_index(data, jax_ivf, metric, filtered):
+def test_ivf_flat_carried_index(data, jax_ivf, metric, filtered,
+                                monkeypatch):
     _, q, keep = data
     jidx = dataclasses.replace(jax_ivf,
                                metric=canonical_metric(metric))
@@ -139,16 +163,17 @@ def test_ivf_flat_carried_index(data, jax_ivf, metric, filtered):
     jf = JaxBitset.from_mask(jnp.asarray(keep)) if filtered else None
     tf = Bitset.from_mask(torch.from_numpy(keep)) if filtered else None
     sp = jivf.SearchParams(n_probes=N_PROBES)
-    with filter_policy.suspended():
+    with policy(filtered, monkeypatch):
         jv, ji = jivf.search(jidx, jnp.asarray(q), K, sp, filter=jf,
                              algo="xla")
-    for algo in ("auto", "plain"):
-        tv, ti = ivf_flat.search(tidx, torch.from_numpy(q), K,
-                                 ivf_flat.SearchParams(n_probes=N_PROBES),
-                                 filter=tf, algo=algo)
-        assert ti.dtype == torch.int32
-        assert_knn_close(np.asarray(jv), np.asarray(ji), tv.numpy(),
-                         ti.numpy())
+        for algo in ("auto", "plain"):
+            tv, ti = ivf_flat.search(
+                tidx, torch.from_numpy(q), K,
+                ivf_flat.SearchParams(n_probes=N_PROBES), filter=tf,
+                algo=algo)
+            assert ti.dtype == torch.int32
+            assert_knn_close(np.asarray(jv), np.asarray(ji), tv.numpy(),
+                             ti.numpy())
     if filtered:
         assert keep[ti.numpy()[ti.numpy() >= 0]].all()
 

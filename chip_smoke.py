@@ -96,6 +96,33 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    (each peak at most the data sheet's) and the select_k sweep (K1
    against ``torch.topk`` at the JAX sweep's eight shapes, its document
    in ``build/``), each printed with the card's name and power limit.
+   Then the mutation phase (capacity and mutation): the host tier on
+   copies of the path's IVF indexes that own their arrays — IVF-Flat at
+   0.125 GiB (about a quarter of the rows resident), planned by list
+   size and by the first 1,000 queries' probes, and IVF-PQ at 0.02 GiB
+   (bf16 LUT), chunks of 64 MiB: cold lists, rows and chunks, pinned
+   host MiB, device MiB freed (``memory_allocated``), the streamed
+   search's ms beside the resident one's, the MiB streamed and their
+   rate over the search's wall time beside one 256 MiB pinned copy's,
+   the launches (K3 / K4 once plus once a chunk, K1); the streamed search
+   held to the resident one (ids on >= 0.999 of rows, values to rtol
+   1e-5; bit-equality printed), also with every chunk scanned twice in a
+   row and under a keep-0.05 filter (against ``suspended()``); ``save``
+   refused. Then mutable indexes in ``build/mutable/``: IVF-Flat on all
+   1M rows (1,024 lists): create, 64 upserts of 1,024 rows from the same
+   clusters (each upsert's ms, fsync included, p50 and p99, the WAL's
+   MiB), 100,000 sealed and 512 upserted ids deleted, the search's
+   recall@10 against the exact answer over the live rows (K2) at least
+   the path's IVF-Flat recall - 0.02 with no deleted id returned, the
+   merge (committed; its seconds by stage), and ``recover`` in a fresh
+   process whose search is bit-equal to the live index's; brute force,
+   IVF-PQ (256 lists, pq 64 x 8; its merge recall floor 0.75) and
+   CAGRA (degree 128 -> 64, fused) on the first 100,000 rows: create,
+   4,096 upserts, 5,000 deletes, merge, recover, recall after each; the
+   crash drill on 20,000 rows (every ``mutable.CRASH_POINTS`` site and a
+   torn WAL tail: recover, every acked write visible, the search equal
+   to the exact live answer); a merge under ``io_error@core.serialize.*``
+   abandoned with the index as it was, and the next merge ``"backoff"``.
 3. graph routes, on the path's data, each with the counters reset before
    it and read after: CAGRA's NN-descent graph at the path's parameters
    (degree 128 → 64: ``build``'s stages one by one, so that the kNN
@@ -328,6 +355,7 @@ import inspect
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -341,12 +369,12 @@ import torch
 from raft_tpu_torch import bench
 from raft_tpu_torch.bench import roofline, select_k_sweep
 from raft_tpu_torch.comms import Mesh
-from raft_tpu_torch.core import raft_format
+from raft_tpu_torch.core import faults, raft_format, wal
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.errors import CorruptIndexError, RaftError
 from raft_tpu_torch.matrix import select_k as sk
 from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
-                                      refine)
+                                      mutable, refine)
 from raft_tpu_torch.neighbors._list_layout import gather_dense
 from raft_tpu_torch.ops import _cuda
 from raft_tpu_torch.ops import cagra_fused as cf
@@ -1843,7 +1871,7 @@ import numpy as np
 import torch
 from raft_tpu_torch.matrix import select_k as sk
 from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
-                                      refine)
+                                      mutable, refine)
 from raft_tpu_torch.ops import cagra_fused as cf
 from raft_tpu_torch.ops import filter_policy
 from raft_tpu_torch.ops import fused_knn as fk
@@ -4827,6 +4855,421 @@ def filters_phase(x, q, bidx, iidx, pidx, cidx, totals):
     log(f"filters phase: {time.perf_counter() - t0:.1f} s")
 
 
+# the mutation phase: the host tier of the path's IVF indexes (IVF-Flat
+# at 0.125 GiB, about a quarter of its rows resident; IVF-PQ at 0.02 GiB),
+# chunks of 64 MiB, planned by list size and by the first HOST_SAMPLE
+# queries' probes; then mutable indexes: IVF-Flat on all the path's rows,
+# the other families on its first MUT_SMALL_ROWS rows, the crash drill on
+# CRASH_ROWS rows and the merge-failure drill
+HOST_FLAT_GB, HOST_PQ_GB, HOST_CHUNK_MB, HOST_SAMPLE = 0.125, 0.02, 64, 1000
+HOST_MIN_ROWS = 0.999          # streamed ids equal to the resident's
+PINNED_COPY_MIB = 256          # the host-to-device rate the tier is held to
+MUT_UPSERTS, MUT_UPSERT_ROWS = 64, 1024
+MUT_DELETES, MUT_DELTA_DELETES = 100_000, 512
+MUT_RECALL_GAP = 0.02          # tombstoned recall >= the path's - this
+MUT_SMALL_ROWS, MUT_SMALL_UPSERT, MUT_SMALL_DELETES = 100_000, 4096, 5000
+# the IVF-PQ family's merge recall floor: the post-merge check compares
+# the segment's distances with the exact k-th, and PQ's are estimates (at
+# pq 64 x 8 on 100,000 of the path's rows 0.828 of them reach it, NVIDIA
+# H100 80GB HBM3, 700.00 W), so the default 0.9 would abandon every merge
+MUT_PQ_RECALL_FLOOR = 0.75
+MUT_SMALL = (("brute_force", {}, None),
+             ("ivf_pq", {"n_lists": 256, "pq_dim": PQ_DIM,
+                         "pq_bits": PQ_BITS},
+              ivf_pq.SearchParams(n_probes=N_PROBES)),
+             ("cagra", {"intermediate_graph_degree": CAGRA_D0,
+                        "graph_degree": CAGRA_DEG},
+              dataclasses.replace(CAGRA_SP, engine="fused")))
+CRASH_ROWS = 20_000
+MUT_DIR = "build/mutable"
+RECOVER_CHILD = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+from raft_tpu_torch.neighbors import ivf_flat, mutable
+d, out = sys.argv[1], sys.argv[2]
+probes, k = int(sys.argv[3]), int(sys.argv[4])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+q = torch.from_numpy(np.load(os.path.join(out, "queries.npy"))).cuda()
+t0 = time.perf_counter()
+m = mutable.recover(d)
+torch.cuda.synchronize()
+t_rec = time.perf_counter() - t0
+v, i = m.search(q, k, ivf_flat.SearchParams(n_probes=probes))
+np.save(os.path.join(out, "values.npy"), v.cpu().numpy())
+np.save(os.path.join(out, "ids.npy"), i.cpu().numpy())
+print(json.dumps({"recover_s": t_rec, "generation": m.generation,
+                  "sealed_rows": m.sealed_rows, "delta_rows": m.delta_rows}))
+"""
+
+
+def pinned_copy_gbps() -> float:
+    """GB/s of one PINNED_COPY_MIB copy from pinned host memory to the card
+    (the median of 5; the tier's bound)."""
+    n = PINNED_COPY_MIB << 18
+    src = torch.ones(n, dtype=torch.float32, pin_memory=True)
+    dst = torch.empty(n, dtype=torch.float32, device="cuda")
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dst.copy_(src, non_blocking=True)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return n * 4 / statistics.median(times) / 1e6
+
+
+def owned_copy(mod, idx):
+    """A copy of an IVF index that owns its list arrays (the tier swaps
+    them in place, and the device memory it saves shows)."""
+    if mod is ivf_flat:
+        return dataclasses.replace(
+            idx, data=idx.data.clone(), data_norms=idx.data_norms.clone(),
+            source_ids=idx.source_ids.clone())
+    return dataclasses.replace(idx, codes=idx.codes.clone(),
+                               source_ids=idx.source_ids.clone())
+
+
+def stream_case(name, mod, idx, q, k, sp, budget, sample, gbps, smi, totals):
+    """One host-tier plan: prepared on a copy of ``idx``; its search beside
+    the resident one's, held to it (and filtered, and each chunk scanned
+    twice); ``save`` refused."""
+    scan = "ivf_flat_scan" if mod is ivf_flat else "ivf_pq_scan"
+    copy = owned_copy(mod, idx)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    _, t_prep = host_time(lambda: mod.prepare_host_stream(
+        copy, budget_gb=budget, sample_queries=sample, n_probes=N_PROBES,
+        chunk_mb=HOST_CHUNK_MB))
+    after = torch.cuda.memory_allocated()
+    tier = copy.host_tier
+    if tier is None:
+        raise AssertionError(f"host tier {name}: the budget held every list")
+    (rv, ri), t_res = host_time(lambda: mod.search(idx, q, k, sp))
+    mod.search(copy, q, k, sp)                       # warm
+    b0, c0 = tier.streamed_bytes, tier.streamed_chunks
+    reset_counts()
+    (v, i), t_str = host_time(lambda: mod.search(copy, q, k, sp))
+    moved = counts()
+    for kern, n in moved.items():
+        totals[kern] += n
+    nbytes, chunks = tier.streamed_bytes - b0, tier.streamed_chunks - c0
+    log(f"host tier {name}: {tier.n_cold_lists} cold lists of "
+        f"{copy.n_lists}, {tier.cold_rows} cold rows, {len(tier.chunks)} "
+        f"chunks of {tier.chunk_rows} rows, {tier.host_bytes / 2**20:.1f} "
+        f"MiB pinned host memory (pinned {tier.pinned}); device "
+        f"{(before - after) / 2**20:.1f} MiB freed (memory_allocated), "
+        f"{tier.device_bytes_saved / 2**20:.1f} MiB of list arrays; "
+        f"prepared in {t_prep:.3f} s [{smi}]")
+    log(f"host tier {name}: search {t_str * 1e3:.1f} ms (resident "
+        f"{t_res * 1e3:.1f} ms); {chunks} chunks, "
+        f"{nbytes / 2**20:.1f} MiB streamed, {nbytes / t_str / 1e9:.2f} GB/s "
+        f"over the search's wall time (one {PINNED_COPY_MIB} MiB pinned "
+        f"copy: {gbps:.2f} GB/s); device memory after it "
+        f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB allocated; "
+        f"launches: {launched(moved)} [{smi}]")
+    if moved[scan] != 1 + chunks or moved["select_k"] == 0:
+        raise AssertionError(f"host tier {name}: {scan} launched "
+                             f"{moved[scan]} times for {chunks} chunks")
+    check_close(rv, ri, v, i, f"host tier {name} vs resident", HOST_MIN_ROWS)
+    bits = bool(torch.equal(v.view(torch.int32), rv.view(torch.int32))
+                and torch.equal(i, ri))
+    log(f"host tier {name}: bit-equal to the resident search: {bits}")
+    tier.passes = 2
+    reset_counts()
+    v2, i2 = mod.search(copy, q, k, sp)
+    twice = counts()[scan]
+    tier.passes = 1
+    check_bits((v, i), (v2, i2), f"host tier {name}, each chunk scanned "
+               f"twice in a row ({twice} {scan} launches)")
+    rng = np.random.default_rng(SEED + 23)
+    filt = Bitset.from_mask(torch.from_numpy(rng.random(N) < 0.05).cuda())
+    with filter_policy.suspended():
+        fv, fi = mod.search(idx, q, k, sp, filter=filt)
+    reset_counts()
+    (sv, si), t_f = host_time(lambda: mod.search(copy, q, k, sp,
+                                                 filter=filt))
+    check_close(fv, fi, sv, si, f"host tier {name} keep-0.05 filter vs the "
+                f"resident search under suspended() ({t_f * 1e3:.1f} ms; "
+                f"{launched(counts())})", HOST_MIN_ROWS)
+    try:
+        mod.save(copy, os.path.join("build", "host-tier.idx"))
+    except RaftError as e:
+        log(f"host tier {name}: save refused ({e})")
+    else:
+        raise AssertionError(f"host tier {name}: save did not refuse")
+    del copy, tier
+    torch.cuda.empty_cache()
+
+
+def live_exact(m, q, k):
+    """The exact answer over a mutable index's live rows: (values, external
+    ids) by brute force (K2 + K1), and the live ids."""
+    sa = m._alive
+    dn = m._d_n
+    da = m._d_alive[:dn]
+    vecs = np.concatenate([m._sealed_vecs[sa], m._d_vecs[:dn][da]])
+    ids = np.concatenate([m._sealed_ids[sa], m._d_ids[:dn][da]])
+    v, i = brute_force.search(brute_force.build(torch.from_numpy(vecs)), q,
+                              k)
+    ext = torch.from_numpy(ids).cuda()[i.long()]
+    return v, ext.to(torch.int32), ids
+
+
+def fresh_dir(name: str) -> str:
+    d = os.path.abspath(os.path.join(MUT_DIR, name))
+    if os.path.exists(d):
+        shutil.rmtree(d)
+    return d
+
+
+def mutable_flat(x, q, bidx, iidx, draw, smi, totals):
+    """IVF-Flat at full size: create, upserts, deletes, search against the
+    exact live answer, merge, recover in a fresh process."""
+    sp = ivf_flat.SearchParams(n_probes=N_PROBES)
+    path_recall = neighborhood_recall(
+        ivf_flat.search(iidx, q, K, sp)[1], brute_force.search(bidx, q, K)[1])
+    d = fresh_dir("ivf_flat")
+    xh = x.cpu().numpy()
+    m, t_create = host_time(lambda: mutable.create(
+        d, xh, family="ivf_flat", family_params={"n_lists": N_LISTS}))
+    del xh
+    log(f"mutable ivf_flat: create on {N} rows {t_create:.2f} s in {d} "
+        f"({fs_line(d)}) [{smi}]")
+    ups = []
+    new_ids = []
+    for _ in range(MUT_UPSERTS):
+        rows = draw(MUT_UPSERT_ROWS)
+        t0 = time.perf_counter()
+        new_ids.append(m.upsert(None, rows))
+        ups.append((time.perf_counter() - t0) * 1e3)
+    new_ids = np.concatenate(new_ids)
+    log(f"mutable ivf_flat: {MUT_UPSERTS} upserts of {MUT_UPSERT_ROWS} rows "
+        f"(WAL append + fsync): p50 {np.percentile(ups, 50):.2f} ms, p99 "
+        f"{np.percentile(ups, 99):.2f} ms, max {max(ups):.2f} ms; WAL "
+        f"{m.wal_bytes() / 2**20:.1f} MiB [{smi}]")
+    rng = np.random.default_rng(SEED + 24)
+    gone = np.concatenate([
+        rng.choice(N, MUT_DELETES, replace=False),
+        rng.choice(new_ids, MUT_DELTA_DELETES, replace=False)])
+    _, t_del = host_time(lambda: m.delete(gone))
+    log(f"mutable ivf_flat: deleted {len(gone)} ids in {t_del:.3f} s; "
+        f"{m.sealed_rows} sealed rows live, {m.delta_rows} delta rows")
+    reset_counts()
+    (v, i), t_first = host_time(lambda: m.search(q, K, sp))
+    moved = counts()
+    for kern, n in moved.items():
+        totals[kern] += n
+    (v, i), t = host_time(lambda: m.search(q, K, sp))
+    ev, ei, _ = live_exact(m, q, K)
+    rec = neighborhood_recall(i, ei)
+    log(f"mutable ivf_flat: search {M} queries: first after the writes "
+        f"{t_first * 1e3:.1f} ms (the delta's {len(m._d_ids)}-row upload "
+        f"and build), then {t * 1e3:.1f} ms; recall@{K} {rec:.4f} against "
+        f"the exact live answer (the path's IVF-Flat {path_recall:.4f}); "
+        f"launches: {launched(moved)} [{smi}]")
+    if moved["ivf_flat_scan"] == 0 or moved["fused_knn"] == 0:
+        raise AssertionError("mutable ivf_flat: K3 or K2 not launched")
+    if bool(np.isin(i.cpu().numpy(), gone).any()):
+        raise AssertionError("mutable ivf_flat: a deleted id was returned")
+    if rec < path_recall - MUT_RECALL_GAP:
+        raise AssertionError(f"mutable ivf_flat: recall {rec:.4f} below the "
+                             f"path's {path_recall:.4f} - {MUT_RECALL_GAP}")
+    verdict, t_merge = host_time(lambda: m.merge())
+    lm = m.last_merge
+    if verdict != "committed":
+        raise AssertionError(f"mutable ivf_flat: merge {verdict}: {lm}")
+    stages = ", ".join(f"{s} {t:.2f}" for s, t in lm["stages_s"].items())
+    (v, i), t = host_time(lambda: m.search(q, K, sp))
+    rec2 = neighborhood_recall(i, ei)
+    log(f"mutable ivf_flat: merge committed in {t_merge:.2f} s ({stages} "
+        f"s; {lm['rows']} rows, merge recall {lm['merge_recall']:.4f}); "
+        f"search after it {t * 1e3:.1f} ms, recall@{K} {rec2:.4f} [{smi}]")
+    out = os.path.join(MUT_DIR, "recover-out")
+    os.makedirs(out, exist_ok=True)
+    np.save(os.path.join(out, "queries.npy"), q.cpu().numpy())
+    child, t_child = host_time(lambda: subprocess.run(
+        [sys.executable, "-c", RECOVER_CHILD, d, out, str(N_PROBES), str(K)],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__))))
+    if child.returncode != 0:
+        raise AssertionError(f"recover child failed: {child.stderr[-4000:]}")
+    got = json.loads(child.stdout.strip().splitlines()[-1])
+    back = tuple(torch.from_numpy(np.load(os.path.join(out, f"{p}.npy")))
+                 .cuda() for p in ("values", "ids"))
+    check_bits((v, i), back, "mutable ivf_flat recovered in a fresh process "
+               "against the live index")
+    log(f"mutable ivf_flat: recover in a fresh process {got['recover_s']:.2f}"
+        f" s (the process {t_child:.1f} s), generation {got['generation']}, "
+        f"{got['sealed_rows']} sealed rows [{smi}]")
+    del m
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def mutable_small(x, q, draw, smi, totals):
+    """Brute force, IVF-PQ and CAGRA on the path's first MUT_SMALL_ROWS rows:
+    create, upserts, deletes, search, merge, recover, recall after each."""
+    xs = x[:MUT_SMALL_ROWS].cpu().numpy()
+    rng = np.random.default_rng(SEED + 25)
+    for fam, fp, sp in MUT_SMALL:
+        d = fresh_dir(fam)
+        m, t_create = host_time(lambda: mutable.create(
+            d, xs, family=fam, family_params=fp))
+        if fam == "ivf_pq":
+            m.merge_recall_floor = MUT_PQ_RECALL_FLOOR
+        recalls = []
+
+        def recall(what):
+            reset_counts()
+            (_, i), t = host_time(lambda: m.search(q, K, sp))
+            moved = counts()
+            for kern, n in moved.items():
+                totals[kern] += n
+            rec = neighborhood_recall(i, live_exact(m, q, K)[1])
+            recalls.append(f"{what} {rec:.4f} ({t * 1e3:.1f} ms; "
+                           f"{launched(moved)})")
+            return i
+
+        recall("created")
+        new = np.concatenate([m.upsert(None, draw(1024))
+                              for _ in range(MUT_SMALL_UPSERT // 1024)])
+        recall("upserted")
+        gone = np.concatenate([rng.choice(MUT_SMALL_ROWS,
+                                          MUT_SMALL_DELETES - 100, False),
+                               rng.choice(new, 100, False)])
+        m.delete(gone)
+        i = recall("deleted")
+        if bool(np.isin(i.cpu().numpy(), gone).any()):
+            raise AssertionError(f"mutable {fam}: a deleted id was returned")
+        verdict, t_merge = host_time(lambda: m.merge())
+        if verdict != "committed":
+            raise AssertionError(f"mutable {fam}: merge {verdict}: "
+                                 f"{m.last_merge}")
+        i = recall("merged")
+        r, t_rec = host_time(lambda: mutable.recover(d))
+        ri = r.search(q, K, sp)[1]
+        if not torch.equal(ri, i):
+            raise AssertionError(f"mutable {fam}: recovered search differs")
+        log(f"mutable {fam} ({MUT_SMALL_ROWS} rows): create {t_create:.2f} "
+            f"s, merge {t_merge:.2f} s (merge recall "
+            f"{m.last_merge['merge_recall']:.4f}), recover {t_rec:.2f} s "
+            f"(search equal); recall@{K} against the exact live answer: "
+            + "; ".join(recalls) + f" [{smi}]")
+        del m, r
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def crash_drill(x, q, smi):
+    """Kill at every CRASH_POINTS site and at a torn WAL tail on a
+    CRASH_ROWS-row mutable index on the card: recover, every acked write
+    visible, the search the exact live answer; then a merge under
+    io_error@core.serialize.* abandoned, the index as it was, and the
+    next merge "backoff"."""
+    xs = x[:CRASH_ROWS].cpu().numpy()
+    rng = np.random.default_rng(SEED + 26)
+    acked = rng.standard_normal((3, D), dtype=np.float32)
+    cases = [(s, "crash_point") for s in mutable.CRASH_POINTS] + [
+        (wal.APPEND_SITE, "wal_torn_tail")]
+    for site, kind in cases:
+        d = fresh_dir("crash")
+        m = mutable.create(d, xs)
+        m.upsert(np.array([CRASH_ROWS + 500, CRASH_ROWS + 501,
+                           CRASH_ROWS + 502]), acked)
+        m.delete([5, CRASH_ROWS + 501])
+        died = False
+        try:
+            with faults.inject(kind, site, count=1):
+                if site.startswith("mutable.merge"):
+                    m.merge()
+                else:
+                    m.upsert(np.array([CRASH_ROWS + 900]),
+                             rng.standard_normal((1, D), dtype=np.float32))
+        except faults.InjectedCrash:
+            died = True
+        if not died:
+            raise AssertionError(f"crash drill: {kind}@{site} never fired")
+        del m
+        r, t_rec = host_time(lambda: mutable.recover(d))
+        v, i = r.search(q[:1000], K)
+        ev, ei, live = live_exact(r, q[:1000], K)
+        if not ({CRASH_ROWS + 500, CRASH_ROWS + 502} <= set(live.tolist())
+                and not {5, CRASH_ROWS + 501} & set(live.tolist())):
+            raise AssertionError(f"crash drill {kind}@{site}: an acked write "
+                                 "is missing")
+        check_close(ev, ei, v, i, f"crash drill {kind}@{site}: recovered in "
+                    f"{t_rec:.2f} s (generation {r.generation}), search vs "
+                    "the exact live answer", 0.999)
+        del r
+    # the merge-failure drill on the last recovered directory
+    m = mutable.recover(d)
+    m.upsert(None, rng.standard_normal((6, D), dtype=np.float32))
+    gen, delta = m.generation, m.delta_rows
+    before = m.search(q[:1000], K)
+    with faults.inject("io_error", "core.serialize.*"):
+        verdict = m.merge()
+    again = m.merge()
+    after = m.search(q[:1000], K)
+    if (verdict, again) != ("backoff", "backoff") or (
+            m.generation, m.delta_rows) != (gen, delta):
+        raise AssertionError(f"merge failure: {verdict}, {again}, "
+                             f"generation {m.generation}")
+    check_bits(before, after, "merge failure: the live index as it was")
+    log(f"merge failure: {m.last_merge['reason']}; abandoned, the next "
+        f"merge {again!r}, breaker {m.merge_breaker()['state']} [{smi}]")
+    del m
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def fs_line(path: str) -> str:
+    """The filesystem holding ``path``: the type and mount point of the
+    longest mount point above it in /proc/mounts."""
+    mnt, kind = "?", "?"
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                _, point, fstype = line.split()[:3]
+                if ((path == point
+                     or path.startswith(point.rstrip("/") + "/"))
+                        and (mnt == "?" or len(point) > len(mnt))):
+                    mnt, kind = point, fstype
+    except OSError:
+        pass
+    return f"filesystem {kind} mounted at {mnt}"
+
+
+def mutation_phase(x, q, bidx, iidx, pidx, centers, scales, totals):
+    """Capacity and mutation: the host tier on copies of the path's IVF
+    indexes, then mutable indexes of the four families, the crash drill
+    and the merge-failure drill."""
+    t0 = time.perf_counter()
+    smi = smi_line()
+    gbps = pinned_copy_gbps()
+    log(f"mutation phase: one {PINNED_COPY_MIB} MiB pinned copy to the card "
+        f"{gbps:.2f} GB/s [{smi}]")
+    sp_flat = ivf_flat.SearchParams(n_probes=N_PROBES)
+    sp_pq = ivf_pq.SearchParams(n_probes=N_PROBES)      # bf16 LUT
+    for name, mod, idx, k, sp, budget, sample in (
+            ("ivf_flat (by list size)", ivf_flat, iidx, K, sp_flat,
+             HOST_FLAT_GB, None),
+            (f"ivf_flat (by {HOST_SAMPLE} queries' probes)", ivf_flat, iidx,
+             K, sp_flat, HOST_FLAT_GB, q[:HOST_SAMPLE]),
+            ("ivf_pq", ivf_pq, pidx, K0, sp_pq, HOST_PQ_GB, None)):
+        stream_case(name, mod, idx, q, k, sp, budget, sample, gbps, smi,
+                    totals)
+    log(f"mutation phase: host tier {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 27)
+    draw = lambda n: clustered(rng, n, centers, scales)  # noqa: E731
+    mutable_flat(x, q, bidx, iidx, draw, smi, totals)
+    log(f"mutation phase: mutable ivf_flat {time.perf_counter() - t0:.1f} s")
+    mutable_small(x, q, draw, smi, totals)
+    crash_drill(x, q, smi)
+    shutil.rmtree(MUT_DIR, ignore_errors=True)
+    log(f"mutation phase: {time.perf_counter() - t0:.1f} s")
+
+
 def row_of(kernels, name: str) -> dict:
     """The kernel row named ``name``."""
     return next(k for k in kernels if k["name"] == name)
@@ -4879,6 +5322,8 @@ def main() -> int:
     mark(t_start, "remainders phase")
     filters_phase(x, q, bidx, iidx, pidx, cidx, moved)
     mark(t_start, "filters phase")
+    mutation_phase(x, q, bidx, iidx, pidx, centers, scales, moved)
+    mark(t_start, "mutation phase")
     k1_route, k1_pass, k4_route, route_peak = graph_route_phase(
         x, q, bidx, cidx, moved, pre_peak)
     mark(t_start, "graph-route phase")

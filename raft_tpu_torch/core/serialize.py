@@ -26,8 +26,12 @@ Path saves are atomic: a temp file in the target directory, fsynced,
 
 Arrays are written from a tensor on any device or a numpy array; a
 bfloat16 tensor is framed as its uint16 words (numpy has no bfloat16),
-and tensors are written C-contiguous. The JAX package's fault injection
-and corrupt-load telemetry have no counterpart here.
+and tensors are written C-contiguous. The writer carries the JAX package's
+fault probes (``core/faults.py``): ``io_error`` at
+``core.serialize.save_arrays`` after the header, and ``corrupt_bytes`` at
+``core.serialize.array.<name>`` on the bytes an array section writes
+(its CRC covers the true bytes, so the reader catches the flip). The
+reader's corrupt-load telemetry is not ported yet.
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ from typing import Any, BinaryIO, Dict, List, Tuple
 import numpy as np
 import torch
 
+from . import faults
 from .errors import CorruptIndexError
 
 __all__ = ["serialize_scalar", "deserialize_scalar", "serialize_array",
@@ -119,17 +124,20 @@ def deserialize_array(f: BinaryIO) -> np.ndarray:
 
 class _CrcIO:
     """Pass-through reader or writer accumulating a CRC32 of the current
-    section; ``n`` counts the bytes written."""
+    section; ``n`` counts the bytes written. ``site``: a writer's
+    ``corrupt_bytes`` probe, applied to the bytes written after the CRC
+    has taken them."""
 
-    def __init__(self, f: BinaryIO, crc: int = 0):
+    def __init__(self, f: BinaryIO, crc: int = 0, site: str = ""):
         self._f = f
         self.crc = crc
         self.n = 0
+        self._site = site
 
     def write(self, b) -> None:
         self.crc = zlib.crc32(b, self.crc)
         self.n += len(b)
-        self._f.write(b)
+        self._f.write(faults.corrupt(self._site, b) if self._site else b)
 
     def read(self, n: int = -1) -> bytes:
         b = self._f.read(n)
@@ -155,10 +163,11 @@ def _write_array_section(f: BinaryIO, name: str, arr) -> None:
     name_frame = struct.pack("<H", len(nb)) + nb
     f.write(name_frame)
     crc = zlib.crc32(name_frame)
+    site = f"core.serialize.array.{name}"
     if _seekable(f):
         len_pos = f.tell()
         f.write(struct.pack("<Q", 0))
-        tee = _CrcIO(f, crc)
+        tee = _CrcIO(f, crc, site)
         serialize_array(tee, arr)
         plen, crc = tee.n, tee.crc
         end = f.tell()
@@ -172,7 +181,7 @@ def _write_array_section(f: BinaryIO, name: str, arr) -> None:
         plen = len(payload)
         f.write(struct.pack("<Q", plen))
         crc = zlib.crc32(payload, crc)
-        f.write(payload)
+        f.write(faults.corrupt(site, payload))
     crc = zlib.crc32(struct.pack("<Q", plen), crc)
     f.write(struct.pack("<I", crc))
 
@@ -309,6 +318,7 @@ def save_arrays(path_or_file, kind: str, version: int, meta: Dict[str, Any],
         items = sorted(arrays.items())
         w.write(struct.pack("<I", len(items)))
         f.write(struct.pack("<I", w.take()))
+        faults.check("io_error", "core.serialize.save_arrays")
         for name, arr in items:
             _write_array_section(f, name, arr)
 

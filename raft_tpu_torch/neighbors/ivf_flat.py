@@ -1,7 +1,7 @@
 """IVF-Flat index: counterpart of ``raft_tpu/neighbors/ivf_flat.py``
 (``IndexParams``, ``SearchParams``, ``Index``, ``build``,
-``build_from_batches``, ``extend``, ``search``, ``reconstruct``,
-``health``, ``make_searcher``, ``save``, ``load``).
+``build_from_batches``, ``extend``, ``search``, ``prepare_host_stream``,
+``reconstruct``, ``health``, ``make_searcher``, ``save``, ``load``).
 
 Lists are contiguous row ranges of one cluster-sorted array
 (``_list_layout``), stored float32, bfloat16, int8 with per-row scales or
@@ -25,8 +25,17 @@ A filter removes rows through an additive penalty row in sorted row
 order, lists with no surviving row are pruned from the probe, and the
 adaptive policy (``ops/filter_policy``) widens ``n_probes`` or, where few
 rows survive, searches the survivors' rows (:func:`reconstruct`) by brute
-force; inside ``filter_policy.suspended()`` only the prune stays. Host
-streaming is not ported yet. ``save`` /
+force; inside ``filter_policy.suspended()`` only the prune stays.
+
+:func:`prepare_host_stream` moves the lists past a device budget into a
+host-memory tier (``host_stream``): a search then scans the resident
+lists as always and each probed cold chunk, copied to the device, with
+K3 too, and merges the parts (K1). For an index built in the JAX
+package the tier's plan and the streamed search equal its own; a
+streamed search equals the resident one, and a filtered one the
+resident search under ``filter_policy.suspended()`` (the tier keeps the
+prune only, as the JAX package's does). ``extend`` and ``save`` refuse a
+streamed index. ``save`` /
 ``load`` read and write the JAX package's files: lists packed with no
 slack; a loaded index keeps that dense layout (list starts at any row;
 the kernels take them). Every
@@ -47,7 +56,8 @@ from ..core.bitset import Bitset
 from ..core.errors import RaftError, expects
 from ..core.resources import workspace_chunk_bytes
 from ..core.serialize import device_tensor, load_arrays, save_arrays
-from ..distance.distance_types import DistanceType, canonical_metric
+from ..distance.distance_types import (DistanceType, canonical_metric,
+                                       is_min_close)
 from ..matrix.select_k import SelectAlgo
 from ..ops import filter_policy
 from ..ops.ivf_scan import coarse_probe, ivf_flat_scan, ivf_flat_scan_plain
@@ -55,13 +65,15 @@ from ..ops.quant import (STORES, dequantize_rows, int8_scale_report,
                          quantize_rows, store_dtype)
 from ..utils import (query_chunks, resolve_device, round_up_to,
                      run_query_chunks)
+from . import host_stream as hs
 from ._list_layout import (dense_offsets, gather_dense, list_skew,
                            scatter_extend, streaming_build)
-from .brute_force import _KERNEL_METRICS, _postprocess, health_sample_rows
+from .brute_force import (_KERNEL_METRICS, _postprocess, health_sample_rows,
+                          knn_merge_parts)
 
 __all__ = ["IndexParams", "SearchParams", "Index", "build",
-           "build_from_batches", "extend", "search", "reconstruct",
-           "health", "make_searcher", "save", "load"]
+           "build_from_batches", "extend", "search", "prepare_host_stream",
+           "reconstruct", "health", "make_searcher", "save", "load"]
 
 # the file version save writes (the JAX package's); load reads 1 and 2
 _SERIAL_VERSION = 2
@@ -108,7 +120,9 @@ class Index:
     lists out with; ``conservative_memory`` RAFT's flag of that name, kept
     for its files. ``offsets_dev``/``sizes_dev`` are the int32 copies of
     the offsets and sizes on the index's device, made once for the
-    scan."""
+    scan. ``host_tier``: the cold lists' host tier after
+    :func:`prepare_host_stream` (the arrays then hold the resident lists
+    only)."""
 
     data: torch.Tensor
     data_norms: torch.Tensor
@@ -123,6 +137,8 @@ class Index:
     conservative_memory: bool = False
     offsets_dev: torch.Tensor = dataclasses.field(init=False, repr=False)
     sizes_dev: torch.Tensor = dataclasses.field(init=False, repr=False)
+    host_tier: Optional[hs.HostTier] = dataclasses.field(
+        default=None, init=False, repr=False)
 
     def __post_init__(self):
         dev = self.data.device
@@ -206,7 +222,12 @@ def extend(index: Index, new_vectors, new_ids=None) -> Index:
     list, the scales with their rows. Ids continue from the largest id
     held (0 for an empty index) unless ``new_ids`` are given. While every
     list has room the new rows are scattered into the slack; a list that
-    overflows repacks the lists with ``list_growth`` slack."""
+    overflows repacks the lists with ``list_growth`` slack. A
+    host-streamed index is refused (the JAX package's ``extend`` keeps
+    only its resident lists and drops the cold rows)."""
+    expects(index.host_tier is None,
+            "cannot extend a host-streamed index (its cold lists live in "
+            "the host tier); extend before prepare_host_stream")
     dev = index.device
     new_vectors = torch.as_tensor(new_vectors).to(device=dev,
                                                   dtype=torch.float32)
@@ -238,13 +259,30 @@ def extend(index: Index, new_vectors, new_ids=None) -> Index:
                  index.conservative_memory)
 
 
+def _row_penalty(source_ids: torch.Tensor, mask: torch.Tensor
+                 ) -> torch.Tensor:
+    """(rows,) penalty of rows with these source ids under a filter's
+    unpacked ``mask``: +inf on filtered-out and slack (-1) rows, else
+    0."""
+    ids = source_ids.long()
+    keep = (ids >= 0) & mask[ids.clamp_min(0)]
+    return torch.where(keep, 0.0, float("inf")).to(torch.float32)
+
+
 def _penalty(index: Index, filter: Bitset) -> torch.Tensor:
     """Sample filter → (cap_total,) penalty row in sorted row order: +inf
     on filtered-out and slack rows, else 0."""
-    mask = filter.to(index.device).to_mask()
-    ids = index.source_ids.long()
-    keep = (ids >= 0) & mask[ids.clamp_min(0)]
-    return torch.where(keep, 0.0, float("inf")).to(torch.float32)
+    return _row_penalty(index.source_ids, filter.to(index.device).to_mask())
+
+
+def _scan(scan, data, norms, ids, scales, probed, offsets, sizes, qc, k,
+          mt: DistanceType, pen):
+    """One list scan of ``probed`` over these lists' arrays → the
+    metric's distances and source ids (m, k)."""
+    vals, rows = scan(data, norms, probed, offsets, sizes, qc, k,
+                      _KERNEL_METRICS[mt], pen, scales=scales)
+    ids = torch.where(rows >= 0, ids[rows.clamp_min(0).long()], -1)
+    return _postprocess(mt, vals), ids
 
 
 def search(index: Index, queries, k: int,
@@ -270,10 +308,13 @@ def search(index: Index, queries, k: int,
     q = torch.as_tensor(queries).to(device=index.device, dtype=torch.float32)
     expects(q.dim() == 2 and q.shape[1] == index.dim,
             "bad query shape %s", tuple(q.shape))
-    expects(index.size > 0, "index is empty")
     expects(algo in ("auto", "pallas", "plain"),
             "unknown ivf_flat algo %r", algo)
     n_probes = min(p.n_probes, index.n_lists)
+    if index.host_tier is not None:
+        return _search_host_stream(index, q, k, n_probes, filter,
+                                   query_chunk, algo, res)
+    expects(index.size > 0, "index is empty")
     pen = survivors = None
     sizes = index.sizes_dev
     if filter is not None:
@@ -286,27 +327,143 @@ def search(index: Index, queries, k: int,
         pen = _penalty(index, filter)
         sizes = torch.where(survivors > 0, sizes, 0).to(torch.int32)
     mt = index.metric
-    metric = _KERNEL_METRICS[mt]
     plain = algo == "plain"
     scan = ivf_flat_scan_plain if plain else ivf_flat_scan
 
     def one(qc: torch.Tensor, _s0: int = 0):
-        probed = coarse_probe(qc, index.centers, n_probes, metric,
-                              index.center_norms, survivors,
+        probed = coarse_probe(qc, index.centers, n_probes,
+                              _KERNEL_METRICS[mt], index.center_norms,
+                              survivors,
                               SelectAlgo.TOPK if plain else SelectAlgo.AUTO)
-        vals, rows = scan(index.data, index.data_norms, probed,
-                          index.offsets_dev, sizes, qc, k, metric, pen,
-                          scales=index.scales)
-        ids = torch.where(rows >= 0,
-                          index.source_ids[rows.clamp_min(0).long()], -1)
-        return _postprocess(mt, vals), ids
+        return _scan(scan, index.data, index.data_norms, index.source_ids,
+                     index.scales, probed, index.offsets_dev, sizes, qc, k,
+                     mt, pen)
 
+    return _run_chunks(one, index, q, n_probes, query_chunk, res)
+
+
+def _run_chunks(one, index: Index, q: torch.Tensor, n_probes: int,
+                query_chunk: int, res):
     per_q = n_probes * round_up_to(index.dim, 128) * 4
     chunk = query_chunks(q.shape[0], query_chunk, res,
                          workspace_chunk_bytes(res) // per_q)
     if chunk:
         return run_query_chunks(one, q, chunk, res)
     return one(q)
+
+
+def _search_host_stream(index: Index, q: torch.Tensor, k: int,
+                        n_probes: int, filter: Optional[Bitset],  # noqa: A002
+                        query_chunk: int, algo: str, res):
+    """A host-streamed search: one coarse probe a query chunk, the
+    resident lists scanned as :func:`search` scans them, every probed
+    cold chunk streamed (``HostTier.stream``) and scanned by the same
+    kernel over its chunk-local lists, the parts merged (K1). A filter
+    keeps the prune only, over the survivors of the whole index."""
+    tier = index.host_tier
+    mt = index.metric
+    plain = algo == "plain"
+    scan = ivf_flat_scan_plain if plain else ivf_flat_scan
+    sizes, pen, mask, survivors = index.sizes_dev, None, None, None
+    if filter is not None:
+        survivors = (filter_policy.list_survivors(index, filter)
+                     + tier.survivors(filter, index.n_lists))
+        mask = filter.to(index.device).to_mask()
+        pen = _row_penalty(index.source_ids, mask)
+        sizes = torch.where(survivors > 0, sizes, 0).to(torch.int32)
+    select_min = is_min_close(mt)
+
+    def run(qc, probed):
+        def chunk(ci, dev, local):
+            cpen = None if mask is None else _row_penalty(dev["ids"], mask)
+            return _scan(scan, dev["data"], dev["norms"], dev["ids"],
+                         dev.get("scales"), local, dev["offsets"],
+                         dev["sizes"], qc, k, mt, cpen)
+        return tier.stream(probed, chunk)
+
+    def one(qc: torch.Tensor, _s0: int = 0):
+        probed = coarse_probe(qc, index.centers, n_probes,
+                              _KERNEL_METRICS[mt], index.center_norms,
+                              survivors,
+                              SelectAlgo.TOPK if plain else SelectAlgo.AUTO)
+        if index.size > 0:
+            parts = [_scan(scan, index.data, index.data_norms,
+                           index.source_ids, index.scales, probed,
+                           index.offsets_dev, sizes, qc, k, mt, pen)]
+        else:
+            bad = float("inf") if select_min else -float("inf")
+            parts = [(torch.full((qc.shape[0], k), bad, device=qc.device),
+                      torch.full((qc.shape[0], k), -1, dtype=torch.int32,
+                                 device=qc.device))]
+        parts += run(qc, probed)
+        if len(parts) == 1:
+            return parts[0]
+        return knn_merge_parts(torch.stack([d for d, _ in parts]),
+                               torch.stack([i for _, i in parts]),
+                               select_min)
+
+    return _run_chunks(one, index, q, n_probes, query_chunk, res)
+
+
+def prepare_host_stream(index: Index, budget_gb: Optional[float] = None,
+                        sample_queries=None, n_probes: int = 20,
+                        chunk_mb: float = 64, hot_mask=None) -> None:
+    """Move the lists past a device budget into a host-memory tier, in
+    place (``index.host_tier``; the device arrays keep the hot lists
+    only): the lists admitted by ``host_stream.plan_hot_cold`` — probe
+    frequency of ``sample_queries`` at ``n_probes`` (their coarse probe:
+    K1 on the card), else list size — stay, at the JAX package's row
+    bytes (dim x item size + 8, + 4 for int8 scales), so the plan equals
+    its plan; the rest is cut into chunks of ``chunk_mb`` MiB of such
+    rows. ``budget_gb``: GiB, else ``RAFT_TPU_HBM_BUDGET_GB``. A budget
+    that holds every list changes nothing, and so does a second call.
+    ``hot_mask``: an (n_lists,) bool hot set planned elsewhere. On a
+    CUDA index the chunks are pinned host memory."""
+    if index.host_tier is not None:
+        return
+    sizes = np.asarray(index.list_sizes, np.int64)
+    row_bytes = (index.dim * index.data.element_size() + 8
+                 + (4 if index.scales is not None else 0))
+    if hot_mask is not None:
+        hot = np.asarray(hot_mask, bool)
+        expects(hot.shape == (index.n_lists,),
+                f"hot_mask shape {hot.shape} != ({index.n_lists},)")
+        if bool(hot.all()):
+            return
+    else:
+        budget = hs.budget_bytes(budget_gb)
+        expects(budget > 0, "prepare_host_stream needs budget_gb or "
+                "RAFT_TPU_HBM_BUDGET_GB")
+        if int(sizes.sum()) * row_bytes <= budget:
+            return
+        freq = None
+        if sample_queries is not None:
+            sq = torch.as_tensor(sample_queries).to(device=index.device,
+                                                    dtype=torch.float32)
+            probed = coarse_probe(sq, index.centers,
+                                  min(n_probes, index.n_lists),
+                                  _KERNEL_METRICS[index.metric],
+                                  index.center_norms)
+            freq = hs.probe_frequency(probed.cpu().numpy(), index.n_lists)
+        hot = hs.plan_hot_cold(sizes, row_bytes, budget, freq)
+    arrays = {"data": index.data, "norms": index.data_norms,
+              "ids": index.source_ids}
+    fills = {"ids": -1}
+    if index.scales is not None:
+        arrays["scales"] = index.scales
+        fills["scales"] = 1.0
+    chunk_rows = max(1, int(float(chunk_mb) * (1 << 20)) // row_bytes)
+    tier, hot_arrays, hot_offsets, hot_sizes = hs.build_tier(
+        arrays, index.list_offsets, sizes, hot, chunk_rows, fills=fills)
+    index.data = hot_arrays["data"]
+    index.data_norms = hot_arrays["norms"]
+    index.source_ids = hot_arrays["ids"]
+    if index.scales is not None:
+        index.scales = hot_arrays["scales"]
+    index.list_offsets, index.list_sizes = hot_offsets, hot_sizes
+    index.__post_init__()
+    filter_policy.forget(index)
+    index.host_tier = tier
 
 
 def reconstruct(index: Index, row_ids) -> torch.Tensor:
@@ -374,7 +531,13 @@ def save(index: Index, path) -> None:
     ``data`` (bfloat16 as its uint16 words), ``source_ids``, ``centers``,
     ``list_offsets`` and, for int8, ``scales``, the lists packed with no
     slack (``list_offsets`` the cumulative sizes). Byte-equal to the JAX
-    package's file of the same index."""
+    package's file of the same index. A host-streamed index is refused:
+    its device arrays hold the resident lists only (save before
+    :func:`prepare_host_stream`)."""
+    expects(index.host_tier is None,
+            "cannot save a host-streamed index (cold lists live in the "
+            "host tier, not the device arrays); save before "
+            "prepare_host_stream and re-prepare after load")
     arrays = [index.data, index.source_ids]
     if index.scales is not None:
         arrays.append(index.scales)

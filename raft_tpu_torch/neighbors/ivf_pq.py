@@ -1,8 +1,9 @@
 """IVF-PQ index: counterpart of ``raft_tpu/neighbors/ivf_pq.py``
 (``CodebookGen``, ``IndexParams``, ``SearchParams``, ``Index``,
 ``make_rotation_matrix``, ``build``, ``build_from_batches``, ``extend``,
-``search``, ``reconstruct``, ``health``, ``make_searcher``,
-``pack_codes``, ``unpack_codes``, ``save``, ``load``).
+``search``, ``prepare_host_stream``, ``reconstruct``, ``health``,
+``make_searcher``, ``pack_codes``, ``unpack_codes``, ``save``,
+``load``).
 
 Everything lives in rotated space, as in the JAX package: the dataset is
 rotated once at build and the queries once at search (an orthogonal
@@ -43,8 +44,15 @@ order, lists with no surviving row are pruned from the probe, and the
 adaptive policy (``ops/filter_policy``) widens ``n_probes`` or, where few
 rows survive, searches the survivors decoded and rotated back
 (:func:`reconstruct`) by brute force; inside
-``filter_policy.suspended()`` only the prune stays. Not ported yet: host
-streaming. ``save`` / ``load`` read
+``filter_policy.suspended()`` only the prune stays.
+
+:func:`prepare_host_stream` keeps the hot lists' codes on the device and
+the rest in a host-memory tier (``host_stream``), as IVF-Flat's does:
+each probed cold chunk (codes, decoded row norms, source ids, and its
+lists' rotated centers) is copied to the device and scanned by K4 under
+the search's LUT mode, the parts merged by K1; per-subspace codebooks
+only (the JAX package's tier fails on per-cluster ones). ``save`` /
+``load`` read
 and write the JAX package's files (bit-packed codes, lists packed with no
 slack). Every matrix product runs
 in full float32 (``torch.backends.cuda.matmul.allow_tf32`` False).
@@ -74,15 +82,16 @@ from ..ops.ivf_pq_scan import (decoded_row_norms, ivf_pq_scan,
                                pq_chunk_rows)
 from ..ops.ivf_scan import coarse_probe
 from ..utils import cdiv, query_chunks, resolve_device, run_query_chunks
+from . import host_stream as hs
 from ._list_layout import (dense_offsets, gather_dense, list_skew,
                            scatter_extend, span_labels, streaming_build)
-from .brute_force import _postprocess, health_sample_rows
-from .ivf_flat import _penalty
+from .brute_force import _postprocess, health_sample_rows, knn_merge_parts
+from .ivf_flat import _penalty, _row_penalty
 
 __all__ = ["CodebookGen", "IndexParams", "SearchParams", "Index",
            "make_rotation_matrix", "build", "build_from_batches", "extend",
-           "search", "reconstruct", "health", "make_searcher", "pack_codes",
-           "unpack_codes", "save", "load"]
+           "search", "prepare_host_stream", "reconstruct", "health",
+           "make_searcher", "pack_codes", "unpack_codes", "save", "load"]
 
 # the file version save writes and load reads (the JAX package's)
 _SERIAL_VERSION = 1
@@ -169,7 +178,8 @@ class Index:
     ``row_norms`` (the decoded squared row norms, from the unrounded
     codebook), ``center_norms`` and the int32 ``offsets_dev`` /
     ``sizes_dev`` on the index's device. ``build_seconds``
-    holds the build's stages when :func:`build` made the index."""
+    holds the build's stages when :func:`build` made the index;
+    ``host_tier`` the cold lists after :func:`prepare_host_stream`."""
 
     codes: torch.Tensor
     source_ids: torch.Tensor
@@ -188,6 +198,8 @@ class Index:
     sizes_dev: torch.Tensor = dataclasses.field(init=False, repr=False)
     build_seconds: dict = dataclasses.field(init=False, repr=False,
                                             default_factory=dict)
+    host_tier: Optional[hs.HostTier] = dataclasses.field(
+        default=None, init=False, repr=False)
 
     def __post_init__(self):
         expects(self.codebooks.shape[1] == 1 << self.pq_bits,
@@ -452,7 +464,11 @@ def extend(index: Index, new_vectors, new_ids=None) -> Index:
     :func:`pq_chunk_rows` rows, then append the codes to their lists: one
     scatter while every list has room, a repack with ``list_growth``
     slack when one overflows. Ids continue from the largest id held (0
-    for an empty index) unless ``new_ids`` are given."""
+    for an empty index) unless ``new_ids`` are given. A host-streamed
+    index is refused, as IVF-Flat's is."""
+    expects(index.host_tier is None,
+            "cannot extend a host-streamed index (its cold lists live in "
+            "the host tier); extend before prepare_host_stream")
     dev = index.device
     x = torch.as_tensor(new_vectors).to(device=dev, dtype=torch.float32)
     expects(x.dim() == 2 and x.shape[1] == index.dim, "dim mismatch")
@@ -515,13 +531,16 @@ def search(index: Index, queries, k: int,
     q = torch.as_tensor(queries).to(device=index.device, dtype=torch.float32)
     expects(q.dim() == 2 and q.shape[1] == index.dim,
             "bad query shape %s", tuple(q.shape))
-    expects(index.size > 0, "index is empty")
     expects(algo in ("auto", "pallas", "plain"),
             "unknown ivf_pq algo %r", algo)
     mode = _lut_mode(p.lut_dtype)
     if index.per_cluster and mode == "int8":
         mode = "bf16"     # the JAX gather path's int8 for per-cluster books
     n_probes = min(p.n_probes, index.n_lists)
+    if index.host_tier is not None:
+        return _search_host_stream(index, q, k, n_probes, mode, filter,
+                                   query_chunk, algo, res)
+    expects(index.size > 0, "index is empty")
     pen = survivors = None
     sizes = index.sizes_dev
     if filter is not None:
@@ -543,19 +562,152 @@ def search(index: Index, queries, k: int,
         probed = coarse_probe(q_rot, index.centers_rot, n_probes, metric,
                               index.center_norms, survivors,
                               SelectAlgo.TOPK if plain else SelectAlgo.AUTO)
-        vals, rows = scan(index.codes, index.row_norms, index.centers_rot,
-                          book, probed, index.offsets_dev, sizes, q_rot, k,
-                          metric, pen, per_cluster=index.per_cluster)
-        ids = torch.where(rows >= 0,
-                          index.source_ids[rows.clamp_min(0).long()], -1)
-        return _postprocess(mt, vals), ids
+        return _scan(scan, index.codes, index.row_norms, index.centers_rot,
+                     index.source_ids, book, probed, index.offsets_dev,
+                     sizes, q_rot, k, mt, pen, index.per_cluster)
 
+    return _run_chunks(one, index, q, n_probes, query_chunk, res)
+
+
+def _scan(scan, codes, row_norms, centers_rot, ids, book, probed, offsets,
+          sizes, q_rot, k, mt: DistanceType, pen, per_cluster=False):
+    """One PQ list scan of ``probed`` over these lists → the metric's
+    distances and source ids (m, k)."""
+    metric = "ip" if mt is DistanceType.InnerProduct else "l2"
+    vals, rows = scan(codes, row_norms, centers_rot, book, probed, offsets,
+                      sizes, q_rot, k, metric, pen, per_cluster=per_cluster)
+    ids = torch.where(rows >= 0, ids[rows.clamp_min(0).long()], -1)
+    return _postprocess(mt, vals), ids
+
+
+def _run_chunks(one, index: Index, q: torch.Tensor, n_probes: int,
+                query_chunk: int, res):
     chunk = query_chunks(q.shape[0], query_chunk, res,
                          workspace_chunk_bytes(res)
                          // (n_probes * index.rot_dim * 8))
     if chunk:
         return run_query_chunks(one, q, chunk, res)
     return one(q)
+
+
+def _search_host_stream(index: Index, q: torch.Tensor, k: int,
+                        n_probes: int, mode: str,
+                        filter: Optional[Bitset],  # noqa: A002
+                        query_chunk: int, algo: str, res):
+    """A host-streamed search, as ``ivf_flat``'s: one coarse probe a query
+    chunk, the resident lists scanned as :func:`search` scans them, every
+    probed cold chunk streamed and scanned by K4 with its chunk-local
+    rotated centers, the parts merged (K1); a filter keeps the prune
+    only, over the whole index's survivors."""
+    tier = index.host_tier
+    mt = index.metric
+    metric = "ip" if mt is DistanceType.InnerProduct else "l2"
+    plain = algo == "plain"
+    scan = ivf_pq_scan_plain if plain else ivf_pq_scan
+    book = lut_codebook(index.codebooks, mode)
+    sizes, pen, mask, survivors = index.sizes_dev, None, None, None
+    if filter is not None:
+        survivors = (filter_policy.list_survivors(index, filter)
+                     + tier.survivors(filter, index.n_lists))
+        mask = filter.to(index.device).to_mask()
+        pen = _row_penalty(index.source_ids, mask)
+        sizes = torch.where(survivors > 0, sizes, 0).to(torch.int32)
+    select_min = mt is not DistanceType.InnerProduct
+
+    def one(qc: torch.Tensor, _s0: int = 0):
+        q_rot = qc @ index.rotation.T
+        probed = coarse_probe(q_rot, index.centers_rot, n_probes, metric,
+                              index.center_norms, survivors,
+                              SelectAlgo.TOPK if plain else SelectAlgo.AUTO)
+        if index.size > 0:
+            parts = [_scan(scan, index.codes, index.row_norms,
+                           index.centers_rot, index.source_ids, book, probed,
+                           index.offsets_dev, sizes, q_rot, k, mt, pen)]
+        else:
+            bad = float("inf") if select_min else -float("inf")
+            parts = [(torch.full((qc.shape[0], k), bad, device=qc.device),
+                      torch.full((qc.shape[0], k), -1, dtype=torch.int32,
+                                 device=qc.device))]
+
+        def chunk(ci, dev, local):
+            cpen = None if mask is None else _row_penalty(dev["ids"], mask)
+            return _scan(scan, dev["codes"], dev["norms"], dev["centers"],
+                         dev["ids"], book, local, dev["offsets"],
+                         dev["sizes"], q_rot, k, mt, cpen)
+
+        parts += tier.stream(probed, chunk)
+        if len(parts) == 1:
+            return parts[0]
+        return knn_merge_parts(torch.stack([d for d, _ in parts]),
+                               torch.stack([i for _, i in parts]),
+                               select_min)
+
+    return _run_chunks(one, index, q, n_probes, query_chunk, res)
+
+
+def prepare_host_stream(index: Index, budget_gb: Optional[float] = None,
+                        sample_queries=None, n_probes: int = 20,
+                        chunk_mb: float = 64, hot_mask=None) -> None:
+    """IVF-Flat's :func:`~raft_tpu_torch.neighbors.ivf_flat.
+    prepare_host_stream` for PQ lists, at the JAX package's row bytes
+    (pq_dim + 12: code bytes, decoded norm, source id, label), so the
+    plan equals its plan; ``sample_queries`` are rotated and probed on
+    the rotated centers. A chunk carries its rows' codes, decoded norms
+    (``row_norms``, as computed for the whole index) and source ids, and
+    its lists' rotated centers (the dead slot's zeros); no labels, which
+    only the JAX package's fallback reads. Per-cluster codebooks are
+    refused (the JAX package's tier fails on them)."""
+    if index.host_tier is not None:
+        return
+    expects(not index.per_cluster,
+            "prepare_host_stream: per-cluster codebooks are not served by "
+            "the host tier (the JAX package's tier fails on them)")
+    sizes = np.asarray(index.list_sizes, np.int64)
+    row_bytes = index.pq_dim + 12
+    metric = "ip" if index.metric is DistanceType.InnerProduct else "l2"
+    if hot_mask is not None:
+        hot = np.asarray(hot_mask, bool)
+        expects(hot.shape == (index.n_lists,),
+                f"hot_mask shape {hot.shape} != ({index.n_lists},)")
+        if bool(hot.all()):
+            return
+    else:
+        budget = hs.budget_bytes(budget_gb)
+        expects(budget > 0, "prepare_host_stream needs budget_gb or "
+                "RAFT_TPU_HBM_BUDGET_GB")
+        if int(sizes.sum()) * row_bytes <= budget:
+            return
+        freq = None
+        if sample_queries is not None:
+            sq = torch.as_tensor(sample_queries).to(device=index.device,
+                                                    dtype=torch.float32)
+            probed = coarse_probe(sq @ index.rotation.T, index.centers_rot,
+                                  min(n_probes, index.n_lists), metric,
+                                  index.center_norms)
+            freq = hs.probe_frequency(probed.cpu().numpy(), index.n_lists)
+        hot = hs.plan_hot_cold(sizes, row_bytes, budget, freq)
+    arrays = {"codes": index.codes, "norms": index.row_norms,
+              "ids": index.source_ids}
+    chunk_rows = max(1, int(float(chunk_mb) * (1 << 20)) // row_bytes)
+    tier, hot_arrays, hot_offsets, hot_sizes = hs.build_tier(
+        arrays, index.list_offsets, sizes, hot, chunk_rows,
+        fills={"ids": -1})
+    for ci, ch in enumerate(tier.chunks):
+        cent = hs.host_full((tier.chunk_lists, index.rot_dim), 0.0,
+                            torch.float32, tier.pinned)
+        lists = torch.as_tensor(ch.lists, device=index.device)
+        cent[:len(ch.lists)] = index.centers_rot[lists].cpu()
+        tier.extras[ci]["centers"] = cent
+    index.codes = hot_arrays["codes"]
+    index.source_ids = hot_arrays["ids"]
+    index.row_norms = hot_arrays["norms"]
+    index.list_offsets, index.list_sizes = hot_offsets, hot_sizes
+    index.offsets_dev = torch.as_tensor(hot_offsets[:-1], dtype=torch.int32,
+                                        device=index.device)
+    index.sizes_dev = torch.as_tensor(hot_sizes, dtype=torch.int32,
+                                      device=index.device)
+    filter_policy.forget(index)
+    index.host_tier = tier
 
 
 def reconstruct(index: Index, row_ids) -> torch.Tensor:
@@ -668,7 +820,12 @@ def save(index: Index, path) -> None:
     ``pq_dim``; arrays ``codes`` (:func:`pack_codes`), ``source_ids``,
     ``centers_rot``, ``codebooks``, ``rotation`` and ``list_offsets``,
     the lists packed with no slack. Byte-equal to the JAX package's file
-    of the same index."""
+    of the same index. A host-streamed index is refused, as IVF-Flat's
+    is."""
+    expects(index.host_tier is None,
+            "cannot save a host-streamed index (cold lists live in the "
+            "host tier, not the device arrays); save before "
+            "prepare_host_stream and re-prepare after load")
     codes, ids = gather_dense((index.codes, index.source_ids),
                               index.list_offsets, index.list_sizes)
     save_arrays(

@@ -59,7 +59,7 @@ __all__ = ["FilterDecision", "LEVELS", "list_survivors", "decide_ivf",
            "decide_graph", "plan_ivf", "crossover_key",
            "selectivity_bucket", "survivor_ids", "survivor_brute_ivf",
            "survivor_brute_dense", "tune_crossover", "suspended",
-           "adaptive_off"]
+           "adaptive_off", "forget"]
 
 # the widen ladder: each level multiplies n_probes / itopk
 LEVELS: Tuple[int, ...] = (1, 2, 4, 8)
@@ -133,6 +133,14 @@ def _list_labels(index) -> torch.Tensor:
     return _keyed(index, "_filter_list_labels",
                   (index.source_ids, offsets.tobytes()),
                   lambda: span_labels(np.diff(offsets), index.device))
+
+
+def forget(index) -> None:
+    """Drop the caches this module keeps on ``index`` (list labels, the
+    source-id inverse), for an index whose arrays were replaced in place
+    (``prepare_host_stream``)."""
+    for attr in ("_filter_list_labels", "_source_inverse"):
+        index.__dict__.pop(attr, None)
 
 
 def list_survivors(index, filter) -> torch.Tensor:  # noqa: A002

@@ -1,22 +1,43 @@
 """Small integer/shape utilities and device resolution.
 
 Counterpart of ``raft_tpu/utils/__init__.py`` (``cdiv``, ``round_up_to``,
-``run_query_chunks``), plus two rules every entry point of the port
-shares: ``resolve_device`` and ``query_chunks``.
+``run_query_chunks``, ``env_float``, ``env_int``), plus two rules every
+entry point of the port shares: ``resolve_device`` and ``query_chunks``.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
 from ..core.errors import RaftError
 
 __all__ = ["cdiv", "round_up_to", "run_query_chunks", "query_chunks",
-           "resolve_device"]
+           "resolve_device", "env_float", "env_int"]
 
 
 def cdiv(a: int, b: int) -> int:
     """Ceiling division."""
     return -(-a // b)
+
+
+def env_float(name: str, default: float) -> float:
+    """A float setting from the environment, ``default`` when it is unset
+    or does not parse (a setting never fails a running process)."""
+    raw = os.environ.get(name, "")
+    try:
+        return float(raw) if raw else default
+    except ValueError:
+        return default
+
+
+def env_int(name: str, default: int) -> int:
+    """The integer twin of :func:`env_float`."""
+    raw = os.environ.get(name, "")
+    try:
+        return int(raw) if raw else default
+    except ValueError:
+        return default
 
 
 def round_up_to(x: int, m: int) -> int:

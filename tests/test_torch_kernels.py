@@ -2469,3 +2469,123 @@ def test_brute_force_tune_search_races_k2_and_scan_on_card():
     before = tfk.launches
     brute_force.search(idx, q, 10)
     assert tfk.launches > before
+
+
+def _streamed_pair(family: str):
+    """An IVF index built on the card (20,000 x 32 Gaussian rows, distinct
+    distances, in 64 lists), its resident search, and a copy streamed
+    from the host in at least two chunks: (module, resident index,
+    streamed index, search, launch counter)."""
+    x, q = race_data(20_000, 500, seed=29)
+    if family == "ivf_flat":
+        mod, counter = tivf, tis
+        build = lambda: tivf.build(x, tivf.IndexParams(n_lists=64))  # noqa: E731
+        search = lambda i, **kw: tivf.search(  # noqa: E731
+            i, q, 10, tivf.SearchParams(n_probes=8), **kw)
+        budget, chunk_mb = 20_000 * 136 * 0.3 / 2**30, 0.4
+    else:
+        mod, counter = tivfpq, tpq
+        build = lambda: tivfpq.build(x, tivfpq.IndexParams(  # noqa: E731
+            n_lists=64, pq_dim=16))
+        search = lambda i, **kw: tivfpq.search(  # noqa: E731
+            i, q, 20, tivfpq.SearchParams(n_probes=8), **kw)
+        budget, chunk_mb = 20_000 * 28 * 0.3 / 2**30, 0.1
+    idx, streamed = build(), build()
+    mod.prepare_host_stream(streamed, budget_gb=budget, chunk_mb=chunk_mb)
+    assert streamed.host_tier is not None
+    assert len(streamed.host_tier.chunks) >= 2
+    return mod, idx, streamed, search, counter
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["ivf_flat", "ivf_pq"])
+def test_host_stream_scans_each_chunk_on_card(family):
+    """A host-streamed search launches K3 / K4 once for the resident lists
+    and once for each cold chunk its probes touch, from pinned chunks, and
+    equals the resident search bit for bit; with each chunk copied and
+    scanned twice in a row (the other buffer each time) it is the
+    same."""
+    need_cuda()
+    mod, idx, streamed, search, counter = _streamed_pair(family)
+    tier = streamed.host_tier
+    assert tier.pinned and all(t.is_pinned() for ch in tier.chunks
+                               for t in ch.arrays.values())
+    want = search(idx)
+    before, chunks = counter.launches, tier.streamed_chunks
+    got = search(streamed)
+    torch.cuda.synchronize()
+    touched = tier.streamed_chunks - chunks
+    assert touched >= 2
+    assert counter.launches - before == 1 + touched
+    assert torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])
+    tier.passes = 2
+    before = counter.launches
+    twice = search(streamed)
+    torch.cuda.synchronize()
+    tier.passes = 1
+    assert counter.launches - before == 1 + 2 * touched
+    assert torch.equal(got[0], twice[0]) and torch.equal(got[1], twice[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["ivf_flat", "ivf_pq"])
+def test_host_stream_scan_failure_raises_on_card(family, monkeypatch):
+    """With the scan kernel's entry made to fail, a streamed search on the
+    card raises; no plain version serves a chunk."""
+    need_cuda()
+    mod, idx, streamed, search, counter = _streamed_pair(family)
+
+    def broken(*a, **kw):
+        raise RaftError("injected kernel failure")
+
+    def plain(*a, **kw):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    if family == "ivf_flat":
+        monkeypatch.setattr(tis, "ivf_flat_scan_candidates", broken)
+        monkeypatch.setattr(tis, "ivf_flat_scan_plain", plain)
+        monkeypatch.setattr(tivf, "ivf_flat_scan_plain", plain)
+    else:
+        monkeypatch.setattr(tpq, "ivf_pq_scan_candidates", broken)
+        monkeypatch.setattr(tpq, "ivf_pq_scan_plain", plain)
+        monkeypatch.setattr(tivfpq, "ivf_pq_scan_plain", plain)
+    with pytest.raises(RaftError, match="injected kernel failure"):
+        search(streamed)
+
+
+@pytest.mark.cuda
+def test_mutable_search_launches_kernels_on_card(tmp_path, monkeypatch):
+    """A mutable IVF-Flat search on the card (tombstones in the sealed
+    segment, a delta) launches K3, K2 and K1 and no plain version, and
+    holds to the exact answer over the live rows (every list probed)."""
+    need_cuda()
+    from raft_tpu_torch.neighbors import mutable
+
+    def plain(*a, **kw):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    x, q = race_data(20_300, 200, seed=31)
+    x = x.cpu().numpy()
+    x, up = x[:20_000], x[20_000:]
+    m = mutable.create(tmp_path / "m", x, family="ivf_flat",
+                       family_params={"n_lists": 64})
+    m.upsert(None, up)
+    m.delete(np.arange(0, 20_000, 7))
+    for mod, name in ((tis, "ivf_flat_scan_plain"),
+                      (tivf, "ivf_flat_scan_plain"),
+                      (tfk, "fused_knn_plain"),
+                      (brute_force, "fused_knn_plain")):
+        monkeypatch.setattr(mod, name, plain)
+    before = (tis.launches, tfk.launches, tsk.launches)
+    v, i = m.search(q, 10, tivf.SearchParams(n_probes=64))
+    torch.cuda.synchronize()
+    after = (tis.launches, tfk.launches, tsk.launches)
+    assert all(b > a for a, b in zip(before, after)), (before, after)
+    keep = np.ones(20_000, bool)
+    keep[::7] = False
+    live = np.concatenate([x[keep], up])
+    ids = np.concatenate([np.flatnonzero(keep), 20_000 + np.arange(300)])
+    ev, ei = brute_force.search(brute_force.build(torch.from_numpy(live)),
+                                q, 10)
+    ext = torch.from_numpy(ids)[ei.cpu().long()].to(torch.int32)
+    assert_knn_close(ev.cpu(), ext, v.cpu(), i.cpu())

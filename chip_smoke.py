@@ -179,6 +179,40 @@ store mode: dense, int4, pq; K6 dense and int4), then:
    at the start of the run, so no earlier run's verdict steers this one)
    and finds and follows the bench cell's graph verdict and engine
    verdicts.
+   Then the serve phase (``raft_tpu_torch.serve``) on the path's
+   indexes, with JAX's default ladder ((8, 32, 128, 512) rows x (16, 64,
+   128) k): a ``MicroBatcher`` over IVF-Flat (20 probes) and over CAGRA
+   (the fused engine, itopk 64), each warmed (every shape's first-call
+   ms printed) and then loaded by 8 closed-loop client threads with
+   2,000 requests of 1-64 rows at k 10 or 100 drawn from the seed, once
+   with every batch's five stages sampled and once with sampling off:
+   no first call may follow the warmup, and every request must equal a
+   direct search of its rows (IVF-Flat: the request searched alone, ids
+   on >= 0.999 of rows, values to rtol 1e-5, the bit-equal share
+   printed; CAGRA, whose seed rows follow a row's place in its batch:
+   each dispatched block searched again bit for bit, each request its
+   rows of its block). rows/s, latency p50 / p99, the stages' p50,
+   batches, fill, padding waste and each kernel's launches are printed.
+   Then a burst of 256 requests with deadlines of 0-20 ms (shed, expired
+   and served counted; served rows and partials against the direct
+   search); the brownout: an ``SLOEngine`` on an injected clock whose
+   p99 target is set below the measured p99 steps the
+   ``BrownoutController`` down JAX's default ladder and, relaxed, back
+   up (levels 0, 1, 2, 1, 0), each level's IVF-Flat and CAGRA loads held
+   to a direct search at that level's n_probes / itopk, recall@10
+   against brute force and p99 printed a level; the ``RecallSentinel``
+   over ``quality.make_reference`` of the path's rows (K2 + K1 on its own
+   thread) scoring every served request, its estimate within 0.01 of
+   the same requests' recall against the path's brute-force answer, the
+   load's p50 / p99 with and without it; a ``ServeFabric`` with an
+   IVF-Flat tenant (weight 2, a query cache, half its requests repeats),
+   a CAGRA tenant and a brute-force tenant on the filters phase's tenant
+   slice behind a token bucket, the IVF-Flat tenant swapped mid-traffic
+   to an index rebuilt from the rows (bit-equal): no request may fail,
+   the generation must move and the cache be invalidated; and a
+   ``SnapshotWriter`` snapshot in ``build/serve_debugz.json`` read back
+   with its sections. The phase prints its seconds (at most 60) and its
+   peak device memory.
    Then serialize, on the path's four indexes: each saved with its
    family's ``save`` into a temporary directory under ``build/`` (MiB
    and save seconds printed) and loaded onto the card by a child
@@ -360,16 +394,17 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 
 import numpy as np
 import torch
 
-from raft_tpu_torch import bench
+from raft_tpu_torch import bench, serve
 from raft_tpu_torch.bench import roofline, select_k_sweep
 from raft_tpu_torch.comms import Mesh
-from raft_tpu_torch.core import faults, raft_format, wal
+from raft_tpu_torch.core import events, faults, raft_format, wal
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.errors import CorruptIndexError, RaftError
 from raft_tpu_torch.matrix import select_k as sk
@@ -1860,6 +1895,541 @@ def entry_phase(x, q, bidx, iidx, pidx, cidx, cell, totals):
                              f"{child.stderr[-4000:]}")
     log(f"verdict file {os.environ['RAFT_TPU_TORCH_AUTOTUNE_CACHE']} read "
         f"by a fresh process: {child.stdout.strip()}")
+
+
+# the serve phase: the serving layer (``raft_tpu_torch.serve``) over the
+# path's indexes, JAX's default ladder, closed-loop client threads
+SERVE_LADDER = ((8, 32, 128, 512), (16, 64, 128))
+SERVE_CLIENTS = 8
+SERVE_REQUESTS = 2000          # a load, drawn from the seed
+SERVE_MAX_ROWS = 64            # rows a request: 1 .. this
+SERVE_KS = (K, 100)
+SERVE_MIN_ROWS = 0.999         # served ids equal to the direct search's
+SERVE_BUDGET_S = 60.0
+SERVE_BURST = 256              # the deadline burst's requests
+SERVE_BURST_S = (0.0, 0.02)    # its deadlines, uniform in this range
+SERVE_LEVEL_REQUESTS = 300     # the brownout's load at a level (k = K)
+SENTINEL_REQUESTS = 1000
+SENTINEL_GAP = 0.01            # the sentinel's estimate against the path's
+FABRIC_REQUESTS = 1500
+FABRIC_SHARES = {"flat": 0.5, "cagra": 0.25, "bf": 0.25}
+FABRIC_REPEAT = 0.5            # the IVF-Flat tenant's repeat share
+FABRIC_RATE = (100.0, 10.0)    # the brute-force tenant's token bucket
+SERVE_SNAPSHOT = "build/serve_debugz.json"
+SERVE_EVENTS = 8192            # the flight recorder's ring in the phase
+
+
+def serve_plan(seed: int, n: int, ks=SERVE_KS):
+    """``n`` requests (first query row, rows, k) drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(1, SERVE_MAX_ROWS + 1, n)
+    starts = rng.integers(0, M - SERVE_MAX_ROWS, n)
+    kk = rng.choice(np.asarray(ks), n)
+    return [(int(s), int(m), int(k)) for s, m, k in zip(starts, rows, kk)]
+
+
+def drive(submit, plan, q_host, after=None, clients: int = SERVE_CLIENTS):
+    """Closed-loop client threads: each sends its share of ``plan`` one
+    request at a time through ``submit(j, rows, k)`` and waits for it,
+    then calls ``after(j)`` if given. → (results or exceptions, each
+    request's seconds, the load's seconds). Every thread is joined before
+    it returns."""
+    res, lat = [None] * len(plan), [0.0] * len(plan)
+
+    def client(ci):
+        for j in range(ci, len(plan), clients):
+            s, m, k = plan[j]
+            t0 = time.perf_counter()
+            try:
+                res[j] = submit(j, q_host[s:s + m], k).result(timeout=300)
+            except Exception as e:  # noqa: BLE001 - each is checked
+                res[j] = e
+            lat[j] = time.perf_counter() - t0
+            if after is not None:
+                after(j)
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("serve: a client thread did not finish")
+    return res, lat, time.perf_counter() - t0
+
+
+def served_rows(plan, res):
+    """[(request, its answer)] of the requests that got an answer."""
+    return [(p, r) for p, r in zip(plan, res)
+            if not isinstance(r, BaseException)]
+
+
+def check_served(what: str, items, direct, cache=None) -> float:
+    """Each served request against ``direct(rows, k)`` on the same rows
+    (kept in ``cache`` by request, when given, for a second load of the
+    same plan): ids on >= SERVE_MIN_ROWS of the rows, values to rtol
+    1e-5; prints the share of rows equal bit for bit. → that share."""
+    by_k: dict = {}
+    cache = {} if cache is None else cache
+    for (s, m, k), r in items:
+        if (s, m, k) not in cache:
+            cache[(s, m, k)] = tuple(t.cpu() for t in direct(s, m, k))
+        dv, di = cache[(s, m, k)]
+        by_k.setdefault(k, []).append((r.distances, r.indices, dv, di))
+    bit = rows = 0
+    for k, group in sorted(by_k.items()):
+        v, i, rv, ri = (torch.cat([g[n] for g in group]) for n in range(4))
+        check_close(rv, ri, v, i, f"{what} at k = {k} ({len(group)} "
+                    "requests)", min_rows=SERVE_MIN_ROWS)
+        same = (i == ri).all(dim=1) & (v.view(torch.int32)
+                                       == rv.view(torch.int32)).all(dim=1)
+        bit += int(same.sum())
+        rows += same.numel()
+    share = bit / max(rows, 1)
+    log(f"  {what}: {rows} served rows, bit-equal to the direct search "
+        f"on {share:.4f} of them")
+    return share
+
+
+class Recorder:
+    """A search closure that keeps every dispatched block, its k bucket
+    and the outputs (device copies), for holding a served answer against
+    a direct search of the same dispatched rows."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = []
+
+    def __call__(self, q, k, res=None):
+        out = self.fn(q, k, res=res)
+        self.calls.append((q.clone(), k, out[0].clone(), out[1].clone()))
+        return out
+
+
+def check_blocks(what: str, rec: Recorder, direct, items, qn) -> None:
+    """Each dispatched block searched again by ``direct(block, k)`` must
+    equal what was served bit for bit, and each served request must be
+    its rows of a dispatched block (the demux): the direct search of the
+    same rows at the same places in their batch (CAGRA draws a row's
+    random seed rows by its place in the batch). ``qn``: the queries as
+    a host numpy array."""
+    where: dict = {}
+    blocks = []
+    for b, (blk, kb, dv, di) in enumerate(rec.calls):
+        rv, ri = direct(blk, kb)
+        if not (torch.equal(rv.view(torch.int32), dv.view(torch.int32))
+                and torch.equal(ri, di)):
+            raise AssertionError(f"{what}: dispatched block {b} searched "
+                                 "again differs")
+        host = blk.cpu()
+        blocks.append((host, dv.cpu(), di.cpu()))
+        for r, row in enumerate(host.numpy()):
+            where.setdefault(row.tobytes(), []).append((b, r))
+    for (s, m, k), res in items:
+        rows = torch.from_numpy(qn[s:s + m])
+        if not any(
+                r + m <= blocks[b][0].shape[0]
+                and torch.equal(blocks[b][0][r:r + m], rows)
+                and torch.equal(blocks[b][1][r:r + m, :k], res.distances)
+                and torch.equal(blocks[b][2][r:r + m, :k], res.indices)
+                for b, r in where.get(qn[s].tobytes(), ())):
+            raise AssertionError(f"{what}: request ({s}, {m}, {k}) is not "
+                                 "its rows of a dispatched block")
+    log(f"  {what}: {len(rec.calls)} dispatched blocks equal to a direct "
+        f"search of the same rows bit for bit; each of {len(items)} "
+        "requests its rows of its block")
+
+
+def stage_line(reg, name: str) -> str:
+    h = reg.snapshot()["histograms"]
+    return ", ".join(f"{st} {h[f'{name}.stage.{st}_s']['p50'] * 1e3:.3f}"
+                     for st in serve.batcher.STAGES)
+
+
+def pcts(lat) -> tuple:
+    a = np.asarray(lat) * 1e3
+    return float(np.percentile(a, 50)), float(np.percentile(a, 99))
+
+
+def serve_load(what, b, plan, q_host, reg, totals, kernels):
+    """One load through batcher ``b`` (counters reset before it, read
+    after every thread has joined); prints rows/s, p50 / p99, batches,
+    fill and padding. → (results, latencies)."""
+    before = reg.snapshot()["counters"].get("serve.batches", 0)
+    res, lat, secs = run_path(what, kernels, lambda: drive(
+        lambda j, rows, k: b.submit(rows, k), plan, q_host), totals)
+    bad = [r for r in res if isinstance(r, BaseException)]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} requests failed: "
+                             f"{bad[0]!r}")
+    rows = sum(m for _, m, _ in plan)
+    p50, p99 = pcts(lat)
+    snap = reg.snapshot()
+    h, c = snap["histograms"], snap["counters"]
+    log(f"{what}: {len(plan)} requests, {rows} rows in {secs:.3f} s: "
+        f"{rows / secs:,.0f} rows/s; latency p50 {p50:.3f} ms p99 "
+        f"{p99:.3f} ms; {int(c['serve.batches'] - before)} batches, "
+        f"fill p50 "
+        f"{h['serve.batch_fill']['p50']:.3f}, padding waste p50 "
+        f"{h['serve.padding_waste']['p50']:.3f}")
+    return res, lat
+
+
+def serve_phase(x, q, bidx, iidx, cidx, totals) -> None:
+    """The serving layer over the path's indexes (module docstring)."""
+    from raft_tpu_torch.core.deadline import Deadline, DeadlineExceeded
+    from raft_tpu_torch.serve import quality
+    from raft_tpu_torch.serve import warmup as swarm
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    # the flight recorder keeps the phase's events (a request can record
+    # several: a shed, a crossover)
+    events.set_capacity(SERVE_EVENTS)
+    smi = smi_line()
+    q_host = q.cpu()
+    qn = q_host.numpy()
+    sp = ivf_flat.SearchParams(n_probes=N_PROBES)
+    ladder = serve.BucketLadder(*SERVE_LADDER)
+    bd, bi = brute_force.search(bidx, q, max(SERVE_KS))
+    direct_flat = lambda s, m, k, p=sp: ivf_flat.search(  # noqa: E731
+        iidx, q[s:s + m], k, p)
+    direct_cagra = lambda blk, k, p=CAGRA_SP: cagra.search(  # noqa: E731
+        cidx, blk, k, p, engine="fused")
+
+    # 1. the micro-batcher over IVF-Flat and CAGRA: warmup, then the load
+    # with the stages sampled and again with sampling off
+    plan = serve_plan(SEED + 24, SERVE_REQUESTS)
+    p99s, flat_direct = {}, {}
+    for fam, fn, kernels in (
+            ("ivf_flat", ivf_flat.make_searcher(iidx, sp),
+             ("ivf_flat_scan", "select_k")),
+            ("cagra", Recorder(cagra.make_searcher(cidx, CAGRA_SP,
+                                                   engine="fused")),
+             ("cagra_fused",))):
+        for sample in (1.0, 0.0):
+            tag = "sampled" if sample else "sampling off"
+            reg = serve.metrics.Registry()
+            b = serve.MicroBatcher(fn, D, ladder=ladder, registry=reg,
+                                   trace_sample=sample)
+            if sample:
+                n_first = b.warmup()
+                g = reg.snapshot()["gauges"]
+                log(f"serve {fam}: warmup of {len(ladder.shapes())} shapes "
+                    f"({n_first} first calls counted); first call ms: "
+                    + ", ".join(
+                        f"{mb}x{kb} "
+                        f"{g[f'serve.warmup.first_call_s.{mb}x{kb}'] * 1e3:.2f}"
+                        for mb, kb in ladder.shapes()))
+            if isinstance(fn, Recorder):
+                fn.calls.clear()
+            with swarm.count_compilations() as cc:
+                res, lat = serve_load(f"serve {fam} ({tag})", b, plan,
+                                      q_host, reg, totals, kernels)
+            b.close()
+            log(f"  first calls during the load: {cc.count} "
+                f"(serve.recompiles "
+                f"{serve.metrics.counter('serve.recompiles').value:g})")
+            if cc.count:
+                raise AssertionError(f"serve {fam}: {cc.count} first calls "
+                                     "after warmup")
+            if sample:
+                log(f"  stage p50 ms: {stage_line(reg, 'serve')}")
+            p99s[(fam, tag)] = pcts(lat)[1]
+            items = served_rows(plan, res)
+            if fam == "ivf_flat":
+                check_served(f"serve ivf_flat ({tag})", items, direct_flat,
+                             flat_direct)
+                continue
+            check_blocks(f"serve cagra ({tag})", fn, direct_cagra, items,
+                         qn)
+            if sample:
+                # a request searched alone: another batch, other seed rows
+                agree = float(np.mean([bool(torch.equal(
+                    r.indices, direct_cagra(q[s:s + m], k)[1].cpu()))
+                    for (s, m, k), r in items[:200]]))
+                log(f"  serve cagra: searched alone, {agree:.3f} of 200 "
+                    "requests return the same ids (a row's seed rows "
+                    "follow its place in the batch)")
+    log("serve: latency p99 ms: " + ", ".join(
+        f"{f} {tag} {v:.3f}" for (f, tag), v in p99s.items())
+        + f" ({smi})")
+
+    log(f"serve phase: batchers done at "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    # 2. deadlines some requests cannot meet
+    reg = serve.metrics.Registry()
+    b = serve.MicroBatcher(ivf_flat.make_searcher(iidx, sp), D,
+                           ladder=ladder, registry=reg, autostart=False)
+    rng = np.random.default_rng(SEED + 25)
+    burst = serve_plan(SEED + 26, SERVE_BURST, (K,))
+    budgets = rng.uniform(*SERVE_BURST_S, SERVE_BURST)
+
+    def burst_run():
+        futs = [b.submit(q_host[s:s + m], k, Deadline(float(dl)))
+                for (s, m, k), dl in zip(burst, budgets)]
+        b.start()
+        out = []
+        for f in futs:
+            try:
+                out.append(f.result(timeout=300))
+            except DeadlineExceeded as e:
+                out.append(e)
+        b.close()
+        return out
+
+    out = run_path("serve deadline burst", ("ivf_flat_scan",), burst_run,
+                   totals)
+    c = reg.snapshot()["counters"]
+    ok = [(p, r) for p, r in zip(burst, out)
+          if not isinstance(r, BaseException)]
+    partial = [(p, r.partial) for p, r in zip(burst, out)
+               if isinstance(r, DeadlineExceeded) and r.partial is not None]
+    log(f"serve deadline burst: {SERVE_BURST} requests of up to "
+        f"{SERVE_MAX_ROWS} rows, deadlines {SERVE_BURST_S[0] * 1e3:g}-"
+        f"{SERVE_BURST_S[1] * 1e3:g} ms: served {len(ok)}, shed "
+        f"{c['serve.shed']:g}, expired mid-batch "
+        f"{c['serve.deadline_exceeded']:g} ({len(partial)} with partial "
+        f"rows), re-dispatched {c.get('serve.redispatched', 0):g}")
+    if len(ok) + c["serve.shed"] + c["serve.deadline_exceeded"] \
+            != SERVE_BURST or not c["serve.shed"]:
+        raise AssertionError("serve deadline burst: requests unaccounted "
+                             "for, or none shed")
+    check_served("serve deadline burst, served", ok, direct_flat)
+    for (s, m, k), (pv, pi) in partial:
+        rv, ri = direct_flat(s, pv.shape[0], k)
+        check_close(rv.cpu(), ri.cpu(), pv.cpu(), pi.cpu(),
+                    "serve deadline burst, a partial", SERVE_MIN_ROWS)
+
+    log(f"serve phase: deadlines done at "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    # 3. brownout: an SLO below the measured p99 steps IVF-Flat and CAGRA
+    # down JAX's default ladder and, relaxed, back up
+    clock = [0.0]
+    breg = serve.metrics.Registry()
+    eng = serve.SLOEngine(serve.Targets(), registry=breg,
+                          clock=lambda: clock[0])
+    ctl = serve.BrownoutController(registry=breg, slo=eng,
+                                   clock=lambda: clock[0], min_dwell_s=5.0,
+                                   up_after_s=15.0)
+    eng.evaluate()
+    lvl_plan = serve_plan(SEED + 27, SERVE_LEVEL_REQUESTS, (K,))
+    flat_rec = Recorder(ivf_flat.make_searcher(iidx, sp, degrade=ctl))
+    cagra_rec = Recorder(cagra.make_searcher(cidx, CAGRA_SP, engine="fused",
+                                             degrade=ctl))
+    walk = [ctl.level]
+    for step in range(3):
+        level = ctl.level
+        row = {}
+        for fam, rec, kernels, reg in (
+                ("ivf_flat", flat_rec, ("ivf_flat_scan",), breg),
+                ("cagra", cagra_rec, ("cagra_fused",),
+                 serve.metrics.Registry())):
+            b = serve.MicroBatcher(rec, D, ladder=ladder, registry=reg,
+                                   degrade=ctl)
+            res, lat = serve_load(f"serve brownout level {level} {fam}", b,
+                                  lvl_plan, q_host, reg, totals, kernels)
+            b.close()
+            ids = torch.cat([r.indices for r in res])
+            ref = torch.cat([bi[s:s + m, :K].cpu() for s, m, _ in lvl_plan])
+            row[fam] = (neighborhood_recall(ids, ref), pcts(lat)[1])
+            lp = ctl.params(sp if fam == "ivf_flat" else CAGRA_SP)
+            direct = ((lambda blk, k, lp=lp: ivf_flat.search(iidx, blk, k,
+                                                              lp))
+                      if fam == "ivf_flat" else
+                      (lambda blk, k, lp=lp: direct_cagra(blk, k, lp)))
+            check_blocks(f"serve brownout level {level} {fam} "
+                         f"({'n_probes' if fam == 'ivf_flat' else 'itopk'}"
+                         f" {lp.n_probes if fam == 'ivf_flat' else lp.itopk_size})",
+                         rec, direct, served_rows(lvl_plan, res), qn)
+            rec.calls.clear()
+        log(f"serve brownout level {level}: n_probes "
+            f"{ctl.params(sp).n_probes}, itopk "
+            f"{ctl.params(CAGRA_SP).itopk_size}, max-wait x"
+            f"{ctl.max_wait_scale():g}; recall@{K} against brute force / "
+            "p99 ms: " + ", ".join(f"{f} {r:.4f} / {p:.3f}"
+                                   for f, (r, p) in row.items())
+            + f" ({smi})")
+        if step == 0:
+            # the objective below what level 0 measured: a breach
+            eng.targets = serve.Targets(p99_latency_s=0.25 * min(
+                p for _, p in row.values()) / 1e3)
+        if step < 2:
+            clock[0] += 100.0
+            rep = ctl.poll()
+            walk.append(ctl.level)
+            fast = rep["targets"]["p99_latency_s"]["fast"]
+            log(f"  SLO {rep['verdict']} (p99 target "
+                f"{eng.targets.p99_latency_s * 1e3:.3f} ms, fast window "
+                f"{'-' if fast is None else f'{fast * 1e3:.3f}'} ms): "
+                f"level {walk[-2]} -> {walk[-1]}")
+    eng.targets = serve.Targets(p99_latency_s=60.0)
+    for _ in range(3):
+        clock[0] += 20.0
+        ctl.poll()
+        walk.append(ctl.level)
+    walk = [lv for n, lv in enumerate(walk) if n == 0 or lv != walk[n - 1]]
+    log(f"serve brownout: levels {walk}, transitions "
+        + json.dumps([(t['from'], t['to'], t['reason'])
+                      for t in ctl.snapshot()["transitions"]]))
+    if walk != [0, 1, 2, 1, 0]:
+        raise AssertionError(f"serve brownout: levels {walk}")
+
+    log(f"serve phase: brownout done at "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    # 4. the recall sentinel: the path's rows as the reference (K2 + K1 on
+    # the card, on the sentinel's thread), every served request scored
+    s_plan = serve_plan(SEED + 28, SENTINEL_REQUESTS)
+    sreg = serve.metrics.Registry()
+    b = serve.MicroBatcher(ivf_flat.make_searcher(iidx, sp), D,
+                           ladder=ladder, registry=sreg)
+    _, lat0 = serve_load("serve ivf_flat, no sentinel", b, s_plan, q_host,
+                         sreg, totals, ("ivf_flat_scan",))
+    b.close()
+    sreg = serve.metrics.Registry()
+    sent = serve.RecallSentinel(
+        quality.make_reference(x), sample=1.0, window=SENTINEL_REQUESTS,
+        min_samples=1, max_pending=SENTINEL_REQUESTS, registry=sreg,
+        family="ivf_flat")
+    b = serve.MicroBatcher(ivf_flat.make_searcher(iidx, sp), D,
+                           ladder=ladder, registry=sreg, sentinel=sent)
+
+    def sentinel_load():
+        out = drive(lambda j, rows, k: b.submit(rows, k), s_plan, q_host)
+        b.close()
+        if not sent.drain(timeout=300):
+            raise AssertionError("serve sentinel: not drained")
+        return out
+
+    res, lat, _ = run_path("serve ivf_flat behind the sentinel",
+                           ("ivf_flat_scan", "fused_knn"), sentinel_load,
+                           totals)
+    c = sreg.snapshot()["counters"]
+    want = float(np.mean([neighborhood_recall(
+        r.indices, bi[s:s + m, :k].cpu(), r.distances,
+        bd[s:s + m, :k].cpu(), eps=1e-4) for (s, m, k), r in zip(s_plan,
+                                                                 res)]))
+    est = sent.estimate()
+    (p50a, p99a), (p50b, p99b) = pcts(lat0), pcts(lat)
+    log(f"serve sentinel: estimate {est:.4f} over {c['serve.recall.scored']:g}"
+        f" scored ({c['serve.recall.dropped']:g} dropped); the same rows "
+        f"against the path's brute-force answer {want:.4f}; latency p50 / "
+        f"p99 ms without it {p50a:.3f} / {p99a:.3f}, with it {p50b:.3f} / "
+        f"{p99b:.3f} ({smi})")
+    if c["serve.recall.dropped"] or c["serve.recall.scored"] != len(s_plan) \
+            or abs(est - want) > SENTINEL_GAP:
+        raise AssertionError(f"serve sentinel: estimate {est:.4f} against "
+                             f"{want:.4f}")
+    sent.close()
+
+    log(f"serve phase: sentinel done at "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    # 5. the fabric: three tenants, a cache, a token bucket, and a swap of
+    # the IVF-Flat tenant to the rebuilt (bit-equal) index mid-traffic
+    rebuilt = ivf_flat.build(x, ivf_flat.IndexParams(n_lists=N_LISTS,
+                                                     seed=SEED))
+    mask = next(v for k_, v in filter_masks(iidx).items()
+                if k_.startswith("tenant"))
+    tenant_bits = Bitset.from_mask(torch.from_numpy(mask).cuda())
+    freg = serve.metrics.Registry()
+    cache = serve.QueryCache(registry=freg)
+    fab = serve.ServeFabric(D, ladder=ladder, registry=freg, cache=cache)
+    cagra_fab = Recorder(cagra.make_searcher(cidx, CAGRA_SP, engine="fused"))
+    fab.add_tenant("flat", iidx, params=sp, weight=2)
+    fab.add_tenant("cagra", search_fn=cagra_fab, weight=1)
+    fab.add_tenant("bf", bidx, weight=1, rate=FABRIC_RATE[0],
+                   burst=FABRIC_RATE[1], filter=tenant_bits)
+    rng = np.random.default_rng(SEED + 29)
+    f_plan, tenants = [], []
+    base = serve_plan(SEED + 30, FABRIC_REQUESTS)
+    names = list(FABRIC_SHARES)
+    for j, req in enumerate(base):
+        t = names[int(rng.choice(3, p=list(FABRIC_SHARES.values())))]
+        flat_before = [p for p, n in zip(f_plan, tenants) if n == "flat"]
+        if t == "flat" and flat_before and rng.random() < FABRIC_REPEAT:
+            req = flat_before[int(rng.integers(len(flat_before)))]
+        f_plan.append(req)
+        tenants.append(t)
+    done, swap, lock = [0], {}, threading.Lock()
+
+    def after(_j):
+        # the swap, from the client whose answer is the plan's middle one
+        with lock:
+            done[0] += 1
+            go = done[0] == len(f_plan) // 2
+        if go:
+            t_s = time.perf_counter()
+            swap["gen"] = fab.tenant("flat").swap(rebuilt, params=sp)
+            swap["s"] = time.perf_counter() - t_s
+            swap["invalidated"] = cache.snapshot()["invalidated"]
+
+    def fabric_load():
+        res, lat, _ = drive(lambda j, rows, k: fab.submit(tenants[j], rows,
+                                                          k),
+                            f_plan, q_host, after)
+        fab.close()
+        return res, lat
+
+    res, lat = run_path("serve fabric", ("ivf_flat_scan", "cagra_fused",
+                                         "fused_knn"), fabric_load, totals)
+    limited = [j for j, r in enumerate(res)
+               if isinstance(r, serve.RateLimitedError)]
+    failed = [r for j, r in enumerate(res) if isinstance(r, BaseException)
+              and j not in limited]
+    if failed:
+        raise AssertionError(f"serve fabric: {len(failed)} requests failed:"
+                             f" {failed[0]!r}")
+    if swap.get("gen") != 1 or not swap.get("invalidated"):
+        raise AssertionError(f"serve fabric: swap {swap}")
+    for name in names:
+        js = [j for j, t in enumerate(tenants) if t == name
+              and j not in limited]
+        tr = fab.tenant(name).registry.snapshot()["counters"]
+        log(f"serve fabric tenant {name}: {len(js)} requests, "
+            f"{sum(f_plan[j][1] for j in js)} rows served, p99 "
+            f"{pcts([lat[j] for j in js])[1]:.3f} ms, cache hits "
+            f"{tr.get(f'{name}.qcache.hits', 0):g}, rate-limited "
+            f"{sum(1 for j in limited if tenants[j] == name)}")
+    log(f"serve fabric: the IVF-Flat tenant swapped to generation "
+        f"{swap['gen']} in {swap['s']:.3f} s mid-traffic, "
+        f"{swap['invalidated']} cache entries invalidated; cache "
+        f"{json.dumps(cache.snapshot())}; no request failed ({smi})")
+    items = {n: [(f_plan[j], res[j]) for j, t in enumerate(tenants)
+                 if t == n and j not in limited] for n in names}
+    check_served("serve fabric flat", items["flat"], direct_flat)
+    check_served("serve fabric bf", items["bf"],
+                 lambda s, m, k: brute_force.search(bidx, q[s:s + m], k,
+                                                    filter=tenant_bits))
+    check_blocks("serve fabric cagra", cagra_fab, direct_cagra,
+                 items["cagra"], qn)
+
+    log(f"serve phase: fabric done at "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    # 6. debugz: a snapshot written, read back, its sections present
+    b = serve.MicroBatcher(flat_rec, D, ladder=ladder, registry=breg,
+                           degrade=ctl, sentinel=sent)
+    serve.SnapshotWriter(SERVE_SNAPSHOT, batcher=b, slo=eng,
+                         fabric=fab).write_once()
+    b.close()
+    with open(SERVE_SNAPSHOT) as f:
+        snap = json.load(f)
+    need = {"ladder", "metrics", "events", "slo", "brownout", "quality",
+            "tenants"}
+    kinds = snap["event_counts"]
+    log(f"serve debugz: {SERVE_SNAPSHOT} holds {sorted(snap)}; events in "
+        f"the ring {json.dumps(kinds)}")
+    if not need <= set(snap) or not {"brownout", "tenant_swap"} <= set(
+            kinds):
+        raise AssertionError(f"serve debugz: sections {sorted(snap)}")
+
+    secs = time.perf_counter() - t_phase
+    log(f"serve phase: {secs:.1f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    if secs > SERVE_BUDGET_S:
+        raise AssertionError(f"serve phase: {secs:.1f} s, over its "
+                             f"{SERVE_BUDGET_S:g} s budget")
 
 
 # the serialize phase's child: the four files loaded onto the card in a
@@ -5331,6 +5901,8 @@ def main() -> int:
     mark(t_start, "bench phase")
     entry_phase(x, q, bidx, iidx, pidx, cidx, cell, moved)
     mark(t_start, "entry-point phase")
+    serve_phase(x, q, bidx, iidx, cidx, moved)
+    mark(t_start, "serve phase")
     serialize_phase(bidx, iidx, pidx, cidx, q)
     mark(t_start, "serialize phase")
     stores = stores_phase(x, q, moved)

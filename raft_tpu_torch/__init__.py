@@ -35,6 +35,10 @@ search over a mesh of shards, and the primitives they call:
                 raft_tpu_torch.bench``): datasets, ground truth, the
                 QPS-at-recall sweeps in Google-Benchmark JSON, CAGRA's
                 kNN-graph builder race
+- ``serve``     the serving runtime: the micro-batcher over the
+                families' ``make_searcher`` closures, admission,
+                warmup, SLOs and brownout, the recall sentinel, the
+                multi-tenant fabric and its query cache, debugz
 - ``stats``     neighborhood recall
 - ``convert``   indexes carried over from the JAX package as numpy arrays
 

@@ -26,8 +26,9 @@ A probe costs one check of two lists when nothing is armed.
 ``except Exception`` in the port may survive it, as no handler runs in a
 process that dies.
 
-Not ported yet: the fired-fault telemetry (``_emit_fire``) and the timed
-``Scenario`` drills, which come with the serving layer's events.
+A fire counts under ``faults.fired.<kind>.<site>`` and a fault's first
+fire records a ``fault_injected`` event (``_emit_fire``). Not ported
+yet: the timed ``Scenario`` drills, which need the soak harness.
 """
 from __future__ import annotations
 
@@ -149,13 +150,37 @@ def fired(kind: str, site: str) -> Optional[Fault]:
     _load_env()
     if not _injected and not _env_faults:
         return None
+    hit = None
+    first = False
     with _lock:
         _seen_sites.add(site)
         for f in _injected + _env_faults:
             if f.matches(kind, site):
                 f.fires += 1
-                return f
-    return None
+                first = f.fires == 1
+                hit = f
+                break
+    if hit is not None:
+        _emit_fire(kind, site, first)
+    return hit
+
+
+def _emit_fire(kind: str, site: str, first: bool) -> None:
+    """Telemetry of a fired fault: the counter ``faults.fired.<kind>.
+    <site>`` on every fire, a ``fault_injected`` event (stamped with the
+    bound trace IDs) on the fault's first only, so that a drill firing on
+    every batch does not churn the bounded ring. Outside the probe lock;
+    never raises."""
+    try:
+        if first:
+            from . import events
+
+            events.record("fault_injected", site, fault_kind=kind)
+        from ..serve import metrics
+
+        metrics.counter(f"faults.fired.{kind}.{site}").inc()
+    except Exception:  # noqa: BLE001 - telemetry must not break injection
+        pass
 
 
 def check(kind: str, site: str) -> None:

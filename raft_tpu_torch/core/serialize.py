@@ -30,8 +30,10 @@ and tensors are written C-contiguous. The writer carries the JAX package's
 fault probes (``core/faults.py``): ``io_error`` at
 ``core.serialize.save_arrays`` after the header, and ``corrupt_bytes`` at
 ``core.serialize.array.<name>`` on the bytes an array section writes
-(its CRC covers the true bytes, so the reader catches the flip). The
-reader's corrupt-load telemetry is not ported yet.
+(its CRC covers the true bytes, so the reader catches the flip). A
+corrupt load records a ``corrupt_index`` event (its site the failing
+section) and counts ``serialize.corrupt_load``, as the JAX package's
+reader does.
 """
 from __future__ import annotations
 
@@ -422,7 +424,21 @@ def load_arrays(path_or_file, expect_kind: str | None = None):
                   else _read_legacy_arrays(f))
         return kind, version, meta, arrays
 
-    if isinstance(path_or_file, (str, bytes, os.PathLike)):
-        with open(path_or_file, "rb") as f:
-            return _read(f)
-    return _read(path_or_file)
+    try:
+        if isinstance(path_or_file, (str, bytes, os.PathLike)):
+            with open(path_or_file, "rb") as f:
+                return _read(f)
+        return _read(path_or_file)
+    except CorruptIndexError as e:
+        # a corrupt load is an operational event, not only an exception:
+        # the ops surface shows it even where the caller contains it
+        try:
+            from . import events
+
+            events.record("corrupt_index", e.section, error=str(e))
+            from ..serve import metrics
+
+            metrics.counter("serialize.corrupt_load").inc()
+        except Exception:  # noqa: BLE001 - telemetry must not mask it
+            pass
+        raise

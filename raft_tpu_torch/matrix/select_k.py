@@ -38,6 +38,7 @@ package's ``RADIX`` alias of ``TOPK`` is not carried over.
 from __future__ import annotations
 
 import enum
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -52,6 +53,9 @@ __all__ = ["SelectAlgo", "WARP_MAX_K", "order_key", "select_form",
 
 WARP_MAX_K = 512   # the warp select's queue: at most 512 keys a warp
 
+# the counters are bumped under this lock: the serving worker and the
+# recall sentinel launch from their own threads
+_count_lock = threading.Lock()
 launches = 0            # K1 launches since the last reset, both forms
 warp_launches = 0       # of them, the warp select's
 radix_launches = 0      # of them, the radix select's
@@ -144,11 +148,12 @@ def kpass_select_k(values: torch.Tensor, k: int, select_min: bool = True,
     status = entry(values.data_ptr(), rows, n, k, int(select_min),
                    ov.data_ptr(), oi.data_ptr(), _cuda.stream_of(values))
     _cuda.check(status, f"select_k ({form})")
-    launches += 1
-    if form == "warp":
-        warp_launches += 1
-    else:
-        radix_launches += 1
+    with _count_lock:
+        launches += 1
+        if form == "warp":
+            warp_launches += 1
+        else:
+            radix_launches += 1
     return ov, oi
 
 

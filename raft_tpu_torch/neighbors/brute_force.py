@@ -357,6 +357,7 @@ def search(index: Index, queries, k: int,
         fd = filter_policy.decide_graph(filter, index.size, index.dim, k,
                                         "brute_force", index.device)
         if fd.use_brute:
+            filter_policy.note_crossover(fd, "brute_force")
             return filter_policy.survivor_brute_dense(
                 index.dataset, mt, q, k, filter, index.scales,
                 index.metric_arg, index.norms, query_chunk, res)

@@ -48,8 +48,8 @@ raises, where JAX rewrites it to its edge engine). ``query_chunk`` and a
 deadline (``res``) traverse the queries in chunks, each with its own
 random seed rows; :func:`health` reports connectivity and quantization
 error; :func:`make_searcher` freezes a search's options. Not ported: the
-guarded fallback chains (a kernel failure raises),
-``make_searcher``'s ``degrade`` and ``donate=True``. ``save`` / ``load``
+guarded fallback chains (a kernel failure raises) and
+``make_searcher``'s ``donate=True``. ``save`` / ``load``
 read and write the JAX package's files (dataset, graph, seed set); the
 traversal copies, the edge store and ``build_stats`` are derived and
 rebuilt on first use. The TPU-only build
@@ -889,6 +889,7 @@ def search(index: Index, queries, k: int,
         fd = filter_policy.decide_graph(filter, index.size, index.dim, k,
                                         "cagra", dev)
         if fd.use_brute:
+            filter_policy.note_crossover(fd, "cagra")
             return filter_policy.survivor_brute_dense(
                 index.dataset, index.metric, q, k, filter,
                 query_chunk=query_chunk, res=res)
@@ -1071,14 +1072,13 @@ def make_searcher(index: Index, params: SearchParams | None = None, *,
     ``engine``) frozen: the serving signature the four families share.
     Pinning ``engine="edge"`` or ``"fused"`` (in ``opts`` or
     ``params.engine``) builds the int8 edge store now, not on the first
-    request. ``degrade`` (JAX's brownout controller) waits for the
-    serving layer and raises; so does ``donate=True``, JAX's buffer
-    donation to ``jax.jit``, which an eager search has nothing to match
-    (``False`` and ``"auto"``, which donates only on a TPU, donate
+    request. ``degrade``: a
+    :class:`~raft_tpu_torch.serve.degrade.BrownoutController` whose
+    current level overrides ``itopk_size`` / ``search_width`` on every
+    call (``degrade.params(base)``). ``donate=True`` raises: it is JAX's
+    buffer donation to ``jax.jit``, which an eager search has nothing to
+    match (``False`` and ``"auto"``, which donates only on a TPU, donate
     nothing)."""
-    if degrade is not None:
-        raise RaftError("make_searcher(degrade=...) is not ported yet: it "
-                        "comes with the serving layer")
     if donate not in (False, "auto"):
         raise RaftError("make_searcher(donate=True) is not ported: it is "
                         "jax.jit buffer donation, which an eager search "
@@ -1088,7 +1088,8 @@ def make_searcher(index: Index, params: SearchParams | None = None, *,
         prepare_traversal(index)
 
     def _fn(queries, k, res=None):
-        return search(index, queries, k, base, res=res, **opts)
+        p = base if degrade is None else degrade.params(base)
+        return search(index, queries, k, p, res=res, **opts)
 
     return _fn
 

@@ -46,12 +46,19 @@ __all__ = ["HostTier", "budget_bytes", "plan_hot_cold", "build_tier",
            "probe_frequency", "host_full"]
 
 
+_armed_lock = threading.Lock()
+_armed_seen: set = set()      # budgets that recorded host_tier_armed
+
+
 def budget_bytes(budget_gb: Optional[float] = None) -> int:
     """The device budget of one index's list data in bytes: ``budget_gb``
     GiB, else ``RAFT_TPU_HBM_BUDGET_GB``, else 0 (no tier). A value of the
     variable that is not a float warns and gives 0: a typo must not
-    leave a user believing a tier is armed."""
+    leave a user believing a tier is armed. Each distinct budget > 0
+    records one ``host_tier_armed`` event."""
+    source = "arg"
     if budget_gb is None:
+        source = "env"
         raw = os.environ.get("RAFT_TPU_HBM_BUDGET_GB", "")
         if not raw:
             return 0
@@ -64,7 +71,20 @@ def budget_bytes(budget_gb: Optional[float] = None) -> int:
                 RuntimeWarning, stacklevel=2)
             return 0
         budget_gb = env_float("RAFT_TPU_HBM_BUDGET_GB", 0.0)
-    return int(float(budget_gb) * (1 << 30))
+    b = int(float(budget_gb) * (1 << 30))
+    with _armed_lock:
+        first = b > 0 and b not in _armed_seen
+        _armed_seen.add(b)
+    if first:
+        try:
+            from ..core import events
+
+            events.record("host_tier_armed", "host_stream.budget",
+                          budget_gb=float(budget_gb), budget_bytes=b,
+                          source=source)
+        except Exception:  # noqa: BLE001 - telemetry must not fail a plan
+            pass
+    return b
 
 
 def probe_frequency(probed: np.ndarray, n_lists: int) -> np.ndarray:

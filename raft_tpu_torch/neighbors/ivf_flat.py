@@ -53,7 +53,7 @@ import torch
 
 from ..cluster import kmeans_balanced
 from ..core.bitset import Bitset
-from ..core.errors import RaftError, expects
+from ..core.errors import expects
 from ..core.resources import workspace_chunk_bytes
 from ..core.serialize import device_tensor, load_arrays, save_arrays
 from ..distance.distance_types import (DistanceType, canonical_metric,
@@ -321,6 +321,7 @@ def search(index: Index, queries, k: int,
         fd, n_probes, survivors = filter_policy.plan_ivf(
             index, filter, n_probes, k, "ivf_flat")
         if fd is not None and fd.use_brute:
+            filter_policy.note_crossover(fd, "ivf_flat")
             return filter_policy.survivor_brute_ivf(
                 index, reconstruct, q, k, filter, index.data_norms,
                 query_chunk, res)
@@ -512,15 +513,14 @@ def make_searcher(index: Index, params: SearchParams | None = None, *,
     """``fn(queries, k, res=None) -> (distances, indices)`` with the
     search parameters and ``opts`` (``filter``, ``query_chunk``,
     ``algo``) frozen: the serving signature the four families share.
-    ``degrade`` (JAX's brownout controller) waits for the serving layer
-    and raises."""
-    if degrade is not None:
-        raise RaftError("make_searcher(degrade=...) is not ported yet: it "
-                        "comes with the serving layer")
+    ``degrade``: a :class:`~raft_tpu_torch.serve.degrade.BrownoutController`
+    whose current level overrides ``n_probes`` on every call
+    (``degrade.params(base)``)."""
     base = params or SearchParams()
 
     def _fn(queries, k, res=None):
-        return search(index, queries, k, base, res=res, **opts)
+        p = base if degrade is None else degrade.params(base)
+        return search(index, queries, k, p, res=res, **opts)
 
     return _fn
 

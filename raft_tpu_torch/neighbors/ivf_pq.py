@@ -70,7 +70,7 @@ import torch
 from ..cluster import kmeans_balanced
 from ..cluster.kmeans import segment_sum
 from ..core.bitset import Bitset
-from ..core.errors import RaftError, expects
+from ..core.errors import expects
 from ..core.resources import workspace_chunk_bytes
 from ..core.serialize import device_tensor, load_arrays, save_arrays
 from ..distance.distance_types import DistanceType, canonical_metric
@@ -547,6 +547,7 @@ def search(index: Index, queries, k: int,
         fd, n_probes, survivors = filter_policy.plan_ivf(
             index, filter, n_probes, k, "ivf_pq")
         if fd is not None and fd.use_brute:
+            filter_policy.note_crossover(fd, "ivf_pq")
             return filter_policy.survivor_brute_ivf(
                 index, reconstruct, q, k, filter, None, query_chunk, res)
         pen = _penalty(index, filter)
@@ -772,15 +773,14 @@ def make_searcher(index: Index, params: SearchParams | None = None, *,
     """``fn(queries, k, res=None) -> (distances, indices)`` with the
     search parameters and ``opts`` (``filter``, ``query_chunk``,
     ``algo``) frozen: the serving signature the four families share.
-    ``degrade`` (JAX's brownout controller) waits for the serving layer
-    and raises."""
-    if degrade is not None:
-        raise RaftError("make_searcher(degrade=...) is not ported yet: it "
-                        "comes with the serving layer")
+    ``degrade``: a :class:`~raft_tpu_torch.serve.degrade.BrownoutController`
+    whose current level overrides ``n_probes`` on every call
+    (``degrade.params(base)``)."""
     base = params or SearchParams()
 
     def _fn(queries, k, res=None):
-        return search(index, queries, k, base, res=res, **opts)
+        p = base if degrade is None else degrade.params(base)
+        return search(index, queries, k, p, res=res, **opts)
 
     return _fn
 

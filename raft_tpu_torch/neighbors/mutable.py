@@ -50,10 +50,15 @@ Crash drills: the ``crash_point`` probes of :data:`CRASH_POINTS` (and
 passes every ``except`` here.
 
 ``create`` / ``recover`` place the segments and the delta on ``device``
-(the card unless the caller asks for the CPU). Not ported yet: the
-events, counters and trace spans (``upsert``, ``delete``, ``merge_*``,
-``wal_recovered``, ``mutable.*``) and the sampled device sync of the
-pre-warm, which come with the serving layer's telemetry.
+(the card unless the caller asks for the CPU). Telemetry, as the JAX
+package's: the events ``upsert``, ``delete``, ``merge_started`` /
+``merge_committed`` / ``merge_abandoned`` and ``wal_recovered`` (site:
+the index's name), the counters ``mutable.upserts``, ``.deletes``,
+``.merges.committed``, ``.merges.abandoned``, ``.recoveries``, and the
+``tracing.annotate`` spans ``raft_tpu::mutable::{create, recover,
+upsert, delete, search}``. Not ported: the sampled device sync of the
+pre-warm (``mutable.prewarm.device_s``); the merge's stages are timed
+with the device synchronised instead (``last_merge["stages_s"]``).
 """
 from __future__ import annotations
 
@@ -68,7 +73,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core import faults, wal as wal_mod
+from ..core import events, faults, tracing, wal as wal_mod
 from ..core.bitset import Bitset
 from ..core.errors import CorruptIndexError, RaftError, expects
 from ..core.serialize import fsync_dir, load_arrays, save_arrays
@@ -284,6 +289,7 @@ class MutableIndex:
         _LIVE.add(self)
 
     @classmethod
+    @tracing.annotate("raft_tpu::mutable::create")
     def create(cls, path, dataset=None, ids=None, *,
                family: str = "brute_force", metric="sqeuclidean",
                family_params: Optional[dict] = None,
@@ -331,6 +337,7 @@ class MutableIndex:
         return self
 
     @classmethod
+    @tracing.annotate("raft_tpu::mutable::recover")
     def recover(cls, path, device=None) -> "MutableIndex":
         """Open ``path`` as a restarted process would: the manifest's
         generation, its logs replayed over the snapshot (a torn tail
@@ -368,21 +375,28 @@ class MutableIndex:
             # the manifest's logs, oldest first; only the last may end in
             # a torn append
             self._wal_names = json.loads(meta["wals"])
+            replayed = truncated = 0
             for i, wname in enumerate(self._wal_names):
                 last = i == len(self._wal_names) - 1
-                records, _ = wal_mod.replay(os.path.join(path, wname),
-                                            repair=last,
-                                            allow_torn_tail=last)
+                records, cut = wal_mod.replay(os.path.join(path, wname),
+                                              repair=last,
+                                              allow_torn_tail=last)
+                truncated += cut
                 for kind, rids, rvecs in records:
                     if kind == "upsert":
                         self._apply_upsert_locked(rids, rvecs)
                     else:
                         self._apply_delete_locked(rids)
+                    replayed += 1
             self._wal = wal_mod.WriteAheadLog.open(
                 os.path.join(path, self._wal_names[-1]))
             if rebuilt and self._sealed is not None:
                 self._save_segment_of(self._sealed, self._gen)
+            gen = self._gen
         self._housekeep(meta)
+        self._event("wal_recovered", generation=gen, records=replayed,
+                    truncated_bytes=truncated, segment_rebuilt=rebuilt)
+        self._count("mutable.recoveries")
         return self
 
     # -- files --------------------------------------------------------------
@@ -566,13 +580,30 @@ class MutableIndex:
         self._delta_cache = None
         return found
 
+    # -- telemetry ----------------------------------------------------------
+    def _event(self, kind: str, **details) -> None:
+        try:
+            events.record(kind, self.name, **details)
+        except Exception:  # noqa: BLE001 - telemetry must not fail writes
+            pass
+
+    def _count(self, name: str, n: int = 1) -> None:
+        try:
+            from ..serve import metrics
+
+            metrics.counter(name).inc(n)
+        except Exception:  # noqa: BLE001
+            pass
+
     # -- the public mutations ------------------------------------------------
+    @tracing.annotate("raft_tpu::mutable::upsert")
     def upsert(self, ids, vectors=None) -> np.ndarray:
         """Insert or replace rows → the external ids used (``ids=None``:
         the next ones in sequence; ``upsert(vectors)`` works too). The
         record is in the WAL and fsynced when this returns. A sealed
         row's id is tombstoned there, and an id already in the delta
-        replaces its row."""
+        replaces its row. An ``upsert`` event and the
+        ``mutable.upserts`` counter."""
         if vectors is None:
             ids, vectors = None, ids
         vecs = _host_rows(vectors, np.float32)
@@ -590,15 +621,24 @@ class MutableIndex:
                         "external ids must fit int32")
             self._wal.append("upsert", ids, vecs)   # durable before the ack
             self._apply_upsert_locked(ids, vecs)
+        self._event("upsert", rows=int(len(ids)),
+                    delta_rows=self.delta_rows)
+        self._count("mutable.upserts", int(len(ids)))
         return ids
 
+    @tracing.annotate("raft_tpu::mutable::delete")
     def delete(self, ids) -> int:
         """Delete rows by external id → how many were present (absent ids
-        are no error). Durable before it returns, as :meth:`upsert`."""
+        are no error). Durable before it returns, as :meth:`upsert`. A
+        ``delete`` event and the ``mutable.deletes`` counter."""
         ids = np.atleast_1d(_host_rows(ids, np.int64))
         with self._lock:
             self._wal.append("delete", ids)
-            return self._apply_delete_locked(ids)
+            found = self._apply_delete_locked(ids)
+        self._event("delete", rows=int(len(ids)), found=found,
+                    tombstones=self.tombstones)
+        self._count("mutable.deletes", int(len(ids)))
+        return found
 
     # -- introspection --------------------------------------------------------
     @property
@@ -681,6 +721,7 @@ class MutableIndex:
             return self._mod.search(sealed, q, k, filter=filt, **opts)
         return self._mod.search(sealed, q, k, params, filter=filt, **opts)
 
+    @tracing.annotate("raft_tpu::mutable::search")
     def search(self, queries, k: int, params=None, **opts):
         """The k nearest live rows → (distances (m, k), int32 external
         ids (m, k)), on the index's device: the sealed segment with its
@@ -879,6 +920,9 @@ class MutableIndex:
                     [self._sealed_ids[sa], self._d_ids[:watermark][da]])
                 gen0, gen2 = self._gen, self._gen + 1
                 sealed0, sealed_ids0 = self._sealed, self._sealed_ids
+            self._event("merge_started", generation=gen0,
+                        rows=int(len(ids)), delta_rows=int(da.sum()),
+                        tombstones=self.tombstones)
             self._lap(stages, "rotate_snapshot", lap)
             hook = getattr(self, "_after_snapshot_hook", None)
             if hook is not None:
@@ -957,10 +1001,13 @@ class MutableIndex:
             except OSError:
                 pass
             self._lap(stages, "retire", lap)
+            dur = round(self._clock() - t0, 3)
             self._last_merge = {"verdict": "committed", "generation": gen2,
-                                "rows": int(len(ids)),
-                                "dur_s": round(self._clock() - t0, 3),
+                                "rows": int(len(ids)), "dur_s": dur,
                                 "stages_s": stages, **check}
+            self._event("merge_committed", generation=gen2,
+                        rows=int(len(ids)), dur_s=dur, **check)
+            self._count("mutable.merges.committed")
             return "committed"
         except Exception as e:
             # abandoned: the live index is as it was (the rotated log and
@@ -969,6 +1016,7 @@ class MutableIndex:
             with self._lock:
                 self._merging = False
                 self._during = []
+                gen_now = self._gen
             if old_wal is not None:
                 try:
                     old_wal.close()     # it stays on disk, named
@@ -977,6 +1025,8 @@ class MutableIndex:
             self._last_merge = {"verdict": "abandoned",
                                 "reason": f"{type(e).__name__}: {e}",
                                 "dur_s": round(self._clock() - t0, 3)}
+            self._event("merge_abandoned", generation=gen_now, error=e)
+            self._count("mutable.merges.abandoned")
             raise
         finally:
             # only the call that claimed the merge clears the flag

@@ -15,12 +15,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 from ..core.errors import RaftError
 
 __all__ = ["SOURCES", "STORE_SOURCES", "SMEM_PER_BLOCK", "build",
-           "library", "check", "stream_of"]
+           "library", "check", "stream_of", "first_call_observers",
+           "note_first_call"]
 
 SMEM_PER_BLOCK = 232_448   # bytes of shared memory one block may use (sm_90)
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -99,6 +101,22 @@ _SIGNATURES = {
 }
 
 _libs: dict = {}
+_libs_lock = threading.Lock()
+
+# observers of a first call's cost, ``fn(kind, name)``: a library loaded
+# (``"library"``) or an engine race timed (``"autotune"``); the serving
+# layer's first-call watch (``serve/warmup.py``) subscribes here
+first_call_observers: list = []
+
+
+def note_first_call(kind: str, name: str) -> None:
+    """Tell every observer that a call paid a first-call cost; an
+    observer's failure never reaches the call."""
+    for fn in list(first_call_observers):
+        try:
+            fn(kind, name)
+        except Exception:  # noqa: BLE001 - telemetry must not fail a call
+            pass
 
 
 def _nvcc() -> str:
@@ -153,12 +171,18 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _libs.get(name)
     if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(_target(name)))
-        for fn, (argtypes, restype) in _SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        _libs[name] = lib
+        # one loader at a time: the serving worker and the recall
+        # sentinel's thread may both reach a library first
+        with _libs_lock:
+            lib = _libs.get(name)
+            if lib is None:
+                build((name,))
+                lib = ctypes.CDLL(str(_target(name)))
+                for fn, (argtypes, restype) in _SIGNATURES[name].items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = restype
+                _libs[name] = lib
+                note_first_call("library", name)
     return lib
 
 

@@ -54,6 +54,7 @@ from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 import torch
 
 from ..core.errors import expects
+from ._cuda import note_first_call
 
 __all__ = ["shape_bucket", "lookup", "record", "forget", "entries",
            "measure", "measure_throughput", "measure_value_read_wall",
@@ -235,6 +236,7 @@ def measure(fn: Callable, *args, reps: int = 5, out0=None,
     element. A first call warms up unless ``out0`` (its output) says one
     was made. ``suspect_floor_s``: a per-call plausibility floor
     (module docstring)."""
+    note_first_call("autotune", getattr(fn, "__qualname__", repr(fn)))
     if out0 is None:
         fn(*args)
         _sync(args)

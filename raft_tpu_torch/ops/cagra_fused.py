@@ -30,6 +30,7 @@ package's VMEM cap becomes the card's shared memory a block);
 """
 from __future__ import annotations
 
+import threading
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -45,6 +46,9 @@ __all__ = ["fused_traverse", "fused_traverse_plain", "fused_traverse_kernel",
            "edge_hop", "pick_parents", "merge_candidates", "dup_mask",
            "kernel_info", "fused_capable"]
 
+# the counters are bumped under this lock: the serving worker and the
+# recall sentinel launch from their own threads
+_count_lock = threading.Lock()
 launches = 0   # K6 launches since the last reset, every mode's
 launches_dense = launches_int4 = 0   # by store mode
 
@@ -215,8 +219,9 @@ def fused_traverse_kernel(queries, buf_d, buf_i, vecs, aux, gph, pen=None,
         out_i.data_ptr(), hops.data_ptr(), parents.data_ptr(),
         _cuda.stream_of(vecs))
     _cuda.check(status, "cagra_fused")
-    launches += 1
-    globals()[f"launches_{mode}"] += 1
+    with _count_lock:
+        launches += 1
+        globals()[f"launches_{mode}"] += 1
     return out_d, out_i, hops, parents
 
 

@@ -29,14 +29,16 @@ package's names. Inside :func:`suspended` a search keeps only the prune.
 Where the port differs from the JAX package: a crossover runs the brute
 pass and a failure there raises (JAX guards it with a fallback to the
 widened scan, ``guarded_call("filter.survivor_brute", ...)``, and a
-re-entry flag; no fallback may hide a kernel here); the telemetry hooks
-(the selectivity gauge, the crossover event) wait for the serving layer;
-the caches on an index (list labels, the inverse of its source ids) and
+re-entry flag; no fallback may hide a kernel here); the caches on an index (list labels, the inverse of its source ids) and
 on a bitset (its survivor ids) are keyed to the tensors they came from
 and their in-place versions, so an extend (a new index) or an edit in
 place never meets a stale one; the crossover of an index that keeps row
 norms (brute force, IVF-Flat) gathers the survivors' norms instead of
 summing them again, and runs in the search's query chunks.
+
+Telemetry, as the JAX package's: each decision sets the default
+registry's ``serve.filter.selectivity`` gauge, and each crossover
+records a ``filter_crossover`` event (:func:`note_crossover`).
 """
 from __future__ import annotations
 
@@ -57,8 +59,9 @@ from .quant import dequantize_rows
 
 __all__ = ["FilterDecision", "LEVELS", "list_survivors", "decide_ivf",
            "decide_graph", "plan_ivf", "crossover_key",
-           "selectivity_bucket", "survivor_ids", "survivor_brute_ivf",
-           "survivor_brute_dense", "tune_crossover", "suspended",
+           "selectivity_bucket", "survivor_ids", "note_crossover",
+           "survivor_brute_ivf", "survivor_brute_dense", "tune_crossover",
+           "suspended",
            "adaptive_off", "forget"]
 
 # the widen ladder: each level multiplies n_probes / itopk
@@ -186,6 +189,28 @@ def _level_cap() -> int:
     return max(lv for lv in LEVELS if lv <= widen_max)
 
 
+def _set_gauge(selectivity: float) -> None:
+    try:
+        from ..serve import metrics as serve_metrics
+
+        serve_metrics.gauge("serve.filter.selectivity").set(selectivity)
+    except Exception:  # noqa: BLE001 - telemetry must not break search
+        pass
+
+
+def note_crossover(fd: FilterDecision, family: str) -> None:
+    """Record the ``filter_crossover`` event of a search routed to the
+    survivors' brute pass (each family calls it as it crosses over)."""
+    try:
+        from ..core import events
+
+        events.record("filter_crossover", f"filter.{family}",
+                      family=family, survivors=fd.survivors,
+                      selectivity=round(fd.selectivity, 6))
+    except Exception:  # noqa: BLE001 - telemetry must not break search
+        pass
+
+
 def decide_ivf(index, filter, n_probes: int, k: int,  # noqa: A002
                family: str) -> FilterDecision:
     """Measure and decide for an IVF search (one host read: the survivors
@@ -196,6 +221,7 @@ def decide_ivf(index, filter, n_probes: int, k: int,  # noqa: A002
     surv = surv_dev.cpu().numpy()
     total = int(surv.sum())
     selectivity = total / max(int(filter.n_bits), 1)
+    _set_gauge(selectivity)
     sizes = np.asarray(index.list_sizes, np.int64)
     n_lists = int(index.n_lists)
     target = min(int(np.sort(sizes)[::-1][:n_probes].sum()), total)
@@ -237,6 +263,7 @@ def decide_graph(filter, n: int, d: int, k: int,  # noqa: A002
     key."""
     total = int(filter.count())
     selectivity = total / max(int(filter.n_bits), 1)
+    _set_gauge(selectivity)
     if selectivity >= 0.5:
         level = 1
     elif selectivity >= 0.1:

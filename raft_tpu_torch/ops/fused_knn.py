@@ -34,6 +34,7 @@ to that form or the call raises.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -49,6 +50,9 @@ __all__ = ["fused_knn", "fused_knn_plain", "fused_knn_candidates",
            "kernel_queries", "block_queries", "split_plan", "wide_cap",
            "wide_scratch_bytes", "LIST_MAX_K", "WIDE_BUDGET"]
 
+# the counters are bumped under this lock: the serving worker and the
+# recall sentinel launch from their own threads
+_count_lock = threading.Lock()
 launches = 0   # K2 launches since the last reset, every store's form
 wide_launches = 0   # of them, the wide form's (k > LIST_MAX_K)
 # of them, each low-precision store's form
@@ -337,10 +341,11 @@ def fused_knn_candidates(q: torch.Tensor, qn: Optional[torch.Tensor],
             per_split, cap, scratch.data_ptr(), out_v.data_ptr(),
             out_i.data_ptr(), _cuda.stream_of(q))
     _cuda.check(status, f"fused_knn ({store})")
-    launches += 1
-    wide_launches += wide
-    if store != "float32":
-        globals()[f"launches_{store}"] += 1
+    with _count_lock:
+        launches += 1
+        wide_launches += wide
+        if store != "float32":
+            globals()[f"launches_{store}"] += 1
     return out_v, out_i, parts
 
 

@@ -41,6 +41,7 @@ codes, and the 128-lane output padding (``kp``).
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -55,6 +56,9 @@ __all__ = ["graph_expand", "graph_expand_plain", "graph_expand_kernel",
            "check_tile", "check_width", "check_codebook", "pad_queries",
            "card_info", "store_mode", "kernel_info", "MODES"]
 
+# the counters are bumped under this lock: the serving worker and the
+# recall sentinel launch from their own threads
+_count_lock = threading.Lock()
 launches = 0   # K5 launches since the last reset, every mode's
 launches_dense = launches_int4 = launches_pq = 0   # by store mode
 
@@ -313,8 +317,9 @@ def graph_expand_kernel(parents: torch.Tensor, queries: torch.Tensor,
             dim_p, degree, k_out, _METRIC_CODE[metric], code,
             out_v.data_ptr(), out_i.data_ptr(), _cuda.stream_of(vecs))
     _cuda.check(status, "graph_expand")
-    launches += 1
-    globals()[f"launches_{mode}"] += 1
+    with _count_lock:
+        launches += 1
+        globals()[f"launches_{mode}"] += 1
     return out_v, out_i
 
 

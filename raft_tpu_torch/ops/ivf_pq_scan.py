@@ -61,6 +61,7 @@ range themselves.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -78,6 +79,9 @@ __all__ = ["pq_chunk_rows", "decoded_row_norms", "int8_codebook",
            "ivf_pq_scan_plain",
            "ivf_pq_scan_candidates", "largest_list"]
 
+# the counters are bumped under this lock: the serving worker and the
+# recall sentinel launch from their own threads
+_count_lock = threading.Lock()
 launches = 0         # K4 launches since the last reset, both forms
 group_launches = 0   # of them, the grouped form's
 per_cluster_launches = 0  # of the grouped ones, on per-cluster codebooks
@@ -368,13 +372,14 @@ def ivf_pq_scan_candidates(codes: torch.Tensor, dn: torch.Tensor,
             pq_dim, pq_len, book, k, _METRIC_CODE[metric], out_v.data_ptr(),
             out_i.data_ptr(), _cuda.stream_of(q))
     _cuda.check(status, f"ivf_pq_scan ({form})")
-    launches += 1
-    if form == "group":
-        group_launches += 1
-        wide_launches += k > GROUP_MAX_K
-        per_cluster_launches += per_cluster
-    else:
-        pair_launches += 1
+    with _count_lock:
+        launches += 1
+        if form == "group":
+            group_launches += 1
+            wide_launches += k > GROUP_MAX_K
+            per_cluster_launches += per_cluster
+        else:
+            pair_launches += 1
     return out_v, out_i
 
 

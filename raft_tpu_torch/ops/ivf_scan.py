@@ -46,6 +46,7 @@ these stores, a throughput choice of the TPU).
 from __future__ import annotations
 
 import ctypes
+import threading
 import weakref
 from typing import Optional, Tuple
 
@@ -66,6 +67,9 @@ __all__ = ["coarse_probe", "pack_pairs", "scan_form", "check_form",
            "ivf_flat_scan_plain",
            "ivf_flat_scan_candidates"]
 
+# the counters are bumped under this lock: the serving worker and the
+# recall sentinel launch from their own threads
+_count_lock = threading.Lock()
 launches = 0         # K3 launches since the last reset, both forms
 group_launches = 0   # of them, the grouped form's
 pair_launches = 0    # of them, the per-pair form's
@@ -468,14 +472,15 @@ def ivf_flat_scan_candidates(data: torch.Tensor, dn: Optional[torch.Tensor],
             sizes.data_ptr(), m, p, dim, k, _METRIC_CODE[metric],
             out_v.data_ptr(), out_i.data_ptr(), _cuda.stream_of(q))
     _cuda.check(status, f"ivf_flat_scan ({form}, {store})")
-    launches += 1
-    if store != "float32":
-        globals()[f"launches_{store}"] += 1
-    if form == "group":
-        group_launches += 1
-        wide_launches += k > GROUP_MAX_K
-    else:
-        pair_launches += 1
+    with _count_lock:
+        launches += 1
+        if store != "float32":
+            globals()[f"launches_{store}"] += 1
+        if form == "group":
+            group_launches += 1
+            wide_launches += k > GROUP_MAX_K
+        else:
+            pair_launches += 1
     return out_v, out_i
 
 

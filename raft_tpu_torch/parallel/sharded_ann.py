@@ -1,7 +1,7 @@
 """Sharded ANN indexes, the IVF-Flat and IVF-PQ families: counterpart of
 ``raft_tpu/parallel/sharded_ann.py`` (``ShardedIvfFlat``,
 ``build_ivf_flat``, ``search_ivf_flat``, ``ShardedIvfPq``,
-``build_ivf_pq``, ``search_ivf_pq``).
+``build_ivf_pq``, ``search_ivf_pq``, ``make_searcher``, ``searcher_dim``).
 
 Each shard of a :class:`~raft_tpu_torch.comms.Mesh` indexes its own
 contiguous row block (``np.array_split``: balanced, none empty) as a port
@@ -25,8 +25,13 @@ package's sharded search scans them); the single-index search's adaptive
 widen and crossover stay off (``filter_policy.suspended()``), as the JAX
 package's sharded search has none.
 
+:func:`make_searcher` is the serving signature the batcher calls
+(``allow_partial=True`` adds ``shards_ok``, which the batcher hands each
+response); its deadline is checked once before the shards' searches,
+which run unchunked.
+
 Not ported yet: the CAGRA family, ``probe_shards`` / canaries / MTTR and
-the fault sites, ``make_searcher``, ``warmup_searchers``, ``widen_rungs``,
+the fault sites, ``warmup_searchers``, ``widen_rungs``,
 ``ops_snapshot``, ``health``, ``dispatch_cache``, and the multi-host
 ``topology`` / ``fleet`` / ``hier`` layers.
 """
@@ -36,13 +41,15 @@ import numpy as np
 import torch
 
 from ..comms import Mesh
-from ..core.errors import ShardsDownError, expects
+from ..core import deadline
+from ..core.errors import RaftError, ShardsDownError, expects
 from ..distance.distance_types import is_min_close
 from ..neighbors import ivf_flat, ivf_pq
 from ..ops import filter_policy, ring_topk
 
 __all__ = ["ShardedIvfFlat", "build_ivf_flat", "search_ivf_flat",
-           "ShardedIvfPq", "build_ivf_pq", "search_ivf_pq"]
+           "ShardedIvfPq", "build_ivf_pq", "search_ivf_pq", "make_searcher",
+           "searcher_dim"]
 
 
 class _Sharded:
@@ -191,3 +198,34 @@ def search_ivf_pq(index: ShardedIvfPq, queries, k: int,
         index, queries, k,
         lambda s, q: _prune_only(ivf_pq.search, s, q, k, sp, filter),
         allow_partial, merge_engine)
+
+
+def make_searcher(index, params=None, *, allow_partial: bool = False,
+                  donate: bool = False, **opts):
+    """The serving signature on a sharded index: ``fn(queries, k,
+    res=None) -> (distances, indices)``, or with ``allow_partial=True``
+    ``(distances, indices, shards_ok)``, with ``params`` and ``opts``
+    (``merge_engine``, ``filter``) frozen. ``res`` (a deadline, or an
+    object carrying one) is checked before the shards' searches.
+    ``donate=True`` raises: it is JAX's buffer donation to ``jax.jit``,
+    which an eager search has nothing to match."""
+    fns = {ShardedIvfFlat: search_ivf_flat, ShardedIvfPq: search_ivf_pq}
+    fn = fns.get(type(index))
+    expects(fn is not None, "unsupported sharded index type %s",
+            type(index).__name__)
+    if donate:
+        raise RaftError("make_searcher(donate=True) is not ported: it is "
+                        "jax.jit buffer donation")
+
+    def _fn(queries, k, res=None):
+        deadline.checkpoint(res)
+        return fn(index, queries, k, params, allow_partial=allow_partial,
+                  **opts)
+
+    return _fn
+
+
+def searcher_dim(index) -> int:
+    """Query width a sharded index expects (what a warmup sweep sizes its
+    zero batches to)."""
+    return int(index.shards[0].dim)

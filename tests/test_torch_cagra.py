@@ -30,6 +30,7 @@ each chunk alone, and by recall (within 0.05) to one batch's.
 """
 import contextlib
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -416,8 +417,9 @@ def test_deadline_search(data, jax_index, monkeypatch):
 @pytest.mark.parametrize("engine", ["gather", "edge", "fused"])
 def test_make_searcher(data, jax_index, engine):
     """``fn`` is ``search`` with the options frozen; pinning the edge or
-    fused engine builds the store when the closure is made; ``degrade``
-    and ``donate=True`` raise."""
+    fused engine builds the store when the closure is made; a ``degrade``
+    controller's level overrides the parameters on every call;
+    ``donate=True`` raises."""
     tidx = _carry(jax_index)
     q = torch.from_numpy(data[1])
     sp = cagra.SearchParams(**JSP)
@@ -427,7 +429,13 @@ def test_make_searcher(data, jax_index, engine):
     d, i = fn(q, K)
     assert torch.equal(d, wd) and torch.equal(i, wi)
     assert cagra.make_searcher(tidx, donate="auto") is not None
-    with pytest.raises(RaftError, match="not ported yet"):
-        cagra.make_searcher(tidx, sp, degrade=object())
+    lvl = types.SimpleNamespace(
+        params=lambda base: dataclasses.replace(base, itopk_size=32))
+    fn = cagra.make_searcher(tidx, sp, degrade=lvl, engine=engine,
+                             query_chunk=20)
+    wd, wi = cagra.search(tidx, q, K, dataclasses.replace(sp, itopk_size=32),
+                          engine=engine, query_chunk=20)
+    d, i = fn(q, K)
+    assert torch.equal(d, wd) and torch.equal(i, wi)
     with pytest.raises(RaftError, match="donate"):
         cagra.make_searcher(tidx, sp, donate=True)

@@ -13,6 +13,7 @@ the finished chunks' rows bit for bit. Against the JAX package on
 integer-valued data (exact distances, ties to the lower row in both):
 the partial results' ids and values equal JAX's at the same expiry.
 """
+import dataclasses
 import re
 import types
 
@@ -337,10 +338,16 @@ def test_make_searcher_equals_search(indexes, data, family, opts):
         fn(q, K, res=deadline.Deadline(0.0))
 
 
-def test_make_searcher_refusals(indexes):
+def test_make_searcher_refusals(indexes, data):
+    """Brute force refuses SearchParams; a ``degrade`` controller's level
+    overrides the IVF families' ``n_probes`` on every call."""
     with pytest.raises(RaftError, match="no SearchParams"):
         brute_force.make_searcher(indexes["bf"], FLAT_SP)
-    with pytest.raises(RaftError, match="not ported yet"):
-        ivf_flat.make_searcher(indexes["flat"], degrade=object())
-    with pytest.raises(RaftError, match="not ported yet"):
-        ivf_pq.make_searcher(indexes["pq"], degrade=object())
+    q = torch.from_numpy(data[1])
+    lvl = types.SimpleNamespace(
+        params=lambda base: dataclasses.replace(base, n_probes=2))
+    for mod, idx, sp in ((ivf_flat, indexes["flat"], FLAT_SP),
+                         (ivf_pq, indexes["pq"], PQ_SP)):
+        d, i = mod.make_searcher(idx, sp, degrade=lvl)(q, K)
+        wd, wi = mod.search(idx, q, K, dataclasses.replace(sp, n_probes=2))
+        assert torch.equal(d, wd) and torch.equal(i, wi)

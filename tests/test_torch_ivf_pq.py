@@ -22,6 +22,7 @@ tie between two codewords may round either way). Refine: the
 ``assert_knn_close`` contract at rtol 1e-5.
 """
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -201,8 +202,8 @@ def test_port_build_recall_and_refine(data, jax_builds):
 
 def test_unported_options_raise(data):
     """The options ported since (per-cluster codebooks, list slack, an
-    extend into a filled index) build and search; what stays unported
-    (the brownout controller) and an unknown LUT dtype raise."""
+    extend into a filled index) build and search, and so does a
+    ``degrade`` controller's level; an unknown LUT dtype raises."""
     x = data[0][:500]
     for kw in (dict(codebook_kind=ivf_pq.CodebookGen.PER_CLUSTER),
                dict(list_growth=1.2)):
@@ -216,8 +217,11 @@ def test_unported_options_raise(data):
                                              pq_bits=4), device="cpu")
     more = ivf_pq.extend(idx, x[:10])
     assert more.size == 510 and int(more.source_ids.max()) == 509
-    with pytest.raises(Exception, match="not ported yet"):
-        ivf_pq.make_searcher(idx, degrade=object())
+    lvl = types.SimpleNamespace(
+        params=lambda base: dataclasses.replace(base, n_probes=1))
+    d, i = ivf_pq.make_searcher(idx, degrade=lvl)(x[:2], 3)
+    wd, wi = ivf_pq.search(idx, x[:2], 3, ivf_pq.SearchParams(n_probes=1))
+    assert torch.equal(d, wd) and torch.equal(i, wi)
     with pytest.raises(Exception, match="unknown lut_dtype"):
         ivf_pq.search(idx, x[:2], 3, ivf_pq.SearchParams(lut_dtype="f64"))
 

@@ -244,9 +244,9 @@ def test_entry_points_raise_without_cuda(data, monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Every module of raft_tpu_torch (the comms/ and parallel/
-    subpackages among them), and chip_smoke.py, import neither jax nor
-    raft_tpu."""
+    """Every module of raft_tpu_torch (the comms/, parallel/ and serve/
+    subpackages and the telemetry core among them), and chip_smoke.py,
+    import neither jax nor raft_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import raft_tpu_torch\n"
@@ -262,7 +262,15 @@ def test_port_imports_no_jax():
         "assert {'raft_tpu_torch.comms.comms',\n"
         "        'raft_tpu_torch.parallel.sharded_ann',\n"
         "        'raft_tpu_torch.parallel.sharded_knn',\n"
-        "        'raft_tpu_torch.ops.ring_topk'} <= set(sys.modules)\n"
+        "        'raft_tpu_torch.ops.ring_topk',\n"
+        "        'raft_tpu_torch.core.events',\n"
+        "        'raft_tpu_torch.core.logging',\n"
+        "        'raft_tpu_torch.core.tracing',\n"
+        "        'raft_tpu_torch.serve',\n"
+        + "".join(f"        'raft_tpu_torch.serve.{m}',\n" for m in (
+            "admission", "batcher", "debugz", "degrade", "metrics",
+            "qcache", "quality", "slo", "tenancy", "warmup"))
+        + "        } <= set(sys.modules)\n"
         "print('ok', len([m for m in sys.modules\n"
         "                 if m.startswith('raft_tpu_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
